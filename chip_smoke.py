@@ -1,0 +1,327 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port on one NVIDIA card and check every phase.
+
+Run from the root of a checkout on a machine with a CUDA card:
+
+    python3 chip_smoke.py
+
+Phases (any mismatch or exception exits non-zero; no phase catches its
+own failure):
+
+1. Build both Hopper kernels from ``src/repro_torch/csrc`` with ``nvcc``
+   (one process per source, started together) and print the build time
+   and the compiler's register report.
+2. Hold each kernel against its plain PyTorch version on the card, on the
+   same inputs, with exact equality (every output is int32):
+   ``jsaq_route`` at D=64, K=1000, N=256 with an all-ties row;
+   ``care_route`` for jsq/jsaq x six trigger kinds at D=8, K=300, T=500
+   with mixed horizons; ``care_route`` at K=1e6, T=4000 for two runs.
+3. The main path at the size its users run it (the mean-field sweep of
+   ``benchmarks/bench_route.py``): ``simulate_grid`` with the fused
+   backend, load 0.95, deterministic jobs of 8 slots, DT-x with
+   x in {2, 3} x 8 seeds (16 runs), FIFO cap 16, 4000 slots, at K=1e5 and
+   K=1e6.  Asserts Theorem 2.3 (max AQ <= x-1), conservation, and that
+   the call launched ``care_route`` exactly once.
+4. The dense backend against the fused one on the card, decision for
+   decision, at K=200, T=2000; then the paper's Section 9 cell (K=30,
+   load 0.95, geometric sizes of mean 30, JSAQ with ET-3 and MSR, 20,000
+   slots) on the dense backend.
+5. Print the kernels line (launch counts from the main path, parity,
+   times and bounds), the card's name and power limit, and the contract
+   line last.
+
+Exits non-zero without printing a result when no CUDA card is present or
+when the port's sources are not beside this script.
+"""
+from __future__ import annotations
+
+import dataclasses
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+ROOT = Path(__file__).resolve().parent
+
+# Roofline inputs: NVIDIA H100 SXM data sheet.  Device memory 3.35 TB/s.
+# The card issues at most 33.5e12 32-bit lane operations per second outside
+# the tensor cores (its float32 rate of 67 TFLOP/s counts each fused
+# multiply-add as two); integer compares, adds and selects run at that
+# rate or below, so it bounds the integer work of both kernels.
+HBM_BYTES_PER_S = 3.35e12
+LANE_OPS_PER_S = 33.5e12
+
+# Integer operations per server per active slot that the fused CARE loop
+# must do (counted from _care_kernel): argmin scan 2; service 10 (busy
+# test, decrement, departure test, queue decrement, next-job reset);
+# emulation drain 8; trigger and snap 10 (error, two counter updates, the
+# comparison, two counter resets, two snaps); slot metrics 5.
+CARE_OPS_PER_SERVER_SLOT = 35
+# jsaq_route: one compare and one select per server per routed job.
+JSAQ_OPS_PER_SERVER_JOB = 2
+
+KINDS = ("rt", "dt", "et", "et_rt", "exact", "none")
+
+# Shapes of the phases (see the module docstring).
+JSAQ_SHAPE = (64, 1000, 256)  # D, K, N
+CARE_SMALL = (8, 300, 500)  # D, K, T
+CARE_FULL = (2, 1_000_000, 4000)  # D, K, T
+MAIN_KS = (100_000, 1_000_000)
+MAIN_SLOTS = 4000
+DENSE_VS_FUSED = (200, 2000)  # K, T
+SECTION9_SLOTS = 20_000
+
+
+def _time_ms(fn, reps: int, warm: bool = True) -> float:
+    """Mean device time of ``fn`` over ``reps`` calls, by CUDA events."""
+    if warm:
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def _max_abs_err(got, ref) -> int:
+    err = 0
+    for g, r in zip(got, ref):
+        if g.shape != r.shape:
+            raise AssertionError(f"shape {tuple(g.shape)} != {tuple(r.shape)}")
+        if g.numel():
+            err = max(err, int((g.long() - r.long()).abs().max()))
+    return err
+
+
+def _bound_ms(n_bytes: float, n_ops: float) -> tuple[float, str]:
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_ops / LANE_OPS_PER_S
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def _care_bound(arrive, params, k: int) -> tuple[float, str]:
+    d, t = arrive.shape
+    active = int(params[:, 3].clamp(0, t).sum())
+    n_bytes = 4 * (2 * d * t + 4 * d + 2 * d * k + 8 * d)
+    return _bound_ms(n_bytes, CARE_OPS_PER_SERVER_SLOT * k * active)
+
+
+def _card() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    )
+    return out.stdout.strip().splitlines()[0]
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
+        return 2
+    if not (ROOT / "src" / "repro_torch" / "csrc").is_dir():
+        print(f"chip_smoke: no src/repro_torch beside {__file__}", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.core.care import metrics, slotted_sim
+    from repro_torch.kernels import _build, ops, ref
+    from repro_torch.kernels import jsaq_route as cuda_k
+
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    card = _card()
+    print(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
+    times: dict[str, float] = {}
+
+    # -- 1. build ------------------------------------------------------------
+    t0 = time.perf_counter()
+    per_source = _build.build_all()
+    times["build_s"] = time.perf_counter() - t0
+    print(f"phase 1 build: {times['build_s']:.2f} s wall, per source "
+          + ", ".join(f"{n} {s:.2f} s" for n, s in per_source.items()))
+    for name in _build.KERNELS:
+        log = (_build.build_dir() / f"lib{name}.log").read_text(errors="replace")
+        for line in log.splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"  ptxas {name}: {line.strip()}")
+
+    rng = np.random.default_rng(2022)
+
+    # -- 2. kernels against their plain versions -------------------------------
+    d, k, n = JSAQ_SHAPE
+    q = torch.from_numpy(rng.integers(0, 50, (d, k), dtype=np.int32)).to(dev)
+    q[0] = 7  # an all-ties row
+    jsaq_got = cuda_k.jsaq_route_cuda(q, n)
+    jsaq_err = _max_abs_err(jsaq_got, ref.jsaq_route_ref(q, n))
+    assert jsaq_err == 0, f"jsaq_route differs from its plain version by {jsaq_err}"
+    assert int(jsaq_got[0][0, 0]) == 0, "the all-ties row must route to index 0 first"
+    jsaq_ms = _time_ms(lambda: cuda_k.jsaq_route_cuda(q, n), 20)
+    jsaq_plain_ms = _time_ms(lambda: ref.jsaq_route_ref(q, n), 3)
+    jsaq_bound = _bound_ms(4 * (2 * d * k + d * n), JSAQ_OPS_PER_SERVER_JOB * d * k * n)
+    print(f"phase 2 jsaq_route D={d} K={k} N={n}: equal; kernel {jsaq_ms:.4f} ms, "
+          f"plain {jsaq_plain_ms:.3f} ms")
+
+    def care_parity(arrive, params, **kw):
+        got = cuda_k.care_route_cuda(arrive, params, **kw)
+        err = _max_abs_err(got, ref.care_route_ref(arrive, params, **kw))
+        assert err == 0, f"care_route {kw} differs from its plain version by {err}"
+        return got
+
+    d, k, t = CARE_SMALL
+    horizons = torch.tensor([t, t, 4 * t // 5, 0, 1, t // 2, t, t - 1], dtype=torch.int32)
+    arrive = torch.from_numpy((rng.random((d, t)) < 0.95).astype(np.int32))
+    arrive = (arrive * (torch.arange(t)[None, :] < horizons[:, None])).int().to(dev)
+    params = torch.stack([
+        torch.from_numpy(rng.integers(2, 5, d).astype(np.int32)),
+        torch.full((d,), 7, dtype=torch.int32),
+        torch.full((d,), 8, dtype=torch.int32),
+        horizons,
+    ], 1).contiguous().to(dev)
+    t0 = time.perf_counter()
+    for policy in ("jsq", "jsaq"):
+        for comm in KINDS:
+            care_parity(arrive, params, servers=k, cap=16, policy=policy, comm=comm)
+    print(f"phase 2 care_route jsq/jsaq x {len(KINDS)} kinds D={d} K={k} T={t}: "
+          f"equal ({time.perf_counter() - t0:.1f} s)")
+
+    d, k, t = CARE_FULL
+    arrive = torch.from_numpy((rng.random((d, t)) < 0.95).astype(np.int32)).to(dev)
+    arrive[1, 7 * t // 8:] = 0
+    params = torch.tensor([[2, 100, 8, t], [3, 100, 8, 7 * t // 8]],
+                          dtype=torch.int32, device=dev)
+    t0 = time.perf_counter()
+    got = care_parity(arrive, params, servers=k, cap=16, policy="jsaq", comm="dt")
+    assert int(got[3][:, 2].sum()) > 0
+    print(f"phase 2 care_route D={d} K={k:.0e} T={t}: equal "
+          f"({time.perf_counter() - t0:.1f} s with the plain version)")
+    del got
+
+    # -- 3. the main path --------------------------------------------------------
+    seeds = list(range(8))
+    cells = [slotted_sim.Scenario.create(load=0.95, x=x, mean_service=8,
+                                         service="deterministic", horizon=MAIN_SLOTS)
+             for x in (2, 3)]
+    main_launches = {}
+    for k in MAIN_KS:
+        static = slotted_sim.StaticConfig(
+            servers=k, slots=MAIN_SLOTS, policy="jsaq", comm="dt", approx="msr",
+            buffer_cap=16, service="deterministic", deterministic_ties=True,
+            route_backend="fused",
+        )
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        grid = slotted_sim.simulate_grid(seeds, static, cells)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        main_launches = ops.launch_counts()
+        assert main_launches == {"jsaq_route": 0, "care_route": 1}, main_launches
+        for c, x in enumerate((2, 3)):
+            for res in grid[c]:
+                assert res.max_aq <= x - 1, f"Theorem 2.3 violated: {res.max_aq}"
+                assert res.arrivals - res.departures == int(res.final_q.sum())
+                assert int(res.per_server_arrivals.sum()) == res.arrivals
+                assert res.arrivals > 0.9 * MAIN_SLOTS and res.departures > 0
+        runs = [r for row in grid for r in row]
+        times[f"main_K{k}_s"] = wall
+        print(f"phase 3 simulate_grid fused K={k:.0e} {len(runs)} runs T={MAIN_SLOTS}: "
+              f"{wall:.2f} s; launches {main_launches}; messages per run "
+              f"{min(r.messages for r in runs)}..{max(r.messages for r in runs)}; "
+              f"max_aq {max(r.max_aq for r in runs)}; "
+              f"gap_sup {max(r.queue_gap_sup for r in runs)}")
+
+    # Kernel and plain times at the main path's largest shape, same inputs.
+    arrive, _, _ = slotted_sim.draw_workload(seeds, static, cells, dev)
+    arrive = arrive.int().contiguous()
+    params = torch.tensor(
+        [[int(s.x), int(s.rt_period), int(s.service.msr_slots), int(s.horizon)]
+         for s in cells for _ in seeds], dtype=torch.int32, device=dev,
+    )
+    kw = dict(servers=static.servers, cap=static.buffer_cap, policy="jsaq", comm="dt")
+    care_ms = _time_ms(lambda: cuda_k.care_route_cuda(arrive, params, **kw), 2)
+    got = cuda_k.care_route_cuda(arrive, params, **kw)
+    plain = []
+    care_plain_ms = _time_ms(
+        lambda: plain.append(ref.care_route_ref(arrive, params, **kw)), 1, warm=False
+    )
+    care_err = _max_abs_err(got, plain[0])
+    assert care_err == 0, f"care_route at the main-path shape differs by {care_err}"
+    care_bound = _care_bound(arrive.cpu(), params.cpu(), static.servers)
+    print(f"phase 3 care_route D={arrive.shape[0]} K={static.servers:.0e} "
+          f"T={MAIN_SLOTS}: equal; kernel {care_ms:.1f} ms, plain {care_plain_ms:.1f} ms, "
+          f"bound {care_bound[0]:.3f} ms ({care_bound[1]}); one block per run, "
+          f"{arrive.shape[0]} of 132 SMs")
+    del got, plain
+
+    # -- 4. dense against fused, then the Section 9 cell ---------------------------
+    k, t = DENSE_VS_FUSED
+    t0 = time.perf_counter()
+    for policy, comm in (("jsaq", "dt"), ("jsaq", "et"), ("jsq", "exact"), ("jsq", "none")):
+        dense = slotted_sim.StaticConfig(
+            servers=k, slots=t, policy=policy, comm=comm, approx="msr",
+            buffer_cap=16, service="deterministic", deterministic_ties=True,
+        )
+        fused = dataclasses.replace(dense, route_backend="fused")
+        scn = slotted_sim.Scenario.create(load=0.95, x=3, rt_rate=0.02, mean_service=8,
+                                          service="deterministic", horizon=t)
+        arrive, sizes, _ = slotted_sim.draw_workload([0, 1], dense, [scn], dev)
+        rd = slotted_sim.run_draws(arrive, sizes, dense, scn)
+        rf = slotted_sim.run_draws(arrive, None, fused, scn)
+        for name, value in rd.items():
+            if name != "comp_slot":
+                assert torch.equal(value.int(), rf[name].int()), f"{policy}/{comm} {name}"
+        assert int((rd["routed"] >= 0).sum()) > 0
+    times["dense_vs_fused_s"] = time.perf_counter() - t0
+    print(f"phase 4 dense == fused, decision for decision, K={k} T={t}, "
+          f"jsaq x {{dt, et}}, jsq x {{exact, none}}: {times['dense_vs_fused_s']:.1f} s")
+
+    cfg = slotted_sim.SimConfig(servers=30, slots=SECTION9_SLOTS, load=0.95,
+                                mean_service=30, policy="jsaq", comm="et", x=3,
+                                approx="msr")
+    t0 = time.perf_counter()
+    r = slotted_sim.simulate(0, cfg)
+    times["section9_s"] = time.perf_counter() - t0
+    assert r.max_aq <= 2 and r.arrivals - r.departures == int(r.final_q.sum())
+    s = metrics.jct_summary(r.jct)
+    assert s["count"] > 0.5 * SECTION9_SLOTS and np.isfinite(s["mean"])
+    print(f"phase 4 Section 9 cell (K=30, JSAQ ET-3 + MSR, {SECTION9_SLOTS} slots, "
+          f"dense): JCT mean {s['mean']:.3f} p99 {s['p99']:.1f}, messages per "
+          f"departure {r.msgs_per_departure:.4f}, max_aq {r.max_aq}, "
+          f"{times['section9_s']:.1f} s")
+
+    # -- 5. output ---------------------------------------------------------------
+    kernels = [
+        {
+            "name": "care_route", "route": "cuda",
+            "source": "src/repro_torch/csrc/care_route.cu",
+            "replaces": "src/repro/kernels/jsaq_route.py:355",
+            "launches": main_launches["care_route"],
+            "max_abs_err": care_err, "ms": care_ms, "plain_ms": care_plain_ms,
+            "bound_ms": care_bound[0], "bound_by": care_bound[1], "library_ms": None,
+        },
+        {
+            "name": "jsaq_route", "route": "cuda",
+            "source": "src/repro_torch/csrc/jsaq_route.cu",
+            "replaces": "src/repro/kernels/jsaq_route.py:169",
+            "launches": main_launches["jsaq_route"],
+            "max_abs_err": jsaq_err, "ms": jsaq_ms, "plain_ms": jsaq_plain_ms,
+            "bound_ms": jsaq_bound[0], "bound_by": jsaq_bound[1], "library_ms": None,
+        },
+    ]
+    print("times (s): " + json.dumps(times) + f" on {card}")
+    print(json.dumps({"kernels": kernels}))
+    print(card)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count(),
+    }}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

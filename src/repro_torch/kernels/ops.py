@@ -1,0 +1,61 @@
+"""Public wrappers of the port's kernels.
+
+A wrapper looks at where its input lies.  A CPU tensor goes to the plain
+PyTorch version in :mod:`repro_torch.kernels.ref`; a CUDA tensor goes to the
+hand-written kernel in :mod:`repro_torch.kernels.jsaq_route`, which either
+launches or raises -- nothing on the CUDA path falls back to the plain
+version.  The kernels mask by bound, so no lane or domain padding is
+needed.  Only a kernel launch counts in :func:`launch_counts`.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import jsaq_route as _cuda
+from repro_torch.kernels import ref as _ref
+
+
+def _route(t: torch.Tensor, name: str) -> bool:
+    """True for the kernel, False for the plain version; raises otherwise."""
+    if t.device.type == "cuda":
+        return True
+    if t.device.type == "cpu":
+        return False
+    raise ValueError(f"{name}: no kernel or plain version for device {t.device}")
+
+
+def jsaq_route(q_app: torch.Tensor, num_jobs: int):
+    """Batched sequential JSAQ: ``(D, K)`` int32 -> ``((D, N) idx, (D, K) q')``."""
+    if _route(q_app, "jsaq_route"):
+        return _cuda.jsaq_route_cuda(q_app, num_jobs)
+    return _ref.jsaq_route_ref(q_app, num_jobs)
+
+
+def care_route(
+    arrive: torch.Tensor,
+    params: torch.Tensor,
+    *,
+    servers: int,
+    cap: int,
+    policy: str,
+    comm: str,
+):
+    """Fused CARE slot loop: ``(D, T)`` arrivals + ``(D, 4)`` params ->
+    ``(routed, q_true, per_srv, stats)``; see ``ref.care_route_ref``."""
+    kw = dict(servers=servers, cap=cap, policy=policy, comm=comm)
+    if _route(arrive, "care_route"):
+        return _cuda.care_route_cuda(arrive, params, **kw)
+    return _ref.care_route_ref(arrive, params, **kw)
+
+
+def launch_counts() -> dict[str, int]:
+    """Kernel launches so far, by kernel."""
+    return {
+        "jsaq_route": _cuda.jsaq_route_cuda.launches,
+        "care_route": _cuda.care_route_cuda.launches,
+    }
+
+
+def reset_launch_counts() -> None:
+    _cuda.jsaq_route_cuda.launches = 0
+    _cuda.care_route_cuda.launches = 0

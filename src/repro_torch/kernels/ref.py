@@ -1,0 +1,149 @@
+"""Plain PyTorch versions of the port's kernels (the correctness contract).
+
+Each ``*_ref`` computes what its CUDA kernel computes, tie-breaking
+included (first index wins), with ordinary tensor operations.  The CPU
+path of :mod:`repro_torch.kernels.ops` runs them, the tests hold them
+against the JAX package, and ``chip_smoke.py`` holds the kernels against
+them on the card.  All outputs are int32 and compared for equality.
+"""
+from __future__ import annotations
+
+import torch
+
+# Trigger kinds the fused kernel evaluates.
+CARE_COMMS = ("rt", "dt", "et", "et_rt", "exact", "none")
+
+
+def jsaq_route_ref(q_app: torch.Tensor, num_jobs: int):
+    """Sequential JSAQ: per row, ``num_jobs`` times take the argmin (lowest
+    index on ties) and add one job to it.  ``(D, K)`` ->
+    ``((D, num_jobs) idx, (D, K) q')``, mirroring ``repro/kernels/ref.py:13``.
+    """
+    q = q_app.to(torch.int32).clone()
+    d = q.shape[0]
+    rows = torch.arange(d, device=q.device)
+    idx = torch.empty((d, num_jobs), dtype=torch.int32, device=q.device)
+    for n in range(num_jobs):
+        j = torch.argmin(q, dim=1)
+        idx[:, n] = j.to(torch.int32)
+        q[rows, j] += 1
+    return idx, q
+
+
+def care_route_ref(
+    arrive: torch.Tensor,
+    params: torch.Tensor,
+    *,
+    servers: int,
+    cap: int,
+    policy: str,
+    comm: str,
+):
+    """The fused CARE slot loop, one run per row, as a per-slot loop.
+
+    Follows ``_care_kernel`` (``repro/kernels/jsaq_route.py:253-331``)
+    operation for operation: route by lowest-index argmin of the true
+    (``jsq``) or approximated (``jsaq``) queues, cap-checked admit,
+    deterministic service of ``msr_slots`` per job, the MSR emulation
+    drain, then the trigger and snap.  Slots at ``t >= horizon`` are
+    frozen no-ops.
+
+    Args:
+      arrive: ``(D, T)`` int32 arrival indicators.
+      params: ``(D, 4)`` int32 ``[x, rt_period, msr_slots, horizon]``.
+
+    Returns:
+      ``(routed, q_true, per_srv, stats)``: ``(D, T)`` routed server per
+      slot (-1 without an admitted arrival), final ``(D, K)`` queues,
+      ``(D, K)`` admitted arrivals per server and ``(D, 8)`` int32 stats
+      ``[msgs, deps, arrs, dropped, max_aq, max_q, gap_sup, 0]``.
+    """
+    if policy not in ("jsq", "jsaq"):
+        raise ValueError(f"care_route supports policies 'jsq'/'jsaq', got {policy!r}")
+    if comm not in CARE_COMMS:
+        raise ValueError(f"unknown communication kind: {comm}")
+    dev = arrive.device
+    d, t = arrive.shape
+    k = servers
+    params = params.to(torch.int32)
+    x, rt_period, msr, horizon = (params[:, i : i + 1] for i in range(4))
+    zeros = torch.zeros((d, k), dtype=torch.int32, device=dev)
+    zeros1 = torch.zeros((d, 1), dtype=torch.int32, device=dev)
+    q, qa, hr, ds, ss, ps = (zeros.clone() for _ in range(6))
+    eh = zeros + msr
+    msgs, deps, arrs, drops, max_aq, max_q, gap = (zeros1.clone() for _ in range(7))
+    routed = torch.full((d, t), -1, dtype=torch.int32, device=dev)
+    lane = torch.arange(k, device=dev)
+    # Every run is frozen from its horizon on, so the loop may stop at the
+    # largest one.
+    t_end = min(t, max(int(horizon.max()) if d else 0, 0))
+    for s in range(t_end):
+        act = s < horizon
+        arr = (arrive[:, s : s + 1] > 0) & act
+
+        # 1. arrival and routing (lowest-index ties)
+        score = qa if policy == "jsaq" else q
+        j = torch.argmin(score, dim=1, keepdim=True)
+        onehot = lane == j
+        q_sel = torch.where(onehot, q, 0).sum(1, keepdim=True, dtype=torch.int32)
+        admit = arr & (q_sel < cap)
+        drops = drops + (arr & ~admit).to(torch.int32)
+        sel = onehot & admit
+        hr = torch.where(sel & (q == 0), msr, hr)
+        q = q + sel.to(torch.int32)
+        was_empty = qa == 0
+        qa = qa + sel.to(torch.int32)
+        eh = torch.where(sel & was_empty, msr, eh)
+        arrs = arrs + admit.to(torch.int32)
+        ps = ps + sel.to(torch.int32)
+        routed[:, s] = torch.where(admit, j.to(torch.int32), -1)[:, 0]
+
+        # 2. service (deterministic msr_slots-sized jobs)
+        busy = (q > 0) & act
+        hr = torch.where(busy, hr - 1, hr)
+        dep = busy & (hr <= 0)
+        q = torch.where(dep, q - 1, q)
+        hr = torch.where(dep & (q > 0), msr, hr)
+        dep_i = dep.to(torch.int32)
+        deps = deps + dep_i.sum(1, keepdim=True, dtype=torch.int32)
+
+        # 3. MSR emulation drain
+        ticking = (qa > 0) & act
+        eh = torch.where(ticking, eh - 1, eh)
+        dep_e = ticking & (eh <= 0)
+        qa = torch.where(dep_e, qa - 1, qa)
+        eh = torch.where(dep_e, msr, eh)
+
+        # 4/5. trigger and snap
+        err = torch.abs(q - qa)
+        dsa = ds + dep_i
+        ssa = ss + 1
+        if comm == "rt":
+            trig = ssa >= rt_period
+        elif comm == "dt":
+            trig = dsa >= x
+        elif comm == "et":
+            trig = err >= x
+        elif comm == "et_rt":
+            trig = (err >= x) | (ssa >= rt_period)
+        elif comm == "exact":
+            trig = dep
+        else:
+            trig = torch.zeros_like(dep)
+        trig = trig & act
+        sent = (dep_i if comm == "exact" else trig).sum(1, keepdim=True, dtype=torch.int32)
+        msgs = msgs + torch.where(act, sent, 0)
+        ds = torch.where(act, torch.where(trig, 0, dsa), ds)
+        ss = torch.where(act, torch.where(trig, 0, ssa), ss)
+        qa = torch.where(trig, q, qa)
+        eh = torch.where(trig, msr, eh)
+
+        # 6. metrics
+        aq = torch.abs(q - qa).amax(1, keepdim=True)
+        qmax = q.amax(1, keepdim=True)
+        qmin = q.amin(1, keepdim=True)
+        max_aq = torch.maximum(max_aq, aq)
+        max_q = torch.maximum(max_q, qmax)
+        gap = torch.maximum(gap, qmax - qmin)
+    stats = torch.cat([msgs, deps, arrs, drops, max_aq, max_q, gap, zeros1], dim=1)
+    return routed, q, ps, stats

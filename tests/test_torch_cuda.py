@@ -1,0 +1,82 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+
+This file imports nothing of JAX, so that it runs on the machine with the
+card: ``PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py``.  Every
+output is int32 and must be equal.  Where there is no card, each test
+skips with a reason.
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.core.care import slotted_sim
+from repro_torch.kernels import ops as tops
+from repro_torch.kernels import ref as tref
+
+POLICIES = ["jsq", "jsaq"]
+KINDS = ["rt", "dt", "et", "et_rt", "exact", "none"]
+
+
+def _eq(a, b):
+    np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU with CUDA (the kernels have no CPU mode)")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+class TestOnCard:
+    def test_jsaq_route_kernel(self, cuda_device):
+        q = np.random.default_rng(0).integers(0, 50, (16, 300), dtype=np.int32)
+        q[0] = 4  # an all-ties row
+        qt = torch.from_numpy(q)
+        ref = tref.jsaq_route_ref(qt, 64)
+        got = tops.jsaq_route(qt.to(cuda_device), 64)
+        for g, r in zip(got, ref):
+            _eq(g.cpu().numpy(), r.numpy())
+
+    @pytest.mark.parametrize("comm", KINDS)
+    @pytest.mark.parametrize("policy", POLICIES)
+    def test_care_route_kernel(self, cuda_device, policy, comm):
+        rng = np.random.default_rng(1)
+        d, k, t = 8, 300, 500
+        hz = np.array([500, 500, 400, 0, 1, 250, 500, 499], np.int32)
+        arrive = ((rng.random((d, t)) < 0.95) & (np.arange(t) < hz[:, None])).astype(np.int32)
+        params = np.stack(
+            [rng.integers(2, 5, d), np.full(d, 7), np.full(d, 8), hz], 1
+        ).astype(np.int32)
+        kw = dict(servers=k, cap=16, policy=policy, comm=comm)
+        a, p = torch.from_numpy(arrive), torch.from_numpy(params)
+        ref = tref.care_route_ref(a, p, **kw)
+        before = tops.launch_counts()["care_route"]
+        got = tops.care_route(a.to(cuda_device), p.to(cuda_device), **kw)
+        torch.cuda.synchronize()
+        assert tops.launch_counts()["care_route"] == before + 1
+        for g, r in zip(got, ref):
+            _eq(g.cpu().numpy(), r.numpy())
+
+    def test_fused_grid_goes_through_the_kernel(self, cuda_device):
+        static = slotted_sim.StaticConfig(
+            servers=200, slots=300, policy="jsaq", comm="dt", approx="msr",
+            buffer_cap=16, service="deterministic", deterministic_ties=True,
+            route_backend="fused",
+        )
+        cells = [slotted_sim.Scenario.create(0.95, x=x, mean_service=8,
+                                             service="deterministic", horizon=300)
+                 for x in (2, 3)]
+        tops.reset_launch_counts()
+        fused = slotted_sim.simulate_grid([0, 1], static, cells, device=cuda_device)
+        assert tops.launch_counts() == {"jsaq_route": 0, "care_route": 1}
+        dense = slotted_sim.simulate_grid(
+            [0, 1], slotted_sim.StaticConfig(**{**static.__dict__, "route_backend": "dense"}),
+            cells, device=cuda_device,
+        )
+        for row_f, row_d in zip(fused, dense):
+            for f, d in zip(row_f, row_d):
+                assert (f.messages, f.departures, f.max_aq) == (d.messages, d.departures, d.max_aq)
+                _eq(f.per_server_arrivals, d.per_server_arrivals)
+                _eq(f.final_q, d.final_q)
