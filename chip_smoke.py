@@ -8,25 +8,44 @@ Run from the root of a checkout on a machine with a CUDA card:
 Phases (any mismatch or exception exits non-zero; no phase catches its
 own failure):
 
-1. Build both Hopper kernels from ``src/repro_torch/csrc`` with ``nvcc``
-   (one process per source, started together) and print the build time
-   and the compiler's register report.
+1. Build the three Hopper kernels from ``src/repro_torch/csrc`` with
+   ``nvcc`` (one process per source, started together) and print the
+   build time and the compiler's register and spill report.
 2. Hold each kernel against its plain PyTorch version on the card, on the
-   same inputs, with exact equality (every output is int32):
+   same inputs, with exact equality (outputs are int32, bool, or float32
+   sums of whole ``+1.0`` steps):
    ``jsaq_route`` at D=64, K=1000, N=256 with an all-ties row;
    ``care_route`` for jsq/jsaq x six trigger kinds at D=8, K=300, T=500
-   with mixed horizons; ``care_route`` at K=1e6, T=4000 for two runs.
-3. The main path at the size its users run it (the mean-field sweep of
-   ``benchmarks/bench_route.py``): ``simulate_grid`` with the fused
-   backend, load 0.95, deterministic jobs of 8 slots, DT-x with
-   x in {2, 3} x 8 seeds (16 runs), FIFO cap 16, 4000 slots, at K=1e5 and
-   K=1e6.  Asserts Theorem 2.3 (max AQ <= x-1), conservation, and that
-   the call launched ``care_route`` exactly once.
-4. The dense backend against the fused one on the card, decision for
-   decision, at K=200, T=2000; then the paper's Section 9 cell (K=30,
+   with mixed horizons; ``care_route`` at K=1e6, T=4000 for two runs;
+   ``serve_route`` for comm et / exact at D=4, R=1024, A=304 and at R=200,
+   with an all-ties row, a row of full rings, a run with ``act=0`` and
+   runs with ``n_arr=0`` and ``n_arr=A``.
+3. The main paths at the size their users run them, each with the launch
+   counts set to 0 just before and read just after:
+   the slotted simulator's mean-field sweep (``benchmarks/bench_route.py``):
+   ``simulate_grid`` with the fused backend, load 0.95, deterministic jobs
+   of 8 slots, DT-x with x in {2, 3} x 8 seeds (16 runs), FIFO cap 16,
+   4000 slots, at K=1e5 and K=1e6; asserts Theorem 2.3 (max AQ <= x-1),
+   conservation, and one ``care_route`` launch per call.
+   Then the serving engine at ``serve/replicas1024`` of
+   ``benchmarks/bench_serving.py``: ``serve_grid`` with the fused backend,
+   1024 replicas x 16 decode slots, ring cap 128, load 0.9, mean prefill 4
+   and decode 60, MSR drain 0.25, JSAQ with ET-4 and lowest-index ties,
+   2048 slots, seeds (0, 1); asserts one ``serve_route`` launch per slot,
+   no drops, conservation and finite JCT, and times ``serve_route`` on the
+   routing state of the run's middle slot.
+4. The slotted dense backend against the fused one on the card, decision
+   for decision, at K=200, T=2000; then the paper's Section 9 cell (K=30,
    load 0.95, geometric sizes of mean 30, JSAQ with ET-3 and MSR, 20,000
    slots) on the dense backend.
-5. Print the kernels line (launch counts from the main path, parity,
+5. The serving bench's ET ladder (``bench_serving._ladder``): 8 replicas,
+   load 0.9, ET-x for x in {2, 4, 8, 16} x 4 seeds as one fused grid call,
+   20,000 slots, then the exact-state grid call on the same workloads
+   (messages must equal completions); prints ``et_comm_vs_exact``.
+6. The serving dense backend against the fused one on the card, field for
+   field, at 64 replicas x 16 decode slots, 1000 slots, comm et / dt /
+   exact, seeds (0, 1).
+7. Print the kernels line (launch counts from the main paths, parity,
    times and bounds), the card's name and power limit, and the contract
    line last.
 
@@ -63,6 +82,8 @@ LANE_OPS_PER_S = 33.5e12
 CARE_OPS_PER_SERVER_SLOT = 35
 # jsaq_route: one compare and one select per server per routed job.
 JSAQ_OPS_PER_SERVER_JOB = 2
+# serve_route: one compare and one select per replica per routed lane.
+SERVE_OPS_PER_REPLICA_LANE = 2
 
 KINDS = ("rt", "dt", "et", "et_rt", "exact", "none")
 
@@ -74,6 +95,15 @@ MAIN_KS = (100_000, 1_000_000)
 MAIN_SLOTS = 4000
 DENSE_VS_FUSED = (200, 2000)  # K, T
 SECTION9_SLOTS = 20_000
+SERVE_PARITY = ((4, 1024, 304), (4, 200, 304))  # D, R, A
+SERVE_MAIN = dict(replicas=1024, decode_slots=16, slots=2048, queue_cap=128)
+SERVE_MAIN_SEEDS = (0, 1)
+PROFILE_SLOTS = 256
+SERVE_WORK = dict(load=0.9, mean_prefill=4, mean_decode=60, msr_drain=0.25)
+LADDER_SLOTS = 20_000
+LADDER_X = (2, 4, 8, 16)
+LADDER_SEEDS = (0, 1, 2, 3)
+SERVE_DENSE_VS_FUSED = dict(replicas=64, decode_slots=16, slots=1000, queue_cap=128)
 
 
 def _time_ms(fn, reps: int, warm: bool = True) -> float:
@@ -91,13 +121,15 @@ def _time_ms(fn, reps: int, warm: bool = True) -> float:
     return start.elapsed_time(end) / reps
 
 
-def _max_abs_err(got, ref) -> int:
-    err = 0
+def _max_abs_err(got, ref) -> float:
+    err = 0.0
     for g, r in zip(got, ref):
-        if g.shape != r.shape:
-            raise AssertionError(f"shape {tuple(g.shape)} != {tuple(r.shape)}")
+        if g.shape != r.shape or g.dtype != r.dtype:
+            raise AssertionError(
+                f"{tuple(g.shape)} {g.dtype} != {tuple(r.shape)} {r.dtype}"
+            )
         if g.numel():
-            err = max(err, int((g.long() - r.long()).abs().max()))
+            err = max(err, float((g.double() - r.double()).abs().max()))
     return err
 
 
@@ -111,6 +143,74 @@ def _care_bound(arrive, params, k: int) -> tuple[float, str]:
     active = int(params[:, 3].clamp(0, t).sum())
     n_bytes = 4 * (2 * d * t + 4 * d + 2 * d * k + 8 * d)
     return _bound_ms(n_bytes, CARE_OPS_PER_SERVER_SLOT * k * active)
+
+
+def _serve_bound(tie_u, q_len, n_arr, act) -> tuple[float, str]:
+    """serve_route's bound: the (D, R) state and (D, A) lanes read or
+    written once, and one argmin over R replicas for every live lane of
+    every run plus one for its dead lanes."""
+    d, a_n = tie_u.shape
+    r = q_len.shape[1]
+    n_live = torch.where(act, n_arr.clamp(0, a_n), 0)
+    lanes = int(n_live.sum()) + int((n_live < a_n).sum())
+    # in: tie_u, q_len, q_head, busy, approx, n_arr, act;
+    # out: jv, tail, admit, q_len', approx', drops.
+    n_bytes = d * a_n * (4 + 4 + 4 + 1) + d * r * 4 * (4 + 2) + d * (4 + 1 + 4)
+    return _bound_ms(n_bytes, SERVE_OPS_PER_REPLICA_LANE * r * lanes)
+
+
+def _serve_state(rng, d: int, r: int, a_n: int, cap: int, dev):
+    """Random serving states for phase 2: row 0 routes all A lanes into an
+    all-ties score, row 1 has every ring full, row 2 is past its horizon;
+    ``n_arr`` and ``act`` are returned as numpy arrays to edit."""
+    q_len = rng.integers(0, cap + 1, (d, r)).astype(np.int32)
+    busy = rng.integers(0, 17, (d, r)).astype(np.int32)
+    approx = (rng.integers(0, 80, (d, r)) * 0.25).astype(np.float32)
+    q_len[0], busy[0], approx[0] = 3, 5, 7.0
+    q_len[1] = cap
+    n_arr = rng.integers(1, a_n, d).astype(np.int32)
+    n_arr[0] = a_n
+    act = np.ones(d, bool)
+    act[2] = False
+    arrays = [rng.random((d, a_n), dtype=np.float32), q_len,
+              rng.integers(0, cap, (d, r)).astype(np.int32), busy, approx]
+    return [torch.from_numpy(a).to(dev) for a in arrays], n_arr, act
+
+
+def _profile_serving(engine, cell, wall_per_slot_s: float) -> None:
+    """Where a serving slot's time goes: one profiled ``serve_grid`` call of
+    ``cell`` (the main path's configuration over fewer slots).  Device
+    times come from the card's kernel records; the host's per-op times are
+    inflated by the profiler, so only their shares of the profiled host
+    time are printed.  The device busy share is taken against the
+    unprofiled main-path wall per slot."""
+    from torch.profiler import ProfilerActivity, profile
+
+    seeds = list(SERVE_MAIN_SEEDS)
+    engine.serve_grid(seeds, cell.static_part(), [cell])  # sampling and warm-up
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        engine.serve_grid(seeds, cell.static_part(), [cell])
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    device = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
+    device_us = sum(e.self_device_time_total for e in device)
+    if device_us == 0:
+        print("phase 3 serving profile: the profiler saw no device time; "
+              "device busy share not measured")
+        return
+    route_us = sum(e.self_device_time_total for e in device if "serve_route" in e.key)
+    launches = sum(e.count for e in device)
+    per_slot_ms = device_us / 1e3 / cell.slots
+    host = sorted((e for e in events if e.device_type == torch.autograd.DeviceType.CPU),
+                  key=lambda e: e.self_cpu_time_total, reverse=True)
+    host_us = sum(e.self_cpu_time_total for e in host)
+    print(f"phase 3 serving profile, {cell.slots} slots: device busy {per_slot_ms:.4f} ms "
+          f"per slot ({launches / cell.slots:.1f} device operations per slot), "
+          f"{per_slot_ms / (wall_per_slot_s * 1e3):.3f} of the unprofiled wall per "
+          f"slot; serve_route {route_us / device_us:.3f} of device time; top host "
+          f"ops by self time (profiled): "
+          + ", ".join(f"{e.key} {e.self_cpu_time_total / host_us:.3f} "
+                      f"(x{e.count / cell.slots:.1f}/slot)" for e in host[:10]))
 
 
 def _card() -> str:
@@ -132,6 +232,7 @@ def main() -> int:
     from repro_torch.core.care import metrics, slotted_sim
     from repro_torch.kernels import _build, ops, ref
     from repro_torch.kernels import jsaq_route as cuda_k
+    from repro_torch.serve import engine
 
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
@@ -202,6 +303,27 @@ def main() -> int:
           f"({time.perf_counter() - t0:.1f} s with the plain version)")
     del got
 
+    t0 = time.perf_counter()
+    serve_cap = SERVE_MAIN["queue_cap"]
+    for d, r, a_n in SERVE_PARITY:
+        arrays, n_arr, act = _serve_state(rng, d, r, a_n, serve_cap, dev)
+        for n_last in (0, a_n):  # the last run routes no lane, then all
+            n_arr[-1] = n_last
+            inputs = arrays + [torch.from_numpy(n_arr).to(dev),
+                               torch.from_numpy(act).to(dev)]
+            for comm in ("et", "exact"):
+                kw = dict(cap=serve_cap, comm=comm)
+                got = cuda_k.serve_route_cuda(*inputs, **kw)
+                err = _max_abs_err(got, ref.serve_route_ref(*inputs, **kw))
+                assert err == 0, f"serve_route R={r} {comm} differs by {err}"
+                assert not bool(got[2][1].any()) and not bool(got[2][2].any())
+                assert int(got[5][1]) == int(n_arr[1]) and int(got[5][2]) == 0
+                if comm == "et":
+                    assert int(got[0][0, 0]) == 0, "all ties must route to index 0 first"
+    print(f"phase 2 serve_route et/exact at (D, R, A) in {list(SERVE_PARITY)} with "
+          f"all-ties, full-ring, act=0, n_arr=0 and n_arr=A runs: equal "
+          f"({time.perf_counter() - t0:.1f} s)")
+
     # -- 3. the main path --------------------------------------------------------
     seeds = list(range(8))
     cells = [slotted_sim.Scenario.create(load=0.95, x=x, mean_service=8,
@@ -220,7 +342,8 @@ def main() -> int:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         main_launches = ops.launch_counts()
-        assert main_launches == {"jsaq_route": 0, "care_route": 1}, main_launches
+        assert main_launches == {"jsaq_route": 0, "care_route": 1,
+                                 "serve_route": 0}, main_launches
         for c, x in enumerate((2, 3)):
             for res in grid[c]:
                 assert res.max_aq <= x - 1, f"Theorem 2.3 violated: {res.max_aq}"
@@ -258,6 +381,70 @@ def main() -> int:
           f"{arrive.shape[0]} of 132 SMs")
     del got, plain
 
+    # The serving engine's main path, with the routing state of its middle
+    # slot kept for the kernel's timing (the spy forwards every call).
+    big = engine.ServeConfig(**SERVE_MAIN, **SERVE_WORK, comm="et", x=4,
+                             deterministic_ties=True, route_backend="fused")
+    t0 = time.perf_counter()
+    for seed in SERVE_MAIN_SEEDS:
+        engine.workload_for(big, seed)
+    times["serve_main_sampling_s"] = time.perf_counter() - t0
+    kept = {}
+    route = ops.serve_route
+
+    def spy(*args, **kw):
+        if ops.launch_counts()["serve_route"] == big.slots // 2:
+            kept["args"] = [a.clone() for a in args]
+        return route(*args, **kw)
+
+    ops.serve_route = spy
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    served = engine.serve_grid(list(SERVE_MAIN_SEEDS), big.static_part(), [big])[0]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    serve_launches = ops.launch_counts()
+    ops.serve_route = route
+    assert serve_launches == {"jsaq_route": 0, "care_route": 0,
+                              "serve_route": big.slots}, serve_launches
+    for res in served:
+        assert res.dropped == 0, f"{res.dropped} requests dropped"
+        assert res.offered == res.completed + res.dropped + int(res.final_occupancy.sum())
+        assert res.completed > 0.8 * res.offered
+        assert np.isfinite(res.mean_jct) and np.isfinite(res.p99_jct)
+    times["serve_main_s"] = wall
+    serve_kw = dict(cap=big.queue_cap, comm="et")
+    state = kept["args"]
+    serve_ms = _time_ms(lambda: cuda_k.serve_route_cuda(*state, **serve_kw), 50)
+    got = cuda_k.serve_route_cuda(*state, **serve_kw)
+    plain = []
+    serve_plain_ms = _time_ms(
+        lambda: plain.append(ref.serve_route_ref(*state, **serve_kw)), 3, warm=False
+    )
+    serve_err = _max_abs_err(got, plain[0])
+    assert serve_err == 0, f"serve_route at the main-path shape differs by {serve_err}"
+    serve_bound = _serve_bound(state[0].cpu(), state[1].cpu(), state[5].cpu(),
+                               state[6].cpu())
+    kernel_share = serve_ms * big.slots / 1e3 / wall
+    mpc = float(np.mean([r.msgs_per_completion for r in served]))
+    print(f"phase 3 serve_grid fused {big.replicas} replicas x {big.decode_slots} "
+          f"decode slots, {big.slots} slots, seeds {SERVE_MAIN_SEEDS}: "
+          f"{wall:.3f} s ({wall / big.slots * 1e3:.4f} ms per slot; workload "
+          f"sampling before it {times['serve_main_sampling_s']:.3f} s); launches "
+          f"{serve_launches}; offered {[r.offered for r in served]}, completed "
+          f"{[r.completed for r in served]}, dropped 0; JCT mean "
+          f"{np.mean([r.mean_jct for r in served]):.3f} p99 "
+          f"{np.mean([r.p99_jct for r in served]):.1f}; messages per completion "
+          f"{mpc:.5f}")
+    print(f"phase 3 serve_route D={state[0].shape[0]} R={big.replicas} "
+          f"A={state[0].shape[1]} (lanes live {state[5].tolist()}): equal; kernel "
+          f"{serve_ms:.4f} ms, plain {serve_plain_ms:.3f} ms, bound "
+          f"{serve_bound[0]:.6f} ms ({serve_bound[1]}); kernel share of the wall "
+          f"{kernel_share:.3f}")
+    del got, plain
+    _profile_serving(engine, dataclasses.replace(big, slots=PROFILE_SLOTS),
+                     wall / big.slots)
+
     # -- 4. dense against fused, then the Section 9 cell ---------------------------
     k, t = DENSE_VS_FUSED
     t0 = time.perf_counter()
@@ -294,7 +481,57 @@ def main() -> int:
           f"departure {r.msgs_per_departure:.4f}, max_aq {r.max_aq}, "
           f"{times['section9_s']:.1f} s")
 
-    # -- 5. output ---------------------------------------------------------------
+    # -- 5. the serving ET ladder --------------------------------------------------
+    def fused_cell(comm, x=4):
+        return engine.ServeConfig(slots=LADDER_SLOTS, **SERVE_WORK, comm=comm, x=x,
+                                  deterministic_ties=True, route_backend="fused")
+
+    ladder = {}
+    for comm, xs in (("et", LADDER_X), ("exact", (4,))):
+        cells = [fused_cell(comm, x) for x in xs]
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        grid = engine.serve_grid(list(LADDER_SEEDS), cells[0].static_part(), cells)
+        times[f"ladder_{comm}_s"] = time.perf_counter() - t0
+        assert ops.launch_counts()["serve_route"] == LADDER_SLOTS
+        for x, row in zip(xs, grid):
+            assert all(r.dropped == 0 for r in row)
+            if comm == "exact":
+                assert all(r.messages == r.completed for r in row)
+            ladder[f"{comm}_x{x}"] = (
+                float(np.mean([r.mean_jct for r in row])),
+                float(np.mean([r.msgs_per_completion for r in row])),
+            )
+    exact_jct, exact_mpc = ladder["exact_x4"]
+    print(f"phase 5 ET ladder, 8 replicas, {LADDER_SLOTS} slots, x {LADDER_X} x "
+          f"{len(LADDER_SEEDS)} seeds: {times['ladder_et_s']:.2f} s, exact "
+          f"{times['ladder_exact_s']:.2f} s; (mean JCT, messages per completion) "
+          + json.dumps(ladder)
+          + f"; et_comm_vs_exact {ladder['et_x4'][1] / exact_mpc:.5f}, "
+          f"et_jct_vs_exact {ladder['et_x4'][0] / exact_jct:.4f}")
+
+    # -- 6. serving dense against fused ---------------------------------------------
+    t0 = time.perf_counter()
+    for comm in ("et", "dt", "exact"):
+        fused = engine.ServeConfig(**SERVE_DENSE_VS_FUSED, **SERVE_WORK, comm=comm,
+                                   x=4, deterministic_ties=True, route_backend="fused")
+        dense = dataclasses.replace(fused, route_backend="dense")
+        rf = engine.serve_grid([0, 1], fused.static_part(), [fused])[0]
+        rd = engine.serve_grid([0, 1], dense.static_part(), [dense])[0]
+        for a, b in zip(rf, rd):
+            for f in dataclasses.fields(engine.ServeResult):
+                va, vb = getattr(a, f.name), getattr(b, f.name)
+                if isinstance(va, np.ndarray):
+                    assert np.array_equal(va, vb), f"serving {comm} {f.name}"
+                else:
+                    assert va == vb, f"serving {comm} {f.name}: {va} != {vb}"
+            assert a.completed > 0
+    times["serve_dense_vs_fused_s"] = time.perf_counter() - t0
+    print(f"phase 6 serving dense == fused, field for field, "
+          f"{SERVE_DENSE_VS_FUSED}, et/dt/exact x 2 seeds: "
+          f"{times['serve_dense_vs_fused_s']:.1f} s")
+
+    # -- 7. output ---------------------------------------------------------------
     kernels = [
         {
             "name": "care_route", "route": "cuda",
@@ -311,6 +548,14 @@ def main() -> int:
             "launches": main_launches["jsaq_route"],
             "max_abs_err": jsaq_err, "ms": jsaq_ms, "plain_ms": jsaq_plain_ms,
             "bound_ms": jsaq_bound[0], "bound_by": jsaq_bound[1], "library_ms": None,
+        },
+        {
+            "name": "serve_route", "route": "cuda",
+            "source": "src/repro_torch/csrc/serve_route.cu",
+            "replaces": "src/repro/kernels/jsaq_route.py:496",
+            "launches": serve_launches["serve_route"],
+            "max_abs_err": serve_err, "ms": serve_ms, "plain_ms": serve_plain_ms,
+            "bound_ms": serve_bound[0], "bound_by": serve_bound[1], "library_ms": None,
         },
     ]
     print("times (s): " + json.dumps(times) + f" on {card}")

@@ -1,7 +1,8 @@
 """Workload layer: Bernoulli arrivals and job sizes, as functions of uniforms.
 
 Port of ``repro/core/care/workload.py`` for the kinds of slice 1: Bernoulli
-arrivals and the ``geometric`` / ``deterministic`` size distributions.
+arrivals and the ``geometric`` / ``deterministic`` size distributions, plus
+the serving tier's decode credit schedule (:func:`service_units`).
 Every sampler is split in two:
 
 * a deterministic function of given float32 uniforms
@@ -99,6 +100,18 @@ def bernoulli_arrivals(u: torch.Tensor, load) -> torch.Tensor:
 def gumbel(u: torch.Tensor) -> torch.Tensor:
     """Standard Gumbel samples ``-log(-log(u))`` from uniforms in ``(0, 1)``."""
     return -torch.log(-torch.log(u))
+
+
+def service_units(slot_idx: torch.Tensor, rates: torch.Tensor) -> torch.Tensor:
+    """Work units each server completes in slot ``slot_idx`` (credit schedule).
+
+    ``floor((t+1) r) - floor(t r)`` in float32, as the reference computes it:
+    the long-run average is exactly ``r`` units per slot.  ``slot_idx`` is a
+    float32 tensor (a 0-d view of a slot-index vector, so that the slot loop
+    makes no host-to-device copy); ``rates`` is float32.
+    """
+    t = slot_idx.to(torch.float32)
+    return (torch.floor((t + 1.0) * rates) - torch.floor(t * rates)).to(torch.int32)
 
 
 def uniforms(

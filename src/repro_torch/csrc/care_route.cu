@@ -54,7 +54,7 @@ __global__ void __launch_bounds__(1024)
 care_route_kernel(const int* arrive, const int* params, int* routed, int* q_out,
                   int* ps_out, int* stats, int* scratch, int t_slots, int k,
                   int cap, int jsaq, int comm) {
-  __shared__ int2 amin[33];
+  __shared__ MinPair<int> amin[33];
   __shared__ int red[5][32];
   const long long run = blockIdx.x;
   const int tid = threadIdx.x;

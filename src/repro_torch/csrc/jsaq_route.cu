@@ -22,7 +22,7 @@
 
 __global__ void __launch_bounds__(1024)
 jsaq_route_kernel(const int* q_in, int* idx, int* q_out, int k, int num_jobs) {
-  __shared__ int2 scratch[33];
+  __shared__ MinPair<int> scratch[33];
   const long long row = blockIdx.x;
   const int* qi = q_in + row * k;
   int* qo = q_out + row * k;
@@ -30,7 +30,7 @@ jsaq_route_kernel(const int* q_in, int* idx, int* q_out, int k, int num_jobs) {
   for (int s = threadIdx.x; s < k; s += blockDim.x) qo[s] = qi[s];
   __syncthreads();
   for (int n = 0; n < num_jobs; ++n) {
-    const int2 r = block_argmin(qo, k, scratch);
+    const MinPair<int> r = block_argmin(qo, k, scratch);
     if (threadIdx.x == 0) {
       ix[n] = r.y;
       qo[r.y] += 1;

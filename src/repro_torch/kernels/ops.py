@@ -48,14 +48,38 @@ def care_route(
     return _ref.care_route_ref(arrive, params, **kw)
 
 
+def serve_route(
+    tie_u: torch.Tensor,
+    q_len: torch.Tensor,
+    q_head: torch.Tensor,
+    busy_cnt: torch.Tensor,
+    approx: torch.Tensor,
+    n_arr: torch.Tensor,
+    act: torch.Tensor,
+    *,
+    cap: int,
+    comm: str,
+):
+    """One serving slot's arrival lanes for ``D`` runs:
+    ``(jv, tail, admit, q_len', approx', drops)``; see ``ref.serve_route_ref``."""
+    args = (tie_u, q_len, q_head, busy_cnt, approx, n_arr, act)
+    if _route(tie_u, "serve_route"):
+        return _cuda.serve_route_cuda(*args, cap=cap, comm=comm)
+    return _ref.serve_route_ref(*args, cap=cap, comm=comm)
+
+
+_KERNELS = {
+    "jsaq_route": _cuda.jsaq_route_cuda,
+    "care_route": _cuda.care_route_cuda,
+    "serve_route": _cuda.serve_route_cuda,
+}
+
+
 def launch_counts() -> dict[str, int]:
     """Kernel launches so far, by kernel."""
-    return {
-        "jsaq_route": _cuda.jsaq_route_cuda.launches,
-        "care_route": _cuda.care_route_cuda.launches,
-    }
+    return {name: fn.launches for name, fn in _KERNELS.items()}
 
 
 def reset_launch_counts() -> None:
-    _cuda.jsaq_route_cuda.launches = 0
-    _cuda.care_route_cuda.launches = 0
+    for fn in _KERNELS.values():
+        fn.launches = 0

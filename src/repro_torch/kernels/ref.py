@@ -147,3 +147,65 @@ def care_route_ref(
         gap = torch.maximum(gap, qmax - qmin)
     stats = torch.cat([msgs, deps, arrs, drops, max_aq, max_q, gap, zeros1], dim=1)
     return routed, q, ps, stats
+
+
+def serve_route_ref(
+    tie_u: torch.Tensor,
+    q_len: torch.Tensor,
+    q_head: torch.Tensor,
+    busy_cnt: torch.Tensor,
+    approx: torch.Tensor,
+    n_arr: torch.Tensor,
+    act: torch.Tensor,
+    *,
+    cap: int,
+    comm: str,
+):
+    """One serving slot's arrival lanes, routed in order, one run per row.
+
+    Follows ``_serve_kernel`` (``repro/kernels/jsaq_route.py:425-493``)
+    lane for lane: lane ``a`` is live when ``act & (a < n_arr)``; it goes
+    to the lowest-index argmin of ``approx`` (or of ``float(q_len +
+    busy_cnt)`` under ``comm="exact"``), is admitted when that ring holds
+    fewer than ``cap`` requests, takes ring slot ``(q_head[j] + q_len[j]) %
+    cap``, and an admit adds one to ``q_len[j]`` and ``1.0`` to
+    ``approx[j]``.  ``tie_u`` only pins the lane count.
+
+    Args:
+      tie_u: ``(D, A)`` float32.
+      q_len / q_head / busy_cnt: ``(D, R)`` int32.
+      approx: ``(D, R)`` float32.
+      n_arr: ``(D,)`` int32 live lanes per run.
+      act: ``(D,)`` bool horizon mask.
+
+    Returns:
+      ``(jv, tail, admit, q_len', approx', drops)``: ``(D, A)`` int32
+      replica and ring tail of every lane (dead lanes included), ``(D, A)``
+      bool admits, the ``(D, R)`` post-slot ``q_len`` and ``approx``, and
+      the ``(D,)`` int32 count of live lanes refused on a full ring.
+    """
+    if comm not in CARE_COMMS:
+        raise ValueError(f"unknown communication kind: {comm}")
+    dev = tie_u.device
+    d, a_n = tie_u.shape
+    q = q_len.to(torch.int32).clone()
+    ap = approx.to(torch.float32).clone()
+    busy = busy_cnt.to(torch.int32)
+    rows = torch.arange(d, device=dev)
+    jv = torch.empty((d, a_n), dtype=torch.int32, device=dev)
+    tail = torch.empty((d, a_n), dtype=torch.int32, device=dev)
+    admit = torch.empty((d, a_n), dtype=torch.bool, device=dev)
+    drops = torch.zeros((d,), dtype=torch.int32, device=dev)
+    for a in range(a_n):
+        live = act & (a < n_arr)
+        score = (q + busy).to(torch.float32) if comm == "exact" else ap
+        j = torch.argmin(score, dim=1)
+        len_j = q[rows, j]
+        ok = live & (len_j < cap)
+        jv[:, a] = j.to(torch.int32)
+        tail[:, a] = torch.remainder(q_head[rows, j] + len_j, cap)
+        admit[:, a] = ok
+        q[rows, j] = len_j + ok.to(torch.int32)
+        ap[rows, j] = ap[rows, j] + ok.to(torch.float32)
+        drops = drops + (live & ~ok).to(torch.int32)
+    return jv, tail, admit, q, ap, drops

@@ -1,0 +1,873 @@
+"""Serving tier: continuous batching with a CARE request dispatcher.
+
+Port of the fixed-horizon engine of ``repro/serve/engine.py``: requests are
+jobs, replica groups are servers, and the front end routes each arriving
+request over the dispatcher's *approximated* per-replica occupancy, which
+replicas correct through the shared push trigger core
+(:mod:`repro_torch.core.care.comm`) only when it fires.
+
+A slot is one decode iteration across replicas.  In every slot, in this
+order: the slot's arrivals are routed one lane at a time (each routed
+request bumps the occupancy the next one sees) into per-replica pending
+rings of ``queue_cap`` requests (a full ring drops the request, counted);
+free decode slots admit from the rings, FIFO; every active decode slot
+works one unit (or its replica's credit-schedule units under
+``decode_rates``); the emulated occupancy drains by ``msr_drain`` per busy
+replica; the trigger fires and snaps the emulation to the truth.
+
+Configuration is split as in the reference: :class:`EngineStatic` holds
+shapes and kinds (Python-level dispatch), :class:`EngineScenario` the
+numeric operands, one row per run once stacked.  ``serve_grid`` runs every
+(cell, seed) pair as one leading run axis, flattened cell-major
+(``run = cell * S + seed``); ``lax.scan`` over slots becomes a Python loop
+that stops at the largest horizon, and slots past a run's horizon are
+frozen no-ops.
+
+The workload is sampled host-side with numpy exactly as the reference
+samples it (:func:`sample_workload`, the same ``SeedSequence(seed).spawn(6)``
+streams), so both engines consume byte-identical arrays.  The emulated
+occupancy is float32 and every drain and score product is one IEEE
+single-precision operation, so the port equals the reference bit for bit.
+
+Two backends route the arrival lanes (``route_backend``):
+
+* ``"dense"`` -- the reference's per-lane body as a Python loop over lanes,
+  for the policies ``jsaq`` / ``sqd`` / ``rr`` / ``drain`` with random or
+  lowest-index ties;
+* ``"fused"`` -- one :func:`repro_torch.kernels.ops.serve_route` call per
+  slot for all runs (the CUDA kernel on the card, its plain version on the
+  CPU), the counterpart of the reference's ``"pallas"`` backend; it refuses
+  what that backend refuses.
+
+The degraded control plane (``network`` / ``fault`` / ``transport``), the
+pull policies and the streaming engine come with later slices and raise
+``NotImplementedError`` naming theirs.
+"""
+from __future__ import annotations
+
+import dataclasses
+import functools
+from typing import Literal, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.core.care import comm as comm_lib
+from repro_torch.core.care import routing as routing_lib
+from repro_torch.core.care import workload as workload_lib
+from repro_torch.core.care.slotted_sim import _resolve_device
+from repro_torch.kernels import ops as kernel_ops
+
+_I32 = torch.int32
+_F32 = torch.float32
+
+SLICE_2_CONTROL_PLANE = "slice 2 of the port (ROADMAP 1, item 9)"
+SLICE_2_PULL = routing_lib.SLICE_2_PULL
+SLICE_3_STREAM = "slice 3 of the port (ROADMAP 1, item 11: serve_stream)"
+
+# The serving tier's routing policies (see the reference): ``jsaq`` joins
+# the shortest approximated queue; ``sqd`` the shortest of ``sqd`` sampled
+# replicas; ``rr`` is round robin; ``drain`` minimises ``occ_i * E[S] / r_i``
+# under heterogeneous ``decode_rates``.  ``jiq`` / ``hsq`` are the pull
+# family.
+ServePolicy = Literal["jsaq", "sqd", "rr", "drain", "jiq", "hsq"]
+PUSH_POLICIES = ("jsaq", "sqd", "rr", "drain")
+PULL_POLICIES = comm_lib.PULL_KINDS
+
+# Pre-drawn subset-uniform lane width of ServeWorkload.sub_u: SQ(d) cells
+# need d <= SQD_MAX.  Fixed so cells differing only in policy / d share one
+# workload stream.
+SQD_MAX = 8
+
+
+def mean_decode_rate(decode_rates: Optional[Sequence[float]]) -> float:
+    """Mean per-replica decode rate: the capacity multiplier of a profile.
+
+    The workload stream is keyed on this value, so every consumer derives
+    it the same way.
+    """
+    if decode_rates is None:
+        return 1.0
+    return float(np.mean(np.asarray(decode_rates, np.float64)))
+
+
+@dataclasses.dataclass(frozen=True)
+class EngineStatic:
+    """Shapes and kinds of a serving run (hashable).
+
+    ``slots`` is the *padded* loop length (each cell's effective length is
+    its ``EngineScenario.horizon``) and ``max_arrivals`` the padded
+    per-slot arrival-lane width (0 = derive from the sampled workload).
+    ``trace_occupancy`` also returns the end-of-slot per-replica
+    occupancy.  ``network`` / ``transport`` / ``fault`` / ``stream`` name
+    kinds of later slices; only their defaults run here.
+    """
+
+    replicas: int = 8
+    decode_slots: int = 16
+    queue_cap: int = 512
+    slots: int = 20_000
+    comm: str = "et"
+    policy: ServePolicy = "jsaq"
+    sqd: int = 2
+    use_rates: bool = False
+    max_arrivals: int = 0
+    trace_occupancy: bool = False
+    route_backend: str = "dense"  # "dense" | "fused"
+    deterministic_ties: bool = False
+    network: str = "none"
+    transport: str = "fire_forget"
+    fault: str = "none"
+    stream: bool = False
+
+
+def _check_static(static: EngineStatic) -> None:
+    """Refuse what this slice does not run, naming the slice that will.
+
+    The ``"fused"`` backend refuses exactly what the reference's
+    ``"pallas"`` backend refuses (``ServeConfig.static_part``).
+    """
+    if static.route_backend not in ("dense", "fused"):
+        raise ValueError(
+            f"route_backend must be 'dense' or 'fused', got {static.route_backend!r}"
+        )
+    if static.route_backend == "fused":
+        if static.policy != "jsaq":
+            raise ValueError(
+                f"route_backend='fused' supports policy 'jsaq' only, got "
+                f"{static.policy!r}"
+            )
+        if not static.deterministic_ties:
+            raise ValueError(
+                "route_backend='fused' requires deterministic_ties=True (the "
+                "kernel breaks ties to the lowest index)"
+            )
+        if static.network != "none" or static.fault != "none":
+            raise NotImplementedError(
+                f"route_backend='fused' does not support the degraded control "
+                f"plane (network={static.network!r}, fault={static.fault!r}); "
+                f"use route_backend='dense'"
+            )
+    for name, value, allowed in (
+        ("network", static.network, ("none", "net")),
+        ("transport", static.transport, ("fire_forget", "ack")),
+        ("fault", static.fault, ("none", "crash", "slow")),
+    ):
+        if value not in allowed:
+            raise ValueError(f"unknown {name} kind: {value!r}")
+    if static.policy in PULL_POLICIES or static.comm in PULL_POLICIES:
+        raise NotImplementedError(
+            f"pull policy/comm {static.policy!r}/{static.comm!r} comes with "
+            f"{SLICE_2_PULL}"
+        )
+    if static.network != "none" or static.transport != "fire_forget" or (
+        static.fault != "none"
+    ):
+        raise NotImplementedError(
+            f"network={static.network!r} / transport={static.transport!r} / "
+            f"fault={static.fault!r} come with {SLICE_2_CONTROL_PLANE}"
+        )
+    if static.stream:
+        raise NotImplementedError(f"the streaming engine comes with {SLICE_3_STREAM}")
+    if static.policy not in PUSH_POLICIES:
+        raise ValueError(f"unknown policy: {static.policy!r}")
+    if static.comm not in comm_lib.PUSH_KINDS:
+        raise ValueError(f"unknown communication kind: {static.comm!r}")
+
+
+@dataclasses.dataclass(frozen=True)
+class EngineScenario:
+    """Numeric operands of serving cells: 0-d tensors (``decode_rates``
+    ``(R,)``) for one cell, with a leading run axis once stacked by
+    :func:`stack_scenarios`.  float32 / int32 as the reference carries
+    them; ``load`` rides along for reporting, ``mean_prefill`` /
+    ``mean_decode`` feed the ``drain`` policy's E[S] term."""
+
+    load: torch.Tensor
+    x: torch.Tensor
+    rt_period: torch.Tensor
+    msr_drain: torch.Tensor
+    mean_prefill: torch.Tensor
+    mean_decode: torch.Tensor
+    decode_rates: torch.Tensor
+    horizon: torch.Tensor
+
+    @staticmethod
+    def create(
+        load: float,
+        x: float = 4.0,
+        rt_period: int = 16,
+        msr_drain: float = 1.0,
+        mean_prefill: float = 4,
+        mean_decode: float = 64,
+        horizon: Optional[int] = None,
+        replicas: int = 8,
+        decode_rates: Optional[Sequence[float]] = None,
+    ) -> "EngineScenario":
+        if horizon is None:
+            horizon = np.iinfo(np.int32).max
+        rates = (
+            torch.ones((replicas,), dtype=_F32)
+            if decode_rates is None
+            else torch.tensor(list(decode_rates), dtype=_F32)
+        )
+
+        def f32(v):
+            return torch.tensor(float(v), dtype=_F32)
+
+        def i32(v):
+            return torch.tensor(int(v), dtype=_I32)
+
+        return EngineScenario(
+            load=f32(load), x=f32(x), rt_period=i32(rt_period),
+            msr_drain=f32(msr_drain), mean_prefill=f32(mean_prefill),
+            mean_decode=f32(mean_decode), decode_rates=rates,
+            horizon=i32(horizon),
+        )
+
+    def to(self, device) -> "EngineScenario":
+        return EngineScenario(**{
+            f.name: getattr(self, f.name).to(device)
+            for f in dataclasses.fields(self)
+        })
+
+
+def stack_scenarios(scenarios: Sequence[EngineScenario]) -> EngineScenario:
+    """Stack unbatched cells into one batched scenario (leading run axis)."""
+    return EngineScenario(**{
+        f.name: torch.stack([getattr(s, f.name) for s in scenarios])
+        for f in dataclasses.fields(EngineScenario)
+    })
+
+
+@dataclasses.dataclass(frozen=True)
+class ServeConfig:
+    """One serving grid cell as the user sees it (hashable).
+
+    Splits into :meth:`static_part` and :meth:`scenario`; ``load`` /
+    ``mean_prefill`` / ``mean_decode`` also parameterise the host-side
+    workload sampler (:meth:`workload_key`).  ``route_backend`` is
+    ``"dense"`` or ``"fused"``; ``deterministic_ties`` breaks ties to the
+    lowest index instead of by the pre-drawn uniform rank.
+    """
+
+    replicas: int = 8
+    decode_slots: int = 16
+    slots: int = 20_000
+    load: float = 0.9
+    comm: str = "et"
+    x: float = 4.0
+    rt_period: int = 16
+    msr_drain: float = 1.0
+    mean_prefill: int = 4
+    mean_decode: int = 64
+    queue_cap: int = 512
+    policy: ServePolicy = "jsaq"
+    sqd: int = 2
+    decode_rates: Optional[Tuple[float, ...]] = None
+    max_slots: Optional[int] = None
+    max_arrivals: int = 0
+    route_backend: str = "dense"
+    deterministic_ties: bool = False
+    network: str = "none"
+    transport: str = "fire_forget"
+    fault: str = "none"
+
+    def rate_scale(self) -> float:
+        """Mean decode rate: the capacity multiplier of heterogeneity."""
+        return mean_decode_rate(self.decode_rates)
+
+    def arrival_rate(self) -> float:
+        """Offered per-slot arrival rate: load x service capacity."""
+        mean_work = self.mean_prefill + self.mean_decode
+        return (
+            self.load * self.replicas * self.decode_slots
+            * self.rate_scale() / mean_work
+        )
+
+    def static_part(self) -> EngineStatic:
+        if self.max_slots is not None and self.max_slots < self.slots:
+            raise ValueError(
+                f"max_slots ({self.max_slots}) must be >= slots ({self.slots})"
+            )
+        if self.policy == "sqd" and not 1 <= self.sqd <= min(self.replicas, SQD_MAX):
+            raise ValueError(
+                f"sqd ({self.sqd}) must be in [1, min(replicas, {SQD_MAX})]"
+            )
+        if self.decode_rates is not None and len(self.decode_rates) != self.replicas:
+            raise ValueError(
+                f"decode_rates has {len(self.decode_rates)} entries for "
+                f"{self.replicas} replicas"
+            )
+        static = EngineStatic(
+            replicas=self.replicas,
+            decode_slots=self.decode_slots,
+            queue_cap=self.queue_cap,
+            slots=self.max_slots if self.max_slots is not None else self.slots,
+            comm=self.comm,
+            policy=self.policy,
+            # Only "sqd" reads the subset size; normalising it lets cells
+            # that differ in the unused knob share one static part.
+            sqd=self.sqd if self.policy == "sqd" else 0,
+            use_rates=self.decode_rates is not None,
+            max_arrivals=self.max_arrivals,
+            route_backend=self.route_backend,
+            deterministic_ties=self.deterministic_ties,
+            network=self.network,
+            transport=self.transport,
+            fault=self.fault,
+        )
+        _check_static(static)
+        return static
+
+    def scenario(self) -> EngineScenario:
+        return EngineScenario.create(
+            load=self.load, x=self.x, rt_period=self.rt_period,
+            msr_drain=self.msr_drain, mean_prefill=self.mean_prefill,
+            mean_decode=self.mean_decode, horizon=self.slots,
+            replicas=self.replicas, decode_rates=self.decode_rates,
+        )
+
+    def workload_key(self) -> tuple:
+        """The sampler's parameter tuple: cells sharing it share a stream.
+
+        Keyed on the *mean* decode rate, not the rate profile, and on the
+        presence of the control-plane streams, as the reference keys it;
+        routing and trigger parameters never enter.
+        """
+        return (
+            self.replicas, self.decode_slots, self.slots, self.load,
+            self.mean_prefill, self.mean_decode, self.rate_scale(),
+            self.network != "none", self.fault != "none",
+            self.transport == "ack",
+        )
+
+
+# ---------------------------------------------------------------------------
+# Host-side workload sampling: the reference's stream, byte for byte.
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class ServeWorkload:
+    """Pre-sampled request stream (host-side numpy; rid = arrival order).
+
+    ``tie_u`` / ``sub_u`` are float32 at the source, so tie-break and
+    subset ranks are the same float32 products on every backend.  The
+    control-plane streams are ``None`` unless their kind is on.
+    """
+
+    n_arr: np.ndarray  # (T,) int64 arrivals per slot
+    base: np.ndarray  # (T,) int64 rid of the first arrival in each slot
+    prefill: np.ndarray  # (N,) int64 per-request prefill cost (>= 1)
+    decode: np.ndarray  # (N,) int64 per-request decode length (>= 1)
+    work: np.ndarray  # (N,) int64 total slot occupancy, max(p + d, 1)
+    tie_u: np.ndarray  # (N,) float32 routing tie-break uniforms
+    sub_u: np.ndarray  # (N, SQD_MAX) float32 SQ(d) subset uniforms
+    arrival_slot: np.ndarray  # (N,) int64
+    net_drop_u: Optional[np.ndarray] = None  # (T, R) float32
+    net_jit_u: Optional[np.ndarray] = None  # (T, R) float32
+    fault_u: Optional[np.ndarray] = None  # (T, R) float32
+    ack_u: Optional[np.ndarray] = None  # (T, 4, R) float32
+
+    @property
+    def total(self) -> int:
+        return int(self.work.shape[0])
+
+    @staticmethod
+    def from_arrays(obj) -> "ServeWorkload":
+        """Copy the numpy fields of any object that has them (such as the
+        reference's ``ServeWorkload``) into a port workload."""
+        fields = {}
+        for f in dataclasses.fields(ServeWorkload):
+            if f.default is dataclasses.MISSING:
+                fields[f.name] = np.array(getattr(obj, f.name))
+            else:
+                value = getattr(obj, f.name, None)
+                fields[f.name] = None if value is None else np.array(value)
+        return ServeWorkload(**fields)
+
+
+def sample_workload(
+    seed: int,
+    *,
+    replicas: int,
+    decode_slots: int,
+    slots: int,
+    load: float,
+    mean_prefill: float = 4,
+    mean_decode: float = 64,
+    rate_scale: float = 1.0,
+    with_net: bool = False,
+    with_fault: bool = False,
+    with_ack: bool = False,
+) -> ServeWorkload:
+    """Draw the replayable serving workload for one (parameters, seed).
+
+    The reference's sampler, line for line: arrivals/sizes, routing
+    tie-breaks, SQ(d) subset draws and the control-plane uniforms come from
+    independent, prefix-stable ``SeedSequence`` children, so the arrays
+    are byte-identical to the reference's.
+    """
+    w_ss, r_ss, s_ss, n_ss, f_ss, a_ss = (
+        np.random.SeedSequence(int(seed)).spawn(6)
+    )
+    wrng = np.random.default_rng(w_ss)
+    rrng = np.random.default_rng(r_ss)
+    srng = np.random.default_rng(s_ss)
+    mean_work = mean_prefill + mean_decode
+    rate = load * replicas * decode_slots * rate_scale / mean_work
+    n_arr = wrng.poisson(rate, size=slots).astype(np.int64)
+    total = int(n_arr.sum())
+    prefill = 1 + wrng.poisson(mean_prefill, size=total).astype(np.int64)
+    decode = 1 + wrng.poisson(mean_decode, size=total).astype(np.int64)
+    work = np.maximum(prefill + decode, 1)
+    tie_u = rrng.random(size=total, dtype=np.float32)
+    sub_u = srng.random(size=(total, SQD_MAX), dtype=np.float32)
+    base = np.concatenate([[0], np.cumsum(n_arr)[:-1]]).astype(np.int64)
+    arrival_slot = np.repeat(np.arange(slots, dtype=np.int64), n_arr)
+    net_drop_u = net_jit_u = fault_u = ack_u = None
+    if with_net:
+        nrng = np.random.default_rng(n_ss)
+        net_drop_u = nrng.random(size=(slots, replicas), dtype=np.float32)
+        net_jit_u = nrng.random(size=(slots, replicas), dtype=np.float32)
+    if with_fault:
+        frng = np.random.default_rng(f_ss)
+        fault_u = frng.random(size=(slots, replicas), dtype=np.float32)
+    if with_ack:
+        arng = np.random.default_rng(a_ss)
+        ack_u = arng.random(size=(slots, 4, replicas), dtype=np.float32)
+    return ServeWorkload(
+        n_arr=n_arr, base=base, prefill=prefill, decode=decode,
+        work=work, tie_u=tie_u, sub_u=sub_u, arrival_slot=arrival_slot,
+        net_drop_u=net_drop_u, net_jit_u=net_jit_u, fault_u=fault_u,
+        ack_u=ack_u,
+    )
+
+
+@functools.lru_cache(maxsize=512)
+def _cached_workload(key: tuple, seed: int) -> ServeWorkload:
+    (replicas, decode_slots, slots, load, mean_prefill, mean_decode,
+     rate_scale, with_net, with_fault, with_ack) = key
+    return sample_workload(
+        seed, replicas=replicas, decode_slots=decode_slots, slots=slots,
+        load=load, mean_prefill=mean_prefill, mean_decode=mean_decode,
+        rate_scale=rate_scale, with_net=with_net, with_fault=with_fault,
+        with_ack=with_ack,
+    )
+
+
+def workload_for(cell: ServeConfig, seed: int) -> ServeWorkload:
+    """The (memoised) workload of one cell x seed.  Cells differing only
+    in routing or trigger parameters share the stream."""
+    return _cached_workload(cell.workload_key(), int(seed))
+
+
+def subset_mask(u_row: torch.Tensor, n: int, d: int) -> torch.Tensor:
+    """SQ(d) candidate mask: ``d`` distinct of ``n`` replicas from uniforms.
+
+    A partial Fisher-Yates draw consuming ``u_row[..., :d]`` (float32, from
+    ``ServeWorkload.sub_u``): step ``i`` picks the ``k``-th of the ``n-i``
+    still-available replicas with ``k = min(int(f32(u_i) * f32(n-i)),
+    n-i-1)``, the reference's float32/int32 arithmetic.  Leading axes of
+    ``u_row`` are batch axes; returns ``(..., n)`` bool.
+    """
+    batch = u_row.shape[:-1]
+    avail = torch.ones((*batch, n), dtype=torch.bool, device=u_row.device)
+    mask = torch.zeros_like(avail)
+    for i in range(d):
+        m = n - i
+        k = torch.clamp_max((u_row[..., i] * float(m)).to(_I32), m - 1)
+        cum = avail.cumsum(-1, dtype=_I32)
+        pick = avail & (cum == (k + 1)[..., None])
+        mask = mask | pick
+        avail = avail & ~pick
+    return mask
+
+
+# ---------------------------------------------------------------------------
+# The engine: one Python loop over slots, all runs at once.
+# ---------------------------------------------------------------------------
+
+
+def _route_lanes(static, act, n_arr_t, tie_t, sub_t, q_len, q_head, busy_cnt,
+                 approx, rr_ptr, dropped, drain_slots):
+    """The dense backend: the reference's per-lane body, one lane per step.
+
+    Every routed request bumps ``q_len`` / ``approx`` before the next lane
+    reads them.  Returns ``(jv, tail, admit, q_len', approx', rr_ptr',
+    dropped')`` with ``(D, A)`` lane outputs.
+    """
+    r_n, c_n = static.replicas, static.queue_cap
+    rep_idx = torch.arange(r_n, dtype=_I32, device=q_len.device)
+    jvs, tails, admits = [], [], []
+    for a in range(tie_t.shape[1]):
+        live = act & (a < n_arr_t)
+        if static.comm == "exact":
+            occ = (q_len + busy_cnt).to(_F32)
+        else:
+            occ = approx
+        if static.policy == "rr":
+            # The pointer advances only on live lanes.
+            j = torch.remainder(rr_ptr, r_n)
+            rr_ptr = rr_ptr + live.to(_I32)
+        else:
+            score = occ * drain_slots if static.policy == "drain" else occ
+            if static.policy == "sqd":
+                cand = subset_mask(sub_t[:, a], r_n, static.sqd)
+                score = torch.where(cand, score, torch.inf)
+            if static.deterministic_ties:
+                j = torch.argmin(score, 1)
+            else:
+                is_min = score == score.amin(1, keepdim=True)
+                n_ties = is_min.sum(1, dtype=_I32)
+                rank = torch.minimum((tie_t[:, a] * n_ties.to(_F32)).to(_I32), n_ties - 1)
+                cum = is_min.cumsum(1, dtype=_I32)
+                j = torch.argmax((cum == (rank + 1)[:, None]).to(_I32), 1)
+        j = j.long()
+        onehot = rep_idx == j[:, None]
+        len_j = q_len.gather(1, j[:, None])[:, 0]
+        # The ring is fixed: a full ring drops the arrival (counted).
+        admit = live & (len_j < c_n)
+        tail = torch.remainder(q_head.gather(1, j[:, None])[:, 0] + len_j, c_n)
+        sel = onehot & admit[:, None]
+        q_len = q_len + sel.to(_I32)
+        approx = approx + sel.to(_F32)
+        dropped = dropped + (live & ~admit).to(_I32)
+        jvs.append(j.to(_I32))
+        tails.append(tail)
+        admits.append(admit)
+    return (torch.stack(jvs, 1), torch.stack(tails, 1), torch.stack(admits, 1),
+            q_len, approx, rr_ptr, dropped)
+
+
+def _serve_core(n_arr, work, tie_u, rid, sub_u, scn: EngineScenario,
+                static: EngineStatic, n_cap: int, t_end: int,
+                live_lanes: np.ndarray) -> dict:
+    """The port of ``_serve_core`` for the fixed horizon, all runs at once.
+
+    Args:
+      n_arr: ``(T, D)`` int32 arrivals per slot and run.
+      work / tie_u / rid: ``(T, D, A)`` arrival lanes (int32 / float32 /
+        int32); lanes ``>= n_arr`` are masked no-ops.
+      sub_u: ``(T, D, A, sqd)`` float32 subset uniforms (``sqd = 0`` unless
+        the policy is ``"sqd"``).
+      scn: the runs' stacked scenario, on the same device.
+      n_cap: capacity of the rid-indexed completion-slot array.
+      t_end: the slots to run; every run is frozen from its horizon on.
+      live_lanes: ``(T,)`` host-side count of lanes live in some run; the
+        dense backend routes only those (a dead lane changes nothing).
+
+    Slot ``t`` reads the slot-``t`` views of the inputs and keeps every
+    counter on the device, so nothing waits for the card inside the loop.
+    The rings ``(D, R+1, C)`` and ``comp_slot`` ``(D, n_cap+1)`` carry one
+    trash row / column: the reference's out-of-bounds ``mode="drop"``
+    scatters land there.  Returns a dict of ``(D, ...)`` tensors:
+    ``comp_slot`` ``(D, n_cap)``, ``msgs``, ``total_comp``, ``dropped``
+    ``(D,)``, ``final_occ`` ``(D, R)`` and, under ``trace_occupancy``,
+    ``occupancy`` ``(D, T, R)``.
+    """
+    t_n, d_n = work.shape[:2]
+    r_n, s_n, c_n = static.replicas, static.decode_slots, static.queue_cap
+    dev = work.device
+    ccfg = comm_lib.CommConfig(
+        kind=static.comm, x=scn.x[:, None], rt_period=scn.rt_period[:, None]
+    )
+    rates = scn.decode_rates  # (D, R)
+    # msr_drain * 1.0 is exact, so unit rates cannot perturb the drain.
+    drainv = scn.msr_drain[:, None] * rates
+    drain_slots = None
+    if static.policy == "drain":
+        drain_slots = routing_lib.expected_drain_slots(
+            (scn.mean_prefill + scn.mean_decode)[:, None], rates
+        )
+    active = torch.arange(t_n, device=dev)[:, None] < scn.horizon[None, :]
+    slot_f = torch.arange(t_n, dtype=_F32, device=dev)
+
+    def zeros(*shape, dtype=_I32):
+        return torch.zeros(shape, dtype=dtype, device=dev)
+
+    def minus_one(*shape):
+        return torch.full(shape, -1, dtype=_I32, device=dev)
+
+    q_len, q_head = zeros(d_n, r_n), zeros(d_n, r_n)
+    q_work, q_rid = zeros(d_n, r_n + 1, c_n), minus_one(d_n, r_n + 1, c_n)
+    rem, arid = zeros(d_n, r_n, s_n), minus_one(d_n, r_n, s_n)
+    approx = zeros(d_n, r_n, dtype=_F32)
+    comm_state = comm_lib.CommState.init(r_n, (d_n,), dev)
+    rr_ptr, total_comp, dropped = zeros(d_n), zeros(d_n), zeros(d_n)
+    comp_slot = minus_one(d_n, n_cap + 1)
+    occ_trace = zeros(d_n, t_n, r_n) if static.trace_occupancy else None
+
+    for t in range(t_end):
+        act = active[t]
+        act_r = act[:, None]
+        # The dispatcher routes against the previous slot's replica state.
+        busy_cnt = (rem > 0).sum(2, dtype=_I32)
+
+        # 1. route this slot's arrivals, one lane after the other.
+        if static.route_backend == "fused":
+            jv, tailv, admitv, q_len, approx, d_drop = kernel_ops.serve_route(
+                tie_u[t], q_len, q_head, busy_cnt, approx, n_arr[t], act,
+                cap=c_n, comm=static.comm,
+            )
+            dropped = dropped + d_drop
+        else:
+            k = max(int(live_lanes[t]), 1)
+            jv, tailv, admitv, q_len, approx, rr_ptr, dropped = _route_lanes(
+                static, act, n_arr[t], tie_u[t, :, :k], sub_u[t, :, :k], q_len,
+                q_head, busy_cnt, approx, rr_ptr, dropped, drain_slots,
+            )
+        # Admitted lanes never collide (successive admits to one replica
+        # take successive tails); the others go to the trash row R.  The
+        # scatters read the first jv.shape[1] lanes of work / rid.
+        ring_idx = (torch.where(admitv, jv, r_n) * c_n + tailv).long()
+        q_work.view(d_n, -1).scatter_(1, ring_idx, work[t])
+        q_rid.view(d_n, -1).scatter_(1, ring_idx, rid[t])
+
+        # 2. admit: fill free decode slots from the rings, FIFO.
+        free = rem <= 0
+        free_rank = free.cumsum(2, dtype=_I32) - 1
+        n_admit = torch.minimum(q_len, free.sum(2, dtype=_I32))
+        n_admit = torch.where(act_r, n_admit, 0)
+        take = free & (free_rank < n_admit[..., None])
+        # free_rank is -1 on busy slots: the floor mod keeps the index valid.
+        qidx = torch.remainder(q_head[..., None] + free_rank, c_n).long()
+        rem = torch.where(take, q_work[:, :r_n].gather(2, qidx), rem)
+        arid = torch.where(take, q_rid[:, :r_n].gather(2, qidx), arid)
+        q_head = torch.remainder(q_head + n_admit, c_n)
+        q_len = q_len - n_admit
+
+        # 3. decode: one iteration (or the credit schedule's units) on
+        # every active slot; rem may go negative, which means free.
+        active_s = (rem > 0) & act[:, None, None]
+        if static.use_rates:
+            units = workload_lib.service_units(slot_f[t], rates)
+            rem = rem - units[..., None] * active_s.to(_I32)
+        else:
+            rem = rem - active_s.to(_I32)
+        done = active_s & (rem <= 0)
+        completions = done.sum(2, dtype=_I32)
+        # A request completes once, so writing t is the reference's
+        # scatter-max; slots that did not complete write the trash column.
+        comp_idx = torch.where(done, arid, n_cap).reshape(d_n, -1).long()
+        comp_slot.scatter_(1, comp_idx, t)
+        arid = torch.where(done, -1, arid)
+        total_comp = total_comp + completions.sum(1, dtype=_I32)
+
+        # 4. MSR drain, per replica and decode-rate scaled.
+        busy = (approx > 0) & act_r
+        approx = torch.clamp_min(approx - drainv * busy.to(_F32), 0.0)
+
+        # 5. trigger (shared core), frozen past the horizon, and snap.
+        true_occ = (q_len + (rem > 0).sum(2, dtype=_I32)).to(_F32)
+        err = (true_occ - approx).abs()
+        trig, adv = comm_lib.evaluate(comm_state, ccfg, err, completions)
+        trig = trig & act_r
+        approx = torch.where(trig, true_occ, approx)
+        comm_state = comm_lib.CommState(
+            deps_since_msg=torch.where(act_r, adv.deps_since_msg, comm_state.deps_since_msg),
+            slots_since_msg=torch.where(act_r, adv.slots_since_msg, comm_state.slots_since_msg),
+            msgs=torch.where(act, adv.msgs, comm_state.msgs),
+        )
+        if occ_trace is not None:
+            occ_trace[:, t] = true_occ.to(_I32)
+
+    final_occ = q_len + (rem > 0).sum(2, dtype=_I32)
+    if occ_trace is not None:
+        occ_trace[:, t_end:] = final_occ[:, None]  # frozen past every horizon
+    return dict(
+        comp_slot=comp_slot[:, :n_cap], msgs=comm_state.msgs,
+        total_comp=total_comp, dropped=dropped, final_occ=final_occ,
+        occupancy=occ_trace,
+    )
+
+
+@dataclasses.dataclass
+class ServeResult:
+    """One serving run's outputs (host-side numpy; jct in rid order)."""
+
+    jct: np.ndarray  # (completed,) completion times, rid (arrival) order
+    jct_by_rid: np.ndarray  # (offered,) -1 where never completed
+    completed: int
+    offered: int
+    messages: int
+    dropped: int  # arrivals rejected on a full pending ring
+    final_occupancy: np.ndarray  # (R,)
+    mean_jct: float
+    p99_jct: float
+    msgs_per_completion: float
+    occupancy: Optional[np.ndarray] = None  # (T, R) when trace_occupancy
+
+    @staticmethod
+    def from_run(wl: ServeWorkload, comp_slot, msgs, total_comp, dropped,
+                 final_occ, occ_trace=None) -> "ServeResult":
+        comp_slot = np.asarray(comp_slot)[: wl.total].astype(np.int64)
+        done = comp_slot >= 0
+        jct_by_rid = np.where(done, comp_slot - wl.arrival_slot + 1, -1)
+        jct = jct_by_rid[done]
+        msgs = int(msgs)
+        return ServeResult(
+            jct=jct,
+            jct_by_rid=jct_by_rid,
+            completed=int(done.sum()),
+            offered=wl.total,
+            messages=msgs,
+            dropped=int(dropped),
+            final_occupancy=np.asarray(final_occ),
+            mean_jct=float(jct.mean()) if jct.size else 0.0,
+            p99_jct=float(np.percentile(jct, 99)) if jct.size else 0.0,
+            msgs_per_completion=msgs / max(int(total_comp), 1),
+            occupancy=None if occ_trace is None else np.asarray(occ_trace),
+        )
+
+
+def _round_up(n: int, mult: int) -> int:
+    return ((max(n, 1) + mult - 1) // mult) * mult
+
+
+def _pad_workload(wl: ServeWorkload, t_pad: int, a_pad: int, d: int = 0):
+    """Pad one workload to the ``(T, A)`` lane grid: ``(n_arr, work, tie_u,
+    rid, sub_u)`` with lanes past a slot's arrival count zeroed.  ``d`` is
+    the subset-uniform depth (``sqd`` under the "sqd" policy, else 0)."""
+    t = wl.n_arr.shape[0]
+    n_arr = np.zeros(t_pad, np.int32)
+    n_arr[:t] = wl.n_arr
+    work = np.zeros((t_pad, a_pad), np.int32)
+    tie_u = np.zeros((t_pad, a_pad), np.float32)
+    rid = np.zeros((t_pad, a_pad), np.int32)
+    sub_u = np.zeros((t_pad, a_pad, d), np.float32)
+    if wl.total:
+        lane = np.arange(a_pad, dtype=np.int64)[None, :]
+        mask = lane < wl.n_arr[:, None]  # (t, a_pad) live lanes
+        idx = np.minimum(wl.base[:, None] + lane, wl.total - 1)
+        work[:t] = np.where(mask, wl.work[idx], 0)
+        tie_u[:t] = np.where(mask, wl.tie_u[idx], 0.0)
+        rid[:t] = np.where(mask, idx, 0)
+        if d:
+            sub_u[:t] = np.where(mask[..., None], wl.sub_u[idx, :d], 0.0)
+    return n_arr, work, tie_u, rid, sub_u
+
+
+def _run(wls: Sequence[ServeWorkload], cells: Sequence[ServeConfig],
+         static: EngineStatic, n_cap: int, device) -> list[ServeResult]:
+    """One run per (workload, cell) pair through :func:`_serve_core`."""
+    d = static.sqd if static.policy == "sqd" else 0
+    padded = [_pad_workload(w, static.slots, static.max_arrivals, d) for w in wls]
+    # (T, D, ...) layout: each slot's lanes for every run are one
+    # contiguous block, as the kernel takes them.
+    arrs = [
+        torch.from_numpy(np.stack([p[i] for p in padded], axis=1)).to(device)
+        for i in range(5)
+    ]
+    scn = stack_scenarios([cell.scenario() for cell in cells])
+    t_end = min(static.slots, max(int(scn.horizon.max()), 0))
+    live_lanes = np.minimum(np.stack([p[0] for p in padded]).max(0), static.max_arrivals)
+    out = _serve_core(*arrs, scn.to(device), static, n_cap, t_end, live_lanes)
+    host = {k: v.cpu().numpy() for k, v in out.items() if v is not None}
+    return [
+        ServeResult.from_run(
+            wl, host["comp_slot"][i], host["msgs"][i], host["total_comp"][i],
+            host["dropped"][i], host["final_occ"][i],
+            occ_trace=host["occupancy"][i] if "occupancy" in host else None,
+        )
+        for i, wl in enumerate(wls)
+    ]
+
+
+def serve_grid(
+    seeds: Sequence[int],
+    static: EngineStatic,
+    cells: Sequence[ServeConfig],
+    *,
+    device: str | torch.device | None = None,
+) -> list[list[ServeResult]]:
+    """Run a whole serving grid as one batched run axis.
+
+    Every cell replays the same seeds (the workload is keyed per (cell
+    workload parameters, seed)); runs are flattened cell-major.
+    ``static.slots`` is the padded loop length (>= every cell's ``slots``)
+    and ``static.max_arrivals`` the lane width (0 = the batch maximum,
+    rounded up to a multiple of 8).  Returns ``results[c][s]``, equal to
+    :func:`serve_one` per cell and seed.  ``device=None`` means the CUDA
+    card; pass ``device="cpu"`` for the plain PyTorch path.
+    """
+    dev = _resolve_device(device)
+    _check_static(static)
+    cells = list(cells)
+    seeds = [int(s) for s in seeds]
+    for cell in cells:
+        cs = cell.static_part()
+        if (
+            cs.replicas, cs.decode_slots, cs.queue_cap, cs.comm, cs.policy,
+            cs.sqd, cs.use_rates, cs.route_backend, cs.deterministic_ties,
+            cs.network, cs.transport, cs.fault,
+        ) != (
+            static.replicas, static.decode_slots, static.queue_cap,
+            static.comm, static.policy, static.sqd, static.use_rates,
+            static.route_backend, static.deterministic_ties, static.network,
+            static.transport, static.fault,
+        ):
+            raise ValueError(
+                f"cell static part {cs} does not match grid static {static}"
+            )
+        if cell.slots > static.slots:
+            raise ValueError(
+                f"cell slots {cell.slots} exceeds padded length {static.slots}"
+            )
+    flat_cells = [cell for cell in cells for _ in seeds]
+    flat_wls = [workload_for(cell, s) for cell in cells for s in seeds]
+    a_need = max(int(w.n_arr.max()) for w in flat_wls)
+    a_pad = _round_up(a_need, 8)
+    if static.max_arrivals:
+        if static.max_arrivals < a_need:
+            raise ValueError(
+                f"static.max_arrivals={static.max_arrivals} below the "
+                f"sampled batch maximum {a_need}"
+            )
+        a_pad = static.max_arrivals
+    static = dataclasses.replace(static, max_arrivals=a_pad)
+    n_cap = _round_up(max(w.total for w in flat_wls), 1024)
+    res = _run(flat_wls, flat_cells, static, n_cap, dev)
+    s = len(seeds)
+    return [res[c * s : (c + 1) * s] for c in range(len(cells))]
+
+
+def serve_one(
+    seed: int,
+    cell: ServeConfig,
+    *,
+    trace_occupancy: bool = False,
+    workload=None,
+    device: str | torch.device | None = None,
+) -> ServeResult:
+    """Run one serving cell (one seed) on its own.
+
+    ``workload`` overrides the cached sampler stream; any object with the
+    fields of :class:`ServeWorkload` (such as the reference's) is copied
+    in by :meth:`ServeWorkload.from_arrays`.  It must cover at most
+    ``cell.slots`` slots.  ``device=None`` means the CUDA card.
+    """
+    dev = _resolve_device(device)
+    if workload is None:
+        wl = workload_for(cell, seed)
+    else:
+        wl = ServeWorkload.from_arrays(workload)
+    if wl.n_arr.shape[0] > cell.slots:
+        raise ValueError(
+            f"workload covers {wl.n_arr.shape[0]} slots, cell.slots is {cell.slots}"
+        )
+    a_need = max(int(wl.n_arr.max()), 1)
+    if cell.max_arrivals:
+        if cell.max_arrivals < a_need:
+            raise ValueError(
+                f"max_arrivals={cell.max_arrivals} below the sampled "
+                f"per-slot maximum {a_need}"
+            )
+        a_pad = cell.max_arrivals
+    else:
+        a_pad = _round_up(a_need, 8)
+    static = dataclasses.replace(
+        cell.static_part(), max_arrivals=a_pad, trace_occupancy=trace_occupancy
+    )
+    return _run([wl], [cell], static, _round_up(wl.total, 1024), dev)[0]

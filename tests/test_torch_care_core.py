@@ -214,6 +214,20 @@ class TestWorkload:
         got = tworkload.bernoulli_arrivals(_t(u), torch.tensor(np.float32(load)))
         _eq(got, ref)
 
+    @pytest.mark.parametrize("rates", [
+        (1.0, 2.0, 0.5, 0.25), (1.5, 4 / 3, 0.75, 0.3), (0.1, 0.7, 2.5, 3.0),
+    ])
+    def test_service_units_match(self, rates):
+        # The credit schedule is float32 arithmetic on both sides; the
+        # port takes the slot index as a float32 tensor.
+        r = np.asarray(rates, np.float32)
+        slots = np.arange(5000, dtype=np.float32)
+        got = tworkload.service_units(_t(slots)[:, None], _t(r)[None, :])
+        ref = jworkload.service_units(jnp.asarray(slots)[:, None], jnp.asarray(r)[None, :])
+        _eq(got, ref)
+        _eq(got, jworkload.service_units(slots[:, None], r[None, :], xp=np))
+        np.testing.assert_allclose(got.numpy().mean(0), r, atol=1e-3)
+
     def test_gumbel_from_the_same_uniforms(self):
         # Float results of log: equal up to one ulp per log, so this one
         # is held to a float32 tolerance; the argmax decisions built on

@@ -2,7 +2,8 @@
 
 This file imports nothing of JAX, so that it runs on the machine with the
 card: ``PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py``.  Every
-output is int32 and must be equal.  Where there is no card, each test
+output is an integer, a bool or a float32 sum of whole ``+1.0`` steps, and
+must be equal.  Where there is no card, each test
 skips with a reason.
 """
 import numpy as np
@@ -12,6 +13,7 @@ import torch
 from repro_torch.core.care import slotted_sim
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
+from repro_torch.serve import engine as serve_engine
 
 POLICIES = ["jsq", "jsaq"]
 KINDS = ["rt", "dt", "et", "et_rt", "exact", "none"]
@@ -70,7 +72,7 @@ class TestOnCard:
                  for x in (2, 3)]
         tops.reset_launch_counts()
         fused = slotted_sim.simulate_grid([0, 1], static, cells, device=cuda_device)
-        assert tops.launch_counts() == {"jsaq_route": 0, "care_route": 1}
+        assert tops.launch_counts() == {"jsaq_route": 0, "care_route": 1, "serve_route": 0}
         dense = slotted_sim.simulate_grid(
             [0, 1], slotted_sim.StaticConfig(**{**static.__dict__, "route_backend": "dense"}),
             cells, device=cuda_device,
@@ -80,3 +82,58 @@ class TestOnCard:
                 assert (f.messages, f.departures, f.max_aq) == (d.messages, d.departures, d.max_aq)
                 _eq(f.per_server_arrivals, d.per_server_arrivals)
                 _eq(f.final_q, d.final_q)
+
+    @pytest.mark.parametrize("comm", ["et", "exact"])
+    @pytest.mark.parametrize("r,a_n", [(1024, 304), (200, 40), (8, 1)])
+    def test_serve_route_kernel(self, cuda_device, r, a_n, comm):
+        rng = np.random.default_rng(r + a_n)
+        d, cap = 6, 16
+        q_len = rng.integers(0, cap + 1, (d, r)).astype(np.int32)
+        busy = rng.integers(0, 5, (d, r)).astype(np.int32)
+        approx = (rng.integers(0, 40, (d, r)) * 0.25).astype(np.float32)
+        n_arr = rng.integers(0, a_n + 1, d).astype(np.int32)
+        act = np.ones(d, bool)
+        n_arr[0] = a_n
+        q_len[1], busy[1], approx[1] = 2, 1, 3.0  # all ties
+        q_len[2] = cap  # every ring full
+        act[3] = False
+        n_arr[4] = 0
+        state = [
+            torch.from_numpy(x) for x in (
+                rng.random((d, a_n), dtype=np.float32), q_len,
+                rng.integers(0, cap, (d, r)).astype(np.int32), busy, approx,
+                n_arr, act,
+            )
+        ]
+        ref = tref.serve_route_ref(*state, cap=cap, comm=comm)
+        before = tops.launch_counts()["serve_route"]
+        got = tops.serve_route(*(x.to(cuda_device) for x in state), cap=cap, comm=comm)
+        torch.cuda.synchronize()
+        assert tops.launch_counts()["serve_route"] == before + 1
+        for g, want in zip(got, ref):
+            _eq(g.cpu().numpy(), want.numpy())
+
+    def test_fused_serve_grid_goes_through_the_kernel(self, cuda_device):
+        cells = [
+            serve_engine.ServeConfig(
+                replicas=64, decode_slots=16, slots=300, load=0.9, comm="et", x=x,
+                mean_prefill=4, mean_decode=60, msr_drain=0.25, queue_cap=128,
+                deterministic_ties=True, route_backend="fused",
+            )
+            for x in (2, 4)
+        ]
+        static = cells[0].static_part()
+        tops.reset_launch_counts()
+        fused = serve_engine.serve_grid([0, 1], static, cells, device=cuda_device)
+        assert tops.launch_counts() == {"jsaq_route": 0, "care_route": 0, "serve_route": 300}
+        dense_cells = [
+            serve_engine.ServeConfig(**{**c.__dict__, "route_backend": "dense"}) for c in cells
+        ]
+        dense = serve_engine.serve_grid(
+            [0, 1], dense_cells[0].static_part(), dense_cells, device=cuda_device
+        )
+        for row_f, row_d in zip(fused, dense):
+            for f, d in zip(row_f, row_d):
+                assert (f.messages, f.completed, f.dropped) == (d.messages, d.completed, d.dropped)
+                _eq(f.jct_by_rid, d.jct_by_rid)
+                _eq(f.final_occupancy, d.final_occupancy)

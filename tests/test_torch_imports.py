@@ -19,6 +19,11 @@ def _module_name(path: Path) -> str:
     return ".".join(parts)
 
 
+def test_serve_modules_are_checked():
+    modules = {_module_name(p) for p in FILES if p.parent != ROOT}
+    assert {"repro_torch.serve", "repro_torch.serve.engine"} <= modules
+
+
 def test_every_module_imports_without_jax():
     modules = [_module_name(p) for p in FILES if p.parent != ROOT]
     code = (

@@ -3,10 +3,14 @@
 On the CPU the port's wrappers run the plain PyTorch versions
 (``repro_torch.kernels.ref``); they are held against the Pallas kernels
 run in interpret mode on the same numpy-seeded inputs.  Every output is
-int32, so the tolerance is zero: arrays must be equal.  The CUDA kernels
+int32 (``serve_route`` adds bools and float32 sums of whole ``+1.0`` steps),
+so the tolerance is zero: arrays must be equal.  The CUDA kernels
 themselves are held against the plain versions on the card by
 ``tests/test_torch_cuda.py`` and ``chip_smoke.py``.
 """
+import functools
+
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -108,6 +112,58 @@ class TestCareRoute:
         assert (got[3][:, 3].numpy() > 0).all()
 
 
+def serve_route_state(d, r, a_n, cap, seed):
+    """Random serving states with the edge rows of ``chip_smoke.py``.
+
+    Row 0 routes every lane (``n_arr = A``), row 1 has all scores tied,
+    row 2 has every ring at ``cap`` (all live lanes drop), row 3 is past
+    its horizon (``act = 0``), row 4 has no arrivals; the rest are random.
+    """
+    rng = np.random.default_rng(seed)
+    q_len = rng.integers(0, cap + 1, (d, r)).astype(np.int32)
+    q_head = rng.integers(0, cap, (d, r)).astype(np.int32)
+    busy = rng.integers(0, 5, (d, r)).astype(np.int32)
+    approx = (rng.integers(0, 40, (d, r)) * 0.25).astype(np.float32)
+    n_arr = rng.integers(0, a_n + 1, d).astype(np.int32)
+    act = np.ones(d, bool)
+    tie_u = rng.random((d, a_n), dtype=np.float32)
+    n_arr[0] = a_n
+    q_len[1], busy[1], approx[1] = 2, 1, 3.0
+    q_len[2] = cap
+    act[3] = False
+    n_arr[4] = 0
+    return tie_u, q_len, q_head, busy, approx, n_arr, act
+
+
+class TestServeRoute:
+    @pytest.mark.parametrize("comm", ["et", "exact"])
+    @pytest.mark.parametrize("r,a_n,cap", [(16, 24, 8), (200, 40, 16), (130, 1, 4)])
+    def test_matches_pallas_row_by_row(self, r, a_n, cap, comm):
+        # R=200 and R=130 are not multiples of the TPU's 128-lane tile: the
+        # reference pads them, the port needs no padding.  A=1 is one lane.
+        d = 6
+        state = serve_route_state(d, r, a_n, cap, seed=r + a_n)
+        got = tops.serve_route(*map(torch.from_numpy, state), cap=cap, comm=comm)
+        jax_route = jax.jit(functools.partial(
+            jops.serve_route, cap=cap, comm=comm, interpret=True
+        ))
+        for row in range(d):
+            ref = jax_route(*(jnp.asarray(x[row]) for x in state))
+            for g, want in zip(got, ref):
+                _eq(g[row].numpy(), want)
+        jv, tail, admit, q_len, _, drops = (x.numpy() for x in got)
+        assert (drops[2] == state[5][2]) and not admit[2].any()
+        assert not admit[3].any() and not admit[4].any()
+        np.testing.assert_array_equal(q_len[3:5], state[1][3:5])
+        if comm == "et":
+            assert jv[1, 0] == 0  # all ties: the lowest index first
+
+    def test_refuses_unknown_comm(self):
+        state = serve_route_state(5, 4, 3, 2, seed=0)
+        with pytest.raises(ValueError, match="communication kind"):
+            tops.serve_route(*map(torch.from_numpy, state), cap=2, comm="jiq")
+
+
 class TestDispatch:
     def test_cpu_tensor_takes_the_plain_version(self):
         tops.reset_launch_counts()
@@ -120,7 +176,7 @@ class TestDispatch:
         ref = tref.care_route_ref(arrive, params, servers=4, cap=8, policy="jsaq", comm="et")
         for g, r in zip(out, ref):
             _eq(g.numpy(), r.numpy())
-        assert tops.launch_counts() == {"jsaq_route": 0, "care_route": 0}
+        assert tops.launch_counts() == {"jsaq_route": 0, "care_route": 0, "serve_route": 0}
 
     def test_kernel_binding_refuses_cpu_tensors(self):
         q = torch.zeros((2, 5), dtype=torch.int32)
@@ -130,7 +186,11 @@ class TestDispatch:
             tcuda.care_route_cuda(
                 q, q[:, :4].contiguous(), servers=4, cap=8, policy="jsaq", comm="et"
             )
+        state = [torch.from_numpy(x) for x in serve_route_state(5, 4, 3, 2, seed=0)]
+        with pytest.raises(ValueError, match="CUDA tensor"):
+            tcuda.serve_route_cuda(*state, cap=2, comm="et")
         assert tops.launch_counts()["care_route"] == 0
+        assert tops.launch_counts()["serve_route"] == 0
 
     def test_unknown_kinds(self):
         arrive = torch.ones((1, 4), dtype=torch.int32)
