@@ -45,7 +45,22 @@ own failure):
 6. The serving dense backend against the fused one on the card, field for
    field, at 64 replicas x 16 decode slots, 1000 slots, comm et / dt /
    exact, seeds (0, 1).
-7. Print the kernels line (launch counts from the main paths, parity,
+7. The MoE serving path (``repro_torch.models``): DeepSeek-V2 at its
+   published widths (bf16, d_model 5120, 128 heads, MLA, 160 routed + 2
+   shared experts, top-6 softmax) with the depth cut to 3 layers (one
+   dense, two MoE), initialised on the card from a seed.  4 prompts of 512
+   tokens; prefill #1 without bias, its routed counts fed to the CARE
+   balancer, prefill #2 with the balancer's selection bias, then greedy
+   decode of 16 tokens each (cache 528).  Asserts one ``moe_route`` launch
+   per MoE layer per prefill and per decode step, finite logits, the
+   kernel against its plain version at the path's own inputs (T=2048 and
+   T=4) and at DeepSeek-V3's shape (T=2048, E=256, k=8, sigmoid) with
+   ties, a 1e9 bias, T=1 and bf16 logits; times the kernel, prints the
+   expert load per layer and a profiler window of one prefill and one
+   decode step.  Then the same model in float32 with each expert's
+   capacity raised to T (no token dropped): prefill over S against prefill
+   over S-1 and one ``decode_step``, within 2e-2.
+8. Print the kernels line (launch counts from the main paths, parity,
    times and bounds), the card's name and power limit, and the contract
    line last.
 
@@ -104,6 +119,21 @@ LADDER_SLOTS = 20_000
 LADDER_X = (2, 4, 8, 16)
 LADDER_SEEDS = (0, 1, 2, 3)
 SERVE_DENSE_VS_FUSED = dict(replicas=64, decode_slots=16, slots=1000, queue_cap=128)
+# Phase 7: DeepSeek-V2 serving at published widths, depth cut to one dense
+# and two MoE layers; 4 prompts of 512 tokens (2048 routed tokens a MoE
+# layer), greedy decode of 16 tokens each into a cache of 528.
+MOE_ARCH = "deepseek-v2-236b"
+MOE_LAYERS = 3
+MOE_BATCH, MOE_PROMPT, MOE_NEW, MOE_CACHE = 4, 512, 16, 528
+MOE_SEED = 0
+MOE_TIME_REPS = 100
+# moe_route: per logit, the gate (max, subtract, exp, sum, divide) and the
+# score (subtract) are 6 operations; each of the k sweeps compares and
+# selects (2 more).
+MOE_OPS_PER_SCORE = 6
+# About 25 ms at the H100's 1.98 GHz: longer than the host takes to
+# enqueue MOE_TIME_REPS launches (~35 us each).
+SLEEP_CYCLES = 50_000_000
 
 
 def _time_ms(fn, reps: int, warm: bool = True) -> float:
@@ -211,6 +241,286 @@ def _profile_serving(engine, cell, wall_per_slot_s: float) -> None:
           f"ops by self time (profiled): "
           + ", ".join(f"{e.key} {e.self_cpu_time_total / host_us:.3f} "
                       f"(x{e.count / cell.slots:.1f}/slot)" for e in host[:10]))
+
+
+def _device_ms(fn, reps: int) -> float:
+    """Mean device time of ``fn`` over ``reps`` back-to-back launches.
+
+    A sleep kernel holds the stream while the host enqueues every launch,
+    so the host's cost per call (a ctypes call and the output allocations,
+    more than a small kernel's device time) does not show.  Fails if the
+    enqueue outlasted the sleep, since the device would then have waited
+    on the host inside the timed window.
+    """
+    fn()
+    torch.cuda.synchronize()
+    slept, start, end = (torch.cuda.Event(enable_timing=True) for _ in range(3))
+    t0 = time.perf_counter()
+    slept.record()
+    torch.cuda._sleep(SLEEP_CYCLES)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    enqueue_ms = (time.perf_counter() - t0) * 1e3
+    end.synchronize()
+    sleep_ms = slept.elapsed_time(start)
+    assert enqueue_ms < sleep_ms, (
+        f"enqueueing {reps} launches took {enqueue_ms:.2f} ms, longer than the "
+        f"{sleep_ms:.2f} ms sleep: the timing would include host time"
+    )
+    return start.elapsed_time(end) / reps
+
+
+def _moe_bound(t: int, e: int, k: int, logit_bytes: int) -> tuple[float, str]:
+    """moe_route's bound: logits and bias read once, idx / weights /
+    counts written once; MOE_OPS_PER_SCORE + 2 k operations per logit."""
+    n_bytes = t * e * logit_bytes + 4 * e + 2 * 4 * t * k + 4 * e
+    return _bound_ms(n_bytes, (MOE_OPS_PER_SCORE + 2 * k) * t * e)
+
+
+def _moe_config():
+    """DeepSeek-V2 at its published widths, depth cut to MOE_LAYERS."""
+    from repro_torch.configs import get_config
+
+    return dataclasses.replace(get_config(MOE_ARCH), num_layers=MOE_LAYERS)
+
+
+def _moe_parity(moe_k, ref, logits, bias, k: int, gate_fn: str) -> float:
+    """``moe_route`` against its plain version on the same card tensors:
+    ids and counts equal, weights within rtol 1e-5 / atol 1e-6."""
+    got = moe_k.moe_route_cuda(logits, bias, k, gate_fn=gate_fn)
+    want = ref.moe_route_ref(logits, bias, k, gate_fn)
+    shape = f"T={logits.shape[0]} E={logits.shape[1]} k={k} {gate_fn} {logits.dtype}"
+    assert torch.equal(got[0], want[0]), f"moe_route ids differ at {shape}"
+    assert torch.equal(got[2], want[2]), f"moe_route counts differ at {shape}"
+    torch.testing.assert_close(got[1], want[1], rtol=1e-5, atol=1e-6, msg=shape)
+    assert int(got[2].sum()) == logits.shape[0] * k
+    return _max_abs_err(got, want)
+
+
+def _moe_serving(dev, times: dict) -> dict:
+    """Phase 7: the MoE serving path at full width, its CARE loop, the
+    router kernel against its plain version, and prefill against decode in
+    float32.  Returns the kernel's line for the kernels JSON."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core import moe_balancer
+    from repro_torch.kernels import moe_route as moe_k
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models import ffn, model
+
+    cfg = _moe_config()
+    n_moe = model.num_scanned_layers(cfg)
+    e, k = cfg.n_routed_experts, cfg.moe_top_k
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    params = model.init_params(torch.Generator(device=dev).manual_seed(MOE_SEED), cfg, dev)
+    torch.cuda.synchronize()
+    times["moe_init_s"] = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in params.parameters())
+    print(f"phase 7 {cfg.name} x {MOE_LAYERS} layers ({n_moe} MoE), {cfg.param_dtype}: "
+          f"{n_params:,} parameters initialised on the card in {times['moe_init_s']:.2f} s; "
+          f"{torch.cuda.memory_allocated(dev) / 1e9:.2f} GB allocated")
+    rng = np.random.default_rng(MOE_SEED)
+    tokens = torch.from_numpy(
+        rng.integers(0, cfg.vocab_size, (MOE_BATCH, MOE_PROMPT)).astype(np.int64)
+    ).to(dev)
+
+    # The spy forwards every call and keeps its inputs and counts.
+    calls = []
+    route = ops.moe_route
+
+    def spy(logits, bias, top_k, *, gate_fn):
+        out = route(logits, bias, top_k, gate_fn=gate_fn)
+        calls.append((logits, bias, out))
+        return out
+
+    def prefill(bias):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = model.prefill(params, {"tokens": tokens}, cfg, cache_len=MOE_CACHE,
+                                      bias=bias)
+        torch.cuda.synchronize()
+        return logits, cache, time.perf_counter() - t0, [c[2][2] for c in calls[-n_moe:]]
+
+    ops.moe_route = spy
+    ops.reset_launch_counts()
+    logits1, _, wall1, counts1 = prefill(None)
+    state = moe_balancer.BalancerState.init(n_moe, e, dev)
+    state = moe_balancer.post_step_update(state, torch.stack(counts1).float(), cfg.care)
+    bias = moe_balancer.selection_bias(state, cfg.care)
+    first2 = len(calls)
+    logits2, cache, wall2, counts2 = prefill(bias)
+    nxt = logits2.argmax(-1)
+    generated = [nxt]
+    finite = torch.isfinite(logits1).all() & torch.isfinite(logits2).all()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(MOE_NEW - 1):
+        logits, cache = model.decode_step(params, nxt, cache, MOE_PROMPT + i, cfg, bias=bias)
+        nxt = logits.argmax(-1)
+        generated.append(nxt)
+        finite &= torch.isfinite(logits).all()
+    torch.cuda.synchronize()
+    decode_ms = (time.perf_counter() - t0) * 1e3 / (MOE_NEW - 1)
+    launches = ops.launch_counts()
+    ops.moe_route = route
+    expected = n_moe * (2 + MOE_NEW - 1)
+    assert launches == {"jsaq_route": 0, "care_route": 0, "serve_route": 0,
+                        "moe_route": expected}, (launches, expected)
+    assert bool(finite), "non-finite logits on the MoE serving path"
+    times["moe_prefill1_s"], times["moe_prefill2_s"] = wall1, wall2
+    times["moe_decode_ms_per_token"] = decode_ms
+    out_tokens = torch.stack(generated, 1).cpu().tolist()
+
+    def imbalance(counts):
+        return [round(float(c.max()) / float(c.float().mean()), 4) for c in counts]
+
+    cap = ffn._capacity(MOE_BATCH * MOE_PROMPT, k, e, cfg.moe_capacity_factor)
+
+    def dropped(counts):
+        return [int((c - cap).clamp(min=0).sum()) for c in counts]
+
+    print(f"phase 7 CARE loop: prefill #1 (no bias) {wall1:.4f} s, prefill #2 (CARE bias, "
+          f"same prompts) {wall2:.4f} s, decode {MOE_NEW - 1} steps {decode_ms:.3f} ms a "
+          f"token (B={MOE_BATCH}, cache {MOE_CACHE}); launches {launches}; expert max/mean "
+          f"per MoE layer {imbalance(counts1)} -> {imbalance(counts2)}, max count "
+          f"{[int(c.max()) for c in counts1]} -> {[int(c.max()) for c in counts2]} against "
+          f"capacity {cap}, (token, slot) pairs dropped {dropped(counts1)} -> "
+          f"{dropped(counts2)} of {MOE_BATCH * MOE_PROMPT * k}; bias range [{float(bias.min()):.3f}, {float(bias.max()):.3f}]; "
+          f"needs_sync {bool(moe_balancer.needs_sync(state, cfg.care))}")
+    print(f"phase 7 generated tokens: {out_tokens}")
+
+    # The kernel against its plain version at the main path's own inputs,
+    # then at DeepSeek-V3's shape and the edge cases.
+    p_logits, p_bias, _ = calls[first2]
+    d_logits, d_bias, _ = calls[first2 + n_moe]
+    gate = cfg.gate_fn
+    errs = [_moe_parity(moe_k, ref, p_logits, p_bias, k, gate),
+            _moe_parity(moe_k, ref, d_logits, d_bias, k, gate)]
+    v3 = torch.from_numpy(rng.standard_normal((MOE_BATCH * MOE_PROMPT, 256)).astype(np.float32))
+    v3[0] = 0  # an all-ties row
+    v3_bias = torch.from_numpy(rng.standard_normal(256).astype(np.float32))
+    v3_bias[7] = 1e9  # an expert no token may choose
+    v3, v3_bias = v3.to(dev), v3_bias.to(dev)
+    errs.append(_moe_parity(moe_k, ref, v3, v3_bias, 8, "sigmoid"))
+    assert int(moe_k.moe_route_cuda(v3, v3_bias, 8, gate_fn="sigmoid")[2][7]) == 0
+    errs.append(_moe_parity(moe_k, ref, p_logits[:1].contiguous(), p_bias, k, gate))
+    errs.append(_moe_parity(moe_k, ref, p_logits.to(torch.bfloat16), p_bias, k, gate))
+    ties = torch.zeros((MOE_BATCH, e), device=dev)
+    errs.append(_moe_parity(moe_k, ref, ties, torch.zeros(e, device=dev), k, gate))
+    assert moe_k.moe_route_cuda(ties, torch.zeros(e, device=dev), k)[0].tolist() == [
+        list(range(k))] * MOE_BATCH, "all ties must choose the lowest indices"
+
+    t_p, t_d = p_logits.shape[0], d_logits.shape[0]
+    kernel_ms = _device_ms(lambda: moe_k.moe_route_cuda(p_logits, p_bias, k, gate_fn=gate),
+                           MOE_TIME_REPS)
+    decode_kernel_ms = _device_ms(
+        lambda: moe_k.moe_route_cuda(d_logits, d_bias, k, gate_fn=gate), MOE_TIME_REPS)
+    host_ms = _time_ms(lambda: moe_k.moe_route_cuda(p_logits, p_bias, k, gate_fn=gate),
+                       MOE_TIME_REPS)
+    plain_ms = _time_ms(lambda: ref.moe_route_ref(p_logits, p_bias, k, gate), 20)
+    decode_plain_ms = _time_ms(lambda: ref.moe_route_ref(d_logits, d_bias, k, gate), 20)
+    bound = _moe_bound(t_p, e, k, 4)
+    decode_bound = _moe_bound(t_d, e, k, 4)
+    v3_ms = _device_ms(lambda: moe_k.moe_route_cuda(v3, v3_bias, 8, gate_fn="sigmoid"),
+                       MOE_TIME_REPS)
+    v3_bound = _moe_bound(v3.shape[0], 256, 8, 4)
+    print(f"phase 7 moe_route against its plain version: equal ids and counts, weights "
+          f"max_abs_err {max(errs):.3g}, at the main path's T={t_p} and T={t_d} "
+          f"(E={e}, k={k}, {gate}), V3's T={v3.shape[0]} E=256 k=8 sigmoid with an "
+          f"all-ties row and a 1e9 bias, T=1, bf16 logits and an all-ties batch")
+    print(f"phase 7 moe_route kernel (device time, queue filled) T={t_p}: {kernel_ms:.5f} ms, "
+          f"bound {bound[0]:.6f} ms ({bound[1]}), plain {plain_ms:.4f} ms, host time per "
+          f"call {host_ms:.5f} ms; T={t_d}: {decode_kernel_ms:.5f} ms, bound "
+          f"{decode_bound[0]:.7f} ms ({decode_bound[1]}), plain {decode_plain_ms:.4f} ms; "
+          f"V3 T={v3.shape[0]} E=256 k=8: {v3_ms:.5f} ms, bound {v3_bound[0]:.6f} ms "
+          f"({v3_bound[1]}); kernel share of prefill #2's wall "
+          f"{n_moe * kernel_ms / (wall2 * 1e3):.5f}, of a decode step "
+          f"{n_moe * decode_kernel_ms / decode_ms:.5f}")
+
+    # Where the time goes: one profiled prefill and decode step.
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        logits, cache = model.prefill(params, {"tokens": tokens}, cfg, cache_len=MOE_CACHE,
+                                      bias=bias)
+        model.decode_step(params, logits.argmax(-1), cache, MOE_PROMPT, cfg, bias=bias)
+        torch.cuda.synchronize()
+    device = [ev for ev in prof.key_averages()
+              if ev.device_type == torch.autograd.DeviceType.CUDA]
+    device_us = sum(ev.self_device_time_total for ev in device)
+    if device_us == 0:
+        print("phase 7 profile: the profiler saw no device time; busy share not measured")
+    else:
+        device.sort(key=lambda ev: ev.self_device_time_total, reverse=True)
+        route_us = sum(ev.self_device_time_total for ev in device if "moe_route" in ev.key)
+        print(f"phase 7 profile of one prefill + one decode step: device busy "
+              f"{device_us / 1e3:.3f} ms against an unprofiled wall of "
+              f"{wall2 * 1e3 + decode_ms:.3f} ms (busy share "
+              f"{device_us / 1e3 / (wall2 * 1e3 + decode_ms):.3f}); moe_route "
+              f"{route_us / device_us:.5f} of device time; top device operations: "
+              + "; ".join(f"{ev.key[:60]} {ev.self_device_time_total / 1e3:.3f} ms "
+                          f"x{ev.count}" for ev in device[:8]))
+    del params, cache, calls, logits, logits1, logits2, p_logits, d_logits
+    torch.cuda.empty_cache()
+
+    # Prefill against decode in float32.  A full expert may drop a
+    # request's last token in the 2048-token prefill and keep it in the
+    # 4-token decode, a legitimate difference.  The random gate routes with
+    # max/mean 3-5 (above), past reduced()'s factor of 4.0, so the check
+    # sets the capacity to T (factor E / k): no token can be dropped, which
+    # the spy's counts confirm.
+    cfg32 = dataclasses.replace(cfg, param_dtype="float32", compute_dtype="float32",
+                                moe_capacity_factor=e / k)
+    t0 = time.perf_counter()
+    params = model.init_params(torch.Generator(device=dev).manual_seed(MOE_SEED), cfg32, dev)
+    torch.cuda.synchronize()
+    times["moe_f32_init_s"] = time.perf_counter() - t0
+    routes = []
+
+    def spy32(logits, bias, top_k, *, gate_fn):
+        out = route(logits, bias, top_k, gate_fn=gate_fn)
+        routes.append(out)
+        return out
+
+    ops.moe_route = spy32
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    full, _ = model.prefill(params, {"tokens": tokens}, cfg32, cache_len=MOE_PROMPT)
+    _, cache = model.prefill(params, {"tokens": tokens[:, :-1]}, cfg32, cache_len=MOE_PROMPT)
+    step, _ = model.decode_step(params, tokens[:, -1], cache, MOE_PROMPT - 1, cfg32)
+    torch.cuda.synchronize()
+    times["moe_f32_check_s"] = time.perf_counter() - t0
+    ops.moe_route = route
+    assert len(routes) == 3 * n_moe
+    for idx, _, counts in routes:
+        t = idx.shape[0]
+        c = ffn._capacity(t, k, e, cfg32.moe_capacity_factor)
+        assert int(counts.max()) <= c, f"an expert overflowed ({int(counts.max())} > {c}, T={t})"
+    differ = sum(
+        int((full_idx.reshape(MOE_BATCH, MOE_PROMPT, k)[:, -1] != dec_idx).sum())
+        for full_idx, dec_idx in zip((r[0] for r in routes[:n_moe]),
+                                     (r[0] for r in routes[2 * n_moe:]))
+    )
+    err = float((step - full).abs().max())
+    torch.testing.assert_close(step, full, rtol=2e-2, atol=2e-2)
+    print(f"phase 7 float32 prefill over S={MOE_PROMPT} against prefill over S-1 + "
+          f"decode_step, capacity factor {e / k:.3f}: logits within 2e-2 (max abs "
+          f"difference {err:.3g}); no expert over capacity; {differ} of "
+          f"{n_moe * MOE_BATCH * k} routing decisions of the last position differ; "
+          f"init {times['moe_f32_init_s']:.2f} s, check {times['moe_f32_check_s']:.2f} s, "
+          f"peak {torch.cuda.max_memory_allocated(dev) / 1e9:.1f} GB")
+    del params, cache, full, step, routes
+    torch.cuda.empty_cache()
+
+    return {
+        "name": "moe_route", "route": "cuda",
+        "source": "src/repro_torch/csrc/moe_route.cu",
+        "replaces": "src/repro/kernels/moe_route.py:89",
+        "launches": launches["moe_route"],
+        "max_abs_err": max(errs), "ms": kernel_ms, "plain_ms": plain_ms,
+        "bound_ms": bound[0], "bound_by": bound[1], "library_ms": None,
+    }
 
 
 def _card() -> str:
@@ -343,7 +653,7 @@ def main() -> int:
         wall = time.perf_counter() - t0
         main_launches = ops.launch_counts()
         assert main_launches == {"jsaq_route": 0, "care_route": 1,
-                                 "serve_route": 0}, main_launches
+                                 "serve_route": 0, "moe_route": 0}, main_launches
         for c, x in enumerate((2, 3)):
             for res in grid[c]:
                 assert res.max_aq <= x - 1, f"Theorem 2.3 violated: {res.max_aq}"
@@ -406,7 +716,7 @@ def main() -> int:
     serve_launches = ops.launch_counts()
     ops.serve_route = route
     assert serve_launches == {"jsaq_route": 0, "care_route": 0,
-                              "serve_route": big.slots}, serve_launches
+                              "serve_route": big.slots, "moe_route": 0}, serve_launches
     for res in served:
         assert res.dropped == 0, f"{res.dropped} requests dropped"
         assert res.offered == res.completed + res.dropped + int(res.final_occupancy.sum())
@@ -531,7 +841,12 @@ def main() -> int:
           f"{SERVE_DENSE_VS_FUSED}, et/dt/exact x 2 seeds: "
           f"{times['serve_dense_vs_fused_s']:.1f} s")
 
-    # -- 7. output ---------------------------------------------------------------
+    # -- 7. MoE serving -----------------------------------------------------------
+    t0 = time.perf_counter()
+    moe_kernel = _moe_serving(dev, times)
+    times["moe_phase_s"] = time.perf_counter() - t0
+
+    # -- 8. output ---------------------------------------------------------------
     kernels = [
         {
             "name": "care_route", "route": "cuda",
@@ -557,6 +872,7 @@ def main() -> int:
             "max_abs_err": serve_err, "ms": serve_ms, "plain_ms": serve_plain_ms,
             "bound_ms": serve_bound[0], "bound_by": serve_bound[1], "library_ms": None,
         },
+        moe_kernel,
     ]
     print("times (s): " + json.dumps(times) + f" on {card}")
     print(json.dumps({"kernels": kernels}))

@@ -2,16 +2,18 @@
 
 A wrapper looks at where its input lies.  A CPU tensor goes to the plain
 PyTorch version in :mod:`repro_torch.kernels.ref`; a CUDA tensor goes to the
-hand-written kernel in :mod:`repro_torch.kernels.jsaq_route`, which either
-launches or raises -- nothing on the CUDA path falls back to the plain
-version.  The kernels mask by bound, so no lane or domain padding is
-needed.  Only a kernel launch counts in :func:`launch_counts`.
+hand-written kernel (bindings in :mod:`repro_torch.kernels.jsaq_route` and
+:mod:`repro_torch.kernels.moe_route`), which either launches or raises --
+nothing on the CUDA path falls back to the plain version.  The kernels mask
+by bound, so no lane, domain or token padding is needed.  Only a kernel
+launch counts in :func:`launch_counts`.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels import jsaq_route as _cuda
+from repro_torch.kernels import moe_route as _moe
 from repro_torch.kernels import ref as _ref
 
 
@@ -68,10 +70,24 @@ def serve_route(
     return _ref.serve_route_ref(*args, cap=cap, comm=comm)
 
 
+def moe_route(
+    logits: torch.Tensor, bias: torch.Tensor, top_k: int, *, gate_fn: str = "softmax"
+):
+    """CARE-biased top-k MoE routing: ``(T, E)`` logits + ``(E,)`` bias ->
+    ``((T, k) idx, (T, k) weights, (E,) counts)``; see ``ref.moe_route_ref``.
+    Any ``T >= 1`` (no token padding); ``1 <= top_k <= E``."""
+    if not 1 <= top_k <= logits.shape[-1]:
+        raise ValueError(f"top_k must be in [1, {logits.shape[-1]}], got {top_k}")
+    if _route(logits, "moe_route"):
+        return _moe.moe_route_cuda(logits, bias, top_k, gate_fn=gate_fn)
+    return _ref.moe_route_ref(logits, bias, top_k, gate_fn)
+
+
 _KERNELS = {
     "jsaq_route": _cuda.jsaq_route_cuda,
     "care_route": _cuda.care_route_cuda,
     "serve_route": _cuda.serve_route_cuda,
+    "moe_route": _moe.moe_route_cuda,
 }
 
 

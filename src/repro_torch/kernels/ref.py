@@ -4,7 +4,9 @@ Each ``*_ref`` computes what its CUDA kernel computes, tie-breaking
 included (first index wins), with ordinary tensor operations.  The CPU
 path of :mod:`repro_torch.kernels.ops` runs them, the tests hold them
 against the JAX package, and ``chip_smoke.py`` holds the kernels against
-them on the card.  All outputs are int32 and compared for equality.
+them on the card.  Integer and bool outputs are compared for equality;
+``moe_route``'s float32 combine weights within rtol 1e-5 / atol 1e-6 (the
+JAX package's own tolerance for its router kernel).
 """
 from __future__ import annotations
 
@@ -12,6 +14,10 @@ import torch
 
 # Trigger kinds the fused kernel evaluates.
 CARE_COMMS = ("rt", "dt", "et", "et_rt", "exact", "none")
+# Gate activations of the MoE router.
+GATE_FNS = ("softmax", "sigmoid")
+# Score given to an expert already chosen for a token.
+MOE_NEG = -1e30
 
 
 def jsaq_route_ref(q_app: torch.Tensor, num_jobs: int):
@@ -209,3 +215,47 @@ def serve_route_ref(
         ap[rows, j] = ap[rows, j] + ok.to(torch.float32)
         drops = drops + (live & ~ok).to(torch.int32)
     return jv, tail, admit, q, ap, drops
+
+
+def moe_route_ref(
+    logits: torch.Tensor, bias: torch.Tensor, top_k: int, gate_fn: str = "softmax"
+):
+    """CARE-biased top-k routing: iterative masked argmax, unbiased weights.
+
+    Mirrors ``repro/kernels/ref.py:60-86``: the gates are the softmax (or
+    sigmoid) of the float32 logits; the selection score is ``logits -
+    bias``; each of ``top_k`` sweeps takes the argmax of the score (the
+    first index wins ties: ``torch.argmax`` returns the first maximum,
+    where ``torch.topk`` gives no tie order) and sets it to ``-1e30``; the
+    weights are the chosen experts' gates over ``(their sum + 1e-20)``.
+
+    Args:
+      logits: ``(T, E)`` float32 or bfloat16.
+      bias: ``(E,)`` selection bias.
+
+    Returns:
+      ``(idx, weights, counts)``: ``(T, k)`` int32 experts in selection
+      order, ``(T, k)`` float32 weights, ``(E,)`` int32 (token, slot)
+      pairs per expert.
+    """
+    if gate_fn not in GATE_FNS:
+        raise ValueError(f"unknown gate_fn {gate_fn!r}; expected one of {GATE_FNS}")
+    logits = logits.to(torch.float32)
+    e = logits.shape[1]
+    if gate_fn == "softmax":
+        gates = torch.softmax(logits, dim=1)
+    else:
+        gates = torch.sigmoid(logits)
+    score = logits - bias[None, :].to(torch.float32)
+    counts = torch.zeros((e,), dtype=torch.int32, device=logits.device)
+    idx_list, w_list = [], []
+    for _ in range(top_k):
+        j = torch.argmax(score, dim=1, keepdim=True)
+        idx_list.append(j)
+        w_list.append(torch.gather(gates, 1, j))
+        counts += torch.bincount(j[:, 0], minlength=e).to(torch.int32)
+        score.scatter_(1, j, MOE_NEG)
+    idx = torch.cat(idx_list, dim=1).to(torch.int32)
+    weights = torch.cat(w_list, dim=1)
+    weights = weights / (weights.sum(dim=1, keepdim=True) + 1e-20)
+    return idx, weights, counts

@@ -1,0 +1,110 @@
+"""Shared model building blocks: norms, RoPE, initialisers, dtype policy.
+
+Port of ``repro/models/common.py``.  Parameters are created on their
+device, in their own dtype, from an explicit ``torch.Generator`` (the JAX
+package's ``KeyGen``); a layer stack is a list of modules, one per layer,
+where the JAX package stacks leaves for ``lax.scan``.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+
+def dtype_of(name: str) -> torch.dtype:
+    return {"float32": torch.float32, "bfloat16": torch.bfloat16, "float16": torch.float16}[
+        name
+    ]
+
+
+# --------------------------------------------------------------------------
+# init
+# --------------------------------------------------------------------------
+
+
+def dense_init(
+    gen: torch.Generator | None, shape, dtype: torch.dtype, device, scale: float = 0.02
+) -> torch.nn.Parameter:
+    """``scale`` times a standard normal truncated to [-2, 2], cast to
+    ``dtype``, drawn on ``device`` from ``gen``.  With ``gen=None`` the
+    parameter is left uninitialised, to be filled by the caller
+    (``models/convert.py``)."""
+    if gen is None:
+        return _param(torch.empty(shape, dtype=dtype, device=device))
+    t = torch.empty(shape, dtype=torch.float32, device=device)
+    torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=gen)
+    return _param(t.mul_(scale).to(dtype))
+
+
+def ones_init(shape, dtype: torch.dtype, device) -> torch.nn.Parameter:
+    return _param(torch.ones(shape, dtype=dtype, device=device))
+
+
+def _param(t: torch.Tensor) -> torch.nn.Parameter:
+    # Serving only: the router kernel has no backward yet, so parameters
+    # carry no gradient (the training path is a later slice).
+    return torch.nn.Parameter(t, requires_grad=False)
+
+
+# --------------------------------------------------------------------------
+# norms
+# --------------------------------------------------------------------------
+
+
+def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6, *, offset: float = 0.0):
+    """RMSNorm in float32.  ``offset=1.0`` gives the gemma-style
+    ``(1 + scale)`` parameterisation."""
+    dt = x.dtype
+    xf = x.to(torch.float32)
+    var = torch.mean(torch.square(xf), dim=-1, keepdim=True)
+    y = xf * torch.rsqrt(var + eps)
+    return (y * (offset + scale.to(torch.float32))).to(dt)
+
+
+def softcap(x: torch.Tensor, cap: float):
+    """Gemma2 logit soft-capping: cap * tanh(x / cap)."""
+    return cap * torch.tanh(x / cap)
+
+
+# --------------------------------------------------------------------------
+# rotary embeddings
+# --------------------------------------------------------------------------
+
+
+def rope_frequencies(head_dim: int, theta: float) -> np.ndarray:
+    return 1.0 / (theta ** (np.arange(0, head_dim, 2, dtype=np.float64) / head_dim))
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float):
+    """Rotate pairs ``(x[..., ::2], x[..., 1::2])`` -- the interleaved
+    convention, not the half split of most PyTorch code.
+
+    x: ``(..., S, H, Dh)``; positions: broadcastable to ``(..., S)``.
+    """
+    dh = x.shape[-1]
+    freqs = torch.from_numpy(rope_frequencies(dh, theta).astype(np.float32)).to(x.device)
+    ang = positions[..., None].to(torch.float32) * freqs  # (..., S, Dh/2)
+    cos = torch.cos(ang)[..., None, :]  # (..., S, 1, Dh/2)
+    sin = torch.sin(ang)[..., None, :]
+    x1 = x[..., 0::2].to(torch.float32)
+    x2 = x[..., 1::2].to(torch.float32)
+    y1 = x1 * cos - x2 * sin
+    y2 = x2 * cos + x1 * sin
+    out = torch.stack([y1, y2], dim=-1).reshape(x.shape)
+    return out.to(x.dtype)
+
+
+# --------------------------------------------------------------------------
+# activations
+# --------------------------------------------------------------------------
+
+
+def activation(name: str):
+    if name == "silu":
+        return F.silu
+    if name == "gelu":
+        return lambda x: F.gelu(x, approximate="tanh")
+    if name == "relu":
+        return F.relu
+    raise ValueError(name)

@@ -1,0 +1,70 @@
+"""Carry a JAX parameter tree across to the port.
+
+The JAX package keeps a nested dict of arrays and stacks the scanned
+layers on a leading axis (``layers/<leaf>`` of shape ``(L, ...)``); the
+port keeps one :class:`~repro_torch.models.model.Model` with a module per
+layer.  :func:`params_from_jax` maps each JAX leaf to the parameter of the
+same dotted name, splitting a stacked ``layers`` leaf on axis 0 into
+``layers.<l>.<leaf>``, and refuses a tree whose leaves and the model's
+parameters do not match one to one in name, shape and dtype.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core.care.slotted_sim import _resolve_device
+from repro_torch.models.model import Model
+
+
+def _flatten(tree, prefix: str = ""):
+    if isinstance(tree, dict):
+        for key, sub in tree.items():
+            yield from _flatten(sub, f"{prefix}{key}.")
+    else:
+        yield prefix[:-1], tree
+
+
+def _tensor(arr) -> torch.Tensor:
+    arr = np.asarray(arr)
+    if arr.dtype.name == "bfloat16":  # ml_dtypes' bfloat16, which torch cannot read
+        return torch.from_numpy(np.array(arr).view(np.uint16)).view(torch.bfloat16)
+    return torch.from_numpy(np.array(arr))
+
+
+def port_leaves(tree) -> dict[str, torch.Tensor]:
+    """The JAX tree as ``{port parameter name: CPU tensor}``."""
+    out = {}
+    for name, arr in _flatten(tree):
+        t = _tensor(arr)
+        head, _, rest = name.partition(".")
+        if head == "layers":
+            for i in range(t.shape[0]):
+                out[f"layers.{i}.{rest}"] = t[i]
+        else:
+            out[name] = t
+    return out
+
+
+def params_from_jax(tree, cfg: ModelConfig, device=None) -> Model:
+    """A :class:`Model` on ``device`` (None means the CUDA card) holding the
+    values of the JAX parameter tree ``tree`` (nested dicts of numpy
+    arrays, as ``jax.tree.map(np.asarray, params)`` gives)."""
+    dev = _resolve_device(device)
+    leaves = port_leaves(tree)
+    model = Model(cfg, device=dev)
+    params = dict(model.named_parameters())
+    if leaves.keys() != params.keys():
+        raise ValueError(
+            f"JAX leaves without a port parameter: {sorted(leaves.keys() - params.keys())}; "
+            f"port parameters without a JAX leaf: {sorted(params.keys() - leaves.keys())}"
+        )
+    for name, p in params.items():
+        src = leaves[name]
+        if src.shape != p.shape or src.dtype != p.dtype:
+            raise ValueError(
+                f"{name}: JAX {tuple(src.shape)} {src.dtype} != port {tuple(p.shape)} {p.dtype}"
+            )
+        p.data.copy_(src)
+    return model

@@ -3,16 +3,20 @@
 This file imports nothing of JAX, so that it runs on the machine with the
 card: ``PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py``.  Every
 output is an integer, a bool or a float32 sum of whole ``+1.0`` steps, and
-must be equal.  Where there is no card, each test
+must be equal, except ``moe_route``'s combine weights: within rtol 1e-5 /
+atol 1e-6 of the plain version (the JAX package's own tolerance for its
+router kernel), since the softmax sums run in another order.  Where there is no card, each test
 skips with a reason.
 """
 import numpy as np
 import pytest
 import torch
 
+from repro_torch.configs import get_config
 from repro_torch.core.care import slotted_sim
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
+from repro_torch.models import model as tmodel
 from repro_torch.serve import engine as serve_engine
 
 POLICIES = ["jsq", "jsaq"]
@@ -72,7 +76,7 @@ class TestOnCard:
                  for x in (2, 3)]
         tops.reset_launch_counts()
         fused = slotted_sim.simulate_grid([0, 1], static, cells, device=cuda_device)
-        assert tops.launch_counts() == {"jsaq_route": 0, "care_route": 1, "serve_route": 0}
+        assert tops.launch_counts() == {"jsaq_route": 0, "care_route": 1, "serve_route": 0, "moe_route": 0}
         dense = slotted_sim.simulate_grid(
             [0, 1], slotted_sim.StaticConfig(**{**static.__dict__, "route_backend": "dense"}),
             cells, device=cuda_device,
@@ -125,7 +129,7 @@ class TestOnCard:
         static = cells[0].static_part()
         tops.reset_launch_counts()
         fused = serve_engine.serve_grid([0, 1], static, cells, device=cuda_device)
-        assert tops.launch_counts() == {"jsaq_route": 0, "care_route": 0, "serve_route": 300}
+        assert tops.launch_counts() == {"jsaq_route": 0, "care_route": 0, "serve_route": 300, "moe_route": 0}
         dense_cells = [
             serve_engine.ServeConfig(**{**c.__dict__, "route_backend": "dense"}) for c in cells
         ]
@@ -137,3 +141,53 @@ class TestOnCard:
                 assert (f.messages, f.completed, f.dropped) == (d.messages, d.completed, d.dropped)
                 _eq(f.jct_by_rid, d.jct_by_rid)
                 _eq(f.final_occupancy, d.final_occupancy)
+
+    @pytest.mark.parametrize(
+        "t,e,k,gate_fn,dtype",
+        [
+            (2048, 160, 6, "softmax", torch.float32),  # DeepSeek-V2 prefill
+            (4, 160, 6, "softmax", torch.float32),  # DeepSeek-V2 decode
+            (2048, 256, 8, "sigmoid", torch.float32),  # DeepSeek-V3
+            (1, 160, 6, "softmax", torch.float32),
+            (300, 160, 6, "softmax", torch.bfloat16),
+            (77, 33, 33, "sigmoid", torch.float32),
+        ],
+    )
+    def test_moe_route_kernel(self, cuda_device, t, e, k, gate_fn, dtype):
+        rng = np.random.default_rng(t + e + k)
+        logits = torch.from_numpy(rng.standard_normal((t, e)).astype(np.float32)).to(dtype)
+        bias = torch.from_numpy(rng.standard_normal(e).astype(np.float32))
+        logits[0] = 0  # an all-ties row
+        bias[e // 2] = 1e9  # an expert no token may choose
+        logits, bias = logits.to(cuda_device), bias.to(cuda_device)
+        ref = tref.moe_route_ref(logits, bias, k, gate_fn)
+        before = tops.launch_counts()["moe_route"]
+        got = tops.moe_route(logits, bias, k, gate_fn=gate_fn)
+        torch.cuda.synchronize()
+        assert tops.launch_counts()["moe_route"] == before + 1
+        _eq(got[0].cpu().numpy(), ref[0].cpu().numpy())
+        _eq(got[2].cpu().numpy(), ref[2].cpu().numpy())
+        np.testing.assert_allclose(got[1].cpu().numpy(), ref[1].cpu().numpy(), rtol=1e-5, atol=1e-6)
+        assert int(got[2].sum()) == t * k and int(got[2][e // 2]) == (t if k == e else 0)
+
+    def test_reduced_moe_prefill_goes_through_the_kernel(self, cuda_device):
+        cfg = get_config("deepseek-v2-236b").reduced()
+        gen = torch.Generator(device=cuda_device).manual_seed(0)
+        params = tmodel.init_params(gen, cfg, device=cuda_device)
+        tokens = torch.from_numpy(
+            np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 16))
+        ).to(cuda_device)
+        tops.reset_launch_counts()
+        logits, cache = tmodel.prefill(params, {"tokens": tokens}, cfg, cache_len=20)
+        logits2, _ = tmodel.decode_step(params, logits.argmax(-1), cache, 16, cfg)
+        torch.cuda.synchronize()
+        n_moe = tmodel.num_scanned_layers(cfg)
+        assert tops.launch_counts() == {"jsaq_route": 0, "care_route": 0, "serve_route": 0,
+                                        "moe_route": 2 * n_moe}
+        assert bool(torch.isfinite(logits).all()) and bool(torch.isfinite(logits2).all())
+        # The same weights on the CPU take the plain router.  Both run in
+        # float32 (no TF32); cuBLAS and the CPU sum in other orders.
+        cpu = tmodel.Model(cfg, device="cpu")
+        cpu.load_state_dict({n: p.cpu() for n, p in params.state_dict().items()})
+        want, _ = tmodel.prefill(cpu, {"tokens": tokens.cpu()}, cfg, cache_len=20)
+        np.testing.assert_allclose(logits.cpu().numpy(), want.numpy(), rtol=1e-3, atol=1e-4)

@@ -24,6 +24,18 @@ def test_serve_modules_are_checked():
     assert {"repro_torch.serve", "repro_torch.serve.engine"} <= modules
 
 
+def test_moe_serving_modules_are_checked():
+    modules = {_module_name(p) for p in FILES if p.parent != ROOT}
+    assert {
+        "repro_torch.configs", "repro_torch.configs.base",
+        "repro_torch.configs.deepseek_v2_236b", "repro_torch.configs.deepseek_v3_671b",
+        "repro_torch.core.moe_balancer", "repro_torch.kernels.moe_route",
+        "repro_torch.models", "repro_torch.models.common", "repro_torch.models.flash",
+        "repro_torch.models.mla", "repro_torch.models.ffn", "repro_torch.models.transformer",
+        "repro_torch.models.model", "repro_torch.models.convert",
+    } <= modules
+
+
 def test_every_module_imports_without_jax():
     modules = [_module_name(p) for p in FILES if p.parent != ROOT]
     code = (

@@ -176,7 +176,7 @@ class TestDispatch:
         ref = tref.care_route_ref(arrive, params, servers=4, cap=8, policy="jsaq", comm="et")
         for g, r in zip(out, ref):
             _eq(g.numpy(), r.numpy())
-        assert tops.launch_counts() == {"jsaq_route": 0, "care_route": 0, "serve_route": 0}
+        assert tops.launch_counts() == {"jsaq_route": 0, "care_route": 0, "serve_route": 0, "moe_route": 0}
 
     def test_kernel_binding_refuses_cpu_tensors(self):
         q = torch.zeros((2, 5), dtype=torch.int32)
