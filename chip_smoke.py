@@ -8,7 +8,7 @@ Run from the root of a checkout on a machine with a CUDA card:
 Phases (any mismatch or exception exits non-zero; no phase catches its
 own failure):
 
-1. Build the three Hopper kernels from ``src/repro_torch/csrc`` with
+1. Build the five Hopper kernels from ``src/repro_torch/csrc`` with
    ``nvcc`` (one process per source, started together) and print the
    build time and the compiler's register and spill report.
 2. Hold each kernel against its plain PyTorch version on the card, on the
@@ -60,7 +60,25 @@ own failure):
    decode step.  Then the same model in float32 with each expert's
    capacity raised to T (no token dropped): prefill over S against prefill
    over S-1 and one ``decode_step``, within 2e-2.
-8. Print the kernels line (launch counts from the main paths, parity,
+8. The dense GQA serving path (``repro_torch.models``): Gemma2-9B at its
+   published widths and full depth (bf16, d_model 3584, 42 layers, 16
+   heads / 8 KV of width 256, window 4096 on even layers, attention softcap
+   50, final softcap 30, GeGLU 14336, vocab 256000, tied embedding),
+   initialised on the card from a seed after phase 7's models are freed.
+   2 prompts of 8064 tokens, prefill into a cache of 8192, then 16 greedy
+   decode steps (positions 8064-8079, past the window).  Asserts 42
+   ``flash_attention`` launches for the prefill and none in decode, finite
+   logits, the kernel against its plain version on the path's own q/k/v
+   of a local and a global layer (B=1, 2e-2 in bf16) and on further
+   shapes (float32 within 2e-5, dh 64 with GQA group 3, dh 128, non-causal
+   dv != dh, ragged S=T=8000, S=1, window 100, softcap on and off); times
+   the kernel, its plain version and PyTorch's
+   ``scaled_dot_product_attention`` at the path's shapes beside their
+   bound, prints the prefill wall, decode ms a token and a profiler window
+   of one prefill and one decode step.  Then the same model in float32:
+   prefill over S=4224 (B=1, past the window) against prefill over S-1
+   and one ``decode_step``, within 2e-2.
+9. Print the kernels line (launch counts from the main paths, parity,
    times and bounds), the card's name and power limit, and the contract
    line last.
 
@@ -88,6 +106,10 @@ ROOT = Path(__file__).resolve().parent
 # rate or below, so it bounds the integer work of both kernels.
 HBM_BYTES_PER_S = 3.35e12
 LANE_OPS_PER_S = 33.5e12
+# Dense peaks of the same data sheet: bf16 on the tensor cores, float32 on
+# the CUDA cores (the attention bounds count useful matmul FLOP only).
+BF16_TENSOR_FLOP_PER_S = 989e12
+F32_FLOP_PER_S = 67e12
 
 # Integer operations per server per active slot that the fused CARE loop
 # must do (counted from _care_kernel): argmin scan 2; service 10 (busy
@@ -131,6 +153,32 @@ MOE_TIME_REPS = 100
 # score (subtract) are 6 operations; each of the k sweeps compares and
 # selects (2 more).
 MOE_OPS_PER_SCORE = 6
+# Phase 8: Gemma2-9B serving at published widths and full depth; 2 prompts
+# of 8064 tokens (63 x 128) into a cache of 8192, 16 greedy decode steps;
+# then a float32 rebuild for prefill over S=4224 against decode.
+DENSE_ARCH = "gemma2-9b"
+DENSE_BATCH, DENSE_PROMPT, DENSE_NEW, DENSE_CACHE = 2, 8064, 16, 8192
+DENSE_SEED = 0
+DENSE_F32_PROMPT = 4224
+FLASH_TIME_REPS = 5
+# Further shapes of the kernel against its plain version: name, (B, S, T, H,
+# KVH, dh, dv), dtype, options (the scale is 1 / sqrt(dh)).
+FLASH_CASES = [
+    ("float32 dh 256, window 1000, softcap 50", (1, 2048, 2048, 16, 8, 256, 256), torch.float32,
+     dict(causal=True, window=1000, softcap=50.0)),
+    ("dh 64, GQA group 3 (smollm)", (2, 2048, 2048, 9, 3, 64, 64), torch.bfloat16,
+     dict(causal=True)),
+    ("dh 128 (qwen3)", (2, 2048, 2048, 16, 8, 128, 128), torch.bfloat16, dict(causal=True)),
+    ("non-causal, dh 64, dv 128", (1, 512, 1024, 4, 2, 64, 128), torch.bfloat16,
+     dict(causal=False)),
+    ("ragged S=T=8000, window 4096, softcap 50", (1, 8000, 8000, 16, 8, 256, 256),
+     torch.bfloat16, dict(causal=True, window=4096, softcap=50.0)),
+    ("S=1 against T=8064, non-causal", (2, 1, 8064, 16, 8, 256, 256), torch.bfloat16,
+     dict(causal=False)),
+    ("S=T=1", (1, 1, 1, 16, 8, 256, 256), torch.bfloat16, dict(causal=True)),
+    ("window 100", (1, 1024, 1024, 16, 8, 256, 256), torch.bfloat16,
+     dict(causal=True, window=100)),
+]
 # About 25 ms at the H100's 1.98 GHz: longer than the host takes to
 # enqueue MOE_TIME_REPS launches (~35 us each).
 SLEEP_CYCLES = 50_000_000
@@ -368,7 +416,7 @@ def _moe_serving(dev, times: dict) -> dict:
     ops.moe_route = route
     expected = n_moe * (2 + MOE_NEW - 1)
     assert launches == {"jsaq_route": 0, "care_route": 0, "serve_route": 0,
-                        "moe_route": expected}, (launches, expected)
+                        "moe_route": expected, "flash_attention": 0}, (launches, expected)
     assert bool(finite), "non-finite logits on the MoE serving path"
     times["moe_prefill1_s"], times["moe_prefill2_s"] = wall1, wall2
     times["moe_decode_ms_per_token"] = decode_ms
@@ -523,6 +571,244 @@ def _moe_serving(dev, times: dict) -> dict:
     }
 
 
+def _attn_pairs(s: int, t: int, causal: bool, window) -> int:
+    """(query, key) pairs one head attends: keys ``max(0, q - w + 1)..min(q,
+    T - 1)`` of query q under a causal window; a query with no such key
+    averages all T (the dense softmax of an all-masked row)."""
+    if not causal:
+        return s * t
+    q = np.arange(s, dtype=np.int64)
+    lo = np.maximum(0, q - (window or 2**62) + 1)
+    cnt = np.minimum(q, t - 1) - lo + 1
+    return int(np.where(cnt > 0, cnt, t).sum())
+
+
+def _flash_bound(q, k, v, causal: bool, window) -> tuple[float, str]:
+    """flash_attention's bound: q, k, v read once and the output written
+    once, against 2 (dh + dv) FLOP per attended pair on the tensor cores
+    (bf16) or the CUDA cores (float32)."""
+    b, s, h, dh = q.shape
+    t, kvh, dv = k.shape[1], k.shape[2], v.shape[3]
+    elem = q.element_size()
+    n_bytes = elem * (b * s * h * dh + b * t * kvh * (dh + dv) + b * s * h * dv)
+    n_ops = 2 * (dh + dv) * b * h * _attn_pairs(s, t, causal, window)
+    rate = BF16_TENSOR_FLOP_PER_S if q.dtype == torch.bfloat16 else F32_FLOP_PER_S
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_ops / rate
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def _flash_parity(flash_k, ref, q, k, v, **kw) -> float:
+    """``flash_attention`` against its plain version on the same card
+    tensors: within 2e-2 in bf16, 2e-5 in float32."""
+    got = flash_k.flash_attention_cuda(q, k, v, **kw)
+    want = ref.flash_attention_ref(q, k, v, **kw)
+    tol = 2e-2 if q.dtype == torch.bfloat16 else 2e-5
+    shape = f"q {tuple(q.shape)} k {tuple(k.shape)} v {tuple(v.shape)} {q.dtype} {kw}"
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol, msg=shape)
+    return _max_abs_err([got], [want])
+
+
+def _dense_config():
+    """Gemma2-9B at its published widths and depth."""
+    from repro_torch.configs import get_config
+
+    return get_config(DENSE_ARCH)
+
+
+def _dense_serving(dev, times: dict) -> dict:
+    """Phase 8: the dense GQA serving path at full width and depth, the
+    flash kernel against its plain version, and prefill against decode in
+    float32.  Returns the kernel's line for the kernels JSON."""
+    import torch.nn.functional as F
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels import flash_attn as flash_k
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models import model
+    from repro_torch.models import transformer as tfm
+
+    torch.backends.cuda.matmul.allow_tf32 = False  # float32 matmuls in full float32
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    assert torch.cuda.memory_allocated(dev) < 1e9, (
+        f"{torch.cuda.memory_allocated(dev) / 1e9:.2f} GB still allocated before phase 8")
+    cfg = _dense_config()
+    windows = tfm.layer_windows(cfg)
+    t0 = time.perf_counter()
+    params = model.init_params(torch.Generator(device=dev).manual_seed(DENSE_SEED), cfg, dev)
+    torch.cuda.synchronize()
+    times["dense_init_s"] = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in params.parameters())
+    print(f"phase 8 {cfg.name} x {cfg.num_layers} layers, {cfg.param_dtype}: {n_params:,} "
+          f"parameters initialised on the card in {times['dense_init_s']:.2f} s; "
+          f"{torch.cuda.memory_allocated(dev) / 1e9:.2f} GB allocated")
+    rng = np.random.default_rng(DENSE_SEED)
+    tokens = torch.from_numpy(
+        rng.integers(0, cfg.vocab_size, (DENSE_BATCH, DENSE_PROMPT)).astype(np.int64)
+    ).to(dev)
+
+    # Warm-up on a short prompt; then the main path with the counts at 0.
+    # The spy forwards every call and keeps the q/k/v of layers 0 (local)
+    # and 1 (global).
+    model.prefill(params, {"tokens": tokens[:, :128]}, cfg, cache_len=256)
+    kept = []
+    attend = ops.flash_attention
+
+    def spy(q, k, v, **kw):
+        if len(kept) < 2:
+            kept.append((q, k, v, kw))
+        return attend(q, k, v, **kw)
+
+    ops.flash_attention = spy
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    logits, cache = model.prefill(params, {"tokens": tokens}, cfg, cache_len=DENSE_CACHE)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    prefill_launches = ops.launch_counts()["flash_attention"]
+    nxt = logits.argmax(-1)
+    generated = [nxt]
+    finite = torch.isfinite(logits).all()
+    t0 = time.perf_counter()
+    for i in range(DENSE_NEW):
+        logits, cache = model.decode_step(params, nxt, cache, DENSE_PROMPT + i, cfg)
+        nxt = logits.argmax(-1)
+        generated.append(nxt)
+        finite &= torch.isfinite(logits).all()
+    torch.cuda.synchronize()
+    decode_ms = (time.perf_counter() - t0) * 1e3 / DENSE_NEW
+    launches = ops.launch_counts()
+    ops.flash_attention = attend
+    assert prefill_launches == cfg.num_layers, (prefill_launches, cfg.num_layers)
+    assert launches == {"jsaq_route": 0, "care_route": 0, "serve_route": 0, "moe_route": 0,
+                        "flash_attention": cfg.num_layers}, launches
+    assert bool(finite), "non-finite logits on the dense serving path"
+    assert [kw["window"] for *_, kw in kept] == [int(windows[0]), int(windows[1])]
+    times["dense_prefill_s"], times["dense_decode_ms_per_token"] = wall, decode_ms
+    print(f"phase 8 serving: prefill {DENSE_BATCH} x {DENSE_PROMPT} tokens {wall:.4f} s, "
+          f"decode {DENSE_NEW} steps {decode_ms:.3f} ms a token (cache {DENSE_CACHE}); "
+          f"launches {launches}; cache k {tuple(cache['scan']['k'].shape)} "
+          f"{cache['scan']['k'].dtype}; peak {torch.cuda.max_memory_allocated(dev) / 1e9:.1f} GB")
+    print(f"phase 8 generated tokens: {torch.stack(generated, 1).cpu().tolist()}")
+
+    # The kernel against its plain version on the path's own q/k/v (B=1 so
+    # that the plain version's float32 scores fit), softcap on and off.
+    errs = []
+    for q, k, v, kw in kept:
+        q1, k1, v1 = q[:1].contiguous(), k[:1].contiguous(), v[:1].contiguous()
+        errs.append(_flash_parity(flash_k, ref, q1, k1, v1, **kw))
+        errs.append(_flash_parity(flash_k, ref, q1, k1, v1, **{**kw, "softcap": 0.0}))
+    print(f"phase 8 flash_attention against its plain version on the path's q/k/v "
+          f"(B=1, S=T={DENSE_PROMPT}, windows {[kw['window'] for *_, kw in kept]}, softcap "
+          f"50 and 0): max_abs_err {max(errs):.3g} ({kept[0][0].dtype})")
+
+    def randn(*shape, dtype=torch.bfloat16):
+        return torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(dtype).to(dev)
+
+    for name, (b, sq, t, h, kvh, dh, dv), dtype, kw in FLASH_CASES:
+        q, k, v = (randn(b, n, heads, w, dtype=dtype)
+                   for n, heads, w in ((sq, h, dh), (t, kvh, dh), (t, kvh, dv)))
+        err = _flash_parity(flash_k, ref, q, k, v, scale=dh**-0.5, **kw)
+        errs.append(err)
+        print(f"phase 8 flash_attention {name}: max_abs_err {err:.3g}")
+    del q, k, v
+
+    # Where the time goes: one profiled prefill and decode step.
+    del logits, cache
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        logits, cache = model.prefill(params, {"tokens": tokens}, cfg, cache_len=DENSE_CACHE)
+        model.decode_step(params, logits.argmax(-1), cache, DENSE_PROMPT, cfg)
+        torch.cuda.synchronize()
+    device = [ev for ev in prof.key_averages()
+              if ev.device_type == torch.autograd.DeviceType.CUDA]
+    device_us = sum(ev.self_device_time_total for ev in device)
+    if device_us == 0:
+        print("phase 8 profile: the profiler saw no device time; busy share not measured")
+    else:
+        device.sort(key=lambda ev: ev.self_device_time_total, reverse=True)
+        flash_us = sum(ev.self_device_time_total for ev in device if "flash_kernel" in ev.key)
+        print(f"phase 8 profile of one prefill + one decode step: device busy "
+              f"{device_us / 1e3:.3f} ms against an unprofiled wall of "
+              f"{wall * 1e3 + decode_ms:.3f} ms (busy share "
+              f"{device_us / 1e3 / (wall * 1e3 + decode_ms):.3f}); flash_attention "
+              f"{flash_us / device_us:.4f} of device time; top device operations: "
+              + "; ".join(f"{ev.key[:60]} {ev.self_device_time_total / 1e3:.3f} ms "
+                          f"x{ev.count}" for ev in device[:8]))
+    del params, cache, logits
+    torch.cuda.empty_cache()
+
+    # Times at the path's shapes (B=2), the model freed so that the plain
+    # version's float32 scores of both prompts fit.
+    rows = {}
+    for (q, k, v, kw), layer in zip(kept, ("local", "global")):
+        bound = _flash_bound(q, k, v, True, kw["window"])
+        kernel_ms = _time_ms(lambda: flash_k.flash_attention_cuda(q, k, v, **kw), FLASH_TIME_REPS)
+        plain_ms = _time_ms(lambda: ref.flash_attention_ref(q, k, v, **kw), 2)
+        rows[layer] = (kernel_ms, plain_ms, bound)
+        print(f"phase 8 flash_attention {layer} layer (B={q.shape[0]}, S=T={q.shape[1]}, "
+              f"H={q.shape[2]}, KVH={k.shape[2]}, dh={q.shape[3]}, window {kw['window']}, "
+              f"softcap {kw['softcap']}): kernel {kernel_ms:.3f} ms, plain {plain_ms:.3f} ms, "
+              f"bound {bound[0]:.4f} ms ({bound[1]}); kernel / bound "
+              f"{kernel_ms / bound[0]:.1f}")
+    q, k, v, kw = kept[1]
+    nocap = dict(scale=kw["scale"], causal=True, window=None, softcap=0.0)
+    nocap_ms = _time_ms(lambda: flash_k.flash_attention_cuda(q, k, v, **nocap), FLASH_TIME_REPS)
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))  # SDPA's (B, H, S, D)
+
+    def sdpa():
+        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, scale=kw["scale"],
+                                              enable_gqa=True)
+
+    sdpa_ms = _time_ms(sdpa, FLASH_TIME_REPS)
+    sdpa_diff = _max_abs_err([sdpa().transpose(1, 2).float()],
+                             [flash_k.flash_attention_cuda(q, k, v, **nocap).float()])
+    print(f"phase 8 global layer with softcap 0 and no window: kernel {nocap_ms:.3f} ms, "
+          f"scaled_dot_product_attention {sdpa_ms:.3f} ms (max abs difference "
+          f"{sdpa_diff:.3g}), bound {_flash_bound(q, k, v, True, None)[0]:.4f} ms; "
+          f"{cfg.num_layers // 2} local + {cfg.num_layers // 2} global layers: kernel "
+          f"{cfg.num_layers // 2 * (rows['local'][0] + rows['global'][0]):.1f} ms, bound "
+          f"{cfg.num_layers // 2 * (rows['local'][2][0] + rows['global'][2][0]):.2f} ms, "
+          f"{cfg.num_layers // 2 * (rows['local'][0] + rows['global'][0]) / (wall * 1e3):.3f} "
+          f"of the prefill wall")
+    del kept, q, k, v, qt, kt, vt
+    torch.cuda.empty_cache()
+
+    # Prefill against decode in float32, B=1, S past the window.
+    cfg32 = dataclasses.replace(cfg, param_dtype="float32", compute_dtype="float32")
+    t0 = time.perf_counter()
+    params = model.init_params(torch.Generator(device=dev).manual_seed(DENSE_SEED), cfg32, dev)
+    torch.cuda.synchronize()
+    times["dense_f32_init_s"] = time.perf_counter() - t0
+    tok = tokens[:1, :DENSE_F32_PROMPT]
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    full, _ = model.prefill(params, {"tokens": tok}, cfg32, cache_len=DENSE_F32_PROMPT)
+    _, cache = model.prefill(params, {"tokens": tok[:, :-1]}, cfg32, cache_len=DENSE_F32_PROMPT)
+    step, _ = model.decode_step(params, tok[:, -1], cache, DENSE_F32_PROMPT - 1, cfg32)
+    torch.cuda.synchronize()
+    times["dense_f32_check_s"] = time.perf_counter() - t0
+    err = float((step - full).abs().max())
+    torch.testing.assert_close(step, full, rtol=2e-2, atol=2e-2)
+    print(f"phase 8 float32 prefill over S={DENSE_F32_PROMPT} against prefill over S-1 + "
+          f"decode_step (window {cfg.sliding_window}): logits within 2e-2 (max abs "
+          f"difference {err:.3g}); init {times['dense_f32_init_s']:.2f} s, check "
+          f"{times['dense_f32_check_s']:.2f} s, peak "
+          f"{torch.cuda.max_memory_allocated(dev) / 1e9:.1f} GB")
+    del params, cache, full, step
+    torch.cuda.empty_cache()
+
+    kernel_ms, plain_ms, bound = rows["global"]
+    return {
+        "name": "flash_attention", "route": "cuda",
+        "source": "src/repro_torch/csrc/flash_attn.cu",
+        "replaces": "src/repro/kernels/flash_attn.py:84",
+        "launches": launches["flash_attention"],
+        "max_abs_err": max(errs), "ms": kernel_ms, "plain_ms": plain_ms,
+        "bound_ms": bound[0], "bound_by": bound[1], "library_ms": sdpa_ms,
+    }
+
+
 def _card() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -652,8 +938,8 @@ def main() -> int:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         main_launches = ops.launch_counts()
-        assert main_launches == {"jsaq_route": 0, "care_route": 1,
-                                 "serve_route": 0, "moe_route": 0}, main_launches
+        assert main_launches == {"jsaq_route": 0, "care_route": 1, "serve_route": 0,
+                                 "moe_route": 0, "flash_attention": 0}, main_launches
         for c, x in enumerate((2, 3)):
             for res in grid[c]:
                 assert res.max_aq <= x - 1, f"Theorem 2.3 violated: {res.max_aq}"
@@ -715,8 +1001,8 @@ def main() -> int:
     wall = time.perf_counter() - t0
     serve_launches = ops.launch_counts()
     ops.serve_route = route
-    assert serve_launches == {"jsaq_route": 0, "care_route": 0,
-                              "serve_route": big.slots, "moe_route": 0}, serve_launches
+    assert serve_launches == {"jsaq_route": 0, "care_route": 0, "serve_route": big.slots,
+                              "moe_route": 0, "flash_attention": 0}, serve_launches
     for res in served:
         assert res.dropped == 0, f"{res.dropped} requests dropped"
         assert res.offered == res.completed + res.dropped + int(res.final_occupancy.sum())
@@ -846,7 +1132,12 @@ def main() -> int:
     moe_kernel = _moe_serving(dev, times)
     times["moe_phase_s"] = time.perf_counter() - t0
 
-    # -- 8. output ---------------------------------------------------------------
+    # -- 8. dense GQA serving ---------------------------------------------------
+    t0 = time.perf_counter()
+    flash_kernel = _dense_serving(dev, times)
+    times["dense_phase_s"] = time.perf_counter() - t0
+
+    # -- 9. output ---------------------------------------------------------------
     kernels = [
         {
             "name": "care_route", "route": "cuda",
@@ -873,6 +1164,7 @@ def main() -> int:
             "bound_ms": serve_bound[0], "bound_by": serve_bound[1], "library_ms": None,
         },
         moe_kernel,
+        flash_kernel,
     ]
     print("times (s): " + json.dumps(times) + f" on {card}")
     print(json.dumps({"kernels": kernels}))

@@ -2,8 +2,9 @@
 
 A wrapper looks at where its input lies.  A CPU tensor goes to the plain
 PyTorch version in :mod:`repro_torch.kernels.ref`; a CUDA tensor goes to the
-hand-written kernel (bindings in :mod:`repro_torch.kernels.jsaq_route` and
-:mod:`repro_torch.kernels.moe_route`), which either launches or raises --
+hand-written kernel (bindings in :mod:`repro_torch.kernels.jsaq_route`,
+:mod:`repro_torch.kernels.moe_route` and :mod:`repro_torch.kernels.flash_attn`),
+which either launches or raises --
 nothing on the CUDA path falls back to the plain version.  The kernels mask
 by bound, so no lane, domain or token padding is needed.  Only a kernel
 launch counts in :func:`launch_counts`.
@@ -12,6 +13,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import flash_attn as _flash
 from repro_torch.kernels import jsaq_route as _cuda
 from repro_torch.kernels import moe_route as _moe
 from repro_torch.kernels import ref as _ref
@@ -83,11 +85,33 @@ def moe_route(
     return _ref.moe_route_ref(logits, bias, top_k, gate_fn)
 
 
+def flash_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    scale: float,
+    causal: bool = True,
+    window: int | None = None,
+    softcap: float = 0.0,
+):
+    """Flash SDPA: ``q (B, S, H, dh)``, ``k, v (B, T, KVH, dh / dv)`` ->
+    ``(B, S, H, dv)``; see ``ref.flash_attention_ref``.  Any ``S, T >= 1``
+    (no padding); GQA reads KV head ``h // (H // KVH)`` in place.
+    ``window``: None or an int >= 1, applied only with ``causal``."""
+    _flash.check_window(window)
+    kw = dict(scale=scale, causal=causal, window=window, softcap=softcap)
+    if _route(q, "flash_attention"):
+        return _flash.flash_attention_cuda(q, k, v, **kw)
+    return _ref.flash_attention_ref(q, k, v, **kw)
+
+
 _KERNELS = {
     "jsaq_route": _cuda.jsaq_route_cuda,
     "care_route": _cuda.care_route_cuda,
     "serve_route": _cuda.serve_route_cuda,
     "moe_route": _moe.moe_route_cuda,
+    "flash_attention": _flash.flash_attention_cuda,
 }
 
 

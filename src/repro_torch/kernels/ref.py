@@ -6,7 +6,8 @@ path of :mod:`repro_torch.kernels.ops` runs them, the tests hold them
 against the JAX package, and ``chip_smoke.py`` holds the kernels against
 them on the card.  Integer and bool outputs are compared for equality;
 ``moe_route``'s float32 combine weights within rtol 1e-5 / atol 1e-6 (the
-JAX package's own tolerance for its router kernel).
+JAX package's own tolerance for its router kernel); ``flash_attention``
+within 2e-5 in float32 and 2e-2 in bfloat16 (``tests/test_flash_kernel.py``).
 """
 from __future__ import annotations
 
@@ -18,6 +19,8 @@ CARE_COMMS = ("rt", "dt", "et", "et_rt", "exact", "none")
 GATE_FNS = ("softmax", "sigmoid")
 # Score given to an expert already chosen for a token.
 MOE_NEG = -1e30
+# Score of a masked key in attention.
+FLASH_NEG = -1e30
 
 
 def jsaq_route_ref(q_app: torch.Tensor, num_jobs: int):
@@ -215,6 +218,52 @@ def serve_route_ref(
         ap[rows, j] = ap[rows, j] + ok.to(torch.float32)
         drops = drops + (live & ~ok).to(torch.int32)
     return jv, tail, admit, q, ap, drops
+
+
+def flash_attention_ref(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    scale: float,
+    causal: bool = True,
+    window: int | None = None,
+    softcap: float = 0.0,
+):
+    """Dense softmax attention with float32 scores, the flash kernel's contract.
+
+    Mirrors ``repro/kernels/ref.py:25-56``: ``s = (q . k) * scale`` in
+    float32 (bfloat16 inputs are widened first, which keeps every product
+    exact), then ``softcap * tanh(s / softcap)`` if ``softcap``, then with
+    ``causal`` the fill ``-1e30`` where ``kpos > qpos`` or ``qpos - kpos >=
+    window``; the softmax in float32, the probabilities cast to ``v``'s
+    dtype before the product with ``v``, and the output in ``q``'s dtype.
+    Query head ``h`` attends KV head ``h // (H // KVH)``.
+
+    Args:
+      q: ``(B, S, H, dh)``.
+      k: ``(B, T, KVH, dh)``; v: ``(B, T, KVH, dv)``.
+
+    Returns:
+      ``(B, S, H, dv)``.
+    """
+    b, s, h, dh = q.shape
+    t, kvh = k.shape[1], k.shape[2]
+    g = h // kvh
+    qg = q.reshape(b, s, kvh, g, dh)
+    sc = torch.einsum("bskgd,btkd->bskgt", qg.float(), k.float()) * scale
+    if softcap:
+        sc = softcap * torch.tanh(sc / softcap)
+    if causal:
+        qpos = torch.arange(s, dtype=torch.int32, device=q.device)[None, :, None, None, None]
+        kpos = torch.arange(t, dtype=torch.int32, device=q.device)[None, None, None, None, :]
+        ok = kpos <= qpos
+        if window is not None:
+            ok = ok & (qpos - kpos < window)
+        sc = torch.where(ok, sc, FLASH_NEG)
+    p = torch.softmax(sc, dim=-1)
+    out = torch.einsum("bskgt,btkd->bskgd", p.to(v.dtype), v)
+    return out.to(q.dtype).reshape(b, s, h, v.shape[3])
 
 
 def moe_route_ref(

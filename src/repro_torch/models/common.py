@@ -41,9 +41,13 @@ def ones_init(shape, dtype: torch.dtype, device) -> torch.nn.Parameter:
     return _param(torch.ones(shape, dtype=dtype, device=device))
 
 
+def zeros_init(shape, dtype: torch.dtype, device) -> torch.nn.Parameter:
+    return _param(torch.zeros(shape, dtype=dtype, device=device))
+
+
 def _param(t: torch.Tensor) -> torch.nn.Parameter:
-    # Serving only: the router kernel has no backward yet, so parameters
-    # carry no gradient (the training path is a later slice).
+    # Serving only: the router and attention kernels have no backward yet,
+    # so parameters carry no gradient (the training path is a later slice).
     return torch.nn.Parameter(t, requires_grad=False)
 
 

@@ -11,8 +11,9 @@ follow the JAX tree::
   mtp          the multi-token-prediction head (training only; held so
                that every JAX leaf has its tensor)
 
-The cache keeps the JAX layout: ``{"scan": {"ckv": (L, B, T, R),
-"k_rope": (L, B, T, dr)}, "head": {"0": {"ckv": (B, T, R), ...}}}``.
+The cache keeps the JAX layout: for MLA ``{"scan": {"ckv": (L, B, T, R),
+"k_rope": (L, B, T, dr)}, "head": {"0": {"ckv": (B, T, R), ...}}}``; for
+grouped-query attention ``{"scan": {"k": (L, B, T, KVH, dh), "v": ...}}``.
 :func:`decode_step` writes the new token's rows into it in place.
 Entry points run on the CUDA card unless given ``device="cpu"``.
 """
@@ -43,7 +44,7 @@ class MTPHead(nn.Module):
 
 
 class Model(nn.Module):
-    """All parameters of a dense/moe MLA model (``init_params``).
+    """All parameters of a dense / moe / vlm model (``init_params``).
 
     With ``generator=None`` the parameters are left uninitialised, for
     ``models/convert.py`` to fill; otherwise they are drawn on ``device``
@@ -164,6 +165,11 @@ def init_decode_cache(params: Model, cfg: ModelConfig, batch: int, cache_len: in
     tfm.check_supported(cfg)
     cdt = common.dtype_of(cfg.compute_dtype)
     dev = params.embed.device
+    if not cfg.use_mla:
+        shape = (num_scanned_layers(cfg), batch, cache_len, cfg.num_kv_heads,
+                 cfg.resolved_head_dim)
+        return {"scan": {"k": torch.zeros(shape, dtype=cdt, device=dev),
+                         "v": torch.zeros(shape, dtype=cdt, device=dev)}}
 
     def zeros(*lead):
         return {

@@ -1,9 +1,12 @@
-"""Block definitions of the MLA + MoE language model (DeepSeek V2/V3).
+"""Block definitions of the dense / MoE / VLM language models.
 
-Port of the dense/moe part of ``repro/models/transformer.py``.  The JAX
-package scans one weight-stacked layer body; here a stack is a list of
-:class:`LMBlock` modules and the callers loop over it.  The rwkv, hymba
-and whisper blocks, and the non-MLA attention, come with ROADMAP item 13.
+Port of the dense/moe part of ``repro/models/transformer.py``: a block's
+attention is MLA (DeepSeek V2/V3) or grouped-query attention (Gemma2,
+Qwen, SmolLM, Chameleon).  The JAX package scans one weight-stacked layer
+body with a traced per-layer window; here a stack is a list of
+:class:`LMBlock` modules, the callers loop over it and pass each layer's
+window as a Python int.  The rwkv, hymba and whisper blocks come with
+ROADMAP item 13.
 
 Modes: "prefill" (returns the cache) and "decode" (one token, cache in /
 out).
@@ -15,10 +18,10 @@ import torch
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import common, ffn, mla
+from repro_torch.models import attention, common, ffn, mla
 
 BIG_WINDOW = 1 << 30
-ITEM_13 = "ROADMAP item 13 (model blocks beyond MLA + MoE)"
+ITEM_13 = "ROADMAP item 13 (the rwkv, hymba and whisper blocks)"
 
 
 def layer_windows(cfg: ModelConfig) -> np.ndarray:
@@ -35,11 +38,9 @@ def layer_windows(cfg: ModelConfig) -> np.ndarray:
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """The port runs the dense/moe families with MLA attention."""
+    """The port runs the dense / moe / vlm families, with MLA or GQA."""
     if cfg.family not in ("dense", "moe", "vlm"):
         raise NotImplementedError(f"the {cfg.family!r} family's blocks come with {ITEM_13}")
-    if not cfg.use_mla:
-        raise NotImplementedError(f"non-MLA attention comes with {ITEM_13}")
 
 
 # --------------------------------------------------------------------------
@@ -61,15 +62,18 @@ def _norm(p: Norm, x: torch.Tensor, cfg: ModelConfig):
 
 
 class LMBlock(nn.Module):
-    """One pre-norm block (``init_lm_block``): ``ln1``, ``attn`` (MLA),
-    ``ln2`` and ``ffn`` (dense) or ``moe``."""
+    """One pre-norm block (``init_lm_block``): ``ln1``, ``ln2``, ``attn``
+    (MLA or GQA), the post-norms if any, and ``ffn`` (dense) or ``moe``."""
 
     def __init__(self, cfg: ModelConfig, *, moe_layer: bool, device, generator=None):
         super().__init__()
         check_supported(cfg)
         self.ln1 = Norm(cfg, device=device)
         self.ln2 = Norm(cfg, device=device)
-        self.attn = mla.MLA(cfg, device=device, generator=generator)
+        if cfg.use_mla:
+            self.attn = mla.MLA(cfg, device=device, generator=generator)
+        else:
+            self.attn = attention.Attention(cfg, device=device, generator=generator)
         if cfg.post_norms:
             self.ln1_post = Norm(cfg, device=device)
             self.ln2_post = Norm(cfg, device=device)
@@ -109,11 +113,17 @@ def lm_block_full(
     cache_len: int = 0,
 ):
     """Full-sequence block.  Returns ``(x, cache, counts)``.  ``window``
-    is accepted for the JAX signature; MLA attends globally."""
+    (a Python int) masks GQA attention; MLA attends globally."""
     h = _norm(p.ln1, x, cfg)
-    a, cache = mla.mla_full(
-        p.attn, h, cfg, return_cache=return_cache, cache_len=cache_len, ctx=ctx
-    )
+    if cfg.use_mla:
+        a, cache = mla.mla_full(
+            p.attn, h, cfg, return_cache=return_cache, cache_len=cache_len, ctx=ctx
+        )
+    else:
+        mla.refuse_ctx(ctx)
+        a, cache = attention.attention_full(
+            p.attn, h, cfg, window=window, return_cache=return_cache, cache_len=cache_len
+        )
     if cfg.post_norms:
         a = _norm(p.ln1_post, a, cfg)
     x, counts = _ffn_part(p, x + a, cfg, ctx, bias, moe_layer)
@@ -131,7 +141,10 @@ def lm_block_decode(
     ``(x, cache, counts)``."""
     mla.refuse_ctx(ctx)
     h = _norm(p.ln1, x, cfg)
-    a, cache = mla.mla_decode(p.attn, h, cache, pos, cfg)
+    if cfg.use_mla:
+        a, cache = mla.mla_decode(p.attn, h, cache, pos, cfg)
+    else:
+        a, cache = attention.attention_decode(p.attn, h, cache, pos, cfg, window=window)
     if cfg.post_norms:
         a = _norm(p.ln1_post, a, cfg)
     x, counts = _ffn_part(p, x + a, cfg, ctx, bias, moe_layer)

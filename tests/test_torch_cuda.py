@@ -5,7 +5,10 @@ card: ``PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py``.  
 output is an integer, a bool or a float32 sum of whole ``+1.0`` steps, and
 must be equal, except ``moe_route``'s combine weights: within rtol 1e-5 /
 atol 1e-6 of the plain version (the JAX package's own tolerance for its
-router kernel), since the softmax sums run in another order.  Where there is no card, each test
+router kernel), since the softmax sums run in another order, and
+``flash_attention``'s output: within 2e-5 in float32 and 2e-2 in bfloat16
+(``tests/test_flash_kernel.py``'s tolerances), since its dot products and
+row sums run in another order.  Where there is no card, each test
 skips with a reason.
 """
 import numpy as np
@@ -76,7 +79,8 @@ class TestOnCard:
                  for x in (2, 3)]
         tops.reset_launch_counts()
         fused = slotted_sim.simulate_grid([0, 1], static, cells, device=cuda_device)
-        assert tops.launch_counts() == {"jsaq_route": 0, "care_route": 1, "serve_route": 0, "moe_route": 0}
+        assert tops.launch_counts() == {"jsaq_route": 0, "care_route": 1, "serve_route": 0,
+                                        "moe_route": 0, "flash_attention": 0}
         dense = slotted_sim.simulate_grid(
             [0, 1], slotted_sim.StaticConfig(**{**static.__dict__, "route_backend": "dense"}),
             cells, device=cuda_device,
@@ -129,7 +133,8 @@ class TestOnCard:
         static = cells[0].static_part()
         tops.reset_launch_counts()
         fused = serve_engine.serve_grid([0, 1], static, cells, device=cuda_device)
-        assert tops.launch_counts() == {"jsaq_route": 0, "care_route": 0, "serve_route": 300, "moe_route": 0}
+        assert tops.launch_counts() == {"jsaq_route": 0, "care_route": 0, "serve_route": 300,
+                                        "moe_route": 0, "flash_attention": 0}
         dense_cells = [
             serve_engine.ServeConfig(**{**c.__dict__, "route_backend": "dense"}) for c in cells
         ]
@@ -183,11 +188,75 @@ class TestOnCard:
         torch.cuda.synchronize()
         n_moe = tmodel.num_scanned_layers(cfg)
         assert tops.launch_counts() == {"jsaq_route": 0, "care_route": 0, "serve_route": 0,
-                                        "moe_route": 2 * n_moe}
+                                        "moe_route": 2 * n_moe, "flash_attention": 0}
         assert bool(torch.isfinite(logits).all()) and bool(torch.isfinite(logits2).all())
         # The same weights on the CPU take the plain router.  Both run in
         # float32 (no TF32); cuBLAS and the CPU sum in other orders.
         cpu = tmodel.Model(cfg, device="cpu")
         cpu.load_state_dict({n: p.cpu() for n, p in params.state_dict().items()})
         want, _ = tmodel.prefill(cpu, {"tokens": tokens.cpu()}, cfg, cache_len=20)
+        np.testing.assert_allclose(logits.cpu().numpy(), want.numpy(), rtol=1e-3, atol=1e-4)
+
+    @pytest.mark.parametrize(
+        "b,s,t,h,kvh,dh,dv,dtype,kw",
+        [
+            (2, 128, 128, 4, 4, 64, 64, torch.float32, dict(causal=True)),
+            (2, 128, 256, 4, 4, 64, 64, torch.bfloat16, dict(causal=True)),
+            (1, 128, 256, 4, 2, 32, 32, torch.float32, dict(causal=True)),  # GQA 2
+            (1, 128, 256, 4, 1, 32, 32, torch.float32, dict(causal=True)),  # GQA 4
+            (1, 256, 256, 9, 3, 64, 64, torch.bfloat16, dict(causal=True)),  # GQA 3
+            (1, 256, 256, 2, 2, 64, 64, torch.float32, dict(causal=True, window=100)),
+            (1, 128, 128, 2, 2, 64, 64, torch.float32, dict(causal=True, softcap=50.0)),
+            (1, 128, 256, 2, 2, 64, 128, torch.float32, dict(causal=False)),
+            (1, 200, 200, 4, 2, 256, 256, torch.bfloat16,
+             dict(causal=True, window=37, softcap=50.0)),
+            (1, 200, 200, 4, 2, 256, 256, torch.float32, dict(causal=True, window=1 << 30)),
+            (2, 1, 300, 4, 2, 128, 128, torch.bfloat16, dict(causal=False)),
+            # queries past T + window have no key: the dense softmax averages all keys
+            (1, 300, 100, 2, 1, 64, 64, torch.float32, dict(causal=True, window=20)),
+            (1, 77, 45, 3, 3, 4, 8, torch.float32, dict(causal=True)),
+        ],
+    )
+    def test_flash_attention_kernel(self, cuda_device, b, s, t, h, kvh, dh, dv, dtype, kw):
+        rng = np.random.default_rng(s + t + h + dh)
+        q, k, v = (
+            torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(cuda_device, dtype)
+            for shape in ((b, s, h, dh), (b, t, kvh, dh), (b, t, kvh, dv))
+        )
+        scale = 1.0 / dh**0.5
+        want = tref.flash_attention_ref(q, k, v, scale=scale, **kw)
+        before = tops.launch_counts()["flash_attention"]
+        got = tops.flash_attention(q, k, v, scale=scale, **kw)
+        torch.cuda.synchronize()
+        assert tops.launch_counts()["flash_attention"] == before + 1
+        assert got.shape == (b, s, h, dv) and got.dtype == dtype
+        tol = 2e-2 if dtype == torch.bfloat16 else 2e-5
+        torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+    def test_flash_attention_refuses_what_it_cannot_fit(self, cuda_device):
+        q = torch.zeros((1, 8, 2, 512), device=cuda_device)
+        with pytest.raises(ValueError, match="dh"):
+            tops.flash_attention(q, q, q, scale=1.0)
+        q = torch.zeros((1, 8, 2, 64), dtype=torch.float16, device=cuda_device)
+        with pytest.raises(ValueError, match="float32 or bfloat16"):
+            tops.flash_attention(q, q, q, scale=1.0)
+
+    @pytest.mark.parametrize("arch", ["gemma2-9b", "qwen3-0.6b", "smollm-135m"])
+    def test_reduced_dense_prefill_goes_through_the_kernel(self, cuda_device, arch):
+        cfg = get_config(arch).reduced()
+        gen = torch.Generator(device=cuda_device).manual_seed(0)
+        params = tmodel.init_params(gen, cfg, device=cuda_device)
+        tokens = torch.from_numpy(
+            np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 40))
+        ).to(cuda_device)
+        tops.reset_launch_counts()
+        logits, cache = tmodel.prefill(params, {"tokens": tokens}, cfg, cache_len=44)
+        logits2, _ = tmodel.decode_step(params, logits.argmax(-1), cache, 40, cfg)
+        torch.cuda.synchronize()
+        assert tops.launch_counts() == {"jsaq_route": 0, "care_route": 0, "serve_route": 0,
+                                        "moe_route": 0, "flash_attention": cfg.num_layers}
+        assert bool(torch.isfinite(logits).all()) and bool(torch.isfinite(logits2).all())
+        cpu = tmodel.Model(cfg, device="cpu")
+        cpu.load_state_dict({n: p.cpu() for n, p in params.state_dict().items()})
+        want, _ = tmodel.prefill(cpu, {"tokens": tokens.cpu()}, cfg, cache_len=44)
         np.testing.assert_allclose(logits.cpu().numpy(), want.numpy(), rtol=1e-3, atol=1e-4)

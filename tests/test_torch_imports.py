@@ -36,6 +36,16 @@ def test_moe_serving_modules_are_checked():
     } <= modules
 
 
+def test_dense_serving_modules_are_checked():
+    modules = {_module_name(p) for p in FILES if p.parent != ROOT}
+    assert {
+        "repro_torch.kernels.flash_attn", "repro_torch.models.attention",
+        "repro_torch.configs.gemma2_9b", "repro_torch.configs.qwen3_0p6b",
+        "repro_torch.configs.qwen1p5_4b", "repro_torch.configs.smollm_135m",
+        "repro_torch.configs.chameleon_34b",
+    } <= modules
+
+
 def test_every_module_imports_without_jax():
     modules = [_module_name(p) for p in FILES if p.parent != ROOT]
     code = (

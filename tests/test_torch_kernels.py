@@ -17,6 +17,7 @@ import pytest
 import torch
 
 from repro.kernels import ops as jops
+from repro_torch.kernels import flash_attn as tflash
 from repro_torch.kernels import jsaq_route as tcuda
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
@@ -176,7 +177,11 @@ class TestDispatch:
         ref = tref.care_route_ref(arrive, params, servers=4, cap=8, policy="jsaq", comm="et")
         for g, r in zip(out, ref):
             _eq(g.numpy(), r.numpy())
-        assert tops.launch_counts() == {"jsaq_route": 0, "care_route": 0, "serve_route": 0, "moe_route": 0}
+        q, k, v = (torch.ones((1, 4, 2, 8)) for _ in range(3))
+        _eq(tops.flash_attention(q, k, v, scale=0.5).numpy(),
+            tref.flash_attention_ref(q, k, v, scale=0.5).numpy())
+        assert tops.launch_counts() == {"jsaq_route": 0, "care_route": 0, "serve_route": 0,
+                                        "moe_route": 0, "flash_attention": 0}
 
     def test_kernel_binding_refuses_cpu_tensors(self):
         q = torch.zeros((2, 5), dtype=torch.int32)
@@ -189,8 +194,12 @@ class TestDispatch:
         state = [torch.from_numpy(x) for x in serve_route_state(5, 4, 3, 2, seed=0)]
         with pytest.raises(ValueError, match="CUDA tensor"):
             tcuda.serve_route_cuda(*state, cap=2, comm="et")
+        q4 = torch.zeros((1, 4, 2, 8))
+        with pytest.raises(ValueError, match="CUDA tensor"):
+            tflash.flash_attention_cuda(q4, q4, q4, scale=1.0)
         assert tops.launch_counts()["care_route"] == 0
         assert tops.launch_counts()["serve_route"] == 0
+        assert tops.launch_counts()["flash_attention"] == 0
 
     def test_unknown_kinds(self):
         arrive = torch.ones((1, 4), dtype=torch.int32)

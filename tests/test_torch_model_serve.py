@@ -251,8 +251,10 @@ def test_config_options_match_jax(options):
 
 
 def test_unported_architectures_raise():
-    with pytest.raises(NotImplementedError, match="item 13"):
-        tget("smollm-135m")
-    cfg = dataclasses.replace(tget("deepseek-v2-236b").reduced(), use_mla=False)
-    with pytest.raises(NotImplementedError, match="item 13"):
-        tmodel.init_params(torch.Generator().manual_seed(0), cfg, device="cpu")
+    for arch in ("hymba-1.5b", "rwkv6-1.6b", "whisper-small"):
+        with pytest.raises(NotImplementedError, match="item 13"):
+            tget(arch)
+    for family in ("ssm", "hybrid", "audio"):
+        cfg = dataclasses.replace(tget("deepseek-v2-236b").reduced(), family=family)
+        with pytest.raises(NotImplementedError, match="item 13"):
+            tmodel.init_params(torch.Generator().manual_seed(0), cfg, device="cpu")
