@@ -10,7 +10,10 @@ own failure):
 
 1. Build the five Hopper kernels from ``src/repro_torch/csrc`` with
    ``nvcc`` (one process per source, started together) and print the
-   build time and the compiler's register and spill report.
+   build time and the compiler's register and spill report; for each
+   instance of the two flash kernels (bf16 on the tensor cores for dh, dv
+   in {64, 128, 256}; float32 on the CUDA cores) its registers, spills and
+   dynamic shared memory.
 2. Hold each kernel against its plain PyTorch version on the card, on the
    same inputs, with exact equality (outputs are int32, bool, or float32
    sums of whole ``+1.0`` steps):
@@ -71,11 +74,14 @@ own failure):
    logits, the kernel against its plain version on the path's own q/k/v
    of a local and a global layer (B=1, 2e-2 in bf16) and on further
    shapes (float32 within 2e-5, dh 64 with GQA group 3, dh 128, non-causal
-   dv != dh, ragged S=T=8000, S=1, window 100, softcap on and off); times
-   the kernel, its plain version and PyTorch's
-   ``scaled_dot_product_attention`` at the path's shapes beside their
-   bound, prints the prefill wall, decode ms a token and a profiler window
-   of one prefill and one decode step.  Then the same model in float32:
+   dv != dh, ragged S=T=8000, S=1, window 100, softcap on and off, rows
+   with no key, small ragged S and T); times the float32 kernel at its
+   case, and the bf16 kernel, its plain version and PyTorch's
+   ``scaled_dot_product_attention`` (softcap 0; the window as a mask) at
+   the path's shapes beside their bound, with TFLOP/s, bound / kernel and
+   kernel / SDPA; prints the prefill wall, decode ms a token and a
+   profiler window of one prefill and one decode step.  Then the same
+   model in float32:
    prefill over S=4224 (B=1, past the window) against prefill over S-1
    and one ``decode_step``, within 2e-2.
 9. Print the kernels line (launch counts from the main paths, parity,
@@ -89,6 +95,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import re
 import subprocess
 import sys
 import time
@@ -178,6 +185,12 @@ FLASH_CASES = [
     ("S=T=1", (1, 1, 1, 16, 8, 256, 256), torch.bfloat16, dict(causal=True)),
     ("window 100", (1, 1024, 1024, 16, 8, 256, 256), torch.bfloat16,
      dict(causal=True, window=100)),
+    ("no key: S=300 past T=100 + window 20", (1, 300, 100, 2, 1, 64, 64), torch.bfloat16,
+     dict(causal=True, window=20)),
+    ("ragged S=77, T=45, dh 64, dv 128", (1, 77, 45, 3, 3, 64, 128), torch.bfloat16,
+     dict(causal=True)),
+    ("ragged S=T=200, window 37, softcap 50", (1, 200, 200, 4, 2, 256, 256), torch.bfloat16,
+     dict(causal=True, window=37, softcap=50.0)),
 ]
 # About 25 ms at the H100's 1.98 GHz: longer than the host takes to
 # enqueue MOE_TIME_REPS launches (~35 us each).
@@ -583,6 +596,13 @@ def _attn_pairs(s: int, t: int, causal: bool, window) -> int:
     return int(np.where(cnt > 0, cnt, t).sum())
 
 
+def _flash_flop(q, k, v, causal: bool, window) -> int:
+    """Useful FLOP of one flash_attention call: 2 (dh + dv) per attended
+    (query, key) pair and head."""
+    b, s, h, dh = q.shape
+    return 2 * (dh + v.shape[3]) * b * h * _attn_pairs(s, k.shape[1], causal, window)
+
+
 def _flash_bound(q, k, v, causal: bool, window) -> tuple[float, str]:
     """flash_attention's bound: q, k, v read once and the output written
     once, against 2 (dh + dv) FLOP per attended pair on the tensor cores
@@ -591,7 +611,7 @@ def _flash_bound(q, k, v, causal: bool, window) -> tuple[float, str]:
     t, kvh, dv = k.shape[1], k.shape[2], v.shape[3]
     elem = q.element_size()
     n_bytes = elem * (b * s * h * dh + b * t * kvh * (dh + dv) + b * s * h * dv)
-    n_ops = 2 * (dh + dv) * b * h * _attn_pairs(s, t, causal, window)
+    n_ops = _flash_flop(q, k, v, causal, window)
     rate = BF16_TENSOR_FLOP_PER_S if q.dtype == torch.bfloat16 else F32_FLOP_PER_S
     t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_ops / rate
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
@@ -711,7 +731,31 @@ def _dense_serving(dev, times: dict) -> dict:
                    for n, heads, w in ((sq, h, dh), (t, kvh, dh), (t, kvh, dv)))
         err = _flash_parity(flash_k, ref, q, k, v, scale=dh**-0.5, **kw)
         errs.append(err)
-        print(f"phase 8 flash_attention {name}: max_abs_err {err:.3g}")
+        print(f"phase 8 flash_attention {name} ({dtype}): max_abs_err {err:.3g}")
+        if dtype == torch.bfloat16 and sq >= 2048 and kw == dict(causal=True):
+            # the tensor-core kernel at the other widths, against SDPA
+            kernel_ms = _time_ms(
+                lambda: flash_k.flash_attention_cuda(q, k, v, scale=dh**-0.5, **kw),
+                FLASH_TIME_REPS)
+            qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+            sdpa_ms = _time_ms(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True, scale=dh**-0.5, enable_gqa=True), FLASH_TIME_REPS)
+            print(f"phase 8 flash_attention {name}: kernel {kernel_ms:.3f} ms, "
+                  f"{_flash_flop(q, k, v, True, None) / kernel_ms / 1e9:.1f} TFLOP/s, "
+                  f"scaled_dot_product_attention {sdpa_ms:.3f} ms, kernel / SDPA "
+                  f"{kernel_ms / sdpa_ms:.3f}")
+            del qt, kt, vt
+        if dtype == torch.float32:  # the CUDA-core kernel's time, once
+            kw32 = dict(scale=dh**-0.5, **kw)
+            bound = _flash_bound(q, k, v, kw["causal"], kw.get("window"))
+            f32_ms = _time_ms(lambda: flash_k.flash_attention_cuda(q, k, v, **kw32),
+                              FLASH_TIME_REPS)
+            f32_plain_ms = _time_ms(lambda: ref.flash_attention_ref(q, k, v, **kw32), 2)
+            times["flash_f32_ms"], times["flash_f32_plain_ms"] = f32_ms, f32_plain_ms
+            print(f"phase 8 flash_attention float32 kernel at {name}: {f32_ms:.3f} ms, "
+                  f"{_flash_flop(q, k, v, kw['causal'], kw.get('window')) / f32_ms / 1e9:.1f} "
+                  f"TFLOP/s; plain {f32_plain_ms:.3f} ms; bound {bound[0]:.4f} ms "
+                  f"({bound[1]}; operations at the CUDA cores' float32 peak)")
     del q, k, v
 
     # Where the time goes: one profiled prefill and decode step.
@@ -727,7 +771,8 @@ def _dense_serving(dev, times: dict) -> dict:
         print("phase 8 profile: the profiler saw no device time; busy share not measured")
     else:
         device.sort(key=lambda ev: ev.self_device_time_total, reverse=True)
-        flash_us = sum(ev.self_device_time_total for ev in device if "flash_kernel" in ev.key)
+        flash_us = sum(ev.self_device_time_total for ev in device
+                       if "flash_wgmma" in ev.key or "flash_kernel" in ev.key)
         print(f"phase 8 profile of one prefill + one decode step: device busy "
               f"{device_us / 1e3:.3f} ms against an unprofiled wall of "
               f"{wall * 1e3 + decode_ms:.3f} ms (busy share "
@@ -739,39 +784,51 @@ def _dense_serving(dev, times: dict) -> dict:
     torch.cuda.empty_cache()
 
     # Times at the path's shapes (B=2), the model freed so that the plain
-    # version's float32 scores of both prompts fit.
+    # version's float32 scores of both prompts fit.  Beside each layer,
+    # PyTorch's scaled_dot_product_attention on the same inputs with softcap
+    # 0 against the kernel with softcap 0: causal for the global layer, the
+    # window as a boolean mask (whichever backend PyTorch picks) for the local.
     rows = {}
     for (q, k, v, kw), layer in zip(kept, ("local", "global")):
         bound = _flash_bound(q, k, v, True, kw["window"])
+        flop = _flash_flop(q, k, v, True, kw["window"])
         kernel_ms = _time_ms(lambda: flash_k.flash_attention_cuda(q, k, v, **kw), FLASH_TIME_REPS)
         plain_ms = _time_ms(lambda: ref.flash_attention_ref(q, k, v, **kw), 2)
-        rows[layer] = (kernel_ms, plain_ms, bound)
+        # the model's global layers pass a window of 2**30, wider than S
+        nocap = dict(kw, softcap=0.0, window=None if layer == "global" else kw["window"])
+        nocap_ms = _time_ms(lambda: flash_k.flash_attention_cuda(q, k, v, **nocap),
+                            FLASH_TIME_REPS)
+        qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))  # SDPA's (B, H, S, D)
+        if nocap["window"] is None:
+            def sdpa():
+                return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                                      scale=kw["scale"], enable_gqa=True)
+        else:
+            pos = torch.arange(q.shape[1], device=q.device)
+            allowed = (pos[None, :] <= pos[:, None]) & (pos[:, None] - pos[None, :] < kw["window"])
+
+            def sdpa():
+                return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=allowed,
+                                                      scale=kw["scale"], enable_gqa=True)
+        sdpa_ms = _time_ms(sdpa, FLASH_TIME_REPS)
+        sdpa_diff = _max_abs_err([sdpa().transpose(1, 2).float()],
+                                 [flash_k.flash_attention_cuda(q, k, v, **nocap).float()])
+        rows[layer] = (kernel_ms, plain_ms, bound, sdpa_ms)
         print(f"phase 8 flash_attention {layer} layer (B={q.shape[0]}, S=T={q.shape[1]}, "
               f"H={q.shape[2]}, KVH={k.shape[2]}, dh={q.shape[3]}, window {kw['window']}, "
-              f"softcap {kw['softcap']}): kernel {kernel_ms:.3f} ms, plain {plain_ms:.3f} ms, "
-              f"bound {bound[0]:.4f} ms ({bound[1]}); kernel / bound "
-              f"{kernel_ms / bound[0]:.1f}")
-    q, k, v, kw = kept[1]
-    nocap = dict(scale=kw["scale"], causal=True, window=None, softcap=0.0)
-    nocap_ms = _time_ms(lambda: flash_k.flash_attention_cuda(q, k, v, **nocap), FLASH_TIME_REPS)
-    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))  # SDPA's (B, H, S, D)
-
-    def sdpa():
-        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, scale=kw["scale"],
-                                              enable_gqa=True)
-
-    sdpa_ms = _time_ms(sdpa, FLASH_TIME_REPS)
-    sdpa_diff = _max_abs_err([sdpa().transpose(1, 2).float()],
-                             [flash_k.flash_attention_cuda(q, k, v, **nocap).float()])
-    print(f"phase 8 global layer with softcap 0 and no window: kernel {nocap_ms:.3f} ms, "
-          f"scaled_dot_product_attention {sdpa_ms:.3f} ms (max abs difference "
-          f"{sdpa_diff:.3g}), bound {_flash_bound(q, k, v, True, None)[0]:.4f} ms; "
-          f"{cfg.num_layers // 2} local + {cfg.num_layers // 2} global layers: kernel "
-          f"{cfg.num_layers // 2 * (rows['local'][0] + rows['global'][0]):.1f} ms, bound "
+              f"softcap {kw['softcap']}): kernel {kernel_ms:.3f} ms, {flop / kernel_ms / 1e9:.1f} "
+              f"TFLOP/s, bound {bound[0]:.4f} ms ({bound[1]}), bound / kernel "
+              f"{bound[0] / kernel_ms:.3f}; plain {plain_ms:.3f} ms; softcap 0: kernel "
+              f"{nocap_ms:.3f} ms, scaled_dot_product_attention {sdpa_ms:.3f} ms, kernel / SDPA "
+              f"{nocap_ms / sdpa_ms:.3f} (outputs differ by at most {sdpa_diff:.3g})")
+        del qt, kt, vt
+    layers_ms = cfg.num_layers // 2 * (rows["local"][0] + rows["global"][0])
+    print(f"phase 8 {cfg.num_layers // 2} local + {cfg.num_layers // 2} global layers: kernel "
+          f"{layers_ms:.1f} ms, bound "
           f"{cfg.num_layers // 2 * (rows['local'][2][0] + rows['global'][2][0]):.2f} ms, "
-          f"{cfg.num_layers // 2 * (rows['local'][0] + rows['global'][0]) / (wall * 1e3):.3f} "
-          f"of the prefill wall")
-    del kept, q, k, v, qt, kt, vt
+          f"{layers_ms / (wall * 1e3):.3f} of the prefill wall")
+    sdpa_ms = rows["global"][3]
+    del kept, q, k, v
     torch.cuda.empty_cache()
 
     # Prefill against decode in float32, B=1, S past the window.
@@ -798,7 +855,7 @@ def _dense_serving(dev, times: dict) -> dict:
     del params, cache, full, step
     torch.cuda.empty_cache()
 
-    kernel_ms, plain_ms, bound = rows["global"]
+    kernel_ms, plain_ms, bound, _ = rows["global"]
     return {
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/csrc/flash_attn.cu",
@@ -807,6 +864,32 @@ def _dense_serving(dev, times: dict) -> dict:
         "max_abs_err": max(errs), "ms": kernel_ms, "plain_ms": plain_ms,
         "bound_ms": bound[0], "bound_by": bound[1], "library_ms": sdpa_ms,
     }
+
+
+def _flash_build_report() -> None:
+    """Registers, spills and shared memory of each flash kernel instance,
+    from the ``-Xptxas -v`` log kept beside the library (shared memory is
+    dynamic, so it comes from the library's own size query)."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import flash_attn as flash_k
+
+    log = (_build.build_dir() / "libflash_attn.log").read_text(errors="replace")
+    name, spill = None, ""
+    for line in log.splitlines():
+        if m := re.search(r"entry function .*(flash_wgmma|flash_kernel)I(\w+?)EEv", line):
+            widths = [int(w) for w in re.findall(r"Li(\d+)E", m.group(2) + "E")]
+            name, dtype = m.group(1), (torch.bfloat16 if widths else torch.float32)
+        elif m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line):
+            spill = f"spill stores {m.group(1)} B, loads {m.group(2)} B"
+        elif (m := re.search(r"Used (\d+) registers", line)) and name:
+            dh, dv = widths or (256, 256)
+            smem = flash_k.smem_bytes(dtype, dh, dv)
+            label = f"{name}<{dh}, {dv}>" if widths else f"{name}<float> at dh = dv = 256"
+            regs = f"{m.group(1)} registers at launch" + (
+                " (setmaxnreg: 240 a consumer, 24 a producer thread)" if widths else "")
+            print(f"phase 1 flash_attn {label}: {regs}, {spill}, {smem} B of dynamic shared "
+                  f"memory a block")
+            name = None
 
 
 def _card() -> str:
@@ -847,6 +930,7 @@ def main() -> int:
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  ptxas {name}: {line.strip()}")
+    _flash_build_report()
 
     rng = np.random.default_rng(2022)
 

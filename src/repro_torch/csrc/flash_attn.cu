@@ -15,37 +15,64 @@
 // reads KV head h / (H / KVH), so K and V are never repeated for GQA (the TPU
 // wrapper broadcasts them).  Query rows and keys are masked by bound, so any
 // S, T >= 1 runs without padding: a key past T scores -inf and adds nothing
-// (m starts at -1e30, so exp(-inf - m) is 0, never NaN).
+// (m starts at -1e30, so exp(-inf - m) is 0, never NaN).  Key tiles wholly
+// above the diagonal or wholly outside the window are skipped; a block
+// holding a row with no key at all (S > T - 1 + window) runs every tile, as
+// the dense softmax then averages all keys.  Blocks of the last query rows,
+// which have the most tiles, are started first.
 //
 // What bounds it on this card: operations.  At Gemma2-9B's global layer (B =
 // 2, S = T = 8064, H = 16, dh = dv = 256, causal) the useful work is 1.07e12
 // FLOP, 1.08 ms on the bf16 tensor cores, against 0.40 GB of inputs and
-// outputs (0.12 ms at 3.35 TB/s).  This first version does its products on
-// the CUDA cores in float32 (67 TFLOP/s at most, 16 ms for that layer), the
-// same arithmetic for float32 and bfloat16 inputs; tensor cores (mma / wgmma)
-// and TMA are later work.
+// outputs (0.12 ms at 3.35 TB/s).
 //
-// Design: one block of 256 threads per (batch, head, 64 query rows).  The
-// block stages its Q tile once and each 32-key K and V tile in shared memory
-// as float32 (rows padded by 4 floats so the float4 reads of 16 neighbouring
-// threads fall in distinct banks); at dh = dv = 256 that is 141 KB, the same
-// for both input types, above the 48 KB default and so set with
-// cudaFuncSetAttribute.  Thread (ty, tx) of a 16 x 16 grid owns query rows
-// 4ty..4ty+3: it computes their scores against keys tx and tx + 16, keeps the
-// rows' m and l in registers (a row's 16 threads share a half-warp, so the
-// row max and sum are shuffles, no barrier), and accumulates value columns
-// 64c + 4tx..+3 (c < 4) of those rows in 64 registers, so the (64, dv)
-// accumulator never touches shared memory.  Key tiles wholly above the
-// diagonal or wholly outside the window are skipped (every row keeps its own
-// key); a block holding a row with no key at all (S > T with a window) runs
-// every tile, as the dense softmax then averages all keys.  Blocks of the
-// last query rows, which have the most tiles, are started first.
+// Two kernels, chosen by the input type; neither falls back to the other.
+//
+// bfloat16, flash_wgmma: both products on the tensor cores (wgmma, float32
+// accumulators in registers).  One block of three warpgroups handles 128
+// query rows of one (batch, head): warpgroups 0 and 1 each own 64 rows and
+// compute; one thread of warpgroup 2 issues every load.  setmaxnreg moves
+// registers from the producer (24) to the consumers (240), which hold the
+// (64, dv) accumulator (128 registers a thread at dv = 256), the 64 x 64
+// score tile (32) and its bf16 copy (16).  Q is loaded once and 64-key K and
+// V tiles stream through a ring of two stages, all by TMA (tensor maps over
+// the 4-D tensors, boxes of 64 rows x 64 columns with the 128-byte swizzle
+// the wgmma descriptors name), each stage with a full and an empty mbarrier
+// for K and for V.  S = Q K^T reads Q and K from shared memory (K-major);
+// softmax runs in registers in base 2; P stays in registers as the A operand
+// of O += P V, whose accumulator layout is the register layout of A, and V is
+// read from shared memory MN-major, transposed by the descriptor.  At dh = dv
+// = 256 shared memory holds Q (64 KB) and two stages of K and V (128 KB).
+// TMA fills rows past S or T with zeros, so keys past T are still masked here
+// and rows past S are never stored.  softcap * tanh(x / softcap) is
+// softcap * (1 - 2 / (2^(2 x log2(e) / softcap) + 1)) with ex2.approx and
+// rcp.approx, within about 5e-7 * softcap of tanh (tanh.approx.f32 would be
+// 2^-11 * softcap, 0.02 at softcap 50).  A warpgroup waits for each product
+// before it reads the result; overlapping one tile's softmax with the
+// previous tile's P V product was measured and not kept (PERF.md).
+// dh and dv in {64, 128, 256}.
+//
+// float32, flash_kernel: the products on the CUDA cores in float32 FMAs, since
+// the tensor cores (TF32) cannot meet float32's 2e-5.  One block of 256
+// threads per (batch, head, 64 query rows).  The block stages its Q tile once
+// and each 32-key K and V tile in shared memory (rows padded by 4 floats so
+// the float4 reads of 16 neighbouring threads fall in distinct banks); at dh
+// = dv = 256 that is 141 KB, set with cudaFuncSetAttribute.  Thread (ty, tx)
+// of a 16 x 16 grid owns query rows 4ty..4ty+3: it computes their scores
+// against keys tx and tx + 16, keeps the rows' m and l in registers (a row's
+// 16 threads share a half-warp, so the row max and sum are shuffles, no
+// barrier), and accumulates value columns 64c + 4tx..+3 (c < 4) of those
+// rows in 64 registers.  dh and dv multiples of 4 up to 256.
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <climits>
+#include <cstdint>
 
 namespace {
+
+// ---- float32: CUDA cores -----------------------------------------------------
 
 constexpr int kBQ = 64;         // query rows per block
 constexpr int kBK = 32;         // keys per tile
@@ -57,16 +84,11 @@ constexpr int kLdp = kBQ + kPad;  // row pitch of the transposed p tile
 constexpr float kNeg = -1e30f;
 
 __device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
 
 template <typename T>
 __device__ __forceinline__ T from_f(float x);
 template <>
 __device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
 
 __device__ __forceinline__ float half_warp_max(float v) {
 #pragma unroll
@@ -237,12 +259,16 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restri
   }
 }
 
+size_t f32_smem_bytes(int dh, int dv) {
+  return sizeof(float) *
+         ((size_t)(kBQ + kBK) * (dh + kPad) + (size_t)kBK * (dv + kPad) + kBK * kLdp);
+}
+
 template <typename T>
 int launch(const void* q, const void* k, const void* v, void* out, int b, int s, int t, int h,
            int kvh, int dh, int dv, float scale, float softcap, int causal, int window,
            cudaStream_t stream) {
-  const size_t smem =
-      sizeof(float) * ((size_t)(kBQ + kBK) * (dh + kPad) + (size_t)kBK * (dv + kPad) + kBK * kLdp);
+  const size_t smem = f32_smem_bytes(dh, dv);
   cudaError_t err = cudaFuncSetAttribute(
       flash_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -253,27 +279,605 @@ int launch(const void* q, const void* k, const void* v, void* out, int b, int s,
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---- bfloat16: tensor cores --------------------------------------------------
+
+constexpr int kRows = 128;              // query rows per block: two warpgroups of 64
+constexpr int kKeys = 64;               // keys per tile
+constexpr int kStages = 2;              // K and V tiles in flight
+constexpr int kBox = 64 * 64 * 2;       // one TMA box: 64 rows of 64 bf16 (128 B each)
+constexpr int kWgThreads = 3 * 128;     // consumer warpgroups 0, 1; producer warpgroup 2
+constexpr int kConsumers = 2 * 128;
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kNegL2 = kNeg * kLog2e;  // the -1e30 fill, in base 2
+
+// Shared memory of one block, in bytes from a 1024-byte aligned base (the
+// 128-byte swizzle repeats every 8 rows of 128 B): Q's 128 rows, then
+// kStages stages of 64 keys of K and of V, then the mbarriers (q, then per
+// stage full K, full V, empty K, empty V), plus 1024 of alignment slack.
+template <int DH, int DV>
+struct Layout {
+  static constexpr int kQ = 2 * (DH / 64) * kBox;
+  static constexpr int kK = (DH / 64) * kBox;
+  static constexpr int kV = (DV / 64) * kBox;
+  static constexpr int kBar = kQ + kStages * (kK + kV);
+};
+
+constexpr int wgmma_smem_bytes(int dh, int dv) {
+  return (2 * (dh / 64) + kStages * (dh / 64 + dv / 64)) * kBox + 8 * (1 + 4 * kStages) + 1024;
+}
+
+// Key tiles [first, end) that query rows [row0, row_last] visit, and whether
+// every one needs the mask: a row with no key at all (causal, row_last >= T -
+// 1 + window) makes the block run every tile masked, since the dense softmax
+// then averages all T keys.  kernels/flash_attn.py:key_tiles is the same
+// arithmetic, tested on the CPU.
+struct Tiles {
+  int first, end, all_masked;
+};
+
+__device__ __forceinline__ Tiles key_tiles(int row0, int row_last, int t_n, int causal,
+                                           int window) {
+  Tiles r{0, (int)(((long long)t_n + kKeys - 1) / kKeys), 0};
+  if (!causal) return r;
+  if ((long long)row_last >= (long long)t_n - 1 + window) {
+    r.all_masked = 1;
+    return r;
+  }
+  const int k_hi = min(t_n, row_last + 1);
+  const int k_lo = (int)max(0LL, (long long)row0 - window + 1);
+  r.first = k_lo / kKeys;
+  r.end = (int)(((long long)k_hi + kKeys - 1) / kKeys);
+  return r;
+}
+
+// Whether tile [k0, k0 + 64) holds a key that some row in [row0, row_last]
+// must not attend: past T, after row0 (causal), or window or more before
+// row_last.
+__device__ __forceinline__ bool tile_masked(const Tiles& r, int k0, int row0, int row_last,
+                                            int t_n, int causal, int window) {
+  return r.all_masked || (long long)k0 + kKeys > t_n ||
+         (causal && ((long long)k0 + kKeys - 1 > row0 || (long long)row_last - k0 >= window));
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+
+// Returns once the phase of parity `parity` has completed.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// One box of a 4-D tensor map, at coordinates (column, head, row, batch),
+// into shared memory; completion is counted on `bar`.
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                         int col, int head, int row, int batch) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(col), "r"(head), "r"(row), "r"(batch)
+      : "memory");
+}
+
+// A wgmma operand in shared memory with the 128-byte swizzle: start address,
+// leading and stride byte offsets (in 16-byte units), layout 1 (B128).
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | (uint64_t)(lbo >> 4) << 16 |
+         (uint64_t)(sbo >> 4) << 32 | 1ull << 62;
+}
+
+// K-major (Q and K: a row's dh values along the box's 128 B): 8-row groups
+// 1024 B apart; the leading offset is unused.
+__device__ __forceinline__ uint64_t kmajor_desc(uint32_t addr) {
+  return sw128_desc(addr, 16, 1024);
+}
+
+// MN-major (V: a key's dv values along the row): the next 64 columns are the
+// next box, the next 8 keys 1024 B on.
+__device__ __forceinline__ uint64_t mnmajor_desc(uint32_t addr) {
+  return sw128_desc(addr, kBox, 1024);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// Orders register arrays against the asynchronous wgmma: kept live and
+// unmoved across the fence / wait around it.
+template <int N>
+__device__ __forceinline__ void keep(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void keep(uint32_t (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(d[i])::"memory");
+}
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ float rcp(float x) {
+  float y;
+  asm("rcp.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// d (64 x 64, float32) = A (64 x 16) . B (16 x 64), plus d when `accumulate`;
+// A and B bf16 in shared memory, both K-major (a row's 16 values contiguous).
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da, uint64_t db,
+                                             int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d (64 x 64, float32) += A (64 x 16, bf16 in registers) . B (16 x 64, bf16
+// in shared memory, MN-major: a row's 64 values contiguous, which the
+// transpose flag reads as B).
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], uint32_t a0, uint32_t a1,
+                                              uint32_t a2, uint32_t a3, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(1));
+}
+
+// d (64 x 128, float32) += A (64 x 16, bf16 in registers) . B (16 x 128, bf16
+// in shared memory, MN-major: a row's 128 values contiguous, which the
+// transpose flag reads as B).
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], uint32_t a0, uint32_t a1,
+                                              uint32_t a2, uint32_t a3, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(1));
+}
+
+// d (64 x 256, float32) += A (64 x 16, bf16 in registers) . B (16 x 256, bf16
+// in shared memory, MN-major: a row's 256 values contiguous, which the
+// transpose flag reads as B).
+__device__ __forceinline__ void wgmma_rs_n256(float (&d)[128], uint32_t a0, uint32_t a1,
+                                              uint32_t a2, uint32_t a3, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}, "
+      "{%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(1));
+}
+
+template <int DV>
+__device__ __forceinline__ void wgmma_pv(float (&o)[DV / 2], const uint32_t* a, uint64_t db) {
+  if constexpr (DV == 64) wgmma_rs_n64(o, a[0], a[1], a[2], a[3], db);
+  if constexpr (DV == 128) wgmma_rs_n128(o, a[0], a[1], a[2], a[3], db);
+  if constexpr (DV == 256) wgmma_rs_n256(o, a[0], a[1], a[2], a[3], db);
+}
+
+template <int DH, int DV>
+__global__ void __launch_bounds__(kWgThreads, 1)
+flash_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+            const __grid_constant__ CUtensorMap tv, __nv_bfloat16* __restrict__ out, int b_n,
+            int s_n, int t_n, int h_n, int kvh_n, float scale, float softcap, int causal,
+            int window) {
+  using L = Layout<DH, DV>;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t sq = (smem_u32(smem_raw) + 1023) & ~1023u;
+  const uint32_t sk = sq + L::kQ;
+  const uint32_t sv = sk + kStages * L::kK;
+  const uint32_t bar_q = sq + L::kBar;
+  const uint32_t full_k = bar_q + 8, full_v = full_k + 8 * kStages;  // + 8 * stage
+  const uint32_t empty_k = full_v + 8 * kStages, empty_v = empty_k + 8 * kStages;
+
+  const int n_qb = (s_n + kRows - 1) / kRows;
+  const int bh = blockIdx.x % (b_n * h_n);
+  const int qb = n_qb - 1 - blockIdx.x / (b_n * h_n);  // heaviest blocks first
+  const int b = bh / h_n, h = bh % h_n;
+  const int kvh = h / (h_n / kvh_n);
+  const int row0 = qb * kRows;
+  const int row_last = min(row0 + kRows, s_n) - 1;
+  const Tiles tiles = key_tiles(row0, row_last, t_n, causal, window);
+  const int n_tiles = tiles.end - tiles.first;
+
+  if (threadIdx.x == 0) {
+    mbar_init(bar_q, 1);
+    for (int st = 0; st < kStages; ++st) {
+      mbar_init(full_k + 8 * st, 1);
+      mbar_init(full_v + 8 * st, 1);
+      mbar_init(empty_k + 8 * st, kConsumers);
+      mbar_init(empty_v + 8 * st, kConsumers);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= kConsumers) {
+    // Producer: one thread keeps the ring full.
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
+    if (threadIdx.x == kConsumers) {
+      mbar_expect_tx(bar_q, L::kQ);
+#pragma unroll
+      for (int w = 0; w < 2; ++w)
+#pragma unroll
+        for (int c = 0; c < DH / 64; ++c)
+          tma_load(sq + (w * (DH / 64) + c) * kBox, &tq, bar_q, 64 * c, h, row0 + 64 * w, b);
+      for (int i = 0; i < n_tiles; ++i) {
+        const int st = i % kStages;
+        const uint32_t ph = (i / kStages) & 1;
+        const int k0 = (tiles.first + i) * kKeys;
+        mbar_wait(empty_k + 8 * st, ph ^ 1);
+        mbar_expect_tx(full_k + 8 * st, L::kK);
+#pragma unroll
+        for (int c = 0; c < DH / 64; ++c)
+          tma_load(sk + st * L::kK + c * kBox, &tk, full_k + 8 * st, 64 * c, kvh, k0, b);
+        mbar_wait(empty_v + 8 * st, ph ^ 1);
+        mbar_expect_tx(full_v + 8 * st, L::kV);
+#pragma unroll
+        for (int c = 0; c < DV / 64; ++c)
+          tma_load(sv + st * L::kV + c * kBox, &tv, full_v + 8 * st, 64 * c, kvh, k0, b);
+      }
+    }
+  } else {
+    // Consumers: warpgroup wg owns query rows row0 + 64 wg .. + 63.  Thread
+    // (warp, lane) holds rows qrow and qrow + 8, columns qcol, qcol + 1 of
+    // every 8-column group of S and O.
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
+    const int wg = threadIdx.x / 128, warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
+    const int qrow = row0 + 64 * wg + 16 * warp + lane / 4;
+    const int qcol = 2 * (lane % 4);
+    const uint32_t q_wg = sq + wg * (DH / 64) * kBox;
+    const float scale_l2 = scale * kLog2e;
+    const float cap_l2 = softcap * kLog2e;
+    const float tanh_l2 = softcap > 0.0f ? 2.0f * kLog2e * scale / softcap : 0.0f;
+
+    float o[DV / 2];
+#pragma unroll
+    for (int i = 0; i < DV / 2; ++i) o[i] = 0.0f;
+    float m[2] = {kNegL2, kNegL2}, l[2] = {0.0f, 0.0f};
+    mbar_wait(bar_q, 0);
+
+    for (int i = 0; i < n_tiles; ++i) {
+      const int st = i % kStages;
+      const uint32_t ph = (i / kStages) & 1;
+      const int k0 = (tiles.first + i) * kKeys;
+
+      // S = Q K^T: dh / 16 steps of 16 along the 128-byte swizzled rows.
+      float s[32];
+#pragma unroll
+      for (int j = 0; j < 32; ++j) s[j] = 0.0f;
+      mbar_wait(full_k + 8 * st, ph);
+      keep(s);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < DH / 16; ++kk) {
+        const uint32_t off = (kk / 4) * kBox + (kk % 4) * 32;
+        wgmma_ss_n64(s, kmajor_desc(q_wg + off), kmajor_desc(sk + st * L::kK + off), kk > 0);
+      }
+      wgmma_commit();
+      wgmma_wait_all();
+      keep(s);
+      mbar_arrive(empty_k + 8 * st);
+
+      // Scores in base 2: log2(e) * (scale * qk, or softcap * tanh(scale * qk / softcap)).
+      if (softcap > 0.0f) {
+#pragma unroll
+        for (int j = 0; j < 32; ++j) s[j] = cap_l2 - 2.0f * cap_l2 * rcp(ex2(s[j] * tanh_l2) + 1.0f);
+      } else {
+#pragma unroll
+        for (int j = 0; j < 32; ++j) s[j] *= scale_l2;
+      }
+      if (tile_masked(tiles, k0, row0, row_last, t_n, causal, window)) {
+#pragma unroll
+        for (int j = 0; j < 32; ++j) {
+          const int kpos = k0 + 8 * (j / 4) + qcol + (j & 1);
+          const int qpos = qrow + 8 * ((j / 2) & 1);
+          if (kpos >= t_n) {
+            s[j] = -INFINITY;
+          } else if (causal && (kpos > qpos || (long long)qpos - kpos >= window)) {
+            s[j] = kNegL2;
+          }
+        }
+      }
+
+      // Online softmax of rows qrow (r = 0) and qrow + 8 (r = 1); a row's 16
+      // columns of this tile are spread over the 4 lanes of a quad.
+      float alpha[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        float mx = m[r];
+#pragma unroll
+        for (int j = 0; j < 8; ++j) mx = fmaxf(mx, fmaxf(s[4 * j + 2 * r], s[4 * j + 2 * r + 1]));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+        alpha[r] = ex2(m[r] - mx);
+        m[r] = mx;
+        float sum = 0.0f;
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+#pragma unroll
+          for (int c = 0; c < 2; ++c) {
+            const float p = ex2(s[4 * j + 2 * r + c] - mx);
+            s[4 * j + 2 * r + c] = p;
+            sum += p;
+          }
+        }
+        l[r] = l[r] * alpha[r] + sum;  // this lane's part of the row sum
+      }
+
+      // P (bf16) as the A operand: keys 16kk..16kk+15 are S's columns groups
+      // 2kk and 2kk + 1, which is the A fragment's register layout.
+      uint32_t p[16];
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        p[4 * kk + 0] = pack_bf16(s[8 * kk + 0], s[8 * kk + 1]);
+        p[4 * kk + 1] = pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);
+        p[4 * kk + 2] = pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
+        p[4 * kk + 3] = pack_bf16(s[8 * kk + 6], s[8 * kk + 7]);
+      }
+#pragma unroll
+      for (int j = 0; j < DV / 8; ++j) {
+        o[4 * j + 0] *= alpha[0];
+        o[4 * j + 1] *= alpha[0];
+        o[4 * j + 2] *= alpha[1];
+        o[4 * j + 3] *= alpha[1];
+      }
+
+      // O += P V: 4 steps of 16 keys (2048 B of V rows each).
+      mbar_wait(full_v + 8 * st, ph);
+      keep(o);
+      keep(p);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_pv<DV>(o, p + 4 * kk, mnmajor_desc(sv + st * L::kV + kk * 2048));
+      wgmma_commit();
+      wgmma_wait_all();
+      keep(o);
+      keep(p);
+      mbar_arrive(empty_v + 8 * st);
+    }
+
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float sum = l[r];
+      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+      sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+      const int row = qrow + 8 * r;
+      if (row >= s_n) continue;
+      const float denom = fmaxf(sum, 1e-30f);
+      __nv_bfloat16* dst = out + (((long long)b * s_n + row) * h_n + h) * DV + qcol;
+#pragma unroll
+      for (int j = 0; j < DV / 8; ++j)
+        *reinterpret_cast<__nv_bfloat162*>(dst + 8 * j) =
+            __floats2bfloat162_rn(o[4 * j + 2 * r] / denom, o[4 * j + 2 * r + 1] / denom);
+    }
+  }
+}
+
+// cuTensorMapEncodeTiled is a driver function; the library links only the
+// runtime, so it is looked up once through the runtime's entry-point query.
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found = cudaDriverEntryPointSymbolNotFound;
+#if CUDART_VERSION >= 12050
+    cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault,
+                                     &found);
+#else
+    cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    return found == cudaDriverEntryPointSuccess ? reinterpret_cast<EncodeTiled>(p) : nullptr;
+  }();
+  return fn;
+}
+
+// A (batch, rows, heads, width) bf16 tensor as a 4-D map of 64 x 64 boxes
+// (64 rows of one head, 64 columns), swizzled 128 B; out-of-range rows read 0.
+int encode_map(CUtensorMap* map, const void* ptr, int width, int heads, int rows, int batch) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return static_cast<int>(cudaErrorSymbolNotFound);
+  const cuuint64_t dims[4] = {(cuuint64_t)width, (cuuint64_t)heads, (cuuint64_t)rows,
+                              (cuuint64_t)batch};
+  const cuuint64_t strides[3] = {2ull * width, 2ull * width * heads,
+                                 2ull * width * heads * rows};
+  const cuuint32_t box[4] = {64, 1, 64, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
+                        strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
+}
+
+template <int DH, int DV>
+int launch_wgmma(const void* q, const void* k, const void* v, void* out, int b, int s, int t,
+                 int h, int kvh, float scale, float softcap, int causal, int window,
+                 cudaStream_t stream) {
+  CUtensorMap tq, tk, tv;
+  int err = encode_map(&tq, q, DH, h, s, b);
+  if (err == 0) err = encode_map(&tk, k, DH, kvh, t, b);
+  if (err == 0) err = encode_map(&tv, v, DV, kvh, t, b);
+  if (err != 0) return err;
+  constexpr int smem = wgmma_smem_bytes(DH, DV);
+  const cudaError_t e = cudaFuncSetAttribute(
+      flash_wgmma<DH, DV>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const long long blocks = (long long)((s + kRows - 1) / kRows) * b * h;
+  flash_wgmma<DH, DV><<<(unsigned)blocks, kWgThreads, smem, stream>>>(
+      tq, tk, tv, static_cast<__nv_bfloat16*>(out), b, s, t, h, kvh, scale, softcap, causal,
+      window);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int DH>
+int launch_dv(const void* q, const void* k, const void* v, void* out, int b, int s, int t,
+              int h, int kvh, int dv, float scale, float softcap, int causal, int window,
+              cudaStream_t stream) {
+  switch (dv) {
+    case 64:
+      return launch_wgmma<DH, 64>(q, k, v, out, b, s, t, h, kvh, scale, softcap, causal, window,
+                                  stream);
+    case 128:
+      return launch_wgmma<DH, 128>(q, k, v, out, b, s, t, h, kvh, scale, softcap, causal,
+                                   window, stream);
+    case 256:
+      return launch_wgmma<DH, 256>(q, k, v, out, b, s, t, h, kvh, scale, softcap, causal,
+                                   window, stream);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+int launch_bf16(const void* q, const void* k, const void* v, void* out, int b, int s, int t,
+                int h, int kvh, int dh, int dv, float scale, float softcap, int causal,
+                int window, cudaStream_t stream) {
+  switch (dh) {
+    case 64:
+      return launch_dv<64>(q, k, v, out, b, s, t, h, kvh, dv, scale, softcap, causal, window,
+                           stream);
+    case 128:
+      return launch_dv<128>(q, k, v, out, b, s, t, h, kvh, dv, scale, softcap, causal, window,
+                            stream);
+    case 256:
+      return launch_dv<256>(q, k, v, out, b, s, t, h, kvh, dv, scale, softcap, causal, window,
+                            stream);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+bool wgmma_width(int d) { return d == 64 || d == 128 || d == 256; }
+
 }  // namespace
 
-// Launches on `stream`.  `is_bf16` picks bfloat16 (1) or float32 (0) for all
-// four tensors.  `window` <= 0 means no window.  Returns cudaGetLastError()
-// (0 on success), or cudaErrorInvalidValue for a shape the kernel does not
-// take: any size below 1, dh or dv above 256 or not a multiple of 4, or H not
-// a multiple of KVH.
+// Launches on `stream`.  `is_bf16` picks bfloat16 (1, the tensor-core kernel)
+// or float32 (0, the CUDA-core kernel) for all four tensors.  `window` <= 0
+// means no window.  Returns cudaGetLastError() (0 on success), or
+// cudaErrorInvalidValue for a shape the kernel does not take: any size below
+// 1, H not a multiple of KVH, T within 64 of INT_MAX; in float32 dh or dv
+// above 256 or not a multiple of 4; in bfloat16 dh or dv outside {64, 128,
+// 256} or a pointer not 16-byte aligned (TMA's rule).
 extern "C" int flash_attn_launch(const void* q, const void* k, const void* v, void* out,
                                  int is_bf16, int b, int s, int t, int h, int kvh, int dh,
                                  int dv, float scale, float softcap, int causal, int window,
                                  cudaStream_t stream) {
   if (b < 1 || s < 1 || t < 1 || h < 1 || kvh < 1 || h % kvh || dh < 4 || dv < 4 ||
-      dh > kMaxDim || dv > kMaxDim || dh % 4 || dv % 4 ||
+      dh > kMaxDim || dv > kMaxDim || dh % 4 || dv % 4 || t > INT_MAX - kKeys ||
       (long long)((s + kBQ - 1) / kBQ) * b * h > INT_MAX) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (window <= 0) window = INT_MAX;
   if (is_bf16) {
-    return launch<__nv_bfloat16>(q, k, v, out, b, s, t, h, kvh, dh, dv, scale, softcap,
-                                 causal, window, stream);
+    const bool aligned = ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+                           reinterpret_cast<uintptr_t>(v)) & 15) == 0;
+    if (!wgmma_width(dh) || !wgmma_width(dv) || !aligned) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+    return launch_bf16(q, k, v, out, b, s, t, h, kvh, dh, dv, scale, softcap, causal, window,
+                       stream);
   }
   return launch<float>(q, k, v, out, b, s, t, h, kvh, dh, dv, scale, softcap, causal, window,
                        stream);
+}
+
+// Dynamic shared memory of one block of the kernel that flash_attn_launch
+// picks for this type and these widths, in bytes; -1 for widths it refuses.
+extern "C" int flash_attn_smem_bytes(int is_bf16, int dh, int dv) {
+  if (is_bf16) {
+    if (!wgmma_width(dh) || !wgmma_width(dv)) return -1;
+    return wgmma_smem_bytes(dh, dv);
+  }
+  if (dh < 4 || dv < 4 || dh > kMaxDim || dv > kMaxDim || dh % 4 || dv % 4) return -1;
+  return (int)f32_smem_bytes(dh, dv);
 }

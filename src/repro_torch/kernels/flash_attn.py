@@ -1,11 +1,13 @@
-"""ctypes binding of the hand-written Hopper flash-attention kernel.
+"""ctypes binding of the hand-written Hopper flash-attention kernels.
 
 :func:`flash_attention_cuda` launches ``csrc/flash_attn.cu``, which replaces
 the Pallas kernel ``flash_attention_pallas`` (``repro/kernels/flash_attn.py:84``).
-Like the other bindings it checks device, dtype, shape and contiguity,
-allocates the output, launches on PyTorch's current stream, raises if the
-launch reports an error, and adds one to its ``launches`` count.  The
-library is built at first use.
+The source holds two kernels, chosen by the input type: bfloat16 runs on the
+tensor cores (``wgmma``, tiles fed by TMA), float32 on the CUDA cores, since
+the tensor cores' TF32 cannot meet float32's tolerance.  Like the other
+bindings it checks device, dtype, shape and contiguity, allocates the output,
+launches on PyTorch's current stream, raises if the launch reports an error,
+and adds one to its ``launches`` count.  The library is built at first use.
 """
 from __future__ import annotations
 
@@ -17,17 +19,87 @@ from repro_torch.kernels.jsaq_route import _I, _P, _check, _lib, _raise_on
 
 _F = ctypes.c_float
 
-# Largest head width the kernel takes: a thread accumulates 4 rows x 16
+# Largest head width of the float32 kernel: a thread accumulates 4 rows x 16
 # value columns in registers and the block stages (64 + 32) x (dh + 4) and
 # 32 x (dv + 4) floats, 141 KB at 256 (kMaxDim in csrc/flash_attn.cu).
 MAX_HEAD_DIM = 256
+# Head widths of the bfloat16 kernel: TMA boxes of 64 columns, and at 256 its
+# (64, dv) accumulator takes 128 registers a thread and Q plus two stages of
+# K and V take 192 KB of shared memory.  Other widths are refused, not padded.
+BF16_WIDTHS = (64, 128, 256)
 DTYPES = (torch.float32, torch.bfloat16)
+# The bfloat16 kernel's tiles: a block of two consumer warpgroups owns 128
+# query rows and walks 64-key tiles (kRows and kKeys in csrc/flash_attn.cu).
+BLOCK_Q = 128
+BLOCK_K = 64
+_NO_WINDOW = 2**31 - 1  # INT_MAX, the kernel's "no window"
 
 
 def check_window(window) -> None:
     """A window is None (global) or an int in ``[1, 2**31 - 1]``."""
     if window is not None and not (isinstance(window, int) and 1 <= window < 2**31):
         raise ValueError(f"window must be None or an int in [1, 2**31 - 1], got {window!r}")
+
+
+def key_tiles(qb: int, s: int, t: int, causal: bool, window: int | None):
+    """Key tiles that the bfloat16 kernel's query block ``qb`` visits.
+
+    Returns ``(first, end, masked)``: the block runs tiles ``first .. end -
+    1`` (tile ``j`` holds keys ``64 j .. 64 j + 63``), and ``masked[j -
+    first]`` says whether tile ``j`` holds a key that one of the block's rows
+    ``128 qb .. min(128 qb + 128, S) - 1`` must not attend, so that the kernel
+    masks it.  A row with no key at all (causal and ``row >= T - 1 +
+    window``) makes the block run every tile, masked, as the dense softmax
+    then averages all ``T`` keys.  The same arithmetic as ``key_tiles`` and
+    ``tile_masked`` in ``csrc/flash_attn.cu``.
+    """
+    w = window if causal and window is not None else _NO_WINDOW
+    row0 = qb * BLOCK_Q
+    row_last = min(row0 + BLOCK_Q, s) - 1
+    first, end, all_masked = 0, -(-t // BLOCK_K), False
+    if causal:
+        if row_last >= t - 1 + w:
+            all_masked = True
+        else:
+            first = max(0, row0 - w + 1) // BLOCK_K
+            end = -(-min(t, row_last + 1) // BLOCK_K)
+    masked = [
+        all_masked or k0 + BLOCK_K > t
+        or (causal and (k0 + BLOCK_K - 1 > row0 or row_last - k0 >= w))
+        for k0 in range(first * BLOCK_K, end * BLOCK_K, BLOCK_K)
+    ]
+    return first, end, masked
+
+
+def check_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> tuple:
+    """Raise ``ValueError`` for what the kernels do not take; else return
+    ``(B, S, T, H, KVH, dh, dv)``.  float32 takes ``dh`` and ``dv`` that are
+    multiples of 4 up to 256; bfloat16 takes them in ``BF16_WIDTHS``, with
+    16-byte aligned pointers (TMA's rule)."""
+    if q.dtype not in DTYPES:
+        raise ValueError(f"q must be float32 or bfloat16, got {q.dtype}")
+    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
+        raise ValueError(
+            f"q, k, v must be 4-D, got {tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}"
+        )
+    b, s, h, dh = q.shape
+    t, kvh, dv = k.shape[1], k.shape[2], v.shape[3]
+    if min(b, s, t, h, kvh) < 1 or h % kvh:
+        raise ValueError(f"no attention for B={b} S={s} T={t} H={h} KVH={kvh}")
+    for name, width in (("dh", dh), ("dv", dv)):
+        if q.dtype == torch.bfloat16 and width not in BF16_WIDTHS:
+            raise ValueError(f"{name} must be one of {BF16_WIDTHS} in bfloat16, got {width}")
+        if not (4 <= width <= MAX_HEAD_DIM and width % 4 == 0):
+            raise ValueError(f"{name} must be a multiple of 4 in [4, {MAX_HEAD_DIM}], got {width}")
+    dev = q.device
+    _check(q, "q", (b, s, h, dh), dev, q.dtype)
+    _check(k, "k", (b, t, kvh, dh), dev, q.dtype)
+    _check(v, "v", (b, t, kvh, dv), dev, q.dtype)
+    if q.dtype == torch.bfloat16:
+        for name, x in (("q", q), ("k", k), ("v", v)):
+            if x.data_ptr() % 16:
+                raise ValueError(f"{name} must start on a 16-byte boundary in bfloat16")
+    return b, s, t, h, kvh, dh, dv
 
 
 def flash_attention_cuda(
@@ -44,38 +116,22 @@ def flash_attention_cuda(
 
     ``q`` is ``(B, S, H, dh)``, ``k`` ``(B, T, KVH, dh)``, ``v`` ``(B, T,
     KVH, dv)``, all float32 or all bfloat16 and contiguous, ``H`` a
-    multiple of ``KVH``, ``dh`` and ``dv`` multiples of 4 up to 256, any
-    ``S, T >= 1``.  ``window`` applies only with ``causal``.  Returns
-    ``(B, S, H, dv)`` in ``q``'s dtype.
+    multiple of ``KVH``, any ``S, T >= 1``; widths as :func:`check_inputs`
+    says.  ``window`` applies only with ``causal``.  Returns ``(B, S, H,
+    dv)`` in ``q``'s dtype.
     """
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention_cuda needs a CUDA tensor, got {q.device}")
-    if q.dtype not in DTYPES:
-        raise ValueError(f"q must be float32 or bfloat16, got {q.dtype}")
-    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
-        raise ValueError(
-            f"q, k, v must be 4-D, got {tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}"
-        )
+    b, s, t, h, kvh, dh, dv = check_inputs(q, k, v)
     check_window(window)
     if softcap < 0:
         raise ValueError(f"softcap must be >= 0, got {softcap}")
-    dev = q.device
-    b, s, h, dh = q.shape
-    t, kvh, dv = k.shape[1], k.shape[2], v.shape[3]
-    if min(b, s, t, h, kvh) < 1 or h % kvh:
-        raise ValueError(f"no attention for B={b} S={s} T={t} H={h} KVH={kvh}")
-    for name, width in (("dh", dh), ("dv", dv)):
-        if not (4 <= width <= MAX_HEAD_DIM and width % 4 == 0):
-            raise ValueError(f"{name} must be a multiple of 4 in [4, {MAX_HEAD_DIM}], got {width}")
-    _check(q, "q", (b, s, h, dh), dev, q.dtype)
-    _check(k, "k", (b, t, kvh, dh), dev, q.dtype)
-    _check(v, "v", (b, t, kvh, dv), dev, q.dtype)
     launch = _lib(
         "flash_attn", "flash_attn_launch",
         (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _F, _I, _I, _P),
     )
-    out = torch.empty((b, s, h, dv), dtype=q.dtype, device=dev)
-    with torch.cuda.device(dev):
+    out = torch.empty((b, s, h, dv), dtype=q.dtype, device=q.device)
+    with torch.cuda.device(q.device):
         err = launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             int(q.dtype == torch.bfloat16), b, s, t, h, kvh, dh, dv, float(scale),
@@ -88,3 +144,10 @@ def flash_attention_cuda(
 
 
 flash_attention_cuda.launches = 0
+
+
+def smem_bytes(dtype: torch.dtype, dh: int, dv: int) -> int:
+    """Dynamic shared memory a block of the kernel for ``dtype`` takes at
+    these widths (-1 for widths it refuses); builds the library if needed."""
+    query = _lib("flash_attn", "flash_attn_smem_bytes", (_I, _I, _I))
+    return query(int(dtype == torch.bfloat16), dh, dv)

@@ -6,8 +6,9 @@ output is an integer, a bool or a float32 sum of whole ``+1.0`` steps, and
 must be equal, except ``moe_route``'s combine weights: within rtol 1e-5 /
 atol 1e-6 of the plain version (the JAX package's own tolerance for its
 router kernel), since the softmax sums run in another order, and
-``flash_attention``'s output: within 2e-5 in float32 and 2e-2 in bfloat16
-(``tests/test_flash_kernel.py``'s tolerances), since its dot products and
+``flash_attention``'s output: within 2e-5 in float32 (the CUDA-core
+kernel) and 2e-2 in bfloat16 (the tensor-core kernel;
+``tests/test_flash_kernel.py``'s tolerances), since its dot products and
 row sums run in another order.  Where there is no card, each test
 skips with a reason.
 """
@@ -215,6 +216,20 @@ class TestOnCard:
             # queries past T + window have no key: the dense softmax averages all keys
             (1, 300, 100, 2, 1, 64, 64, torch.float32, dict(causal=True, window=20)),
             (1, 77, 45, 3, 3, 4, 8, torch.float32, dict(causal=True)),
+            # bfloat16 (the tensor-core kernel): ragged S and T off the 128 x 64 tiles
+            (1, 77, 45, 3, 3, 64, 128, torch.bfloat16, dict(causal=True)),
+            (1, 45, 77, 2, 1, 128, 64, torch.bfloat16, dict(causal=False, softcap=50.0)),
+            (2, 200, 200, 4, 2, 128, 128, torch.bfloat16,
+             dict(causal=True, window=37, softcap=50.0)),
+            (1, 130, 127, 2, 2, 64, 64, torch.bfloat16, dict(causal=True, window=66)),
+            # S = 1 against a long T: one query row of a 128-row block
+            (2, 1, 4000, 4, 2, 256, 256, torch.bfloat16, dict(causal=False, softcap=50.0)),
+            (1, 1, 4000, 4, 1, 128, 128, torch.bfloat16, dict(causal=True)),
+            (1, 1, 1, 16, 8, 256, 256, torch.bfloat16, dict(causal=True)),
+            # bfloat16 rows past T + window have no key and average all keys
+            (1, 300, 100, 2, 1, 64, 64, torch.bfloat16, dict(causal=True, window=20)),
+            (1, 200, 163, 2, 2, 256, 256, torch.bfloat16, dict(causal=True, window=37)),
+            (1, 256, 256, 2, 2, 256, 256, torch.bfloat16, dict(causal=True, window=2**31 - 1)),
         ],
     )
     def test_flash_attention_kernel(self, cuda_device, b, s, t, h, kvh, dh, dv, dtype, kw):
@@ -233,6 +248,23 @@ class TestOnCard:
         tol = 2e-2 if dtype == torch.bfloat16 else 2e-5
         torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
 
+    @pytest.mark.parametrize("dh", [64, 128, 256])
+    @pytest.mark.parametrize("dv", [64, 128, 256])
+    def test_flash_attention_bf16_every_width(self, cuda_device, dh, dv):
+        # every instance of the tensor-core kernel, GQA 3, ragged S = T = 333
+        b, s, h, kvh = 1, 333, 6, 2
+        rng = np.random.default_rng(dh + 7 * dv)
+        q, k, v = (
+            torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+            .to(cuda_device, torch.bfloat16)
+            for shape in ((b, s, h, dh), (b, s, kvh, dh), (b, s, kvh, dv))
+        )
+        kw = dict(scale=dh**-0.5, causal=True, window=100, softcap=30.0)
+        want = tref.flash_attention_ref(q, k, v, **kw)
+        got = tops.flash_attention(q, k, v, **kw)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got.float(), want.float(), rtol=2e-2, atol=2e-2)
+
     def test_flash_attention_refuses_what_it_cannot_fit(self, cuda_device):
         q = torch.zeros((1, 8, 2, 512), device=cuda_device)
         with pytest.raises(ValueError, match="dh"):
@@ -240,6 +272,18 @@ class TestOnCard:
         q = torch.zeros((1, 8, 2, 64), dtype=torch.float16, device=cuda_device)
         with pytest.raises(ValueError, match="float32 or bfloat16"):
             tops.flash_attention(q, q, q, scale=1.0)
+        # the tensor-core kernel takes bf16 widths 64, 128 and 256 only
+        q = torch.zeros((1, 8, 2, 96), dtype=torch.bfloat16, device=cuda_device)
+        with pytest.raises(ValueError, match="dh must be one of"):
+            tops.flash_attention(q, q, q, scale=1.0)
+        before = tops.launch_counts()["flash_attention"]
+        flat = torch.zeros(8 * 2 * 64 + 8, dtype=torch.bfloat16, device=cuda_device)
+        q = flat[8:].view(1, 8, 2, 64)  # 16-byte aligned: taken
+        tops.flash_attention(q, q, q, scale=1.0)
+        q = flat[1:8 * 2 * 64 + 1].view(1, 8, 2, 64)
+        with pytest.raises(ValueError, match="16-byte boundary"):
+            tops.flash_attention(q, q, q, scale=1.0)
+        assert tops.launch_counts()["flash_attention"] == before + 1
 
     @pytest.mark.parametrize("arch", ["gemma2-9b", "qwen3-0.6b", "smollm-135m"])
     def test_reduced_dense_prefill_goes_through_the_kernel(self, cuda_device, arch):

@@ -1,0 +1,148 @@
+"""The bfloat16 flash kernel's tile schedule and input contract, on the CPU.
+
+``kernels/flash_attn.key_tiles`` is the arithmetic of ``key_tiles`` and
+``tile_masked`` in ``csrc/flash_attn.cu``: which 64-key tiles a block of 128
+query rows visits, and which of them need the mask.  A tile skipped or left
+unmasked by mistake gives wrong numbers with no error, so the schedule is held
+here against a brute-force list of the (query, key) pairs that the dense
+softmax attends, over ragged S and T, windows from 1 to 2**31 - 1, and
+queries past T - 1 + window, which have no key and average all of them.  A
+walk of the schedule in float64 (masks applied only on the tiles it marks) is
+held against the dense softmax within 1e-12.
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.kernels import flash_attn as tflash
+
+BQ, BK = tflash.BLOCK_Q, tflash.BLOCK_K
+# (200, 163) with window 37 puts block 1's last row at exactly T - 1 + window.
+SIZES = [(1, 1), (1, 300), (77, 45), (200, 200), (200, 163), (300, 100), (129, 129),
+         (128, 64), (130, 127), (257, 513), (1000, 1000)]
+WINDOWS = [None, 1, 37, 64, 66, 100, 4096, 2**31 - 1]
+
+
+def _attended(s: int, t: int, causal: bool, window) -> np.ndarray:
+    """(S, T) bool: the keys each query's dense softmax weighs; a query whose
+    keys are all masked weighs all T equally."""
+    q = np.arange(s)[:, None]
+    k = np.arange(t)[None, :]
+    ok = np.ones((s, t), bool)
+    if causal:
+        ok = k <= q
+        if window is not None:
+            ok &= q - k < window
+    ok[~ok.any(axis=1)] = True
+    return ok
+
+
+def _check_blocks(s: int, t: int, causal: bool, window) -> None:
+    att = _attended(s, t, causal, window)
+    for qb in range(-(-s // BQ)):
+        first, end, masked = tflash.key_tiles(qb, s, t, causal, window)
+        rows = att[qb * BQ:min(qb * BQ + BQ, s)]
+        assert 0 <= first < end <= -(-t // BK) and len(masked) == end - first
+        keys = np.flatnonzero(rows.any(axis=0))
+        # every attended key is in a visited tile, and the first and last
+        # visited tiles each hold one
+        assert keys[0] // BK == first and keys[-1] // BK == end - 1, (qb, first, end)
+        no_key = causal and window is not None and qb * BQ + len(rows) - 1 >= t - 1 + window
+        if no_key:
+            assert (first, end) == (0, -(-t // BK)) and all(masked)
+        for j, m in zip(range(first, end), masked):
+            tile = rows[:, j * BK:(j + 1) * BK]
+            if not m:  # an unmasked tile lies inside T and every row attends all of it
+                assert (j + 1) * BK <= t and tile.all(), (qb, j)
+
+
+@pytest.mark.parametrize("s,t", SIZES)
+@pytest.mark.parametrize("window", WINDOWS)
+def test_causal_tiles_cover_exactly_the_attended_keys(s, t, window):
+    _check_blocks(s, t, True, window)
+
+
+@pytest.mark.parametrize("s,t", SIZES)
+def test_non_causal_visits_every_tile(s, t):
+    _check_blocks(s, t, False, None)
+    for qb in range(-(-s // BQ)):
+        first, end, masked = tflash.key_tiles(qb, s, t, False, None)
+        assert (first, end) == (0, -(-t // BK))
+        assert masked == [j * BK + BK > t for j in range(first, end)]
+
+
+@pytest.mark.parametrize(
+    "s,t,causal,window",
+    [(300, 100, True, 20), (200, 200, True, 37), (77, 45, True, None), (129, 300, True, 1),
+     (1, 300, False, None), (257, 130, True, 64)],
+)
+def test_tile_walk_matches_the_dense_softmax(s, t, causal, window):
+    rng = np.random.default_rng(s * t)
+    sc = rng.standard_normal((s, t)) * 3
+    v = rng.standard_normal((t, 5))
+    qpos = np.arange(s)[:, None]
+    want_s = sc.copy()
+    if causal:
+        bad = np.arange(t)[None, :] > qpos
+        if window is not None:
+            bad |= qpos - np.arange(t)[None, :] >= window
+        want_s[bad] = -1e30
+    p = np.exp(want_s - want_s.max(axis=1, keepdims=True))
+    want = (p / p.sum(axis=1, keepdims=True)) @ v
+    got = np.empty_like(want)
+    for qb in range(-(-s // BQ)):
+        r0, r1 = qb * BQ, min(qb * BQ + BQ, s)
+        m = np.full(r1 - r0, -1e30)
+        l = np.zeros(r1 - r0)
+        acc = np.zeros((r1 - r0, v.shape[1]))
+        first, end, masked = tflash.key_tiles(qb, s, t, causal, window)
+        for j, need in zip(range(first, end), masked):
+            k = np.arange(j * BK, j * BK + BK)
+            if need:
+                x = np.where(k < t, sc[r0:r1, np.minimum(k, t - 1)], -np.inf)
+                if causal:
+                    q = np.arange(r0, r1)[:, None]
+                    bad = (k[None, :] > q) | (q - k[None, :] >= (window or 2**31 - 1))
+                    x = np.where(bad & (k < t), -1e30, x)
+                vt = v[np.minimum(k, t - 1)]
+            else:
+                x, vt = sc[r0:r1, k], v[k]
+            m_new = np.maximum(m, x.max(axis=1))
+            alpha = np.exp(m - m_new)
+            pe = np.exp(x - m_new[:, None])
+            l = l * alpha + pe.sum(axis=1)
+            acc = acc * alpha[:, None] + pe @ vt
+            m = m_new
+        got[r0:r1] = acc / np.maximum(l, 1e-30)[:, None]
+    np.testing.assert_allclose(got, want, rtol=1e-12, atol=1e-12)
+
+
+def _bf16(*shape):
+    return torch.zeros(shape, dtype=torch.bfloat16)
+
+
+@pytest.mark.parametrize("dh,dv", [(64, 64), (64, 128), (128, 256), (256, 64), (256, 256)])
+def test_bf16_widths_the_kernel_takes(dh, dv):
+    q, k, v = _bf16(2, 5, 4, dh), _bf16(2, 7, 2, dh), _bf16(2, 7, 2, dv)
+    assert tflash.check_inputs(q, k, v) == (2, 5, 7, 4, 2, dh, dv)
+
+
+@pytest.mark.parametrize("dh,dv,name", [(32, 32, "dh"), (96, 128, "dh"), (128, 192, "dv"),
+                                        (64, 4, "dv")])
+def test_bf16_widths_it_refuses_are_named(dh, dv, name):
+    q, k, v = _bf16(1, 3, 2, dh), _bf16(1, 3, 2, dh), _bf16(1, 3, 2, dv)
+    with pytest.raises(ValueError, match=f"{name} must be one of \\(64, 128, 256\\)"):
+        tflash.check_inputs(q, k, v)
+    # float32 keeps the CUDA-core kernel's rule: multiples of 4 up to 256
+    assert tflash.check_inputs(q.float(), k.float(), v.float())[-2:] == (dh, dv)
+
+
+def test_bf16_needs_16_byte_aligned_pointers():
+    flat = torch.zeros(1 * 3 * 2 * 64 + 1, dtype=torch.bfloat16)
+    q = flat[1:].view(1, 3, 2, 64)
+    assert q.is_contiguous() and q.data_ptr() % 16
+    k = _bf16(1, 3, 2, 64)
+    with pytest.raises(ValueError, match="q must start on a 16-byte boundary"):
+        tflash.check_inputs(q, k, k)
+    q32 = torch.zeros(1 * 3 * 2 * 64 + 1)[1:].view(1, 3, 2, 64)  # float32 has no such rule
+    assert q32.data_ptr() % 16 and tflash.check_inputs(q32, k.float(), k.float())[0] == 1
