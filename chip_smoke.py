@@ -20,6 +20,11 @@ own failure):
    ``jsaq_route`` at D=64, K=1000, N=256 with an all-ties row;
    ``care_route`` for jsq/jsaq x six trigger kinds at D=8, K=300, T=500
    with mixed horizons; ``care_route`` at K=1e6, T=4000 for two runs;
+   ``care_route`` on rows whose tiles rest and wake: rt and et_rt over
+   K=1e5 (391 tiles), D=4, T=4000 with rt_period 37-250; then every kind
+   at K=1000 with x <= 0 (every tile due every slot), rt_period 1, msr 1,
+   horizons 0 and 1, a run with an arrival every slot and one with none,
+   cap 1; and at K=6, cap 1, jobs of 8-12 slots, so jobs drop;
    ``serve_route`` for comm et / exact at D=4, R=1024, A=304 and at R=200,
    with an all-ties row, a row of full rings, a run with ``act=0`` and
    runs with ``n_arr=0`` and ``n_arr=A``.
@@ -29,7 +34,13 @@ own failure):
    ``simulate_grid`` with the fused backend, load 0.95, deterministic jobs
    of 8 slots, DT-x with x in {2, 3} x 8 seeds (16 runs), FIFO cap 16,
    4000 slots, at K=1e5 and K=1e6; asserts Theorem 2.3 (max AQ <= x-1),
-   conservation, and one ``care_route`` launch per call.
+   conservation, and one ``care_route`` launch per call; times the kernel
+   at the path's inputs (D=16, K=1e6) under dt and, with the comm kind
+   switched, rt and et_rt (rt_period 100), each against its plain
+   version, beside two bounds: the work these inputs need (35 operations
+   for each server-slot not at rest or triggering at rest, counted by the
+   plain version) and the dense work of the TPU kernel (every server every
+   slot); profiles one fused grid call.
    Then the serving engine at ``serve/replicas1024`` of
    ``benchmarks/bench_serving.py``: ``serve_grid`` with the fused backend,
    1024 replicas x 16 decode slots, ring cap 128, load 0.9, mean prefill 4
@@ -79,7 +90,8 @@ own failure):
    case, and the bf16 kernel, its plain version and PyTorch's
    ``scaled_dot_product_attention`` (softcap 0; the window as a mask) at
    the path's shapes beside their bound, with TFLOP/s, bound / kernel and
-   kernel / SDPA; prints the prefill wall, decode ms a token and a
+   kernel / SDPA; times the float32 kernel and float32 SDPA (the window as
+   a mask) at the float32 case with softcap 0; prints the prefill wall, decode ms a token and a
    profiler window of one prefill and one decode step.  Then the same
    model in float32:
    prefill over S=4224 (B=1, past the window) against prefill over S-1
@@ -122,7 +134,10 @@ F32_FLOP_PER_S = 67e12
 # must do (counted from _care_kernel): argmin scan 2; service 10 (busy
 # test, decrement, departure test, queue decrement, next-job reset);
 # emulation drain 8; trigger and snap 10 (error, two counter updates, the
-# comparison, two counter resets, two snaps); slot metrics 5.
+# comparison, two counter resets, two snaps); slot metrics 5.  The bound
+# counts them for each server-slot these inputs need (not at rest, or at
+# rest and triggering); the TPU kernel's dense schedule, every server every
+# slot, is printed beside it.
 CARE_OPS_PER_SERVER_SLOT = 35
 # jsaq_route: one compare and one select per server per routed job.
 JSAQ_OPS_PER_SERVER_JOB = 2
@@ -135,6 +150,15 @@ KINDS = ("rt", "dt", "et", "et_rt", "exact", "none")
 JSAQ_SHAPE = (64, 1000, 256)  # D, K, N
 CARE_SMALL = (8, 300, 500)  # D, K, T
 CARE_FULL = (2, 1_000_000, 4000)  # D, K, T
+# Rows that rest and wake: rt / et_rt over many tiles (D, K, T; each row
+# [x, rt_period, msr, horizon]); edge rows at cap 1; rows that drop at cap 1.
+CARE_WAKE = (4, 100_000, 4000)
+CARE_WAKE_ROWS = [[2, 100, 8, 4000], [3, 37, 8, 4000], [2, 100, 8, 3000], [1, 250, 3, 4000]]
+CARE_EDGE = (6, 1000, 600)
+CARE_EDGE_ROWS = [[0, 100, 8, 600], [-1, 3, 4, 600], [2, 1, 1, 600], [3, 5, 1, 1],
+                  [1, 7, 8, 0], [2, 9, 8, 600]]
+CARE_DROP = (4, 6, 600)
+CARE_DROP_ROWS = [[2, 5, 8, 600], [0, 3, 8, 600], [3, 1, 12, 600], [1, 7, 8, 300]]
 MAIN_KS = (100_000, 1_000_000)
 MAIN_SLOTS = 4000
 DENSE_VS_FUSED = (200, 2000)  # K, T
@@ -229,11 +253,13 @@ def _bound_ms(n_bytes: float, n_ops: float) -> tuple[float, str]:
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def _care_bound(arrive, params, k: int) -> tuple[float, str]:
+def _care_bound(arrive, params, k: int, server_slots: int) -> tuple[float, str]:
+    """care_route's bound: arrivals, params, routed, the (D, K) queues and
+    per-server arrivals and the stats read or written once, against
+    CARE_OPS_PER_SERVER_SLOT for each of ``server_slots``."""
     d, t = arrive.shape
-    active = int(params[:, 3].clamp(0, t).sum())
     n_bytes = 4 * (2 * d * t + 4 * d + 2 * d * k + 8 * d)
-    return _bound_ms(n_bytes, CARE_OPS_PER_SERVER_SLOT * k * active)
+    return _bound_ms(n_bytes, CARE_OPS_PER_SERVER_SLOT * server_slots)
 
 
 def _serve_bound(tie_u, q_len, n_arr, act) -> tuple[float, str]:
@@ -756,6 +782,29 @@ def _dense_serving(dev, times: dict) -> dict:
                   f"{_flash_flop(q, k, v, kw['causal'], kw.get('window')) / f32_ms / 1e9:.1f} "
                   f"TFLOP/s; plain {f32_plain_ms:.3f} ms; bound {bound[0]:.4f} ms "
                   f"({bound[1]}; operations at the CUDA cores' float32 peak)")
+            # Beside it, float32 SDPA on the same inputs with softcap 0, the
+            # window as a boolean mask, against the kernel with softcap 0.
+            nocap32 = dict(kw32, softcap=0.0)
+            f32_nocap_ms = _time_ms(lambda: flash_k.flash_attention_cuda(q, k, v, **nocap32),
+                                    FLASH_TIME_REPS)
+            qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+            pos = torch.arange(sq, device=q.device)
+            allowed = (pos[None, :] <= pos[:, None]) & (pos[:, None] - pos[None, :] < kw["window"])
+
+            def sdpa32():
+                return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=allowed,
+                                                      scale=dh**-0.5, enable_gqa=True)
+
+            sdpa32_ms = _time_ms(sdpa32, FLASH_TIME_REPS)
+            sdpa32_diff = _max_abs_err(
+                [sdpa32().transpose(1, 2)],
+                [flash_k.flash_attention_cuda(q, k, v, **nocap32)])
+            times["flash_f32_nocap_ms"], times["flash_f32_sdpa_ms"] = f32_nocap_ms, sdpa32_ms
+            print(f"phase 8 flash_attention float32 at {name} with softcap 0: kernel "
+                  f"{f32_nocap_ms:.3f} ms, scaled_dot_product_attention (window as a mask) "
+                  f"{sdpa32_ms:.3f} ms, kernel / SDPA {f32_nocap_ms / sdpa32_ms:.3f} (outputs "
+                  f"differ by at most {sdpa32_diff:.3g})")
+            del qt, kt, vt, allowed
     del q, k, v
 
     # Where the time goes: one profiled prefill and decode step.
@@ -931,6 +980,12 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 print(f"  ptxas {name}: {line.strip()}")
     _flash_build_report()
+    k = MAIN_KS[-1]
+    tile = cuda_k.care_tile(k)
+    n_tiles = -(-k // tile)
+    print(f"phase 1 care_route at K={k:.0e}: tiles of {tile} servers, {n_tiles} tiles, "
+          f"{20 * n_tiles} B of dynamic shared memory a block (the tile table), "
+          f"{min(cuda_k.CARE_WARPS, n_tiles)} warps")
 
     rng = np.random.default_rng(2022)
 
@@ -980,6 +1035,31 @@ def main() -> int:
     got = care_parity(arrive, params, servers=k, cap=16, policy="jsaq", comm="dt")
     assert int(got[3][:, 2].sum()) > 0
     print(f"phase 2 care_route D={d} K={k:.0e} T={t}: equal "
+          f"({time.perf_counter() - t0:.1f} s with the plain version)")
+    del got
+
+    # Rows whose tiles rest and wake, then the edge and drop rows.
+    t0 = time.perf_counter()
+    drops = 0
+    for (d, k, t), rows, cap, comms in (
+        (CARE_WAKE, CARE_WAKE_ROWS, 16, ("rt", "et_rt")),
+        (CARE_EDGE, CARE_EDGE_ROWS, 1, KINDS),
+        (CARE_DROP, CARE_DROP_ROWS, 1, KINDS),
+    ):
+        params = torch.tensor(rows, dtype=torch.int32, device=dev)
+        arrive = (torch.from_numpy(rng.random((d, t)) < 0.95).to(dev)
+                  & (torch.arange(t, device=dev)[None, :] < params[:, 3:4])).int()
+        if rows is CARE_EDGE_ROWS:
+            arrive[2], arrive[5] = 1, 0  # an arrival every slot; none
+        for policy in ("jsq", "jsaq"):
+            for comm in comms:
+                got = care_parity(arrive, params, servers=k, cap=cap, policy=policy, comm=comm)
+                if rows is CARE_DROP_ROWS:
+                    drops += int(got[3][:, 3].sum())
+    assert drops > 0, "cap 1 must drop jobs"
+    print(f"phase 2 care_route rows that rest and wake (rt, et_rt at D, K, T = "
+          f"{CARE_WAKE}), edge rows (x <= 0, rt_period 1, msr 1, horizons 0 and 1, "
+          f"cap 1) and drop rows ({drops} drops), jsq/jsaq: equal "
           f"({time.perf_counter() - t0:.1f} s with the plain version)")
     del got
 
@@ -1045,21 +1125,50 @@ def main() -> int:
         [[int(s.x), int(s.rt_period), int(s.service.msr_slots), int(s.horizon)]
          for s in cells for _ in seeds], dtype=torch.int32, device=dev,
     )
-    kw = dict(servers=static.servers, cap=static.buffer_cap, policy="jsaq", comm="dt")
-    care_ms = _time_ms(lambda: cuda_k.care_route_cuda(arrive, params, **kw), 2)
-    got = cuda_k.care_route_cuda(arrive, params, **kw)
-    plain = []
-    care_plain_ms = _time_ms(
-        lambda: plain.append(ref.care_route_ref(arrive, params, **kw)), 1, warm=False
-    )
-    care_err = _max_abs_err(got, plain[0])
-    assert care_err == 0, f"care_route at the main-path shape differs by {care_err}"
-    care_bound = _care_bound(arrive.cpu(), params.cpu(), static.servers)
-    print(f"phase 3 care_route D={arrive.shape[0]} K={static.servers:.0e} "
-          f"T={MAIN_SLOTS}: equal; kernel {care_ms:.1f} ms, plain {care_plain_ms:.1f} ms, "
-          f"bound {care_bound[0]:.3f} ms ({care_bound[1]}); one block per run, "
-          f"{arrive.shape[0]} of 132 SMs")
-    del got, plain
+    care = {}
+    for comm in ("dt", "rt", "et_rt"):  # dt is the path's; rt and et_rt wake tiles
+        kw = dict(servers=static.servers, cap=static.buffer_cap, policy="jsaq", comm=comm)
+        kernel_ms = _time_ms(lambda: cuda_k.care_route_cuda(arrive, params, **kw), 5)
+        got = cuda_k.care_route_cuda(arrive, params, **kw)
+        plain = []
+        plain_ms = _time_ms(
+            lambda: plain.append(ref.care_route_ref(arrive, params, count_live=True, **kw)),
+            1, warm=False,
+        )
+        err = _max_abs_err(got, plain[0][:4])
+        assert err == 0, f"care_route {comm} at the main-path shape differs by {err}"
+        live = int(plain[0][4].sum())
+        active = int(params[:, 3].clamp(0, MAIN_SLOTS).sum())
+        bound = _care_bound(arrive, params, static.servers, live)
+        dense_bound = _care_bound(arrive, params, static.servers, static.servers * active)
+        care[comm] = (kernel_ms, plain_ms, err, bound)
+        print(f"phase 3 care_route {comm} D={arrive.shape[0]} K={static.servers:.0e} "
+              f"T={MAIN_SLOTS}: equal; kernel {kernel_ms:.3f} ms "
+              f"({kernel_ms / MAIN_SLOTS * 1e3:.3f} us a slot of the chain), plain "
+              f"{plain_ms:.1f} ms; bound of these inputs {bound[0]:.6f} ms ({bound[1]}; "
+              f"{live} server-slots not at rest or triggering, "
+              f"{live / (static.servers * active):.2e} of all), dense bound "
+              f"{dense_bound[0]:.3f} ms ({dense_bound[1]}; every server every slot)")
+        del got, plain
+    care_ms, care_plain_ms, care_err, care_bound = care["dt"]
+
+    # Where the fused grid's time goes: one profiled call at K = 1e6.
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        slotted_sim.simulate_grid(seeds, static, cells)
+        torch.cuda.synchronize()
+    device = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    device_us = sum(e.self_device_time_total for e in device)
+    if device_us == 0:
+        print("phase 3 fused grid profile: the profiler saw no device time; not measured")
+    else:
+        device.sort(key=lambda e: e.self_device_time_total, reverse=True)
+        print(f"phase 3 fused grid profile, K={static.servers:.0e}: device busy "
+              f"{device_us / 1e3:.3f} ms against an unprofiled wall of "
+              f"{times[f'main_K{static.servers}_s'] * 1e3:.3f} ms; top device operations: "
+              + "; ".join(f"{e.key[:50]} {e.self_device_time_total / 1e3:.3f} ms x{e.count}"
+                          for e in device[:5]))
 
     # The serving engine's main path, with the routing state of its middle
     # slot kept for the kernel's timing (the spy forwards every call).

@@ -1,8 +1,8 @@
 // Block-wide argmin over one row of values, lowest index on ties.
 //
-// Shared by jsaq_route.cu and care_route.cu (int rows) and serve_route.cu
-// (float rows).  Each thread scans a strided slice of the row in ascending
-// order (strict < keeps its earliest minimum), then (value, index) pairs
+// Shared by jsaq_route.cu (int rows) and serve_route.cu (float rows).  Each
+// thread scans a strided slice of the row in ascending order (strict <
+// keeps its earliest minimum), then (value, index) pairs
 // are merged by warp shuffles and once more across the warps through shared
 // memory.  The merge prefers the smaller value and, among equal values, the
 // smaller index, so the result is the lowest global index of the minimum:

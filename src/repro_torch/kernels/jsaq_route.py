@@ -3,7 +3,9 @@
 * :func:`jsaq_route_cuda` -- ``csrc/jsaq_route.cu``, which replaces the
   Pallas kernel ``jsaq_route_pallas`` (``repro/kernels/jsaq_route.py:169``).
 * :func:`care_route_cuda` -- ``csrc/care_route.cu``, which replaces
-  ``care_route_pallas`` (``repro/kernels/jsaq_route.py:355``).
+  ``care_route_pallas`` (``repro/kernels/jsaq_route.py:355``).  Its tile
+  schedule is mirrored on the CPU by :func:`care_route_tiled`, which
+  nothing on the main path calls (``tests/test_torch_care_schedule.py``).
 * :func:`serve_route_cuda` -- ``csrc/serve_route.cu``, which replaces
   ``serve_route_pallas`` (``repro/kernels/jsaq_route.py:496``).
 
@@ -29,6 +31,15 @@ _I = ctypes.c_int
 # Largest replica count serve_route takes: its four (R,) state arrays live in
 # one block's shared memory (kMaxReplicas in csrc/serve_route.cu).
 SERVE_MAX_REPLICAS = 8192
+
+# care_route's tile table (csrc/care_route.cu): servers a tile at the least,
+# the most tiles a block's shared memory holds (20 B a tile), and the most
+# warps a block.
+CARE_TILE = 256
+CARE_MAX_TILES = 8192
+CARE_WARPS = 16
+_CARE_NEVER = 2**31 - 1  # INT_MAX: a tile no rt trigger wakes
+_CARE_POISON = -(2**20)  # care_route_tiled's value of a field the kernel does not read
 
 
 def _threads(k: int) -> int:
@@ -87,6 +98,32 @@ def jsaq_route_cuda(q_app: torch.Tensor, num_jobs: int):
 jsaq_route_cuda.launches = 0
 
 
+def care_tile(servers: int) -> int:
+    """Servers a tile of ``care_route``'s tile table: ``CARE_TILE``, or the
+    least multiple of 32 that keeps K within ``CARE_MAX_TILES`` tiles."""
+    need = -(-servers // CARE_MAX_TILES)
+    return max(CARE_TILE, -(-need // 32) * 32)
+
+
+def _care_schedule(comm: str, x: int, rt_period: int) -> tuple[bool, bool]:
+    """``(rt_kind, dense)`` of one run.  Under rt and et_rt a server at rest
+    triggers when its slot counter reaches ``rt_period``; under dt, et and
+    et_rt with ``x <= 0`` (and rt / et_rt with ``rt_period <= 1``) every
+    server may trigger in every slot, so every tile is due every slot."""
+    rt_kind = comm in ("rt", "et_rt")
+    dense = (comm in ("dt", "et", "et_rt") and x <= 0) or (rt_kind and rt_period <= 1)
+    return rt_kind, dense
+
+
+def _check_care(policy: str, comm: str, servers: int) -> None:
+    if policy not in ("jsq", "jsaq"):
+        raise ValueError(f"care_route supports policies 'jsq'/'jsaq', got {policy!r}")
+    if comm not in CARE_COMMS:
+        raise ValueError(f"unknown communication kind: {comm}")
+    if servers < 1:
+        raise ValueError(f"servers must be >= 1, got {servers}")
+
+
 def care_route_cuda(
     arrive: torch.Tensor,
     params: torch.Tensor,
@@ -96,34 +133,33 @@ def care_route_cuda(
     policy: str,
     comm: str,
 ):
-    """The fused CARE slot loop on the card; see ``ref.care_route_ref``."""
+    """The fused CARE slot loop on the card; see ``ref.care_route_ref``.
+    A block of ``min(CARE_WARPS, tiles)`` warps a run."""
     if arrive.device.type != "cuda":
         raise ValueError(f"care_route_cuda needs a CUDA tensor, got {arrive.device}")
-    if policy not in ("jsq", "jsaq"):
-        raise ValueError(f"care_route supports policies 'jsq'/'jsaq', got {policy!r}")
-    if comm not in CARE_COMMS:
-        raise ValueError(f"unknown communication kind: {comm}")
-    if servers < 1:
-        raise ValueError(f"servers must be >= 1, got {servers}")
+    _check_care(policy, comm, servers)
     dev = arrive.device
     d, t = arrive.shape
     _check(arrive, "arrive", (d, t), dev)
     _check(params, "params", (d, 4), dev)
+    tile = care_tile(servers)
+    n_tiles = -(-servers // tile)
     launch = _lib(
         "care_route", "care_route_launch",
-        (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
+        (_P, _P, _P, _P, _P, _P, _P) + (_I,) * 9 + (_P,),
     )
     routed = torch.empty((d, t), dtype=torch.int32, device=dev)
     q_true = torch.empty((d, servers), dtype=torch.int32, device=dev)
     per_srv = torch.empty((d, servers), dtype=torch.int32, device=dev)
     stats = torch.empty((d, 8), dtype=torch.int32, device=dev)
+    # qa, hr, eh, ds, ss: the kernel reads a field only after it wrote it.
     scratch = torch.empty((d, 5, servers), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         err = launch(
             arrive.data_ptr(), params.data_ptr(), routed.data_ptr(),
             q_true.data_ptr(), per_srv.data_ptr(), stats.data_ptr(),
             scratch.data_ptr(), d, t, servers, cap, int(policy == "jsaq"),
-            CARE_COMMS.index(comm), _threads(servers),
+            CARE_COMMS.index(comm), tile, n_tiles, 32 * min(CARE_WARPS, n_tiles),
             torch.cuda.current_stream().cuda_stream,
         )
     _raise_on(err, "care_route")
@@ -132,6 +168,181 @@ def care_route_cuda(
 
 
 care_route_cuda.launches = 0
+
+
+def care_route_tiled(
+    arrive: torch.Tensor,
+    params: torch.Tensor,
+    *,
+    servers: int,
+    cap: int,
+    policy: str,
+    comm: str,
+    tile: int,
+):
+    """The schedule of ``csrc/care_route.cu``, in plain Python on the CPU.
+
+    Same arithmetic as the kernel, tile by tile: a tile table (live flag,
+    last slot visited, first slot an rt trigger wakes it), a tile visited
+    only when due (live, or holding the slot's arrival, or rt-due, or every
+    slot when ``_care_schedule`` says dense), the slot counter of a tile at
+    rest advanced lazily at its next visit, only the fields the kernel
+    loads read (the others poisoned, so that reading one would show), and
+    the route of the next slot taken from the visited tiles' partial
+    argmins and the first index of the lowest tile not visited.
+    Nothing on the main path calls it: the tests hold it against
+    ``ref.care_route_ref`` and the JAX kernel, so that the schedule the
+    kernel runs is checked where there is no card.
+
+    Returns ``(routed, q_true, per_srv, stats, visits)``: the four outputs
+    of ``ref.care_route_ref`` and the ``(D,)`` tile visits of each run.
+    """
+    _check_care(policy, comm, servers)
+    if tile < 1:
+        raise ValueError(f"tile must be >= 1, got {tile}")
+    d, t = arrive.shape
+    routed = torch.full((d, t), -1, dtype=torch.int32)
+    q_true = torch.zeros((d, servers), dtype=torch.int32)
+    per_srv = torch.zeros((d, servers), dtype=torch.int32)
+    stats = torch.zeros((d, 8), dtype=torch.int32)
+    visits = torch.zeros((d,), dtype=torch.int64)
+    arr_rows = (arrive.cpu() > 0).tolist()
+    for run, (x, rt_period, msr, horizon) in enumerate(params.cpu().tolist()):
+        counters, visits[run] = _care_run(
+            arr_rows[run][: min(t, max(horizon, 0))], x, rt_period, msr, servers,
+            cap, policy == "jsaq", comm, tile, routed[run], q_true[run], per_srv[run],
+        )
+        stats[run, :7] = torch.tensor(counters, dtype=torch.int32)
+    return routed, q_true, per_srv, stats, visits
+
+
+def _care_field(src, lo, hi, alive, start):
+    """A tile's copy of one state field, as the kernel loads it: ``start``
+    where the kernel sets it without a load, the stored values where it
+    loads them, and poison where the field is dead (the kernel neither
+    loads nor uses it), so that a read of a dead field shows in the outputs."""
+    if not alive:
+        return torch.full((hi - lo,), _CARE_POISON, dtype=torch.int32)
+    if start is not None:
+        return torch.full((hi - lo,), start, dtype=torch.int32)
+    return src[lo:hi].clone()
+
+
+def _care_run(arr, x, rt_period, msr, k, cap, jsaq, comm, tile, routed, q, ps):
+    """One run of ``care_route_tiled``; fills ``routed``, ``q`` and ``ps``
+    in place and returns the seven counters and the tile visits."""
+    n_tiles = -(-k // tile)
+    rt_kind, dense = _care_schedule(comm, x, rt_period)
+    # Scratch state starts poisoned, as the kernel's starts unset.
+    qa, hr, eh, ds, ss = (torch.full((k,), _CARE_POISON, dtype=torch.int32) for _ in range(5))
+    due0 = -1 + max(1, rt_period) if rt_kind else _CARE_NEVER
+    last, due, live = [-1] * n_tiles, [due0] * n_tiles, [False] * n_tiles
+    live_list, next_rt, route = [], due0, 0
+    msgs = deps = arrs = drops = max_aq = max_q = gap = visits = 0
+    for s, a in enumerate(arr):
+        j, tj = route, route // tile
+        todo = list(range(n_tiles)) if dense else list(live_list)
+        if not dense and a and not live[tj]:
+            todo.append(tj)
+        scan = rt_kind and not dense and s >= next_rt
+        acc = _CARE_NEVER
+        if scan:
+            for i in range(n_tiles):
+                if a and i == tj:
+                    continue
+                if due[i] <= s:
+                    todo.append(i)
+                else:
+                    acc = min(acc, due[i])
+        assert len(set(todo)) == len(todo), f"a tile visited twice in slot {s}"
+        best, qmax_s, qmin_s, live_list = (_CARE_NEVER, _CARE_NEVER), 0, _CARE_NEVER, []
+        for i in todo:
+            lo, hi = i * tile, min(k, (i + 1) * tile)
+            active = live[i] or (a and lo <= j < hi)
+            fresh = last[i] < 0  # ds and ss start from 0
+            # At rest q = qa = 0, and hr and eh are dead until an admit.
+            qv = _care_field(q, lo, hi, True, None if live[i] else 0)
+            qav = _care_field(qa, lo, hi, True, None if live[i] else 0)
+            hrv = _care_field(hr, lo, hi, live[i], None)
+            ehv = _care_field(eh, lo, hi, live[i], None)
+            dsv = _care_field(ds, lo, hi, comm == "dt", 0 if fresh else None)
+            ssv = _care_field(ss, lo, hi, rt_kind, 0 if fresh else None) + (s - 1 - last[i])
+            if a and lo <= j < hi:
+                o = j - lo
+                if qv[o] < cap:
+                    if qv[o] == 0:
+                        hrv[o] = msr
+                    qv[o] += 1
+                    if qav[o] == 0:
+                        ehv[o] = msr
+                    qav[o] += 1
+                    ps[j] += 1
+                    arrs += 1
+                    routed[s] = j
+                else:
+                    drops += 1
+            busy = qv > 0
+            hrv = torch.where(busy, hrv - 1, hrv)
+            dep = busy & (hrv <= 0)
+            qv = torch.where(dep, qv - 1, qv)
+            hrv = torch.where(dep & (qv > 0), msr, hrv)
+            ticking = qav > 0
+            ehv = torch.where(ticking, ehv - 1, ehv)
+            dep_e = ticking & (ehv <= 0)
+            qav = torch.where(dep_e, qav - 1, qav)
+            ehv = torch.where(dep_e, msr, ehv)
+            err = (qv - qav).abs()
+            dsa = dsv + dep.to(torch.int32)
+            ssa = ssv + 1
+            trig = {
+                "rt": ssa >= rt_period,
+                "dt": dsa >= x,
+                "et": err >= x,
+                "et_rt": (err >= x) | (ssa >= rt_period),
+                "exact": dep,
+                "none": torch.zeros_like(dep),
+            }[comm]
+            deps += int(dep.sum())
+            msgs += int((dep if comm == "exact" else trig).sum())
+            dsv = torch.where(trig, 0, dsa)
+            ssv = torch.where(trig, 0, ssa)
+            qav = torch.where(trig, qv, qav)
+            ehv = torch.where(trig, msr, ehv)
+            if active:
+                q[lo:hi], qa[lo:hi], hr[lo:hi], eh[lo:hi] = qv, qav, hrv, ehv
+            if comm == "dt":
+                ds[lo:hi] = dsv
+            if rt_kind:
+                ss[lo:hi] = ssv
+            # The tile's partials: argmin (lowest index), extrema, live flag
+            # and, at rest, the first slot an rt trigger wakes it.
+            score = qav if jsaq else qv
+            best = min(best, (int(score.min()), lo + int(torch.argmin(score))))
+            max_aq = max(max_aq, int((qv - qav).abs().max()))
+            qmax_s, qmin_s = max(qmax_s, int(qv.max())), min(qmin_s, int(qv.min()))
+            last[i] = s
+            live[i] = bool(((qv > 0) | (qav > 0)).any())
+            if live[i]:
+                live_list.append(i)
+                due[i] = _CARE_NEVER
+            elif rt_kind:
+                wake = int((rt_period - ssv.to(torch.int64)).clamp(min=1).min())
+                due[i] = min(s + wake, _CARE_NEVER)
+                acc = min(acc, due[i])
+            else:
+                due[i] = _CARE_NEVER
+        visits += len(todo)
+        if len(todo) < n_tiles:
+            # The lowest tile not visited is at rest: all its scores are 0.
+            u = next(i for i in range(n_tiles) if last[i] != s)
+            best = min(best, (0, u * tile))
+            qmin_s = 0
+        route = best[1]
+        max_q = max(max_q, qmax_s)
+        gap = max(gap, qmax_s - qmin_s)
+        if rt_kind:
+            next_rt = acc if scan else min(next_rt, acc)
+    return (msgs, deps, arrs, drops, max_aq, max_q, gap), visits
 
 
 def serve_route_cuda(

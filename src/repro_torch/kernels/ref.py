@@ -47,6 +47,7 @@ def care_route_ref(
     cap: int,
     policy: str,
     comm: str,
+    count_live: bool = False,
 ):
     """The fused CARE slot loop, one run per row, as a per-slot loop.
 
@@ -60,12 +61,17 @@ def care_route_ref(
     Args:
       arrive: ``(D, T)`` int32 arrival indicators.
       params: ``(D, 4)`` int32 ``[x, rt_period, msr_slots, horizon]``.
+      count_live: also return the work these inputs need (see below).
 
     Returns:
       ``(routed, q_true, per_srv, stats)``: ``(D, T)`` routed server per
       slot (-1 without an admitted arrival), final ``(D, K)`` queues,
       ``(D, K)`` admitted arrivals per server and ``(D, 8)`` int32 stats
-      ``[msgs, deps, arrs, dropped, max_aq, max_q, gap_sup, 0]``.
+      ``[msgs, deps, arrs, dropped, max_aq, max_q, gap_sup, 0]``.  With
+      ``count_live``, a fifth ``(D,)`` int64 tensor: the active
+      server-slots that are not at rest (``q > 0`` or ``qa > 0`` once the
+      slot's arrival is admitted) or that trigger while at rest; a server
+      at rest that does not trigger changes only its slot counter.
     """
     if policy not in ("jsq", "jsaq"):
         raise ValueError(f"care_route supports policies 'jsq'/'jsaq', got {policy!r}")
@@ -81,6 +87,7 @@ def care_route_ref(
     q, qa, hr, ds, ss, ps = (zeros.clone() for _ in range(6))
     eh = zeros + msr
     msgs, deps, arrs, drops, max_aq, max_q, gap = (zeros1.clone() for _ in range(7))
+    live = torch.zeros((d,), dtype=torch.int64, device=dev)
     routed = torch.full((d, t), -1, dtype=torch.int32, device=dev)
     lane = torch.arange(k, device=dev)
     # Every run is frozen from its horizon on, so the loop may stop at the
@@ -106,6 +113,8 @@ def care_route_ref(
         arrs = arrs + admit.to(torch.int32)
         ps = ps + sel.to(torch.int32)
         routed[:, s] = torch.where(admit, j.to(torch.int32), -1)[:, 0]
+        if count_live:
+            moving = (q > 0) | (qa > 0)
 
         # 2. service (deterministic msr_slots-sized jobs)
         busy = (q > 0) & act
@@ -140,6 +149,8 @@ def care_route_ref(
         else:
             trig = torch.zeros_like(dep)
         trig = trig & act
+        if count_live:
+            live += ((moving | trig) & act).sum(1)
         sent = (dep_i if comm == "exact" else trig).sum(1, keepdim=True, dtype=torch.int32)
         msgs = msgs + torch.where(act, sent, 0)
         ds = torch.where(act, torch.where(trig, 0, dsa), ds)
@@ -155,6 +166,8 @@ def care_route_ref(
         max_q = torch.maximum(max_q, qmax)
         gap = torch.maximum(gap, qmax - qmin)
     stats = torch.cat([msgs, deps, arrs, drops, max_aq, max_q, gap, zeros1], dim=1)
+    if count_live:
+        return routed, q, ps, stats, live
     return routed, q, ps, stats
 
 

@@ -49,25 +49,54 @@ class TestOnCard:
         for g, r in zip(got, ref):
             _eq(g.cpu().numpy(), r.numpy())
 
-    @pytest.mark.parametrize("comm", KINDS)
-    @pytest.mark.parametrize("policy", POLICIES)
-    def test_care_route_kernel(self, cuda_device, policy, comm):
+    @pytest.mark.parametrize(
+        "policy,comm,rows",
+        [(p, c, "mixed") for c in KINDS for p in POLICIES]
+        + [(p, c, "wake") for c in ("rt", "et_rt") for p in POLICIES]
+        + [(p, c, rows) for rows in ("edge", "drop") for c in KINDS for p in POLICIES],
+    )
+    def test_care_route_kernel(self, cuda_device, policy, comm, rows):
+        # "mixed": mixed horizons at K = 300 (one tile).  "wake": K = 1e5
+        # (391 tiles) under rt / et_rt, so tiles at rest wake on their rt
+        # slot.  "edge": x <= 0 (every tile due every slot under dt, et and
+        # et_rt), rt_period 1, msr 1, horizons 0 and 1, a run with an
+        # arrival every slot and one with none, at cap 1.  "drop": cap 1 on
+        # 6 servers with jobs of 8 slots or more, so jobs drop.
         rng = np.random.default_rng(1)
-        d, k, t = 8, 300, 500
-        hz = np.array([500, 500, 400, 0, 1, 250, 500, 499], np.int32)
+        if rows == "mixed":
+            d, k, t, cap = 8, 300, 500, 16
+            hz = np.array([500, 500, 400, 0, 1, 250, 500, 499], np.int32)
+            params = np.stack(
+                [rng.integers(2, 5, d), np.full(d, 7), np.full(d, 8), hz], 1
+            ).astype(np.int32)
+        elif rows == "wake":
+            d, k, t, cap = 4, 100_000, 4000, 16
+            params = np.array([[2, 100, 8, t], [3, 37, 8, t], [2, 100, 8, 3 * t // 4],
+                               [1, 250, 3, t]], np.int32)
+        elif rows == "edge":
+            d, k, t, cap = 6, 1000, 600, 1
+            params = np.array([[0, 100, 8, t], [-1, 3, 4, t], [2, 1, 1, t],
+                               [3, 5, 1, 1], [1, 7, 8, 0], [2, 9, 8, t]], np.int32)
+        else:
+            d, k, t, cap = 4, 6, 600, 1
+            params = np.array([[2, 5, 8, t], [0, 3, 8, t], [3, 1, 12, t],
+                               [1, 7, 8, t // 2]], np.int32)
+        hz = params[:, 3]
         arrive = ((rng.random((d, t)) < 0.95) & (np.arange(t) < hz[:, None])).astype(np.int32)
-        params = np.stack(
-            [rng.integers(2, 5, d), np.full(d, 7), np.full(d, 8), hz], 1
-        ).astype(np.int32)
-        kw = dict(servers=k, cap=16, policy=policy, comm=comm)
+        if rows == "edge":
+            arrive[2] = 1  # an arrival every slot
+            arrive[5] = 0  # none
+        kw = dict(servers=k, cap=cap, policy=policy, comm=comm)
         a, p = torch.from_numpy(arrive), torch.from_numpy(params)
-        ref = tref.care_route_ref(a, p, **kw)
+        ref = tref.care_route_ref(a.to(cuda_device), p.to(cuda_device), **kw)
         before = tops.launch_counts()["care_route"]
         got = tops.care_route(a.to(cuda_device), p.to(cuda_device), **kw)
         torch.cuda.synchronize()
         assert tops.launch_counts()["care_route"] == before + 1
         for g, r in zip(got, ref):
-            _eq(g.cpu().numpy(), r.numpy())
+            _eq(g.cpu().numpy(), r.cpu().numpy())
+        if rows == "drop":
+            assert int(got[3][:, 3].sum()) > 0
 
     def test_fused_grid_goes_through_the_kernel(self, cuda_device):
         static = slotted_sim.StaticConfig(
