@@ -8,8 +8,10 @@ Run from the root of a checkout on a machine with a CUDA card:
 Phases (any mismatch or exception exits non-zero; no phase catches its
 own failure):
 
-1. Build the five Hopper kernels from ``src/repro_torch/csrc`` with
-   ``nvcc`` (one process per source, started together) and print the
+1. Build the Hopper kernels from the five sources of
+   ``src/repro_torch/csrc`` with ``nvcc`` (one process per source, started
+   together; ``serve_route.cu`` holds ``serve_route`` and ``serve_slots``)
+   and print the
    build time and the compiler's register and spill report; for each
    instance of the two flash kernels (bf16 on the tensor cores for dh, dv
    in {64, 128, 256}; float32 on the CUDA cores) its registers, spills and
@@ -26,8 +28,16 @@ own failure):
    horizons 0 and 1, a run with an arrival every slot and one with none,
    cap 1; and at K=6, cap 1, jobs of 8-12 slots, so jobs drop;
    ``serve_route`` for comm et / exact at D=4, R=1024, A=304 and at R=200,
-   with an all-ties row, a row of full rings, a run with ``act=0`` and
-   runs with ``n_arr=0`` and ``n_arr=A``.
+   with an all-ties row, a row of full rings, a run with ``act=0``, a row
+   with ``-0.0`` scores and runs with ``n_arr=0`` and ``n_arr=A``;
+   ``serve_slots`` against the dense serving backend (its plain version),
+   every output of ``_serve_core`` and the end-of-run routing state, one
+   ``serve_slots`` launch and no ``serve_route`` launch each, on
+   ``SLOTS_CASES`` of ``tests/test_torch_cuda.py`` (the card tests' cases
+   and comparison): R in {1, 8, 31, 32, 33, 200, 1024, 1025, 2048},
+   the six push kinds, decode rates, occupancy traced, ``rem`` / ``arid``
+   in shared memory and (R=2048 x 16 decode slots) in device memory,
+   rings of 2 that drop, horizons 0, 1 and mixed.
 3. The main paths at the size their users run them, each with the launch
    counts set to 0 just before and read just after:
    the slotted simulator's mean-field sweep (``benchmarks/bench_route.py``):
@@ -45,9 +55,17 @@ own failure):
    ``benchmarks/bench_serving.py``: ``serve_grid`` with the fused backend,
    1024 replicas x 16 decode slots, ring cap 128, load 0.9, mean prefill 4
    and decode 60, MSR drain 0.25, JSAQ with ET-4 and lowest-index ties,
-   2048 slots, seeds (0, 1); asserts one ``serve_route`` launch per slot,
-   no drops, conservation and finite JCT, and times ``serve_route`` on the
-   routing state of the run's middle slot.
+   2048 slots, seeds (0, 1); asserts one ``serve_slots`` launch and no
+   ``serve_route`` launch for the call, no drops, conservation and finite
+   JCT; holds ``serve_slots`` against the dense backend over the whole
+   horizon (every ring's cap is passed, so rings wrap), times both on it,
+   prints the kernel's bound (the lane chain's work and the replica
+   stage's) beside the dense bound of an argmin over R for each lane, and
+   its microseconds per routed lane; times ``serve_route`` on the routing
+   state ``serve_slots`` leaves after half the horizon (the middle slot's)
+   against its plain version; times ``serve_slots`` with no arrival lane
+   (its replica stage alone); profiles one ``serve_grid`` call for the
+   device busy share.
 4. The slotted dense backend against the fused one on the card, decision
    for decision, at K=200, T=2000; then the paper's Section 9 cell (K=30,
    load 0.95, geometric sizes of mean 30, JSAQ with ET-3 and MSR, 20,000
@@ -55,10 +73,11 @@ own failure):
 5. The serving bench's ET ladder (``bench_serving._ladder``): 8 replicas,
    load 0.9, ET-x for x in {2, 4, 8, 16} x 4 seeds as one fused grid call,
    20,000 slots, then the exact-state grid call on the same workloads
-   (messages must equal completions); prints ``et_comm_vs_exact``.
-6. The serving dense backend against the fused one on the card, field for
-   field, at 64 replicas x 16 decode slots, 1000 slots, comm et / dt /
-   exact, seeds (0, 1).
+   (messages must equal completions), one ``serve_slots`` launch each;
+   prints ``et_comm_vs_exact``.
+6. The serving dense backend against the fused one (one ``serve_slots``
+   launch) on the card, field for field, at 64 replicas x 16 decode slots,
+   1000 slots, comm et / dt / exact, seeds (0, 1).
 7. The MoE serving path (``repro_torch.models``): DeepSeek-V2 at its
    published widths (bf16, d_model 5120, 128 heads, MLA, 160 routed + 2
    shared experts, top-6 softmax) with the depth cut to 3 layers (one
@@ -106,6 +125,7 @@ when the port's sources are not beside this script.
 from __future__ import annotations
 
 import dataclasses
+import importlib.util
 import json
 import re
 import subprocess
@@ -141,8 +161,28 @@ F32_FLOP_PER_S = 67e12
 CARE_OPS_PER_SERVER_SLOT = 35
 # jsaq_route: one compare and one select per server per routed job.
 JSAQ_OPS_PER_SERVER_JOB = 2
-# serve_route: one compare and one select per replica per routed lane.
+# serve_route's and serve_slots' lane chain (csrc/serve_lanes.cuh), counted
+# from what it reads: per slot of a run, each replica's key and its
+# sub-block's minimum (a compare and a select a replica); per routed lane,
+# two 32-wide warp reductions (the least key, then its lowest owner; 32
+# operations each) and a compare and a select for each entry its rescan
+# reads: 32 and, above R = 1024, ceil(R / 1024) sub-block minima.  The TPU
+# kernel's dense schedule, an argmin over all R replicas for each lane
+# (SERVE_OPS_PER_REPLICA_LANE x R), is printed beside it.
+SERVE_OPS_PER_ENTRY = 2
+SERVE_OPS_PER_LANE_REDUCTION = 32
 SERVE_OPS_PER_REPLICA_LANE = 2
+# serve_slots' replica stage, counted from _serve_core's steps 2-5: per
+# decode slot 12 (free test and rank, the FIFO take test and two selects,
+# the active test, the decrement, the done test, the completion count, the
+# arid reset, the busy count); per replica 19 (n_admit, q_head and q_len
+# updates 3; drain 4: busy test, product, difference, clamp; trigger and
+# snap 11: true occupancy 2, error 2, two counter updates, the comparison,
+# two counter resets, the snap, the message count; the occupancy row 1).
+# The bound counts them for every replica of every slot a run is active,
+# beside the lane chain's operations.
+SERVE_SLOT_OPS_PER_REPLICA = 19
+SERVE_SLOT_OPS_PER_DECODE_SLOT = 12
 
 KINDS = ("rt", "dt", "et", "et_rt", "exact", "none")
 
@@ -166,7 +206,6 @@ SECTION9_SLOTS = 20_000
 SERVE_PARITY = ((4, 1024, 304), (4, 200, 304))  # D, R, A
 SERVE_MAIN = dict(replicas=1024, decode_slots=16, slots=2048, queue_cap=128)
 SERVE_MAIN_SEEDS = (0, 1)
-PROFILE_SLOTS = 256
 SERVE_WORK = dict(load=0.9, mean_prefill=4, mean_decode=60, msr_drain=0.25)
 LADDER_SLOTS = 20_000
 LADDER_X = (2, 4, 8, 16)
@@ -262,29 +301,42 @@ def _care_bound(arrive, params, k: int, server_slots: int) -> tuple[float, str]:
     return _bound_ms(n_bytes, CARE_OPS_PER_SERVER_SLOT * server_slots)
 
 
-def _serve_bound(tie_u, q_len, n_arr, act) -> tuple[float, str]:
+def _chain_ops(r: int, routed: int, run_slots: int) -> int:
+    """Operations of the lane chain: ``routed`` lanes over R replicas in
+    ``run_slots`` slots of runs (see SERVE_OPS_PER_ENTRY)."""
+    reads = 32 + (-(-r // 1024) if r > 1024 else 0)
+    per_lane = 2 * SERVE_OPS_PER_LANE_REDUCTION + SERVE_OPS_PER_ENTRY * reads
+    return SERVE_OPS_PER_ENTRY * r * run_slots + per_lane * routed
+
+
+def _serve_bound(tie_u, q_len, n_arr, act) -> tuple[float, str, float, str]:
     """serve_route's bound: the (D, R) state and (D, A) lanes read or
-    written once, and one argmin over R replicas for every live lane of
-    every run plus one for its dead lanes."""
+    written once, against the lane chain's operations for these live
+    lanes; then the same bytes against the TPU kernel's dense count, one
+    argmin over R replicas for every live lane plus one for the dead."""
     d, a_n = tie_u.shape
     r = q_len.shape[1]
     n_live = torch.where(act, n_arr.clamp(0, a_n), 0)
-    lanes = int(n_live.sum()) + int((n_live < a_n).sum())
+    live = int(n_live.sum())
+    dense_lanes = live + int((n_live < a_n).sum())
     # in: tie_u, q_len, q_head, busy, approx, n_arr, act;
     # out: jv, tail, admit, q_len', approx', drops.
     n_bytes = d * a_n * (4 + 4 + 4 + 1) + d * r * 4 * (4 + 2) + d * (4 + 1 + 4)
-    return _bound_ms(n_bytes, SERVE_OPS_PER_REPLICA_LANE * r * lanes)
+    return (*_bound_ms(n_bytes, _chain_ops(r, live, d)),
+            *_bound_ms(n_bytes, SERVE_OPS_PER_REPLICA_LANE * r * dense_lanes))
 
 
 def _serve_state(rng, d: int, r: int, a_n: int, cap: int, dev):
     """Random serving states for phase 2: row 0 routes all A lanes into an
-    all-ties score, row 1 has every ring full, row 2 is past its horizon;
+    all-ties score, row 1 has every ring full, row 2 is past its horizon,
+    row 3 holds -0.0 scores (equal to +0.0, ties broken by index);
     ``n_arr`` and ``act`` are returned as numpy arrays to edit."""
     q_len = rng.integers(0, cap + 1, (d, r)).astype(np.int32)
     busy = rng.integers(0, 17, (d, r)).astype(np.int32)
     approx = (rng.integers(0, 80, (d, r)) * 0.25).astype(np.float32)
     q_len[0], busy[0], approx[0] = 3, 5, 7.0
     q_len[1] = cap
+    approx[3, ::3] = -0.0
     n_arr = rng.integers(1, a_n, d).astype(np.int32)
     n_arr[0] = a_n
     act = np.ones(d, bool)
@@ -294,40 +346,71 @@ def _serve_state(rng, d: int, r: int, a_n: int, cap: int, dev):
     return [torch.from_numpy(a).to(dev) for a in arrays], n_arr, act
 
 
-def _profile_serving(engine, cell, wall_per_slot_s: float) -> None:
-    """Where a serving slot's time goes: one profiled ``serve_grid`` call of
-    ``cell`` (the main path's configuration over fewer slots).  Device
-    times come from the card's kernel records; the host's per-op times are
-    inflated by the profiler, so only their shares of the profiled host
-    time are printed.  The device busy share is taken against the
-    unprofiled main-path wall per slot."""
+def _routed_lanes(n_arr, horizon, t_end: int, a_n: int) -> list[int]:
+    """Live lanes each run routes in slots [0, min(horizon, t_end))."""
+    live = n_arr.cpu().clamp(0, a_n).to(torch.int64)
+    slots = torch.arange(live.shape[0])[:, None]
+    return (live * (slots < horizon.cpu().clamp(max=t_end))).sum(0).tolist()
+
+
+def _serve_slots_bound(work, scn, static, n_cap: int, t_end: int,
+                       lanes: list[int]) -> tuple[float, str, float, str]:
+    """serve_slots' bound: n_arr, work, rid and the scenario read once and
+    its outputs written once, against the lane chain's operations for the
+    routed lanes and the replica stage's for each replica of each active
+    slot; then the same with the TPU kernel's dense argmin for each lane."""
+    t_n, d, a_n = work.shape
+    r, s_n = static.replicas, static.decode_slots
+    active = int(scn.horizon.cpu().clamp(0, t_end).sum())
+    n_bytes = 4 * (t_n * d + 2 * t_n * d * a_n + 4 * d + d * r)  # inputs
+    n_bytes += 4 * (d * n_cap + 3 * d + 5 * d * r)  # outputs and end state
+    if static.trace_occupancy:
+        n_bytes += 4 * d * t_n * r
+    stage = (SERVE_SLOT_OPS_PER_REPLICA + SERVE_SLOT_OPS_PER_DECODE_SLOT * s_n) * r * active
+    dense = SERVE_OPS_PER_REPLICA_LANE * r * sum(lanes)
+    return (*_bound_ms(n_bytes, _chain_ops(r, sum(lanes), active) + stage),
+            *_bound_ms(n_bytes, dense + stage))
+
+
+def _profile_serving(engine, cell, wall_s: float) -> None:
+    """Where a serving call's time goes: one profiled ``serve_grid`` call of
+    the main path.  Device times come from the card's kernel records; the
+    host's per-op times are inflated by the profiler, so only their shares
+    of the profiled host time are printed.  The device busy share is taken
+    against the unprofiled wall of the same call."""
     from torch.profiler import ProfilerActivity, profile
 
     seeds = list(SERVE_MAIN_SEEDS)
-    engine.serve_grid(seeds, cell.static_part(), [cell])  # sampling and warm-up
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        engine.serve_grid(seeds, cell.static_part(), [cell])
-        torch.cuda.synchronize()
-    events = prof.key_averages()
-    device = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
-    device_us = sum(e.self_device_time_total for e in device)
-    if device_us == 0:
-        print("phase 3 serving profile: the profiler saw no device time; "
-              "device busy share not measured")
+    # A profile has come back with no device record once in a run whose
+    # other profiles had them; a second call is profiled before giving up.
+    for _ in range(2):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            engine.serve_grid(seeds, cell.static_part(), [cell])
+            torch.cuda.synchronize()
+        events = prof.key_averages()
+        device = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
+        device_us = sum(e.self_device_time_total for e in device)
+        if device_us:
+            break
+    else:
+        print("phase 3 serving profile: the profiler saw no device time in two calls; "
+              "device busy share not measured (the kernel's share of the wall, by "
+              "CUDA events, is printed above)")
         return
-    route_us = sum(e.self_device_time_total for e in device if "serve_route" in e.key)
+    slots_us = sum(e.self_device_time_total for e in device if "serve_slots" in e.key)
     launches = sum(e.count for e in device)
-    per_slot_ms = device_us / 1e3 / cell.slots
     host = sorted((e for e in events if e.device_type == torch.autograd.DeviceType.CPU),
                   key=lambda e: e.self_cpu_time_total, reverse=True)
     host_us = sum(e.self_cpu_time_total for e in host)
-    print(f"phase 3 serving profile, {cell.slots} slots: device busy {per_slot_ms:.4f} ms "
-          f"per slot ({launches / cell.slots:.1f} device operations per slot), "
-          f"{per_slot_ms / (wall_per_slot_s * 1e3):.3f} of the unprofiled wall per "
-          f"slot; serve_route {route_us / device_us:.3f} of device time; top host "
-          f"ops by self time (profiled): "
-          + ", ".join(f"{e.key} {e.self_cpu_time_total / host_us:.3f} "
-                      f"(x{e.count / cell.slots:.1f}/slot)" for e in host[:10]))
+    device.sort(key=lambda e: e.self_device_time_total, reverse=True)
+    print(f"phase 3 serving profile, {cell.slots} slots: device busy {device_us / 1e3:.4f} "
+          f"ms ({launches} device operations, {launches / cell.slots:.4f} per slot), "
+          f"{device_us / 1e6 / wall_s:.3f} of the unprofiled wall {wall_s:.4f} s; "
+          f"serve_slots {slots_us / device_us:.3f} of device time; device operations: "
+          + "; ".join(f"{e.key[:40]} {e.self_device_time_total / 1e3:.3f} ms x{e.count}"
+                      for e in device[:6])
+          + "; top host ops by self time (profiled): "
+          + ", ".join(f"{e.key} {e.self_cpu_time_total / host_us:.3f}" for e in host[:8]))
 
 
 def _device_ms(fn, reps: int) -> float:
@@ -454,7 +537,7 @@ def _moe_serving(dev, times: dict) -> dict:
     launches = ops.launch_counts()
     ops.moe_route = route
     expected = n_moe * (2 + MOE_NEW - 1)
-    assert launches == {"jsaq_route": 0, "care_route": 0, "serve_route": 0,
+    assert launches == {"jsaq_route": 0, "care_route": 0, "serve_route": 0, "serve_slots": 0,
                         "moe_route": expected, "flash_attention": 0}, (launches, expected)
     assert bool(finite), "non-finite logits on the MoE serving path"
     times["moe_prefill1_s"], times["moe_prefill2_s"] = wall1, wall2
@@ -727,8 +810,8 @@ def _dense_serving(dev, times: dict) -> dict:
     launches = ops.launch_counts()
     ops.flash_attention = attend
     assert prefill_launches == cfg.num_layers, (prefill_launches, cfg.num_layers)
-    assert launches == {"jsaq_route": 0, "care_route": 0, "serve_route": 0, "moe_route": 0,
-                        "flash_attention": cfg.num_layers}, launches
+    assert launches == {"jsaq_route": 0, "care_route": 0, "serve_route": 0, "serve_slots": 0,
+                        "moe_route": 0, "flash_attention": cfg.num_layers}, launches
     assert bool(finite), "non-finite logits on the dense serving path"
     assert [kw["window"] for *_, kw in kept] == [int(windows[0]), int(windows[1])]
     times["dense_prefill_s"], times["dense_decode_ms_per_token"] = wall, decode_ms
@@ -941,6 +1024,16 @@ def _flash_build_report() -> None:
             name = None
 
 
+def _card_tests():
+    """``tests/test_torch_cuda.py``, whose serve_slots cases and comparison
+    with the dense backend phases 2 and 3 share (loaded by path)."""
+    spec = importlib.util.spec_from_file_location(
+        "test_torch_cuda", ROOT / "tests" / "test_torch_cuda.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
 def _card() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -961,6 +1054,7 @@ def main() -> int:
     from repro_torch.kernels import _build, ops, ref
     from repro_torch.kernels import jsaq_route as cuda_k
     from repro_torch.serve import engine
+    card_tests = _card_tests()
 
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
@@ -1081,8 +1175,28 @@ def main() -> int:
                 if comm == "et":
                     assert int(got[0][0, 0]) == 0, "all ties must route to index 0 first"
     print(f"phase 2 serve_route et/exact at (D, R, A) in {list(SERVE_PARITY)} with "
-          f"all-ties, full-ring, act=0, n_arr=0 and n_arr=A runs: equal "
+          f"all-ties, full-ring, act=0, -0.0, n_arr=0 and n_arr=A runs: equal "
           f"({time.perf_counter() - t0:.1f} s)")
+
+    t0 = time.perf_counter()
+    slots_cases = []
+    for name, (kw, horizons) in card_tests.SLOTS_CASES.items():
+        cell = engine.ServeConfig(**{**card_tests.SLOTS_BASE, **kw})
+        static = dataclasses.replace(cell.static_part(), trace_occupancy=True)
+        got, args, _ = card_tests.slots_vs_dense(dev, static, cell, horizons)
+        _, rem_in_smem = cuda_k.serve_slots_smem(
+            cell.replicas, cell.decode_slots, args.work.shape[2], cell.comm,
+            cell.decode_rates is not None)
+        assert rem_in_smem == (not name.endswith("device_memory")), name
+        if horizons is None or max(horizons) > 1:
+            assert int(got["total_comp"].sum()) > 0, name
+        if "drops" in name:
+            assert int(got["dropped"].sum()) > 0, name
+        slots_cases.append(f"{name} (comp {got['total_comp'].tolist()}, drops "
+                           f"{got['dropped'].tolist()}, msgs {got['msgs'].tolist()})")
+    print(f"phase 2 serve_slots against the dense backend, every output of _serve_core "
+          f"and the end state, one serve_slots launch and no serve_route launch each: "
+          f"equal in {'; '.join(slots_cases)} ({time.perf_counter() - t0:.1f} s)")
 
     # -- 3. the main path --------------------------------------------------------
     seeds = list(range(8))
@@ -1103,7 +1217,8 @@ def main() -> int:
         wall = time.perf_counter() - t0
         main_launches = ops.launch_counts()
         assert main_launches == {"jsaq_route": 0, "care_route": 1, "serve_route": 0,
-                                 "moe_route": 0, "flash_attention": 0}, main_launches
+                                 "serve_slots": 0, "moe_route": 0, "flash_attention": 0}, \
+            main_launches
         for c, x in enumerate((2, 3)):
             for res in grid[c]:
                 assert res.max_aq <= x - 1, f"Theorem 2.3 violated: {res.max_aq}"
@@ -1170,40 +1285,83 @@ def main() -> int:
               + "; ".join(f"{e.key[:50]} {e.self_device_time_total / 1e3:.3f} ms x{e.count}"
                           for e in device[:5]))
 
-    # The serving engine's main path, with the routing state of its middle
-    # slot kept for the kernel's timing (the spy forwards every call).
+    # The serving engine's main path: one serve_slots launch a call.
     big = engine.ServeConfig(**SERVE_MAIN, **SERVE_WORK, comm="et", x=4,
                              deterministic_ties=True, route_backend="fused")
     t0 = time.perf_counter()
     for seed in SERVE_MAIN_SEEDS:
         engine.workload_for(big, seed)
     times["serve_main_sampling_s"] = time.perf_counter() - t0
-    kept = {}
-    route = ops.serve_route
-
-    def spy(*args, **kw):
-        if ops.launch_counts()["serve_route"] == big.slots // 2:
-            kept["args"] = [a.clone() for a in args]
-        return route(*args, **kw)
-
-    ops.serve_route = spy
     ops.reset_launch_counts()
     t0 = time.perf_counter()
     served = engine.serve_grid(list(SERVE_MAIN_SEEDS), big.static_part(), [big])[0]
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     serve_launches = ops.launch_counts()
-    ops.serve_route = route
-    assert serve_launches == {"jsaq_route": 0, "care_route": 0, "serve_route": big.slots,
-                              "moe_route": 0, "flash_attention": 0}, serve_launches
+    assert serve_launches == {"jsaq_route": 0, "care_route": 0, "serve_route": 0,
+                              "serve_slots": 1, "moe_route": 0, "flash_attention": 0}, \
+        serve_launches
     for res in served:
         assert res.dropped == 0, f"{res.dropped} requests dropped"
         assert res.offered == res.completed + res.dropped + int(res.final_occupancy.sum())
         assert res.completed > 0.8 * res.offered
         assert np.isfinite(res.mean_jct) and np.isfinite(res.p99_jct)
     times["serve_main_s"] = wall
+    mpc = float(np.mean([r.msgs_per_completion for r in served]))
+    print(f"phase 3 serve_grid fused {big.replicas} replicas x {big.decode_slots} "
+          f"decode slots, {big.slots} slots, seeds {SERVE_MAIN_SEEDS}: "
+          f"{wall:.4f} s ({wall / big.slots * 1e3:.5f} ms per slot; workload "
+          f"sampling before it {times['serve_main_sampling_s']:.3f} s); launches "
+          f"{serve_launches}; offered {[r.offered for r in served]}, completed "
+          f"{[r.completed for r in served]}, dropped 0; JCT mean "
+          f"{np.mean([r.mean_jct for r in served]):.3f} p99 "
+          f"{np.mean([r.p99_jct for r in served]):.1f}; messages per completion "
+          f"{mpc:.5f}")
+
+    # serve_slots at the path's inputs: the whole horizon against the dense
+    # backend (which fails on any difference), then timed.
+    big_static = big.static_part()
+    slots_out, args, plain_s = card_tests.slots_vs_dense(dev, big_static, big,
+                                                         seeds=SERVE_MAIN_SEEDS)
+    slots_err = 0.0
+    n_arr, work, tie_u, rid, _, scn, static, n_cap, t_end, _ = args
+    kw = dict(cap=static.queue_cap, comm=static.comm, decode_slots=static.decode_slots,
+              use_rates=static.use_rates, trace_occupancy=static.trace_occupancy,
+              n_cap=n_cap)
+    slot_args = (n_arr, work, rid, scn.x, scn.rt_period, scn.msr_drain, scn.decode_rates,
+                 scn.horizon)
+    slots_ms = _time_ms(lambda: cuda_k.serve_slots_cuda(*slot_args, **kw, t_end=t_end), 5)
+    # The replica stage alone: the same call with no arrival lane.
+    no_lanes = (torch.zeros_like(n_arr),) + slot_args[1:]
+    stage_ms = _time_ms(lambda: cuda_k.serve_slots_cuda(*no_lanes, **kw, t_end=t_end), 5)
+    slots_plain_ms = plain_s * 1e3
+    lanes = _routed_lanes(n_arr, scn.horizon, t_end, work.shape[2])
+    # A replica admits (lanes - drops) / R on average; past the ring's cap
+    # some ring wrapped, and its reads after the wrap were compared too.
+    admits = [n - d for n, d in zip(lanes, slots_out["dropped"].tolist())]
+    per_replica = min(admits) / big.replicas
+    assert per_replica > big.queue_cap, f"{per_replica} admits a replica: no ring wraps"
+    slots_bound = _serve_slots_bound(work, scn, static, n_cap, t_end, lanes)
+    print(f"phase 3 serve_slots D={work.shape[1]} R={big.replicas} S={big.decode_slots} "
+          f"A={work.shape[2]} T={t_end}: equal to the dense backend over the whole "
+          f"horizon ({per_replica:.1f} admits a replica against rings of "
+          f"{big.queue_cap}); kernel {slots_ms:.4f} ms "
+          f"({slots_ms / t_end * 1e3:.4f} us a slot, {slots_ms * 1e3 / max(lanes):.5f} us "
+          f"per routed lane of the longest run; routed lanes per run {lanes}); with no "
+          f"lane (the replica stage alone) {stage_ms:.4f} ms "
+          f"({stage_ms / t_end * 1e3:.4f} us a slot); plain (the dense backend) "
+          f"{slots_plain_ms:.3f} ms ({slots_plain_ms / t_end:.3f} ms a slot); bound of "
+          f"the chain {slots_bound[0]:.6f} ms ({slots_bound[1]}), dense bound "
+          f"{slots_bound[2]:.6f} ms ({slots_bound[3]}; an argmin over R a lane); kernel "
+          f"share of the serve_grid wall {slots_ms / 1e3 / wall:.3f}")
+
+    # The single-slot kernel on the routing state the loop leaves after
+    # half the horizon (the state its middle slot routes on).
+    half = cuda_k.serve_slots_cuda(*slot_args, **kw, t_end=big.slots // 2)
+    mid = big.slots // 2
+    state = [tie_u[mid].contiguous(), half["q_len"], half["q_head"], half["busy"],
+             half["approx"], n_arr[mid].contiguous(), scn.horizon > mid]
     serve_kw = dict(cap=big.queue_cap, comm="et")
-    state = kept["args"]
     serve_ms = _time_ms(lambda: cuda_k.serve_route_cuda(*state, **serve_kw), 50)
     got = cuda_k.serve_route_cuda(*state, **serve_kw)
     plain = []
@@ -1214,25 +1372,15 @@ def main() -> int:
     assert serve_err == 0, f"serve_route at the main-path shape differs by {serve_err}"
     serve_bound = _serve_bound(state[0].cpu(), state[1].cpu(), state[5].cpu(),
                                state[6].cpu())
-    kernel_share = serve_ms * big.slots / 1e3 / wall
-    mpc = float(np.mean([r.msgs_per_completion for r in served]))
-    print(f"phase 3 serve_grid fused {big.replicas} replicas x {big.decode_slots} "
-          f"decode slots, {big.slots} slots, seeds {SERVE_MAIN_SEEDS}: "
-          f"{wall:.3f} s ({wall / big.slots * 1e3:.4f} ms per slot; workload "
-          f"sampling before it {times['serve_main_sampling_s']:.3f} s); launches "
-          f"{serve_launches}; offered {[r.offered for r in served]}, completed "
-          f"{[r.completed for r in served]}, dropped 0; JCT mean "
-          f"{np.mean([r.mean_jct for r in served]):.3f} p99 "
-          f"{np.mean([r.p99_jct for r in served]):.1f}; messages per completion "
-          f"{mpc:.5f}")
+    live = state[5].tolist()
     print(f"phase 3 serve_route D={state[0].shape[0]} R={big.replicas} "
-          f"A={state[0].shape[1]} (lanes live {state[5].tolist()}): equal; kernel "
-          f"{serve_ms:.4f} ms, plain {serve_plain_ms:.3f} ms, bound "
-          f"{serve_bound[0]:.6f} ms ({serve_bound[1]}); kernel share of the wall "
-          f"{kernel_share:.3f}")
-    del got, plain
-    _profile_serving(engine, dataclasses.replace(big, slots=PROFILE_SLOTS),
-                     wall / big.slots)
+          f"A={state[0].shape[1]} at slot {mid}'s state (lanes live {live}): equal; "
+          f"kernel {serve_ms:.4f} ms ({serve_ms * 1e3 / max(live):.5f} us per live lane "
+          f"of the longer run), plain {serve_plain_ms:.3f} ms, bound of the chain "
+          f"{serve_bound[0]:.7f} ms ({serve_bound[1]}), dense bound {serve_bound[2]:.7f} "
+          f"ms ({serve_bound[3]}; an argmin over R a lane)")
+    del got, plain, half
+    _profile_serving(engine, big, wall)
 
     # -- 4. dense against fused, then the Section 9 cell ---------------------------
     k, t = DENSE_VS_FUSED
@@ -1282,7 +1430,9 @@ def main() -> int:
         t0 = time.perf_counter()
         grid = engine.serve_grid(list(LADDER_SEEDS), cells[0].static_part(), cells)
         times[f"ladder_{comm}_s"] = time.perf_counter() - t0
-        assert ops.launch_counts()["serve_route"] == LADDER_SLOTS
+        ladder_launches = ops.launch_counts()
+        assert ladder_launches["serve_slots"] == 1, ladder_launches
+        assert ladder_launches["serve_route"] == 0, ladder_launches
         for x, row in zip(xs, grid):
             assert all(r.dropped == 0 for r in row)
             if comm == "exact":
@@ -1305,8 +1455,11 @@ def main() -> int:
         fused = engine.ServeConfig(**SERVE_DENSE_VS_FUSED, **SERVE_WORK, comm=comm,
                                    x=4, deterministic_ties=True, route_backend="fused")
         dense = dataclasses.replace(fused, route_backend="dense")
+        ops.reset_launch_counts()
         rf = engine.serve_grid([0, 1], fused.static_part(), [fused])[0]
+        assert ops.launch_counts()["serve_slots"] == 1
         rd = engine.serve_grid([0, 1], dense.static_part(), [dense])[0]
+        assert ops.launch_counts()["serve_slots"] == 1
         for a, b in zip(rf, rd):
             for f in dataclasses.fields(engine.ServeResult):
                 va, vb = getattr(a, f.name), getattr(b, f.name)
@@ -1355,6 +1508,14 @@ def main() -> int:
             "launches": serve_launches["serve_route"],
             "max_abs_err": serve_err, "ms": serve_ms, "plain_ms": serve_plain_ms,
             "bound_ms": serve_bound[0], "bound_by": serve_bound[1], "library_ms": None,
+        },
+        {
+            "name": "serve_slots", "route": "cuda",
+            "source": "src/repro_torch/csrc/serve_route.cu",
+            "replaces": "src/repro/kernels/jsaq_route.py:496",
+            "launches": serve_launches["serve_slots"],
+            "max_abs_err": slots_err, "ms": slots_ms, "plain_ms": slots_plain_ms,
+            "bound_ms": slots_bound[0], "bound_by": slots_bound[1], "library_ms": None,
         },
         moe_kernel,
         flash_kernel,

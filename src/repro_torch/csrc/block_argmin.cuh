@@ -1,10 +1,9 @@
 // Block-wide argmin over one row of values, lowest index on ties.
 //
-// Shared by jsaq_route.cu (int rows) and serve_route.cu (float rows).  Each
-// thread scans a strided slice of the row in ascending order (strict <
-// keeps its earliest minimum), then (value, index) pairs
-// are merged by warp shuffles and once more across the warps through shared
-// memory.  The merge prefers the smaller value and, among equal values, the
+// Used by jsaq_route.cu (int rows).  Each thread scans a strided slice of
+// the row in ascending order (strict < keeps its earliest minimum), then
+// (value, index) pairs are merged by warp shuffles and once more across the
+// warps through shared memory.  The merge prefers the smaller value and, among equal values, the
 // smaller index, so the result is the lowest global index of the minimum:
 // what torch.argmin and jnp.argmin return.  Rows hold no NaN.
 #pragma once
@@ -27,11 +26,6 @@ __device__ __forceinline__ T argmin_sentinel();
 template <>
 __device__ __forceinline__ int argmin_sentinel<int>() {
   return INT_MAX;
-}
-
-template <>
-__device__ __forceinline__ float argmin_sentinel<float>() {
-  return __int_as_float(0x7f800000);  // +inf
 }
 
 template <typename T>

@@ -7,7 +7,19 @@
   schedule is mirrored on the CPU by :func:`care_route_tiled`, which
   nothing on the main path calls (``tests/test_torch_care_schedule.py``).
 * :func:`serve_route_cuda` -- ``csrc/serve_route.cu``, which replaces
-  ``serve_route_pallas`` (``repro/kernels/jsaq_route.py:496``).
+  ``serve_route_pallas`` (``repro/kernels/jsaq_route.py:496``).  Its lane
+  chain runs on one warp (``csrc/serve_lanes.cuh``), mirrored on the CPU by
+  :func:`serve_lanes_warp`.
+* :func:`serve_slots_cuda` -- the serving engine's whole fused slot loop in
+  one launch (``serve_slots_kernel`` in ``csrc/serve_route.cu``), the
+  card's counterpart of the reference's ``lax.scan`` around
+  ``serve_route_pallas``.  Its plain version is the engine's per-slot loop
+  (``serve.engine._serve_loop``, on the CPU or with ``route_backend=
+  "dense"``), whose stages it runs in the loop's order: that loop with its
+  route step through :func:`serve_lanes_warp` mirrors its schedule.
+  Nothing on the main path calls the mirror: the tests hold it against
+  the plain versions and the JAX package
+  (``tests/test_torch_serve_schedule.py``).
 
 Each binding checks device, dtype, shape and contiguity, allocates the
 outputs (and the kernel's scratch) with ``torch.empty``, launches on
@@ -20,6 +32,7 @@ from __future__ import annotations
 import ctypes
 import functools
 
+import numpy as np
 import torch
 
 from repro_torch.kernels import _build
@@ -28,9 +41,12 @@ from repro_torch.kernels.ref import CARE_COMMS
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 
-# Largest replica count serve_route takes: its four (R,) state arrays live in
-# one block's shared memory (kMaxReplicas in csrc/serve_route.cu).
+# Largest replica count serve_route and serve_slots take: a run's (R,) state
+# lives in one block's shared memory (kMaxReplicas in csrc/serve_route.cu).
 SERVE_MAX_REPLICAS = 8192
+# Dynamic shared memory a serve_slots block may take: Hopper's 232,448 bytes
+# a block, less 1 KB for the kernel's static shared memory.
+SERVE_SMEM_MAX = 232_448 - 1024
 
 # care_route's tile table (csrc/care_route.cu): servers a tile at the least,
 # the most tiles a block's shared memory holds (20 B a tile), and the most
@@ -345,6 +361,15 @@ def _care_run(arr, x, rt_period, msr, k, cap, jsaq, comm, tile, routed, q, ps):
     return (msgs, deps, arrs, drops, max_aq, max_q, gap), visits
 
 
+def _check_serve(comm: str, cap: int, r: int, kernel: str) -> None:
+    if comm not in CARE_COMMS:
+        raise ValueError(f"unknown communication kind: {comm}")
+    if cap < 1:
+        raise ValueError(f"cap must be >= 1, got {cap}")
+    if not 1 <= r <= SERVE_MAX_REPLICAS:
+        raise ValueError(f"{kernel} takes 1..{SERVE_MAX_REPLICAS} replicas, got {r}")
+
+
 def serve_route_cuda(
     tie_u: torch.Tensor,
     q_len: torch.Tensor,
@@ -361,16 +386,15 @@ def serve_route_cuda(
     ``ref.serve_route_ref``.  Takes at most ``SERVE_MAX_REPLICAS`` replicas."""
     if tie_u.device.type != "cuda":
         raise ValueError(f"serve_route_cuda needs a CUDA tensor, got {tie_u.device}")
-    if comm not in CARE_COMMS:
-        raise ValueError(f"unknown communication kind: {comm}")
-    if cap < 1:
-        raise ValueError(f"cap must be >= 1, got {cap}")
     dev = tie_u.device
     d, a_n = tie_u.shape
     r = q_len.shape[-1]
-    if not 1 <= r <= SERVE_MAX_REPLICAS:
+    _check_serve(comm, cap, r, "serve_route_cuda")
+    smem = 4 * (4 * r + 2 * (-(-r // 32)) + 2 * a_n)
+    if smem > SERVE_SMEM_MAX:
         raise ValueError(
-            f"serve_route_cuda takes 1..{SERVE_MAX_REPLICAS} replicas, got {r}"
+            f"serve_route_cuda: {r} replicas with {a_n} lanes need {smem} B of shared "
+            f"memory a block, more than {SERVE_SMEM_MAX}"
         )
     _check(tie_u, "tie_u", (d, a_n), dev, torch.float32)
     for name, t in (("q_len", q_len), ("q_head", q_head), ("busy_cnt", busy_cnt)):
@@ -403,3 +427,276 @@ def serve_route_cuda(
 
 
 serve_route_cuda.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# serve_slots: the fused serving slot loop in one launch.
+# ---------------------------------------------------------------------------
+
+
+def serve_slots_smem(r: int, decode_slots: int, lanes: int, comm: str,
+                     use_rates: bool) -> tuple[int, bool]:
+    """Dynamic shared memory of a ``serve_slots`` block, and whether ``rem``
+    and ``arid`` ((S, R) int32 each) are in it.
+
+    A run keeps ``q_len``, ``q_head``, ``approx`` and the busy count, plus
+    the deps counter under dt, the slot counter under rt and et_rt and the
+    rates under ``use_rates``, the minima of its 32-replica sub-blocks and
+    one slot's ``work`` and ``rid`` lanes and the chain's replica and ring
+    position of each lane, 4 bytes each; ``rem`` and
+    ``arid`` join them when the block still fits in ``SERVE_SMEM_MAX``, else
+    they stay in device scratch.  Raises ``ValueError`` when even the rest
+    does not fit.
+    """
+    fields = 4 + (comm == "dt") + (comm in ("rt", "et_rt")) + bool(use_rates)
+    base = 4 * (fields * r + 2 * (-(-r // 32)) + 4 * lanes)
+    if base > SERVE_SMEM_MAX:
+        raise ValueError(
+            f"serve_slots: {r} replicas with {lanes} arrival lanes need {base} B "
+            f"of shared memory a block, more than {SERVE_SMEM_MAX}"
+        )
+    rem = 8 * decode_slots * r
+    if base + rem <= SERVE_SMEM_MAX:
+        return base + rem, True
+    return base, False
+
+
+def serve_slots_cuda(
+    n_arr: torch.Tensor,
+    work: torch.Tensor,
+    rid: torch.Tensor,
+    x: torch.Tensor,
+    rt_period: torch.Tensor,
+    msr_drain: torch.Tensor,
+    rates: torch.Tensor,
+    horizon: torch.Tensor,
+    *,
+    cap: int,
+    comm: str,
+    decode_slots: int,
+    use_rates: bool,
+    trace_occupancy: bool,
+    n_cap: int,
+    t_end: int,
+) -> dict:
+    """Slots ``[0, t_end)`` of the serving engine's fused slot loop for D
+    runs, in one launch; the same dict as ``serve.engine._serve_core``.
+
+    Args:
+      n_arr: ``(T, D)`` int32 arrivals per slot and run.
+      work / rid: ``(T, D, A)`` int32 arrival lanes.
+      x / msr_drain: ``(D,)`` float32; rt_period / horizon: ``(D,)`` int32.
+      rates: ``(D, R)`` float32 decode rates, read under ``use_rates``
+        only (without it the engine's rates are ones, so the drain is
+        ``msr_drain`` and every busy decode slot works one unit).
+      n_cap: entries of the rid-indexed ``comp_slot``.
+      t_end: slots to run; run ``d`` stops at ``min(horizon[d], t_end)``.
+
+    Returns ``comp_slot`` ``(D, n_cap)``, ``msgs``, ``total_comp``,
+    ``dropped`` ``(D,)``, ``final_occ`` ``(D, R)``, ``occupancy`` ``(D, T,
+    R)`` (None unless ``trace_occupancy``) and the end-of-run routing state
+    ``q_len``, ``q_head``, ``approx`` and ``busy`` ``(D, R)``.
+    """
+    if work.device.type != "cuda":
+        raise ValueError(f"serve_slots_cuda needs a CUDA tensor, got {work.device}")
+    dev = work.device
+    t_n, d, a_n = work.shape
+    r = rates.shape[-1]
+    _check_serve(comm, cap, r, "serve_slots_cuda")
+    if decode_slots < 1:
+        raise ValueError(f"decode_slots must be >= 1, got {decode_slots}")
+    if not 0 <= t_end <= t_n:
+        raise ValueError(f"t_end must be in [0, {t_n}], got {t_end}")
+    if n_cap < 0:
+        raise ValueError(f"n_cap must be >= 0, got {n_cap}")
+    _check(n_arr, "n_arr", (t_n, d), dev)
+    _check(work, "work", (t_n, d, a_n), dev)
+    _check(rid, "rid", (t_n, d, a_n), dev)
+    for name, t, dtype in (
+        ("x", x, torch.float32), ("rt_period", rt_period, torch.int32),
+        ("msr_drain", msr_drain, torch.float32), ("horizon", horizon, torch.int32),
+    ):
+        _check(t, name, (d,), dev, dtype)
+    _check(rates, "rates", (d, r), dev, torch.float32)
+    smem, rem_smem = serve_slots_smem(r, decode_slots, a_n, comm, use_rates)
+    launch = _lib("serve_route", "serve_slots_launch", (_P,) * 22 + (_I,) * 13 + (_P,))
+
+    def empty(*shape, dtype=torch.int32):
+        return torch.empty(shape, dtype=dtype, device=dev)
+
+    out = dict(
+        comp_slot=empty(d, n_cap), msgs=empty(d), total_comp=empty(d),
+        dropped=empty(d), final_occ=empty(d, r),
+        occupancy=empty(d, t_n, r) if trace_occupancy else None,
+        q_len=empty(d, r), q_head=empty(d, r), approx=empty(d, r, dtype=torch.float32),
+        busy=empty(d, r),
+    )
+    # The rings are read only where the chain wrote them; rem and arid are
+    # set by the kernel before it reads them.
+    q_work, q_rid = empty(d, r, cap), empty(d, r, cap)
+    rem_g = arid_g = None
+    if not rem_smem:
+        rem_g, arid_g = empty(d, decode_slots, r), empty(d, decode_slots, r)
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    with torch.cuda.device(dev):
+        err = launch(
+            n_arr.data_ptr(), work.data_ptr(), rid.data_ptr(), x.data_ptr(),
+            rt_period.data_ptr(), msr_drain.data_ptr(), rates.data_ptr(),
+            horizon.data_ptr(), out["comp_slot"].data_ptr(), out["msgs"].data_ptr(),
+            out["total_comp"].data_ptr(), out["dropped"].data_ptr(),
+            out["final_occ"].data_ptr(), ptr(out["occupancy"]), out["q_len"].data_ptr(),
+            out["q_head"].data_ptr(), out["approx"].data_ptr(), out["busy"].data_ptr(),
+            q_work.data_ptr(), q_rid.data_ptr(), ptr(rem_g), ptr(arid_g),
+            d, t_n, t_end, a_n, r, decode_slots, cap, n_cap, CARE_COMMS.index(comm),
+            int(use_rates), int(rem_smem), _threads(r), smem,
+            torch.cuda.current_stream().cuda_stream,
+        )
+    _raise_on(err, "serve_slots")
+    serve_slots_cuda.launches += 1
+    return out
+
+
+serve_slots_cuda.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# CPU mirror of csrc/serve_lanes.cuh (change both together).  Plain Python,
+# step for step as the warp runs.
+# ---------------------------------------------------------------------------
+
+_NO_KEY = 0xFFFFFFFF
+_NO_IDX = 2**31 - 1
+
+
+def score_key(x) -> int:
+    """``score_key`` of ``csrc/serve_lanes.cuh``: the order-preserving
+    uint32 of a float32 score, ``-0.0`` folded into ``+0.0`` first."""
+    v = np.float32(x)
+    if v == 0:
+        v = np.float32(0.0)
+    b = int(v.view(np.uint32))
+    return (~b & 0xFFFFFFFF) if b & 0x80000000 else b | 0x80000000
+
+
+class _WarpRow:
+    """One run's routing state as the kernel keeps it in shared memory:
+    Python lists of ints and ``np.float32``, and the sub-block minima."""
+
+    def __init__(self, q_len, q_head, approx, busy, cap: int, exact: bool):
+        self.q_len, self.q_head, self.busy = list(q_len), list(q_head), list(busy)
+        self.approx = [np.float32(v) for v in approx]
+        self.r, self.cap, self.exact = len(self.q_len), cap, exact
+        self.sub = [(_NO_KEY, _NO_IDX)] * (-(-self.r // 32))
+
+    def key(self, e: int) -> int:
+        if e >= self.r:
+            return _NO_KEY
+        if self.exact:
+            return score_key(np.float32(self.q_len[e] + self.busy[e]))
+        return score_key(self.approx[e])
+
+    def sub_minima(self) -> None:
+        """One warp's reduce and ballot over the 32 keys of each sub-block."""
+        for sb in range(len(self.sub)):
+            keys = [self.key(sb * 32 + lane) for lane in range(32)]
+            m = min(keys)
+            self.sub[sb] = (m, sb * 32 + keys.index(m))
+
+    def chain(self, n_live: int):
+        """``serve_chain``: returns ``(stop, j, tail, reads, admitted)``,
+        ``reads`` the most entries one rescan read and ``admitted`` the
+        ``(j, q_head[j] + len)`` of lanes ``[0, stop)``, whose ring tail
+        (the remainder by cap) is taken after the chain."""
+        n_sub = len(self.sub)
+        spl = -(-n_sub // 32)
+        lanes = []
+        for lane in range(32):
+            best = (_NO_KEY, _NO_IDX)
+            for i in range(spl):
+                sb = lane * spl + i
+                if sb < n_sub and self.sub[sb][0] < best[0]:
+                    best = self.sub[sb]
+            lanes.append(best)
+        a, reads, admitted = 0, 0, []
+        while True:
+            m = min(k for k, _ in lanes)
+            owner = [k for k, _ in lanes].index(m)
+            j = lanes[owner][1]
+            length = self.q_len[j]
+            if a >= n_live or length >= self.cap:
+                break
+            bumped = self.approx[j] + np.float32(1.0)
+            new_key = score_key(
+                np.float32(length + 1 + self.busy[j]) if self.exact else bumped
+            )
+            admitted.append((j, self.q_head[j] + length))
+            self.q_len[j], self.approx[j] = length + 1, bumped
+            sb = j // 32
+            keys = [new_key if sb * 32 + lane == j else self.key(sb * 32 + lane)
+                    for lane in range(32)]
+            lk = min(keys)
+            best = (lk, sb * 32 + keys.index(lk))
+            n_read = 32
+            if spl > 1:
+                self.sub[sb] = best
+                cand = [
+                    self.sub[owner * spl + lane]
+                    if lane < spl and owner * spl + lane < n_sub else (_NO_KEY, _NO_IDX)
+                    for lane in range(32)
+                ]
+                k2 = [k for k, _ in cand]
+                best = cand[k2.index(min(k2))]
+                n_read += spl
+            lanes[owner] = best
+            reads = max(reads, n_read)
+            a += 1
+        return a, j, (self.q_head[j] + length) % self.cap, reads, admitted
+
+
+def serve_lanes_warp(
+    tie_u: torch.Tensor,
+    q_len: torch.Tensor,
+    q_head: torch.Tensor,
+    busy_cnt: torch.Tensor,
+    approx: torch.Tensor,
+    n_arr: torch.Tensor,
+    act: torch.Tensor,
+    *,
+    cap: int,
+    comm: str,
+):
+    """The lane chain of ``serve_route_kernel`` in plain Python on the CPU.
+
+    Same inputs and outputs as ``ref.serve_route_ref``, computed the way
+    one warp computes them: owner ranges of 32-replica sub-blocks, keys with
+    ``-0.0`` folded, a rescan of the bumped replica's sub-block (and of the
+    owner's sub-block minima above R = 1024), and the chain stopped at the
+    first drop, whose replica the rest of the lanes receive.  Returns the
+    six outputs of ``ref.serve_route_ref`` and a ``(D,)`` int64 tensor: the
+    most entries one rescan read in each run.
+    """
+    d, a_n = tie_u.shape
+    _check_serve(comm, cap, q_len.shape[-1], "serve_lanes_warp")
+    jv = torch.empty((d, a_n), dtype=torch.int32)
+    tail = torch.empty((d, a_n), dtype=torch.int32)
+    admit = torch.zeros((d, a_n), dtype=torch.bool)
+    q_out = torch.empty_like(q_len)
+    ap_out = torch.empty_like(approx)
+    drops = torch.empty((d,), dtype=torch.int32)
+    reads = torch.zeros((d,), dtype=torch.int64)
+    for run in range(d):
+        row = _WarpRow(q_len[run].tolist(), q_head[run].tolist(),
+                       approx[run].numpy(), busy_cnt[run].tolist(), cap, comm == "exact")
+        row.sub_minima()
+        n_live = min(max(int(n_arr[run]), 0), a_n) if bool(act[run]) else 0
+        stop, j, t, reads[run], admitted = row.chain(n_live)
+        for a, (ja, raw) in enumerate(admitted):
+            jv[run, a], tail[run, a], admit[run, a] = ja, raw % cap, True
+        jv[run, stop:], tail[run, stop:] = j, t
+        q_out[run] = torch.tensor(row.q_len, dtype=torch.int32)
+        ap_out[run] = torch.from_numpy(np.array(row.approx, dtype=np.float32))
+        drops[run] = n_live - stop
+    return jv, tail, admit, q_out, ap_out, drops, reads

@@ -7,9 +7,13 @@ hand-written kernel (bindings in :mod:`repro_torch.kernels.jsaq_route`,
 which either launches or raises --
 nothing on the CUDA path falls back to the plain version.  The kernels mask
 by bound, so no lane, domain or token padding is needed.  Only a kernel
-launch counts in :func:`launch_counts`.
+launch counts in :func:`launch_counts`.  The plain version of
+:func:`serve_slots`, the serving engine's fused slot loop, is the engine's
+own per-slot loop, which the caller passes in.
 """
 from __future__ import annotations
+
+from typing import Callable
 
 import torch
 
@@ -72,6 +76,38 @@ def serve_route(
     return _ref.serve_route_ref(*args, cap=cap, comm=comm)
 
 
+def serve_slots(
+    n_arr: torch.Tensor,
+    work: torch.Tensor,
+    rid: torch.Tensor,
+    x: torch.Tensor,
+    rt_period: torch.Tensor,
+    msr_drain: torch.Tensor,
+    rates: torch.Tensor,
+    horizon: torch.Tensor,
+    *,
+    cap: int,
+    comm: str,
+    decode_slots: int,
+    use_rates: bool,
+    trace_occupancy: bool,
+    n_cap: int,
+    t_end: int,
+    plain: Callable[[], dict],
+) -> dict:
+    """Slots ``[0, t_end)`` of the serving engine's fused slot loop for D
+    runs: the dict of ``serve.engine._serve_core``; see
+    ``jsaq_route.serve_slots_cuda``.  ``plain`` computes the same dict on
+    the same inputs (the engine's per-slot loop); it runs on the CPU."""
+    if _route(work, "serve_slots"):
+        return _cuda.serve_slots_cuda(
+            n_arr, work, rid, x, rt_period, msr_drain, rates, horizon, cap=cap,
+            comm=comm, decode_slots=decode_slots, use_rates=use_rates,
+            trace_occupancy=trace_occupancy, n_cap=n_cap, t_end=t_end,
+        )
+    return plain()
+
+
 def moe_route(
     logits: torch.Tensor, bias: torch.Tensor, top_k: int, *, gate_fn: str = "softmax"
 ):
@@ -110,6 +146,7 @@ _KERNELS = {
     "jsaq_route": _cuda.jsaq_route_cuda,
     "care_route": _cuda.care_route_cuda,
     "serve_route": _cuda.serve_route_cuda,
+    "serve_slots": _cuda.serve_slots_cuda,
     "moe_route": _moe.moe_route_cuda,
     "flash_attention": _flash.flash_attention_cuda,
 }

@@ -20,8 +20,8 @@ shapes and kinds (Python-level dispatch), :class:`EngineScenario` the
 numeric operands, one row per run once stacked.  ``serve_grid`` runs every
 (cell, seed) pair as one leading run axis, flattened cell-major
 (``run = cell * S + seed``); ``lax.scan`` over slots becomes a Python loop
-that stops at the largest horizon, and slots past a run's horizon are
-frozen no-ops.
+that stops at the largest horizon (one kernel launch for the fused
+backend on the card), and slots past a run's horizon are frozen no-ops.
 
 The workload is sampled host-side with numpy exactly as the reference
 samples it (:func:`sample_workload`, the same ``SeedSequence(seed).spawn(6)``
@@ -34,10 +34,12 @@ Two backends route the arrival lanes (``route_backend``):
 * ``"dense"`` -- the reference's per-lane body as a Python loop over lanes,
   for the policies ``jsaq`` / ``sqd`` / ``rr`` / ``drain`` with random or
   lowest-index ties;
-* ``"fused"`` -- one :func:`repro_torch.kernels.ops.serve_route` call per
-  slot for all runs (the CUDA kernel on the card, its plain version on the
-  CPU), the counterpart of the reference's ``"pallas"`` backend; it refuses
-  what that backend refuses.
+* ``"fused"`` -- the counterpart of the reference's ``"pallas"`` backend;
+  it refuses what that backend refuses.  On the card the whole slot loop is
+  one ``serve_slots`` launch per call
+  (:func:`repro_torch.kernels.ops.serve_slots`); on the CPU it is the
+  kernel's plain version, the per-slot loop with one
+  :func:`repro_torch.kernels.ops.serve_route` call a slot for all runs.
 
 The degraded control plane (``network`` / ``fault`` / ``transport``), the
 pull policies and the streaming engine come with later slices and raise
@@ -47,7 +49,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
-from typing import Literal, Optional, Sequence, Tuple
+from typing import Literal, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -541,6 +543,21 @@ def _route_lanes(static, act, n_arr_t, tie_t, sub_t, q_len, q_head, busy_cnt,
             q_len, approx, rr_ptr, dropped)
 
 
+class _CoreArgs(NamedTuple):
+    """The arguments of :func:`_serve_core`, by name (see there)."""
+
+    n_arr: torch.Tensor
+    work: torch.Tensor
+    tie_u: torch.Tensor
+    rid: torch.Tensor
+    sub_u: torch.Tensor
+    scn: EngineScenario
+    static: EngineStatic
+    n_cap: int
+    t_end: int
+    live_lanes: np.ndarray
+
+
 def _serve_core(n_arr, work, tie_u, rid, sub_u, scn: EngineScenario,
                 static: EngineStatic, n_cap: int, t_end: int,
                 live_lanes: np.ndarray) -> dict:
@@ -558,15 +575,40 @@ def _serve_core(n_arr, work, tie_u, rid, sub_u, scn: EngineScenario,
       live_lanes: ``(T,)`` host-side count of lanes live in some run; the
         dense backend routes only those (a dead lane changes nothing).
 
+    The fused backend goes through :func:`repro_torch.kernels.ops.serve_slots`:
+    on the card all ``t_end`` slots are one ``serve_slots`` launch, on the
+    CPU its plain version, the per-slot loop :func:`_serve_loop`.  The dense
+    backend always runs that loop.  Returns a dict of ``(D, ...)`` tensors:
+    ``comp_slot`` ``(D, n_cap)``, ``msgs``, ``total_comp``, ``dropped``
+    ``(D,)``, ``final_occ`` ``(D, R)``, under ``trace_occupancy``
+    ``occupancy`` ``(D, T, R)`` (else None), and the end-of-run routing
+    state ``q_len``, ``q_head``, ``approx`` and the busy decode-slot count
+    ``busy`` ``(D, R)``.
+    """
+    args = _CoreArgs(n_arr, work, tie_u, rid, sub_u, scn, static, n_cap, t_end, live_lanes)
+    if static.route_backend != "fused":
+        return _serve_loop(args)
+    return kernel_ops.serve_slots(
+        n_arr, work, rid, scn.x, scn.rt_period, scn.msr_drain, scn.decode_rates,
+        scn.horizon, cap=static.queue_cap, comm=static.comm,
+        decode_slots=static.decode_slots, use_rates=static.use_rates,
+        trace_occupancy=static.trace_occupancy, n_cap=n_cap, t_end=t_end,
+        plain=functools.partial(_serve_loop, args),
+    )
+
+
+def _serve_loop(args: _CoreArgs) -> dict:
+    """:func:`_serve_core` as a Python loop over slots.
+
     Slot ``t`` reads the slot-``t`` views of the inputs and keeps every
     counter on the device, so nothing waits for the card inside the loop.
-    The rings ``(D, R+1, C)`` and ``comp_slot`` ``(D, n_cap+1)`` carry one
+    The fused backend routes each slot with one
+    :func:`repro_torch.kernels.ops.serve_route` call for all runs.  The
+    rings ``(D, R+1, C)`` and ``comp_slot`` ``(D, n_cap+1)`` carry one
     trash row / column: the reference's out-of-bounds ``mode="drop"``
-    scatters land there.  Returns a dict of ``(D, ...)`` tensors:
-    ``comp_slot`` ``(D, n_cap)``, ``msgs``, ``total_comp``, ``dropped``
-    ``(D,)``, ``final_occ`` ``(D, R)`` and, under ``trace_occupancy``,
-    ``occupancy`` ``(D, T, R)``.
+    scatters land there.
     """
+    n_arr, work, tie_u, rid, sub_u, scn, static, n_cap, t_end, live_lanes = args
     t_n, d_n = work.shape[:2]
     r_n, s_n, c_n = static.replicas, static.decode_slots, static.queue_cap
     dev = work.device
@@ -673,13 +715,15 @@ def _serve_core(n_arr, work, tie_u, rid, sub_u, scn: EngineScenario,
         if occ_trace is not None:
             occ_trace[:, t] = true_occ.to(_I32)
 
-    final_occ = q_len + (rem > 0).sum(2, dtype=_I32)
+    busy_cnt = (rem > 0).sum(2, dtype=_I32)
+    final_occ = q_len + busy_cnt
     if occ_trace is not None:
         occ_trace[:, t_end:] = final_occ[:, None]  # frozen past every horizon
     return dict(
         comp_slot=comp_slot[:, :n_cap], msgs=comm_state.msgs,
         total_comp=total_comp, dropped=dropped, final_occ=final_occ,
-        occupancy=occ_trace,
+        occupancy=occ_trace, q_len=q_len, q_head=q_head, approx=approx,
+        busy=busy_cnt,
     )
 
 
@@ -749,13 +793,15 @@ def _pad_workload(wl: ServeWorkload, t_pad: int, a_pad: int, d: int = 0):
     return n_arr, work, tie_u, rid, sub_u
 
 
-def _run(wls: Sequence[ServeWorkload], cells: Sequence[ServeConfig],
-         static: EngineStatic, n_cap: int, device) -> list[ServeResult]:
-    """One run per (workload, cell) pair through :func:`_serve_core`."""
+def _core_args(wls: Sequence[ServeWorkload], cells: Sequence[ServeConfig],
+               static: EngineStatic, n_cap: int, device) -> _CoreArgs:
+    """The arguments of :func:`_serve_core` for one run per (workload,
+    cell) pair: the padded lanes, the stacked scenario, ``static``,
+    ``n_cap``, ``t_end`` and the live lanes per slot."""
     d = static.sqd if static.policy == "sqd" else 0
     padded = [_pad_workload(w, static.slots, static.max_arrivals, d) for w in wls]
     # (T, D, ...) layout: each slot's lanes for every run are one
-    # contiguous block, as the kernel takes them.
+    # contiguous block, as the kernels take them.
     arrs = [
         torch.from_numpy(np.stack([p[i] for p in padded], axis=1)).to(device)
         for i in range(5)
@@ -763,8 +809,15 @@ def _run(wls: Sequence[ServeWorkload], cells: Sequence[ServeConfig],
     scn = stack_scenarios([cell.scenario() for cell in cells])
     t_end = min(static.slots, max(int(scn.horizon.max()), 0))
     live_lanes = np.minimum(np.stack([p[0] for p in padded]).max(0), static.max_arrivals)
-    out = _serve_core(*arrs, scn.to(device), static, n_cap, t_end, live_lanes)
-    host = {k: v.cpu().numpy() for k, v in out.items() if v is not None}
+    return _CoreArgs(*arrs, scn.to(device), static, n_cap, t_end, live_lanes)
+
+
+def _run(wls: Sequence[ServeWorkload], cells: Sequence[ServeConfig],
+         static: EngineStatic, n_cap: int, device) -> list[ServeResult]:
+    """One run per (workload, cell) pair through :func:`_serve_core`."""
+    out = _serve_core(*_core_args(wls, cells, static, n_cap, device))
+    keys = ("comp_slot", "msgs", "total_comp", "dropped", "final_occ", "occupancy")
+    host = {k: out[k].cpu().numpy() for k in keys if out[k] is not None}
     return [
         ServeResult.from_run(
             wl, host["comp_slot"][i], host["msgs"][i], host["total_comp"][i],
@@ -793,6 +846,16 @@ def serve_grid(
     card; pass ``device="cpu"`` for the plain PyTorch path.
     """
     dev = _resolve_device(device)
+    flat_wls, flat_cells, static, n_cap = _grid_runs(seeds, static, cells)
+    res = _run(flat_wls, flat_cells, static, n_cap, dev)
+    s = len(seeds)
+    return [res[c * s : (c + 1) * s] for c in range(len(cells))]
+
+
+def _grid_runs(seeds: Sequence[int], static: EngineStatic,
+               cells: Sequence[ServeConfig]) -> tuple:
+    """The runs of a grid, cell-major: ``(workloads, cells, static with
+    the lane width set, n_cap)``; checks every cell against ``static``."""
     _check_static(static)
     cells = list(cells)
     seeds = [int(s) for s in seeds]
@@ -828,9 +891,7 @@ def serve_grid(
         a_pad = static.max_arrivals
     static = dataclasses.replace(static, max_arrivals=a_pad)
     n_cap = _round_up(max(w.total for w in flat_wls), 1024)
-    res = _run(flat_wls, flat_cells, static, n_cap, dev)
-    s = len(seeds)
-    return [res[c * s : (c + 1) * s] for c in range(len(cells))]
+    return flat_wls, flat_cells, static, n_cap
 
 
 def serve_one(

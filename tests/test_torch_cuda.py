@@ -12,12 +12,16 @@ kernel) and 2e-2 in bfloat16 (the tensor-core kernel;
 row sums run in another order.  Where there is no card, each test
 skips with a reason.
 """
+import dataclasses
+import time
+
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.configs import get_config
 from repro_torch.core.care import slotted_sim
+from repro_torch.kernels import jsaq_route as tcuda
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
 from repro_torch.models import model as tmodel
@@ -29,6 +33,66 @@ KINDS = ["rt", "dt", "et", "et_rt", "exact", "none"]
 
 def _eq(a, b):
     np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
+
+
+# serve_slots against the dense backend (its plain version), here and in
+# chip_smoke.py's phase 2: name -> (ServeConfig fields over SLOTS_BASE, the
+# two runs' horizons or None).  R in {1, 8, 31, 32, 33, 200, 1024, 1025,
+# 2048}; the six push kinds; decode rates; rem and arid in shared memory
+# and, at 2048 replicas x 16 decode slots ("device_memory"), in device
+# scratch; rings of 2 that drop ("drops"); horizons 0, 1 and mixed.
+SLOTS_BASE = dict(
+    replicas=64, decode_slots=4, slots=120, load=0.9, x=2, rt_period=5,
+    mean_prefill=2, mean_decode=8, msr_drain=0.5, queue_cap=16,
+    deterministic_ties=True, route_backend="fused",
+)
+SLOTS_CASES = {
+    "r1_none": (dict(replicas=1, comm="none", load=0.5), None),
+    "r8_drops_exact": (dict(replicas=8, decode_slots=1, queue_cap=2, load=2.0,
+                            comm="exact"), None),
+    "r31_horizons_0_1": (dict(replicas=31, comm="et"), (0, 1)),
+    "r32_mixed_horizons_dt": (dict(replicas=32, comm="dt"), (120, 57)),
+    "r33_rt_rates": (dict(replicas=33, comm="rt",
+                          decode_rates=tuple(0.5 + (i % 4) * 0.5 for i in range(33))), None),
+    "r200_et_rt_rates": (dict(replicas=200, comm="et_rt", load=0.5,
+                              decode_rates=tuple(1.0 + (i % 3) * 0.5 for i in range(200))), None),
+    "r1024_et_shared_memory": (dict(replicas=1024, decode_slots=16, load=0.1, slots=80,
+                                    comm="et"), None),
+    "r1025_exact": (dict(replicas=1025, load=0.3, mean_decode=30, comm="exact"), None),
+    "r2048_dt_device_memory": (dict(replicas=2048, decode_slots=16, load=0.05, slots=60,
+                                    comm="dt"), None),
+}
+
+
+def slots_vs_dense(dev, static, cell, horizons=None, seeds=(0, 1)):
+    """serve_slots (the fused backend on the card) against the dense
+    backend on the same inputs, every output of ``_serve_core``, with one
+    ``serve_slots`` launch and no ``serve_route`` launch.  Returns the
+    kernel's outputs, the ``_serve_core`` arguments and the dense
+    backend's seconds; fails on any difference."""
+    args = serve_engine._core_args(
+        *serve_engine._grid_runs(list(seeds), static, [cell]), dev)
+    if horizons is not None:
+        hz = torch.tensor(horizons, dtype=torch.int32, device=dev)
+        args = args._replace(scn=dataclasses.replace(args.scn, horizon=hz),
+                             t_end=min(args.static.slots, max(max(horizons), 0)))
+    tops.reset_launch_counts()
+    fused = serve_engine._serve_core(*args)
+    torch.cuda.synchronize()
+    counts = tops.launch_counts()
+    assert counts["serve_slots"] == 1 and counts["serve_route"] == 0, counts
+    t0 = time.perf_counter()
+    dense = serve_engine._serve_core(
+        *args._replace(static=dataclasses.replace(args.static, route_backend="dense")))
+    torch.cuda.synchronize()
+    dense_s = time.perf_counter() - t0
+    assert fused.keys() == dense.keys()
+    for key, want in dense.items():
+        if want is None:
+            assert fused[key] is None, key
+        else:
+            _eq(fused[key].cpu().numpy(), want.cpu().numpy())
+    return fused, args, dense_s
 
 
 @pytest.fixture
@@ -110,6 +174,7 @@ class TestOnCard:
         tops.reset_launch_counts()
         fused = slotted_sim.simulate_grid([0, 1], static, cells, device=cuda_device)
         assert tops.launch_counts() == {"jsaq_route": 0, "care_route": 1, "serve_route": 0,
+                                        "serve_slots": 0,
                                         "moe_route": 0, "flash_attention": 0}
         dense = slotted_sim.simulate_grid(
             [0, 1], slotted_sim.StaticConfig(**{**static.__dict__, "route_backend": "dense"}),
@@ -122,7 +187,10 @@ class TestOnCard:
                 _eq(f.final_q, d.final_q)
 
     @pytest.mark.parametrize("comm", ["et", "exact"])
-    @pytest.mark.parametrize("r,a_n", [(1024, 304), (200, 40), (8, 1)])
+    @pytest.mark.parametrize(
+        "r,a_n",
+        [(1024, 304), (200, 40), (8, 1), (1, 8), (31, 40), (33, 40), (1025, 64), (2048, 64)],
+    )
     def test_serve_route_kernel(self, cuda_device, r, a_n, comm):
         rng = np.random.default_rng(r + a_n)
         d, cap = 6, 16
@@ -136,6 +204,7 @@ class TestOnCard:
         q_len[2] = cap  # every ring full
         act[3] = False
         n_arr[4] = 0
+        approx[5, ::3] = -0.0  # ties with +0.0, broken by index
         state = [
             torch.from_numpy(x) for x in (
                 rng.random((d, a_n), dtype=np.float32), q_len,
@@ -151,6 +220,22 @@ class TestOnCard:
         for g, want in zip(got, ref):
             _eq(g.cpu().numpy(), want.numpy())
 
+    @pytest.mark.parametrize("case", list(SLOTS_CASES))
+    def test_serve_slots_kernel(self, cuda_device, case):
+        kw, horizons = SLOTS_CASES[case]
+        cell = serve_engine.ServeConfig(**{**SLOTS_BASE, **kw})
+        static = dataclasses.replace(cell.static_part(), trace_occupancy=True)
+        fused, args, _ = slots_vs_dense(cuda_device, static, cell, horizons)
+        _, rem_in_smem = tcuda.serve_slots_smem(
+            cell.replicas, cell.decode_slots, args.work.shape[2], cell.comm,
+            cell.decode_rates is not None,
+        )
+        assert rem_in_smem == (not case.endswith("device_memory"))
+        if horizons is None or max(horizons) > 1:
+            assert int(fused["total_comp"].sum()) > 0
+        if "drops" in case:
+            assert int(fused["dropped"].sum()) > 0
+
     def test_fused_serve_grid_goes_through_the_kernel(self, cuda_device):
         cells = [
             serve_engine.ServeConfig(
@@ -163,7 +248,8 @@ class TestOnCard:
         static = cells[0].static_part()
         tops.reset_launch_counts()
         fused = serve_engine.serve_grid([0, 1], static, cells, device=cuda_device)
-        assert tops.launch_counts() == {"jsaq_route": 0, "care_route": 0, "serve_route": 300,
+        assert tops.launch_counts() == {"jsaq_route": 0, "care_route": 0, "serve_route": 0,
+                                        "serve_slots": 1,
                                         "moe_route": 0, "flash_attention": 0}
         dense_cells = [
             serve_engine.ServeConfig(**{**c.__dict__, "route_backend": "dense"}) for c in cells
@@ -218,6 +304,7 @@ class TestOnCard:
         torch.cuda.synchronize()
         n_moe = tmodel.num_scanned_layers(cfg)
         assert tops.launch_counts() == {"jsaq_route": 0, "care_route": 0, "serve_route": 0,
+                                        "serve_slots": 0,
                                         "moe_route": 2 * n_moe, "flash_attention": 0}
         assert bool(torch.isfinite(logits).all()) and bool(torch.isfinite(logits2).all())
         # The same weights on the CPU take the plain router.  Both run in
@@ -327,6 +414,7 @@ class TestOnCard:
         logits2, _ = tmodel.decode_step(params, logits.argmax(-1), cache, 40, cfg)
         torch.cuda.synchronize()
         assert tops.launch_counts() == {"jsaq_route": 0, "care_route": 0, "serve_route": 0,
+                                        "serve_slots": 0,
                                         "moe_route": 0, "flash_attention": cfg.num_layers}
         assert bool(torch.isfinite(logits).all()) and bool(torch.isfinite(logits2).all())
         cpu = tmodel.Model(cfg, device="cpu")

@@ -64,6 +64,24 @@ def test_every_module_imports_without_jax():
     assert proc.returncode == 0, proc.stderr
 
 
+def test_chip_smoke_loads_the_card_tests_without_jax():
+    # chip_smoke.py takes its serve_slots cases from tests/test_torch_cuda.py.
+    code = (
+        "import sys\n"
+        "import chip_smoke\n"
+        "module = chip_smoke._card_tests()\n"
+        "assert module.SLOTS_CASES and callable(module.slots_vs_dense)\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'repro'))\n"
+        "assert not bad, bad\n"
+    )
+    env = {**os.environ, "PYTHONPATH": os.pathsep.join([str(ROOT / "src"), str(ROOT)])}
+    proc = subprocess.run(
+        [sys.executable, "-c", code], cwd=ROOT, env=env,
+        capture_output=True, text=True, timeout=120,
+    )
+    assert proc.returncode == 0, proc.stderr
+
+
 @pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_jax_or_repro_imports_in_source(path):
     for node in ast.walk(ast.parse(path.read_text())):

@@ -181,7 +181,8 @@ class TestDispatch:
         _eq(tops.flash_attention(q, k, v, scale=0.5).numpy(),
             tref.flash_attention_ref(q, k, v, scale=0.5).numpy())
         assert tops.launch_counts() == {"jsaq_route": 0, "care_route": 0, "serve_route": 0,
-                                        "moe_route": 0, "flash_attention": 0}
+                                        "serve_slots": 0, "moe_route": 0,
+                                        "flash_attention": 0}
 
     def test_kernel_binding_refuses_cpu_tensors(self):
         q = torch.zeros((2, 5), dtype=torch.int32)
