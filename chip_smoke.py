@@ -85,12 +85,19 @@ own failure):
    tokens; prefill #1 without bias, its routed counts fed to the CARE
    balancer, prefill #2 with the balancer's selection bias, then greedy
    decode of 16 tokens each (cache 528).  Asserts one ``moe_route`` launch
-   per MoE layer per prefill and per decode step, finite logits, the
-   kernel against its plain version at the path's own inputs (T=2048 and
-   T=4) and at DeepSeek-V3's shape (T=2048, E=256, k=8, sigmoid) with
-   ties, a 1e9 bias, T=1 and bf16 logits; times the kernel, prints the
-   expert load per layer and a profiler window of one prefill and one
-   decode step.  Then the same model in float32 with each expert's
+   per MoE layer per prefill and per decode step (one launch returns the
+   route, the counts and each (token, slot)'s capacity position), finite
+   logits, the kernel's outputs on the path (T=2048 and T=4) against its
+   plain versions (ids, counts and positions equal, weights within 1e-5),
+   and the same at DeepSeek-V3's shape (T=2048, E=256, k=8, sigmoid) with
+   ties and a 1e9 bias, at T=16384 (a 4 x 4096 chunk), T=1, bf16 logits,
+   an all-ties batch and rows that take an expert twice, and a later call
+   against the path's (no state left in the kernel's scratch); times the
+   kernel at those T, an empty launch (the floor) and the torch sequence
+   the kernel replaced (one_hot ... sum), prints the expert load per layer
+   and a profiler window of one prefill and one decode step (its device
+   operations; it fails on an ``aten::one_hot`` or ``aten::cumsum``).
+   Then the same model in float32 with each expert's
    capacity raised to T (no token dropped): prefill over S against prefill
    over S-1 and one ``decode_step``, within 2e-2.
 8. The dense GQA serving path (``repro_torch.models``): Gemma2-9B at its
@@ -219,10 +226,14 @@ MOE_LAYERS = 3
 MOE_BATCH, MOE_PROMPT, MOE_NEW, MOE_CACHE = 4, 512, 16, 528
 MOE_SEED = 0
 MOE_TIME_REPS = 100
+# A 4 x 4096-token prefill chunk: 4 tokens a warp on the card.
+MOE_LONG_T = 16384
 # moe_route: per logit, the gate (max, subtract, exp, sum, divide) and the
 # score (subtract) are 6 operations; each of the k sweeps compares and
-# selects (2 more).
+# selects (2 more).  Per (token, slot) entry, its position takes a match,
+# a rank add and the add of its block's prefix (3).
 MOE_OPS_PER_SCORE = 6
+MOE_OPS_PER_ENTRY = 3
 # Phase 8: Gemma2-9B serving at published widths and full depth; 2 prompts
 # of 8064 tokens (63 x 128) into a cache of 8192, 16 greedy decode steps;
 # then a float32 rebuild for prefill over S=4224 against decode.
@@ -443,10 +454,11 @@ def _device_ms(fn, reps: int) -> float:
 
 
 def _moe_bound(t: int, e: int, k: int, logit_bytes: int) -> tuple[float, str]:
-    """moe_route's bound: logits and bias read once, idx / weights /
-    counts written once; MOE_OPS_PER_SCORE + 2 k operations per logit."""
-    n_bytes = t * e * logit_bytes + 4 * e + 2 * 4 * t * k + 4 * e
-    return _bound_ms(n_bytes, (MOE_OPS_PER_SCORE + 2 * k) * t * e)
+    """moe_route's bound: logits and bias read once, idx / weights / pos
+    and counts written once; MOE_OPS_PER_SCORE + 2 k operations per logit
+    and MOE_OPS_PER_ENTRY per (token, slot)."""
+    n_bytes = t * e * logit_bytes + 4 * e + 3 * 4 * t * k + 4 * e
+    return _bound_ms(n_bytes, (MOE_OPS_PER_SCORE + 2 * k) * t * e + MOE_OPS_PER_ENTRY * t * k)
 
 
 def _moe_config():
@@ -456,14 +468,18 @@ def _moe_config():
     return dataclasses.replace(get_config(MOE_ARCH), num_layers=MOE_LAYERS)
 
 
-def _moe_parity(moe_k, ref, logits, bias, k: int, gate_fn: str) -> float:
-    """``moe_route`` against its plain version on the same card tensors:
-    ids and counts equal, weights within rtol 1e-5 / atol 1e-6."""
-    got = moe_k.moe_route_cuda(logits, bias, k, gate_fn=gate_fn)
+def _moe_parity(moe_k, ref, logits, bias, k: int, gate_fn: str, got=None) -> float:
+    """``moe_route`` (or its outputs ``got``) against its plain versions on
+    the same card tensors: ids, counts and positions equal, weights within
+    rtol 1e-5 / atol 1e-6."""
+    if got is None:
+        got = moe_k.moe_route_cuda(logits, bias, k, gate_fn=gate_fn)
     want = ref.moe_route_ref(logits, bias, k, gate_fn)
+    want = (*want, ref.moe_positions_ref(want[0], logits.shape[1]))
     shape = f"T={logits.shape[0]} E={logits.shape[1]} k={k} {gate_fn} {logits.dtype}"
     assert torch.equal(got[0], want[0]), f"moe_route ids differ at {shape}"
     assert torch.equal(got[2], want[2]), f"moe_route counts differ at {shape}"
+    assert torch.equal(got[3], want[3]), f"moe_route positions differ at {shape}"
     torch.testing.assert_close(got[1], want[1], rtol=1e-5, atol=1e-6, msg=shape)
     assert int(got[2].sum()) == logits.shape[0] * k
     return _max_abs_err(got, want)
@@ -562,13 +578,15 @@ def _moe_serving(dev, times: dict) -> dict:
           f"needs_sync {bool(moe_balancer.needs_sync(state, cfg.care))}")
     print(f"phase 7 generated tokens: {out_tokens}")
 
-    # The kernel against its plain version at the main path's own inputs,
-    # then at DeepSeek-V3's shape and the edge cases.
-    p_logits, p_bias, _ = calls[first2]
-    d_logits, d_bias, _ = calls[first2 + n_moe]
+    # The kernel against its plain versions at the main path's own inputs
+    # (the spy's outputs are the path's launches), then at DeepSeek-V3's
+    # shape, a 4 x 4096 chunk and the edge cases.
+    p_logits, p_bias, p_out = calls[first2]
+    d_logits, d_bias, d_out = calls[first2 + n_moe]
     gate = cfg.gate_fn
-    errs = [_moe_parity(moe_k, ref, p_logits, p_bias, k, gate),
-            _moe_parity(moe_k, ref, d_logits, d_bias, k, gate)]
+    errs = [_moe_parity(moe_k, ref, p_logits, p_bias, k, gate, got=p_out),
+            _moe_parity(moe_k, ref, d_logits, d_bias, k, gate, got=d_out),
+            _moe_parity(moe_k, ref, p_logits, p_bias, k, gate)]
     v3 = torch.from_numpy(rng.standard_normal((MOE_BATCH * MOE_PROMPT, 256)).astype(np.float32))
     v3[0] = 0  # an all-ties row
     v3_bias = torch.from_numpy(rng.standard_normal(256).astype(np.float32))
@@ -576,37 +594,71 @@ def _moe_serving(dev, times: dict) -> dict:
     v3, v3_bias = v3.to(dev), v3_bias.to(dev)
     errs.append(_moe_parity(moe_k, ref, v3, v3_bias, 8, "sigmoid"))
     assert int(moe_k.moe_route_cuda(v3, v3_bias, 8, gate_fn="sigmoid")[2][7]) == 0
+    long_logits = torch.from_numpy(rng.standard_normal((MOE_LONG_T, e)).astype(np.float32)).to(dev)
+    errs.append(_moe_parity(moe_k, ref, long_logits, p_bias, k, gate))
     errs.append(_moe_parity(moe_k, ref, p_logits[:1].contiguous(), p_bias, k, gate))
     errs.append(_moe_parity(moe_k, ref, p_logits.to(torch.bfloat16), p_bias, k, gate))
     ties = torch.zeros((MOE_BATCH, e), device=dev)
     errs.append(_moe_parity(moe_k, ref, ties, torch.zeros(e, device=dev), k, gate))
     assert moe_k.moe_route_cuda(ties, torch.zeros(e, device=dev), k)[0].tolist() == [
         list(range(k))] * MOE_BATCH, "all ties must choose the lowest indices"
+    # Every score but k - 1 below -1e30: the last sweep takes an expert
+    # again, and its position counts the repeat in slot order.
+    rep_bias = torch.full((e,), 2e30, device=dev)
+    rep_bias[torch.from_numpy(rng.choice(e, k - 1, replace=False)).to(dev)] = 0.0
+    errs.append(_moe_parity(moe_k, ref, p_logits, rep_bias, k, gate))
+    rep_idx = moe_k.moe_route_cuda(p_logits, rep_bias, k, gate_fn=gate)[0]
+    assert bool((rep_idx[:, -1:] == rep_idx[:, :-1]).any(1).all()), "no expert repeated"
+    # The look-back words live across calls: after the other shapes, the
+    # path's call gives what it gave.
+    again = moe_k.moe_route_cuda(p_logits, p_bias, k, gate_fn=gate)
+    assert all(torch.equal(a, b) for a, b in zip(again, p_out)), "a later call differs"
 
     t_p, t_d = p_logits.shape[0], d_logits.shape[0]
     kernel_ms = _device_ms(lambda: moe_k.moe_route_cuda(p_logits, p_bias, k, gate_fn=gate),
                            MOE_TIME_REPS)
     decode_kernel_ms = _device_ms(
         lambda: moe_k.moe_route_cuda(d_logits, d_bias, k, gate_fn=gate), MOE_TIME_REPS)
-    host_ms = _time_ms(lambda: moe_k.moe_route_cuda(p_logits, p_bias, k, gate_fn=gate),
-                       MOE_TIME_REPS)
-    plain_ms = _time_ms(lambda: ref.moe_route_ref(p_logits, p_bias, k, gate), 20)
-    decode_plain_ms = _time_ms(lambda: ref.moe_route_ref(d_logits, d_bias, k, gate), 20)
-    bound = _moe_bound(t_p, e, k, 4)
-    decode_bound = _moe_bound(t_d, e, k, 4)
     v3_ms = _device_ms(lambda: moe_k.moe_route_cuda(v3, v3_bias, 8, gate_fn="sigmoid"),
                        MOE_TIME_REPS)
+    long_ms = _device_ms(lambda: moe_k.moe_route_cuda(long_logits, p_bias, k, gate_fn=gate),
+                         MOE_TIME_REPS)
+    floor_ms = _device_ms(moe_k.launch_floor_cuda, MOE_TIME_REPS)
+    host_ms = _time_ms(lambda: moe_k.moe_route_cuda(p_logits, p_bias, k, gate_fn=gate),
+                       MOE_TIME_REPS)
+    # The positions in torch (one_hot ... sum on the kernel's ids: what the
+    # MoE layer would run without the kernel's pos), and the plain version.
+    seq_ms = _device_ms(lambda: ref.moe_positions_ref(p_out[0], e), 20)
+
+    def plain(logits, bias):
+        out = ref.moe_route_ref(logits, bias, k, gate)
+        return out, ref.moe_positions_ref(out[0], e)
+
+    plain_ms = _time_ms(lambda: plain(p_logits, p_bias), 20)
+    decode_plain_ms = _time_ms(lambda: plain(d_logits, d_bias), 20)
+    bound = _moe_bound(t_p, e, k, 4)
+    decode_bound = _moe_bound(t_d, e, k, 4)
     v3_bound = _moe_bound(v3.shape[0], 256, 8, 4)
-    print(f"phase 7 moe_route against its plain version: equal ids and counts, weights "
-          f"max_abs_err {max(errs):.3g}, at the main path's T={t_p} and T={t_d} "
+    long_bound = _moe_bound(MOE_LONG_T, e, k, 4)
+    max_clusters = moe_k._scratch(dev, torch.cuda.current_stream().cuda_stream).flags.shape[1]
+    print(f"phase 7 moe_route against its plain versions: equal ids, counts and positions, "
+          f"weights max_abs_err {max(errs):.3g}, at the main path's T={t_p} and T={t_d} "
           f"(E={e}, k={k}, {gate}), V3's T={v3.shape[0]} E=256 k=8 sigmoid with an "
-          f"all-ties row and a 1e9 bias, T=1, bf16 logits and an all-ties batch")
-    print(f"phase 7 moe_route kernel (device time, queue filled) T={t_p}: {kernel_ms:.5f} ms, "
+          f"all-ties row and a 1e9 bias, T={MOE_LONG_T}, T=1, bf16 logits, an all-ties "
+          f"batch and the repeated-expert rows; a later call equals the path's")
+    print(f"phase 7 moe_route kernel (device time, queue filled; at most {max_clusters} "
+          f"clusters of {moe_k.MOE_CLUSTER} one-SM CTAs at once; (tokens a warp, warps a "
+          f"CTA, CTAs, CTAs a cluster) at T={t_p} {moe_k.moe_tiling(t_p, max_clusters)}, at "
+          f"T={t_d} {moe_k.moe_tiling(t_d, max_clusters)}, at T={MOE_LONG_T} "
+          f"{moe_k.moe_tiling(MOE_LONG_T, max_clusters)}) T={t_p}: {kernel_ms:.5f} ms, "
           f"bound {bound[0]:.6f} ms ({bound[1]}), plain {plain_ms:.4f} ms, host time per "
           f"call {host_ms:.5f} ms; T={t_d}: {decode_kernel_ms:.5f} ms, bound "
           f"{decode_bound[0]:.7f} ms ({decode_bound[1]}), plain {decode_plain_ms:.4f} ms; "
           f"V3 T={v3.shape[0]} E=256 k=8: {v3_ms:.5f} ms, bound {v3_bound[0]:.6f} ms "
-          f"({v3_bound[1]}); kernel share of prefill #2's wall "
+          f"({v3_bound[1]}); T={MOE_LONG_T}: {long_ms:.5f} ms, bound {long_bound[0]:.6f} ms "
+          f"({long_bound[1]}); launch floor (an empty block, queue filled) {floor_ms:.5f} "
+          f"ms; the replaced torch sequence "
+          f"(one_hot ... sum) at T={t_p} {seq_ms:.5f} ms; kernel share of prefill #2's wall "
           f"{n_moe * kernel_ms / (wall2 * 1e3):.5f}, of a decode step "
           f"{n_moe * decode_kernel_ms / decode_ms:.5f}")
 
@@ -616,8 +668,10 @@ def _moe_serving(dev, times: dict) -> dict:
                                       bias=bias)
         model.decode_step(params, logits.argmax(-1), cache, MOE_PROMPT, cfg, bias=bias)
         torch.cuda.synchronize()
-    device = [ev for ev in prof.key_averages()
-              if ev.device_type == torch.autograd.DeviceType.CUDA]
+    events = prof.key_averages()
+    replaced = [ev.key for ev in events if ev.key in ("aten::one_hot", "aten::cumsum")]
+    assert not replaced, f"the MoE layer ran {replaced} on the card"
+    device = [ev for ev in events if ev.device_type == torch.autograd.DeviceType.CUDA]
     device_us = sum(ev.self_device_time_total for ev in device)
     if device_us == 0:
         print("phase 7 profile: the profiler saw no device time; busy share not measured")
@@ -627,11 +681,13 @@ def _moe_serving(dev, times: dict) -> dict:
         print(f"phase 7 profile of one prefill + one decode step: device busy "
               f"{device_us / 1e3:.3f} ms against an unprofiled wall of "
               f"{wall2 * 1e3 + decode_ms:.3f} ms (busy share "
-              f"{device_us / 1e3 / (wall2 * 1e3 + decode_ms):.3f}); moe_route "
-              f"{route_us / device_us:.5f} of device time; top device operations: "
+              f"{device_us / 1e3 / (wall2 * 1e3 + decode_ms):.3f}); "
+              f"{sum(ev.count for ev in device)} device operations, no aten::one_hot or "
+              f"aten::cumsum; moe_route {route_us / device_us:.5f} of device time; top "
+              f"device operations: "
               + "; ".join(f"{ev.key[:60]} {ev.self_device_time_total / 1e3:.3f} ms "
                           f"x{ev.count}" for ev in device[:8]))
-    del params, cache, calls, logits, logits1, logits2, p_logits, d_logits
+    del params, cache, calls, logits, logits1, logits2, p_logits, d_logits, p_out, d_out
     torch.cuda.empty_cache()
 
     # Prefill against decode in float32.  A full expert may drop a
@@ -663,7 +719,7 @@ def _moe_serving(dev, times: dict) -> dict:
     times["moe_f32_check_s"] = time.perf_counter() - t0
     ops.moe_route = route
     assert len(routes) == 3 * n_moe
-    for idx, _, counts in routes:
+    for idx, _, counts, _ in routes:
         t = idx.shape[0]
         c = ffn._capacity(t, k, e, cfg32.moe_capacity_factor)
         assert int(counts.max()) <= c, f"an expert overflowed ({int(counts.max())} > {c}, T={t})"

@@ -1,33 +1,107 @@
-"""ctypes binding of the hand-written Hopper MoE router.
+"""ctypes binding of the hand-written Hopper MoE router, and its schedule.
 
 :func:`moe_route_cuda` launches ``csrc/moe_route.cu``, which replaces the
-Pallas kernel ``moe_route_pallas`` (``repro/kernels/moe_route.py:89``).
-Like the routing bindings in :mod:`repro_torch.kernels.jsaq_route`, it
-checks device, dtype, shape and contiguity, allocates the outputs, launches
-on PyTorch's current stream, raises if the launch reports an error, and
-adds one to its ``launches`` count.  The library is built at first use.
+Pallas kernel ``moe_route_pallas`` (``repro/kernels/moe_route.py:89``) and
+the capacity positions the reference computes around it
+(``repro/models/ffn.py:110-114``): one launch returns the route, the
+per-expert counts and each (token, slot)'s position in its expert's
+buffer.  Like the routing bindings in :mod:`repro_torch.kernels.jsaq_route`,
+it checks device, dtype, shape and contiguity, allocates the outputs with
+``torch.empty``, launches on PyTorch's current stream, raises if the launch
+reports an error, and adds one to its ``launches`` count.  The library is
+built at first use.
+
+:func:`moe_positions_tiled` replays the kernel's schedule for the
+positions in plain torch (warp ranks, the scan over warps, the prefix
+inside a cluster and the look-back across clusters), so the CPU tests can
+hold it against ``ref.moe_positions_ref``; change it with the kernel.
 """
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
 from repro_torch.kernels.jsaq_route import _I, _P, _check, _lib, _raise_on
 from repro_torch.kernels.ref import GATE_FNS
 
-# Largest expert count the kernel takes: a warp holds one token's scores in
-# registers, 8 a lane (kMaxExperts in csrc/moe_route.cu).
+# Largest expert count the kernel takes: a lane owns at most 8 experts
+# (kMaxExperts in csrc/moe_route.cu).
 MAX_EXPERTS = 256
+# Warps a block: at most kMaxWarps in csrc/moe_route.cu, and at least
+# MOE_MIN_WARPS where the tokens allow; blocks a cluster at most (kCluster);
+# lanes a warp.
+MOE_MAX_WARPS = 32
+MOE_MIN_WARPS = 16
+MOE_CLUSTER = 8
+LANES = 32
+# A flag word carries its call's generation in its high 32 bits; a scratch
+# is zeroed anew before its counter would wrap.
+_GEN_LIMIT = 2**32
+
+
+def moe_tiling(t: int, max_clusters: int) -> tuple[int, int, int, int]:
+    """``(per_warp, warps, blocks, cluster)`` for ``t`` tokens on a card that
+    holds ``max_clusters`` clusters of ``MOE_CLUSTER`` blocks at once, one
+    block an SM.  One token a warp while the blocks hold a warp a token,
+    else the fewest tokens a warp that fit; ``warps`` a block, at least
+    ``MOE_MIN_WARPS`` (fewer blocks) and as few as reach the tokens; the
+    blocks rounded up to whole clusters of ``cluster`` blocks (a grid of
+    fewer than ``MOE_CLUSTER`` blocks is one cluster).  A warp or a block
+    past the last token routes nothing and counts zero."""
+    max_blocks = MOE_CLUSTER * max_clusters
+    per_warp = max(1, -(-t // (MOE_MAX_WARPS * max_blocks)))
+    units = -(-t // per_warp)  # warps with tokens
+    warps = min(MOE_MAX_WARPS, max(MOE_MIN_WARPS, -(-units // max_blocks)))
+    needed = -(-units // warps)
+    cluster = min(MOE_CLUSTER, needed)
+    return per_warp, warps, -(-needed // cluster) * cluster, cluster
+
+
+class _Scratch:
+    """One stream's look-back words, ``(MAX_EXPERTS, max_clusters)`` zeroed
+    once when allocated, and the generation of its last call.  A word of
+    another generation is never read as this call's, so no call resets it."""
+
+    def __init__(self, dev: torch.device, max_clusters: int):
+        self.flags = torch.zeros((MAX_EXPERTS, max_clusters), dtype=torch.int64, device=dev)
+        self.gen = 0
+
+    def next_gen(self) -> int:
+        self.gen += 1
+        if self.gen >= _GEN_LIMIT:
+            self.flags.zero_()
+            self.gen = 1
+        return self.gen
+
+
+_SCRATCH: dict[tuple[int, int], _Scratch] = {}
+
+
+def _scratch(dev: torch.device, stream: int) -> _Scratch:
+    """The scratch of (device, stream): two streams never share one."""
+    key = (dev.index, stream)
+    if key not in _SCRATCH:
+        clusters = ctypes.c_int(0)
+        query = _lib("moe_route", "moe_route_max_clusters", (ctypes.POINTER(ctypes.c_int),))
+        _raise_on(query(ctypes.byref(clusters)), "moe_route")
+        if clusters.value < 1:
+            raise RuntimeError("moe_route: no cluster of its blocks fits on this card")
+        _SCRATCH[key] = _Scratch(dev, clusters.value)
+    return _SCRATCH[key]
 
 
 def moe_route_cuda(
     logits: torch.Tensor, bias: torch.Tensor, top_k: int, *, gate_fn: str = "softmax"
 ):
-    """CARE-biased top-k routing on the card; see ``ref.moe_route_ref``.
+    """CARE-biased top-k routing and capacity positions on the card; see
+    ``ref.moe_route_ref`` and ``ref.moe_positions_ref``.
 
-    ``logits`` is ``(T, E)`` float32 or bfloat16 with ``E <= 256``,
-    ``bias`` ``(E,)`` float32, ``1 <= top_k <= E``.  Returns ``(idx,
-    weights, counts)``: ``(T, k)`` int32, ``(T, k)`` float32, ``(E,)``
-    int32.
+    ``logits`` is ``(T, E)`` float32 or bfloat16 with ``T >= 1`` and ``E <=
+    256``, ``bias`` ``(E,)`` float32, ``1 <= top_k <= E``.  Returns ``(idx,
+    weights, counts, pos)``: ``(T, k)`` int32, ``(T, k)`` float32, ``(E,)``
+    int32, ``(T k,)`` int32.  Not for CUDA graph capture: each call passes
+    a new generation number to the kernel.
     """
     if logits.device.type != "cuda":
         raise ValueError(f"moe_route_cuda needs a CUDA tensor, got {logits.device}")
@@ -39,28 +113,107 @@ def moe_route_cuda(
         raise ValueError(f"logits must be (T, E), got shape {tuple(logits.shape)}")
     dev = logits.device
     t, e = logits.shape
+    if t < 1:
+        raise ValueError("moe_route_cuda needs at least one token")
     if not 1 <= e <= MAX_EXPERTS:
         raise ValueError(f"moe_route_cuda takes 1..{MAX_EXPERTS} experts, got {e}")
     if not 1 <= top_k <= e:
         raise ValueError(f"top_k must be in [1, {e}], got {top_k}")
     _check(logits, "logits", (t, e), dev, logits.dtype)
     _check(bias, "bias", (e,), dev, torch.float32)
+    if torch.cuda.is_current_stream_capturing():
+        raise RuntimeError("moe_route_cuda cannot be captured in a CUDA graph")
     launch = _lib(
         "moe_route", "moe_route_launch",
-        (_P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+        (_P, _I, _P, _P, _P, _P, _P, _P, _I, ctypes.c_uint, _I, _I, _I, _I, _I, _I, _I, _I, _P),
     )
     idx = torch.empty((t, top_k), dtype=torch.int32, device=dev)
     weights = torch.empty((t, top_k), dtype=torch.float32, device=dev)
-    counts = torch.zeros((e,), dtype=torch.int32, device=dev)
+    counts = torch.empty((e,), dtype=torch.int32, device=dev)
+    pos = torch.empty((t * top_k,), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        scratch = _scratch(dev, stream)
+        per_warp, warps, blocks, cluster = moe_tiling(t, scratch.flags.shape[1])
         err = launch(
             logits.data_ptr(), int(logits.dtype == torch.bfloat16), bias.data_ptr(),
-            idx.data_ptr(), weights.data_ptr(), counts.data_ptr(), t, e, top_k,
-            int(gate_fn == "softmax"), torch.cuda.current_stream().cuda_stream,
+            idx.data_ptr(), weights.data_ptr(), counts.data_ptr(), pos.data_ptr(),
+            scratch.flags.data_ptr(), scratch.flags.shape[1], scratch.next_gen(), t, e,
+            top_k, int(gate_fn == "softmax"), per_warp, warps, blocks, cluster, stream,
         )
     _raise_on(err, "moe_route")
     moe_route_cuda.launches += 1
-    return idx, weights, counts
+    return idx, weights, counts, pos
 
 
 moe_route_cuda.launches = 0
+
+
+def launch_floor_cuda() -> None:
+    """Launch one empty block on the current stream: the floor any launch
+    pays.  A timing aid; it counts in no kernel's ``launches``."""
+    launch = _lib("moe_route", "moe_empty_launch", (_P,))
+    _raise_on(launch(torch.cuda.current_stream().cuda_stream), "moe_empty")
+
+
+def moe_positions_tiled(
+    idx: torch.Tensor, e: int, *, tile: int, warp: int, cluster: int
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The kernel's schedule for the positions, in plain torch.
+
+    ``idx`` is the ``(T, k)`` route; a block routes ``tile`` consecutive
+    tokens, a warp ``warp`` of them (``tile`` a multiple of ``warp``), and
+    ``cluster`` consecutive blocks form a cluster (the kernel: ``warps x
+    per_warp`` tokens a block, tiled by ``moe_tiling``).  Blocks start on token
+    boundaries, so no block splits a token's k slots.  Per warp, each chunk
+    of <= 32 slots of a token is ranked by ``__match_any_sync`` groups on
+    top of the warp's running histogram; a scan over the block's warps
+    gives each warp's offset and the block's count; a block's prefix in
+    its cluster sums the counts of the cluster's blocks before it, and a
+    cluster's prefix sums the counts of every cluster before it, 32
+    clusters (a warp's lanes) a step.
+
+    Returns ``(pos (T k,) int32, counts (E,) int32)``: the positions, and
+    the last cluster's prefix plus its count.
+    """
+    t, k = idx.shape
+    if tile % warp:
+        raise ValueError(f"tile {tile} must be a multiple of warp {warp}")
+    warps = tile // warp
+    flat = idx.reshape(-1).long()
+    rank = torch.empty(t * k, dtype=torch.int64)
+    blocks = -(-(-(-t // tile)) // cluster) * cluster  # whole clusters
+    hist = torch.zeros((blocks, warps, e), dtype=torch.int64)
+    for blk in range(blocks):
+        for wi in range(warps):
+            h = hist[blk, wi]
+            for tok in range(blk * tile + wi * warp, min(blk * tile + (wi + 1) * warp, t)):
+                for c0 in range(0, k, LANES):
+                    chunk = flat[tok * k + c0: tok * k + min(k, c0 + LANES)]
+                    # Lane l's rank: its group's lanes below l (popc of
+                    # peers & lanemask_lt), on top of the running count.
+                    same = chunk[:, None] == chunk[None, :]
+                    below = torch.tril(same, diagonal=-1).sum(1)
+                    rank[tok * k + c0: tok * k + c0 + len(chunk)] = h[chunk] + below
+                    h.index_add_(0, chunk, torch.ones_like(chunk))
+    # A thread an expert: each warp's offset, running over the warps.
+    offset = torch.zeros_like(hist)
+    for wi in range(1, warps):
+        offset[:, wi] = offset[:, wi - 1] + hist[:, wi - 1]
+    count = offset[:, -1] + hist[:, -1]  # (blocks, E)
+    # Each block's prefix in its cluster, and each cluster's count.
+    per_cluster = count.reshape(-1, cluster, e)
+    cta_base = torch.zeros_like(per_cluster)
+    for r in range(1, cluster):
+        cta_base[:, r] = cta_base[:, r - 1] + per_cluster[:, r - 1]
+    total = per_cluster.sum(1)  # (clusters, E)
+    # Each cluster's prefix: every cluster before it, LANES a step.
+    cluster_base = torch.zeros_like(total)
+    for cl in range(total.shape[0]):
+        for p0 in range(0, cl, LANES):
+            cluster_base[cl] += total[p0:min(cl, p0 + LANES)].sum(0)
+    base = (cluster_base[:, None, :] + cta_base).reshape(blocks, e)
+    block_of = torch.arange(t * k) // (tile * k)
+    warp_of = (torch.arange(t * k) // k - block_of * tile) // warp
+    pos = base[block_of, flat] + offset[block_of, warp_of, flat] + rank
+    return pos.to(torch.int32), (cluster_base[-1] + total[-1]).to(torch.int32)

@@ -112,13 +112,17 @@ def moe_route(
     logits: torch.Tensor, bias: torch.Tensor, top_k: int, *, gate_fn: str = "softmax"
 ):
     """CARE-biased top-k MoE routing: ``(T, E)`` logits + ``(E,)`` bias ->
-    ``((T, k) idx, (T, k) weights, (E,) counts)``; see ``ref.moe_route_ref``.
-    Any ``T >= 1`` (no token padding); ``1 <= top_k <= E``."""
+    ``((T, k) idx, (T, k) weights, (E,) counts, (T k,) pos)``; see
+    ``ref.moe_route_ref``.  ``pos`` is each (token, slot)'s position in its
+    expert's capacity buffer (``ref.moe_positions_ref``); the kernel
+    computes all four in one launch.  Any ``T >= 1`` (no token padding);
+    ``1 <= top_k <= E``."""
     if not 1 <= top_k <= logits.shape[-1]:
         raise ValueError(f"top_k must be in [1, {logits.shape[-1]}], got {top_k}")
     if _route(logits, "moe_route"):
         return _moe.moe_route_cuda(logits, bias, top_k, gate_fn=gate_fn)
-    return _ref.moe_route_ref(logits, bias, top_k, gate_fn)
+    out = _ref.moe_route_ref(logits, bias, top_k, gate_fn)
+    return (*out, _ref.moe_positions_ref(out[0], logits.shape[-1]))
 
 
 def flash_attention(

@@ -321,3 +321,18 @@ def moe_route_ref(
     weights = torch.cat(w_list, dim=1)
     weights = weights / (weights.sum(dim=1, keepdim=True) + 1e-20)
     return idx, weights, counts
+
+
+def moe_positions_ref(idx: torch.Tensor, e: int) -> torch.Tensor:
+    """Each (token, slot)'s position in its expert's capacity buffer.
+
+    Mirrors ``repro/models/ffn.py:110-114``: for flat entry ``j = t k + i``
+    of ``idx`` (``(T, k)``), the number of entries ``j' < j`` routed to the
+    same expert, as the exclusive ``cumsum`` of the ``(T k, E)`` one-hot
+    summed against it.  A token that names an expert twice counts its
+    slots in order.  Returns ``(T k,)`` int32.
+    """
+    flat = idx.reshape(-1)
+    onehot = torch.nn.functional.one_hot(flat.long(), e).to(torch.int32)
+    pos = torch.cumsum(onehot, dim=0, dtype=torch.int32) - onehot
+    return torch.sum(pos * onehot, dim=1, dtype=torch.int32)

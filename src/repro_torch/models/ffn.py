@@ -4,7 +4,9 @@ Port of ``repro/models/ffn.py`` for one device (``ctx=None``): route ->
 scatter tokens into per-expert capacity buffers -> expert matmuls ->
 weighted gather-combine.  Routing always goes through
 :func:`repro_torch.kernels.ops.moe_route`, which launches the Hopper
-kernel for a CUDA tensor and runs its plain version for a CPU one.  Counts
+kernel for a CUDA tensor and runs its plain version for a CPU one; the
+kernel also returns each (token, slot)'s position in its expert's buffer,
+so no one-hot or cumsum runs on the card.  Counts
 are returned per layer; the CARE balancer (``core/moe_balancer.py``)
 consumes them.
 """
@@ -63,6 +65,7 @@ class MoEFFN(nn.Module):
 
 
 def _route(logits: torch.Tensor, bias: torch.Tensor, cfg: ModelConfig):
+    """``(idx, weights, counts, pos)`` from one ``moe_route`` call."""
     return ops.moe_route(logits, bias, cfg.moe_top_k, gate_fn=cfg.gate_fn)
 
 
@@ -82,14 +85,11 @@ def _moe_local(xt: torch.Tensor, bias: torch.Tensor, p: MoEFFN, cfg: ModelConfig
     cdt = common.dtype_of(cfg.compute_dtype)
 
     logits = xt.to(torch.float32) @ p.gate
-    idx, weights, counts = _route(logits, bias, cfg)  # (t,k),(t,k),(E,)
+    # pos: each (token, slot)'s position within its expert's capacity buffer.
+    idx, weights, counts, pos = _route(logits, bias, cfg)  # (t,k),(t,k),(E,),(t*k,)
 
     cap = _capacity(t_loc, k, e, cfg.moe_capacity_factor)
-    # Position of each (token, slot) within its expert's capacity buffer.
     flat_e = idx.reshape(-1)  # (t*k,) int32
-    onehot = nn.functional.one_hot(flat_e.long(), e).to(torch.int32)  # (t*k, E)
-    pos = torch.cumsum(onehot, dim=0, dtype=torch.int32) - onehot
-    pos = torch.sum(pos * onehot, dim=1, dtype=torch.int32)  # (t*k,)
     keep = pos < cap
     lin = torch.where(keep, flat_e * cap + pos, e * cap).long()  # overflow -> sink row
 

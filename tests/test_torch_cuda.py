@@ -95,6 +95,16 @@ def slots_vs_dense(dev, static, cell, horizons=None, seeds=(0, 1)):
     return fused, args, dense_s
 
 
+def _moe_equal(got, logits, bias, k: int, gate_fn: str) -> None:
+    """The router's four outputs against the plain versions: ids, counts
+    and positions equal, weights within rtol 1e-5 / atol 1e-6."""
+    idx, weights, counts = tref.moe_route_ref(logits, bias, k, gate_fn)
+    _eq(got[0].cpu().numpy(), idx.cpu().numpy())
+    _eq(got[2].cpu().numpy(), counts.cpu().numpy())
+    _eq(got[3].cpu().numpy(), tref.moe_positions_ref(idx, logits.shape[1]).cpu().numpy())
+    np.testing.assert_allclose(got[1].cpu().numpy(), weights.cpu().numpy(), rtol=1e-5, atol=1e-6)
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -272,6 +282,7 @@ class TestOnCard:
             (1, 160, 6, "softmax", torch.float32),
             (300, 160, 6, "softmax", torch.bfloat16),
             (77, 33, 33, "sigmoid", torch.float32),
+            (16384, 160, 6, "softmax", torch.float32),  # 4 x 4096 prefill: 4 tokens a warp
         ],
     )
     def test_moe_route_kernel(self, cuda_device, t, e, k, gate_fn, dtype):
@@ -281,15 +292,43 @@ class TestOnCard:
         logits[0] = 0  # an all-ties row
         bias[e // 2] = 1e9  # an expert no token may choose
         logits, bias = logits.to(cuda_device), bias.to(cuda_device)
-        ref = tref.moe_route_ref(logits, bias, k, gate_fn)
         before = tops.launch_counts()["moe_route"]
         got = tops.moe_route(logits, bias, k, gate_fn=gate_fn)
         torch.cuda.synchronize()
         assert tops.launch_counts()["moe_route"] == before + 1
-        _eq(got[0].cpu().numpy(), ref[0].cpu().numpy())
-        _eq(got[2].cpu().numpy(), ref[2].cpu().numpy())
-        np.testing.assert_allclose(got[1].cpu().numpy(), ref[1].cpu().numpy(), rtol=1e-5, atol=1e-6)
+        _moe_equal(got, logits, bias, k, gate_fn)
         assert int(got[2].sum()) == t * k and int(got[2][e // 2]) == (t if k == e else 0)
+
+    @pytest.mark.parametrize("t,e,k", [(300, 8, 3), (2048, 160, 6)])
+    def test_moe_route_repeats_an_expert_in_slot_order(self, cuda_device, t, e, k):
+        # Every score but k - 1 lies below -1e30, so the last sweep takes a
+        # masked expert again; its positions count the repeat in slot order.
+        rng = np.random.default_rng(e)
+        logits = torch.from_numpy(rng.standard_normal((t, e)).astype(np.float32))
+        bias = torch.full((e,), 2e30)
+        bias[rng.choice(e, k - 1, replace=False)] = 0.0
+        logits, bias = logits.to(cuda_device), bias.to(cuda_device)
+        got = tops.moe_route(logits, bias, k)
+        _moe_equal(got, logits, bias, k, "softmax")
+        idx = got[0].cpu()
+        assert bool((idx[:, -1:] == idx[:, :-1]).any(1).all()), "every token repeats an expert"
+
+    def test_moe_route_scratch_leaves_no_state(self, cuda_device):
+        # The look-back words live across calls: two calls in a row, and
+        # shapes interleaved, give the same outputs, with no fill.
+        rng = np.random.default_rng(5)
+        cases = []
+        for t, e, k in ((2048, 160, 6), (5, 160, 6), (16384, 64, 4), (2048, 160, 6)):
+            logits = torch.from_numpy(rng.standard_normal((t, e)).astype(np.float32))
+            bias = torch.from_numpy(rng.standard_normal(e).astype(np.float32))
+            cases.append((logits.to(cuda_device), bias.to(cuda_device), k))
+        first = [tops.moe_route(lg, b, k) for lg, b, k in cases]
+        again = [tops.moe_route(lg, b, k) for lg, b, k in reversed(cases)][::-1]
+        for (lg, b, k), one, two in zip(cases, first, again):
+            for x, y in zip(one, two):
+                assert torch.equal(x, y)
+            assert int(one[2].sum()) == lg.shape[0] * k
+            _moe_equal(one, lg, b, k, "softmax")
 
     def test_reduced_moe_prefill_goes_through_the_kernel(self, cuda_device):
         cfg = get_config("deepseek-v2-236b").reduced()

@@ -11,10 +11,10 @@ kernel in interpret mode (``True``); the port routes through
 Tolerance: logits and caches within rtol 1e-4 / atol 1e-5.  Both run in
 float32; the port's matmuls and softmax sums run in another order, which
 costs a few ulps per accumulated dot product, and three blocks compound
-them.  Routed expert ids and counts must be equal; that is meaningful only
-where no two candidate scores are within the rounding noise, so a guard
-first asserts that the reference's top-(k+1) scores of every token are at
-least 1e-3 apart and names the token if not.
+them.  Routed expert ids, counts and capacity positions must be equal;
+that is meaningful only where no two candidate scores are within the
+rounding noise, so a guard first asserts that the reference's top-(k+1)
+scores of every token are at least 1e-3 apart and names the token if not.
 """
 import dataclasses
 
@@ -91,7 +91,8 @@ def _spy(monkeypatch):
 
 def _check_routes(seen, k):
     assert len(seen["torch"]) == len(seen["jax"]) > 0
-    for call, ((score, (ji, jw, jc)), (ti, tw, tc)) in enumerate(zip(seen["jax"], seen["torch"])):
+    for call, ((score, (ji, jw, jc)), (ti, tw, tc, tpos)) in enumerate(
+            zip(seen["jax"], seen["torch"])):
         top = -np.sort(-score, axis=1)[:, : k + 1]
         gaps = top[:, :-1] - top[:, 1:]
         tok, slot = np.unravel_index(np.argmin(gaps), gaps.shape)
@@ -102,6 +103,11 @@ def _check_routes(seen, k):
         np.testing.assert_array_equal(ti, ji)
         np.testing.assert_array_equal(tc, jc)
         np.testing.assert_allclose(tw, jw, **TOL)
+        # The capacity positions, as the reference computes them on its ids
+        # (repro/models/ffn.py:110-114).
+        onehot = jax.nn.one_hot(jnp.asarray(ji).reshape(-1), score.shape[1], dtype=jnp.int32)
+        jpos = jnp.sum((jnp.cumsum(onehot, axis=0) - onehot) * onehot, axis=1)
+        np.testing.assert_array_equal(tpos, np.asarray(jpos))
 
 
 def _close_cache(tc, jc):

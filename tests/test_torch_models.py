@@ -142,8 +142,8 @@ def test_dense_ffn(models):
 
 
 def _spy_routes(monkeypatch):
-    """Record each (idx, counts) the port's and the JAX package's MoE
-    layers route."""
+    """Record each (idx, weights, counts) the JAX package's MoE layers route
+    and each (idx, weights, counts, pos) the port's route and place."""
     seen = {"jax": [], "torch": []}
     j_route, t_route = jffn._route, tffn._route
 
@@ -162,6 +162,14 @@ def _spy_routes(monkeypatch):
     return seen
 
 
+def _reference_positions(idx: np.ndarray, e: int) -> np.ndarray:
+    """The reference's capacity positions (``repro/models/ffn.py:110-114``)
+    on the JAX package's ids."""
+    onehot = jax.nn.one_hot(jnp.asarray(idx).reshape(-1), e, dtype=jnp.int32)
+    pos = jnp.cumsum(onehot, axis=0) - onehot
+    return np.asarray(jnp.sum(pos * onehot, axis=1))
+
+
 @pytest.mark.parametrize("factor", [4.0, 1.0])
 @pytest.mark.parametrize("biased", [False, True])
 def test_moe_ffn(monkeypatch, factor, biased):
@@ -178,13 +186,14 @@ def test_moe_ffn(monkeypatch, factor, biased):
         _close(ty, jy)
         np.testing.assert_array_equal(tcnt.numpy(), np.asarray(jcnt))
         assert tcnt.dtype == torch.float32
-    for (ti, tw, tc), (ji, jw, jc) in zip(seen["torch"], seen["jax"], strict=True):
+    for (ti, tw, tc, tpos), (ji, jw, jc) in zip(seen["torch"], seen["jax"], strict=True):
         np.testing.assert_array_equal(ti, ji)
         np.testing.assert_array_equal(tc, jc)
         np.testing.assert_allclose(tw, jw, **TOL)
+        np.testing.assert_array_equal(tpos, _reference_positions(ji, tcfg.n_routed_experts))
     cap = tffn._capacity(32, tcfg.moe_top_k, tcfg.n_routed_experts, factor)
-    over = max(int(c.max()) for _, _, c in seen["torch"]) > cap
-    assert over == (factor == 1.0), (cap, [c.max() for _, _, c in seen["torch"]])
+    over = max(int(c.max()) for _, _, c, _ in seen["torch"]) > cap
+    assert over == (factor == 1.0), (cap, [c.max() for _, _, c, _ in seen["torch"]])
 
 
 @pytest.mark.parametrize("t,k,e,factor", [(32, 2, 8, 1.0), (2048, 6, 160, 1.5), (4, 6, 160, 1.5)])

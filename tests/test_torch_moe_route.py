@@ -7,9 +7,15 @@ and against the JAX oracle, on the same numpy-seeded inputs.  The expert
 ids and counts must be equal; the combine weights must agree within
 rtol 1e-5 / atol 1e-6, the JAX package's own tolerance between its kernel
 and its oracle (``tests/test_kernels.py``), since the softmax sums run in
-another order.  The CUDA kernel is held against the plain version on the
-card by ``tests/test_torch_cuda.py`` and ``chip_smoke.py``.
+another order.  The port also returns each (token, slot)'s position in its
+expert's capacity buffer (``ref.moe_positions_ref``);
+it must equal, bit for bit, the reference's own formula
+(``repro/models/ffn.py:112-114``: one-hot, cumsum, sum) run in JAX on
+JAX's ids.  The CUDA kernel is held against the plain versions on the card
+by ``tests/test_torch_cuda.py`` and ``chip_smoke.py``.
 """
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -20,10 +26,20 @@ from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro_torch.kernels import moe_route as tmoe
 from repro_torch.kernels import ops as tops
+from repro_torch.models import ffn as tffn
 
 RTOL, ATOL = 1e-5, 1e-6
 # One compiled program per shape is cheaper than the oracle's ops one by one.
 _jref_route = jax.jit(jref.moe_route_ref, static_argnums=(2, 3))
+
+
+@functools.partial(jax.jit, static_argnums=1)
+def _jax_positions(idx, e):
+    """The reference's positions (``repro/models/ffn.py:110-114``)."""
+    flat_e = idx.reshape(-1)
+    onehot = jax.nn.one_hot(flat_e, e, dtype=jnp.int32)
+    pos = jnp.cumsum(onehot, axis=0) - onehot
+    return jnp.sum(pos * onehot, axis=1)
 
 
 def _inputs(t, e, seed):
@@ -35,7 +51,7 @@ def _inputs(t, e, seed):
 
 def _both(logits: np.ndarray, bias: np.ndarray, k: int, gate_fn="softmax", dtype="float32"):
     """Route with the port and with the Pallas kernel and the JAX oracle;
-    assert they agree and return the port's outputs as numpy."""
+    assert they agree and return the port's (idx, weights, counts) as numpy."""
     jdt, tdt = {"float32": (jnp.float32, torch.float32),
                 "bfloat16": (jnp.bfloat16, torch.bfloat16)}[dtype]
     jl, jb = jnp.asarray(logits, jdt), jnp.asarray(bias)
@@ -49,7 +65,7 @@ def _both(logits: np.ndarray, bias: np.ndarray, k: int, gate_fn="softmax", dtype
         np.testing.assert_allclose(got[1], np.asarray(want[1]), rtol=RTOL, atol=ATOL)
         np.testing.assert_array_equal(got[2], np.asarray(want[2]))
     assert got[0].dtype == np.int32 and got[1].dtype == np.float32 and got[2].dtype == np.int32
-    return got
+    return got[:3]
 
 
 # Every E in {16, 64, 160, 256} with every k in {1, 2, 6, 8}; T cycles
@@ -124,3 +140,71 @@ class TestMoeRoute:
         logits, bias = _inputs(16, 8, seed=0)
         tops.moe_route(torch.from_numpy(logits), torch.from_numpy(bias), 2)
         assert tops.launch_counts()["moe_route"] == 0
+
+
+def _with_positions(logits: np.ndarray, bias: np.ndarray, k: int, gate_fn="softmax"):
+    """``_both``'s comparison, and the positions against the reference's
+    formula on JAX's ids (Pallas kernel and oracle), bit for bit.  Returns
+    the port's four outputs as numpy."""
+    jl, jb = jnp.asarray(logits), jnp.asarray(bias)
+    got = tops.moe_route(torch.from_numpy(logits), torch.from_numpy(bias), k, gate_fn=gate_fn)
+    got = [x.numpy() for x in got]
+    for want in (
+        jops.moe_route(jl, jb, k, gate_fn=gate_fn, interpret=True),
+        _jref_route(jl, jb, k, gate_fn),
+    ):
+        np.testing.assert_array_equal(got[0], np.asarray(want[0]))
+        np.testing.assert_allclose(got[1], np.asarray(want[1]), rtol=RTOL, atol=ATOL)
+        np.testing.assert_array_equal(got[2], np.asarray(want[2]))
+        np.testing.assert_array_equal(got[3], np.asarray(_jax_positions(want[0], logits.shape[1])))
+    assert got[3].dtype == np.int32 and got[3].shape == (logits.shape[0] * k,)
+    return got
+
+
+# k by E: the DeepSeek-V2 and -V3 shapes, and a ragged E.
+_K_OF = {33: 5, 160: 6, 256: 8}
+
+
+class TestMoePositions:
+    @pytest.mark.parametrize("e", sorted(_K_OF))
+    @pytest.mark.parametrize("t", [1, 4, 77, 2048])
+    def test_matches_the_reference_formula(self, t, e):
+        logits, bias = _inputs(t, e, seed=7 * t + e)
+        k = _K_OF[e]
+        idx, _, counts, pos = _with_positions(logits, bias, k,
+                                              gate_fn="sigmoid" if e == 256 else "softmax")
+        # Each expert's positions are 0, 1, ..., counts - 1 in flat order.
+        flat = idx.reshape(-1)
+        for x in np.unique(flat):
+            np.testing.assert_array_equal(pos[flat == x], np.arange(counts[x]))
+
+    def test_skewed_gate_overflows_capacity(self):
+        t, e, k = 512, 160, 6
+        logits, bias = _inputs(t, e, seed=11)
+        logits[:, :4] += 6.0  # most tokens want experts 0-3
+        _, _, counts, pos = _with_positions(logits, bias, k)
+        cap = tffn._capacity(t, k, e, 1.0)
+        assert counts.max() > cap and int((pos >= cap).sum()) == int(
+            np.clip(counts - cap, 0, None).sum())
+
+    @pytest.mark.parametrize("t,e,k", [(64, 8, 3), (77, 160, 6)])
+    def test_repeated_expert_counts_in_slot_order(self, t, e, k):
+        # Every score but k - 1 lies below -1e30, so the last sweep takes a
+        # masked expert again; the positions count both slots, in order.
+        logits, _ = _inputs(t, e, seed=e)
+        rng = np.random.default_rng(e + 1)
+        bias = np.full(e, 2e30, np.float32)
+        bias[rng.choice(e, k - 1, replace=False)] = 0.0
+        idx, _, counts, pos = _with_positions(logits, bias, k)
+        assert (idx[:, -1:] == idx[:, :-1]).any(1).all()
+        assert int(counts.sum()) == t * k
+
+    def test_repeats_as_in_the_reference(self):
+        # E = 8, k = 3, all but experts 1 and 5 out of reach: [5, 1, 1].
+        logits, _ = _inputs(16, 8, seed=1)
+        bias = np.full(8, 2e30, np.float32)
+        bias[1], bias[5] = 0.0, -10.0
+        idx, _, _, pos = _with_positions(logits, bias, 3)
+        np.testing.assert_array_equal(idx, np.tile([5, 1, 1], (16, 1)))
+        np.testing.assert_array_equal(pos.reshape(16, 3), np.stack(
+            [np.arange(16), 2 * np.arange(16), 2 * np.arange(16) + 1], 1))
