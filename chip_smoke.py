@@ -14,12 +14,19 @@ own failure):
    and print the
    build time and the compiler's register and spill report; for each
    instance of the two flash kernels (bf16 on the tensor cores for dh, dv
-   in {64, 128, 256}; float32 on the CUDA cores) its registers, spills and
-   dynamic shared memory.
+   in {64, 128, 256}; float32 on the CUDA cores) its registers, spills
+   and dynamic shared memory; and the launch floor (an empty block with
+   the queue filled) that phases 2 and 7 print beside their kernels.
 2. Hold each kernel against its plain PyTorch version on the card, on the
    same inputs, with exact equality (outputs are int32, bool, or float32
    sums of whole ``+1.0`` steps):
-   ``jsaq_route`` at D=64, K=1000, N=256 with an all-ties row;
+   ``jsaq_route`` (the level fill) at D=64, K=1000, N=256 with an
+   all-ties row, on a staircase batch of that shape (23 rounds a row, the
+   most), at D=16, K=1e5, N=4096, and at D=16, K=1e5 with a row's work
+   space just under and just over the shared memory a block may opt in
+   to, each also repeated, timed with the queue filled and from the host
+   beside its bound (the bytes it moves), the dense bound of the chain it
+   replaced and an empty launch (the floor), with its rounds a row;
    ``care_route`` for jsq/jsaq x six trigger kinds at D=8, K=300, T=500
    with mixed horizons; ``care_route`` at K=1e6, T=4000 for two runs;
    ``care_route`` on rows whose tiles rest and wake: rt and et_rt over
@@ -113,7 +120,8 @@ own failure):
    shapes (float32 within 2e-5, dh 64 with GQA group 3, dh 128, non-causal
    dv != dh, ragged S=T=8000, S=1, window 100, softcap on and off, rows
    with no key, small ragged S and T); times the float32 kernel at its
-   case, and the bf16 kernel, its plain version and PyTorch's
+   case (TFLOP/s and bound / kernel, softcap 50 and 0), and the bf16
+   kernel, its plain version and PyTorch's
    ``scaled_dot_product_attention`` (softcap 0; the window as a mask) at
    the path's shapes beside their bound, with TFLOP/s, bound / kernel and
    kernel / SDPA; times the float32 kernel and float32 SDPA (the window as
@@ -166,8 +174,16 @@ F32_FLOP_PER_S = 67e12
 # rest and triggering); the TPU kernel's dense schedule, every server every
 # slot, is printed beside it.
 CARE_OPS_PER_SERVER_SLOT = 35
-# jsaq_route: one compare and one select per server per routed job.
+# jsaq_route: its bound is the bytes it must move, 4 (2 D K + D N) (the
+# level fill's operations, a few per server and per job, take less time);
+# the dense work of the chain it replaced, one compare and one select per
+# server per routed job, is printed beside it.
 JSAQ_OPS_PER_SERVER_JOB = 2
+# Its device time (the queue filled) over JSAQ_TIME_REPS launches, and its
+# time from the host (CUDA events around JSAQ_HOST_REPS calls, the host's
+# cost per call included), which is the kernels line's ms.
+JSAQ_TIME_REPS = 100
+JSAQ_HOST_REPS = 20
 # serve_route's and serve_slots' lane chain (csrc/serve_lanes.cuh), counted
 # from what it reads: per slot of a run, each replica's key and its
 # sub-block's minimum (a compare and a select a replica); per routed lane,
@@ -453,6 +469,53 @@ def _device_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def _jsaq_cases(rng, dev, card_tests) -> list:
+    """Phase 2's ``jsaq_route`` cases, ``(name, q, n)``: ``JSAQ_SHAPE`` with
+    an all-ties row (drawn from ``rng``), a staircase batch of that shape
+    (23 rounds a row, the most), the wide shape (D=16, K=1e5, N=4096), and
+    D=16, K=1e5 with a row's work space just under (N=19000) and just over
+    (N=19500) the shared memory a block may opt in to."""
+    d, k, n = JSAQ_SHAPE
+    q = torch.from_numpy(rng.integers(0, 50, (d, k), dtype=np.int32)).to(dev)
+    q[0] = 7  # an all-ties row
+    cases = [("JSAQ_SHAPE", q, n)]
+    for name in ("staircase_batch", "wide", "smem_limit_below", "smem_limit_above"):
+        qc, n = card_tests.jsaq_case(name)
+        cases.append((name, torch.as_tensor(qc, device=dev), n))
+    return cases
+
+
+def _jsaq_times(route, q, n: int) -> tuple[float, float]:
+    """``route(q, n)``'s device time and its time from the host, in ms."""
+    return (_device_ms(lambda: route(q, n), JSAQ_TIME_REPS),
+            _time_ms(lambda: route(q, n), JSAQ_HOST_REPS))
+
+
+def jsaq_ab(src: str, smem_max: int | None = None) -> None:
+    """Time the ``jsaq_route`` of the package under ``src`` (this or another
+    checkout's ``src`` directory) at phase 2's cases, by device time and
+    from the host, and print one JSON line.  ``smem_max``, if given, sets
+    the binding's ``JSAQ_SMEM_MAX`` (-1: every row's work space in device
+    scratch).  Run on the card from this checkout's root, one process per
+    tree, e.g. parent, change, change, parent::
+
+        python3 -c 'import chip_smoke; chip_smoke.jsaq_ab("path/to/src")'
+    """
+    sys.path.insert(0, str(Path(src).resolve()))
+    from repro_torch.kernels import jsaq_route as cuda_k
+
+    if smem_max is not None:
+        cuda_k.JSAQ_SMEM_MAX = smem_max
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    cases = {}
+    for name, q, n in _jsaq_cases(np.random.default_rng(2022), dev, _card_tests()):
+        device_ms, host_ms = _jsaq_times(cuda_k.jsaq_route_cuda, q, n)
+        cases[name] = {"device_ms": device_ms, "host_ms": host_ms}
+    print(json.dumps({"src": src, "smem_max": smem_max, "card": _card(),
+                      "jsaq_route": cases}))
+
+
 def _moe_bound(t: int, e: int, k: int, logit_bytes: int) -> tuple[float, str]:
     """moe_route's bound: logits and bias read once, idx / weights / pos
     and counts written once; MOE_OPS_PER_SCORE + 2 k operations per logit
@@ -485,10 +548,11 @@ def _moe_parity(moe_k, ref, logits, bias, k: int, gate_fn: str, got=None) -> flo
     return _max_abs_err(got, want)
 
 
-def _moe_serving(dev, times: dict) -> dict:
+def _moe_serving(dev, times: dict, floor_ms: float) -> dict:
     """Phase 7: the MoE serving path at full width, its CARE loop, the
     router kernel against its plain version, and prefill against decode in
-    float32.  Returns the kernel's line for the kernels JSON."""
+    float32; ``floor_ms`` is phase 1's launch floor.  Returns the kernel's
+    line for the kernels JSON."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.core import moe_balancer
@@ -623,7 +687,6 @@ def _moe_serving(dev, times: dict) -> dict:
                        MOE_TIME_REPS)
     long_ms = _device_ms(lambda: moe_k.moe_route_cuda(long_logits, p_bias, k, gate_fn=gate),
                          MOE_TIME_REPS)
-    floor_ms = _device_ms(moe_k.launch_floor_cuda, MOE_TIME_REPS)
     host_ms = _time_ms(lambda: moe_k.moe_route_cuda(p_logits, p_bias, k, gate_fn=gate),
                        MOE_TIME_REPS)
     # The positions in torch (one_hot ... sum on the kernel's ids: what the
@@ -917,10 +980,11 @@ def _dense_serving(dev, times: dict) -> dict:
                               FLASH_TIME_REPS)
             f32_plain_ms = _time_ms(lambda: ref.flash_attention_ref(q, k, v, **kw32), 2)
             times["flash_f32_ms"], times["flash_f32_plain_ms"] = f32_ms, f32_plain_ms
-            print(f"phase 8 flash_attention float32 kernel at {name}: {f32_ms:.3f} ms, "
-                  f"{_flash_flop(q, k, v, kw['causal'], kw.get('window')) / f32_ms / 1e9:.1f} "
-                  f"TFLOP/s; plain {f32_plain_ms:.3f} ms; bound {bound[0]:.4f} ms "
-                  f"({bound[1]}; operations at the CUDA cores' float32 peak)")
+            flop32 = _flash_flop(q, k, v, kw["causal"], kw.get("window"))
+            print(f"phase 8 flash_attention float32 kernel at {name}: {f32_ms:.4f} ms, "
+                  f"{flop32 / f32_ms / 1e9:.2f} TFLOP/s, bound / kernel "
+                  f"{bound[0] / f32_ms:.3f}; plain {f32_plain_ms:.3f} ms; bound "
+                  f"{bound[0]:.4f} ms ({bound[1]}; operations at the CUDA cores' float32 peak)")
             # Beside it, float32 SDPA on the same inputs with softcap 0, the
             # window as a boolean mask, against the kernel with softcap 0.
             nocap32 = dict(kw32, softcap=0.0)
@@ -940,7 +1004,9 @@ def _dense_serving(dev, times: dict) -> dict:
                 [flash_k.flash_attention_cuda(q, k, v, **nocap32)])
             times["flash_f32_nocap_ms"], times["flash_f32_sdpa_ms"] = f32_nocap_ms, sdpa32_ms
             print(f"phase 8 flash_attention float32 at {name} with softcap 0: kernel "
-                  f"{f32_nocap_ms:.3f} ms, scaled_dot_product_attention (window as a mask) "
+                  f"{f32_nocap_ms:.4f} ms, {flop32 / f32_nocap_ms / 1e9:.2f} TFLOP/s, bound / "
+                  f"kernel {bound[0] / f32_nocap_ms:.3f}; scaled_dot_product_attention "
+                  f"(window as a mask) "
                   f"{sdpa32_ms:.3f} ms, kernel / SDPA {f32_nocap_ms / sdpa32_ms:.3f} (outputs "
                   f"differ by at most {sdpa32_diff:.3g})")
             del qt, kt, vt, allowed
@@ -1064,17 +1130,18 @@ def _flash_build_report() -> None:
     log = (_build.build_dir() / "libflash_attn.log").read_text(errors="replace")
     name, spill = None, ""
     for line in log.splitlines():
-        if m := re.search(r"entry function .*(flash_wgmma|flash_kernel)I(\w+?)EEv", line):
-            widths = [int(w) for w in re.findall(r"Li(\d+)E", m.group(2) + "E")]
+        if m := re.search(r"entry function .*(flash_wgmma|flash_kernel)(?:I(\w+?)EEv|E)", line):
+            widths = [int(w) for w in re.findall(r"Li(\d+)E", (m.group(2) or "") + "E")]
             name, dtype = m.group(1), (torch.bfloat16 if widths else torch.float32)
         elif m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line):
             spill = f"spill stores {m.group(1)} B, loads {m.group(2)} B"
         elif (m := re.search(r"Used (\d+) registers", line)) and name:
             dh, dv = widths or (256, 256)
             smem = flash_k.smem_bytes(dtype, dh, dv)
-            label = f"{name}<{dh}, {dv}>" if widths else f"{name}<float> at dh = dv = 256"
-            regs = f"{m.group(1)} registers at launch" + (
-                " (setmaxnreg: 240 a consumer, 24 a producer thread)" if widths else "")
+            label = f"{name}<{dh}, {dv}>" if widths else f"{name} at dh = dv = 256"
+            regs = f"{m.group(1)} registers at launch (setmaxnreg: " + (
+                "240 a consumer, 24 a producer thread)" if widths
+                else "232 a consumer, 40 a producer thread)")
             print(f"phase 1 flash_attn {label}: {regs}, {spill}, {smem} B of dynamic shared "
                   f"memory a block")
             name = None
@@ -1109,6 +1176,7 @@ def main() -> int:
     from repro_torch.core.care import metrics, slotted_sim
     from repro_torch.kernels import _build, ops, ref
     from repro_torch.kernels import jsaq_route as cuda_k
+    from repro_torch.kernels import moe_route as moe_k
     from repro_torch.serve import engine
     card_tests = _card_tests()
 
@@ -1130,6 +1198,8 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 print(f"  ptxas {name}: {line.strip()}")
     _flash_build_report()
+    floor_ms = _device_ms(moe_k.launch_floor_cuda, MOE_TIME_REPS)
+    print(f"phase 1 launch floor (an empty block, queue filled): {floor_ms:.5f} ms")
     k = MAIN_KS[-1]
     tile = cuda_k.care_tile(k)
     n_tiles = -(-k // tile)
@@ -1140,18 +1210,36 @@ def main() -> int:
     rng = np.random.default_rng(2022)
 
     # -- 2. kernels against their plain versions -------------------------------
-    d, k, n = JSAQ_SHAPE
-    q = torch.from_numpy(rng.integers(0, 50, (d, k), dtype=np.int32)).to(dev)
-    q[0] = 7  # an all-ties row
-    jsaq_got = cuda_k.jsaq_route_cuda(q, n)
-    jsaq_err = _max_abs_err(jsaq_got, ref.jsaq_route_ref(q, n))
-    assert jsaq_err == 0, f"jsaq_route differs from its plain version by {jsaq_err}"
-    assert int(jsaq_got[0][0, 0]) == 0, "the all-ties row must route to index 0 first"
-    jsaq_ms = _time_ms(lambda: cuda_k.jsaq_route_cuda(q, n), 20)
-    jsaq_plain_ms = _time_ms(lambda: ref.jsaq_route_ref(q, n), 3)
-    jsaq_bound = _bound_ms(4 * (2 * d * k + d * n), JSAQ_OPS_PER_SERVER_JOB * d * k * n)
-    print(f"phase 2 jsaq_route D={d} K={k} N={n}: equal; kernel {jsaq_ms:.4f} ms, "
-          f"plain {jsaq_plain_ms:.3f} ms")
+    jsaq_err = 0.0
+    # Each case equal to its plain version; device time with the queue
+    # filled, and from the host (the kernels line's ms).
+    for name, qc, n in _jsaq_cases(rng, dev, card_tests):
+        d, k = qc.shape
+        got = cuda_k.jsaq_route_cuda(qc, n)
+        err = _max_abs_err(got, ref.jsaq_route_ref(qc, n))
+        assert err == 0, f"jsaq_route {name} differs from its plain version by {err}"
+        again = cuda_k.jsaq_route_cuda(qc, n)
+        assert all(torch.equal(a, b) for a, b in zip(again, got)), f"jsaq_route {name} repeat"
+        if name == "JSAQ_SHAPE":
+            assert int(got[0][0, 0]) == 0, "the all-ties row must route to index 0 first"
+        rounds = cuda_k.jsaq_route_levels(qc.cpu(), n)[2]
+        work = 4 * (3 * n + 3 * cuda_k.jsaq_max_rounds(n))
+        smem_max = cuda_k._jsaq_smem_max(qc.device)
+        home = "shared memory" if work <= smem_max else "device scratch"
+        ms, host_ms = _jsaq_times(cuda_k.jsaq_route_cuda, qc, n)
+        plain_ms = _time_ms(lambda: ref.jsaq_route_ref(qc, n), 3)
+        bound = _bound_ms(4 * (2 * d * k + d * n), 0)
+        dense = _bound_ms(4 * (2 * d * k + d * n), JSAQ_OPS_PER_SERVER_JOB * d * k * n)
+        print(f"phase 2 jsaq_route {name} D={d} K={k} N={n}: equal, a repeat identical; "
+              f"rounds a row {int(rounds.min())}-{int(rounds.max())} (at most "
+              f"{cuda_k.jsaq_max_rounds(n)}); work space {work} B a row in {home} (at most "
+              f"{smem_max} B shared); kernel {ms:.5f} ms device time ({host_ms:.5f} ms from "
+              f"the host), plain {plain_ms:.3f} ms; bound {bound[0]:.6f} ms ({bound[1]}), "
+              f"dense bound {dense[0]:.6f} ms ({dense[1]}), launch floor {floor_ms:.5f} ms, "
+              f"kernel / floor {ms / floor_ms:.2f}")
+        jsaq_err = max(jsaq_err, err)
+        if name == "JSAQ_SHAPE":
+            jsaq_ms, jsaq_plain_ms, jsaq_bound = host_ms, plain_ms, bound
 
     def care_parity(arrive, params, **kw):
         got = cuda_k.care_route_cuda(arrive, params, **kw)
@@ -1531,7 +1619,7 @@ def main() -> int:
 
     # -- 7. MoE serving -----------------------------------------------------------
     t0 = time.perf_counter()
-    moe_kernel = _moe_serving(dev, times)
+    moe_kernel = _moe_serving(dev, times, floor_ms)
     times["moe_phase_s"] = time.perf_counter() - t0
 
     # -- 8. dense GQA serving ---------------------------------------------------

@@ -53,16 +53,46 @@
 // dh and dv in {64, 128, 256}.
 //
 // float32, flash_kernel: the products on the CUDA cores in float32 FMAs, since
-// the tensor cores (TF32) cannot meet float32's 2e-5.  One block of 256
-// threads per (batch, head, 64 query rows).  The block stages its Q tile once
-// and each 32-key K and V tile in shared memory (rows padded by 4 floats so
-// the float4 reads of 16 neighbouring threads fall in distinct banks); at dh
-// = dv = 256 that is 141 KB, set with cudaFuncSetAttribute.  Thread (ty, tx)
-// of a 16 x 16 grid owns query rows 4ty..4ty+3: it computes their scores
-// against keys tx and tx + 16, keeps the rows' m and l in registers (a row's
-// 16 threads share a half-warp, so the row max and sum are shuffles, no
-// barrier), and accumulates value columns 64c + 4tx..+3 (c < 4) of those
-// rows in 64 registers.  dh and dv multiples of 4 up to 256.
+// the tensor cores (TF32) cannot meet float32's 2e-5.  What bounds it is the
+// FMA rate, 67 TFLOP/s (0.379 ms at the float32 case of chip_smoke.py), so
+// the design keeps shared memory, the instruction slots and the loads off the
+// FMAs' path.  One block of three warpgroups per (batch, head, 64 query
+// rows), one block an SM.  Warpgroup 2 produces: it copies 32-key K and V
+// tiles into a ring of two stages by cp.async (16-byte .cg copies, so
+// every pointer is 16-byte aligned: the binding copies an input that is
+// not; rows past T zero-filled), each stage with a full mbarrier that the
+// copies complete (cp.async.mbarrier.arrive) and an empty one that each
+// consumer warp arrives on when done with it.  Warpgroups 0 and 1 consume, each owning 32
+// of the rows and synchronising only among themselves (a named barrier a
+// tile), so one group's softmax and waits overlap the other's FMAs; group
+// 1 starts one score product behind group 0.
+// setmaxnreg gives the consumers 232 registers and the producer 40.  Shared
+// memory at dh = dv = 256: Q 64 KB (copied once), two stages of K (rows
+// padded to 272 floats, 16 mod 32 words) 68 KB and of V 64 KB, two p tiles
+// per group 18 KB: 219,968 bytes of the 232,448 a block may take.  Tiles
+// of 64 keys would take 135 KB a stage pair, so the keys come 32 a tile at
+// every width.
+//   S = Q K^T: warp w of a group owns its rows w + 4i (i < 8); lane = s +
+// 4 g splits d into 4 slices (16-byte chunks c = s mod 4) and takes keys g
+// + 8t (t < 4), so a thread holds an 8 x 4 register tile of partial sums:
+// 12 float4 reads per 128 FMAs, 0.375 words an FMA a thread, 0.125 after
+// the warp's broadcast (a Q read is one row, 4 chunks; a K read is 8 keys,
+// 512 bytes in 4 wavefronts, conflict-free since K's row pitch is 16 mod 32
+// words).  Two xor-shuffle halvings sum the slices, leaving each thread two
+// rows, w + 8s and w + 8s + 4, of its 4 keys.
+//   softmax in base 2 on those 8 scores: the row max and sum over the 8
+// lanes of a row are 3 shuffles; scale folds log2(e); softcap * tanh(x /
+// softcap) is softcap * (1 - 2 / (2^(2 x log2(e) / softcap) + 1)) by exp2f
+// and a fast reciprocal (a few 1e-6 from the precise tanh, held within 2e-5
+// on the card); masks only on the tiles that need them.  p goes to the
+// group's shared tile transposed (key-major), each row's factor alpha beside
+// it, both double-buffered around the group's barrier.
+//   O += P V: thread (a, b) of a group owns its rows 4a..4a+3, 16+4a..+3
+// and value columns 4b..4b+3, 128+4b..+3, an 8 x 8 register tile: 4 float4
+// reads per 64 FMAs, 0.25 words an FMA (a warp's p reads are 16 words, its
+// V reads 32, one wavefront each).  dh and dv multiples of 4 up to 256; the
+// schedule of tiles is mirrored by kernels/flash_attn.py:key_tiles(...,
+// block_q=64, block_k=32).
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -72,212 +102,13 @@
 
 namespace {
 
-// ---- float32: CUDA cores -----------------------------------------------------
+// ---- shared by both kernels ---------------------------------------------------
 
-constexpr int kBQ = 64;         // query rows per block
-constexpr int kBK = 32;         // keys per tile
-constexpr int kThreads = 256;   // a 16 x 16 grid
+constexpr int kBQ = 64;         // float32 query rows per block
 constexpr int kMaxDim = 256;    // largest dh and dv
-constexpr int kChunks = kMaxDim / 64;  // value-column chunks of 16 threads x 4
-constexpr int kPad = 4;         // floats of padding per staged row
-constexpr int kLdp = kBQ + kPad;  // row pitch of the transposed p tile
 constexpr float kNeg = -1e30f;
-
-__device__ __forceinline__ float to_f(float x) { return x; }
-
-template <typename T>
-__device__ __forceinline__ T from_f(float x);
-template <>
-__device__ __forceinline__ float from_f<float>(float x) { return x; }
-
-__device__ __forceinline__ float half_warp_max(float v) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
-__device__ __forceinline__ float half_warp_sum(float v) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-// Rows [0, rows) of a (rows_total, stride)-strided source into a float tile
-// of row pitch `ld`; rows past `valid` are zero.  One warp per row, lanes
-// along the row, so each warp's reads are contiguous.
-template <typename T>
-__device__ __forceinline__ void stage(float* dst, int ld, const T* src, long long row_stride,
-                                      int rows, int valid, int width) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  for (int r = warp; r < rows; r += kThreads / 32) {
-    const T* s = src + r * row_stride;
-    float* d = dst + r * ld;
-    for (int c = lane; c < width; c += 32) d[c] = r < valid ? to_f(s[c]) : 0.0f;
-  }
-}
-
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-flash_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-             T* __restrict__ out, int b_n, int s_n, int t_n, int h_n, int kvh_n, int dh,
-             int dv, float scale, float softcap, int causal, int window) {
-  extern __shared__ float4 smem4[];
-  float* smem = reinterpret_cast<float*>(smem4);
-  const int ldq = dh + kPad, ldv = dv + kPad;
-  float* qs = smem;                 // (kBQ, ldq)
-  float* ks = qs + kBQ * ldq;       // (kBK, ldq)
-  float* vs = ks + kBK * ldq;       // (kBK, ldv)
-  float* ps = vs + kBK * ldv;       // (kBK, kLdp): p transposed
-
-  const int n_qb = (s_n + kBQ - 1) / kBQ;
-  const int bh = blockIdx.x % (b_n * h_n);
-  const int qb = n_qb - 1 - blockIdx.x / (b_n * h_n);  // heaviest blocks first
-  const int b = bh / h_n, h = bh % h_n;
-  const int kvh = h / (h_n / kvh_n);
-  const int row0 = qb * kBQ;
-  const int row_last = min(row0 + kBQ, s_n) - 1;
-  const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
-
-  // Key range this block may attend.  window == INT_MAX means none; a row
-  // past t_n - 1 + window has no key, and then every tile runs.
-  int k_lo = 0, k_hi = t_n;
-  if (causal && (long long)row_last < (long long)t_n - 1 + window) {
-    k_hi = min(t_n, row_last + 1);
-    k_lo = max(0, (int)max(0LL, (long long)row0 - window + 1));
-  }
-
-  const long long q_stride = (long long)h_n * dh;
-  const long long kv_stride = (long long)kvh_n * dh;
-  const long long v_stride = (long long)kvh_n * dv;
-  stage(qs, ldq, q + ((long long)b * s_n + row0) * q_stride + (long long)h * dh, q_stride,
-        kBQ, s_n - row0, dh);
-
-  float m[4], l[4], acc[kChunks][4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = kNeg;
-    l[i] = 0.0f;
-#pragma unroll
-    for (int c = 0; c < kChunks; ++c)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[c][i][j] = 0.0f;
-  }
-
-  for (int k0 = k_lo / kBK * kBK; k0 < k_hi; k0 += kBK) {
-    __syncthreads();  // the previous tile's K, V and p are consumed
-    const long long key0 = (long long)b * t_n + k0;
-    stage(ks, ldq, k + key0 * kv_stride + (long long)kvh * dh, kv_stride, kBK, t_n - k0, dh);
-    stage(vs, ldv, v + key0 * v_stride + (long long)kvh * dv, v_stride, kBK, t_n - k0, dv);
-    __syncthreads();
-
-    // Scores of rows 4ty + i against keys tx + 16 j.
-    float s[4][2];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) s[i][0] = s[i][1] = 0.0f;
-    for (int d = 0; d < dh; d += 4) {
-      float4 qa[4], kb[2];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        qa[i] = *reinterpret_cast<const float4*>(qs + (4 * ty + i) * ldq + d);
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-        kb[j] = *reinterpret_cast<const float4*>(ks + (tx + 16 * j) * ldq + d);
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j) {
-          s[i][j] = fmaf(qa[i].x, kb[j].x, s[i][j]);
-          s[i][j] = fmaf(qa[i].y, kb[j].y, s[i][j]);
-          s[i][j] = fmaf(qa[i].z, kb[j].z, s[i][j]);
-          s[i][j] = fmaf(qa[i].w, kb[j].w, s[i][j]);
-        }
-    }
-
-    // Scale, softcap, mask; the online softmax of each row.
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int qpos = row0 + 4 * ty + i;
-      float p[2];
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const int kpos = k0 + tx + 16 * j;
-        float x = s[i][j] * scale;
-        if (softcap > 0.0f) x = softcap * tanhf(x / softcap);
-        if (causal && (kpos > qpos || qpos - kpos >= window)) x = kNeg;
-        p[j] = kpos < t_n ? x : -INFINITY;
-      }
-      const float m_new = fmaxf(m[i], half_warp_max(fmaxf(p[0], p[1])));
-      const float alpha = expf(m[i] - m_new);
-      p[0] = expf(p[0] - m_new);
-      p[1] = expf(p[1] - m_new);
-      l[i] = l[i] * alpha + half_warp_sum(p[0] + p[1]);
-      m[i] = m_new;
-#pragma unroll
-      for (int c = 0; c < kChunks; ++c)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[c][i][j] *= alpha;
-#pragma unroll
-      for (int j = 0; j < 2; ++j) ps[(tx + 16 * j) * kLdp + 4 * ty + i] = to_f(from_f<T>(p[j]));
-    }
-    __syncthreads();
-
-    // acc += p (rounded to the value type) . V
-    for (int kk = 0; kk < kBK; ++kk) {
-      const float4 pk = *reinterpret_cast<const float4*>(ps + kk * kLdp + 4 * ty);
-      const float pr[4] = {pk.x, pk.y, pk.z, pk.w};
-#pragma unroll
-      for (int c = 0; c < kChunks; ++c) {
-        const int col = 64 * c + 4 * tx;
-        if (col < dv) {
-          const float4 vk = *reinterpret_cast<const float4*>(vs + kk * ldv + col);
-#pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            acc[c][i][0] = fmaf(pr[i], vk.x, acc[c][i][0]);
-            acc[c][i][1] = fmaf(pr[i], vk.y, acc[c][i][1]);
-            acc[c][i][2] = fmaf(pr[i], vk.z, acc[c][i][2]);
-            acc[c][i][3] = fmaf(pr[i], vk.w, acc[c][i][3]);
-          }
-        }
-      }
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = row0 + 4 * ty + i;
-    if (row >= s_n) continue;
-    const float denom = fmaxf(l[i], 1e-30f);
-    T* o = out + (((long long)b * s_n + row) * h_n + h) * dv;
-#pragma unroll
-    for (int c = 0; c < kChunks; ++c) {
-      const int col = 64 * c + 4 * tx;
-      if (col < dv) {
-#pragma unroll
-        for (int j = 0; j < 4; ++j) o[col + j] = from_f<T>(acc[c][i][j] / denom);
-      }
-    }
-  }
-}
-
-size_t f32_smem_bytes(int dh, int dv) {
-  return sizeof(float) *
-         ((size_t)(kBQ + kBK) * (dh + kPad) + (size_t)kBK * (dv + kPad) + kBK * kLdp);
-}
-
-template <typename T>
-int launch(const void* q, const void* k, const void* v, void* out, int b, int s, int t, int h,
-           int kvh, int dh, int dv, float scale, float softcap, int causal, int window,
-           cudaStream_t stream) {
-  const size_t smem = f32_smem_bytes(dh, dv);
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const long long blocks = (long long)((s + kBQ - 1) / kBQ) * b * h;
-  flash_kernel<T><<<(unsigned)blocks, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(out), b, s, t, h, kvh, dh, dv, scale, softcap, causal, window);
-  return static_cast<int>(cudaGetLastError());
-}
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kNegL2 = kNeg * kLog2e;  // the -1e30 fill, in base 2
 
 // ---- bfloat16: tensor cores --------------------------------------------------
 
@@ -287,8 +118,6 @@ constexpr int kStages = 2;              // K and V tiles in flight
 constexpr int kBox = 64 * 64 * 2;       // one TMA box: 64 rows of 64 bf16 (128 B each)
 constexpr int kWgThreads = 3 * 128;     // consumer warpgroups 0, 1; producer warpgroup 2
 constexpr int kConsumers = 2 * 128;
-constexpr float kLog2e = 1.4426950408889634f;
-constexpr float kNegL2 = kNeg * kLog2e;  // the -1e30 fill, in base 2
 
 // Shared memory of one block, in bytes from a 1024-byte aligned base (the
 // 128-byte swizzle repeats every 8 rows of 128 B): Q's 128 rows, then
@@ -306,18 +135,19 @@ constexpr int wgmma_smem_bytes(int dh, int dv) {
   return (2 * (dh / 64) + kStages * (dh / 64 + dv / 64)) * kBox + 8 * (1 + 4 * kStages) + 1024;
 }
 
-// Key tiles [first, end) that query rows [row0, row_last] visit, and whether
-// every one needs the mask: a row with no key at all (causal, row_last >= T -
-// 1 + window) makes the block run every tile masked, since the dense softmax
-// then averages all T keys.  kernels/flash_attn.py:key_tiles is the same
-// arithmetic, tested on the CPU.
+// Key tiles [first, end) of kTile keys that query rows [row0, row_last]
+// visit, and whether every one needs the mask: a row with no key at all
+// (causal, row_last >= T - 1 + window) makes the block run every tile masked,
+// since the dense softmax then averages all T keys.  kernels/flash_attn.py:
+// key_tiles is the same arithmetic, tested on the CPU.
 struct Tiles {
   int first, end, all_masked;
 };
 
+template <int kTile = kKeys>
 __device__ __forceinline__ Tiles key_tiles(int row0, int row_last, int t_n, int causal,
                                            int window) {
-  Tiles r{0, (int)(((long long)t_n + kKeys - 1) / kKeys), 0};
+  Tiles r{0, (int)(((long long)t_n + kTile - 1) / kTile), 0};
   if (!causal) return r;
   if ((long long)row_last >= (long long)t_n - 1 + window) {
     r.all_masked = 1;
@@ -325,18 +155,19 @@ __device__ __forceinline__ Tiles key_tiles(int row0, int row_last, int t_n, int 
   }
   const int k_hi = min(t_n, row_last + 1);
   const int k_lo = (int)max(0LL, (long long)row0 - window + 1);
-  r.first = k_lo / kKeys;
-  r.end = (int)(((long long)k_hi + kKeys - 1) / kKeys);
+  r.first = k_lo / kTile;
+  r.end = (int)(((long long)k_hi + kTile - 1) / kTile);
   return r;
 }
 
-// Whether tile [k0, k0 + 64) holds a key that some row in [row0, row_last]
-// must not attend: past T, after row0 (causal), or window or more before
-// row_last.
+// Whether tile [k0, k0 + kTile) holds a key that some row in [row0,
+// row_last] must not attend: past T, after row0 (causal), or window or more
+// before row_last.
+template <int kTile = kKeys>
 __device__ __forceinline__ bool tile_masked(const Tiles& r, int k0, int row0, int row_last,
                                             int t_n, int causal, int window) {
-  return r.all_masked || (long long)k0 + kKeys > t_n ||
-         (causal && ((long long)k0 + kKeys - 1 > row0 || (long long)row_last - k0 >= window));
+  return r.all_masked || (long long)k0 + kTile > t_n ||
+         (causal && ((long long)k0 + kTile - 1 > row0 || (long long)row_last - k0 >= window));
 }
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -837,6 +668,297 @@ int launch_bf16(const void* q, const void* k, const void* v, void* out, int b, i
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
+// ---- float32: CUDA cores -----------------------------------------------------
+
+constexpr int kBK = 32;            // keys per tile
+constexpr int kGroups = 2;         // consumer groups: 4 warps and 32 query rows each
+constexpr int kGroupRows = kBQ / kGroups;
+constexpr int kConsumerWarps = 4 * kGroups;
+constexpr int kF32Threads = 32 * kConsumerWarps + 128;  // and a producer warpgroup
+constexpr int kLdp = kGroupRows + 4;  // row pitch of a group's transposed p tile
+
+// Row pitch of a staged K tile: at least dh and 16 mod 32 words, so the 8
+// keys a warp reads at once fall in alternate halves of the banks.
+__host__ __device__ __forceinline__ int f32_ldk(int dh) { return dh + (48 - dh % 32) % 32; }
+
+// cp.async of one 16-byte chunk; `valid` false fills the destination with
+// zeros and reads nothing.
+__device__ __forceinline__ void cp_async16(float* dst, const float* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
+               "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+// Rows [0, rows) of width `width` from a strided source into a tile of row
+// pitch `ld`, by warps `warp`, `warp + warps`, ... a row each, lanes along
+// it; rows at or past `valid` are zero.  Row 0 of `src` is in bounds.
+__device__ __forceinline__ void load_rows(float* dst, int ld, const float* src,
+                                          long long stride, int rows, int valid, int width,
+                                          int warp, int warps) {
+  const int lane = threadIdx.x & 31;
+  for (int r = warp; r < rows; r += warps) {
+    const bool ok = r < valid;
+    const float* s = ok ? src + r * stride : src;
+    for (int c = 4 * lane; c < width; c += 128) cp_async16(dst + r * ld + c, s + c, ok);
+  }
+}
+
+// Named barrier of one consumer group's 128 threads (id 0 is __syncthreads).
+__device__ __forceinline__ void group_sync(int group) {
+  asm volatile("bar.sync %0, 128;\n" ::"r"(1 + group) : "memory");
+}
+
+__global__ void __launch_bounds__(kF32Threads, 1)
+flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
+             const float* __restrict__ v, float* __restrict__ out, int b_n, int s_n, int t_n,
+             int h_n, int kvh_n, int dh, int dv, float score_mul, float cap_mul, int softcapped,
+             int causal, int window) {
+  extern __shared__ float4 smem4[];
+  const int ldk = f32_ldk(dh);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem4);  // full K, full V, empty K, empty V x 2
+  float* qs = reinterpret_cast<float*>(bars + 8);  // (kBQ, dh)
+  float* ks = qs + kBQ * dh;                       // 2 stages of (kBK, ldk)
+  float* vs = ks + 2 * kBK * ldk;                  // 2 stages of (kBK, dv)
+  float* ps = vs + 2 * kBK * dv;                   // per group 2 of (kBK, kLdp): p, key-major
+  float* al = ps + kGroups * 2 * kBK * kLdp;       // per group 2 of (kGroupRows): rescale
+  float* ls = al + kGroups * 2 * kGroupRows;       // (kBQ): each row's final sum
+  const uint32_t full_k = smem_u32(bars), full_v = full_k + 16, empty_k = full_k + 32,
+                 empty_v = full_k + 48;
+
+  const int n_qb = (s_n + kBQ - 1) / kBQ;
+  const int bh = blockIdx.x % (b_n * h_n);
+  const int qb = n_qb - 1 - blockIdx.x / (b_n * h_n);  // heaviest blocks first
+  const int b = bh / h_n, h = bh % h_n;
+  const int kvh = h / (h_n / kvh_n);
+  const int row0 = qb * kBQ;
+  const int row_last = min(row0 + kBQ, s_n) - 1;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const Tiles tl = key_tiles<kBK>(row0, row_last, t_n, causal, window);
+  const int n_tiles = tl.end - tl.first;
+  const long long q_stride = (long long)h_n * dh;
+
+  if (threadIdx.x == 0) {
+    for (int st = 0; st < 2; ++st) {
+      mbar_init(full_k + 8 * st, 128);  // the producer's threads, as their copies land
+      mbar_init(full_v + 8 * st, 128);
+      mbar_init(empty_k + 8 * st, kConsumerWarps);  // a consumer warp each, when done
+      mbar_init(empty_v + 8 * st, kConsumerWarps);
+    }
+  }
+  load_rows(qs, dh, q + ((long long)b * s_n + row0) * q_stride + (long long)h * dh, q_stride,
+            kBQ, s_n - row0, dh, warp, kF32Threads / 32);
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+  __syncthreads();
+
+  if (warp >= kConsumerWarps) {  // the producer: K j and V j into stage j % 2
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+    const int pw = warp - kConsumerWarps;
+    const long long k_stride = (long long)kvh_n * dh, v_stride = (long long)kvh_n * dv;
+    const float* kb = k + (long long)b * t_n * k_stride + (long long)kvh * dh;
+    const float* vb = v + (long long)b * t_n * v_stride + (long long)kvh * dv;
+    for (int j = 0; j < n_tiles; ++j) {
+      const int st = j & 1, k0 = (tl.first + j) * kBK;
+      if (j >= 2) mbar_wait(empty_k + 8 * st, ((j - 2) >> 1) & 1);
+      load_rows(ks + st * kBK * ldk, ldk, kb + k0 * k_stride, k_stride, kBK, t_n - k0, dh, pw, 4);
+      asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(full_k + 8 * st)
+                   : "memory");
+      if (j >= 2) mbar_wait(empty_v + 8 * st, ((j - 2) >> 1) & 1);
+      load_rows(vs + st * kBK * dv, dv, vb + k0 * v_stride, v_stride, kBK, t_n - k0, dv, pw, 4);
+      asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(full_v + 8 * st)
+                   : "memory");
+    }
+    asm volatile("cp.async.wait_all;\n" ::: "memory");
+    return;
+  }
+
+  // A consumer group: 4 warps, query rows 32 grp .. 32 grp + 31.
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+  const int grp = warp >> 2, gw = warp & 3;
+  const int sl = lane & 3, g = lane >> 2;  // score roles: d slice, key group
+  const int pa = lane >> 3, pb = 8 * gw + (lane & 7);  // P V roles
+  const bool lo_ok = 4 * pb < dv, hi_ok = 128 + 4 * pb < dv;
+  const float* qg = qs + kGroupRows * grp * dh;
+  float* pg = ps + grp * 2 * kBK * kLdp;
+  float* ag = al + grp * 2 * kGroupRows;
+
+  float acc[8][8];
+#pragma unroll
+  for (int r = 0; r < 8; ++r)
+#pragma unroll
+    for (int c = 0; c < 8; ++c) acc[r][c] = 0.0f;
+  float m2[2] = {kNegL2, kNegL2}, lsum[2] = {0.0f, 0.0f};
+  const int nch = dh >> 2;
+  // Group 1 starts once group 0 has its first scores, so that each group's
+  // softmax, barrier and waits fall in the other's products.
+  if (grp == 1) asm volatile("bar.sync 3, 256;\n" ::: "memory");
+
+  for (int j = 0; j < n_tiles; ++j) {
+    const int st = j & 1, k0 = (tl.first + j) * kBK;
+    const float* kt = ks + st * kBK * ldk;
+    float* pt = pg + (j & 1) * kBK * kLdp;
+    float* alp = ag + (j & 1) * kGroupRows;
+
+    // Partial scores of the group's rows gw + 4i against keys g + 8t over d
+    // slice sl.
+    mbar_wait(full_k + 8 * st, (j >> 1) & 1);
+    float sp[8][4];
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int t = 0; t < 4; ++t) sp[i][t] = 0.0f;
+#pragma unroll 2
+    for (int c = sl; c < nch; c += 4) {
+      float4 kf[4];
+#pragma unroll
+      for (int t = 0; t < 4; ++t)
+        kf[t] = *reinterpret_cast<const float4*>(kt + (g + 8 * t) * ldk + 4 * c);
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const float4 qf = *reinterpret_cast<const float4*>(qg + (gw + 4 * i) * dh + 4 * c);
+#pragma unroll
+        for (int t = 0; t < 4; ++t) {
+          sp[i][t] = fmaf(qf.x, kf[t].x, sp[i][t]);
+          sp[i][t] = fmaf(qf.y, kf[t].y, sp[i][t]);
+          sp[i][t] = fmaf(qf.z, kf[t].z, sp[i][t]);
+          sp[i][t] = fmaf(qf.w, kf[t].w, sp[i][t]);
+        }
+      }
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty_k + 8 * st);
+    if (grp == 0 && j == 0) asm volatile("bar.arrive 3, 256;\n" ::: "memory");
+    // Sum the 4 slices, halving twice: keep rows 4 b1 .. (lane bit 1), then
+    // 2 b0 .. of those (lane bit 0), so this lane keeps rows i = 2 sl, 2 sl + 1.
+    float hf[4][4], f[2][4];
+    const bool b1 = lane & 2, b0 = lane & 1;
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+#pragma unroll
+      for (int t = 0; t < 4; ++t) {
+        const float send = b1 ? sp[r][t] : sp[4 + r][t];
+        hf[r][t] = (b1 ? sp[4 + r][t] : sp[r][t]) + __shfl_xor_sync(0xffffffffu, send, 2);
+      }
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+#pragma unroll
+      for (int t = 0; t < 4; ++t) {
+        const float send = b0 ? hf[r][t] : hf[2 + r][t];
+        f[r][t] = (b0 ? hf[2 + r][t] : hf[r][t]) + __shfl_xor_sync(0xffffffffu, send, 1);
+      }
+
+    // The online softmax of the group's rows gw + 8 sl + 4u, in base 2.
+    const bool masked = tile_masked<kBK>(tl, k0, row0, row_last, t_n, causal, window);
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      const int row = gw + 8 * sl + 4 * u;
+      const int qpos = row0 + kGroupRows * grp + row;
+      float x[4];
+#pragma unroll
+      for (int t = 0; t < 4; ++t) {
+        float y = f[u][t] * score_mul;
+        if (softcapped) y = fmaf(-2.0f, __fdividef(1.0f, 1.0f + exp2f(y)), 1.0f) * cap_mul;
+        if (masked) {
+          const int kpos = k0 + g + 8 * t;
+          if (causal && (kpos > qpos || qpos - kpos >= window)) y = kNegL2;
+          if (kpos >= t_n) y = -INFINITY;
+        }
+        x[t] = y;
+      }
+      float mx = fmaxf(fmaxf(x[0], x[1]), fmaxf(x[2], x[3]));
+#pragma unroll
+      for (int o = 4; o < 32; o <<= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+      const float m_new = fmaxf(m2[u], mx);
+      const float alpha = exp2f(m2[u] - m_new);
+      float sum = 0.0f;
+#pragma unroll
+      for (int t = 0; t < 4; ++t) {
+        const float p = exp2f(x[t] - m_new);
+        sum += p;
+        pt[(g + 8 * t) * kLdp + row] = p;
+      }
+#pragma unroll
+      for (int o = 4; o < 32; o <<= 1) sum += __shfl_xor_sync(0xffffffffu, sum, o);
+      lsum[u] = lsum[u] * alpha + sum;
+      m2[u] = m_new;
+      if (g == 0) {
+        alp[row] = alpha;
+        if (j == n_tiles - 1) ls[kGroupRows * grp + row] = lsum[u];
+      }
+    }
+    // p j is written; the group's P V of tile j - 1 is done.
+    group_sync(grp);
+
+    // acc = acc * alpha + p . V
+    const float* vt = vs + st * kBK * dv;
+    const float4 a0 = *reinterpret_cast<const float4*>(alp + 4 * pa);
+    const float4 a1 = *reinterpret_cast<const float4*>(alp + 16 + 4 * pa);
+    const float ar[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+#pragma unroll
+    for (int r = 0; r < 8; ++r)
+#pragma unroll
+      for (int c = 0; c < 8; ++c) acc[r][c] *= ar[r];
+    mbar_wait(full_v + 8 * st, (j >> 1) & 1);
+#pragma unroll 8
+    for (int kk = 0; kk < kBK; ++kk) {
+      const float4 p0 = *reinterpret_cast<const float4*>(pt + kk * kLdp + 4 * pa);
+      const float4 p1 = *reinterpret_cast<const float4*>(pt + kk * kLdp + 16 + 4 * pa);
+      const float4 v0 = lo_ok ? *reinterpret_cast<const float4*>(vt + kk * dv + 4 * pb)
+                              : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      const float4 v1 = hi_ok ? *reinterpret_cast<const float4*>(vt + kk * dv + 128 + 4 * pb)
+                              : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      const float pr[8] = {p0.x, p0.y, p0.z, p0.w, p1.x, p1.y, p1.z, p1.w};
+      const float vc[8] = {v0.x, v0.y, v0.z, v0.w, v1.x, v1.y, v1.z, v1.w};
+#pragma unroll
+      for (int r = 0; r < 8; ++r)
+#pragma unroll
+        for (int c = 0; c < 8; ++c) acc[r][c] = fmaf(pr[r], vc[c], acc[r][c]);
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty_v + 8 * st);
+  }
+
+#pragma unroll
+  for (int r = 0; r < 8; ++r) {
+    const int row = kGroupRows * grp + (r < 4 ? 4 * pa : 16 + 4 * pa) + (r & 3);
+    if (row0 + row >= s_n) continue;
+    const float denom = fmaxf(ls[row], 1e-30f);
+    float* o = out + (((long long)b * s_n + row0 + row) * h_n + h) * dv + 4 * pb;
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      if (!(half ? hi_ok : lo_ok)) continue;
+      float y[4];
+#pragma unroll
+      for (int c = 0; c < 4; ++c) y[c] = acc[r][4 * half + c] / denom;
+      *reinterpret_cast<float4*>(o + 128 * half) = make_float4(y[0], y[1], y[2], y[3]);
+    }
+  }
+}
+
+size_t f32_smem_bytes(int dh, int dv) {
+  return 8 * sizeof(uint64_t) +
+         sizeof(float) * ((size_t)kBQ * dh + 2 * kBK * (size_t)(f32_ldk(dh) + dv) +
+                          kGroups * 2 * (kBK * kLdp + kGroupRows) + kBQ);
+}
+
+int launch_f32(const void* q, const void* k, const void* v, void* out, int b, int s, int t,
+               int h, int kvh, int dh, int dv, float scale, float softcap, int causal, int window,
+               cudaStream_t stream) {
+  const size_t smem = f32_smem_bytes(dh, dv);
+  cudaError_t err =
+      cudaFuncSetAttribute(flash_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  // Scores times score_mul are base 2; with a softcap they are first
+  // 2 x / softcap in base 2, and the tanh comes back times softcap log2(e).
+  const bool capped = softcap > 0.0f;
+  const float score_mul = capped ? 2.0f * kLog2e * scale / softcap : scale * kLog2e;
+  const long long blocks = (long long)((s + kBQ - 1) / kBQ) * b * h;
+  flash_kernel<<<(unsigned)blocks, kF32Threads, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<float*>(out), b, s, t, h, kvh, dh, dv, score_mul, softcap * kLog2e,
+      (int)capped, causal, window);
+  return static_cast<int>(cudaGetLastError());
+}
+
 bool wgmma_width(int d) { return d == 64 || d == 128 || d == 256; }
 
 }  // namespace
@@ -845,30 +967,32 @@ bool wgmma_width(int d) { return d == 64 || d == 128 || d == 256; }
 // or float32 (0, the CUDA-core kernel) for all four tensors.  `window` <= 0
 // means no window.  Returns cudaGetLastError() (0 on success), or
 // cudaErrorInvalidValue for a shape the kernel does not take: any size below
-// 1, H not a multiple of KVH, T within 64 of INT_MAX; in float32 dh or dv
-// above 256 or not a multiple of 4; in bfloat16 dh or dv outside {64, 128,
-// 256} or a pointer not 16-byte aligned (TMA's rule).
+// 1, H not a multiple of KVH, T within 64 of INT_MAX, a pointer not 16-byte
+// aligned (TMA's rule in bfloat16, the 16-byte copies and stores in
+// float32); in float32 dh or dv above 256 or not a multiple of 4; in
+// bfloat16 dh or dv outside {64, 128, 256}.
 extern "C" int flash_attn_launch(const void* q, const void* k, const void* v, void* out,
                                  int is_bf16, int b, int s, int t, int h, int kvh, int dh,
                                  int dv, float scale, float softcap, int causal, int window,
                                  cudaStream_t stream) {
+  const bool aligned = ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+                         reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(out)) &
+                        15) == 0;
   if (b < 1 || s < 1 || t < 1 || h < 1 || kvh < 1 || h % kvh || dh < 4 || dv < 4 ||
       dh > kMaxDim || dv > kMaxDim || dh % 4 || dv % 4 || t > INT_MAX - kKeys ||
-      (long long)((s + kBQ - 1) / kBQ) * b * h > INT_MAX) {
+      (long long)((s + kBQ - 1) / kBQ) * b * h > INT_MAX || !aligned) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (window <= 0) window = INT_MAX;
   if (is_bf16) {
-    const bool aligned = ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
-                           reinterpret_cast<uintptr_t>(v)) & 15) == 0;
-    if (!wgmma_width(dh) || !wgmma_width(dv) || !aligned) {
+    if (!wgmma_width(dh) || !wgmma_width(dv)) {
       return static_cast<int>(cudaErrorInvalidValue);
     }
     return launch_bf16(q, k, v, out, b, s, t, h, kvh, dh, dv, scale, softcap, causal, window,
                        stream);
   }
-  return launch<float>(q, k, v, out, b, s, t, h, kvh, dh, dv, scale, softcap, causal, window,
-                       stream);
+  return launch_f32(q, k, v, out, b, s, t, h, kvh, dh, dv, scale, softcap, causal, window,
+                    stream);
 }
 
 // Dynamic shared memory of one block of the kernel that flash_attn_launch

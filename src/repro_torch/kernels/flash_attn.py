@@ -3,8 +3,10 @@
 :func:`flash_attention_cuda` launches ``csrc/flash_attn.cu``, which replaces
 the Pallas kernel ``flash_attention_pallas`` (``repro/kernels/flash_attn.py:84``).
 The source holds two kernels, chosen by the input type: bfloat16 runs on the
-tensor cores (``wgmma``, tiles fed by TMA), float32 on the CUDA cores, since
-the tensor cores' TF32 cannot meet float32's tolerance.  Like the other
+tensor cores (``wgmma``, tiles fed by TMA), float32 on the CUDA cores
+(register tiles fed by a ``cp.async`` ring from a producer warpgroup), since the tensor cores' TF32
+cannot meet float32's tolerance.  Both kernels' tile schedules are mirrored
+by :func:`key_tiles`.  Like the other
 bindings it checks device, dtype, shape and contiguity, allocates the output,
 launches on PyTorch's current stream, raises if the launch reports an error,
 and adds one to its ``launches`` count.  The library is built at first use.
@@ -19,9 +21,11 @@ from repro_torch.kernels.jsaq_route import _I, _P, _check, _lib, _raise_on
 
 _F = ctypes.c_float
 
-# Largest head width of the float32 kernel: a thread accumulates 4 rows x 16
-# value columns in registers and the block stages (64 + 32) x (dh + 4) and
-# 32 x (dv + 4) floats, 141 KB at 256 (kMaxDim in csrc/flash_attn.cu).
+# Largest head width of the float32 kernel: a consumer thread accumulates 8
+# rows x 8 value columns in registers, and the block holds Q (64 x dh
+# floats), two stages of 32-key K (rows padded to 16 mod 32 words) and V
+# tiles, and two transposed p tiles a consumer group: 219,968 bytes at 256,
+# of the 232,448 a block may take (kMaxDim in csrc/flash_attn.cu).
 MAX_HEAD_DIM = 256
 # Head widths of the bfloat16 kernel: TMA boxes of 64 columns, and at 256 its
 # (64, dv) accumulator takes 128 registers a thread and Q plus two stages of
@@ -32,6 +36,9 @@ DTYPES = (torch.float32, torch.bfloat16)
 # query rows and walks 64-key tiles (kRows and kKeys in csrc/flash_attn.cu).
 BLOCK_Q = 128
 BLOCK_K = 64
+# The float32 kernel's: 64 query rows a block, 32-key tiles (kBQ and kBK).
+F32_BLOCK_Q = 64
+F32_BLOCK_K = 32
 _NO_WINDOW = 2**31 - 1  # INT_MAX, the kernel's "no window"
 
 
@@ -41,32 +48,38 @@ def check_window(window) -> None:
         raise ValueError(f"window must be None or an int in [1, 2**31 - 1], got {window!r}")
 
 
-def key_tiles(qb: int, s: int, t: int, causal: bool, window: int | None):
-    """Key tiles that the bfloat16 kernel's query block ``qb`` visits.
+def key_tiles(
+    qb: int, s: int, t: int, causal: bool, window: int | None, *,
+    block_q: int = BLOCK_Q, block_k: int = BLOCK_K,
+):
+    """Key tiles that a flash kernel's query block ``qb`` visits: the
+    bfloat16 kernel's by default, the float32 kernel's with ``block_q=
+    F32_BLOCK_Q, block_k=F32_BLOCK_K``.
 
     Returns ``(first, end, masked)``: the block runs tiles ``first .. end -
-    1`` (tile ``j`` holds keys ``64 j .. 64 j + 63``), and ``masked[j -
-    first]`` says whether tile ``j`` holds a key that one of the block's rows
-    ``128 qb .. min(128 qb + 128, S) - 1`` must not attend, so that the kernel
-    masks it.  A row with no key at all (causal and ``row >= T - 1 +
-    window``) makes the block run every tile, masked, as the dense softmax
-    then averages all ``T`` keys.  The same arithmetic as ``key_tiles`` and
-    ``tile_masked`` in ``csrc/flash_attn.cu``.
+    1`` (tile ``j`` holds keys ``block_k j .. block_k (j + 1) - 1``), and
+    ``masked[j - first]`` says whether tile ``j`` holds a key that one of
+    the block's rows ``block_q qb .. min(block_q (qb + 1), S) - 1`` must not
+    attend, so that the kernel masks it.  A row with no key at all (causal
+    and ``row >= T - 1 + window``) makes the block run every tile, masked,
+    as the dense softmax then averages all ``T`` keys.  The same arithmetic
+    as ``key_tiles`` and ``tile_masked`` in ``csrc/flash_attn.cu`` (``<kBK>``
+    for the float32 kernel).
     """
     w = window if causal and window is not None else _NO_WINDOW
-    row0 = qb * BLOCK_Q
-    row_last = min(row0 + BLOCK_Q, s) - 1
-    first, end, all_masked = 0, -(-t // BLOCK_K), False
+    row0 = qb * block_q
+    row_last = min(row0 + block_q, s) - 1
+    first, end, all_masked = 0, -(-t // block_k), False
     if causal:
         if row_last >= t - 1 + w:
             all_masked = True
         else:
-            first = max(0, row0 - w + 1) // BLOCK_K
-            end = -(-min(t, row_last + 1) // BLOCK_K)
+            first = max(0, row0 - w + 1) // block_k
+            end = -(-min(t, row_last + 1) // block_k)
     masked = [
-        all_masked or k0 + BLOCK_K > t
-        or (causal and (k0 + BLOCK_K - 1 > row0 or row_last - k0 >= w))
-        for k0 in range(first * BLOCK_K, end * BLOCK_K, BLOCK_K)
+        all_masked or k0 + block_k > t
+        or (causal and (k0 + block_k - 1 > row0 or row_last - k0 >= w))
+        for k0 in range(first * block_k, end * block_k, block_k)
     ]
     return first, end, masked
 
@@ -116,8 +129,9 @@ def flash_attention_cuda(
 
     ``q`` is ``(B, S, H, dh)``, ``k`` ``(B, T, KVH, dh)``, ``v`` ``(B, T,
     KVH, dv)``, all float32 or all bfloat16 and contiguous, ``H`` a
-    multiple of ``KVH``, any ``S, T >= 1``; widths as :func:`check_inputs`
-    says.  ``window`` applies only with ``causal``.  Returns ``(B, S, H,
+    multiple of ``KVH``, any ``S, T >= 1``; widths and alignment as
+    :func:`check_inputs` says (a float32 input off a 16-byte boundary is
+    first copied to one).  ``window`` applies only with ``causal``.  Returns ``(B, S, H,
     dv)`` in ``q``'s dtype.
     """
     if q.device.type != "cuda":
@@ -126,6 +140,8 @@ def flash_attention_cuda(
     check_window(window)
     if softcap < 0:
         raise ValueError(f"softcap must be >= 0, got {softcap}")
+    if q.dtype == torch.float32:  # the kernel copies 16 bytes at a time
+        q, k, v = (x if x.data_ptr() % 16 == 0 else x.clone() for x in (q, k, v))
     launch = _lib(
         "flash_attn", "flash_attn_launch",
         (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _F, _I, _I, _P),

@@ -1,7 +1,10 @@
 """ctypes bindings of the hand-written Hopper routing kernels.
 
 * :func:`jsaq_route_cuda` -- ``csrc/jsaq_route.cu``, which replaces the
-  Pallas kernel ``jsaq_route_pallas`` (``repro/kernels/jsaq_route.py:169``).
+  Pallas kernel ``jsaq_route_pallas`` (``repro/kernels/jsaq_route.py:169``)
+  with a level fill: a few rounds a row in place of N argmins.  Its schedule
+  is mirrored on the CPU by :func:`jsaq_route_levels`, which nothing on the
+  main path calls (``tests/test_torch_jsaq_schedule.py``).
 * :func:`care_route_cuda` -- ``csrc/care_route.cu``, which replaces
   ``care_route_pallas`` (``repro/kernels/jsaq_route.py:355``).  Its tile
   schedule is mirrored on the CPU by :func:`care_route_tiled`, which
@@ -31,6 +34,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import math
 
 import numpy as np
 import torch
@@ -40,6 +44,15 @@ from repro_torch.kernels.ref import CARE_COMMS
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+
+# jsaq_route: the bins a thread scans per pass (kItems in
+# csrc/jsaq_route.cu), which with the row's servers sets the block size, and
+# the most bytes of a row's work space (histogram, list, rounds) kept in
+# shared memory, a larger one going to device scratch: None for the most a
+# block may opt in to on the card (jsaq_route_smem_max in the source).
+JSAQ_ITEMS = 4
+JSAQ_SMEM_MAX: int | None = None
+_I32_MAX = 2**31 - 1
 
 # Largest replica count serve_route and serve_slots take: a run's (R,) state
 # lives in one block's shared memory (kMaxReplicas in csrc/serve_route.cu).
@@ -90,21 +103,57 @@ def _lib(name: str, fn: str, argtypes: tuple) -> ctypes._CFuncPtr:
     return f
 
 
+def jsaq_max_rounds(num_jobs: int) -> int:
+    """The most rounds of ``jsaq_route``'s level fill for ``num_jobs`` jobs:
+    the largest d with d (d - 1) / 2 <= N - 1, since the d-th distinct level
+    takes a job only after d (d - 1) / 2 jobs below it (at most
+    ``floor((1 + sqrt(1 + 8 N)) / 2)``; 23 at N = 256)."""
+    return (1 + math.isqrt(8 * num_jobs - 7)) // 2 if num_jobs > 0 else 0
+
+
+def _jsaq_threads(k: int, n: int) -> int:
+    """Threads a row of ``jsaq_route``: about ``JSAQ_ITEMS`` servers or bins
+    each, a multiple of 32 up to 1024."""
+    return min(1024, max(32, -(-max(k, n) // (JSAQ_ITEMS * 32)) * 32))
+
+
+@functools.cache
+def _jsaq_smem_max(device: torch.device) -> int:
+    with torch.cuda.device(device):
+        limit = _lib("jsaq_route", "jsaq_route_smem_max", ())()
+    if limit < 0:
+        raise RuntimeError(f"cannot read the shared memory limit of {device}")
+    return limit
+
+
 def jsaq_route_cuda(q_app: torch.Tensor, num_jobs: int):
-    """Sequential JSAQ on the card: ``(D, K)`` int32 -> ``(idx, q')``."""
+    """Sequential JSAQ on the card as a level fill: ``(D, K)`` int32 ->
+    ``(idx, q')``, equal to ``ref.jsaq_route_ref``.  A row's work space
+    (``3 N + 3 jsaq_max_rounds(N)`` ints) is shared memory up to the most a
+    block may opt in to (or ``JSAQ_SMEM_MAX`` bytes, if set), else a device
+    scratch."""
     if q_app.device.type != "cuda":
         raise ValueError(f"jsaq_route_cuda needs a CUDA tensor, got {q_app.device}")
     d, k = q_app.shape
     if num_jobs < 0 or (num_jobs > 0 and k == 0):
         raise ValueError(f"cannot route {num_jobs} jobs over {k} servers")
     _check(q_app, "q_app", (d, k), q_app.device)
-    launch = _lib("jsaq_route", "jsaq_route_launch", (_P, _P, _P, _I, _I, _I, _I, _P))
+    launch = _lib(
+        "jsaq_route", "jsaq_route_launch", (_P, _P, _P, _I, _I, _I, _I, _I, _P, _P),
+    )
+    rounds = jsaq_max_rounds(num_jobs)
+    work = 3 * num_jobs + 3 * rounds
     idx = torch.empty((d, num_jobs), dtype=torch.int32, device=q_app.device)
     q_out = torch.empty_like(q_app)
+    scratch = None
+    smem_max = _jsaq_smem_max(q_app.device) if JSAQ_SMEM_MAX is None else JSAQ_SMEM_MAX
+    if 4 * work > smem_max:
+        scratch = torch.empty((d, work), dtype=torch.int32, device=q_app.device)
     with torch.cuda.device(q_app.device):
         err = launch(
-            q_app.data_ptr(), idx.data_ptr(), q_out.data_ptr(), d, k, num_jobs,
-            _threads(k), torch.cuda.current_stream().cuda_stream,
+            q_app.data_ptr(), idx.data_ptr(), q_out.data_ptr(), d, k, num_jobs, rounds,
+            _jsaq_threads(k, num_jobs), None if scratch is None else scratch.data_ptr(),
+            torch.cuda.current_stream().cuda_stream,
         )
     _raise_on(err, "jsaq_route")
     jsaq_route_cuda.launches += 1
@@ -112,6 +161,66 @@ def jsaq_route_cuda(q_app: torch.Tensor, num_jobs: int):
 
 
 jsaq_route_cuda.launches = 0
+
+
+def jsaq_route_levels(q_app: torch.Tensor, num_jobs: int):
+    """The level fill of ``csrc/jsaq_route.cu``, in plain PyTorch on the CPU.
+
+    Per row, the kernel's passes: the minimum ``m``, the histogram of ``a =
+    q - m`` below N, the fill level L and ``rem`` from ``cnt`` and ``P``,
+    the rounds (distinct values of ``a`` whose level takes a job), the
+    jobs of level L and ``q'`` from one pass over the row, the list of
+    servers with ``a < L``, then each full round's levels from its ranks in
+    that list.  int32 wraps as the chain does (every server at INT32_MAX,
+    then server 0 takes the rest).  Nothing on the main path calls it: the
+    tests hold it against ``ref.jsaq_route_ref`` and the JAX kernel, so
+    that the schedule the kernel runs is checked where there is no card.
+
+    Returns ``(idx, q_out, rounds)``: the two outputs of
+    ``ref.jsaq_route_ref`` and the ``(D,)`` rounds of each row.
+    """
+    q = q_app.to(torch.int64)
+    d, k = q.shape
+    n = num_jobs
+    if n < 0 or (n > 0 and k == 0):
+        raise ValueError(f"cannot route {n} jobs over {k} servers")
+    idx = torch.full((d, n), -1, dtype=torch.int32)  # a job no round places shows
+    q_out = q_app.to(torch.int32).clone()
+    rounds = torch.zeros((d,), dtype=torch.int64)
+    if n == 0:
+        return idx, q_out, rounds
+    for row in range(d):
+        m = int(q[row].min())
+        a = q[row] - m
+        h = torch.bincount(a[a < n], minlength=n)
+        cnt = h.cumsum(0)
+        p = cnt.cumsum(0) - cnt  # jobs placed below each level
+        hit = torch.nonzero((p <= n) & (n < p + cnt))
+        fill, rem = (int(hit[0, 0]), n - int(p[hit[0, 0]])) if len(hit) else (n, 0)
+        levels = torch.nonzero((h > 0) & (p < n))[:, 0]
+        rounds[row] = len(levels)
+        top = _I32_MAX - m  # INT32_MAX's level
+        wrap = top < n and int(p[top]) < n
+        if wrap:
+            fill, rem = top, 0
+        full = levels[levels < fill].tolist()
+        listed = torch.nonzero(a < fill)[:, 0]
+        for j in reversed(range(len(full))):  # the kernel's warps take rounds in no order
+            v = full[j]
+            span = (full[j + 1] if j + 1 < len(full) else fill) - v
+            srv = listed[a[listed] <= v]
+            pos = int(p[v]) + torch.arange(span)[:, None] * int(cnt[v]) + torch.arange(len(srv))
+            idx[row, pos.reshape(-1)] = srv.repeat(span).to(torch.int32)
+        le = a <= fill
+        rank = le.cumsum(0) - le.long()
+        extra = le & (rank < rem)
+        idx[row, n - rem + rank[extra]] = torch.nonzero(extra)[:, 0].to(torch.int32)
+        out = torch.where(le, m + fill + extra.long(), q[row])
+        if wrap:
+            out[0] += n - int(p[top])
+            idx[row, int(p[top]):] = 0
+        q_out[row] = ((out + 2**31) % 2**32 - 2**31).to(torch.int32)
+    return idx, q_out, rounds
 
 
 def care_tile(servers: int) -> int:

@@ -64,6 +64,76 @@ SLOTS_CASES = {
 }
 
 
+I32_MAX = 2**31 - 1
+# jsaq_route's cases: here against its plain version on the card, in
+# tests/test_torch_jsaq_schedule.py for the level fill's CPU mirror, and
+# (JSAQ_CARD) in chip_smoke.py's phase 2.  JSAQ_CASES cover negatives, ties,
+# staircases (the most rounds), K = 1, N = 0, N much larger than K and rows
+# whose fill reaches INT32_MAX, so that server 0 wraps and takes the rest.
+JSAQ_CASES = ("random_with_negatives", "all_ties", "staircase_i", "staircase_2i",
+              "one_far_below", "k1", "n0", "n_much_larger_than_k", "ties_in_levels",
+              "smoke_row", "reaches_int32_max", "int32_max_below_fill", "int32_extremes",
+              "fill_ends_on_a_level")
+# At chip_smoke.py's JSAQ_SHAPE (D, K, N) = (64, 1000, 256) with an all-ties
+# row; a staircase batch of that shape; the wide shape; a work space too
+# large for shared memory (device scratch); D = 16, K = 1e5 with a work
+# space just under and just over what H100 lets a block opt in to.
+JSAQ_CARD = ("smoke_shape", "staircase_batch", "wide", "scratch", "smem_limit_below",
+             "smem_limit_above")
+
+
+def jsaq_case(case: str) -> tuple[np.ndarray, int]:
+    """(D, K) int32 rows and N of a jsaq_route case."""
+    rng = np.random.default_rng(sum(map(ord, case)))
+    if case == "random_with_negatives":
+        q, n = rng.integers(-40, 40, (6, 200)), 96
+    elif case == "all_ties":
+        q, n = np.full((3, 130), -7), 300
+    elif case == "staircase_i":
+        q, n = np.tile(np.arange(300), (2, 1)), 256
+    elif case == "staircase_2i":
+        q, n = np.tile(2 * np.arange(150), (2, 1)), 200
+    elif case == "one_far_below":
+        q, n = np.full((2, 64), 500), 520
+        q[:, 37] = 0
+    elif case == "k1":
+        q, n = rng.integers(-5, 5, (4, 1)), 50
+    elif case == "n0":
+        q, n = rng.integers(0, 9, (3, 20)), 0
+    elif case == "n_much_larger_than_k":
+        q, n = rng.integers(0, 20, (3, 5)), 900
+    elif case == "ties_in_levels":
+        q, n = rng.integers(0, 4, (5, 90)) * 3, 128
+    elif case == "smoke_row":  # JSAQ_SHAPE's rows, cut to D = 4
+        q, n = rng.integers(0, 50, (4, 1000)), 256
+    elif case == "reaches_int32_max":  # every server reaches INT32_MAX, then 0 wraps
+        q, n = I32_MAX - rng.integers(0, 4, (3, 12)), 40
+        q[1] = I32_MAX
+    elif case == "int32_max_below_fill":  # a server at INT32_MAX the fill never reaches
+        q, n = rng.integers(0, 10, (2, 40)), 64
+        q[:, 5] = I32_MAX
+    elif case == "int32_extremes":
+        q, n = rng.integers(-(2**31), 2**31, (3, 16)), 30
+        q[:, :6] = I32_MAX - rng.integers(0, 3, (3, 6))
+    elif case == "fill_ends_on_a_level":  # rem = 0; in row 1 a server starts at L
+        q, n = np.array([[0, 0, 1, 5, 5], [3, 1, 1, 2, 9]]), 5
+    elif case == "smoke_shape":
+        q, n = rng.integers(0, 50, (64, 1000)), 256
+        q[0] = 7
+    elif case == "staircase_batch":  # rising and falling staircases, 23 rounds a row
+        i = np.arange(1000)
+        q, n = np.stack([(i if r % 2 == 0 else 999 - i) + r for r in range(64)]), 256
+    elif case == "wide":
+        q, n = rng.integers(0, 50, (16, 100_000)), 4096
+    elif case == "scratch":  # 3 N + 3 rounds ints a row: past any shared memory
+        q, n = np.tile(np.arange(50), (4, 1)), 20_000
+    elif case in ("smem_limit_below", "smem_limit_above"):  # 230,340 and 236,364 bytes
+        q, n = rng.integers(0, 50, (16, 100_000)), 19_000 if case.endswith("below") else 19_500
+    else:
+        raise KeyError(case)
+    return q.astype(np.int32), n
+
+
 def slots_vs_dense(dev, static, cell, horizons=None, seeds=(0, 1)):
     """serve_slots (the fused backend on the card) against the dense
     backend on the same inputs, every output of ``_serve_core``, with one
@@ -122,6 +192,20 @@ class TestOnCard:
         got = tops.jsaq_route(qt.to(cuda_device), 64)
         for g, r in zip(got, ref):
             _eq(g.cpu().numpy(), r.numpy())
+
+    @pytest.mark.parametrize("case", JSAQ_CASES + JSAQ_CARD)
+    def test_jsaq_route_level_fill(self, cuda_device, case):
+        q, n = jsaq_case(case)
+        qt = torch.from_numpy(q).to(cuda_device)
+        want = tref.jsaq_route_ref(qt, n)
+        before = tops.launch_counts()["jsaq_route"]
+        got = tops.jsaq_route(qt, n)
+        again = tops.jsaq_route(qt, n)
+        torch.cuda.synchronize()
+        assert tops.launch_counts()["jsaq_route"] == before + 2
+        for g, a, w in zip(got, again, want):
+            _eq(g.cpu().numpy(), w.cpu().numpy())
+            _eq(a.cpu().numpy(), w.cpu().numpy())
 
     @pytest.mark.parametrize(
         "policy,comm,rows",
@@ -371,6 +455,10 @@ class TestOnCard:
             # queries past T + window have no key: the dense softmax averages all keys
             (1, 300, 100, 2, 1, 64, 64, torch.float32, dict(causal=True, window=20)),
             (1, 77, 45, 3, 3, 4, 8, torch.float32, dict(causal=True)),
+            # float32 at the model's widths off the 64 x 32 tiles, and dh 4 with GQA 3
+            (1, 333, 517, 4, 2, 256, 256, torch.float32,
+             dict(causal=True, window=100, softcap=50.0)),
+            (1, 77, 45, 6, 2, 4, 8, torch.float32, dict(causal=True)),
             # bfloat16 (the tensor-core kernel): ragged S and T off the 128 x 64 tiles
             (1, 77, 45, 3, 3, 64, 128, torch.bfloat16, dict(causal=True)),
             (1, 45, 77, 2, 1, 128, 64, torch.bfloat16, dict(causal=False, softcap=50.0)),
@@ -402,6 +490,30 @@ class TestOnCard:
         assert got.shape == (b, s, h, dv) and got.dtype == dtype
         tol = 2e-2 if dtype == torch.bfloat16 else 2e-5
         torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+        _eq(tops.flash_attention(q, k, v, scale=scale, **kw).cpu().float().numpy(),
+            got.cpu().float().numpy())  # a repeated call is identical
+
+    def test_flash_attention_f32_unaligned_pointers(self, cuda_device):
+        # float32 views one float off a 16-byte boundary: the binding copies
+        # them to aligned storage for the kernel's 16-byte copies
+        b, s, t, h, kvh, dh, dv = 1, 130, 150, 4, 2, 64, 32
+        rng = np.random.default_rng(5)
+
+        def view(*shape):
+            n = int(np.prod(shape))
+            flat = torch.from_numpy(rng.standard_normal(n + 1).astype(np.float32)).to(cuda_device)
+            x = flat[1:].view(*shape)
+            assert x.data_ptr() % 16
+            return x
+
+        q, k, v = view(b, s, h, dh), view(b, t, kvh, dh), view(b, t, kvh, dv)
+        kw = dict(scale=dh**-0.5, causal=True, window=50, softcap=30.0)
+        before = tops.launch_counts()["flash_attention"]
+        got = tops.flash_attention(q, k, v, **kw)
+        torch.cuda.synchronize()
+        assert tops.launch_counts()["flash_attention"] == before + 1
+        torch.testing.assert_close(got, tref.flash_attention_ref(q, k, v, **kw),
+                                   rtol=2e-5, atol=2e-5)
 
     @pytest.mark.parametrize("dh", [64, 128, 256])
     @pytest.mark.parametrize("dv", [64, 128, 256])

@@ -1,8 +1,10 @@
-"""The bfloat16 flash kernel's tile schedule and input contract, on the CPU.
+"""The flash kernels' tile schedules and input contract, on the CPU.
 
 ``kernels/flash_attn.key_tiles`` is the arithmetic of ``key_tiles`` and
 ``tile_masked`` in ``csrc/flash_attn.cu``: which 64-key tiles a block of 128
-query rows visits, and which of them need the mask.  A tile skipped or left
+query rows of the bfloat16 kernel visits, and which of them need the mask;
+with ``block_q=64, block_k=32`` the float32 kernel's (the same functions
+with 32-key tiles).  A tile skipped or left
 unmasked by mistake gives wrong numbers with no error, so the schedule is held
 here against a brute-force list of the (query, key) pairs that the dense
 softmax attends, over ragged S and T, windows from 1 to 2**31 - 1, and
@@ -17,6 +19,7 @@ import torch
 from repro_torch.kernels import flash_attn as tflash
 
 BQ, BK = tflash.BLOCK_Q, tflash.BLOCK_K
+F32 = dict(block_q=tflash.F32_BLOCK_Q, block_k=tflash.F32_BLOCK_K)
 # (200, 163) with window 37 puts block 1's last row at exactly T - 1 + window.
 SIZES = [(1, 1), (1, 300), (77, 45), (200, 200), (200, 163), (300, 100), (129, 129),
          (128, 64), (130, 127), (257, 513), (1000, 1000)]
@@ -37,10 +40,11 @@ def _attended(s: int, t: int, causal: bool, window) -> np.ndarray:
     return ok
 
 
-def _check_blocks(s: int, t: int, causal: bool, window) -> None:
+def _check_blocks(s: int, t: int, causal: bool, window, block_q=BQ, block_k=BK) -> None:
     att = _attended(s, t, causal, window)
+    BQ, BK = block_q, block_k
     for qb in range(-(-s // BQ)):
-        first, end, masked = tflash.key_tiles(qb, s, t, causal, window)
+        first, end, masked = tflash.key_tiles(qb, s, t, causal, window, block_q=BQ, block_k=BK)
         rows = att[qb * BQ:min(qb * BQ + BQ, s)]
         assert 0 <= first < end <= -(-t // BK) and len(masked) == end - first
         keys = np.flatnonzero(rows.any(axis=0))
@@ -77,6 +81,12 @@ def test_non_causal_visits_every_tile(s, t):
      (1, 300, False, None), (257, 130, True, 64)],
 )
 def test_tile_walk_matches_the_dense_softmax(s, t, causal, window):
+    _tile_walk(s, t, causal, window, BQ, BK)
+
+
+def _tile_walk(s, t, causal, window, BQ, BK):
+    """Walk the schedule in float64, masking only the tiles it marks,
+    against the dense softmax."""
     rng = np.random.default_rng(s * t)
     sc = rng.standard_normal((s, t)) * 3
     v = rng.standard_normal((t, 5))
@@ -95,7 +105,7 @@ def test_tile_walk_matches_the_dense_softmax(s, t, causal, window):
         m = np.full(r1 - r0, -1e30)
         l = np.zeros(r1 - r0)
         acc = np.zeros((r1 - r0, v.shape[1]))
-        first, end, masked = tflash.key_tiles(qb, s, t, causal, window)
+        first, end, masked = tflash.key_tiles(qb, s, t, causal, window, block_q=BQ, block_k=BK)
         for j, need in zip(range(first, end), masked):
             k = np.arange(j * BK, j * BK + BK)
             if need:
@@ -115,6 +125,28 @@ def test_tile_walk_matches_the_dense_softmax(s, t, causal, window):
             m = m_new
         got[r0:r1] = acc / np.maximum(l, 1e-30)[:, None]
     np.testing.assert_allclose(got, want, rtol=1e-12, atol=1e-12)
+
+
+@pytest.mark.parametrize("s,t", SIZES)
+@pytest.mark.parametrize("window", WINDOWS)
+def test_f32_causal_tiles_cover_exactly_the_attended_keys(s, t, window):
+    _check_blocks(s, t, True, window, **F32)
+
+
+@pytest.mark.parametrize("s,t", SIZES)
+def test_f32_non_causal_visits_every_tile(s, t):
+    _check_blocks(s, t, False, None, **F32)
+    for qb in range(-(-s // F32["block_q"])):
+        assert tflash.key_tiles(qb, s, t, False, None, **F32)[:2] == (0, -(-t // 32))
+
+
+@pytest.mark.parametrize(
+    "s,t,causal,window",
+    [(300, 100, True, 20), (200, 200, True, 37), (77, 45, True, None), (129, 300, True, 1),
+     (1, 300, False, None), (257, 130, True, 64), (333, 517, True, 100), (2048, 2048, True, 1000)],
+)
+def test_f32_tile_walk_matches_the_dense_softmax(s, t, causal, window):
+    _tile_walk(s, t, causal, window, F32["block_q"], F32["block_k"])
 
 
 def _bf16(*shape):
