@@ -77,6 +77,23 @@ own failure):
    for decision, at K=200, T=2000; then the paper's Section 9 cell (K=30,
    load 0.95, geometric sizes of mean 30, JSAQ with ET-3 and MSR, 20,000
    slots) on the dense backend.
+4b. The slotted tier's breadth on the dense backend (no kernel: every
+   launch count stays 0), the Section 9 setting (K=30, cap 2048, geometric
+   sizes of mean 30 unless stated, load 0.95 unless stated) at 4 seeds x
+   4000 slots, one ``simulate_grid`` call per static kind: SQ(2) (and a
+   diurnal cell at load 0.9, amp 0.1, period 2000), random, MMPP bursts of
+   intensity 1.7 under JSAQ + ET-3 + MSR and SQ(2), rates 1.5 / 0.5 on
+   the two halves under rate-aware JSAQ + ET-3 + MSR and SQ(2), Pareto
+   alpha {1.5, 3} x ET-{2, 3, 8}, Weibull shape 0.5, JIQ and hsq at load
+   0.9, two classes on servers 0-19 and 10-29.  Each call is held against
+   ``run_draws`` on the CPU on its draws, every ``SimResult`` field equal;
+   asserts conservation, max AQ <= x-1 under ET (Prop 6.8), SQ(2)'s 4
+   messages an arrival, JIQ's messages <= departures, token counters >= 0,
+   the fast half's share of arrivals under rate-aware JSAQ, and that no
+   class routes outside its affinity.  Profiles an SQ(2) call of 100
+   slots (device busy share, device operations a slot).  Then SQ(2) at
+   K=1e5, cap 16, 2 seeds x 1000 slots: the draws' peak device memory
+   stays O(N T d).
 5. The serving bench's ET ladder (``bench_serving._ladder``): 8 replicas,
    load 0.9, ET-x for x in {2, 4, 8, 16} x 4 seeds as one fused grid call,
    20,000 slots, then the exact-state grid call on the same workloads
@@ -226,6 +243,16 @@ MAIN_KS = (100_000, 1_000_000)
 MAIN_SLOTS = 4000
 DENSE_VS_FUSED = (200, 2000)  # K, T
 SECTION9_SLOTS = 20_000
+# Phase 4b: the paper's Section 9 setting (K = 30, cap 2048, geometric sizes
+# of mean 30) on the dense backend, cut from the benches' 20,000-100,000
+# slots to 4 seeds x 4000 (the dense loop takes ~1.9 ms a slot on the
+# card); then SQ(2) at K = 1e5, cap 16, 2 seeds x 1000 slots, for width.
+BREADTH_SLOTS = 4000
+BREADTH_SEEDS = (0, 1, 2, 3)
+BREADTH_PROFILE_SLOTS = 100  # the profiled SQ(2) call; the profiler slows the loop many fold
+BREADTH_WIDE = dict(servers=100_000, buffer_cap=16, slots=1000, load=0.95,
+                    policy="sq2", comm="none")
+BREADTH_WIDE_SEEDS = (0, 1)
 SERVE_PARITY = ((4, 1024, 304), (4, 200, 304))  # D, R, A
 SERVE_MAIN = dict(replicas=1024, decode_slots=16, slots=2048, queue_cap=128)
 SERVE_MAIN_SEEDS = (0, 1)
@@ -1147,6 +1174,166 @@ def _flash_build_report() -> None:
             name = None
 
 
+def _breadth_calls(slotted_sim) -> list:
+    """Phase 4b's calls, ``(name, cells)``, one ``simulate_grid`` call (one
+    static kind) each: Table 5's and the quickstart's SQ(2) with a diurnal
+    cell, random, the bursty and heterogeneous CCDF cells
+    (``benchmarks/bench_jct_ccdf.py:116-130``), the heavy-tail quick set
+    (``bench_heavy_tail.py``), Weibull, the pull frontier's JIQ and hsq
+    (``bench_pull.py:47-53``), and two classes on overlapping servers."""
+    base = dict(servers=30, slots=BREADTH_SLOTS, buffer_cap=2048, mean_service=30,
+                load=0.95, policy="jsaq", comm="et", x=3, approx="msr")
+    rates = tuple(1.5 if i < 15 else 0.5 for i in range(30))
+    group_a = tuple(i < 20 for i in range(30))
+    group_b = tuple(i >= 10 for i in range(30))
+
+    def cell(**kw):
+        return slotted_sim.SimConfig(**{**base, **kw})
+
+    sq2 = dict(policy="sq2", comm="none")
+    return [
+        ("sq2", [cell(**sq2), cell(**sq2, load=0.9, diurnal_amp=0.1,
+                                   diurnal_period=2000)]),
+        ("random", [cell(policy="random", comm="none")]),
+        ("bursty_et3_msr", [cell(arrival="mmpp", burst_intensity=1.7)]),
+        ("bursty_sq2", [cell(**sq2, arrival="mmpp", burst_intensity=1.7)]),
+        ("hetero_et3_msr", [cell(service_rates=rates)]),
+        ("hetero_sq2", [cell(**sq2, service_rates=rates)]),
+        ("pareto_et_msr", [cell(x=x, service="pareto", service_tail=a)
+                           for a in (1.5, 3.0) for x in (2, 3, 8)]),
+        ("weibull_et3_msr", [cell(service="weibull", service_tail=0.5)]),
+        ("jiq", [cell(policy="jiq", comm="jiq", load=0.9)]),
+        ("hsq", [cell(policy="hsq", comm="hsq", load=0.9, rt_rate=0.02)]),
+        ("classes_et3_msr", [cell(class_mix=(0.5, 0.5),
+                                  class_affinity=(group_a, group_b))]),
+    ]
+
+
+def _profile_dense(slotted_sim, cell) -> None:
+    """Where a dense-backend call's time goes: ``cell`` once unprofiled
+    (its wall) and once under the profiler; the device busy share is its
+    device time against that wall."""
+    from torch.profiler import ProfilerActivity, profile
+
+    static, scn = cell.static_part(), cell.scenario()
+    seeds = list(BREADTH_SEEDS)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    slotted_sim.simulate_grid(seeds, static, [scn])
+    wall_s = time.perf_counter() - t0
+    for _ in range(2):  # as _profile_serving: a second try before giving up
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            slotted_sim.simulate_grid(seeds, static, [scn])
+            torch.cuda.synchronize()
+        events = prof.key_averages()
+        device = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
+        device_us = sum(e.self_device_time_total for e in device)
+        if device_us:
+            break
+    else:
+        print("phase 4b dense profile: the profiler saw no device time; not measured")
+        return
+    launches = sum(e.count for e in device)
+    device.sort(key=lambda e: e.self_device_time_total, reverse=True)
+    print(f"phase 4b dense profile ({cell.policy}, {len(seeds)} runs x {cell.slots} "
+          f"slots): unprofiled wall {wall_s:.4f} s ({wall_s / cell.slots * 1e3:.3f} ms a "
+          f"slot), device busy {device_us / 1e3:.3f} ms, busy share "
+          f"{device_us / 1e6 / wall_s:.4f}; {launches} device operations, "
+          f"{launches / cell.slots:.1f} a slot; top: "
+          + "; ".join(f"{e.key[:40]} {e.self_device_time_total / 1e3:.3f} ms x{e.count}"
+                      for e in device[:5]))
+
+
+def _slotted_breadth(dev, times: dict, card_tests) -> None:
+    """Phase 4b: the slotted tier's policies and workloads on the card
+    through the dense backend, each call against the CPU on its draws."""
+    from repro_torch.core.care import metrics, slotted_sim
+    from repro_torch.kernels import ops
+
+    t_phase = time.perf_counter()
+    cpu_total = 0.0
+    for name, cells in _breadth_calls(slotted_sim):
+        static = cells[0].static_part()
+        ops.reset_launch_counts()
+        grid, card_s, cpu_s, draws, raw = card_tests.grid_vs_cpu(
+            dev, BREADTH_SEEDS, static, [c.scenario() for c in cells])
+        launches = ops.launch_counts()
+        assert sum(launches.values()) == 0, launches  # the dense backend
+        times[f"breadth_{name}_s"] = card_s
+        cpu_total += cpu_s
+        for c, (cfg, row) in enumerate(zip(cells, grid)):
+            for r in row:
+                assert r.arrivals == r.departures + int(r.final_q.sum()), name
+                assert r.token_misses >= 0 and r.token_sum >= 0, name
+                if cfg.comm == "et":
+                    assert r.max_aq <= cfg.x - 1, (name, r.max_aq)  # Prop 6.8
+                if cfg.policy == "sq2":
+                    assert metrics.relative_communication(r, "sq2") == (
+                        4 * r.arrivals / max(r.departures, 1))
+                if cfg.policy == "jiq":
+                    assert r.messages <= r.departures, name
+                if cfg.service_rates is not None and cfg.policy == "jsaq":
+                    fast = int(r.per_server_arrivals[:15].sum())
+                    assert fast > 0.5 * r.arrivals, (name, fast, r.arrivals)
+            if cfg.class_affinity is not None:
+                aff = torch.tensor(cfg.class_affinity)
+                n_s = len(BREADTH_SEEDS)
+                routed = raw["routed"][c * n_s:(c + 1) * n_s].long()
+                cls = draws["classes"][c * n_s:(c + 1) * n_s].long()
+                took = routed >= 0
+                assert bool(aff[cls[took], routed[took]].all()), name
+            jct = np.concatenate([r.jct for r in row])
+            s = metrics.jct_summary(jct)
+            assert s["count"] > 0 and np.isfinite(s["mean"]), name
+            arrived = sum(r.arrivals + r.dropped for r in row)
+            tokens = metrics.token_summary(sum(r.token_sum for r in row),
+                                           sum(r.token_misses for r in row),
+                                           BREADTH_SLOTS * len(row), arrived)
+            label = f"{name}[{c}]" if len(cells) > 1 else name
+            print(f"phase 4b {label} (load {cfg.load}, x {cfg.x}, "
+                  f"{len(BREADTH_SEEDS)} seeds x {BREADTH_SLOTS} slots): JCT mean "
+                  f"{s['mean']:.3f} p99 {s['p99']:.1f}, messages per departure "
+                  f"{np.mean([r.msgs_per_departure for r in row]):.4f}, max_aq "
+                  f"{max(r.max_aq for r in row)}, token miss rate "
+                  f"{tokens['miss_rate']:.4f}")
+        print(f"phase 4b {name}: card {card_s:.2f} s ({len(cells) * len(BREADTH_SEEDS)} "
+              f"runs, {card_s / BREADTH_SLOTS * 1e3:.3f} ms a slot), the CPU on the "
+              f"same draws {cpu_s:.2f} s: every SimResult field equal")
+    times["breadth_cpu_s"] = cpu_total
+    _profile_dense(slotted_sim, dataclasses.replace(
+        _breadth_calls(slotted_sim)[0][1][0], slots=BREADTH_PROFILE_SLOTS))
+
+    wide = slotted_sim.SimConfig(**BREADTH_WIDE)
+    static, scn = wide.static_part(), wide.scenario()
+    n, t = len(BREADTH_WIDE_SEEDS), wide.slots
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    before = torch.cuda.memory_allocated(dev)
+    arrive, sizes, draws = slotted_sim.draw_workload(BREADTH_WIDE_SEEDS, static, [scn], dev)
+    torch.cuda.synchronize()
+    draw_peak = torch.cuda.max_memory_allocated(dev) - before
+    held = sum(x.numel() * x.element_size() for x in (arrive, sizes, *draws.values()))
+    assert draws["subset"].shape == (n, t, 2)
+    # O(N T d): a (N, T, K) permutation would take 4 N T K bytes.
+    assert draw_peak <= 64 * n * t * 2 * 4, draw_peak
+    del arrive, sizes, draws
+    torch.cuda.reset_peak_memory_stats(dev)
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = slotted_sim.simulate_grid(BREADTH_WIDE_SEEDS, static, [scn], device=dev)[0]
+    times["breadth_wide_s"] = time.perf_counter() - t0
+    assert sum(ops.launch_counts().values()) == 0
+    for r in res:
+        assert r.arrivals == r.departures + int(r.final_q.sum()) and r.arrivals > 0
+    print(f"phase 4b sq2 K={wide.servers:.0e} cap {wide.buffer_cap}, {n} seeds x {t} "
+          f"slots: {times['breadth_wide_s']:.2f} s ({times['breadth_wide_s'] / t * 1e3:.3f} "
+          f"ms a slot); the draws hold {held} B, their peak {draw_peak} B "
+          f"(a (N, T, K) permutation: {4 * n * t * wide.servers} B); the run's peak "
+          f"device memory {torch.cuda.max_memory_allocated(dev) / 1e6:.1f} MB; JCT mean "
+          f"{metrics.jct_summary(np.concatenate([r.jct for r in res]))['mean']:.3f}")
+    times["breadth_phase_s"] = time.perf_counter() - t_phase
+
+
 def _card_tests():
     """``tests/test_torch_cuda.py``, whose serve_slots cases and comparison
     with the dense backend phases 2 and 3 share (loaded by path)."""
@@ -1561,6 +1748,9 @@ def main() -> int:
           f"dense): JCT mean {s['mean']:.3f} p99 {s['p99']:.1f}, messages per "
           f"departure {r.msgs_per_departure:.4f}, max_aq {r.max_aq}, "
           f"{times['section9_s']:.1f} s")
+
+    # -- 4b. the slotted tier's breadth -----------------------------------------
+    _slotted_breadth(dev, times, card_tests)
 
     # -- 5. the serving ET ladder --------------------------------------------------
     def fused_cell(comm, x=4):

@@ -3,13 +3,15 @@
 The port of ``repro.core.care`` (Mendelson & Xu, "Load Balancing Using
 Sparse Communication"):
 
-comm        -- push trigger core (RT / DT / ET / ET+RT / exact / none)
+comm        -- trigger core (RT / DT / ET / ET+RT / exact / none, and the
+               pull kinds JIQ / hsq)
 approx      -- basic / MSR / MSR-x queue emulation
-routing     -- JSQ / JSAQ / round robin
-workload    -- Bernoulli arrivals and geometric / deterministic sizes as
-               functions of uniforms, plus torch.Generator samplers
+routing     -- JSQ / JSAQ / SQ(d) / round robin / random / JIQ / hsq
+workload    -- Bernoulli and MMPP arrivals (optionally diurnal), geometric /
+               deterministic / Pareto / Weibull sizes and arrival classes
+               as functions of uniforms, plus torch.Generator samplers
 slotted_sim -- the slotted simulator of Section 9 (dense and fused backends)
-metrics     -- JCT and communication metrics
+metrics     -- JCT, communication and token-pool metrics
 theory      -- closed-form bounds of Theorems 2.3-2.5
 """
 

@@ -1,11 +1,23 @@
 """Resource-allocation component (paper Sections 2.1.4 and 9.1).
 
-Port of the main-path part of ``repro/core/care/routing.py``: JSQ, JSAQ and
-round robin.  Policies are functions of tensors with a trailing server
-axis and any leading batch axes.  Random tie-breaking takes a ``(..., K)``
-float32 Gumbel tensor for the slot instead of a PRNG key (the reference
-draws ``jax.random.gumbel(key, (K,))`` from the slot's key); a caller that
-wants lowest-index ties passes ``deterministic=True`` and no Gumbels.
+Port of ``repro/core/care/routing.py``: JSQ, JSAQ, SQ(d), round robin,
+uniformly random routing and the pull policies (JIQ / hyper-scalable JSQ)
+that spend a balancer-side token pool.  Policies are functions of tensors
+with a trailing server axis and any leading batch axes.
+
+The reference draws a policy's randomness from the slot's PRNG key; the
+port takes each draw as a tensor for the slot instead:
+
+* random tie-breaking of the shortest-queue family and the pull policies:
+  a ``(..., K)`` float32 Gumbel tensor (the reference's
+  ``gumbel(key, (K,))``); a caller that wants lowest-index ties passes
+  ``deterministic=True`` and no Gumbels;
+* SQ(d): the ``(..., d)`` int32 sample of distinct servers and its
+  ``(..., d)`` Gumbels (the reference's ``permutation(key_perm, K)[:d]``
+  and ``gumbel(key_tie, (d,))`` after ``split(key)``);
+* random: an int32 draw in ``[0, n_eligible)`` (the reference's
+  ``randint(key, (), 0, n_eligible)``).
+
 ``torch.argmin`` / ``torch.argmax`` return the first index on ties, as
 ``jnp.argmin`` / ``jnp.argmax`` do.
 """
@@ -15,10 +27,12 @@ from typing import Literal
 
 import torch
 
-PolicyKind = Literal["jsq", "jsaq", "rr"]
+PolicyKind = Literal["jsq", "jsaq", "sq2", "sqd", "rr", "random", "jiq", "hsq"]
+POLICIES = ("jsq", "jsaq", "sq2", "sqd", "rr", "random", "jiq", "hsq")
 
-SLICE_2_POLICIES = "slice 2 of the port (ROADMAP 1, item 8)"
-SLICE_2_PULL = "slice 2 of the port (ROADMAP 1, item 10)"
+# Pull (server-initiated) policies: route on the balancer-side token pool
+# kept up by the comm kind of the same name.
+PULL_POLICIES = ("jiq", "hsq")
 
 
 def expected_drain_slots(mean_size, rates):
@@ -70,6 +84,59 @@ def route_rr(
     return server, (server + 1) % k
 
 
+def route_sqd(
+    q_true: torch.Tensor,
+    subset: torch.Tensor,
+    gumbel: torch.Tensor,
+    mask: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """SQ(d): join the shortest of the ``(..., d)`` sampled servers.
+
+    Ties within the subset go to the largest of its ``(..., d)`` Gumbels.
+    ``mask`` excludes servers within the subset: a masked-out candidate
+    loses every comparison unless the whole subset is masked out (the
+    fallback of :func:`mask_scores`).
+    """
+    sub = q_true.gather(-1, subset.long())
+    if mask is not None:
+        sub = mask_scores(sub, mask.gather(-1, subset.long()))
+    j = argmin_random_ties(sub, gumbel)
+    return subset.gather(-1, j.long()[..., None])[..., 0].to(torch.int32)
+
+
+def route_random(
+    pick: torch.Tensor, mask: torch.Tensor | None = None
+) -> torch.Tensor:
+    """Uniformly random routing from an int32 draw ``pick``.
+
+    Without a mask ``pick`` (in ``[0, K)``) is the server.  With one it is
+    in ``[0, n_eligible)`` and picks the ``pick``-th eligible server (an
+    all-False mask means all servers).
+    """
+    if mask is None:
+        return pick.to(torch.int32)
+    mask = torch.where(mask.any(-1, keepdim=True), mask, True)
+    cum = torch.cumsum(mask.to(torch.int32), -1, dtype=torch.int32)
+    return torch.argmax((cum == pick[..., None] + 1).to(torch.int32), -1).to(
+        torch.int32
+    )
+
+
+def route_tokens(
+    tokens: torch.Tensor,
+    gumbel: torch.Tensor | None = None,
+    deterministic: bool = False,
+    mask: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """Pull policies (JIQ / hsq): join the server holding the most tokens.
+
+    Scored as ``-tokens`` through :func:`route_shortest`, so ties (an empty
+    pool included: the uniform fallback) resolve as JSAQ's do and masks
+    compose through :func:`mask_scores`.
+    """
+    return route_shortest((0 - tokens).to(torch.float32), gumbel, deterministic, mask)
+
+
 def route(
     policy: str,
     q_true: torch.Tensor,
@@ -79,12 +146,22 @@ def route(
     drain_slots: torch.Tensor | None = None,
     deterministic: bool = False,
     mask: torch.Tensor | None = None,
+    *,
+    subset: torch.Tensor | None = None,
+    subset_gumbel: torch.Tensor | None = None,
+    rand_pick: torch.Tensor | None = None,
+    tokens: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Dispatch one job per batch row.  Returns ``(server, rr_ptr')``.
 
-    ``jsq`` reads the true queues, ``jsaq`` the approximated ones, ``rr``
-    neither.  ``drain_slots`` (optional, ``(..., K)``) makes the
-    shortest-queue family minimise ``q_i * E[S] / r_i``.
+    ``jsq`` and ``sq2`` / ``sqd`` read the true queues, ``jsaq`` the
+    approximated ones, ``rr`` and ``random`` neither, ``jiq`` / ``hsq`` the
+    token pool ``tokens`` (the caller spends and refreshes it).
+    ``drain_slots`` (optional, ``(..., K)``) makes the queue-reading
+    policies minimise ``q_i * E[S] / r_i`` (SQ(d) within its subset).
+    ``mask`` marks the eligible servers for every policy.  The slot's
+    draws: ``gumbel`` for jsq / jsaq / jiq / hsq with random ties,
+    ``subset`` and ``subset_gumbel`` for sq2 / sqd, ``rand_pick`` for random.
     """
     k = q_true.shape[-1]
     if drain_slots is None:
@@ -96,13 +173,13 @@ def route(
         return route_shortest(scaled_true, gumbel, deterministic, mask), rr_ptr
     if policy == "jsaq":
         return route_shortest(scaled_app, gumbel, deterministic, mask), rr_ptr
+    if policy in ("sq2", "sqd"):
+        return route_sqd(scaled_true, subset, subset_gumbel, mask), rr_ptr
     if policy == "rr":
         server, ptr = route_rr(rr_ptr, k, mask)
         return server.to(torch.int32), ptr
-    if policy in ("sq2", "sqd", "random"):
-        raise NotImplementedError(
-            f"policy {policy!r} comes with {SLICE_2_POLICIES}"
-        )
-    if policy in ("jiq", "hsq"):
-        raise NotImplementedError(f"policy {policy!r} comes with {SLICE_2_PULL}")
+    if policy == "random":
+        return route_random(rand_pick, mask), rr_ptr
+    if policy in PULL_POLICIES:
+        return route_tokens(tokens, gumbel, deterministic, mask), rr_ptr
     raise ValueError(f"unknown policy: {policy}")

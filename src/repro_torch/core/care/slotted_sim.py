@@ -3,9 +3,12 @@
 Port of ``repro/core/care/slotted_sim.py``.  K parallel FIFO servers and one
 load balancer; in every slot, in this order:
 
-  1. a Bernoulli(``load``) arrival is routed on the *pre-slot* state (a
-     full FIFO, ``q >= buffer_cap``, drops it and counts the drop);
-  2. every busy server works one unit; the head job departs when its
+  1. an arrival (Bernoulli(``load``), or Markov-modulated with
+     ``arrival="mmpp"``, either one optionally under a diurnal curve) is
+     routed on the *pre-slot* state (a full FIFO, ``q >= buffer_cap``,
+     drops it and counts the drop);
+  2. every busy server works one unit, or its rate's credit under
+     heterogeneous ``service_rates``; the head job departs when its
      remaining requirement reaches zero;
   3. the balancer's emulation advances one slot (:mod:`.approx`);
   4. the communication pattern (:mod:`.comm`) fires, and every triggered
@@ -21,9 +24,10 @@ one (cell, seed) pair and the run axis is flattened cell-major,
 ``run = cell * S + seed``.  Slots at ``t >= horizon`` are frozen no-ops.
 
 Randomness is an input.  :func:`draw_workload` draws arrivals, job sizes
-and per-slot tie-break Gumbels from one ``torch.Generator`` per seed, and
-every cell replays the same uniforms for the same seed.  :func:`run_draws`
-takes those draws as tensors, so a caller (the tests) can feed it the
+and the policies' per-slot draws (tie-break Gumbels, SQ(d) subsets, random
+picks, arrival classes) from one ``torch.Generator`` per seed, and every
+cell replays the same uniforms for the same seed.  :func:`run_draws` takes
+those draws as tensors, so a caller (the tests) can feed it the
 reference's own draws.
 
 Two backends select the engine that runs the slot loop:
@@ -37,9 +41,11 @@ Two backends select the engine that runs the slot loop:
   carries no FIFO ring, so it reports no JCT, and it accepts exactly the
   configurations the reference's pallas backend accepts.
 
-The network, fault, class and pull kinds, the SQ(d) / random policies, MMPP
-arrivals and the heavy-tailed sizes come with slice 2 of the port and
-raise ``NotImplementedError`` here.
+Policies: jsq, jsaq, sq2 / sqd, rr, random, and the pull policies jiq /
+hsq with their balancer-side token pool.  Multi-class arrivals route
+within their class's server affinity.  The degraded control plane (the
+``network`` and ``fault`` kinds) comes with ROADMAP 1, item 9, and raises
+``NotImplementedError`` here.
 """
 from __future__ import annotations
 
@@ -56,7 +62,7 @@ from repro_torch.core.care import workload as workload_lib
 from repro_torch.kernels import ops as kernel_ops
 
 _I32 = torch.int32
-_SLICE_2 = "slice 2 of the port (ROADMAP 1, item {})"
+_ITEM_9 = "slice 2 of the port (ROADMAP 1, item 9)"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -67,6 +73,11 @@ class StaticConfig:
     its ``Scenario.horizon``.  ``route_backend`` is ``"dense"`` or
     ``"fused"``; ``deterministic_ties`` breaks shortest-queue ties to the
     lowest index instead of uniformly at random (the fused kernel's rule).
+    ``sqd`` is SQ(d)'s d; ``use_rates`` puts heterogeneous service rates in
+    play and ``rate_aware`` makes the queue-reading policies route on the
+    expected drain time ``q_i * E[S] / r_i``.  ``classes`` is the number of
+    arrival classes; ``constrained`` applies the affinity mask also to a
+    single class.
     """
 
     servers: int = 30
@@ -75,20 +86,27 @@ class StaticConfig:
     comm: str = "et"
     approx: str = "msr"
     buffer_cap: int = 2048
+    sqd: int = 2
     arrival: str = "bernoulli"
     service: str = "geometric"
     use_rates: bool = False
+    rate_aware: bool = True
     route_backend: str = "dense"
     deterministic_ties: bool = False
     network: str = "none"
     fault: str = "none"
     classes: int = 1
+    constrained: bool = False
 
 
-@dataclasses.dataclass(frozen=True)
+@dataclasses.dataclass(frozen=True, eq=False)
 class Scenario:
     """Numeric operands of one grid cell, float32 / int32 as the reference
-    carries them.  ``rt_period`` is derived from ``rt_rate`` host-side."""
+    carries them.  ``rt_period`` (from ``rt_rate``) and the MMPP state
+    rates ``lam_hi`` / ``lam_lo`` (from ``load`` and ``burst_intensity``)
+    are derived host-side in float64 and cast once.  ``service_rates``
+    ``(K,)`` is ``None`` for unit rates and ``class_affinity`` ``(C, K)``
+    ``None`` for every server eligible to every class."""
 
     load: np.float32
     x: np.int32
@@ -96,6 +114,15 @@ class Scenario:
     rt_period: np.int32
     service: workload_lib.ServiceProcess
     horizon: np.int32
+    burst_intensity: np.float32
+    burst_stay: np.float32
+    lam_hi: np.float32
+    lam_lo: np.float32
+    service_rates: Optional[np.ndarray]
+    diurnal_amp: np.float32
+    diurnal_period: np.float32
+    class_mix: np.ndarray
+    class_affinity: Optional[np.ndarray]
 
     @staticmethod
     def create(
@@ -105,8 +132,81 @@ class Scenario:
         mean_service: float = 30,
         service: str = "geometric",
         horizon: Optional[int] = None,
+        *,
+        servers: Optional[int] = None,
+        burst_intensity: float = 1.6,
+        burst_stay: float = 0.98,
+        service_rates: Optional[Sequence[float]] = None,
+        service_tail: float = 2.0,
+        diurnal_amp: float = 0.0,
+        diurnal_period: float = 1.0,
+        arrival: str = "bernoulli",  # diurnal peak-rate validation only
+        class_mix: Optional[Sequence[float]] = None,
+        class_affinity: Optional[Sequence[Sequence[bool]]] = None,
+        policy: Optional[str] = None,  # pull-pairing validation only
+        comm: Optional[str] = None,  # pull-pairing validation only
     ) -> "Scenario":
+        """Build one cell with the reference's validations.
+
+        ``servers`` checks the width of ``class_affinity`` (the simulator
+        checks it again against ``StaticConfig.servers``).
+        """
+        comm_lib.validate_control_plane(
+            policy=policy, comm=comm,
+            token_refresh=rt_rate if policy == "hsq" else None,
+        )
+        if class_affinity is not None and class_mix is None:
+            raise ValueError(
+                "class_affinity requires class_mix (one weight per class)"
+            )
+        if class_mix is None:
+            mix, aff = np.ones((1,), np.float32), None
+        else:
+            mix64 = np.asarray(class_mix, np.float64)
+            if mix64.ndim != 1 or mix64.size < 1:
+                raise ValueError(
+                    f"class_mix must be a 1-D weight vector, got shape {mix64.shape}"
+                )
+            if np.any(mix64 < 0) or mix64.sum() <= 0:
+                raise ValueError(
+                    "class_mix weights must be >= 0 with a positive sum, "
+                    f"got {class_mix}"
+                )
+            mix, aff = mix64.astype(np.float32), None
+            if class_affinity is not None:
+                aff = np.asarray(class_affinity, bool)
+                width = servers if servers is not None else aff.shape[-1]
+                if aff.shape != (mix.size, width):
+                    raise ValueError(
+                        f"class_affinity must have shape (classes, servers) = "
+                        f"({mix.size}, {width}), got {aff.shape}"
+                    )
+                if not aff.any(axis=1).all():
+                    empty = int(np.argmin(aff.any(axis=1)))
+                    raise ValueError(
+                        f"class_affinity row {empty} has no eligible server; "
+                        "every class needs at least one"
+                    )
+        lam_hi = min(burst_intensity * load, 1.0)
+        lam_lo = max(2.0 * load - lam_hi, 0.0)
         period = max(int(round(1.0 / max(rt_rate, 1e-9))), 1)
+        diurnal_amp = float(diurnal_amp)
+        if not 0.0 <= diurnal_amp <= 1.0:
+            raise ValueError(
+                f"diurnal_amp must be in [0, 1] (rate stays non-negative), "
+                f"got {diurnal_amp}"
+            )
+        # The highest modulated rate must stay a probability, or u < rate
+        # clips the sine's peaks and the long-run rate drops below load.
+        # For mmpp that peak is the burst state's rate.
+        base_peak = lam_hi if arrival == "mmpp" else load
+        if diurnal_amp and base_peak * (1.0 + diurnal_amp) > 1.0 + 1e-9:
+            raise ValueError(
+                f"diurnal peak rate {base_peak:.4f}*(1+amp) = "
+                f"{base_peak * (1.0 + diurnal_amp):.4f} exceeds 1 "
+                f"(arrival={arrival!r}); lower amp to at most "
+                f"{1.0 / base_peak - 1.0:.4f}"
+            )
         if horizon is None:
             horizon = np.iinfo(np.int32).max  # unbounded: never mask
         return Scenario(
@@ -115,9 +215,21 @@ class Scenario:
             rt_rate=np.float32(rt_rate),
             rt_period=np.int32(period),
             service=workload_lib.ServiceProcess.create(
-                kind=service, mean=mean_service
+                kind=service, mean=mean_service, tail=service_tail
             ),
             horizon=np.int32(horizon),
+            burst_intensity=np.float32(burst_intensity),
+            burst_stay=np.float32(burst_stay),
+            lam_hi=np.float32(lam_hi),
+            lam_lo=np.float32(lam_lo),
+            service_rates=(
+                None if service_rates is None
+                else np.asarray(service_rates, np.float32)
+            ),
+            diurnal_amp=np.float32(diurnal_amp),
+            diurnal_period=np.float32(max(float(diurnal_period), 1e-6)),
+            class_mix=mix,
+            class_affinity=aff,
         )
 
 
@@ -125,8 +237,15 @@ class Scenario:
 class SimConfig:
     """One grid cell as the user sees it: :meth:`static_part` + :meth:`scenario`.
 
-    ``service_rates``, ``class_mix``, ``network`` and ``fault`` name
-    features of slice 2; any value other than the default is refused.
+    Beyond the paper's Section 9.1 setting: ``arrival="mmpp"`` with
+    ``burst_intensity`` / ``burst_stay`` for bursty arrivals (long-run rate
+    ``load``); ``service`` in geometric / deterministic / pareto / weibull
+    with ``service_tail`` the Pareto alpha or Weibull shape;
+    ``diurnal_amp`` / ``diurnal_period`` for a sinusoidal load curve;
+    ``service_rates`` (one speed a server) with ``rate_aware`` drain-time
+    routing; ``class_mix`` / ``class_affinity`` for constrained routing.
+    ``network`` and ``fault`` name the degraded control plane of ROADMAP
+    1, item 9; any value other than ``"none"`` is refused.
     """
 
     servers: int = 30
@@ -139,15 +258,23 @@ class SimConfig:
     rt_rate: float = 0.01
     approx: str = "msr"
     buffer_cap: int = 2048
+    sqd: int = 2
     arrival: str = "bernoulli"
-    service: str = "geometric"
+    burst_intensity: float = 1.6
+    burst_stay: float = 0.98
     service_rates: Optional[tuple] = None
+    rate_aware: bool = True
+    service: str = "geometric"
+    service_tail: float = 2.0
+    diurnal_amp: float = 0.0
+    diurnal_period: float = 1.0
     max_slots: Optional[int] = None
     route_backend: str = "dense"
     deterministic_ties: bool = False
     network: str = "none"
     fault: str = "none"
     class_mix: Optional[tuple] = None
+    class_affinity: Optional[tuple] = None
 
     def static_part(self) -> StaticConfig:
         if self.max_slots is not None and self.max_slots < self.slots:
@@ -161,14 +288,17 @@ class SimConfig:
             comm=self.comm,
             approx=self.approx,
             buffer_cap=self.buffer_cap,
+            sqd=self.sqd,
             arrival=self.arrival,
             service=self.service,
             use_rates=self.service_rates is not None,
+            rate_aware=self.rate_aware,
             route_backend=self.route_backend,
             deterministic_ties=self.deterministic_ties,
             network=self.network,
             fault=self.fault,
             classes=len(self.class_mix) if self.class_mix is not None else 1,
+            constrained=self.class_affinity is not None,
         )
 
     def scenario(self) -> Scenario:
@@ -179,6 +309,18 @@ class SimConfig:
             mean_service=self.mean_service,
             service=self.service,
             horizon=self.slots,
+            servers=self.servers,
+            burst_intensity=self.burst_intensity,
+            burst_stay=self.burst_stay,
+            service_rates=self.service_rates,
+            service_tail=self.service_tail,
+            diurnal_amp=self.diurnal_amp,
+            diurnal_period=self.diurnal_period,
+            arrival=self.arrival,
+            class_mix=self.class_mix,
+            class_affinity=self.class_affinity,
+            policy=self.policy,
+            comm=self.comm,
         )
 
 
@@ -198,13 +340,17 @@ class SimResult:
     msgs_per_departure: float = 0.0  # the exact-state baseline is 1
     queue_gap_sup: int = 0  # sup_t max_ij |Q_i - Q_j|
     dropped: int = 0  # arrivals rejected because the FIFO was full
+    # Pull-policy counters (jiq / hsq; zero otherwise).
+    token_misses: int = 0  # arrivals routed with an empty token pool
+    token_sum: int = 0  # sum over active slots of the end-of-slot pool
 
 
 def _check_fused_static(static: StaticConfig) -> None:
     """Refuse what the fused kernel does not model, exactly as the
     reference's ``_check_pallas_static`` refuses it: shortest-queue routing
     with lowest-index ties, MSR emulation, deterministic jobs at unit
-    rates, no control-plane model and no routing constraints."""
+    rates, no control-plane model and no routing constraints.  (Arrivals
+    are an input of the kernel, so MMPP and diurnal arrivals run on it.)"""
     if static.policy not in ("jsq", "jsaq"):
         raise ValueError(
             f"route_backend='fused' supports policies 'jsq'/'jsaq', got "
@@ -235,15 +381,17 @@ def _check_fused_static(static: StaticConfig) -> None:
             f"control plane (network={static.network!r}, "
             f"fault={static.fault!r}) -- use route_backend='dense'"
         )
-    if static.classes > 1:
+    if static.classes > 1 or static.constrained:
         raise NotImplementedError(
             f"route_backend='fused' does not implement constrained routing "
-            f"(classes={static.classes}) -- use route_backend='dense'"
+            f"(classes={static.classes}, constrained={static.constrained}): "
+            f"the kernel carries no per-class affinity masks -- use "
+            f"route_backend='dense'"
         )
 
 
 def _check_static(static: StaticConfig) -> None:
-    """Refuse kinds this slice does not run, naming the slice that will."""
+    """Refuse unknown kinds and the kinds of ROADMAP 1, item 9."""
     if static.route_backend not in ("dense", "fused"):
         raise ValueError(
             f"route_backend must be 'dense' or 'fused', got {static.route_backend!r}"
@@ -253,44 +401,60 @@ def _check_static(static: StaticConfig) -> None:
     if static.network != "none" or static.fault != "none":
         raise NotImplementedError(
             f"network={static.network!r} / fault={static.fault!r} come with "
-            + _SLICE_2.format(9)
-        )
-    if static.classes > 1:
-        raise NotImplementedError(
-            f"multi-class arrivals come with {_SLICE_2.format(10)}"
-        )
-    if static.policy in ("jiq", "hsq") or static.comm in comm_lib.PULL_KINDS:
-        raise NotImplementedError(
-            f"pull policies and comm kinds come with {_SLICE_2.format(10)}"
-        )
-    if static.policy in ("sq2", "sqd", "random"):
-        raise NotImplementedError(
-            f"policy {static.policy!r} comes with {_SLICE_2.format(8)}"
-        )
-    if static.arrival == "mmpp":
-        raise NotImplementedError(f"MMPP arrivals come with {_SLICE_2.format(8)}")
-    if static.service in ("pareto", "weibull"):
-        raise NotImplementedError(
-            f"service kind {static.service!r} comes with {_SLICE_2.format(8)}"
-        )
-    if static.use_rates:
-        raise NotImplementedError(
-            f"heterogeneous service rates come with {_SLICE_2.format(8)}"
+            + _ITEM_9
         )
     for name, value, allowed in (
-        ("policy", static.policy, ("jsq", "jsaq", "rr")),
-        ("comm", static.comm, comm_lib.PUSH_KINDS),
+        ("policy", static.policy, routing_lib.POLICIES),
+        ("comm", static.comm, comm_lib.PUSH_KINDS + comm_lib.PULL_KINDS),
         ("approx", static.approx, ("basic", "msr", "msr_x")),
-        ("arrival", static.arrival, ("bernoulli",)),
-        ("service", static.service, ("geometric", "deterministic")),
+        ("arrival", static.arrival, ("bernoulli", "mmpp")),
+        ("service", static.service, workload_lib.SERVICE_KINDS),
     ):
         if value not in allowed:
             raise ValueError(f"unknown {name}: {value!r}")
+    pull = static.policy in routing_lib.PULL_POLICIES
+    if pull and static.comm != static.policy:
+        raise ValueError(
+            f"policy={static.policy!r} requires comm={static.policy!r} "
+            f"(its token channel), got comm={static.comm!r}"
+        )
+    if static.comm in comm_lib.PULL_KINDS and not pull:
+        raise ValueError(
+            f"comm={static.comm!r} is the token channel of "
+            f"policy={static.comm!r}, got policy={static.policy!r}"
+        )
+    if static.policy == "sqd" and static.sqd < 1:
+        raise ValueError(f"sqd must be >= 1, got {static.sqd}")
+    if static.classes < 1:
+        raise ValueError(f"classes must be >= 1, got {static.classes}")
+
+
+def _check_diurnal_peak(static: StaticConfig, runs: Sequence[Scenario]) -> None:
+    """Reject diurnal amplitudes whose modulated peak rate exceeds 1.
+
+    ``Scenario.create`` checks this when told the arrival kind; a cell
+    built without it meets its ``StaticConfig`` here.  For mmpp the peak
+    is the burst state's rate ``lam_hi``, not ``load``.
+    """
+    amp = np.asarray([s.diurnal_amp for s in runs])
+    peak = np.asarray(
+        [s.lam_hi if static.arrival == "mmpp" else s.load for s in runs]
+    )
+    bad = (amp > 0) & (peak * (1.0 + amp) > 1.0 + 1e-6)
+    if np.any(bad):
+        raise ValueError(
+            f"diurnal peak rate exceeds 1 for {int(np.sum(bad))} cell(s) "
+            f"(arrival={static.arrival!r}: peak rate "
+            f"{'lam_hi' if static.arrival == 'mmpp' else 'load'} * (1+amp) "
+            f"must stay a probability)"
+        )
 
 
 @dataclasses.dataclass(frozen=True)
 class _Operands:
-    """Per-run scenario operands: ``(N, 1)`` columns, ``horizon`` ``(N,)``."""
+    """Per-run scenario operands: ``(N, 1)`` columns, ``horizon`` ``(N,)``,
+    ``mix`` ``(N, C)``, ``rates`` ``(N, K)`` (``None``: unit rates) and
+    ``aff`` ``(N, C, K)`` (``None``: unconstrained routing)."""
 
     load: torch.Tensor
     x: torch.Tensor
@@ -298,20 +462,64 @@ class _Operands:
     msr: torch.Tensor
     mean: torch.Tensor
     geo_log1p: torch.Tensor
+    scale: torch.Tensor
+    inv_tail: torch.Tensor
     horizon: torch.Tensor
+    lam_hi: torch.Tensor
+    lam_lo: torch.Tensor
+    burst_stay: torch.Tensor
+    amp: torch.Tensor
+    period: torch.Tensor
+    mix: torch.Tensor
+    rates: Optional[torch.Tensor]
+    aff: Optional[torch.Tensor]
 
 
 def _operands(runs: Sequence[Scenario], static: StaticConfig, device) -> _Operands:
+    """Check the runs' cells against ``static`` and stack their operands."""
+    k, c = static.servers, static.classes
     for scn in runs:
         if scn.service.kind != static.service:
             raise ValueError(
                 f"Scenario service kind {scn.service.kind!r} does not match "
                 f"StaticConfig.service {static.service!r}"
             )
+        if scn.class_mix.shape != (c,):
+            raise ValueError(
+                f"Scenario.class_mix has {scn.class_mix.size} classes but "
+                f"StaticConfig.classes is {c}"
+            )
+        if scn.class_affinity is not None and scn.class_affinity.shape != (c, k):
+            raise ValueError(
+                f"Scenario.class_affinity must have shape (classes, servers) = "
+                f"({c}, {k}), got {scn.class_affinity.shape}"
+            )
+        if static.use_rates and scn.service_rates is not None and (
+            scn.service_rates.shape != (k,)
+        ):
+            raise ValueError(
+                f"Scenario.service_rates must have shape ({k},), got "
+                f"{scn.service_rates.shape}"
+            )
+        if static.policy == "hsq" and scn.rt_rate < 0:
+            raise ValueError("rt_rate (the hsq token-refresh rate) must be >= 0")
+    _check_diurnal_peak(static, runs)
 
     def col(values, dtype):
         return torch.tensor(np.asarray(values), dtype=dtype, device=device)[:, None]
 
+    def stack(values, dtype):
+        return torch.tensor(np.stack(values), dtype=dtype, device=device)
+
+    rates = aff = None
+    if static.use_rates:
+        ones = np.ones((k,), np.float32)
+        rates = stack([ones if s.service_rates is None else s.service_rates
+                       for s in runs], torch.float32)
+    if static.classes > 1 or static.constrained:
+        every = np.ones((c, k), bool)
+        aff = stack([every if s.class_affinity is None else s.class_affinity
+                     for s in runs], torch.bool)
     return _Operands(
         load=col([s.load for s in runs], torch.float32),
         x=col([s.x for s in runs], _I32),
@@ -319,12 +527,46 @@ def _operands(runs: Sequence[Scenario], static: StaticConfig, device) -> _Operan
         msr=col([s.service.msr_slots for s in runs], _I32),
         mean=col([s.service.mean for s in runs], torch.float32),
         geo_log1p=col([s.service.geo_log1p for s in runs], torch.float32),
+        scale=col([s.service.scale for s in runs], torch.float32),
+        inv_tail=col([s.service.inv_tail for s in runs], torch.float32),
         horizon=col([s.horizon for s in runs], _I32)[:, 0],
+        lam_hi=col([s.lam_hi for s in runs], torch.float32),
+        lam_lo=col([s.lam_lo for s in runs], torch.float32),
+        burst_stay=col([s.burst_stay for s in runs], torch.float32),
+        amp=col([s.diurnal_amp for s in runs], torch.float32),
+        period=col([s.diurnal_period for s in runs], torch.float32),
+        mix=stack([s.class_mix for s in runs], torch.float32),
+        rates=rates,
+        aff=aff,
     )
 
 
 def _random_ties(static: StaticConfig) -> bool:
-    return static.policy in ("jsq", "jsaq") and not static.deterministic_ties
+    return (
+        static.policy in ("jsq", "jsaq") + routing_lib.PULL_POLICIES
+        and not static.deterministic_ties
+    )
+
+
+def _subset_width(static: StaticConfig) -> int:
+    """SQ(d)'s d as the reference samples it (``permutation(K)[:d]`` holds
+    ``min(d, K)`` servers); 0 for the other policies."""
+    if static.policy == "sq2":
+        return min(2, static.servers)
+    if static.policy == "sqd":
+        return min(static.sqd, static.servers)
+    return 0
+
+
+def _eligible(op: _Operands, classes: Optional[torch.Tensor], k: int):
+    """Eligible servers of each run's arrival in every slot: ``(N, T)``
+    int32 from the class affinity, or ``k`` when routing is unconstrained."""
+    if op.aff is None:
+        return k
+    count = op.aff.sum(-1, dtype=_I32)  # (N, C)
+    if classes is None:
+        return count[:, :1]
+    return count.gather(1, classes.long())
 
 
 def draw_workload(
@@ -333,51 +575,105 @@ def draw_workload(
     scenarios: Sequence[Scenario],
     device: torch.device,
 ):
-    """Draw ``(arrive, sizes, gumbel)`` for the runs ``cell * S + seed``.
+    """Draw ``(arrive, sizes, draws)`` for the runs ``cell * S + seed``.
 
     The counterpart of the reference's ``_prep``, with torch generators.
-
     Each seed's ``torch.Generator`` yields, in this order, the arrival
     uniforms ``(T,)``, the size uniforms ``(T,)`` (dense backend) and the
-    tie-break uniforms ``(T, K)`` (random ties), and every cell reuses its
-    seed's uniforms.  Returns ``(N, T)`` bool arrivals masked by each run's
-    horizon, ``(N, T)`` int32 sizes (``None`` on the fused backend) and
-    ``(N, T, K)`` float32 Gumbels (``None`` unless ties are random).
+    tie-break uniforms ``(T, K)`` (random ties); after them, each only when
+    its kind is on, so that every cell without these kinds replays the
+    same draws: the MMPP switch uniforms ``(T,)``, the SQ(d) subsets
+    ``(T, d)`` (Floyd's algorithm, O(d) draws a slot) and their tie-break
+    uniforms ``(T, d)``, the random policy's float64 uniforms ``(T,)`` and
+    the class uniforms ``(T,)``.  Every cell reuses its seed's uniforms.
+
+    Returns ``(N, T)`` bool arrivals (diurnal-modulated, masked by each
+    run's horizon), ``(N, T)`` int32 sizes (``None`` on the fused backend)
+    and a dict of the keyword draws of :func:`run_draws`: ``gumbel``
+    ``(N, T, K)``, ``subset`` ``(N, T, d)`` int32, ``subset_gumbel``
+    ``(N, T, d)``, ``rand_pick`` ``(N, T)`` int32 (``floor(u *
+    n_eligible)``: the class's affinity is known when the draws are made)
+    and ``classes`` ``(N, T)`` int32, each present only when needed.
     """
     t, k = static.slots, static.servers
     dense = static.route_backend == "dense"
     random_ties = dense and _random_ties(static)
-    u_arr, u_size, u_gum = [], [], []
+    d = _subset_width(static) if dense else 0
+    pick = dense and static.policy == "random"
+    streams: dict[str, list] = {
+        "arr": [], "size": [], "gum": [], "switch": [], "subset": [],
+        "subset_gum": [], "pick": [], "cls": [],
+    }
     for seed in seeds:
         gen = torch.Generator(device=device)
         gen.manual_seed(int(seed))
-        u_arr.append(workload_lib.uniforms(gen, (t,), device=device))
+        streams["arr"].append(workload_lib.uniforms(gen, (t,), device=device))
         if dense:
-            u_size.append(workload_lib.uniforms(
+            streams["size"].append(workload_lib.uniforms(
                 gen, (t,), minval=workload_lib.SIZE_U_MIN,
                 maxval=workload_lib.SIZE_U_MAX, device=device,
             ))
         if random_ties:
-            u_gum.append(workload_lib.uniforms(
+            streams["gum"].append(workload_lib.uniforms(
                 gen, (t, k), minval=workload_lib.GUMBEL_U_MIN, device=device
             ))
+        if static.arrival == "mmpp":
+            streams["switch"].append(workload_lib.uniforms(gen, (t,), device=device))
+        if d:
+            streams["subset"].append(
+                workload_lib.distinct_subsets(gen, t, k, d, device=device)
+            )
+            streams["subset_gum"].append(workload_lib.uniforms(
+                gen, (t, d), minval=workload_lib.GUMBEL_U_MIN, device=device
+            ))
+        if pick:
+            streams["pick"].append(torch.rand(
+                (t,), generator=gen, dtype=torch.float64, device=device
+            ))
+        if static.classes > 1:
+            streams["cls"].append(workload_lib.uniforms(gen, (t,), device=device))
     runs = [scn for scn in scenarios for _ in seeds]
     op = _operands(runs, static, device)
     idx = torch.arange(len(runs), device=device) % len(seeds)
+
+    def per_run(name):
+        return torch.stack(streams[name])[idx]
+
     slot = torch.arange(t, device=device)
-    arrive = workload_lib.bernoulli_arrivals(torch.stack(u_arr)[idx], op.load)
+    mod = workload_lib.diurnal_modulation(slot[None, :], op.amp, op.period)
+    if static.arrival == "mmpp":
+        arrive = workload_lib.mmpp_arrivals_from_rates(
+            per_run("switch"), per_run("arr"), op.lam_hi, op.lam_lo,
+            op.burst_stay, mod,
+        )
+    else:
+        arrive = workload_lib.bernoulli_arrivals(per_run("arr"), op.load, mod)
     arrive = arrive & (slot[None, :] < op.horizon[:, None])
     sizes = (
         workload_lib.service_sizes(
-            torch.stack(u_size)[idx], static.service, op.mean, op.geo_log1p
+            per_run("size"), static.service, op.mean, op.geo_log1p,
+            op.scale, op.inv_tail,
         )
         if dense else None
     )
-    gum = workload_lib.gumbel(torch.stack(u_gum))[idx] if random_ties else None
-    return arrive, sizes, gum
+    draws = {}
+    if random_ties:
+        draws["gumbel"] = workload_lib.gumbel(torch.stack(streams["gum"]))[idx]
+    if d:
+        draws["subset"] = per_run("subset")
+        draws["subset_gumbel"] = workload_lib.gumbel(per_run("subset_gum"))
+    if static.classes > 1:
+        draws["classes"] = workload_lib.arrival_classes(per_run("cls"), op.mix)
+    if pick:
+        n_elig = _eligible(op, draws.get("classes"), k)
+        draws["rand_pick"] = torch.floor(per_run("pick") * n_elig).to(_I32).clamp(
+            max=n_elig - 1
+        )
+    return arrive, sizes, draws
 
 
-def _dense(arrive, sizes, gumbel, static: StaticConfig, op: _Operands) -> dict:
+def _dense(arrive, sizes, static: StaticConfig, op: _Operands, *, gumbel=None,
+           subset=None, subset_gumbel=None, rand_pick=None, classes=None) -> dict:
     """The port of ``_sim_core``: one slot per loop step, all runs at once."""
     n, t = arrive.shape
     k, b = static.servers, static.buffer_cap
@@ -386,16 +682,25 @@ def _dense(arrive, sizes, gumbel, static: StaticConfig, op: _Operands) -> dict:
     ccfg = comm_lib.CommConfig(static.comm, x=op.x, rt_period=op.rt_period)
     zeros = torch.zeros((n, k), dtype=_I32, device=dev)
     zeros1 = torch.zeros((n,), dtype=_I32, device=dev)
-    q_true = head_rem = head_ptr = per_srv = zeros
+    q_true = head_rem = head_ptr = per_srv = tokens = zeros
     buf = torch.full((n, k, b), -1, dtype=_I32, device=dev)
     emu = approx_lib.EmuState.init(zeros, acfg)
     comm = comm_lib.CommState.init(k, (n,), dev)
     rr_ptr = deps = arrs = dropped = max_aq = max_q = gap = zeros1
+    token_miss = token_sum = zeros1
     comp_slot = torch.full((n, t), -1, dtype=_I32, device=dev)
     routed = torch.full((n, t), -1, dtype=_I32, device=dev)
     rows = torch.arange(n, device=dev)
     lanes = torch.arange(k, dtype=_I32, device=dev)
+    slot_f = torch.arange(t, dtype=torch.float32, device=dev)
     active = torch.arange(t, device=dev)[None, :] < op.horizon[:, None]
+    pull = static.policy in routing_lib.PULL_POLICIES
+    # Expected per-job drain time E[S] / r_i, once a run.
+    drain = (
+        routing_lib.expected_drain_slots(op.mean, op.rates)
+        if op.rates is not None and static.rate_aware else None
+    )
+    mask = None if op.aff is None else op.aff[:, 0]
     # Every run is frozen from its horizon on, so the loop may stop at the
     # largest one.
     t_end = min(t, max(int(op.horizon.max()), 0)) if n else 0
@@ -403,14 +708,26 @@ def _dense(arrive, sizes, gumbel, static: StaticConfig, op: _Operands) -> dict:
         act = active[:, s : s + 1]
         arr = arrive[:, s] & act[:, 0]
 
-        # 1. arrival and routing
+        # 1. arrival and routing (a class routes within its affinity)
+        if classes is not None:
+            mask = op.aff[rows, classes[:, s].long()]
         server, rr_ptr = routing_lib.route(
             static.policy, q_true, emu.q_app, rr_ptr,
             None if gumbel is None else gumbel[:, s],
-            deterministic=static.deterministic_ties,
+            drain_slots=drain, deterministic=static.deterministic_ties,
+            mask=mask,
+            subset=None if subset is None else subset[:, s],
+            subset_gumbel=None if subset_gumbel is None else subset_gumbel[:, s],
+            rand_pick=None if rand_pick is None else rand_pick[:, s],
+            tokens=tokens,
         )
         srv = server.long()
         onehot = lanes == server[:, None]
+        if pull:
+            # The balancer spends a token on every routed arrival (it
+            # cannot see a FIFO drop); an empty selected pool is a miss.
+            token_miss = token_miss + (arr & (tokens[rows, srv] == 0)).to(_I32)
+            tokens = torch.clamp_min(tokens - (onehot & arr[:, None]).to(_I32), 0)
         q_sel = q_true[rows, srv]
         admit = arr & (q_sel < b)
         dropped = dropped + (arr & ~admit).to(_I32)
@@ -424,9 +741,15 @@ def _dense(arrive, sizes, gumbel, static: StaticConfig, op: _Operands) -> dict:
         per_srv = per_srv + sel.to(_I32)
         routed[:, s] = torch.where(admit, server, -1)
 
-        # 2. service
+        # 2. service (one unit, or the rate's credit schedule)
+        units = (
+            None if op.rates is None
+            else workload_lib.service_units(slot_f[s], op.rates)
+        )
         busy = (q_true > 0) & act
-        head_rem = torch.where(busy, head_rem - 1, head_rem)
+        head_rem = torch.where(
+            busy, head_rem - (1 if units is None else units), head_rem
+        )
         dep = busy & (head_rem <= 0)
         head_jid = buf.gather(2, (head_ptr % b).long()[..., None])[..., 0]
         departed = torch.where(dep, head_jid, -1)
@@ -438,12 +761,12 @@ def _dense(arrive, sizes, gumbel, static: StaticConfig, op: _Operands) -> dict:
         dep_i = dep.to(_I32)
         deps = deps + dep_i.sum(-1, dtype=_I32)
 
-        # 3. emulation drain
-        emu = approx_lib.emu_drain_slot(emu, acfg, active=act)
+        # 3. emulation drain, with the same units
+        emu = approx_lib.emu_drain_slot(emu, acfg, units=units, active=act)
 
         # 4/5. trigger (frozen past the horizon) and snap
         err = approx_lib.approximation_error(emu, q_true)
-        triggered, adv = comm_lib.evaluate(comm, ccfg, err, dep_i)
+        triggered, adv = comm_lib.evaluate(comm, ccfg, err, dep_i, q=q_true)
         triggered = triggered & act
         comm = comm_lib.CommState(
             deps_since_msg=torch.where(act, adv.deps_since_msg, comm.deps_since_msg),
@@ -451,6 +774,17 @@ def _dense(arrive, sizes, gumbel, static: StaticConfig, op: _Operands) -> dict:
             msgs=torch.where(act[:, 0], adv.msgs, comm.msgs),
         )
         emu = approx_lib.emu_message_reset(emu, q_true, triggered, acfg)
+        if pull:
+            # A token message overwrites its server's pool entry from the
+            # queue it reports: 1 if idle (jiq), the headroom below x (hsq).
+            if static.comm == "jiq":
+                fresh = (q_true == 0).to(_I32)
+            else:
+                fresh = torch.clamp_min(op.x - q_true, 0)
+            tokens = torch.where(triggered, fresh, tokens)
+            token_sum = token_sum + torch.where(
+                act[:, 0], tokens.sum(-1, dtype=_I32), 0
+            )
 
         # 6. metrics
         qmax = q_true.amax(-1)
@@ -465,7 +799,8 @@ def _dense(arrive, sizes, gumbel, static: StaticConfig, op: _Operands) -> dict:
     return dict(
         routed=routed, comp_slot=comp_slot, msgs=comm.msgs, deps=deps,
         arrs=arrs, dropped=dropped, max_aq=max_aq, max_q=max_q, gap_sup=gap,
-        per_srv=per_srv, final_q=q_true,
+        per_srv=per_srv, final_q=q_true, token_misses=token_miss,
+        token_sum=token_sum,
     )
 
 
@@ -480,11 +815,12 @@ def _fused(arrive, static: StaticConfig, op: _Operands) -> dict:
         policy=static.policy,
         comm=static.comm,
     )
+    zeros = torch.zeros_like(stats[:, 0])
     return dict(
         routed=routed, comp_slot=torch.full_like(routed, -1), msgs=stats[:, 0],
         deps=stats[:, 1], arrs=stats[:, 2], dropped=stats[:, 3],
         max_aq=stats[:, 4], max_q=stats[:, 5], gap_sup=stats[:, 6],
-        per_srv=per_srv, final_q=q_final,
+        per_srv=per_srv, final_q=q_final, token_misses=zeros, token_sum=zeros,
     )
 
 
@@ -495,6 +831,10 @@ def run_draws(
     scenarios: Scenario | Sequence[Scenario],
     *,
     gumbel: torch.Tensor | None = None,
+    subset: torch.Tensor | None = None,
+    subset_gumbel: torch.Tensor | None = None,
+    rand_pick: torch.Tensor | None = None,
+    classes: torch.Tensor | None = None,
 ) -> dict:
     """Run the slot loop on given draws, one run per row.
 
@@ -504,16 +844,25 @@ def run_draws(
       static: shapes, kinds and backend.
       scenarios: one :class:`Scenario` for every row, or ``N`` of them.
       gumbel: ``(N, T, K)`` float32 tie-break Gumbels; required by the
-        dense backend for jsq/jsaq with random ties.
+        dense backend for jsq / jsaq / jiq / hsq with random ties.
+      subset: ``(N, T, d)`` int32 SQ(d) samples of distinct servers, with
+        ``d = min(2 or sqd, K)``; required by sq2 / sqd.
+      subset_gumbel: ``(N, T, d)`` float32 Gumbels breaking ties within
+        each subset; required with ``subset``.
+      rand_pick: ``(N, T)`` int32 draws in ``[0, n_eligible)`` of the
+        random policy (``n_eligible`` the servers of the slot's class).
+      classes: ``(N, T)`` int32 arrival class ids; required when
+        ``static.classes > 1``.
 
     Returns a dict of per-run tensors: ``routed`` ``(N, T)`` (-1 where no
     arrival was admitted), ``comp_slot`` ``(N, T)`` (the completion slot
     of the job that arrived in each slot, -1 if none), the counters
     ``msgs``, ``deps``, ``arrs``, ``dropped``, ``max_aq``, ``max_q``,
-    ``gap_sup`` ``(N,)`` and the vectors ``per_srv``, ``final_q`` ``(N, K)``.
+    ``gap_sup``, ``token_misses``, ``token_sum`` ``(N,)`` and the vectors
+    ``per_srv``, ``final_q`` ``(N, K)``.
     """
     _check_static(static)
-    n = arrive.shape[0]
+    n, t = arrive.shape
     runs = [scenarios] * n if isinstance(scenarios, Scenario) else list(scenarios)
     if len(runs) != n:
         raise ValueError(f"{len(runs)} scenarios for {n} runs")
@@ -524,7 +873,22 @@ def run_draws(
         raise ValueError("the dense backend needs the job sizes")
     if _random_ties(static) and gumbel is None:
         raise ValueError("random ties need the (N, T, K) Gumbel draws")
-    return _dense(arrive, sizes, gumbel, static, op)
+    d = _subset_width(static)
+    if d and (subset is None or subset_gumbel is None
+              or subset.shape != (n, t, d) or subset_gumbel.shape != (n, t, d)):
+        raise ValueError(
+            f"policy {static.policy!r} needs the (N, T, d) = ({n}, {t}, {d}) "
+            f"subset and subset_gumbel draws"
+        )
+    if static.policy == "random" and rand_pick is None:
+        raise ValueError("policy 'random' needs the (N, T) rand_pick draws")
+    if static.classes > 1 and classes is None:
+        raise ValueError("multi-class arrivals need the (N, T) class ids")
+    return _dense(
+        arrive, sizes, static, op, gumbel=gumbel, subset=subset,
+        subset_gumbel=subset_gumbel, rand_pick=rand_pick,
+        classes=classes if static.classes > 1 else None,
+    )
 
 
 def _finalize(arrive_np: np.ndarray, out: dict) -> SimResult:
@@ -548,6 +912,8 @@ def _finalize(arrive_np: np.ndarray, out: dict) -> SimResult:
         msgs_per_departure=(msgs / deps) if deps else 0.0,
         queue_gap_sup=int(out["gap_sup"]),
         dropped=int(out["dropped"]),
+        token_misses=int(out["token_misses"]),
+        token_sum=int(out["token_sum"]),
     )
 
 
@@ -593,9 +959,9 @@ def simulate_grid(
     _check_static(static_cfg)
     seeds = [int(s) for s in seeds]
     scenarios = list(scenarios)
-    arrive, sizes, gum = draw_workload(seeds, static_cfg, scenarios, dev)
+    arrive, sizes, draws = draw_workload(seeds, static_cfg, scenarios, dev)
     runs = [scn for scn in scenarios for _ in seeds]
-    res = results(arrive, run_draws(arrive, sizes, static_cfg, runs, gumbel=gum))
+    res = results(arrive, run_draws(arrive, sizes, static_cfg, runs, **draws))
     s = len(seeds)
     return [res[c * s : (c + 1) * s] for c in range(len(scenarios))]
 

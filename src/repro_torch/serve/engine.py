@@ -64,7 +64,7 @@ _I32 = torch.int32
 _F32 = torch.float32
 
 SLICE_2_CONTROL_PLANE = "slice 2 of the port (ROADMAP 1, item 9)"
-SLICE_2_PULL = routing_lib.SLICE_2_PULL
+SLICE_2_PULL = "the serving half of ROADMAP 1, item 10"
 SLICE_3_STREAM = "slice 3 of the port (ROADMAP 1, item 11: serve_stream)"
 
 # The serving tier's routing policies (see the reference): ``jsaq`` joins

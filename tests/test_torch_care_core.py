@@ -22,7 +22,9 @@ from repro.core.care import workload as jworkload
 from repro_torch.core.care import approx as tapprox
 from repro_torch.core.care import comm as tcomm
 from repro_torch.core.care import routing as troute
+from repro_torch.core.care import slotted_sim as tsim
 from repro_torch.core.care import workload as tworkload
+from repro_torch.serve import engine as serve_engine
 
 PUSH_KINDS = ["rt", "dt", "et", "et_rt", "exact", "none"]
 K = 16
@@ -93,8 +95,11 @@ class TestCommEvaluate:
             _eq(state.msgs[row], jstate.msgs)
 
     def test_pull_kinds_name_their_slice(self):
-        with pytest.raises(NotImplementedError, match="slice 2"):
-            tcomm.trigger(tcomm.CommConfig(kind="jiq"), new_deps=torch.zeros(3))
+        # The slotted tier runs the pull kinds; the serving tier's half of
+        # item 10 is still to come.
+        cfg = serve_engine.ServeConfig(policy="jiq", comm="jiq", slots=20)
+        with pytest.raises(NotImplementedError, match="item 10"):
+            serve_engine.serve_one(0, cfg, device="cpu")
 
 
 class TestApprox:
@@ -178,9 +183,11 @@ class TestRouting:
             assert int(trr) == int(rr)
 
     def test_later_policies_name_their_slice(self):
-        q = torch.zeros(4, dtype=torch.int32)
-        with pytest.raises(NotImplementedError, match="slice 2"):
-            troute.route("sq2", q, q, torch.tensor(0))
+        # SQ(d) routes; under a network model (its probes' stale state) it
+        # comes with item 9.
+        cfg = tsim.SimConfig(policy="sq2", comm="none", slots=20, network="net")
+        with pytest.raises(NotImplementedError, match="slice 2.*item 9"):
+            tsim.simulate(0, cfg, device="cpu")
 
 
 class TestWorkload:
@@ -251,5 +258,9 @@ class TestWorkload:
         assert abs(float(arr.float().mean()) - 0.9) < 0.005
 
     def test_heavy_tails_name_their_slice(self):
-        with pytest.raises(NotImplementedError, match="slice 2"):
-            tworkload.ServiceProcess.create("pareto", 30)
+        # Pareto sizes run; the fault process that slows servers down comes
+        # with item 9.
+        assert tworkload.ServiceProcess.create("pareto", 30).kind == "pareto"
+        cfg = tsim.SimConfig(service="pareto", slots=20, fault="slow")
+        with pytest.raises(NotImplementedError, match="slice 2.*item 9"):
+            tsim.simulate(0, cfg, device="cpu")

@@ -165,6 +165,73 @@ def slots_vs_dense(dev, static, cell, horizons=None, seeds=(0, 1)):
     return fused, args, dense_s
 
 
+# The slotted tier's policies and workloads on the dense backend: name ->
+# SimConfig fields over POLICY_BASE, one static kind each; the card run
+# equals the CPU run on the same draws.
+_HALF_A = tuple([True] * 20 + [False] * 10)
+_HALF_B = tuple([False] * 10 + [True] * 20)
+_RATES = tuple([1.5] * 15 + [0.5] * 15)
+POLICY_BASE = dict(servers=30, slots=300, load=0.9, mean_service=30, x=3,
+                   rt_rate=0.02, policy="jsaq", comm="et", approx="msr")
+POLICY_CASES = {
+    "sq2": dict(policy="sq2", comm="none"),
+    "sqd3": dict(policy="sqd", sqd=3, comm="dt"),
+    "random": dict(policy="random", comm="none"),
+    "jiq": dict(policy="jiq", comm="jiq"),
+    "hsq": dict(policy="hsq", comm="hsq"),
+    "hsq_lowest_index_ties": dict(policy="hsq", comm="hsq", deterministic_ties=True),
+    "mmpp": dict(arrival="mmpp", burst_intensity=1.7, load=0.55),
+    "mmpp_diurnal_sq2": dict(policy="sq2", comm="none", arrival="mmpp",
+                             burst_intensity=1.7, load=0.5, diurnal_amp=0.1,
+                             diurnal_period=100),
+    "pareto": dict(service="pareto", service_tail=1.5),
+    "weibull": dict(service="weibull", service_tail=0.5),
+    "rates_rate_aware": dict(service_rates=_RATES),
+    "rates_jsq_not_rate_aware": dict(service_rates=_RATES, rate_aware=False,
+                                     policy="jsq", comm="exact"),
+    "one_constrained_class": dict(class_mix=(1.0,), class_affinity=(_HALF_A,)),
+    "classes_random": dict(policy="random", comm="none", class_mix=(0.5, 0.5),
+                           class_affinity=(_HALF_A, _HALF_B)),
+    "classes_jiq_rates": dict(policy="jiq", comm="jiq", service_rates=_RATES,
+                              class_mix=(0.3, 0.7), class_affinity=(_HALF_A, _HALF_B)),
+}
+
+
+def same_results(got, want, label: str) -> None:
+    """Every ``SimResult`` field equal."""
+    for f in dataclasses.fields(slotted_sim.SimResult):
+        a, b = getattr(got, f.name), getattr(want, f.name)
+        if isinstance(a, np.ndarray):
+            assert np.array_equal(a, b), f"{label} {f.name}"
+        else:
+            assert a == b, f"{label} {f.name}: {a} != {b}"
+
+
+def grid_vs_cpu(dev, seeds, static, cells):
+    """One ``simulate_grid`` call on the card against ``run_draws`` on the
+    CPU on the same draws (drawn again on the card, then moved): every
+    ``SimResult`` field equal.  Returns the card's results, its seconds,
+    the CPU's seconds, and the CPU's draws and ``run_draws`` outputs."""
+    seeds, cells = list(seeds), list(cells)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    grid = slotted_sim.simulate_grid(seeds, static, cells, device=dev)
+    card_s = time.perf_counter() - t0
+    arrive, sizes, draws = slotted_sim.draw_workload(seeds, static, cells, dev)
+    arrive = arrive.cpu()
+    sizes = None if sizes is None else sizes.cpu()
+    draws = {name: v.cpu() for name, v in draws.items()}
+    runs = [scn for scn in cells for _ in seeds]
+    t0 = time.perf_counter()
+    raw = slotted_sim.run_draws(arrive, sizes, static, runs, **draws)
+    cpu_s = time.perf_counter() - t0
+    cpu = slotted_sim.results(arrive, raw)
+    for c, row in enumerate(grid):
+        for i, r in enumerate(row):
+            same_results(r, cpu[c * len(seeds) + i], f"cell {c} seed {seeds[i]}")
+    return grid, card_s, cpu_s, draws, raw
+
+
 def _moe_equal(got, logits, bias, k: int, gate_fn: str) -> None:
     """The router's four outputs against the plain versions: ids, counts
     and positions equal, weights within rtol 1e-5 / atol 1e-6."""
@@ -356,6 +423,17 @@ class TestOnCard:
                 assert (f.messages, f.completed, f.dropped) == (d.messages, d.completed, d.dropped)
                 _eq(f.jct_by_rid, d.jct_by_rid)
                 _eq(f.final_occupancy, d.final_occupancy)
+
+    @pytest.mark.parametrize("case", list(POLICY_CASES))
+    def test_slotted_policies_card_equals_cpu(self, cuda_device, case):
+        cfg = slotted_sim.SimConfig(**{**POLICY_BASE, **POLICY_CASES[case]})
+        tops.reset_launch_counts()
+        grid, _, _, _, _ = grid_vs_cpu(cuda_device, (0, 1), cfg.static_part(),
+                                       [cfg.scenario()])
+        assert sum(tops.launch_counts().values()) == 0
+        for r in grid[0]:
+            assert r.arrivals == r.departures + int(r.final_q.sum())
+            assert r.departures > 0
 
     @pytest.mark.parametrize(
         "t,e,k,gate_fn,dtype",
