@@ -74,13 +74,15 @@ own failure):
    (its replica stage alone); profiles one ``serve_grid`` call for the
    device busy share.
 4. The slotted dense backend against the fused one on the card, decision
-   for decision, at K=200, T=2000; then the paper's Section 9 cell (K=30,
-   load 0.95, geometric sizes of mean 30, JSAQ with ET-3 and MSR, 20,000
-   slots) on the dense backend.
+   for decision, at K=200, T=2000, on Bernoulli arrivals and on MMPP
+   arrivals under a diurnal curve (``MMPP_FUSED`` of
+   ``tests/test_torch_cuda.py``, one ``care_route`` launch); then the
+   paper's Section 9 cell (K=30, load 0.95, geometric sizes of mean 30,
+   JSAQ with ET-3 and MSR, 20,000 slots) on the dense backend.
 4b. The slotted tier's breadth on the dense backend (no kernel: every
    launch count stays 0), the Section 9 setting (K=30, cap 2048, geometric
    sizes of mean 30 unless stated, load 0.95 unless stated) at 4 seeds x
-   4000 slots, one ``simulate_grid`` call per static kind: SQ(2) (and a
+   2500 slots, one ``simulate_grid`` call per static kind: SQ(2) (and a
    diurnal cell at load 0.9, amp 0.1, period 2000), random, MMPP bursts of
    intensity 1.7 under JSAQ + ET-3 + MSR and SQ(2), rates 1.5 / 0.5 on
    the two halves under rate-aware JSAQ + ET-3 + MSR and SQ(2), Pareto
@@ -94,6 +96,30 @@ own failure):
    slots (device busy share, device operations a slot).  Then SQ(2) at
    K=1e5, cap 16, 2 seeds x 1000 slots: the draws' peak device memory
    stays O(N T d).
+4c. The degraded control plane on both dense backends (no kernel: every
+   launch count stays 0), each call against the CPU on the same draws,
+   every result field equal.  Slotted, at the Section 9.1 setting (K=30,
+   load 0.95, geometric sizes of mean 30, cap 2048), 4 seeds x 1500
+   slots, one ``simulate_grid`` call per static kind: CARE (JSAQ + ET-3 +
+   MSR) over the delay ladder {1, 4, 8, 16} and the drop ladder {0, 0.1,
+   0.3, 0.5} at delay 2 (``benchmarks/bench_faults.py:104-170``); SQ(2)
+   with RT at 1e-4 over the delay ladder; the ack ladder, drop {0.1, 0.3,
+   0.5} at delay 2, jitter 1, timeout 8, backoff 2, 6 retries, and JIQ at
+   load 0.9 fire-and-forget and ack at drop 0.1
+   (``bench_retrans.py:53-80``); crash (0.005 / 0.1, suspect_age 20) and
+   slow (0.01 / 0.1, factor 0.5) cells (``tests/test_faults.py:594-595``).
+   Asserts conservation, drops wherever drop > 0, retransmits in every ack
+   cell with drops, SQ(2)'s >= 4 messages an arrival, token counters >= 0,
+   and in the crash cell no arrival routed to a suspect server while one
+   was healthy (counted at every routed arrival on the card).  The
+   zero-operand network and a silent fault chain equal ``none`` bit for bit
+   on the card, on both tiers.  Serving: ``bench_pull.py:68-92``'s
+   frontier, 8 replicas x 16 decode slots, load 0.9, CARE / SQ(2) / JIQ /
+   hsq, degraded (delay 2, drop 0.1, suspect_age 8) and clean, 4 seeds x
+   1000 slots; ``bench_faults.py:203-240``'s engineered crash / recovery
+   (its quick 2500 slots) through ``serve_one`` with suspect masking on
+   and off and a fault-free control.  Then CARE with delay 4 and drop 0.1 at K=1e5, cap 16, 2 seeds
+   x 1000 slots, with the draws' and the call's peak device memory.
 5. The serving bench's ET ladder (``bench_serving._ladder``): 8 replicas,
    load 0.9, ET-x for x in {2, 4, 8, 16} x 4 seeds as one fused grid call,
    20,000 slots, then the exact-state grid call on the same workloads
@@ -245,14 +271,38 @@ DENSE_VS_FUSED = (200, 2000)  # K, T
 SECTION9_SLOTS = 20_000
 # Phase 4b: the paper's Section 9 setting (K = 30, cap 2048, geometric sizes
 # of mean 30) on the dense backend, cut from the benches' 20,000-100,000
-# slots to 4 seeds x 4000 (the dense loop takes ~1.9 ms a slot on the
-# card); then SQ(2) at K = 1e5, cap 16, 2 seeds x 1000 slots, for width.
-BREADTH_SLOTS = 4000
+# slots to 4 seeds x 2500 (the dense loop takes ~1.9 ms a slot on the
+# card; 4000 until phase 4c came and the whole run passed 600 s); then
+# SQ(2) at K = 1e5, cap 16, 2 seeds x 1000 slots, for width.
+BREADTH_SLOTS = 2500
 BREADTH_SEEDS = (0, 1, 2, 3)
 BREADTH_PROFILE_SLOTS = 100  # the profiled SQ(2) call; the profiler slows the loop many fold
 BREADTH_WIDE = dict(servers=100_000, buffer_cap=16, slots=1000, load=0.95,
                     policy="sq2", comm="none")
 BREADTH_WIDE_SEEDS = (0, 1)
+# Phase 4c: the degraded control plane on the dense backends, the benches'
+# cells (Section 9.1 setting for the slotted tier; bench_pull's and
+# bench_faults' serving cells) cut from the benches' 20,000-100,000 slots
+# to 4 seeds x DEGRADED_SLOTS (slotted) and SERVE_DEGRADED_SLOTS (serving),
+# the engineered crash / recovery to bench_faults' quick 2500 slots (the
+# phase took 333 s with 4000 slots everywhere and 178 s at 2000 / 1500,
+# over the 150 s aimed at); the
+# identity checks at IDENTITY_SLOTS; the width check at K = 1e5, cap 16,
+# 2 seeds x 1000 slots.
+DEGRADED_SLOTS = 1500
+DEGRADED_SEEDS = (0, 1, 2, 3)
+SERVE_DEGRADED_SLOTS = 1000
+CRASH_SLOTS = 2500
+IDENTITY_SLOTS = 500
+DEGRADED_WIDE = dict(servers=100_000, buffer_cap=16, slots=1000, load=0.95,
+                     mean_service=30, policy="jsaq", comm="et", x=3, network="net",
+                     net_delay=4, net_drop=0.1)
+DEGRADED_WIDE_SEEDS = (0, 1)
+# A lossy cell must have dropped a message once it has sent this many (at
+# drop 0.1, all get through with probability 0.9^100 < 3e-5); JIQ's tokens
+# at serving load 0.9 are this rare (a replica of 16 decode slots is
+# never idle).
+DROP_CHECK_MSGS = 100
 SERVE_PARITY = ((4, 1024, 304), (4, 200, 304))  # D, R, A
 SERVE_MAIN = dict(replicas=1024, decode_slots=16, slots=2048, queue_cap=128)
 SERVE_MAIN_SEEDS = (0, 1)
@@ -1334,6 +1384,262 @@ def _slotted_breadth(dev, times: dict, card_tests) -> None:
     times["breadth_phase_s"] = time.perf_counter() - t_phase
 
 
+def _degraded_calls(slotted_sim) -> list:
+    """Phase 4c's slotted calls, ``(name, cells)``, one ``simulate_grid``
+    call (one static kind) each, at the paper's Section 9.1 setting (K =
+    30, load 0.95, geometric sizes of mean 30, cap 2048): CARE's delay
+    ladder and drop ladder (``benchmarks/bench_faults.py:104-170``), stale
+    SQ(2) over the delay ladder, the ack loss ladder and JIQ's token repair
+    at load 0.9 (``bench_retrans.py:53-80``), and the crash and slow cells
+    of ``tests/test_faults.py:594-595``."""
+    base = dict(servers=30, slots=DEGRADED_SLOTS, buffer_cap=2048, mean_service=30,
+                load=0.95, policy="jsaq", comm="et", x=3, approx="msr")
+
+    def cell(**kw):
+        return slotted_sim.SimConfig(**{**base, **kw})
+
+    net = dict(network="net", net_delay=2, net_jitter=1)
+    ack = dict(transport="ack", ack_timeout=8, backoff_base=2.0, max_retries=6)
+    return [
+        ("care_delay_drop", [cell(network="net", net_delay=d) for d in (1, 4, 8, 16)]
+         + [cell(network="net", net_delay=2, net_drop=p) for p in (0.0, 0.1, 0.3, 0.5)]),
+        ("sq2_delay", [cell(policy="sq2", comm="rt", rt_rate=1e-4, network="net",
+                            net_delay=d) for d in (1, 4, 8, 16)]),
+        ("ack_drop", [cell(**net, **ack, net_drop=p) for p in (0.1, 0.3, 0.5)]),
+        ("jiq_ff_drop10", [cell(policy="jiq", comm="jiq", load=0.9, **net, net_drop=0.1)]),
+        ("jiq_ack_drop10", [cell(policy="jiq", comm="jiq", load=0.9, **net, **ack,
+                                 net_drop=0.1)]),
+        ("crash", [cell(fault="crash", crash_rate=0.005, recover_rate=0.1,
+                        suspect_age=20)]),
+        ("slow", [cell(fault="slow", crash_rate=0.01, recover_rate=0.1, slow_factor=0.5)]),
+    ]
+
+
+def _serve_degraded_calls(engine) -> list:
+    """Phase 4c's serving calls, ``(name, cell)``, one ``serve_grid`` call
+    each: ``benchmarks/bench_pull.py:68-92``'s frontier (8 replicas x 16
+    decode slots, load 0.9, mean prefill 4, decode 60, MSR drain 0.25;
+    CARE, SQ(2), JIQ and hsq with x 16) degraded (delay 2, drop 0.1,
+    suspect_age 8; CARE over et_rt with rt_period 32) and clean."""
+    work = dict(replicas=8, decode_slots=16, slots=SERVE_DEGRADED_SLOTS, load=0.9,
+                mean_prefill=4, mean_decode=60, msr_drain=0.25, queue_cap=512)
+    calls = []
+    for tag, extra in (("degraded", dict(network="net", net_delay=2, net_drop=0.1,
+                                         suspect_age=8)), ("clean", {})):
+        care = dict(comm="et_rt", rt_period=32) if extra else dict(comm="et")
+        for name, kw in (("care_et3", dict(x=3, **care)),
+                         ("sqd", dict(policy="sqd", sqd=2, comm="et", x=3)),
+                         ("jiq", dict(policy="jiq", comm="jiq")),
+                         ("hsq", dict(policy="hsq", comm="hsq", x=16, rt_period=32))):
+            calls.append((f"{tag}_{name}", engine.ServeConfig(**work, **extra, **kw)))
+    return calls
+
+
+def _crash_cells(engine) -> tuple:
+    """``bench_faults.py:203-240``'s engineered outage: 8 replicas x 8 decode
+    slots, ET-3 over et_rt with rt_period 8, load 0.85, mean prefill 4,
+    decode 28, MSR 0.25; replica 3 crashes at a quarter of the horizon and
+    recovers at half.  Returns the workload and the (name, cell) pairs:
+    fault-free, suspect masking on (suspect_age 16) and off."""
+    crash_at, recover_at = CRASH_SLOTS // 4, CRASH_SLOTS // 2
+    wl = engine.sample_workload(0, replicas=8, decode_slots=8, slots=CRASH_SLOTS,
+                                load=0.85, mean_prefill=4, mean_decode=28,
+                                with_fault=True)
+    wl.fault_u[:] = 0.9  # above both rates: no transition ...
+    wl.fault_u[crash_at, 3] = 0.0  # ... but these two
+    wl.fault_u[recover_at, 3] = 0.0
+    base = dict(replicas=8, decode_slots=8, slots=CRASH_SLOTS, load=0.85,
+                mean_prefill=4, mean_decode=28, msr_drain=0.25, comm="et_rt", x=3,
+                rt_period=8, queue_cap=1024)
+    crash = dict(fault="crash", crash_rate=0.5, recover_rate=0.5)
+    return wl, [("fault_free", engine.ServeConfig(**base)),
+                ("suspect_on", engine.ServeConfig(**base, **crash, suspect_age=16)),
+                ("suspect_off", engine.ServeConfig(**base, **crash))]
+
+
+def _same_serve(engine, got, want, label: str) -> None:
+    for f in dataclasses.fields(engine.ServeResult):
+        a, b = getattr(got, f.name), getattr(want, f.name)
+        if isinstance(a, np.ndarray):
+            assert np.array_equal(a, b), f"{label} {f.name}"
+        else:
+            assert a == b, f"{label} {f.name}: {a} != {b}"
+
+
+def _degraded(dev, times: dict, card_tests) -> None:
+    """Phase 4c: the degraded control plane on both dense backends, each
+    call against the CPU on the same draws, every result field equal."""
+    from repro_torch.core.care import metrics, slotted_sim
+    from repro_torch.kernels import ops
+    from repro_torch.serve import engine
+
+    t_phase = time.perf_counter()
+    cpu_total = 0.0
+    seeds = list(DEGRADED_SEEDS)
+    for name, cells in _degraded_calls(slotted_sim):
+        static = cells[0].static_part()
+        crash = static.fault == "crash"
+        ops.reset_launch_counts()
+        grid, card_s, cpu_s, _, raw = card_tests.grid_vs_cpu(
+            dev, seeds, static, [c.scenario() for c in cells], raw_on_card=crash)
+        assert sum(ops.launch_counts().values()) == 0, ops.launch_counts()
+        times[f"degraded_{name}_s"] = card_s
+        cpu_total += cpu_s
+        for cfg, row in zip(cells, grid):
+            for r in row:
+                assert r.arrivals == r.departures + int(r.final_q.sum()), name
+                assert r.token_misses >= 0 and r.token_sum >= 0, name
+                if cfg.policy == "sq2":
+                    assert r.messages >= 4 * r.arrivals, name
+            if cfg.net_drop > 0 and sum(r.messages for r in row) >= DROP_CHECK_MSGS:
+                assert sum(r.net_drops for r in row) > 0, name
+                if cfg.transport == "ack":
+                    assert sum(r.retrans for r in row) > 0, name
+            jct = metrics.jct_summary(np.concatenate([r.jct for r in row]))
+            assert jct["count"] > 0 and np.isfinite(jct["mean"]), name
+            print(f"phase 4c {name} (delay {cfg.net_delay}, jitter {cfg.net_jitter}, drop "
+                  f"{cfg.net_drop}, fault {cfg.fault}): JCT mean {jct['mean']:.3f} p99 "
+                  f"{jct['p99']:.1f}, messages a slot "
+                  f"{np.mean([r.messages for r in row]) / DEGRADED_SLOTS:.4f}, net drops "
+                  f"{sum(r.net_drops for r in row)}, retransmits "
+                  f"{sum(r.retrans for r in row)}, token misses "
+                  f"{sum(r.token_misses for r in row)}")
+        if crash:
+            # Every routed arrival, slot by slot: none went to a suspect
+            # server while some server was healthy (the card's counters).
+            assert int(raw["suspect_routes"].sum()) == 0, raw["suspect_routes"]
+            assert int(raw["masked_routes"].sum()) > 0
+            print(f"phase 4c {name}: arrivals routed under a partial suspect mask "
+                  f"{raw['masked_routes'].tolist()}, to a suspect server "
+                  f"{raw['suspect_routes'].tolist()}")
+        print(f"phase 4c {name}: card {card_s:.2f} s ({len(cells) * len(seeds)} runs, "
+              f"{card_s / DEGRADED_SLOTS * 1e3:.3f} ms a slot), the CPU on the same draws "
+              f"{cpu_s:.2f} s: every SimResult field equal")
+
+    # The zero-operand network and a fault chain that never fires equal
+    # the instant fault-free cell, bit for bit, on the card.
+    plain = slotted_sim.SimConfig(servers=30, slots=IDENTITY_SLOTS, load=0.95,
+                                  mean_service=30, policy="jsaq", comm="et", x=3)
+    ref = slotted_sim.simulate_batch([0, 1], plain, device=dev)
+    for zero in (dict(network="net"), dict(fault="crash")):
+        got = slotted_sim.simulate_batch([0, 1], dataclasses.replace(plain, **zero),
+                                         device=dev)
+        for a, b in zip(got, ref):
+            card_tests.same_results(a, b, f"slotted zero-operand {zero}")
+    cell = engine.ServeConfig(replicas=8, decode_slots=16, slots=IDENTITY_SLOTS,
+                              load=0.9, mean_prefill=4, mean_decode=60, msr_drain=0.25)
+    ref = engine.serve_grid([0, 1], cell.static_part(), [cell], device=dev)[0]
+    for zero in (dict(network="net"), dict(fault="crash")):
+        zcell = dataclasses.replace(cell, **zero)
+        got = engine.serve_grid([0, 1], zcell.static_part(), [zcell], device=dev)[0]
+        for a, b in zip(got, ref):
+            _same_serve(engine, a, b, f"serving zero-operand {zero}")
+    print(f"phase 4c zero-operand identity on the card: network='net' and "
+          f"fault='crash' with zero operands equal 'none' bit for bit, slotted and "
+          f"serving ({IDENTITY_SLOTS} slots, 2 seeds)")
+
+    for name, cell in _serve_degraded_calls(engine):
+        ops.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        card = engine.serve_grid(seeds, cell.static_part(), [cell], device=dev)[0]
+        card_s = time.perf_counter() - t0
+        assert sum(ops.launch_counts().values()) == 0, ops.launch_counts()
+        t0 = time.perf_counter()
+        cpu = engine.serve_grid(seeds, cell.static_part(), [cell], device="cpu")[0]
+        cpu_s = time.perf_counter() - t0
+        times[f"serve_degraded_{name}_s"] = card_s
+        cpu_total += cpu_s
+        for seed, a, b in zip(seeds, card, cpu):
+            _same_serve(engine, a, b, f"{name} seed {seed}")
+            assert a.offered == a.completed + a.dropped + int(a.final_occupancy.sum())
+            assert a.token_misses >= 0 and a.token_sum >= 0
+            if cell.policy == "sqd" and cell.network != "none":
+                assert a.messages >= 2 * cell.sqd * a.offered, name
+        if cell.net_drop > 0 and sum(r.messages for r in card) >= DROP_CHECK_MSGS:
+            assert sum(r.net_drops for r in card) > 0, name
+        jct = float(np.mean([r.mean_jct for r in card]))
+        arrived = sum(r.offered for r in card)
+        tokens = metrics.token_summary(sum(r.token_sum for r in card),
+                                       sum(r.token_misses for r in card),
+                                       SERVE_DEGRADED_SLOTS * len(card),
+                                       arrived if cell.policy in ("jiq", "hsq") else 0)
+        print(f"phase 4c serving {name}: JCT mean {jct:.3f}, messages per completion "
+              f"{np.mean([r.msgs_per_completion for r in card]):.4f}, net drops "
+              f"{sum(r.net_drops for r in card)}, token miss rate "
+              f"{tokens['miss_rate']:.4f}; card {card_s:.2f} s ({len(seeds)} runs, "
+              f"{card_s / SERVE_DEGRADED_SLOTS * 1e3:.3f} ms a slot), the CPU "
+              f"{cpu_s:.2f} s: every ServeResult field equal")
+
+    wl, crash_cells = _crash_cells(engine)
+    window = CRASH_SLOTS // 2 + CRASH_SLOTS // 4
+    tails = {}
+    for name, cell in crash_cells:
+        ops.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = engine.serve_one(0, cell, workload=wl, device=dev)
+        card_s = time.perf_counter() - t0
+        assert sum(ops.launch_counts().values()) == 0, ops.launch_counts()
+        _same_serve(engine, got, engine.serve_one(0, cell, workload=wl, device="cpu"),
+                    f"crash {name}")
+        times[f"crash_{name}_s"] = card_s
+        assert got.dropped == 0
+        assert got.offered == got.completed + int(got.final_occupancy.sum())
+        tail = (wl.arrival_slot >= window) & (got.jct_by_rid >= 0)
+        tails[name] = float(got.jct_by_rid[tail].mean())
+        if name == "suspect_on":
+            # The per-lane counters of this run on the card: no request went
+            # to a suspect replica while another was healthy.
+            static = dataclasses.replace(cell.static_part(), max_arrivals=max(
+                8, -(-int(wl.n_arr.max()) // 8) * 8))
+            out = engine._serve_core(*engine._core_args(
+                [wl], [cell], static, -(-wl.total // 1024) * 1024, dev))
+            assert int(out["suspect_routes"][0]) == 0 and int(out["masked_routes"][0]) > 0
+            masked = int(out["masked_routes"][0])
+        print(f"phase 4c crash / recovery {name}: mean JCT {got.mean_jct:.3f}, tail "
+              f"(arrivals from slot {window}) {tails[name]:.3f}, messages {got.messages}; "
+              f"card {card_s:.2f} s ({card_s / CRASH_SLOTS * 1e3:.3f} ms a slot), equal "
+              f"to the CPU")
+    print(f"phase 4c crash / recovery: {masked} requests routed while replica 3 was "
+          f"suspect, none to it; tail JCT fault-free {tails['fault_free']:.3f}, suspect "
+          f"masking on {tails['suspect_on']:.3f}, off {tails['suspect_off']:.3f}")
+
+    # Width: CARE over the lossy wire at K = 1e5.
+    wide = slotted_sim.SimConfig(**DEGRADED_WIDE)
+    static, scn = wide.static_part(), wide.scenario()
+    n, t = len(DEGRADED_WIDE_SEEDS), wide.slots
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    before = torch.cuda.memory_allocated(dev)
+    arrive, sizes, draws = slotted_sim.draw_workload(DEGRADED_WIDE_SEEDS, static, [scn], dev)
+    torch.cuda.synchronize()
+    draw_peak = torch.cuda.max_memory_allocated(dev) - before
+    held = sum(x.numel() * x.element_size() for x in (arrive, sizes, *draws.values()))
+    assert sorted(draws) == ["gumbel", "net_drop_u", "net_jit_u"], sorted(draws)
+    del arrive, sizes, draws
+    torch.cuda.reset_peak_memory_stats(dev)
+    ops.reset_launch_counts()
+    res, card_s, cpu_s, _, _ = card_tests.grid_vs_cpu(dev, DEGRADED_WIDE_SEEDS, static, [scn])
+    assert sum(ops.launch_counts().values()) == 0
+    times["degraded_wide_s"] = card_s
+    for r in res[0]:
+        assert r.arrivals == r.departures + int(r.final_q.sum()) and r.arrivals > 0
+    if sum(r.messages for r in res[0]) >= DROP_CHECK_MSGS:
+        assert sum(r.net_drops for r in res[0]) > 0
+    print(f"phase 4c CARE delay 4 drop 0.1 at K={wide.servers:.0e} cap {wide.buffer_cap}, "
+          f"{n} seeds x {t} slots: card {card_s:.2f} s ({card_s / t * 1e3:.3f} ms a slot), "
+          f"the CPU {cpu_s:.2f} s, every field equal; the draws (the ties' Gumbels and the "
+          f"wire's drop and jitter uniforms, (N, T, K) float32 each) hold {held} B, their "
+          f"peak {draw_peak} B; no stale ring under JSAQ (it routes on "
+          f"the approximation; jsq / SQ(d) would hold N x {static.net_delay_cap} x K int32, "
+          f"{n * static.net_delay_cap * wide.servers * 4} B); the call's peak device "
+          f"memory {torch.cuda.max_memory_allocated(dev) / 1e6:.1f} MB; messages "
+          f"{[r.messages for r in res[0]]}, net drops {[r.net_drops for r in res[0]]}")
+    times["degraded_cpu_s"] = cpu_total
+    times["degraded_phase_s"] = time.perf_counter() - t_phase
+
+
 def _card_tests():
     """``tests/test_torch_cuda.py``, whose serve_slots cases and comparison
     with the dense backend phases 2 and 3 share (loaded by path)."""
@@ -1655,7 +1961,7 @@ def main() -> int:
     slots_out, args, plain_s = card_tests.slots_vs_dense(dev, big_static, big,
                                                          seeds=SERVE_MAIN_SEEDS)
     slots_err = 0.0
-    n_arr, work, tie_u, rid, _, scn, static, n_cap, t_end, _ = args
+    n_arr, work, tie_u, rid, _, scn, static, n_cap, t_end = args[:9]
     kw = dict(cap=static.queue_cap, comm=static.comm, decode_slots=static.decode_slots,
               use_rates=static.use_rates, trace_occupancy=static.trace_occupancy,
               n_cap=n_cap)
@@ -1731,9 +2037,17 @@ def main() -> int:
             if name != "comp_slot":
                 assert torch.equal(value.int(), rf[name].int()), f"{policy}/{comm} {name}"
         assert int((rd["routed"] >= 0).sum()) > 0
+    # MMPP arrivals under a diurnal curve (the fused backend takes them as
+    # the reference's pallas backend does).
+    static_kw, scn_kw = card_tests.MMPP_FUSED
+    card_tests.fused_vs_dense(dev, slotted_sim.StaticConfig(**static_kw),
+                              slotted_sim.Scenario.create(**scn_kw))
     times["dense_vs_fused_s"] = time.perf_counter() - t0
     print(f"phase 4 dense == fused, decision for decision, K={k} T={t}, "
-          f"jsaq x {{dt, et}}, jsq x {{exact, none}}: {times['dense_vs_fused_s']:.1f} s")
+          f"jsaq x {{dt, et}}, jsq x {{exact, none}}, and jsaq x dt on MMPP arrivals "
+          f"under a diurnal curve (K={static_kw['servers']}, T={static_kw['slots']}, "
+          f"load {scn_kw['load']}, burst {scn_kw['burst_intensity']}, amp "
+          f"{scn_kw['diurnal_amp']}): {times['dense_vs_fused_s']:.1f} s")
 
     cfg = slotted_sim.SimConfig(servers=30, slots=SECTION9_SLOTS, load=0.95,
                                 mean_service=30, policy="jsaq", comm="et", x=3,
@@ -1751,6 +2065,9 @@ def main() -> int:
 
     # -- 4b. the slotted tier's breadth -----------------------------------------
     _slotted_breadth(dev, times, card_tests)
+
+    # -- 4c. the degraded control plane ------------------------------------------
+    _degraded(dev, times, card_tests)
 
     # -- 5. the serving ET ladder --------------------------------------------------
     def fused_cell(comm, x=4):

@@ -16,7 +16,10 @@ port takes each draw as a tensor for the slot instead:
   ``(..., d)`` Gumbels (the reference's ``permutation(key_perm, K)[:d]``
   and ``gumbel(key_tie, (d,))`` after ``split(key)``);
 * random: an int32 draw in ``[0, n_eligible)`` (the reference's
-  ``randint(key, (), 0, n_eligible)``).
+  ``randint(key, (), 0, n_eligible)``) where the eligible set is known when
+  the draws are made; under the control plane's suspect mask, which
+  changes it every slot, the two 32-bit words that ``randint`` draws
+  (:func:`randint_from_bits`).
 
 ``torch.argmin`` / ``torch.argmax`` return the first index on ties, as
 ``jnp.argmin`` / ``jnp.argmax`` do.
@@ -104,18 +107,43 @@ def route_sqd(
     return subset.gather(-1, j.long()[..., None])[..., 0].to(torch.int32)
 
 
+_WORD = 0xFFFFFFFF
+
+
+def randint_from_bits(bits: torch.Tensor, n: torch.Tensor) -> torch.Tensor:
+    """``randint(key, (), 0, n)`` of the reference from the two 32-bit words
+    its key draws.
+
+    ``bits`` is ``(..., 2)`` int64 in ``[0, 2^32)``: the words ``hi``, ``lo``
+    of ``bits(k1)``, ``bits(k2)`` for ``k1, k2 = split(key)``; ``n`` (>= 1,
+    broadcastable) the range.  The reference's uint32 arithmetic, its wraps
+    included: ``((hi % n) * m + lo % n) % n`` with ``m = (2^16 % n)^2 % n``.
+    """
+    n = n.to(torch.int64)
+    hi, lo = bits[..., 0], bits[..., 1]
+    m = (((65536 % n) ** 2) & _WORD) % n
+    return (((((hi % n) * m) & _WORD) + lo % n) & _WORD) % n
+
+
 def route_random(
-    pick: torch.Tensor, mask: torch.Tensor | None = None
+    pick: torch.Tensor | None, mask: torch.Tensor | None = None,
+    bits: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """Uniformly random routing from an int32 draw ``pick``.
 
     Without a mask ``pick`` (in ``[0, K)``) is the server.  With one it is
     in ``[0, n_eligible)`` and picks the ``pick``-th eligible server (an
-    all-False mask means all servers).
+    all-False mask means all servers).  Given ``bits`` (the ``(..., 2)``
+    words of :func:`randint_from_bits`) in place of ``pick``, the draw is
+    made from this mask's eligible count.
     """
     if mask is None:
+        if bits is not None:
+            raise ValueError("random bits draw from the eligible count of a mask")
         return pick.to(torch.int32)
     mask = torch.where(mask.any(-1, keepdim=True), mask, True)
+    if bits is not None:
+        pick = randint_from_bits(bits, mask.sum(-1, dtype=torch.int64))
     cum = torch.cumsum(mask.to(torch.int32), -1, dtype=torch.int32)
     return torch.argmax((cum == pick[..., None] + 1).to(torch.int32), -1).to(
         torch.int32
@@ -150,6 +178,7 @@ def route(
     subset: torch.Tensor | None = None,
     subset_gumbel: torch.Tensor | None = None,
     rand_pick: torch.Tensor | None = None,
+    rand_bits: torch.Tensor | None = None,
     tokens: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Dispatch one job per batch row.  Returns ``(server, rr_ptr')``.
@@ -161,7 +190,8 @@ def route(
     policies minimise ``q_i * E[S] / r_i`` (SQ(d) within its subset).
     ``mask`` marks the eligible servers for every policy.  The slot's
     draws: ``gumbel`` for jsq / jsaq / jiq / hsq with random ties,
-    ``subset`` and ``subset_gumbel`` for sq2 / sqd, ``rand_pick`` for random.
+    ``subset`` and ``subset_gumbel`` for sq2 / sqd, ``rand_pick`` for random
+    (or ``rand_bits``, see :func:`route_random`).
     """
     k = q_true.shape[-1]
     if drain_slots is None:
@@ -179,7 +209,7 @@ def route(
         server, ptr = route_rr(rr_ptr, k, mask)
         return server.to(torch.int32), ptr
     if policy == "random":
-        return route_random(rand_pick, mask), rr_ptr
+        return route_random(rand_pick, mask, rand_bits), rr_ptr
     if policy in PULL_POLICIES:
         return route_tokens(tokens, gumbel, deterministic, mask), rr_ptr
     raise ValueError(f"unknown policy: {policy}")

@@ -43,9 +43,24 @@ Two backends select the engine that runs the slot loop:
 
 Policies: jsq, jsaq, sq2 / sqd, rr, random, and the pull policies jiq /
 hsq with their balancer-side token pool.  Multi-class arrivals route
-within their class's server affinity.  The degraded control plane (the
-``network`` and ``fault`` kinds) comes with ROADMAP 1, item 9, and raises
-``NotImplementedError`` here.
+within their class's server affinity.
+
+The degraded control plane runs on the dense backend (the fused one
+refuses it, as the reference's pallas backend does):
+
+* ``fault="crash"`` / ``"slow"``: a crash <-> healthy chain a server,
+  advanced first in each slot (frozen past the horizon); a crashed server
+  works nothing and cannot send (a recovery forces a resync), a slowed one
+  works at ``slow_factor`` of its rate;
+* ``network="net"``: every message goes through ``comm.net_step`` (delay,
+  jitter, drop, piggyback) or, with ``transport="ack"``,
+  ``comm.net_step_ack``; the balancer's emulation and token pool take the
+  *delivered* payload.  jsq and SQ(d) route on a ring of end-of-slot
+  queues ``net_delay`` slots old, and SQ(d)'s ``2 d`` queries an arrival
+  are billed as messages;
+* ``suspect_age > 0``: servers not heard from for longer are excluded from
+  routing (keepalive-driven under ``"ack"``), composed with the class
+  affinity (the affinity wins an empty intersection).
 """
 from __future__ import annotations
 
@@ -62,7 +77,6 @@ from repro_torch.core.care import workload as workload_lib
 from repro_torch.kernels import ops as kernel_ops
 
 _I32 = torch.int32
-_ITEM_9 = "slice 2 of the port (ROADMAP 1, item 9)"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -75,9 +89,11 @@ class StaticConfig:
     lowest index instead of uniformly at random (the fused kernel's rule).
     ``sqd`` is SQ(d)'s d; ``use_rates`` puts heterogeneous service rates in
     play and ``rate_aware`` makes the queue-reading policies route on the
-    expected drain time ``q_i * E[S] / r_i``.  ``classes`` is the number of
-    arrival classes; ``constrained`` applies the affinity mask also to a
-    single class.
+    expected drain time ``q_i * E[S] / r_i``.  ``network`` / ``transport``
+    / ``fault`` are the control plane's kinds and ``net_delay_cap`` the
+    capacity of the stale-queue ring (above every cell's ``net_delay``).
+    ``classes`` is the number of arrival classes; ``constrained`` applies
+    the affinity mask also to a single class.
     """
 
     servers: int = 30
@@ -94,7 +110,9 @@ class StaticConfig:
     route_backend: str = "dense"
     deterministic_ties: bool = False
     network: str = "none"
+    transport: str = "fire_forget"
     fault: str = "none"
+    net_delay_cap: int = 32
     classes: int = 1
     constrained: bool = False
 
@@ -106,7 +124,8 @@ class Scenario:
     rates ``lam_hi`` / ``lam_lo`` (from ``load`` and ``burst_intensity``)
     are derived host-side in float64 and cast once.  ``service_rates``
     ``(K,)`` is ``None`` for unit rates and ``class_affinity`` ``(C, K)``
-    ``None`` for every server eligible to every class."""
+    ``None`` for every server eligible to every class.  The control-plane
+    operands are neutral when their kinds are off."""
 
     load: np.float32
     x: np.int32
@@ -123,6 +142,17 @@ class Scenario:
     diurnal_period: np.float32
     class_mix: np.ndarray
     class_affinity: Optional[np.ndarray]
+    net_delay: np.int32 = np.int32(0)
+    net_jitter: np.int32 = np.int32(0)
+    net_drop: np.float32 = np.float32(0.0)
+    suspect_age: np.int32 = np.int32(0)
+    ack_timeout: np.int32 = np.int32(0)
+    backoff_base: np.float32 = np.float32(1.0)
+    max_retries: np.int32 = np.int32(0)
+    ka_period: np.int32 = np.int32(0)
+    crash_rate: np.float32 = np.float32(0.0)
+    recover_rate: np.float32 = np.float32(0.0)
+    slow_factor: np.float32 = np.float32(1.0)
 
     @staticmethod
     def create(
@@ -141,6 +171,20 @@ class Scenario:
         diurnal_amp: float = 0.0,
         diurnal_period: float = 1.0,
         arrival: str = "bernoulli",  # diurnal peak-rate validation only
+        network: str = "none",  # control-plane validation only
+        net_delay: int = 0,
+        net_jitter: int = 0,
+        net_drop: float = 0.0,
+        suspect_age: int = 0,
+        transport: str = "fire_forget",  # control-plane validation only
+        ack_timeout: int = 0,
+        backoff_base: float = 1.0,
+        max_retries: int = 0,
+        ka_period: int = 0,
+        fault: str = "none",  # control-plane validation only
+        crash_rate: float = 0.0,
+        recover_rate: float = 0.0,
+        slow_factor: float = 1.0,
         class_mix: Optional[Sequence[float]] = None,
         class_affinity: Optional[Sequence[Sequence[bool]]] = None,
         policy: Optional[str] = None,  # pull-pairing validation only
@@ -152,7 +196,12 @@ class Scenario:
         checks it again against ``StaticConfig.servers``).
         """
         comm_lib.validate_control_plane(
-            policy=policy, comm=comm,
+            network=network, net_delay=net_delay, net_jitter=net_jitter,
+            net_drop=net_drop, suspect_age=suspect_age, transport=transport,
+            ack_timeout=ack_timeout, backoff_base=backoff_base,
+            max_retries=max_retries, ka_period=ka_period, fault=fault,
+            crash_rate=crash_rate, recover_rate=recover_rate,
+            slow_factor=slow_factor, policy=policy, comm=comm,
             token_refresh=rt_rate if policy == "hsq" else None,
         )
         if class_affinity is not None and class_mix is None:
@@ -230,6 +279,17 @@ class Scenario:
             diurnal_period=np.float32(max(float(diurnal_period), 1e-6)),
             class_mix=mix,
             class_affinity=aff,
+            net_delay=np.int32(net_delay),
+            net_jitter=np.int32(net_jitter),
+            net_drop=np.float32(net_drop),
+            suspect_age=np.int32(suspect_age),
+            ack_timeout=np.int32(ack_timeout),
+            backoff_base=np.float32(backoff_base),
+            max_retries=np.int32(max_retries),
+            ka_period=np.int32(ka_period),
+            crash_rate=np.float32(crash_rate),
+            recover_rate=np.float32(recover_rate),
+            slow_factor=np.float32(slow_factor),
         )
 
 
@@ -244,8 +304,11 @@ class SimConfig:
     ``diurnal_amp`` / ``diurnal_period`` for a sinusoidal load curve;
     ``service_rates`` (one speed a server) with ``rate_aware`` drain-time
     routing; ``class_mix`` / ``class_affinity`` for constrained routing.
-    ``network`` and ``fault`` name the degraded control plane of ROADMAP
-    1, item 9; any value other than ``"none"`` is refused.
+    The degraded control plane: ``network="net"`` with ``net_delay``,
+    ``net_jitter``, ``net_drop``; ``transport="ack"`` with ``ack_timeout``,
+    ``backoff_base``, ``max_retries``, ``ka_period``; ``fault`` in crash /
+    slow with ``crash_rate``, ``recover_rate``, ``slow_factor``;
+    ``suspect_age`` (0 = no suspect masking) and ``net_delay_cap``.
     """
 
     servers: int = 30
@@ -272,7 +335,20 @@ class SimConfig:
     route_backend: str = "dense"
     deterministic_ties: bool = False
     network: str = "none"
+    net_delay: int = 0
+    net_jitter: int = 0
+    net_drop: float = 0.0
+    suspect_age: int = 0
+    transport: str = "fire_forget"
+    ack_timeout: int = 0
+    backoff_base: float = 1.0
+    max_retries: int = 0
+    ka_period: int = 0
     fault: str = "none"
+    crash_rate: float = 0.0
+    recover_rate: float = 0.0
+    slow_factor: float = 1.0
+    net_delay_cap: int = 32
     class_mix: Optional[tuple] = None
     class_affinity: Optional[tuple] = None
 
@@ -281,6 +357,8 @@ class SimConfig:
             raise ValueError(
                 f"max_slots ({self.max_slots}) must be >= slots ({self.slots})"
             )
+        if self.comm == "exact" and self.network != "none":
+            raise ValueError(_EXACT_OVER_NET)
         return StaticConfig(
             servers=self.servers,
             slots=self.max_slots if self.max_slots is not None else self.slots,
@@ -296,7 +374,9 @@ class SimConfig:
             route_backend=self.route_backend,
             deterministic_ties=self.deterministic_ties,
             network=self.network,
+            transport=self.transport,
             fault=self.fault,
+            net_delay_cap=self.net_delay_cap,
             classes=len(self.class_mix) if self.class_mix is not None else 1,
             constrained=self.class_affinity is not None,
         )
@@ -317,6 +397,20 @@ class SimConfig:
             diurnal_amp=self.diurnal_amp,
             diurnal_period=self.diurnal_period,
             arrival=self.arrival,
+            network=self.network,
+            net_delay=self.net_delay,
+            net_jitter=self.net_jitter,
+            net_drop=self.net_drop,
+            suspect_age=self.suspect_age,
+            transport=self.transport,
+            ack_timeout=self.ack_timeout,
+            backoff_base=self.backoff_base,
+            max_retries=self.max_retries,
+            ka_period=self.ka_period,
+            fault=self.fault,
+            crash_rate=self.crash_rate,
+            recover_rate=self.recover_rate,
+            slow_factor=self.slow_factor,
             class_mix=self.class_mix,
             class_affinity=self.class_affinity,
             policy=self.policy,
@@ -340,6 +434,8 @@ class SimResult:
     msgs_per_departure: float = 0.0  # the exact-state baseline is 1
     queue_gap_sup: int = 0  # sup_t max_ij |Q_i - Q_j|
     dropped: int = 0  # arrivals rejected because the FIFO was full
+    net_drops: int = 0  # messages lost in flight (network="net")
+    retrans: int = 0  # data retransmits (transport="ack")
     # Pull-policy counters (jiq / hsq; zero otherwise).
     token_misses: int = 0  # arrivals routed with an empty token pool
     token_sum: int = 0  # sum over active slots of the end-of-slot pool
@@ -379,7 +475,8 @@ def _check_fused_static(static: StaticConfig) -> None:
         raise NotImplementedError(
             f"route_backend='fused' does not implement the fault-injection "
             f"control plane (network={static.network!r}, "
-            f"fault={static.fault!r}) -- use route_backend='dense'"
+            f"fault={static.fault!r}): care_route carries no in-flight "
+            f"message buffer or fault state -- use route_backend='dense'"
         )
     if static.classes > 1 or static.constrained:
         raise NotImplementedError(
@@ -390,20 +487,25 @@ def _check_fused_static(static: StaticConfig) -> None:
         )
 
 
+_EXACT_OVER_NET = (
+    "comm='exact' cannot run through the network model: its per-departure "
+    "message accounting (Prop 6.1) assumes instant delivery -- use "
+    "comm='dt' with x=1 for a near-exact pattern under network='net'"
+)
+
+
 def _check_static(static: StaticConfig) -> None:
-    """Refuse unknown kinds and the kinds of ROADMAP 1, item 9."""
+    """Refuse unknown kinds and what the chosen backend does not model."""
     if static.route_backend not in ("dense", "fused"):
         raise ValueError(
             f"route_backend must be 'dense' or 'fused', got {static.route_backend!r}"
         )
     if static.route_backend == "fused":
         _check_fused_static(static)
-    if static.network != "none" or static.fault != "none":
-        raise NotImplementedError(
-            f"network={static.network!r} / fault={static.fault!r} come with "
-            + _ITEM_9
-        )
     for name, value, allowed in (
+        ("network kind", static.network, ("none", "net")),
+        ("transport kind", static.transport, ("fire_forget", "ack")),
+        ("fault kind", static.fault, ("none", "crash", "slow")),
         ("policy", static.policy, routing_lib.POLICIES),
         ("comm", static.comm, comm_lib.PUSH_KINDS + comm_lib.PULL_KINDS),
         ("approx", static.approx, ("basic", "msr", "msr_x")),
@@ -422,6 +524,13 @@ def _check_static(static: StaticConfig) -> None:
         raise ValueError(
             f"comm={static.comm!r} is the token channel of "
             f"policy={static.comm!r}, got policy={static.policy!r}"
+        )
+    if static.comm == "exact" and static.network != "none":
+        raise ValueError(_EXACT_OVER_NET)
+    if static.transport == "ack" and static.network == "none":
+        raise ValueError(
+            "transport='ack' needs network='net' (instant lossless "
+            "delivery has nothing to acknowledge)"
         )
     if static.policy == "sqd" and static.sqd < 1:
         raise ValueError(f"sqd must be >= 1, got {static.sqd}")
@@ -450,11 +559,101 @@ def _check_diurnal_peak(static: StaticConfig, runs: Sequence[Scenario]) -> None:
         )
 
 
+def _check_control_plane(static: StaticConfig, runs: Sequence[Scenario]) -> None:
+    """Check the runs' control-plane operands against the static kinds.
+
+    ``Scenario.create`` checks them when told the kinds; a cell built
+    without them meets its ``StaticConfig`` here.  The reference's checks
+    and messages, each naming the field.
+    """
+    def arr(name):
+        return np.asarray([getattr(scn, name) for scn in runs])
+
+    delay, jitter, drop = arr("net_delay"), arr("net_jitter"), arr("net_drop")
+    if static.network == "none":
+        for name, value in (("net_delay", delay), ("net_jitter", jitter),
+                            ("net_drop", drop)):
+            if np.any(value != 0):
+                raise ValueError(
+                    f"{name} is nonzero for {int(np.sum(value != 0))} "
+                    f"cell(s) but network='none'; set network='net'"
+                )
+        if static.fault == "none" and np.any(arr("suspect_age") > 0):
+            raise ValueError(
+                "suspect_age > 0 needs a modeled control plane "
+                "(network='net' and/or a fault kind)"
+            )
+    else:
+        if np.any(delay < 0) or np.any(jitter < 0):
+            raise ValueError("net_delay / net_jitter must be >= 0 slots")
+        if np.any(drop < 0) or np.any(drop >= 1):
+            raise ValueError("net_drop is a probability and must be in [0, 1)")
+        if static.policy in ("jsq", "sq2", "sqd") and np.any(
+            delay >= static.net_delay_cap
+        ):
+            raise ValueError(
+                f"net_delay must be < net_delay_cap "
+                f"({static.net_delay_cap}) for the query policies' stale "
+                f"state ring, got max {int(np.max(delay))}; raise "
+                f"StaticConfig.net_delay_cap"
+            )
+    timeout, base = arr("ack_timeout"), arr("backoff_base")
+    retries, ka = arr("max_retries"), arr("ka_period")
+    if static.transport == "ack":
+        if np.any(timeout < 1):
+            raise ValueError(
+                f"ack_timeout must be >= 1 slot under transport='ack' "
+                f"for {int(np.sum(timeout < 1))} cell(s)"
+            )
+        if np.any(base < 1):
+            raise ValueError(
+                "backoff_base must be >= 1 (the timeout window may only "
+                "grow across retries)"
+            )
+        if np.any(retries < 0) or np.any(ka < 0):
+            raise ValueError("max_retries / ka_period must be >= 0")
+    else:
+        for name, value, neutral in (("ack_timeout", timeout, 0),
+                                     ("backoff_base", base, 1.0),
+                                     ("max_retries", retries, 0),
+                                     ("ka_period", ka, 0)):
+            if np.any(value != neutral):
+                raise ValueError(
+                    f"{name} is non-neutral for "
+                    f"{int(np.sum(value != neutral))} cell(s) but "
+                    f"transport='fire_forget'; set transport='ack'"
+                )
+    crash, recover, slow = arr("crash_rate"), arr("recover_rate"), arr("slow_factor")
+    if static.fault == "none":
+        for name, value, neutral in (("crash_rate", crash, 0.0),
+                                     ("recover_rate", recover, 0.0),
+                                     ("slow_factor", slow, 1.0)):
+            if np.any(value != neutral):
+                raise ValueError(
+                    f"{name} is non-neutral for "
+                    f"{int(np.sum(value != neutral))} cell(s) but "
+                    f"fault='none'; set fault='crash' or fault='slow'"
+                )
+    else:
+        if np.any((crash < 0) | (crash > 1)) or np.any((recover < 0) | (recover > 1)):
+            raise ValueError(
+                "crash_rate / recover_rate are per-slot probabilities in [0, 1]"
+            )
+        if np.any((crash > 0) & (recover == 0)):
+            raise ValueError(
+                "recover_rate must be > 0 when crash_rate > 0 (faulted "
+                "servers would never recover)"
+            )
+        if np.any((slow <= 0) | (slow > 1)):
+            raise ValueError("slow_factor must be in (0, 1]")
+
+
 @dataclasses.dataclass(frozen=True)
 class _Operands:
     """Per-run scenario operands: ``(N, 1)`` columns, ``horizon`` ``(N,)``,
     ``mix`` ``(N, C)``, ``rates`` ``(N, K)`` (``None``: unit rates) and
-    ``aff`` ``(N, C, K)`` (``None``: unconstrained routing)."""
+    ``aff`` ``(N, C, K)`` (``None``: unconstrained routing); the
+    control-plane operands are ``(N, 1)`` columns too."""
 
     load: torch.Tensor
     x: torch.Tensor
@@ -473,6 +672,17 @@ class _Operands:
     mix: torch.Tensor
     rates: Optional[torch.Tensor]
     aff: Optional[torch.Tensor]
+    net_delay: torch.Tensor
+    net_jitter: torch.Tensor
+    net_drop: torch.Tensor
+    suspect_age: torch.Tensor
+    ack_timeout: torch.Tensor
+    backoff_base: torch.Tensor
+    max_retries: torch.Tensor
+    ka_period: torch.Tensor
+    crash_rate: torch.Tensor
+    recover_rate: torch.Tensor
+    slow_factor: torch.Tensor
 
 
 def _operands(runs: Sequence[Scenario], static: StaticConfig, device) -> _Operands:
@@ -504,6 +714,7 @@ def _operands(runs: Sequence[Scenario], static: StaticConfig, device) -> _Operan
         if static.policy == "hsq" and scn.rt_rate < 0:
             raise ValueError("rt_rate (the hsq token-refresh rate) must be >= 0")
     _check_diurnal_peak(static, runs)
+    _check_control_plane(static, runs)
 
     def col(values, dtype):
         return torch.tensor(np.asarray(values), dtype=dtype, device=device)[:, None]
@@ -538,6 +749,13 @@ def _operands(runs: Sequence[Scenario], static: StaticConfig, device) -> _Operan
         mix=stack([s.class_mix for s in runs], torch.float32),
         rates=rates,
         aff=aff,
+        **{name: col([getattr(s, name) for s in runs], dtype) for name, dtype in (
+            ("net_delay", _I32), ("net_jitter", _I32), ("net_drop", torch.float32),
+            ("suspect_age", _I32), ("ack_timeout", _I32),
+            ("backoff_base", torch.float32), ("max_retries", _I32),
+            ("ka_period", _I32), ("crash_rate", torch.float32),
+            ("recover_rate", torch.float32), ("slow_factor", torch.float32),
+        )},
     )
 
 
@@ -556,6 +774,10 @@ def _subset_width(static: StaticConfig) -> int:
     if static.policy == "sqd":
         return min(static.sqd, static.servers)
     return 0
+
+
+def _control_plane(static: StaticConfig) -> bool:
+    return static.network != "none" or static.fault != "none"
 
 
 def _eligible(op: _Operands, classes: Optional[torch.Tensor], k: int):
@@ -584,8 +806,13 @@ def draw_workload(
     its kind is on, so that every cell without these kinds replays the
     same draws: the MMPP switch uniforms ``(T,)``, the SQ(d) subsets
     ``(T, d)`` (Floyd's algorithm, O(d) draws a slot) and their tie-break
-    uniforms ``(T, d)``, the random policy's float64 uniforms ``(T,)`` and
-    the class uniforms ``(T,)``.  Every cell reuses its seed's uniforms.
+    uniforms ``(T, d)``, the random policy's float64 uniforms ``(T,)`` (under
+    the control plane the two 32-bit words ``(T, 2)`` of the reference's
+    ``randint`` in their place), the class uniforms ``(T,)``, then the
+    control plane's: the wire's drop and
+    jitter uniforms ``(T, K)`` each (``network="net"``), the ack and
+    keepalive channels' ``(T, 4, K)`` (``transport="ack"``) and the fault
+    chain's ``(T, K)``.  Every cell reuses its seed's uniforms.
 
     Returns ``(N, T)`` bool arrivals (diurnal-modulated, masked by each
     run's horizon), ``(N, T)`` int32 sizes (``None`` on the fused backend)
@@ -593,7 +820,10 @@ def draw_workload(
     ``(N, T, K)``, ``subset`` ``(N, T, d)`` int32, ``subset_gumbel``
     ``(N, T, d)``, ``rand_pick`` ``(N, T)`` int32 (``floor(u *
     n_eligible)``: the class's affinity is known when the draws are made)
-    and ``classes`` ``(N, T)`` int32, each present only when needed.
+    or, under the control plane, ``rand_bits`` ``(N, T, 2)`` int64,
+    ``classes`` ``(N, T)`` int32, ``net_drop_u`` / ``net_jit_u`` /
+    ``fault_u`` ``(N, T, K)`` and ``ack_u`` ``(N, T, 4, K)`` float32, each
+    present only when needed.
     """
     t, k = static.slots, static.servers
     dense = static.route_backend == "dense"
@@ -602,8 +832,10 @@ def draw_workload(
     pick = dense and static.policy == "random"
     streams: dict[str, list] = {
         "arr": [], "size": [], "gum": [], "switch": [], "subset": [],
-        "subset_gum": [], "pick": [], "cls": [],
+        "subset_gum": [], "pick": [], "cls": [], "net_drop_u": [],
+        "net_jit_u": [], "ack_u": [], "fault_u": [],
     }
+    net = dense and static.network != "none"
     for seed in seeds:
         gen = torch.Generator(device=device)
         gen.manual_seed(int(seed))
@@ -626,12 +858,23 @@ def draw_workload(
             streams["subset_gum"].append(workload_lib.uniforms(
                 gen, (t, d), minval=workload_lib.GUMBEL_U_MIN, device=device
             ))
-        if pick:
+        if pick and _control_plane(static):
+            streams["pick"].append(torch.randint(
+                0, 2**32, (t, 2), generator=gen, dtype=torch.int64, device=device
+            ))
+        elif pick:
             streams["pick"].append(torch.rand(
                 (t,), generator=gen, dtype=torch.float64, device=device
             ))
         if static.classes > 1:
             streams["cls"].append(workload_lib.uniforms(gen, (t,), device=device))
+        if net:
+            for name in ("net_drop_u", "net_jit_u"):
+                streams[name].append(workload_lib.uniforms(gen, (t, k), device=device))
+            if static.transport == "ack":
+                streams["ack_u"].append(workload_lib.uniforms(gen, (t, 4, k), device=device))
+        if dense and static.fault != "none":
+            streams["fault_u"].append(workload_lib.uniforms(gen, (t, k), device=device))
     runs = [scn for scn in scenarios for _ in seeds]
     op = _operands(runs, static, device)
     idx = torch.arange(len(runs), device=device) % len(seeds)
@@ -664,30 +907,55 @@ def draw_workload(
         draws["subset_gumbel"] = workload_lib.gumbel(per_run("subset_gum"))
     if static.classes > 1:
         draws["classes"] = workload_lib.arrival_classes(per_run("cls"), op.mix)
-    if pick:
+    if pick and _control_plane(static):
+        draws["rand_bits"] = per_run("pick")
+    elif pick:
         n_elig = _eligible(op, draws.get("classes"), k)
         draws["rand_pick"] = torch.floor(per_run("pick") * n_elig).to(_I32).clamp(
             max=n_elig - 1
         )
+    for name in ("net_drop_u", "net_jit_u", "ack_u", "fault_u"):
+        if streams[name]:
+            draws[name] = per_run(name)
     return arrive, sizes, draws
 
 
 def _dense(arrive, sizes, static: StaticConfig, op: _Operands, *, gumbel=None,
-           subset=None, subset_gumbel=None, rand_pick=None, classes=None) -> dict:
+           subset=None, subset_gumbel=None, rand_pick=None, rand_bits=None,
+           classes=None, net_drop_u=None, net_jit_u=None, ack_u=None,
+           fault_u=None) -> dict:
     """The port of ``_sim_core``: one slot per loop step, all runs at once."""
     n, t = arrive.shape
     k, b = static.servers, static.buffer_cap
     dev = arrive.device
     acfg = approx_lib.ApproxConfig(static.approx, msr_slots=op.msr, x=op.x)
     ccfg = comm_lib.CommConfig(static.comm, x=op.x, rt_period=op.rt_period)
+    has_net = static.network != "none"
+    has_ack = has_net and static.transport == "ack"
+    has_fault = static.fault != "none"
+    ncfg = comm_lib.NetworkConfig(
+        static.network, delay=op.net_delay, jitter=op.net_jitter, drop=op.net_drop,
+        transport=static.transport, ack_timeout=op.ack_timeout,
+        backoff_base=op.backoff_base, max_retries=op.max_retries,
+        ka_period=op.ka_period,
+    )
+    # Under a network the query policies route on stale queues: a ring of
+    # end-of-slot snapshots read net_delay slots back (delay 0 reads the
+    # previous slot's end, this slot's pre-route state).
+    stale_ring = has_net and static.policy in ("jsq", "sq2", "sqd")
+    cap = static.net_delay_cap
     zeros = torch.zeros((n, k), dtype=_I32, device=dev)
     zeros1 = torch.zeros((n,), dtype=_I32, device=dev)
     q_true = head_rem = head_ptr = per_srv = tokens = zeros
     buf = torch.full((n, k, b), -1, dtype=_I32, device=dev)
     emu = approx_lib.EmuState.init(zeros, acfg)
-    comm = comm_lib.CommState.init(k, (n,), dev)
+    comm, net, faulted = comm_lib.control_plane_init(
+        k, network=static.network, fault=static.fault, transport=static.transport,
+        batch=(n,), device=dev,
+    )
+    q_hist = torch.zeros((n, cap, k), dtype=_I32, device=dev) if stale_ring else None
     rr_ptr = deps = arrs = dropped = max_aq = max_q = gap = zeros1
-    token_miss = token_sum = zeros1
+    token_miss = token_sum = suspect_routes = masked_routes = zeros1
     comp_slot = torch.full((n, t), -1, dtype=_I32, device=dev)
     routed = torch.full((n, t), -1, dtype=_I32, device=dev)
     rows = torch.arange(n, device=dev)
@@ -695,6 +963,7 @@ def _dense(arrive, sizes, static: StaticConfig, op: _Operands, *, gumbel=None,
     slot_f = torch.arange(t, dtype=torch.float32, device=dev)
     active = torch.arange(t, device=dev)[None, :] < op.horizon[:, None]
     pull = static.policy in routing_lib.PULL_POLICIES
+    sq_queries = {"sq2": 2, "sqd": static.sqd}.get(static.policy, 0) if has_net else 0
     # Expected per-job drain time E[S] / r_i, once a run.
     drain = (
         routing_lib.expected_drain_slots(op.mean, op.rates)
@@ -708,21 +977,60 @@ def _dense(arrive, sizes, static: StaticConfig, op: _Operands, *, gumbel=None,
         act = active[:, s : s + 1]
         arr = arrive[:, s] & act[:, 0]
 
-        # 1. arrival and routing (a class routes within its affinity)
+        # 0. the fault chain advances first: this slot's service and
+        # trigger see this slot's state.
+        recovered = None
+        if has_fault:
+            adv_f, recovered = workload_lib.fault_transitions(
+                faulted, fault_u[:, s], op.crash_rate, op.recover_rate)
+            faulted = torch.where(act, adv_f, faulted)
+            recovered = recovered & act
+
+        # 1. arrival and routing (a class routes within its affinity, and
+        # around suspect servers unless that leaves none of its own)
+        q_route = q_true
+        if stale_ring:
+            hist = s - 1 - op.net_delay[:, 0]
+            q_route = torch.where((hist >= 0)[:, None], q_hist[rows, (hist % cap).long()], 0)
+        healthy = None
+        if has_ack:
+            # Keepalive-driven: the balancer's last-heard clock, and a
+            # server that abandoned an update is a self-suspect; an
+            # all-suspect fleet routes to all.
+            off = op.suspect_age <= 0
+            h = (off | (net.ka_age <= op.suspect_age)) & (off | ~net.gave_up)
+            healthy = torch.where(h.any(-1, keepdim=True), h, True)
+        elif has_net or has_fault:
+            age = net.age if has_net else comm.slots_since_msg
+            healthy = (op.suspect_age <= 0) | (age <= op.suspect_age)
         if classes is not None:
             mask = op.aff[rows, classes[:, s].long()]
+        if healthy is None:
+            route_mask = mask
+        elif mask is None:
+            route_mask = healthy
+        else:
+            both = mask & healthy
+            route_mask = torch.where(both.any(-1, keepdim=True), both, mask)
         server, rr_ptr = routing_lib.route(
-            static.policy, q_true, emu.q_app, rr_ptr,
+            static.policy, q_route, emu.q_app, rr_ptr,
             None if gumbel is None else gumbel[:, s],
             drain_slots=drain, deterministic=static.deterministic_ties,
-            mask=mask,
+            mask=route_mask,
             subset=None if subset is None else subset[:, s],
             subset_gumbel=None if subset_gumbel is None else subset_gumbel[:, s],
             rand_pick=None if rand_pick is None else rand_pick[:, s],
+            rand_bits=None if rand_bits is None else rand_bits[:, s],
             tokens=tokens,
         )
         srv = server.long()
         onehot = lanes == server[:, None]
+        if healthy is not None:
+            # Arrivals routed while some but not all servers are suspect,
+            # and those among them that went to a suspect server.
+            partial = arr & healthy.any(-1) & ~healthy.all(-1)
+            masked_routes = masked_routes + partial.to(_I32)
+            suspect_routes = suspect_routes + (partial & ~healthy[rows, srv]).to(_I32)
         if pull:
             # The balancer spends a token on every routed arrival (it
             # cannot see a FIFO drop); an empty selected pool is a miss.
@@ -741,15 +1049,18 @@ def _dense(arrive, sizes, static: StaticConfig, op: _Operands, *, gumbel=None,
         per_srv = per_srv + sel.to(_I32)
         routed[:, s] = torch.where(admit, server, -1)
 
-        # 2. service (one unit, or the rate's credit schedule)
+        # 2. service (one unit, or the rate's credit schedule; a crashed
+        # server none, a slowed one its slowed schedule)
         units = (
             None if op.rates is None
             else workload_lib.service_units(slot_f[s], op.rates)
         )
+        work = 1 if units is None else units
+        if has_fault:
+            work = workload_lib.faulted_service_units(
+                slot_f[s], faulted, work, static.fault, op.slow_factor, rates=op.rates)
         busy = (q_true > 0) & act
-        head_rem = torch.where(
-            busy, head_rem - (1 if units is None else units), head_rem
-        )
+        head_rem = torch.where(busy, head_rem - work, head_rem)
         dep = busy & (head_rem <= 0)
         head_jid = buf.gather(2, (head_ptr % b).long()[..., None])[..., 0]
         departed = torch.where(dep, head_jid, -1)
@@ -761,32 +1072,56 @@ def _dense(arrive, sizes, static: StaticConfig, op: _Operands, *, gumbel=None,
         dep_i = dep.to(_I32)
         deps = deps + dep_i.sum(-1, dtype=_I32)
 
-        # 3. emulation drain, with the same units
+        # 3. emulation drain with the nominal units (the balancer does not
+        # see faults)
         emu = approx_lib.emu_drain_slot(emu, acfg, units=units, active=act)
 
-        # 4/5. trigger (frozen past the horizon) and snap
+        # 4/5. trigger (frozen past the horizon); a crashed server cannot
+        # send and a recovery forces a resync.  Under a network the trigger
+        # is an intent: the wire bills the messages and delivers the
+        # payload that snaps the emulation.
         err = approx_lib.approximation_error(emu, q_true)
-        triggered, adv = comm_lib.evaluate(comm, ccfg, err, dep_i, q=q_true)
-        triggered = triggered & act
-        comm = comm_lib.CommState(
-            deps_since_msg=torch.where(act, adv.deps_since_msg, comm.deps_since_msg),
-            slots_since_msg=torch.where(act, adv.slots_since_msg, comm.slots_since_msg),
-            msgs=torch.where(act[:, 0], adv.msgs, comm.msgs),
+        can_send = force = None
+        if static.fault == "crash":
+            can_send, force = ~faulted, recovered
+        triggered, adv = comm_lib.evaluate(
+            comm, ccfg, err, dep_i, can_send=can_send, force=force, q=q_true,
+            count_msgs=not has_net,
         )
-        emu = approx_lib.emu_message_reset(emu, q_true, triggered, acfg)
-        if pull:
-            # A token message overwrites its server's pool entry from the
-            # queue it reports: 1 if idle (jiq), the headroom below x (hsq).
-            if static.comm == "jiq":
-                fresh = (q_true == 0).to(_I32)
+        triggered = triggered & act
+        snap_mask, snap_payload = triggered, q_true
+        if has_net:
+            if has_ack:
+                delivered, payload, sent, net_adv = comm_lib.net_step_ack(
+                    net, ncfg, triggered, q_true, net_drop_u[:, s], net_jit_u[:, s],
+                    ack_u[:, s], can_send=can_send)
             else:
-                fresh = torch.clamp_min(op.x - q_true, 0)
-            tokens = torch.where(triggered, fresh, tokens)
+                delivered, payload, sent, net_adv = comm_lib.net_step(
+                    net, ncfg, triggered, q_true, net_drop_u[:, s], net_jit_u[:, s],
+                    can_send=can_send)
+            snap_mask, snap_payload = delivered & act, payload
+            net = comm_lib.select_rows(act[:, 0], net_adv, net)
+            # SQ(d)'s d probes and d replies an arrival ride the wire too.
+            extra = torch.where(act[:, 0], sent, 0) + sq_queries * 2 * arr.to(_I32)
+            adv = dataclasses.replace(adv, msgs=adv.msgs + extra)
+        comm = comm_lib.select_rows(act[:, 0], adv, comm)
+        emu = approx_lib.emu_message_reset(emu, snap_payload, snap_mask, acfg)
+        if pull:
+            # A delivered token message overwrites its server's pool entry
+            # from the queue it reports: 1 if idle (jiq), the headroom
+            # below x (hsq).
+            if static.comm == "jiq":
+                fresh = (snap_payload == 0).to(_I32)
+            else:
+                fresh = torch.clamp_min(op.x - snap_payload, 0)
+            tokens = torch.where(snap_mask, fresh, tokens)
             token_sum = token_sum + torch.where(
                 act[:, 0], tokens.sum(-1, dtype=_I32), 0
             )
 
         # 6. metrics
+        if stale_ring:
+            q_hist[:, s % cap] = torch.where(act, q_true, q_hist[:, s % cap])
         qmax = q_true.amax(-1)
         max_aq = torch.maximum(max_aq, (q_true - emu.q_app).abs().amax(-1))
         max_q = torch.maximum(max_q, qmax)
@@ -801,6 +1136,10 @@ def _dense(arrive, sizes, static: StaticConfig, op: _Operands, *, gumbel=None,
         arrs=arrs, dropped=dropped, max_aq=max_aq, max_q=max_q, gap_sup=gap,
         per_srv=per_srv, final_q=q_true, token_misses=token_miss,
         token_sum=token_sum,
+        net_drops=zeros1 if net is None else net.drops,
+        retrans=net.retrans if has_ack else zeros1,
+        fault_state=torch.zeros_like(zeros, dtype=torch.bool) if faulted is None else faulted,
+        suspect_routes=suspect_routes, masked_routes=masked_routes,
     )
 
 
@@ -821,6 +1160,9 @@ def _fused(arrive, static: StaticConfig, op: _Operands) -> dict:
         deps=stats[:, 1], arrs=stats[:, 2], dropped=stats[:, 3],
         max_aq=stats[:, 4], max_q=stats[:, 5], gap_sup=stats[:, 6],
         per_srv=per_srv, final_q=q_final, token_misses=zeros, token_sum=zeros,
+        net_drops=zeros, retrans=zeros,
+        fault_state=torch.zeros_like(q_final, dtype=torch.bool),
+        suspect_routes=zeros, masked_routes=zeros,
     )
 
 
@@ -834,7 +1176,12 @@ def run_draws(
     subset: torch.Tensor | None = None,
     subset_gumbel: torch.Tensor | None = None,
     rand_pick: torch.Tensor | None = None,
+    rand_bits: torch.Tensor | None = None,
     classes: torch.Tensor | None = None,
+    net_drop_u: torch.Tensor | None = None,
+    net_jit_u: torch.Tensor | None = None,
+    ack_u: torch.Tensor | None = None,
+    fault_u: torch.Tensor | None = None,
 ) -> dict:
     """Run the slot loop on given draws, one run per row.
 
@@ -851,15 +1198,30 @@ def run_draws(
         each subset; required with ``subset``.
       rand_pick: ``(N, T)`` int32 draws in ``[0, n_eligible)`` of the
         random policy (``n_eligible`` the servers of the slot's class).
+      rand_bits: ``(N, T, 2)`` int64 words of the random policy under the
+        control plane, whose suspect mask sets each slot's eligible count
+        (``routing.randint_from_bits``); required there in place of
+        ``rand_pick``.
       classes: ``(N, T)`` int32 arrival class ids; required when
         ``static.classes > 1``.
+      net_drop_u / net_jit_u: ``(N, T, K)`` float32 uniforms of the wire's
+        drop and jitter draws; required by ``network="net"``.
+      ack_u: ``(N, T, 4, K)`` float32 uniforms of the ack and keepalive
+        channels (ack drop, ack jitter, keepalive drop, keepalive jitter);
+        required by ``transport="ack"``.
+      fault_u: ``(N, T, K)`` float32 uniforms of the fault chain; required
+        by a fault kind.
 
     Returns a dict of per-run tensors: ``routed`` ``(N, T)`` (-1 where no
     arrival was admitted), ``comp_slot`` ``(N, T)`` (the completion slot
     of the job that arrived in each slot, -1 if none), the counters
     ``msgs``, ``deps``, ``arrs``, ``dropped``, ``max_aq``, ``max_q``,
-    ``gap_sup``, ``token_misses``, ``token_sum`` ``(N,)`` and the vectors
-    ``per_srv``, ``final_q`` ``(N, K)``.
+    ``gap_sup``, ``token_misses``, ``token_sum``, ``net_drops``,
+    ``retrans`` ``(N,)``, the vectors ``per_srv``, ``final_q`` ``(N, K)``
+    and the end-of-run fault mask ``fault_state`` ``(N, K)``.  Under a
+    suspect mask, ``masked_routes`` counts the arrivals routed while some
+    but not all servers were suspect and ``suspect_routes`` those of them
+    that went to a suspect server ``(N,)``.
     """
     _check_static(static)
     n, t = arrive.shape
@@ -880,14 +1242,28 @@ def run_draws(
             f"policy {static.policy!r} needs the (N, T, d) = ({n}, {t}, {d}) "
             f"subset and subset_gumbel draws"
         )
-    if static.policy == "random" and rand_pick is None:
+    if static.policy == "random" and _control_plane(static):
+        if rand_bits is None or tuple(rand_bits.shape) != (n, t, 2):
+            raise ValueError("policy 'random' under the control plane needs the "
+                             "(N, T, 2) rand_bits draws")
+    elif static.policy == "random" and rand_pick is None:
         raise ValueError("policy 'random' needs the (N, T) rand_pick draws")
     if static.classes > 1 and classes is None:
         raise ValueError("multi-class arrivals need the (N, T) class ids")
+    k = static.servers
+    for name, value, shape, needed in (
+        ("net_drop_u", net_drop_u, (n, t, k), static.network != "none"),
+        ("net_jit_u", net_jit_u, (n, t, k), static.network != "none"),
+        ("ack_u", ack_u, (n, t, 4, k), static.transport == "ack"),
+        ("fault_u", fault_u, (n, t, k), static.fault != "none"),
+    ):
+        if needed and (value is None or tuple(value.shape) != shape):
+            raise ValueError(f"the control plane needs the {shape} {name} draws")
     return _dense(
         arrive, sizes, static, op, gumbel=gumbel, subset=subset,
-        subset_gumbel=subset_gumbel, rand_pick=rand_pick,
+        subset_gumbel=subset_gumbel, rand_pick=rand_pick, rand_bits=rand_bits,
         classes=classes if static.classes > 1 else None,
+        net_drop_u=net_drop_u, net_jit_u=net_jit_u, ack_u=ack_u, fault_u=fault_u,
     )
 
 
@@ -912,6 +1288,8 @@ def _finalize(arrive_np: np.ndarray, out: dict) -> SimResult:
         msgs_per_departure=(msgs / deps) if deps else 0.0,
         queue_gap_sup=int(out["gap_sup"]),
         dropped=int(out["dropped"]),
+        net_drops=int(out["net_drops"]),
+        retrans=int(out["retrans"]),
         token_misses=int(out["token_misses"]),
         token_sum=int(out["token_sum"]),
     )
@@ -978,15 +1356,19 @@ def simulate(seed: int, cfg: SimConfig, *, device=None) -> SimResult:
     return simulate_batch([seed], cfg, device=device)[0]
 
 
-def exact_state_messages(result: SimResult, policy: str, sqd: int = 2) -> int:
+def exact_state_messages(result: SimResult, policy: str, sqd: int = 2,
+                         network: str = "none") -> int:
     """Messages the *policy itself* fundamentally needs (paper Fig. 5).
 
     JSQ needs one message per departure; SQ(d) needs 2d per arrival under
-    the query implementation; RR / Random need none.  CARE policies report
-    their trigger-counted messages directly.
+    the query implementation (already in ``result.messages`` under a
+    network, where they are billed on the wire); RR / Random need none.
+    CARE policies report their trigger-counted messages directly.
     """
     if policy == "jsq":
         return result.departures
+    if policy in ("sq2", "sqd") and network != "none":
+        return result.messages
     if policy == "sq2":
         return 4 * result.arrivals
     if policy == "sqd":

@@ -9,7 +9,10 @@ Port of ``repro/core/care/workload.py``:
   ``deterministic``, ``pareto`` or ``weibull``;
 * arrival classes drawn by inverse CDF on a class mix;
 * the per-server credit schedule of heterogeneous service rates
-  (:func:`service_units`).
+  (:func:`service_units`);
+* the server fault process: the crash <-> healthy chain
+  (:func:`fault_transitions`) and the work a faulted server does
+  (:func:`faulted_service_units`).
 
 Every sampler is split in two:
 
@@ -222,6 +225,46 @@ def service_units(slot_idx: torch.Tensor, rates: torch.Tensor) -> torch.Tensor:
     """
     t = slot_idx.to(torch.float32)
     return (torch.floor((t + 1.0) * rates) - torch.floor(t * rates)).to(torch.int32)
+
+
+def fault_transitions(faulted: torch.Tensor, fault_u: torch.Tensor,
+                      crash_rate, recover_rate):
+    """One slot of the two-state fault chain: ``(faulted', recovered)``.
+
+    A healthy server crashes when ``fault_u < crash_rate``, a faulted one
+    recovers when ``fault_u < recover_rate``: one float32 uniform a
+    (slot, server) serves both, since a server is in one state.
+    ``recovered`` marks this slot's recoveries (the resync trigger).
+    """
+    crash = ~faulted & (fault_u < crash_rate)
+    recover = faulted & (fault_u < recover_rate)
+    return (faulted | crash) & ~recover, recover
+
+
+def faulted_service_units(slot_idx: torch.Tensor, faulted: torch.Tensor,
+                          nominal_units, fault_kind: str, slow_factor,
+                          rates: torch.Tensor | None = None) -> torch.Tensor:
+    """Work units each server completes this slot under the fault process.
+
+    A crashed server (``"crash"``) does no work, its jobs wait; a slowed
+    one (``"slow"``) works by the credit schedule of ``rates *
+    slow_factor`` (unit rates when ``rates`` is None).  Healthy servers
+    keep ``nominal_units``.  ``slot_idx`` is a float32 tensor as in
+    :func:`service_units`.
+    """
+    nominal = nominal_units
+    if not torch.is_tensor(nominal):
+        nominal = torch.full(faulted.shape, nominal, dtype=torch.int32, device=faulted.device)
+    if fault_kind == "crash":
+        slowed = torch.zeros_like(nominal)
+    elif fault_kind == "slow":
+        base = torch.ones(faulted.shape, dtype=torch.float32, device=faulted.device)
+        if rates is not None:
+            base = rates.to(torch.float32)
+        slowed = service_units(slot_idx, base * slow_factor)
+    else:
+        raise ValueError(f"unknown fault kind: {fault_kind}")
+    return torch.where(faulted, slowed, nominal)
 
 
 def distinct_subsets(

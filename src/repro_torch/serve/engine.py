@@ -32,8 +32,9 @@ single-precision operation, so the port equals the reference bit for bit.
 Two backends route the arrival lanes (``route_backend``):
 
 * ``"dense"`` -- the reference's per-lane body as a Python loop over lanes,
-  for the policies ``jsaq`` / ``sqd`` / ``rr`` / ``drain`` with random or
-  lowest-index ties;
+  for the policies ``jsaq`` / ``sqd`` / ``rr`` / ``drain`` and the pull
+  policies ``jiq`` / ``hsq`` (a balancer-side token pool) with random or
+  lowest-index ties, and the degraded control plane;
 * ``"fused"`` -- the counterpart of the reference's ``"pallas"`` backend;
   it refuses what that backend refuses.  On the card the whole slot loop is
   one ``serve_slots`` launch per call
@@ -41,9 +42,15 @@ Two backends route the arrival lanes (``route_backend``):
   kernel's plain version, the per-slot loop with one
   :func:`repro_torch.kernels.ops.serve_route` call a slot for all runs.
 
-The degraded control plane (``network`` / ``fault`` / ``transport``), the
-pull policies and the streaming engine come with later slices and raise
-``NotImplementedError`` naming theirs.
+The degraded control plane runs on the dense backend (the fused one
+refuses it, as the reference's pallas backend does): replica faults
+(``fault``, advanced after routing; a crashed replica admits, decodes and
+sends nothing, and resyncs on recovery), the wire (``network="net"``,
+``transport`` fire-and-forget or ack; the dispatcher's approximation and
+token pool take the *delivered* snapshot; SQ(d)'s ``2 d`` queries a
+routed request are billed) and suspect masking (``suspect_age``).  The
+streaming engine comes with a later slice and raises
+``NotImplementedError`` naming it.
 """
 from __future__ import annotations
 
@@ -63,9 +70,7 @@ from repro_torch.kernels import ops as kernel_ops
 _I32 = torch.int32
 _F32 = torch.float32
 
-SLICE_2_CONTROL_PLANE = "slice 2 of the port (ROADMAP 1, item 9)"
-SLICE_2_PULL = "the serving half of ROADMAP 1, item 10"
-SLICE_3_STREAM = "slice 3 of the port (ROADMAP 1, item 11: serve_stream)"
+SLICE_STREAM = "a later slice of the port (ROADMAP 1, item 11: serve_stream)"
 
 # The serving tier's routing policies (see the reference): ``jsaq`` joins
 # the shortest approximated queue; ``sqd`` the shortest of ``sqd`` sampled
@@ -101,8 +106,8 @@ class EngineStatic:
     its ``EngineScenario.horizon``) and ``max_arrivals`` the padded
     per-slot arrival-lane width (0 = derive from the sampled workload).
     ``trace_occupancy`` also returns the end-of-slot per-replica
-    occupancy.  ``network`` / ``transport`` / ``fault`` / ``stream`` name
-    kinds of later slices; only their defaults run here.
+    occupancy.  ``network`` / ``transport`` / ``fault`` are the control
+    plane's kinds; ``stream`` names the streaming engine of a later slice.
     """
 
     replicas: int = 8
@@ -124,7 +129,7 @@ class EngineStatic:
 
 
 def _check_static(static: EngineStatic) -> None:
-    """Refuse what this slice does not run, naming the slice that will.
+    """Refuse unknown kinds and the streaming engine (a later slice).
 
     The ``"fused"`` backend refuses exactly what the reference's
     ``"pallas"`` backend refuses (``ServeConfig.static_part``).
@@ -157,24 +162,13 @@ def _check_static(static: EngineStatic) -> None:
     ):
         if value not in allowed:
             raise ValueError(f"unknown {name} kind: {value!r}")
-    if static.policy in PULL_POLICIES or static.comm in PULL_POLICIES:
-        raise NotImplementedError(
-            f"pull policy/comm {static.policy!r}/{static.comm!r} comes with "
-            f"{SLICE_2_PULL}"
-        )
-    if static.network != "none" or static.transport != "fire_forget" or (
-        static.fault != "none"
-    ):
-        raise NotImplementedError(
-            f"network={static.network!r} / transport={static.transport!r} / "
-            f"fault={static.fault!r} come with {SLICE_2_CONTROL_PLANE}"
-        )
     if static.stream:
-        raise NotImplementedError(f"the streaming engine comes with {SLICE_3_STREAM}")
-    if static.policy not in PUSH_POLICIES:
+        raise NotImplementedError(f"the streaming engine comes with {SLICE_STREAM}")
+    if static.policy not in PUSH_POLICIES + PULL_POLICIES:
         raise ValueError(f"unknown policy: {static.policy!r}")
-    if static.comm not in comm_lib.PUSH_KINDS:
+    if static.comm not in comm_lib.PUSH_KINDS + comm_lib.PULL_KINDS:
         raise ValueError(f"unknown communication kind: {static.comm!r}")
+    comm_lib.validate_control_plane(policy=static.policy, comm=static.comm)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -183,7 +177,8 @@ class EngineScenario:
     ``(R,)``) for one cell, with a leading run axis once stacked by
     :func:`stack_scenarios`.  float32 / int32 as the reference carries
     them; ``load`` rides along for reporting, ``mean_prefill`` /
-    ``mean_decode`` feed the ``drain`` policy's E[S] term."""
+    ``mean_decode`` feed the ``drain`` policy's E[S] term.  The
+    control-plane operands are neutral when their kinds are off."""
 
     load: torch.Tensor
     x: torch.Tensor
@@ -193,6 +188,17 @@ class EngineScenario:
     mean_decode: torch.Tensor
     decode_rates: torch.Tensor
     horizon: torch.Tensor
+    net_delay: torch.Tensor
+    net_jitter: torch.Tensor
+    net_drop: torch.Tensor
+    suspect_age: torch.Tensor
+    ack_timeout: torch.Tensor
+    backoff_base: torch.Tensor
+    max_retries: torch.Tensor
+    ka_period: torch.Tensor
+    crash_rate: torch.Tensor
+    recover_rate: torch.Tensor
+    slow_factor: torch.Tensor
 
     @staticmethod
     def create(
@@ -205,6 +211,17 @@ class EngineScenario:
         horizon: Optional[int] = None,
         replicas: int = 8,
         decode_rates: Optional[Sequence[float]] = None,
+        net_delay: int = 0,
+        net_jitter: int = 0,
+        net_drop: float = 0.0,
+        suspect_age: int = 0,
+        ack_timeout: int = 0,
+        backoff_base: float = 1.0,
+        max_retries: int = 0,
+        ka_period: int = 0,
+        crash_rate: float = 0.0,
+        recover_rate: float = 0.0,
+        slow_factor: float = 1.0,
     ) -> "EngineScenario":
         if horizon is None:
             horizon = np.iinfo(np.int32).max
@@ -224,7 +241,12 @@ class EngineScenario:
             load=f32(load), x=f32(x), rt_period=i32(rt_period),
             msr_drain=f32(msr_drain), mean_prefill=f32(mean_prefill),
             mean_decode=f32(mean_decode), decode_rates=rates,
-            horizon=i32(horizon),
+            horizon=i32(horizon), net_delay=i32(net_delay),
+            net_jitter=i32(net_jitter), net_drop=f32(net_drop),
+            suspect_age=i32(suspect_age), ack_timeout=i32(ack_timeout),
+            backoff_base=f32(backoff_base), max_retries=i32(max_retries),
+            ka_period=i32(ka_period), crash_rate=f32(crash_rate),
+            recover_rate=f32(recover_rate), slow_factor=f32(slow_factor),
         )
 
     def to(self, device) -> "EngineScenario":
@@ -250,7 +272,13 @@ class ServeConfig:
     ``mean_prefill`` / ``mean_decode`` also parameterise the host-side
     workload sampler (:meth:`workload_key`).  ``route_backend`` is
     ``"dense"`` or ``"fused"``; ``deterministic_ties`` breaks ties to the
-    lowest index instead of by the pre-drawn uniform rank.
+    lowest index instead of by the pre-drawn uniform rank.  The control
+    plane: ``network="net"`` with ``net_delay`` / ``net_jitter`` /
+    ``net_drop``; ``transport="ack"`` with ``ack_timeout`` /
+    ``backoff_base`` / ``max_retries`` / ``ka_period``; ``fault`` crash /
+    slow with ``crash_rate`` / ``recover_rate`` / ``slow_factor``; and
+    ``suspect_age`` (0 = no suspect masking).  For hsq, ``x`` is the
+    token threshold and ``rt_period`` the token-refresh period.
     """
 
     replicas: int = 8
@@ -272,8 +300,19 @@ class ServeConfig:
     route_backend: str = "dense"
     deterministic_ties: bool = False
     network: str = "none"
+    net_delay: int = 0
+    net_jitter: int = 0
+    net_drop: float = 0.0
+    suspect_age: int = 0
     transport: str = "fire_forget"
+    ack_timeout: int = 0
+    backoff_base: float = 1.0
+    max_retries: int = 0
+    ka_period: int = 0
     fault: str = "none"
+    crash_rate: float = 0.0
+    recover_rate: float = 0.0
+    slow_factor: float = 1.0
 
     def rate_scale(self) -> float:
         """Mean decode rate: the capacity multiplier of heterogeneity."""
@@ -320,6 +359,23 @@ class ServeConfig:
             fault=self.fault,
         )
         _check_static(static)
+        comm_lib.validate_control_plane(
+            network=self.network, net_delay=self.net_delay,
+            net_jitter=self.net_jitter, net_drop=self.net_drop,
+            suspect_age=self.suspect_age, fault=self.fault,
+            crash_rate=self.crash_rate, recover_rate=self.recover_rate,
+            slow_factor=self.slow_factor, policy=self.policy, comm=self.comm,
+            token_refresh=float(self.rt_period) if self.policy == "hsq" else None,
+            transport=self.transport, ack_timeout=self.ack_timeout,
+            backoff_base=self.backoff_base, max_retries=self.max_retries,
+            ka_period=self.ka_period,
+        )
+        if self.network != "none" and self.comm == "exact":
+            raise ValueError(
+                "comm='exact' assumes instant delivery (per-departure "
+                "accounting); it cannot compose with network="
+                f"{self.network!r}"
+            )
         return static
 
     def scenario(self) -> EngineScenario:
@@ -328,6 +384,12 @@ class ServeConfig:
             msr_drain=self.msr_drain, mean_prefill=self.mean_prefill,
             mean_decode=self.mean_decode, horizon=self.slots,
             replicas=self.replicas, decode_rates=self.decode_rates,
+            net_delay=self.net_delay, net_jitter=self.net_jitter,
+            net_drop=self.net_drop, suspect_age=self.suspect_age,
+            ack_timeout=self.ack_timeout, backoff_base=self.backoff_base,
+            max_retries=self.max_retries, ka_period=self.ka_period,
+            crash_rate=self.crash_rate, recover_rate=self.recover_rate,
+            slow_factor=self.slow_factor,
         )
 
     def workload_key(self) -> tuple:
@@ -493,15 +555,25 @@ def subset_mask(u_row: torch.Tensor, n: int, d: int) -> torch.Tensor:
 
 
 def _route_lanes(static, act, n_arr_t, tie_t, sub_t, q_len, q_head, busy_cnt,
-                 approx, rr_ptr, dropped, drain_slots):
+                 approx, rr_ptr, dropped, drain_slots, healthy=None, pull=None,
+                 suspect=None):
     """The dense backend: the reference's per-lane body, one lane per step.
 
     Every routed request bumps ``q_len`` / ``approx`` before the next lane
-    reads them.  Returns ``(jv, tail, admit, q_len', approx', rr_ptr',
-    dropped')`` with ``(D, A)`` lane outputs.
+    reads them.  ``healthy`` ``(D, R)`` (or None) masks suspect replicas
+    out; ``pull`` is the ``(tokens, token_miss)`` pair of the pull
+    policies, which spend a token a routed request; ``suspect`` is the
+    ``(masked_routes, suspect_routes)`` pair counting, under a mask with
+    some but not all replicas suspect, the routed requests and those that
+    went to a suspect replica.  Returns ``(jv, tail, admit, q_len',
+    approx', rr_ptr', dropped', pull', suspect')`` with ``(D, A)`` lane
+    outputs.
     """
     r_n, c_n = static.replicas, static.queue_cap
     rep_idx = torch.arange(r_n, dtype=_I32, device=q_len.device)
+    partial = None
+    if healthy is not None:
+        partial = healthy.any(1) & ~healthy.all(1)
     jvs, tails, admits = [], [], []
     for a in range(tie_t.shape[1]):
         live = act & (a < n_arr_t)
@@ -509,15 +581,31 @@ def _route_lanes(static, act, n_arr_t, tie_t, sub_t, q_len, q_head, busy_cnt,
             occ = (q_len + busy_cnt).to(_F32)
         else:
             occ = approx
-        if static.policy == "rr":
+        if static.policy == "rr" and healthy is None:
             # The pointer advances only on live lanes.
             j = torch.remainder(rr_ptr, r_n)
             rr_ptr = rr_ptr + live.to(_I32)
+        elif static.policy == "rr":
+            # Skip suspect replicas to the cyclically next healthy one.
+            off = torch.remainder(rep_idx - rr_ptr[:, None], r_n)
+            j = torch.argmin(torch.where(healthy, off, r_n), 1).to(_I32)
+            rr_ptr = torch.where(live, j + 1, rr_ptr)
         else:
-            score = occ * drain_slots if static.policy == "drain" else occ
+            if static.policy in PULL_POLICIES:
+                score = (0 - pull[0]).to(_F32)
+            elif static.policy == "drain":
+                score = occ * drain_slots
+            else:
+                score = occ
             if static.policy == "sqd":
                 cand = subset_mask(sub_t[:, a], r_n, static.sqd)
+                if healthy is not None:
+                    # Suspects leave the sampled subset unless all of it is.
+                    both = cand & healthy
+                    cand = torch.where(both.any(1, keepdim=True), both, cand)
                 score = torch.where(cand, score, torch.inf)
+            elif healthy is not None:
+                score = torch.where(healthy, score, torch.inf)
             if static.deterministic_ties:
                 j = torch.argmin(score, 1)
             else:
@@ -528,6 +616,15 @@ def _route_lanes(static, act, n_arr_t, tie_t, sub_t, q_len, q_head, busy_cnt,
                 j = torch.argmax((cum == (rank + 1)[:, None]).to(_I32), 1)
         j = j.long()
         onehot = rep_idx == j[:, None]
+        if pull is not None:
+            # Spend the routed replica's token; an empty pool is a miss.
+            tokens, token_miss = pull
+            token_miss = token_miss + (live & (tokens.gather(1, j[:, None])[:, 0] == 0)).to(_I32)
+            pull = (torch.clamp_min(tokens - (onehot & live[:, None]).to(_I32), 0), token_miss)
+        if partial is not None:
+            routed = live & partial
+            hit = routed & ~healthy.gather(1, j[:, None])[:, 0]
+            suspect = (suspect[0] + routed.to(_I32), suspect[1] + hit.to(_I32))
         len_j = q_len.gather(1, j[:, None])[:, 0]
         # The ring is fixed: a full ring drops the arrival (counted).
         admit = live & (len_j < c_n)
@@ -540,7 +637,7 @@ def _route_lanes(static, act, n_arr_t, tie_t, sub_t, q_len, q_head, busy_cnt,
         tails.append(tail)
         admits.append(admit)
     return (torch.stack(jvs, 1), torch.stack(tails, 1), torch.stack(admits, 1),
-            q_len, approx, rr_ptr, dropped)
+            q_len, approx, rr_ptr, dropped, pull, suspect)
 
 
 class _CoreArgs(NamedTuple):
@@ -556,11 +653,18 @@ class _CoreArgs(NamedTuple):
     n_cap: int
     t_end: int
     live_lanes: np.ndarray
+    control: Optional[dict] = None
+
+
+# Counters of the degraded control plane and the pull policies in
+# _serve_core's dict (zero where their kinds are off).
+CONTROL_COUNTERS = ("net_drops", "retrans", "token_misses", "token_sum",
+                    "masked_routes", "suspect_routes")
 
 
 def _serve_core(n_arr, work, tie_u, rid, sub_u, scn: EngineScenario,
                 static: EngineStatic, n_cap: int, t_end: int,
-                live_lanes: np.ndarray) -> dict:
+                live_lanes: np.ndarray, control: Optional[dict] = None) -> dict:
     """The port of ``_serve_core`` for the fixed horizon, all runs at once.
 
     Args:
@@ -574,6 +678,9 @@ def _serve_core(n_arr, work, tie_u, rid, sub_u, scn: EngineScenario,
       t_end: the slots to run; every run is frozen from its horizon on.
       live_lanes: ``(T,)`` host-side count of lanes live in some run; the
         dense backend routes only those (a dead lane changes nothing).
+      control: the control plane's float32 uniforms, present when their
+        kinds are on: ``net_drop_u`` / ``net_jit_u`` / ``fault_u`` ``(T,
+        D, R)`` and ``ack_u`` ``(T, D, 4, R)``.
 
     The fused backend goes through :func:`repro_torch.kernels.ops.serve_slots`:
     on the card all ``t_end`` slots are one ``serve_slots`` launch, on the
@@ -581,20 +688,25 @@ def _serve_core(n_arr, work, tie_u, rid, sub_u, scn: EngineScenario,
     backend always runs that loop.  Returns a dict of ``(D, ...)`` tensors:
     ``comp_slot`` ``(D, n_cap)``, ``msgs``, ``total_comp``, ``dropped``
     ``(D,)``, ``final_occ`` ``(D, R)``, under ``trace_occupancy``
-    ``occupancy`` ``(D, T, R)`` (else None), and the end-of-run routing
-    state ``q_len``, ``q_head``, ``approx`` and the busy decode-slot count
-    ``busy`` ``(D, R)``.
+    ``occupancy`` ``(D, T, R)`` (else None), the end-of-run routing state
+    ``q_len``, ``q_head``, ``approx`` and the busy decode-slot count
+    ``busy`` ``(D, R)``, and the ``(D,)`` counters of
+    :data:`CONTROL_COUNTERS` (see :func:`_route_lanes` for the last two).
     """
-    args = _CoreArgs(n_arr, work, tie_u, rid, sub_u, scn, static, n_cap, t_end, live_lanes)
+    args = _CoreArgs(n_arr, work, tie_u, rid, sub_u, scn, static, n_cap, t_end,
+                     live_lanes, control)
     if static.route_backend != "fused":
         return _serve_loop(args)
-    return kernel_ops.serve_slots(
+    out = kernel_ops.serve_slots(
         n_arr, work, rid, scn.x, scn.rt_period, scn.msr_drain, scn.decode_rates,
         scn.horizon, cap=static.queue_cap, comm=static.comm,
         decode_slots=static.decode_slots, use_rates=static.use_rates,
         trace_occupancy=static.trace_occupancy, n_cap=n_cap, t_end=t_end,
         plain=functools.partial(_serve_loop, args),
     )
+    for name in CONTROL_COUNTERS:
+        out.setdefault(name, torch.zeros_like(out["msgs"]))
+    return out
 
 
 def _serve_loop(args: _CoreArgs) -> dict:
@@ -608,13 +720,26 @@ def _serve_loop(args: _CoreArgs) -> dict:
     trash row / column: the reference's out-of-bounds ``mode="drop"``
     scatters land there.
     """
-    n_arr, work, tie_u, rid, sub_u, scn, static, n_cap, t_end, live_lanes = args
+    (n_arr, work, tie_u, rid, sub_u, scn, static, n_cap, t_end, live_lanes,
+     control) = args
+    control = control or {}
     t_n, d_n = work.shape[:2]
     r_n, s_n, c_n = static.replicas, static.decode_slots, static.queue_cap
     dev = work.device
     ccfg = comm_lib.CommConfig(
         kind=static.comm, x=scn.x[:, None], rt_period=scn.rt_period[:, None]
     )
+    has_net = static.network != "none"
+    has_ack = has_net and static.transport == "ack"
+    has_fault = static.fault != "none"
+    has_pull = static.policy in PULL_POLICIES
+    ncfg = comm_lib.NetworkConfig(
+        static.network, delay=scn.net_delay[:, None], jitter=scn.net_jitter[:, None],
+        drop=scn.net_drop[:, None], transport=static.transport,
+        ack_timeout=scn.ack_timeout[:, None], backoff_base=scn.backoff_base[:, None],
+        max_retries=scn.max_retries[:, None], ka_period=scn.ka_period[:, None],
+    )
+    suspect_age = scn.suspect_age[:, None]
     rates = scn.decode_rates  # (D, R)
     # msr_drain * 1.0 is exact, so unit rates cannot perturb the drain.
     drainv = scn.msr_drain[:, None] * rates
@@ -636,8 +761,14 @@ def _serve_loop(args: _CoreArgs) -> dict:
     q_work, q_rid = zeros(d_n, r_n + 1, c_n), minus_one(d_n, r_n + 1, c_n)
     rem, arid = zeros(d_n, r_n, s_n), minus_one(d_n, r_n, s_n)
     approx = zeros(d_n, r_n, dtype=_F32)
-    comm_state = comm_lib.CommState.init(r_n, (d_n,), dev)
+    comm_state, net, faulted = comm_lib.control_plane_init(
+        r_n, network=static.network, fault=static.fault, transport=static.transport,
+        batch=(d_n,), device=dev, payload_dtype=_F32,
+    )
     rr_ptr, total_comp, dropped = zeros(d_n), zeros(d_n), zeros(d_n)
+    pull = (zeros(d_n, r_n), zeros(d_n)) if has_pull else None
+    token_sum = zeros(d_n)
+    suspect = (zeros(d_n), zeros(d_n))
     comp_slot = minus_one(d_n, n_cap + 1)
     occ_trace = zeros(d_n, t_n, r_n) if static.trace_occupancy else None
 
@@ -646,6 +777,18 @@ def _serve_loop(args: _CoreArgs) -> dict:
         act_r = act[:, None]
         # The dispatcher routes against the previous slot's replica state.
         busy_cnt = (rem > 0).sum(2, dtype=_I32)
+        # Suspect mask from the staleness clock: the last-heard clock and
+        # gave_up under ack, the wire's age under a network, else the
+        # trigger's slots since a message; an all-suspect fleet routes to all.
+        healthy = None
+        if has_ack:
+            off = suspect_age <= 0
+            healthy = (off | (net.ka_age <= suspect_age)) & (off | ~net.gave_up)
+        elif has_net or has_fault:
+            age = net.age if has_net else comm_state.slots_since_msg
+            healthy = (suspect_age <= 0) | (age <= suspect_age)
+        if healthy is not None:
+            healthy = torch.where(healthy.any(1, keepdim=True), healthy, True)
 
         # 1. route this slot's arrivals, one lane after the other.
         if static.route_backend == "fused":
@@ -656,9 +799,11 @@ def _serve_loop(args: _CoreArgs) -> dict:
             dropped = dropped + d_drop
         else:
             k = max(int(live_lanes[t]), 1)
-            jv, tailv, admitv, q_len, approx, rr_ptr, dropped = _route_lanes(
+            (jv, tailv, admitv, q_len, approx, rr_ptr, dropped, pull,
+             suspect) = _route_lanes(
                 static, act, n_arr[t], tie_u[t, :, :k], sub_u[t, :, :k], q_len,
                 q_head, busy_cnt, approx, rr_ptr, dropped, drain_slots,
+                healthy=healthy, pull=pull, suspect=suspect,
             )
         # Admitted lanes never collide (successive admits to one replica
         # take successive tails); the others go to the trash row R.  The
@@ -667,11 +812,23 @@ def _serve_loop(args: _CoreArgs) -> dict:
         q_work.view(d_n, -1).scatter_(1, ring_idx, work[t])
         q_rid.view(d_n, -1).scatter_(1, ring_idx, rid[t])
 
-        # 2. admit: fill free decode slots from the rings, FIFO.
+        # 1b. replica faults advance after routing, before admission.
+        recovered = None
+        if has_fault:
+            adv_f, recovered = workload_lib.fault_transitions(
+                faulted, control["fault_u"][t], scn.crash_rate[:, None],
+                scn.recover_rate[:, None])
+            faulted = torch.where(act_r, adv_f, faulted)
+            recovered = recovered & act_r
+
+        # 2. admit: fill free decode slots from the rings, FIFO (a crashed
+        # replica admits nothing; its queue waits).
         free = rem <= 0
         free_rank = free.cumsum(2, dtype=_I32) - 1
         n_admit = torch.minimum(q_len, free.sum(2, dtype=_I32))
         n_admit = torch.where(act_r, n_admit, 0)
+        if static.fault == "crash":
+            n_admit = torch.where(faulted, 0, n_admit)
         take = free & (free_rank < n_admit[..., None])
         # free_rank is -1 on busy slots: the floor mod keeps the index valid.
         qidx = torch.remainder(q_head[..., None] + free_rank, c_n).long()
@@ -683,11 +840,17 @@ def _serve_loop(args: _CoreArgs) -> dict:
         # 3. decode: one iteration (or the credit schedule's units) on
         # every active slot; rem may go negative, which means free.
         active_s = (rem > 0) & act[:, None, None]
+        units = None
         if static.use_rates:
             units = workload_lib.service_units(slot_f[t], rates)
-            rem = rem - units[..., None] * active_s.to(_I32)
-        else:
+        if has_fault:
+            units = workload_lib.faulted_service_units(
+                slot_f[t], faulted, 1 if units is None else units, static.fault,
+                scn.slow_factor[:, None], rates=rates if static.use_rates else None)
+        if units is None:
             rem = rem - active_s.to(_I32)
+        else:
+            rem = rem - units[..., None] * active_s.to(_I32)
         done = active_s & (rem <= 0)
         completions = done.sum(2, dtype=_I32)
         # A request completes once, so writing t is the reference's
@@ -701,17 +864,51 @@ def _serve_loop(args: _CoreArgs) -> dict:
         busy = (approx > 0) & act_r
         approx = torch.clamp_min(approx - drainv * busy.to(_F32), 0.0)
 
-        # 5. trigger (shared core), frozen past the horizon, and snap.
+        # 5. trigger (shared core), frozen past the horizon.  A crashed
+        # replica cannot send and a recovery forces a resync; under a
+        # network the trigger is an intent and the wire bills the messages.
         true_occ = (q_len + (rem > 0).sum(2, dtype=_I32)).to(_F32)
         err = (true_occ - approx).abs()
-        trig, adv = comm_lib.evaluate(comm_state, ccfg, err, completions)
-        trig = trig & act_r
-        approx = torch.where(trig, true_occ, approx)
-        comm_state = comm_lib.CommState(
-            deps_since_msg=torch.where(act_r, adv.deps_since_msg, comm_state.deps_since_msg),
-            slots_since_msg=torch.where(act_r, adv.slots_since_msg, comm_state.slots_since_msg),
-            msgs=torch.where(act, adv.msgs, comm_state.msgs),
+        can_send = force = None
+        if static.fault == "crash":
+            can_send, force = ~faulted, recovered
+        trig, adv = comm_lib.evaluate(
+            comm_state, ccfg, err, completions, can_send=can_send, force=force,
+            q=true_occ, count_msgs=not has_net,
         )
+        trig = trig & act_r
+        snap_mask, snap_payload = trig, true_occ
+        if has_net:
+            # 6. network delivery (delay / jitter / drop, piggyback).
+            if has_ack:
+                delivered, payload, sent, net_adv = comm_lib.net_step_ack(
+                    net, ncfg, trig, true_occ, control["net_drop_u"][t],
+                    control["net_jit_u"][t], control["ack_u"][t], can_send=can_send)
+            else:
+                delivered, payload, sent, net_adv = comm_lib.net_step(
+                    net, ncfg, trig, true_occ, control["net_drop_u"][t],
+                    control["net_jit_u"][t], can_send=can_send)
+            snap_mask, snap_payload = delivered & act_r, payload
+            extra = torch.where(act, sent, 0)
+            if static.policy == "sqd":
+                # SQ(d)'s d queries and d replies a routed request.
+                n_live = torch.clamp_max(n_arr[t], work.shape[2])
+                extra = extra + torch.where(act, 2 * static.sqd * n_live, 0)
+            adv = dataclasses.replace(adv, msgs=adv.msgs + extra)
+            net = comm_lib.select_rows(act, net_adv, net)
+        approx = torch.where(snap_mask, snap_payload, approx)
+        comm_state = comm_lib.select_rows(act, adv, comm_state)
+        if has_pull:
+            # 7. a delivered token message overwrites its replica's pool
+            # entry from the snapshot it carried: 1 if idle (jiq), the
+            # headroom below x truncated to int32 (hsq).
+            if static.comm == "jiq":
+                fresh = (snap_payload == 0.0).to(_I32)
+            else:
+                fresh = torch.clamp_min(scn.x[:, None] - snap_payload, 0.0).to(_I32)
+            tokens = torch.where(snap_mask, fresh, pull[0])
+            pull = (tokens, pull[1])
+            token_sum = token_sum + torch.where(act, tokens.sum(1, dtype=_I32), 0)
         if occ_trace is not None:
             occ_trace[:, t] = true_occ.to(_I32)
 
@@ -719,11 +916,16 @@ def _serve_loop(args: _CoreArgs) -> dict:
     final_occ = q_len + busy_cnt
     if occ_trace is not None:
         occ_trace[:, t_end:] = final_occ[:, None]  # frozen past every horizon
+    zero = zeros(d_n)
     return dict(
         comp_slot=comp_slot[:, :n_cap], msgs=comm_state.msgs,
         total_comp=total_comp, dropped=dropped, final_occ=final_occ,
         occupancy=occ_trace, q_len=q_len, q_head=q_head, approx=approx,
         busy=busy_cnt,
+        net_drops=zero if net is None else net.drops,
+        retrans=net.retrans if has_ack else zero,
+        token_misses=pull[1] if has_pull else zero, token_sum=token_sum,
+        masked_routes=suspect[0], suspect_routes=suspect[1],
     )
 
 
@@ -741,11 +943,16 @@ class ServeResult:
     mean_jct: float
     p99_jct: float
     msgs_per_completion: float
+    net_drops: int = 0  # messages lost in flight (network="net")
+    token_misses: int = 0  # pull routes that found an empty token pool
+    token_sum: int = 0  # end-of-slot token-pool occupancy, summed over slots
+    retrans: int = 0  # data retransmits (transport="ack")
     occupancy: Optional[np.ndarray] = None  # (T, R) when trace_occupancy
 
     @staticmethod
     def from_run(wl: ServeWorkload, comp_slot, msgs, total_comp, dropped,
-                 final_occ, occ_trace=None) -> "ServeResult":
+                 final_occ, occ_trace=None, *, net_drops=0, token_misses=0,
+                 token_sum=0, retrans=0) -> "ServeResult":
         comp_slot = np.asarray(comp_slot)[: wl.total].astype(np.int64)
         done = comp_slot >= 0
         jct_by_rid = np.where(done, comp_slot - wl.arrival_slot + 1, -1)
@@ -762,6 +969,10 @@ class ServeResult:
             mean_jct=float(jct.mean()) if jct.size else 0.0,
             p99_jct=float(np.percentile(jct, 99)) if jct.size else 0.0,
             msgs_per_completion=msgs / max(int(total_comp), 1),
+            net_drops=int(net_drops),
+            token_misses=int(token_misses),
+            token_sum=int(token_sum),
+            retrans=int(retrans),
             occupancy=None if occ_trace is None else np.asarray(occ_trace),
         )
 
@@ -773,7 +984,8 @@ def _round_up(n: int, mult: int) -> int:
 def _pad_workload(wl: ServeWorkload, t_pad: int, a_pad: int, d: int = 0):
     """Pad one workload to the ``(T, A)`` lane grid: ``(n_arr, work, tie_u,
     rid, sub_u)`` with lanes past a slot's arrival count zeroed.  ``d`` is
-    the subset-uniform depth (``sqd`` under the "sqd" policy, else 0)."""
+    the subset-uniform depth (``sqd`` under the "sqd" policy, else 0).
+    The control-plane uniforms are padded by :func:`_pad_control`."""
     t = wl.n_arr.shape[0]
     n_arr = np.zeros(t_pad, np.int32)
     n_arr[:t] = wl.n_arr
@@ -793,11 +1005,35 @@ def _pad_workload(wl: ServeWorkload, t_pad: int, a_pad: int, d: int = 0):
     return n_arr, work, tie_u, rid, sub_u
 
 
+def _control_streams(static: EngineStatic) -> tuple:
+    """The ``ServeWorkload`` uniform streams the control plane's kinds read."""
+    names = ()
+    if static.network != "none":
+        names += ("net_drop_u", "net_jit_u")
+        if static.transport == "ack":
+            names += ("ack_u",)
+    if static.fault != "none":
+        names += ("fault_u",)
+    return names
+
+
+def _pad_control(wl: ServeWorkload, name: str, t_pad: int) -> np.ndarray:
+    """One control-plane stream of ``wl`` padded to ``t_pad`` slots."""
+    arr = getattr(wl, name)
+    if arr is None:
+        raise ValueError(f"the workload has no {name} stream, which its cell's "
+                         f"control plane reads")
+    out = np.zeros((t_pad,) + arr.shape[1:], np.float32)
+    out[: arr.shape[0]] = arr
+    return out
+
+
 def _core_args(wls: Sequence[ServeWorkload], cells: Sequence[ServeConfig],
                static: EngineStatic, n_cap: int, device) -> _CoreArgs:
     """The arguments of :func:`_serve_core` for one run per (workload,
     cell) pair: the padded lanes, the stacked scenario, ``static``,
-    ``n_cap``, ``t_end`` and the live lanes per slot."""
+    ``n_cap``, ``t_end``, the live lanes per slot and the control plane's
+    uniforms."""
     d = static.sqd if static.policy == "sqd" else 0
     padded = [_pad_workload(w, static.slots, static.max_arrivals, d) for w in wls]
     # (T, D, ...) layout: each slot's lanes for every run are one
@@ -806,23 +1042,31 @@ def _core_args(wls: Sequence[ServeWorkload], cells: Sequence[ServeConfig],
         torch.from_numpy(np.stack([p[i] for p in padded], axis=1)).to(device)
         for i in range(5)
     ]
+    control = {
+        name: torch.from_numpy(np.stack(
+            [_pad_control(w, name, static.slots) for w in wls], axis=1)).to(device)
+        for name in _control_streams(static)
+    }
     scn = stack_scenarios([cell.scenario() for cell in cells])
     t_end = min(static.slots, max(int(scn.horizon.max()), 0))
     live_lanes = np.minimum(np.stack([p[0] for p in padded]).max(0), static.max_arrivals)
-    return _CoreArgs(*arrs, scn.to(device), static, n_cap, t_end, live_lanes)
+    return _CoreArgs(*arrs, scn.to(device), static, n_cap, t_end, live_lanes,
+                     control or None)
 
 
 def _run(wls: Sequence[ServeWorkload], cells: Sequence[ServeConfig],
          static: EngineStatic, n_cap: int, device) -> list[ServeResult]:
     """One run per (workload, cell) pair through :func:`_serve_core`."""
     out = _serve_core(*_core_args(wls, cells, static, n_cap, device))
-    keys = ("comp_slot", "msgs", "total_comp", "dropped", "final_occ", "occupancy")
-    host = {k: out[k].cpu().numpy() for k in keys if out[k] is not None}
+    keys = ("comp_slot", "msgs", "total_comp", "dropped", "final_occ")
+    counters = ("net_drops", "token_misses", "token_sum", "retrans")
+    host = {k: out[k].cpu().numpy() for k in keys + counters + ("occupancy",)
+            if out[k] is not None}
     return [
         ServeResult.from_run(
-            wl, host["comp_slot"][i], host["msgs"][i], host["total_comp"][i],
-            host["dropped"][i], host["final_occ"][i],
+            wl, *(host[k][i] for k in keys),
             occ_trace=host["occupancy"][i] if "occupancy" in host else None,
+            **{k: host[k][i] for k in counters},
         )
         for i, wl in enumerate(wls)
     ]

@@ -17,6 +17,8 @@ import torch
 
 from repro.core.care import approx as japprox
 from repro.core.care import comm as jcomm
+from repro.core.care import slotted_sim as jsim
+from repro.serve import engine as jserve
 from repro.core.care import routing as jrouting
 from repro.core.care import workload as jworkload
 from repro_torch.core.care import approx as tapprox
@@ -25,6 +27,7 @@ from repro_torch.core.care import routing as troute
 from repro_torch.core.care import slotted_sim as tsim
 from repro_torch.core.care import workload as tworkload
 from repro_torch.serve import engine as serve_engine
+from test_torch_slotted_policies import _assert_same, _port_on_bridge
 
 PUSH_KINDS = ["rt", "dt", "et", "et_rt", "exact", "none"]
 K = 16
@@ -95,11 +98,16 @@ class TestCommEvaluate:
             _eq(state.msgs[row], jstate.msgs)
 
     def test_pull_kinds_name_their_slice(self):
-        # The slotted tier runs the pull kinds; the serving tier's half of
-        # item 10 is still to come.
-        cfg = serve_engine.ServeConfig(policy="jiq", comm="jiq", slots=20)
-        with pytest.raises(NotImplementedError, match="item 10"):
-            serve_engine.serve_one(0, cfg, device="cpu")
+        # The serving tier's pull kinds: the token pool's counters and every
+        # result against the reference's serve_one.
+        kw = dict(policy="jiq", comm="jiq", slots=300, replicas=6, decode_slots=4,
+                  load=0.9, mean_prefill=2, mean_decode=12, queue_cap=128)
+        ref = jserve.serve_one(4, jserve.ServeConfig(**kw))
+        got = serve_engine.serve_one(4, serve_engine.ServeConfig(**kw), device="cpu")
+        assert (got.token_misses, got.token_sum, got.messages) == (
+            ref.token_misses, ref.token_sum, ref.messages)
+        np.testing.assert_array_equal(got.jct_by_rid, ref.jct_by_rid)
+        assert got.token_sum > 0
 
 
 class TestApprox:
@@ -183,11 +191,14 @@ class TestRouting:
             assert int(trr) == int(rr)
 
     def test_later_policies_name_their_slice(self):
-        # SQ(d) routes; under a network model (its probes' stale state) it
-        # comes with item 9.
-        cfg = tsim.SimConfig(policy="sq2", comm="none", slots=20, network="net")
-        with pytest.raises(NotImplementedError, match="slice 2.*item 9"):
-            tsim.simulate(0, cfg, device="cpu")
+        # SQ(2) under a network routes on queues net_delay slots stale and
+        # bills its queries on the wire, as the reference does.
+        kw = dict(servers=K, slots=400, load=0.9, mean_service=8, policy="sq2",
+                  comm="none", network="net", net_delay=3, buffer_cap=64)
+        rj = jsim.simulate(jax.random.key(5), jsim.SimConfig(**kw))
+        rt, _ = _port_on_bridge(5, kw)
+        _assert_same(rt, rj, control_plane=True)
+        assert rt.messages >= 4 * rt.arrivals
 
 
 class TestWorkload:
@@ -258,9 +269,12 @@ class TestWorkload:
         assert abs(float(arr.float().mean()) - 0.9) < 0.005
 
     def test_heavy_tails_name_their_slice(self):
-        # Pareto sizes run; the fault process that slows servers down comes
-        # with item 9.
+        # Pareto sizes on servers the fault process slows down, against the
+        # reference on its draws.
         assert tworkload.ServiceProcess.create("pareto", 30).kind == "pareto"
-        cfg = tsim.SimConfig(service="pareto", slots=20, fault="slow")
-        with pytest.raises(NotImplementedError, match="slice 2.*item 9"):
-            tsim.simulate(0, cfg, device="cpu")
+        kw = dict(servers=K, slots=400, load=0.8, mean_service=8, service="pareto",
+                  fault="slow", crash_rate=0.02, recover_rate=0.1, slow_factor=0.5,
+                  buffer_cap=64)
+        rj = jsim.simulate(jax.random.key(5), jsim.SimConfig(**kw))
+        rt, _ = _port_on_bridge(5, kw)
+        _assert_same(rt, rj, control_plane=True)

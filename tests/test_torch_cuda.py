@@ -197,6 +197,81 @@ POLICY_CASES = {
 }
 
 
+# The degraded control plane on the dense backend (fire-and-forget and ack
+# wires, crash and slow faults, SQ(2)'s stale queries, JIQ's tokens on the
+# wire): name -> SimConfig fields over POLICY_BASE.
+_NET = dict(network="net", net_delay=2, net_jitter=1, net_drop=0.2)
+_ACK = dict(transport="ack", ack_timeout=5, backoff_base=2.0, max_retries=4,
+            ka_period=16, suspect_age=24)
+DEGRADED_CASES = {
+    "net_care": _NET,
+    "net_sq2_stale": dict(policy="sq2", comm="rt", rt_rate=1e-3, network="net",
+                          net_delay=4),
+    "ack_care": dict(**_NET, **_ACK),
+    "ack_jiq": dict(policy="jiq", comm="jiq", **_NET, **_ACK),
+    "crash": dict(fault="crash", crash_rate=0.005, recover_rate=0.1, suspect_age=20),
+    "slow_rates": dict(fault="slow", crash_rate=0.01, recover_rate=0.1,
+                       slow_factor=0.5, service_rates=_RATES),
+    "net_crash_jsq": dict(policy="jsq", comm="et", network="net", net_delay=6,
+                          fault="crash", crash_rate=0.005, recover_rate=0.1,
+                          suspect_age=16),
+    "ack_crash_hsq": dict(policy="hsq", comm="hsq", **_NET, **_ACK, fault="crash",
+                          crash_rate=0.005, recover_rate=0.1),
+}
+# The serving tier's control plane and pull policies on the dense backend:
+# name -> ServeConfig fields over SERVE_DEGRADED_BASE.
+SERVE_DEGRADED_BASE = dict(replicas=8, decode_slots=4, slots=300, load=0.9, x=3,
+                           rt_period=16, mean_prefill=2, mean_decode=12,
+                           queue_cap=128)
+SERVE_DEGRADED_CASES = {
+    "jiq": dict(policy="jiq", comm="jiq"),
+    "hsq": dict(policy="hsq", comm="hsq", x=4),
+    "net_sqd": dict(policy="sqd", sqd=3, network="net", net_delay=3, net_drop=0.1,
+                    suspect_age=8),
+    "crash_rr": dict(policy="rr", fault="crash", crash_rate=0.02, recover_rate=0.2,
+                     suspect_age=6),
+    "slow_drain": dict(policy="drain", decode_rates=(1.0, 0.5) * 4, fault="slow",
+                       crash_rate=0.05, recover_rate=0.2, slow_factor=0.5),
+    "ack_crash_et_rt": dict(comm="et_rt", network="net", net_delay=3, net_drop=0.15,
+                            transport="ack", ack_timeout=4, backoff_base=1.5,
+                            max_retries=2, ka_period=8, suspect_age=10,
+                            fault="crash", crash_rate=0.02, recover_rate=0.2),
+    "ack_jiq": dict(policy="jiq", comm="jiq", network="net", net_delay=2,
+                    net_drop=0.2, transport="ack", ack_timeout=5, backoff_base=2.0,
+                    max_retries=6),
+}
+
+
+def fused_vs_dense(dev, static, scn, seeds=(0, 1)) -> dict:
+    """The slotted fused backend (one ``care_route`` launch) against the
+    dense one on the same draws, decision for decision: every output of
+    ``run_draws`` but the JCT's ``comp_slot`` equal.  Returns the dense
+    outputs."""
+    arrive, sizes, _ = slotted_sim.draw_workload(list(seeds), static, [scn], dev)
+    dense = slotted_sim.run_draws(arrive, sizes, static, scn)
+    before = tops.launch_counts()["care_route"]
+    fused = slotted_sim.run_draws(
+        arrive, None, dataclasses.replace(static, route_backend="fused"), scn)
+    assert tops.launch_counts()["care_route"] == before + (arrive.is_cuda)
+    for name, value in dense.items():
+        if name != "comp_slot":
+            assert torch.equal(value.int(), fused[name].int()), name
+    assert int((dense["routed"] >= 0).sum()) > 0
+    return dense
+
+
+# MMPP arrivals under a diurnal curve, which the fused backend takes as the
+# reference's pallas backend does: (StaticConfig fields, Scenario.create
+# arguments) of the fused == dense case here and in chip_smoke.py phase 4.
+MMPP_FUSED = (
+    dict(servers=200, slots=2000, policy="jsaq", comm="dt", approx="msr",
+         buffer_cap=16, service="deterministic", deterministic_ties=True,
+         arrival="mmpp"),
+    dict(load=0.55, x=3, mean_service=8, service="deterministic", horizon=2000,
+         burst_intensity=1.7, diurnal_amp=0.05, diurnal_period=500, arrival="mmpp"),
+)
+
+
 def same_results(got, want, label: str) -> None:
     """Every ``SimResult`` field equal."""
     for f in dataclasses.fields(slotted_sim.SimResult):
@@ -207,11 +282,13 @@ def same_results(got, want, label: str) -> None:
             assert a == b, f"{label} {f.name}: {a} != {b}"
 
 
-def grid_vs_cpu(dev, seeds, static, cells):
+def grid_vs_cpu(dev, seeds, static, cells, raw_on_card=False):
     """One ``simulate_grid`` call on the card against ``run_draws`` on the
     CPU on the same draws (drawn again on the card, then moved): every
     ``SimResult`` field equal.  Returns the card's results, its seconds,
-    the CPU's seconds, and the CPU's draws and ``run_draws`` outputs."""
+    the CPU's seconds, and the CPU's draws and ``run_draws`` outputs; with
+    ``raw_on_card``, ``run_draws`` also runs on the card's draws and every
+    one of its outputs must equal the CPU's, and those are returned."""
     seeds, cells = list(seeds), list(cells)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -229,6 +306,12 @@ def grid_vs_cpu(dev, seeds, static, cells):
     for c, row in enumerate(grid):
         for i, r in enumerate(row):
             same_results(r, cpu[c * len(seeds) + i], f"cell {c} seed {seeds[i]}")
+    if raw_on_card:
+        card_draws = slotted_sim.draw_workload(seeds, static, cells, dev)
+        card_raw = slotted_sim.run_draws(*card_draws[:2], static, runs, **card_draws[2])
+        for name, value in raw.items():
+            _eq(card_raw[name].cpu().numpy(), value.numpy())
+        raw = {name: value.cpu() for name, value in card_raw.items()}
     return grid, card_s, cpu_s, draws, raw
 
 
@@ -434,6 +517,39 @@ class TestOnCard:
         for r in grid[0]:
             assert r.arrivals == r.departures + int(r.final_q.sum())
             assert r.departures > 0
+
+    def test_fused_equals_dense_on_mmpp_diurnal_arrivals(self, cuda_device):
+        static_kw, scn_kw = MMPP_FUSED
+        fused_vs_dense(cuda_device, slotted_sim.StaticConfig(**static_kw),
+                       slotted_sim.Scenario.create(**scn_kw))
+
+    @pytest.mark.parametrize("case", list(DEGRADED_CASES))
+    def test_degraded_card_equals_cpu(self, cuda_device, case):
+        cfg = slotted_sim.SimConfig(**{**POLICY_BASE, **DEGRADED_CASES[case]})
+        tops.reset_launch_counts()
+        grid, _, _, _, raw = grid_vs_cpu(cuda_device, (0, 1), cfg.static_part(),
+                                         [cfg.scenario()], raw_on_card=True)
+        assert sum(tops.launch_counts().values()) == 0
+        for r in grid[0]:
+            assert r.arrivals == r.departures + int(r.final_q.sum())
+            if cfg.net_drop:
+                assert r.net_drops > 0
+        if cfg.fault == "crash" and cfg.policy in ("jsq", "jsaq"):
+            assert int(raw["suspect_routes"].sum()) == 0
+
+    @pytest.mark.parametrize("case", list(SERVE_DEGRADED_CASES))
+    def test_serving_degraded_card_equals_cpu(self, cuda_device, case):
+        cell = serve_engine.ServeConfig(**{**SERVE_DEGRADED_BASE,
+                                           **SERVE_DEGRADED_CASES[case]})
+        tops.reset_launch_counts()
+        card = serve_engine.serve_grid([0, 1], cell.static_part(), [cell],
+                                       device=cuda_device)[0]
+        assert sum(tops.launch_counts().values()) == 0
+        cpu = serve_engine.serve_grid([0, 1], cell.static_part(), [cell], device="cpu")[0]
+        for a, b in zip(card, cpu):
+            for f in dataclasses.fields(serve_engine.ServeResult):
+                _eq(getattr(a, f.name), getattr(b, f.name))
+            assert a.completed > 0
 
     @pytest.mark.parametrize(
         "t,e,k,gate_fn,dtype",

@@ -190,15 +190,27 @@ class TestRefusals:
         (dict(policy="random"), ValueError, "unknown policy"),
         (dict(comm="gossip"), ValueError, "unknown communication kind"),
         (dict(network="mesh"), ValueError, "unknown network kind"),
-        (dict(network="net"), NotImplementedError, r"ROADMAP 1, item 9"),
-        (dict(fault="crash"), NotImplementedError, r"ROADMAP 1, item 9"),
-        (dict(transport="ack"), NotImplementedError, r"ROADMAP 1, item 9"),
-        (dict(policy="jiq", comm="jiq"), NotImplementedError, r"ROADMAP 1, item 10"),
-        (dict(policy="hsq", comm="hsq"), NotImplementedError, r"ROADMAP 1, item 10"),
     ])
     def test_static_part(self, kw, exc, match):
         with pytest.raises(exc, match=match):
             teng.ServeConfig(**{**SMALL, **kw}).static_part()
+
+    @pytest.mark.parametrize("kw", [
+        dict(network="net", net_delay=3, net_drop=0.1),
+        dict(fault="crash", crash_rate=0.02, recover_rate=0.2, suspect_age=6),
+        dict(network="net", net_delay=1, net_drop=0.2, transport="ack",
+             ack_timeout=4, backoff_base=2.0, max_retries=3, ka_period=8,
+             suspect_age=12),
+        dict(policy="jiq", comm="jiq"),
+        dict(policy="hsq", comm="hsq", x=6),
+    ])
+    def test_control_plane_and_pull_kinds_run(self, kw):
+        # The kinds of items 9 and 10 run on the dense backend, every
+        # ServeResult field equal to the reference's.
+        ref, got = both(3, **{**SMALL, **kw})
+        assert_same(ref, got)
+        for name in ("net_drops", "retrans", "token_misses", "token_sum"):
+            assert getattr(got, name) == getattr(ref, name), name
 
     def test_stream_names_its_slice(self):
         static = dataclasses.replace(teng.ServeConfig(**SMALL).static_part(), stream=True)

@@ -10,7 +10,13 @@ each slot key, the draws the reference's policies consume: the Gumbels of
 random ties (``gumbel(key, (K,))``), SQ(d)'s subset and its Gumbels
 (``split(key)``, then ``permutation(key_perm, K)[:d]`` and
 ``gumbel(key_tie, (d,))``), the random policy's ``randint(key, (), 0,
-n_eligible)``, and the class stream (``_prep``'s fifth output).  The port's
+n_eligible)`` (under the control plane, whose suspect mask sets the eligible
+count each slot, the two 32-bit words ``bits`` of ``split(key)`` that
+``randint`` draws), the class stream (``_prep``'s fifth output), and the control
+plane's uniforms from its per-slot net and fault keys (``_prep``'s later
+outputs): ``uniform`` of ``split(nkey)`` (drop, jitter) under
+fire-and-forget or of ``split(nkey, 3)`` (drop, jitter, the ``(4, K)`` ack
+and keepalive draws) under ack, and ``uniform(fkey, (K,))``.  The port's
 core (``run_draws``) consumes them, so both simulators see identical
 inputs.  Every ``SimResult`` field is an integer, an integer array or a
 ratio of two integers computed the same way: the tolerance is zero.
@@ -31,8 +37,8 @@ from repro_torch.core.care import slotted_sim as tsim
 K = 12
 FIELDS = [
     "arrivals", "departures", "messages", "max_aq", "max_queue", "overflow",
-    "msgs_per_departure", "queue_gap_sup", "dropped", "token_misses",
-    "token_sum",
+    "msgs_per_departure", "queue_gap_sup", "dropped", "net_drops", "retrans",
+    "token_misses", "token_sum",
 ]
 HALF_A = tuple([True] * 8 + [False] * 4)
 HALF_B = tuple([False] * 4 + [True] * 8)
@@ -121,6 +127,37 @@ def _slot_subsets(slot_keys, k, d):
     return jax.vmap(one)(slot_keys)
 
 
+@functools.partial(jax.jit, static_argnums=(1, 2))
+def _slot_net_uniforms(net_keys, k, ack):
+    def one(key):
+        if ack:
+            kd, kj, ka = jax.random.split(key, 3)
+            return (jax.random.uniform(kd, (k,), jnp.float32),
+                    jax.random.uniform(kj, (k,), jnp.float32),
+                    jax.random.uniform(ka, (4, k), jnp.float32))
+        kd, kj = jax.random.split(key)
+        return (jax.random.uniform(kd, (k,), jnp.float32),
+                jax.random.uniform(kj, (k,), jnp.float32))
+
+    return jax.vmap(one)(net_keys)
+
+
+@functools.partial(jax.jit, static_argnums=(1,))
+def _slot_fault_uniforms(fault_keys, k):
+    return jax.vmap(lambda key: jax.random.uniform(key, (k,), jnp.float32))(fault_keys)
+
+
+@jax.jit
+def _slot_rand_bits(slot_keys):
+    # The two 32-bit words randint(key, ...) draws: bits of split(key).
+    def one(key):
+        k1, k2 = jax.random.split(key)
+        return jnp.stack([jax.random.bits(k1, (), jnp.uint32),
+                          jax.random.bits(k2, (), jnp.uint32)])
+
+    return jax.vmap(one)(slot_keys)
+
+
 @jax.jit
 def _slot_randints(slot_keys, n_eligible):
     return jax.vmap(
@@ -135,10 +172,17 @@ def _bridge(seed, jcfg):
     static, scn = jcfg.static_part(), jcfg.scenario()
     prep = jsim._prep(jax.random.key(seed), static, scn)
     arrive, sizes, slot_keys = prep[:3]
+    rest = list(prep[4:])
     k, t = static.servers, static.slots
     draws = {}
     if static.classes > 1:
-        draws["classes"] = np.asarray(prep[4])
+        draws["classes"] = np.asarray(rest.pop(0))
+    if static.network != "none":
+        u = _slot_net_uniforms(rest.pop(0), k, static.transport == "ack")
+        for name, v in zip(("net_drop_u", "net_jit_u", "ack_u"), u):
+            draws[name] = np.asarray(v)
+    if static.fault != "none":
+        draws["fault_u"] = np.asarray(_slot_fault_uniforms(rest.pop(0), k))
     if static.policy in ("jsq", "jsaq", "jiq", "hsq") and not static.deterministic_ties:
         draws["gumbel"] = np.asarray(_slot_gumbels(slot_keys, k))
     if static.policy in ("sq2", "sqd"):
@@ -146,7 +190,9 @@ def _bridge(seed, jcfg):
         subset, gum = _slot_subsets(slot_keys, k, d)
         draws["subset"] = np.asarray(subset).astype(np.int32)
         draws["subset_gumbel"] = np.asarray(gum)
-    if static.policy == "random":
+    if static.policy == "random" and (static.network != "none" or static.fault != "none"):
+        draws["rand_bits"] = np.asarray(_slot_rand_bits(slot_keys)).astype(np.int64)
+    elif static.policy == "random":
         aff = np.asarray(scn.class_affinity)
         if static.classes > 1:
             n_elig = aff.sum(-1)[draws["classes"]]
@@ -169,13 +215,14 @@ def _port_on_bridge(seed, kw, **over):
     return tsim.results(arrive, raw)[0], raw
 
 
-def _assert_same(rt, rj):
+def _assert_same(rt, rj, control_plane=False):
     for f in FIELDS:
         assert getattr(rt, f) == getattr(rj, f), f
     np.testing.assert_array_equal(rt.per_server_arrivals, rj.per_server_arrivals)
     np.testing.assert_array_equal(rt.final_q, rj.final_q)
     np.testing.assert_array_equal(rt.jct, rj.jct)
-    assert rj.net_drops == 0 and rj.retrans == 0
+    if not control_plane:
+        assert rj.net_drops == 0 and rj.retrans == 0
 
 
 @pytest.mark.parametrize("name", list(CELLS))
@@ -267,13 +314,25 @@ def test_fused_refuses_what_the_reference_pallas_refuses(name):
 
 
 @pytest.mark.parametrize("bad", [
-    dict(network="net"), dict(fault="crash"), dict(fault="slow"),
-    dict(network="net", policy="sq2", comm="none"),
-    dict(fault="crash", policy="jiq", comm="jiq"),
+    dict(network="net", net_delay=3, net_drop=0.2),
+    dict(fault="crash", crash_rate=0.01, recover_rate=0.1, suspect_age=10),
+    dict(fault="slow", crash_rate=0.01, recover_rate=0.1, slow_factor=0.5),
+    dict(network="net", net_delay=2, policy="sq2", comm="none"),
+    dict(fault="crash", crash_rate=0.01, recover_rate=0.1, suspect_age=8,
+         policy="jiq", comm="jiq"),
+    dict(network="net", net_delay=2, net_drop=0.2, suspect_age=3, policy="random",
+         comm="rt"),
+    dict(fault="crash", crash_rate=0.02, recover_rate=0.1, suspect_age=6,
+         policy="random", comm="rt", **TWO_CLASSES),
 ])
 def test_the_control_plane_still_names_item_9(bad):
-    with pytest.raises(NotImplementedError, match="ROADMAP 1, item 9"):
-        tsim.simulate(0, tsim.SimConfig(**{**_cell(slots=20), **bad}), device="cpu")
+    # The control plane's kinds with the policies of this file, every
+    # SimResult field against the reference on its draws.
+    kw = _cell(**bad)
+    rj = jsim.simulate(jax.random.key(7), jsim.SimConfig(**kw))
+    rt, _ = _port_on_bridge(7, kw)
+    _assert_same(rt, rj, control_plane=True)
+    assert rt.arrivals == rt.departures + int(rt.final_q.sum())
 
 
 @pytest.mark.parametrize("bad,match", [

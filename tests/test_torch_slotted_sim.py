@@ -213,12 +213,42 @@ class TestPortEntryPoints:
         assert r.messages > 0
 
     def test_later_kinds_name_their_slice(self):
-        # What is left of slice 2 on this tier: the degraded control plane.
-        base = _cfg("jsaq", "et", slots=20)
-        for bad in (dict(network="net"), dict(fault="crash"), dict(fault="slow"),
-                    dict(network="net", policy="sq2", comm="none")):
-            with pytest.raises(NotImplementedError, match="slice 2.*item 9"):
-                tsim.simulate(0, tsim.SimConfig(**{**base, **bad}), device="cpu")
+        # The degraded control plane on the port's own draws: its streams
+        # come after every other, so a zero-operand cell replays the "none"
+        # cell; each kind conserves jobs and its grid equals simulate.
+        base = _cfg("jsaq", "et", slots=300, service="geometric",
+                    deterministic_ties=False)
+        plain = tsim.simulate(3, tsim.SimConfig(**base), device="cpu")
+        for zero in (dict(network="net"), dict(fault="crash")):
+            r = tsim.simulate(3, tsim.SimConfig(**{**base, **zero}), device="cpu")
+            _assert_same(r, plain)
+        # An instant lossless ack wire changes nothing but bills an ack a
+        # message.
+        r = tsim.simulate(3, tsim.SimConfig(**base, network="net", transport="ack",
+                                            ack_timeout=1), device="cpu")
+        assert r.messages == 2 * plain.messages
+        _assert_same(dataclasses.replace(r, messages=plain.messages,
+                                         msgs_per_departure=plain.msgs_per_departure),
+                     plain)
+        for kinds in (dict(network="net", net_delay=2, net_drop=0.2),
+                      dict(fault="crash", crash_rate=0.02, recover_rate=0.2,
+                           suspect_age=8),
+                      dict(fault="slow", crash_rate=0.02, recover_rate=0.2,
+                           slow_factor=0.5),
+                      dict(network="net", net_delay=2, policy="sq2", comm="none"),
+                      dict(network="net", net_delay=1, net_drop=0.3, transport="ack",
+                           ack_timeout=3, backoff_base=2.0, max_retries=2)):
+            cell = tsim.SimConfig(**{**base, **kinds})
+            grid = tsim.simulate_grid([3, 4], cell.static_part(), [cell.scenario()],
+                                      device="cpu")[0]
+            for r in grid:
+                assert r.arrivals == r.departures + int(r.final_q.sum())
+            one = tsim.simulate(4, cell, device="cpu")
+            for f in dataclasses.fields(tsim.SimResult):
+                np.testing.assert_array_equal(getattr(grid[1], f.name),
+                                              getattr(one, f.name), f.name)
+            if cell.net_drop:
+                assert one.net_drops > 0
 
     def test_default_device_is_the_card(self):
         if torch.cuda.is_available():
