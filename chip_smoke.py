@@ -73,6 +73,30 @@ own failure):
    against its plain version; times ``serve_slots`` with no arrival lane
    (its replica stage alone); profiles one ``serve_grid`` call for the
    device busy share.
+3b. The streaming serving engine, with the launch counts set to 0 just
+   before and read just after: ``serve_stream`` at ``serve/replicas1024``
+   (phase 3's cell) on the fused backend, 16,384 slots in chunks of 4096,
+   warmup 2048, seed 0; asserts 4 ``serve_slots`` launches and no other,
+   no drops and conservation.  Held exactly against ``serve_one`` on
+   ``StreamSampler.full(16384)``: every counter, the final occupancy, and
+   the count, histogram and maximum of its JCTs past the warmup, the mean
+   within 1e-4 and the std within 1e-3 (relative, float32 accumulators
+   against float64); bit for bit (the whole carry) against chunks of 1024,
+   one chunk, 8192 + 8192 resumed, and the stepped run (prefetch off).
+   Times the pipelined and the stepped wall; the kernel in stream mode on
+   chunk 0 (every slot folding) against the fixed horizon on the same
+   slots, in turns, beside its bound; the plain version (the dense stream
+   on the card) on the chunk's first 64 slots, the carry equal; the
+   host's slab sampling a chunk.  Then the dense stream against the fused
+   one at 64 replicas x 16, 1000 slots, chunk 256; a degraded cell (crash
+   faults, ET+RT, suspect masking) on the card against the CPU; and
+   stream-mode ``serve_slots`` on ``SLOTS_CASES`` cut into uneven chunks
+   against the dense stream on the CPU (``stream_vs_dense`` of
+   ``tests/test_torch_cuda.py``).  Every carry field is equal; the float32
+   mean and m2 within 1e-6 / 2e-5 (relative), since each slot's squared
+   deviations are summed in the kernel's order.  Cuts: 16,384 slots (the
+   reference's soak runs 1e6-1e7), the plain version on 64 slots (~80 ms a
+   slot at 1024 replicas).
 4. The slotted dense backend against the fused one on the card, decision
    for decision, at K=200, T=2000, on Bernoulli arrivals and on MMPP
    arrivals under a diurnal curve (``MMPP_FUSED`` of
@@ -174,8 +198,9 @@ own failure):
    prefill over S=4224 (B=1, past the window) against prefill over S-1
    and one ``decode_step``, within 2e-2.
 9. Print the kernels line (launch counts from the main paths, parity,
-   times and bounds), the card's name and power limit, and the contract
-   line last.
+   times and bounds; ``serve_slots`` also carries phase 3b's stream-mode
+   launches, ms a chunk, bound, plain time and error under ``stream_*``),
+   the card's name and power limit, and the contract line last.
 
 Exits non-zero without printing a result when no CUDA card is present or
 when the port's sources are not beside this script.
@@ -249,6 +274,11 @@ SERVE_OPS_PER_REPLICA_LANE = 2
 # beside the lane chain's operations.
 SERVE_SLOT_OPS_PER_REPLICA = 19
 SERVE_SLOT_OPS_PER_DECODE_SLOT = 12
+# serve_slots' stream-mode fold, counted from the kernel: per measured
+# completion 13 (the JCT 2; count, sum and maximum 3; the bucket 5: clz,
+# shift, mask, multiply-add, select; the histogram add 1; the second pass's
+# deviation and square-add 2), beside the stage and the chain.
+SERVE_FOLD_OPS_PER_COMPLETION = 13
 
 KINDS = ("rt", "dt", "et", "et_rt", "exact", "none")
 
@@ -311,6 +341,16 @@ LADDER_SLOTS = 20_000
 LADDER_X = (2, 4, 8, 16)
 LADDER_SEEDS = (0, 1, 2, 3)
 SERVE_DENSE_VS_FUSED = dict(replicas=64, decode_slots=16, slots=1000, queue_cap=128)
+# Phase 3b: serve_stream at serve/replicas1024 (SERVE_MAIN's cell), its
+# rechunkings and resume, the dense stream at SERVE_DENSE_VS_FUSED.
+STREAM_SLOTS = 16_384
+STREAM_CHUNK = 4096
+STREAM_WARMUP = 2048
+STREAM_SEED = 0
+STREAM_RECHUNK = 1024
+STREAM_DENSE_CHUNK = 256
+STREAM_TIME_REPS = 3
+STREAM_PLAIN_SLOTS = 64  # the dense loop takes ~80 ms a slot at 1024 replicas
 # Phase 7: DeepSeek-V2 serving at published widths, depth cut to one dense
 # and two MoE layers; 4 prompts of 512 tokens (2048 routed tokens a MoE
 # layer), greedy decode of 16 tokens each into a cache of 528.
@@ -591,6 +631,53 @@ def jsaq_ab(src: str, smem_max: int | None = None) -> None:
         cases[name] = {"device_ms": device_ms, "host_ms": host_ms}
     print(json.dumps({"src": src, "smem_max": smem_max, "card": _card(),
                       "jsaq_route": cases}))
+
+
+def slots_ab(src: str, reps: int = 5, mode: str = "fixed", lanes: bool = True) -> None:
+    """Time the ``serve_slots`` of the package under ``src`` (this or
+    another checkout's ``src`` directory) at phase 3's inputs
+    (``serve/replicas1024``, seeds 0 and 1, 2048 slots) by CUDA events and
+    print one JSON line.  ``mode``: ``"fixed"`` (the fixed horizon),
+    ``"stream"`` (stream mode from an empty carry, every slot folding) or
+    ``"stream_nofold"`` (stream mode with the warmup past the horizon, so
+    no slot folds); ``lanes=False`` routes no arrival (the replica stage
+    alone).  Run on the card from this checkout's root, one process per
+    tree, e.g. parent, change, change, parent::
+
+        python3 -c 'import chip_smoke; chip_smoke.slots_ab("path/to/src")'
+    """
+    sys.path.insert(0, str(Path(src).resolve()))
+    from repro_torch.kernels import jsaq_route as cuda_k
+    from repro_torch.serve import engine
+
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    cell = engine.ServeConfig(**SERVE_MAIN, **SERVE_WORK, comm="et", x=4,
+                              deterministic_ties=True, route_backend="fused")
+    args = engine._core_args(
+        *engine._grid_runs(list(SERVE_MAIN_SEEDS), cell.static_part(), [cell]), dev)
+    n_arr, work, _, rid, _, scn, static, n_cap, t_end = args[:9]
+    if not lanes:
+        n_arr = torch.zeros_like(n_arr)
+    kw = dict(cap=static.queue_cap, comm=static.comm, decode_slots=static.decode_slots,
+              use_rates=static.use_rates, trace_occupancy=False, n_cap=n_cap, t_end=t_end)
+    slot_args = (n_arr, work, rid, scn.x, scn.rt_period, scn.msr_drain, scn.decode_rates,
+                 scn.horizon)
+    if mode == "fixed":
+        def fn():
+            return cuda_k.serve_slots_cuda(*slot_args, **kw)
+    else:
+        st = dataclasses.replace(static, stream=True)
+        warm = torch.full_like(scn.horizon, 0 if mode == "stream" else 2**31 - 1)
+        views = iter([engine._slots_view(engine._engine_init(st, 0, work.shape[1], dev))
+                      for _ in range(reps + 1)])
+
+        def fn():
+            return cuda_k.serve_slots_cuda(*slot_args, **kw, carry=next(views), t0=0,
+                                           warmup=warm)
+    ms = _time_ms(fn, reps)
+    print(json.dumps({"src": src, "mode": mode, "lanes": lanes, "card": _card(),
+                      "serve_slots_ms": ms, "us_a_slot": ms / t_end * 1e3}))
 
 
 def _moe_bound(t: int, e: int, k: int, logit_bytes: int) -> tuple[float, str]:
@@ -1640,6 +1727,242 @@ def _degraded(dev, times: dict, card_tests) -> None:
     times["degraded_phase_s"] = time.perf_counter() - t_phase
 
 
+def _identical_carry(a, b, label: str) -> None:
+    """Two stream carries equal bit for bit, every field."""
+    def leaves(x):
+        if x is None:
+            return []
+        if torch.is_tensor(x):
+            return [x]
+        if dataclasses.is_dataclass(x):
+            return [leaf for f in dataclasses.fields(x) for leaf in leaves(getattr(x, f.name))]
+        return [leaf for v in x for leaf in leaves(v)]
+
+    la, lb = leaves(a), leaves(b)
+    assert len(la) == len(lb), label
+    for x, y in zip(la, lb):
+        assert x.dtype == y.dtype and torch.equal(x, y), f"{label}: carries differ"
+
+
+def _stream_bound(work, static, t_end: int, lanes: int, completions: int):
+    """serve_slots' stream-mode bound for one chunk of one run: n_arr, work
+    and the scenario read once, the carry read and written once, against
+    the lane chain's, the replica stage's and the fold's operations."""
+    t_n, d, a_n = work.shape
+    r, s_n, cap = static.replicas, static.decode_slots, static.queue_cap
+    carry = 4 * d * (2 * r * cap + 2 * r * s_n + 5 * r + 8 + 119)
+    n_bytes = 4 * (t_n * d + t_n * d * a_n + 6 * d + d * r) + 2 * carry
+    stage = (SERVE_SLOT_OPS_PER_REPLICA + SERVE_SLOT_OPS_PER_DECODE_SLOT * s_n) * r * t_end * d
+    ops_n = (_chain_ops(r, lanes, t_end * d) + stage
+             + SERVE_FOLD_OPS_PER_COMPLETION * completions)
+    return _bound_ms(n_bytes, ops_n)
+
+
+def _serving_stream(dev, times: dict, card_tests) -> dict:
+    """Phase 3b: serve_stream on the fused backend at serve/replicas1024.
+    Returns the stream mode's numbers for the kernels line."""
+    from repro_torch.core.care import metrics
+    from repro_torch.kernels import jsaq_route as cuda_k
+    from repro_torch.kernels import ops
+    from repro_torch.serve import engine
+
+    t_phase = time.perf_counter()
+    cell = engine.ServeConfig(**{**SERVE_MAIN, "slots": STREAM_SLOTS}, **SERVE_WORK,
+                              comm="et", x=4, deterministic_ties=True,
+                              route_backend="fused")
+    n, chunk, warm, seed = STREAM_SLOTS, STREAM_CHUNK, STREAM_WARMUP, STREAM_SEED
+    params = engine.StreamParams.for_cell(cell)
+
+    def run(slots, **kw):
+        kw = {"chunk": chunk, "warmup": warm, "slots": slots, **kw}
+        if "state" not in kw:
+            kw["sampler"] = engine.StreamSampler(seed, params)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = engine.serve_stream(seed, cell, **kw)
+        torch.cuda.synchronize()
+        return res, time.perf_counter() - t0
+
+    run(2 * chunk)  # first-call allocations, pinned memory
+    ops.reset_launch_counts()
+    main, main_s = run(n)
+    launches = ops.launch_counts()
+    assert launches == {"jsaq_route": 0, "care_route": 0, "serve_route": 0,
+                        "serve_slots": -(-n // chunk), "moe_route": 0,
+                        "flash_attention": 0}, launches
+    assert main.dropped == 0 and main.count > 0
+    assert main.offered == main.completed + int(main.final_occupancy.sum())
+
+    # The fixed horizon on the whole trace: every counter, and the
+    # accumulators recomputed on the host from its JCTs.
+    t0 = time.perf_counter()
+    full = engine.StreamSampler(seed, params).full(n)
+    fixed = engine.serve_one(seed, cell, workload=full)
+    fixed_s = time.perf_counter() - t0
+    for name in ("completed", "messages", "dropped", "offered"):
+        assert getattr(main, name) == getattr(fixed, name), name
+    assert np.array_equal(main.final_occupancy, fixed.final_occupancy)
+    done = fixed.jct_by_rid >= 0
+    comp_t = full.arrival_slot[done] + fixed.jct_by_rid[done] - 1
+    measured = fixed.jct_by_rid[done][comp_t >= warm]
+    del full
+    assert main.count == measured.size and main.max_jct == int(measured.max())
+    assert np.array_equal(main.hist, np.bincount(metrics.jct_bucket(measured),
+                                                 minlength=metrics.HIST_BUCKETS))
+    mean_err = abs(main.mean_jct - measured.mean()) / measured.mean()
+    std_err = abs(main.std_jct - measured.std()) / measured.std()
+    assert mean_err <= 1e-4 and std_err <= 1e-3, (mean_err, std_err)
+
+    # Rechunked, one chunk, resumed, and stepped: bit for bit.
+    other = {}
+    other[f"chunk {STREAM_RECHUNK}"] = run(n, chunk=STREAM_RECHUNK)[0]
+    other["one chunk"] = run(n, chunk=n)[0]
+    half = run(n // 2)[0]
+    other[f"{n // 2} + {n // 2}"] = run(n - n // 2, state=half.state)[0]
+    stepped, stepped_s = run(n, prefetch=False)
+    other["stepped"] = stepped
+    for label, res in other.items():
+        _identical_carry(res.state.carry, main.state.carry, label)
+        assert (res.mean_jct, res.std_jct, res.slots, res.offered) == (
+            main.mean_jct, main.std_jct, main.slots, main.offered), label
+    s = main.jct_summary()
+    print(f"phase 3b serve_stream fused {cell.replicas} replicas x {cell.decode_slots}, "
+          f"{n} slots in chunks of {chunk}, warmup {warm}, seed {seed}: "
+          f"{main_s:.4f} s ({n / main_s:.1f} slots/s), stepped (prefetch off) "
+          f"{stepped_s:.4f} s ({n / stepped_s:.1f} slots/s); launches {launches}; "
+          f"offered {main.offered}, completed {main.completed}, dropped 0; measured "
+          f"{main.count}, JCT mean {main.mean_jct:.4f} std {main.std_jct:.4f} p50 "
+          f"{s['p50']:.1f} p99 {s['p99']:.1f} max {main.max_jct}; messages per "
+          f"completion {main.msgs_per_completion:.5f}")
+    print(f"phase 3b equal to serve_one on the whole trace ({fixed_s:.2f} s): every "
+          f"counter, the final occupancy, count, histogram and maximum of its "
+          f"{measured.size} JCTs past slot {warm}; mean within {mean_err:.2e}, std "
+          f"within {std_err:.2e} (relative); bit for bit against "
+          + ", ".join(other))
+
+    # The kernel on chunk 0's inputs: stream mode (every slot folds) against
+    # the fixed horizon on the same slots, in turns, and the host's slab.
+    sampler = engine.StreamSampler(seed, params)
+    t0 = time.perf_counter()
+    for k in range(n // chunk):
+        wl = sampler.slab(k * chunk, (k + 1) * chunk)
+        engine._pad_workload(wl, chunk, main.state.a_pad, 0, with_rid=False)
+    slab_ms = (time.perf_counter() - t0) * 1e3 / (n // chunk)
+    wl = engine.StreamSampler(seed, params).slab(0, chunk)
+    a_pad = main.state.a_pad
+    padded = engine._pad_workload(wl, chunk, a_pad, 0)
+    n_arr, work, tie_u, rid, _ = (torch.from_numpy(p[:, None]).to(dev) for p in padded)
+    scn = engine.stack_scenarios([dataclasses.replace(
+        cell.scenario(), horizon=torch.tensor(n, dtype=torch.int32),
+        warmup=torch.tensor(0, dtype=torch.int32))]).to(dev)
+    static = dataclasses.replace(cell.static_part(), stream=True, slots=chunk,
+                                 max_arrivals=a_pad)
+    kw = dict(cap=static.queue_cap, comm=static.comm, decode_slots=static.decode_slots,
+              use_rates=False, trace_occupancy=False, t_end=chunk)
+    slot_args = (n_arr, work, rid, scn.x, scn.rt_period, scn.msr_drain, scn.decode_rates,
+                 scn.horizon)
+    n_cap = -(-wl.total // 1024) * 1024
+
+    def fixed_call():
+        return cuda_k.serve_slots_cuda(*slot_args, **kw, n_cap=n_cap)
+
+    def stream_calls(reps):
+        views = [engine._slots_view(engine._engine_init(static, 0, 1, dev))
+                 for _ in range(reps + 1)]
+        it = iter(views)
+        return views, lambda: cuda_k.serve_slots_cuda(*slot_args, **kw, n_cap=0,
+                                                      carry=next(it), t0=0,
+                                                      warmup=scn.warmup)
+
+    reps = STREAM_TIME_REPS
+    fixed_ms, stream_ms = [], []
+    for mode in ("fixed", "stream", "stream", "fixed"):
+        if mode == "fixed":
+            fixed_ms.append(_time_ms(fixed_call, reps))
+        else:
+            views, fn = stream_calls(reps)
+            stream_ms.append(_time_ms(fn, reps))
+    fixed_out = fixed_call()
+    view = views[-1]
+    for name in ("q_len", "q_head", "approx", "msgs", "total_comp", "dropped"):
+        assert torch.equal(view[name], fixed_out[name]), f"stream vs fixed {name}"
+    completions = int(view["total_comp"].sum())
+    assert int(view["count"].sum()) == completions  # warmup 0: every one measured
+    lanes = _routed_lanes(n_arr, scn.horizon, chunk, a_pad)
+    bound = _stream_bound(work, static, chunk, sum(lanes), completions)
+    # The plain version (the dense stream on the card) on the chunk's first
+    # STREAM_PLAIN_SLOTS slots, from the same empty carry.
+    cut = STREAM_PLAIN_SLOTS
+    views, fn = stream_calls(0)
+    sl = slice(0, cut)
+    got = cuda_k.serve_slots_cuda(n_arr[sl].contiguous(), work[sl].contiguous(), None,
+                                  *slot_args[3:], **{**kw, "t_end": cut}, n_cap=0,
+                                  carry=views[0], t0=0, warmup=scn.warmup)
+    dense = dataclasses.replace(static, route_backend="dense")
+    live = np.minimum(padded[0][:cut], a_pad)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want = engine._serve_core(n_arr[sl], work[sl], tie_u[sl], rid[sl][..., :0],
+                              torch.zeros((cut, 1, a_pad, 0), device=dev), scn, dense, 0,
+                              cut, live, None, engine._engine_init(dense, 0, 1, dev), 0)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    got_carry = engine._from_slots_view(want, got)
+    card_tests.stream_carry_equal(got_carry, want, "phase 3b plain")
+    stream_err = max(float((got[k].double() - getattr(want.comp_slot, k).double()).abs().max())
+                     for k in ("mean", "m2"))
+    fold_cost = stream_ms[0] / fixed_ms[0] - 1
+    print(f"phase 3b serve_slots stream mode on chunk 0 (D=1, R={static.replicas}, "
+          f"S={static.decode_slots}, A={a_pad}, {chunk} slots, every slot folding, "
+          f"{completions} completions): kernel {stream_ms[0]:.4f}, {stream_ms[1]:.4f} ms "
+          f"({stream_ms[0] / chunk * 1e3:.4f} us a slot) against the fixed horizon on "
+          f"the same slots {fixed_ms[0]:.4f}, {fixed_ms[1]:.4f} ms "
+          f"({fixed_ms[0] / chunk * 1e3:.4f} us a slot; the fold and carry cost "
+          f"{fold_cost * 100:.2f}%); bound {bound[0]:.6f} ms ({bound[1]}); the plain "
+          f"version (the dense stream on the card) over {cut} slots {plain_ms:.1f} ms "
+          f"({plain_ms / cut:.2f} ms a slot), the carry equal (mean and m2 within "
+          f"{stream_err:.3g}); the host's slab sampling and padding {slab_ms:.2f} ms a "
+          f"chunk of {chunk}")
+
+    # The dense stream against the fused one, a degraded cell against the
+    # CPU, and stream mode on SLOTS_CASES against the dense stream.
+    t0 = time.perf_counter()
+    small = engine.ServeConfig(**SERVE_DENSE_VS_FUSED, **SERVE_WORK, comm="et", x=4,
+                               deterministic_ties=True, route_backend="fused")
+    ops.reset_launch_counts()
+    rf = engine.serve_stream(0, small, chunk=STREAM_DENSE_CHUNK, warmup=100)
+    assert ops.launch_counts()["serve_slots"] == -(-small.slots // STREAM_DENSE_CHUNK)
+    rd = engine.serve_stream(0, dataclasses.replace(small, route_backend="dense"),
+                             chunk=STREAM_DENSE_CHUNK, warmup=100)
+    card_tests.stream_carry_equal(rf.state.carry, rd.state.carry, "dense vs fused")
+    degraded = engine.ServeConfig(**card_tests.STREAM_DEGRADED)
+    got = engine.serve_stream(3, degraded, chunk=64)
+    want = engine.serve_stream(3, degraded, chunk=64, device="cpu")
+    card_tests.stream_carry_equal(got.state.carry, want.state.carry, "degraded")
+    assert got.completed == want.completed > 0
+    cases = []
+    for name, (kw_case, horizons) in card_tests.SLOTS_CASES.items():
+        case = engine.ServeConfig(**{**card_tests.SLOTS_BASE, **kw_case})
+        carry, case_launches, _ = card_tests.stream_vs_dense(dev, case, horizons)
+        cases.append(f"{name} ({case_launches} launches, measured "
+                     f"{carry.comp_slot.count.tolist()})")
+    checks_s = time.perf_counter() - t0
+    print(f"phase 3b dense stream == fused at {SERVE_DENSE_VS_FUSED}, chunk "
+          f"{STREAM_DENSE_CHUNK} (every carry field; mean and m2 within "
+          f"{card_tests.STREAM_MEAN_RTOL:g} / {card_tests.STREAM_M2_RTOL:g}); the degraded "
+          f"cell (crash, ET+RT, suspect masking) card == CPU; stream-mode serve_slots "
+          f"against the dense stream on the CPU, cut at {card_tests.STREAM_CUTS}: "
+          f"{'; '.join(cases)} ({checks_s:.1f} s)")
+    times["stream_main_s"] = main_s
+    times["stream_stepped_s"] = stepped_s
+    times["stream_phase_s"] = time.perf_counter() - t_phase
+    return {"stream_launches": launches["serve_slots"], "stream_ms": stream_ms[0],
+            "stream_fixed_ms": fixed_ms[0], "stream_plain_ms": plain_ms,
+            "stream_plain_slots": cut, "stream_bound_ms": bound[0],
+            "stream_bound_by": bound[1], "stream_max_abs_err": stream_err,
+            "stream_slots_per_s": n / main_s}
+
+
 def _card_tests():
     """``tests/test_torch_cuda.py``, whose serve_slots cases and comparison
     with the dense backend phases 2 and 3 share (loaded by path)."""
@@ -2019,6 +2342,9 @@ def main() -> int:
     del got, plain, half
     _profile_serving(engine, big, wall)
 
+    # -- 3b. the streaming serving engine ------------------------------------------
+    stream = _serving_stream(dev, times, card_tests)
+
     # -- 4. dense against fused, then the Section 9 cell ---------------------------
     k, t = DENSE_VS_FUSED
     t0 = time.perf_counter()
@@ -2167,6 +2493,7 @@ def main() -> int:
             "launches": serve_launches["serve_slots"],
             "max_abs_err": slots_err, "ms": slots_ms, "plain_ms": slots_plain_ms,
             "bound_ms": slots_bound[0], "bound_by": slots_bound[1], "library_ms": None,
+            **stream,
         },
         moe_kernel,
         flash_kernel,

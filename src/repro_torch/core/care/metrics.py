@@ -1,14 +1,15 @@
 """Metrics for communication and performance (Section 2.1.5).
 
-The host-side (numpy) part of ``repro/core/care/metrics.py`` that the
-slotted tier uses, kept in the port so that it needs nothing of the JAX
-package: JCT statistics and CCDFs, relative communication and the pull
-policies' token counters.  The streaming histogram helpers come with the
-serving tier.
+The host-side (numpy) part of ``repro/core/care/metrics.py``, kept in the
+port so that it needs nothing of the JAX package: JCT statistics and CCDFs,
+relative communication, the pull policies' token counters, and the
+streaming serving engine's log-bucket JCT histogram (:func:`jct_bucket`
+on numpy arrays and on int32 tensors, its edges, quantiles and summary).
 """
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from repro_torch.core.care import slotted_sim
 
@@ -90,3 +91,91 @@ def relative_communication(
     """Messages relative to the exact-state baseline (1 per departure)."""
     msgs = slotted_sim.exact_state_messages(result, policy, sqd)
     return msgs / max(result.departures, 1)
+
+
+# ---------------------------------------------------------------------------
+# Fixed-bucket log-spaced JCT histogram: the streaming serving engine's
+# tail-quantile accumulator.  Bucketing is exact integer arithmetic after an
+# exact floor(log2): float64 frexp on the host and on tensors (float64
+# carries every int32 exactly), __clz in the serving kernel.
+# ---------------------------------------------------------------------------
+
+# JCTs 1..3 get exact buckets; from 4 up, every octave [2^e, 2^(e+1)) is
+# split into 4 linear sub-octaves (<= 25% relative width) through the full
+# int32 range: 3 + 4 * 29 = 119 buckets.
+HIST_BUCKETS = 119
+_I32_MAX = np.iinfo(np.int32).max
+
+
+def jct_bucket(j):
+    """Histogram bucket of JCT ``j``, clipped into [1, 2^31-1]: int32, as a
+    numpy array for a number or an array, as a tensor for an int tensor."""
+    if torch.is_tensor(j):
+        j = torch.clamp(j.to(torch.int32), 1, _I32_MAX)
+        e = (torch.frexp(j.to(torch.float64))[1] - 1).to(torch.int32)
+        sub = (j >> torch.clamp_min(e - 2, 0)) & 3
+        return torch.where(e < 2, j - 1, 4 * e + sub - 5).to(torch.int32)
+    j = np.clip(np.asarray(j, np.int32), 1, _I32_MAX)
+    e = (np.frexp(j.astype(np.float64))[1] - 1).astype(np.int32)
+    sub = (j >> np.maximum(e - 2, 0)) & 3
+    return np.where(e < 2, j - 1, 4 * e + sub - 5).astype(np.int32)
+
+
+def jct_bucket_edges() -> np.ndarray:
+    """Lower edges of every bucket plus the exclusive top, int64:
+    ``edges[b] <= j < edges[b + 1]`` iff ``jct_bucket(j) == b``; shape
+    ``(HIST_BUCKETS + 1,)`` with ``edges[-1] == 2^31``."""
+    edges = np.empty(HIST_BUCKETS + 1, np.int64)
+    edges[:3] = [1, 2, 3]
+    b = np.arange(3, HIST_BUCKETS, dtype=np.int64)
+    e, sub = (b + 5) // 4, (b + 5) % 4
+    edges[3:HIST_BUCKETS] = (4 + sub) << (e - 2)
+    edges[HIST_BUCKETS] = np.int64(2) ** 31
+    return edges
+
+
+def log_hist_quantiles(hist: np.ndarray, qs) -> np.ndarray:
+    """Quantiles of a :func:`jct_bucket` histogram, one per ``q`` in ``qs``,
+    interpolated linearly inside the containing bucket (exact for the
+    buckets 1, 2, 3; within one sub-octave above).  An empty histogram
+    gives zeros."""
+    hist = np.asarray(hist, np.int64)
+    qs = np.atleast_1d(np.asarray(qs, np.float64))
+    total = int(hist.sum())
+    if total == 0:
+        return np.zeros(qs.shape)
+    edges = jct_bucket_edges()
+    cum = np.cumsum(hist)
+    ranks = qs * (total - 1)
+    out = np.empty(qs.shape)
+    for i, rank in enumerate(ranks):
+        b = int(np.searchsorted(cum, rank, side="right"))
+        prev = cum[b - 1] if b > 0 else 0
+        frac = (rank - prev + 0.5) / hist[b]
+        out[i] = edges[b] + min(max(frac, 0.0), 1.0) * (edges[b + 1] - edges[b] - 1)
+    return out
+
+
+def stream_summary(count: int, mean: float, m2: float, max_jct: int,
+                   hist: np.ndarray) -> dict:
+    """Summary of the streaming engine's JCT accumulators: ``count`` /
+    ``mean`` / ``m2`` (Welford), the exact ``max_jct`` and the log-bucket
+    ``hist``, whose quantiles are clamped to the maximum.  With no count
+    or an empty histogram every statistic is 0 (``max`` is kept)."""
+    count = int(count)
+    hist = np.asarray(hist, np.int64)
+    if count == 0 or int(hist.sum()) == 0:
+        return {"count": 0, "mean": 0.0, "std": 0.0, "p50": 0.0,
+                "p90": 0.0, "p99": 0.0, "p999": 0.0, "max": int(max_jct)}
+    qs = log_hist_quantiles(hist, (0.5, 0.9, 0.99, 0.999))
+    p50, p90, p99, p999 = np.minimum(qs, float(max_jct))
+    return {
+        "count": count,
+        "mean": float(mean),
+        "std": float(np.sqrt(max(float(m2), 0.0) / count)),
+        "p50": float(p50),
+        "p90": float(p90),
+        "p99": float(p99),
+        "p999": float(p999),
+        "max": int(max_jct),
+    }

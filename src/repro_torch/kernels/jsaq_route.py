@@ -544,20 +544,22 @@ serve_route_cuda.launches = 0
 
 
 def serve_slots_smem(r: int, decode_slots: int, lanes: int, comm: str,
-                     use_rates: bool) -> tuple[int, bool]:
+                     use_rates: bool, stream: bool = False) -> tuple[int, bool]:
     """Dynamic shared memory of a ``serve_slots`` block, and whether ``rem``
     and ``arid`` ((S, R) int32 each) are in it.
 
     A run keeps ``q_len``, ``q_head``, ``approx`` and the busy count, plus
-    the deps counter under dt, the slot counter under rt and et_rt and the
-    rates under ``use_rates``, the minima of its 32-replica sub-blocks and
+    the deps counter under dt and the slot counter under rt and et_rt (both
+    in ``stream`` mode, whose carry holds them), the rates under
+    ``use_rates``, the minima of its 32-replica sub-blocks and
     one slot's ``work`` and ``rid`` lanes and the chain's replica and ring
     position of each lane, 4 bytes each; ``rem`` and
     ``arid`` join them when the block still fits in ``SERVE_SMEM_MAX``, else
     they stay in device scratch.  Raises ``ValueError`` when even the rest
     does not fit.
     """
-    fields = 4 + (comm == "dt") + (comm in ("rt", "et_rt")) + bool(use_rates)
+    fields = (4 + (stream or comm == "dt") + (stream or comm in ("rt", "et_rt"))
+              + bool(use_rates))
     base = 4 * (fields * r + 2 * (-(-r // 32)) + 4 * lanes)
     if base > SERVE_SMEM_MAX:
         raise ValueError(
@@ -570,10 +572,26 @@ def serve_slots_smem(r: int, decode_slots: int, lanes: int, comm: str,
     return base, False
 
 
+# The carry dict serve_slots resumes from in stream mode (the engine's
+# _slots_view): name -> (dtype, shape from (D, R, S, cap)).
+SLOTS_CARRY = {
+    "q_len": (torch.int32, "DR"), "q_head": (torch.int32, "DR"),
+    "approx": (torch.float32, "DR"), "q_work": (torch.int32, "DRC"),
+    "q_rid": (torch.int32, "DRC"), "rem": (torch.int32, "DRS"),
+    "arid": (torch.int32, "DRS"), "deps_since_msg": (torch.int32, "DR"),
+    "slots_since_msg": (torch.int32, "DR"), "msgs": (torch.int32, "D"),
+    "total_comp": (torch.int32, "D"), "dropped": (torch.int32, "D"),
+    "count": (torch.int32, "D"), "mean": (torch.float32, "D"),
+    "m2": (torch.float32, "D"), "max_jct": (torch.int32, "D"),
+    "hist": (torch.int32, "DH"),
+}
+HIST_BUCKETS = 119  # kHistBuckets in csrc/serve_route.cu
+
+
 def serve_slots_cuda(
     n_arr: torch.Tensor,
     work: torch.Tensor,
-    rid: torch.Tensor,
+    rid: torch.Tensor | None,
     x: torch.Tensor,
     rt_period: torch.Tensor,
     msr_drain: torch.Tensor,
@@ -587,30 +605,45 @@ def serve_slots_cuda(
     trace_occupancy: bool,
     n_cap: int,
     t_end: int,
+    carry: dict | None = None,
+    t0: int = 0,
+    warmup: torch.Tensor | None = None,
 ) -> dict:
-    """Slots ``[0, t_end)`` of the serving engine's fused slot loop for D
-    runs, in one launch; the same dict as ``serve.engine._serve_core``.
+    """Slots ``[t0, t0 + t_end)`` of the serving engine's fused slot loop
+    for D runs, in one launch.
 
     Args:
       n_arr: ``(T, D)`` int32 arrivals per slot and run.
-      work / rid: ``(T, D, A)`` int32 arrival lanes.
-      x / msr_drain: ``(D,)`` float32; rt_period / horizon: ``(D,)`` int32.
+      work / rid: ``(T, D, A)`` int32 arrival lanes (``rid`` unread, and
+        may be None, in stream mode).
+      x / msr_drain: ``(D,)`` float32; rt_period / horizon: ``(D,)`` int32,
+        the horizon an absolute slot.
       rates: ``(D, R)`` float32 decode rates, read under ``use_rates``
         only (without it the engine's rates are ones, so the drain is
         ``msr_drain`` and every busy decode slot works one unit).
-      n_cap: entries of the rid-indexed ``comp_slot``.
-      t_end: slots to run; run ``d`` stops at ``min(horizon[d], t_end)``.
+      n_cap: entries of the rid-indexed ``comp_slot`` (fixed mode).
+      t_end: slots to run; run ``d`` stops at ``min(horizon[d] - t0,
+        t_end)``.
+      carry: stream mode.  The dict of :data:`SLOTS_CARRY` (the engine's
+        ``_slots_view``): the loop resumes from it at absolute slot ``t0``,
+        stores each lane's arrival slot in its ring entry, folds the JCTs
+        of the completions at or past ``warmup`` ``(D,)`` int32 into
+        ``count`` / ``mean`` / ``m2`` / ``max_jct`` / ``hist``, and writes
+        the carry back in place.
 
-    Returns ``comp_slot`` ``(D, n_cap)``, ``msgs``, ``total_comp``,
+    Fixed mode (no ``carry``) starts from an empty engine at slot 0 and
+    returns ``comp_slot`` ``(D, n_cap)``, ``msgs``, ``total_comp``,
     ``dropped`` ``(D,)``, ``final_occ`` ``(D, R)``, ``occupancy`` ``(D, T,
     R)`` (None unless ``trace_occupancy``) and the end-of-run routing state
-    ``q_len``, ``q_head``, ``approx`` and ``busy`` ``(D, R)``.
+    ``q_len``, ``q_head``, ``approx`` and ``busy`` ``(D, R)``.  Stream mode
+    returns ``carry``.
     """
     if work.device.type != "cuda":
         raise ValueError(f"serve_slots_cuda needs a CUDA tensor, got {work.device}")
     dev = work.device
     t_n, d, a_n = work.shape
     r = rates.shape[-1]
+    stream = carry is not None
     _check_serve(comm, cap, r, "serve_slots_cuda")
     if decode_slots < 1:
         raise ValueError(f"decode_slots must be >= 1, got {decode_slots}")
@@ -618,49 +651,73 @@ def serve_slots_cuda(
         raise ValueError(f"t_end must be in [0, {t_n}], got {t_end}")
     if n_cap < 0:
         raise ValueError(f"n_cap must be >= 0, got {n_cap}")
+    if t0 < 0 or t0 + t_end > _I32_MAX:
+        raise ValueError(f"slots [{t0}, {t0 + t_end}) leave the int32 slot clock")
     _check(n_arr, "n_arr", (t_n, d), dev)
     _check(work, "work", (t_n, d, a_n), dev)
-    _check(rid, "rid", (t_n, d, a_n), dev)
+    if not stream:
+        _check(rid, "rid", (t_n, d, a_n), dev)
     for name, t, dtype in (
         ("x", x, torch.float32), ("rt_period", rt_period, torch.int32),
         ("msr_drain", msr_drain, torch.float32), ("horizon", horizon, torch.int32),
     ):
         _check(t, name, (d,), dev, dtype)
     _check(rates, "rates", (d, r), dev, torch.float32)
-    smem, rem_smem = serve_slots_smem(r, decode_slots, a_n, comm, use_rates)
-    launch = _lib("serve_route", "serve_slots_launch", (_P,) * 22 + (_I,) * 13 + (_P,))
+    smem, rem_smem = serve_slots_smem(r, decode_slots, a_n, comm, use_rates, stream)
+    launch = _lib("serve_route", "serve_slots_launch", (_P,) * 32 + (_I,) * 15 + (_P,))
 
     def empty(*shape, dtype=torch.int32):
         return torch.empty(shape, dtype=dtype, device=dev)
 
-    out = dict(
-        comp_slot=empty(d, n_cap), msgs=empty(d), total_comp=empty(d),
-        dropped=empty(d), final_occ=empty(d, r),
-        occupancy=empty(d, t_n, r) if trace_occupancy else None,
-        q_len=empty(d, r), q_head=empty(d, r), approx=empty(d, r, dtype=torch.float32),
-        busy=empty(d, r),
-    )
-    # The rings are read only where the chain wrote them; rem and arid are
-    # set by the kernel before it reads them.
-    q_work, q_rid = empty(d, r, cap), empty(d, r, cap)
+    if stream:
+        if trace_occupancy:
+            raise ValueError("serve_slots traces no occupancy in stream mode")
+        _check(warmup, "warmup", (d,), dev)
+        sizes = {"D": d, "R": r, "S": decode_slots, "C": cap, "H": HIST_BUCKETS}
+        if set(carry) != set(SLOTS_CARRY):
+            raise ValueError(f"carry must hold {sorted(SLOTS_CARRY)}, got {sorted(carry)}")
+        for name, (dtype, dims) in SLOTS_CARRY.items():
+            _check(carry[name], name, tuple(sizes[c] for c in dims), dev, dtype)
+        state, out = carry, carry
+        extra = dict(comp_slot=None, final_occ=None, occupancy=None, busy=None)
+    else:
+        if t0:
+            raise ValueError("the fixed horizon starts at slot 0")
+        state = dict(q_len=empty(d, r), q_head=empty(d, r),
+                     approx=empty(d, r, dtype=torch.float32),
+                     deps_since_msg=empty(d, r), slots_since_msg=empty(d, r),
+                     msgs=empty(d), total_comp=empty(d), dropped=empty(d),
+                     # The rings are read only where the chain wrote them.
+                     q_work=empty(d, r, cap), q_rid=empty(d, r, cap))
+        extra = dict(comp_slot=empty(d, n_cap), final_occ=empty(d, r),
+                     occupancy=empty(d, t_n, r) if trace_occupancy else None,
+                     busy=empty(d, r))
+        out = {key: state[key] for key in ("msgs", "total_comp", "dropped", "q_len",
+                                           "q_head", "approx")}
+        out.update(extra)
     rem_g = arid_g = None
-    if not rem_smem:
+    if not rem_smem:  # set by the kernel before it reads them
         rem_g, arid_g = empty(d, decode_slots, r), empty(d, decode_slots, r)
 
     def ptr(t):
         return None if t is None else t.data_ptr()
 
+    def field(name):
+        return ptr(state.get(name))
+
     with torch.cuda.device(dev):
         err = launch(
-            n_arr.data_ptr(), work.data_ptr(), rid.data_ptr(), x.data_ptr(),
-            rt_period.data_ptr(), msr_drain.data_ptr(), rates.data_ptr(),
-            horizon.data_ptr(), out["comp_slot"].data_ptr(), out["msgs"].data_ptr(),
-            out["total_comp"].data_ptr(), out["dropped"].data_ptr(),
-            out["final_occ"].data_ptr(), ptr(out["occupancy"]), out["q_len"].data_ptr(),
-            out["q_head"].data_ptr(), out["approx"].data_ptr(), out["busy"].data_ptr(),
-            q_work.data_ptr(), q_rid.data_ptr(), ptr(rem_g), ptr(arid_g),
-            d, t_n, t_end, a_n, r, decode_slots, cap, n_cap, CARE_COMMS.index(comm),
-            int(use_rates), int(rem_smem), _threads(r), smem,
+            n_arr.data_ptr(), work.data_ptr(), None if stream else rid.data_ptr(),
+            x.data_ptr(), rt_period.data_ptr(), msr_drain.data_ptr(), rates.data_ptr(),
+            horizon.data_ptr(), ptr(warmup) if stream else None,
+            ptr(extra["comp_slot"]), ptr(extra["final_occ"]), ptr(extra["occupancy"]),
+            ptr(extra["busy"]), field("q_len"), field("q_head"), field("approx"),
+            field("q_work"), field("q_rid"), field("rem"), field("arid"),
+            field("deps_since_msg"), field("slots_since_msg"), field("msgs"),
+            field("total_comp"), field("dropped"), field("count"), field("mean"),
+            field("m2"), field("max_jct"), field("hist"), ptr(rem_g), ptr(arid_g),
+            d, t_n, t_end, t0, a_n, r, decode_slots, cap, n_cap, CARE_COMMS.index(comm),
+            int(use_rates), int(rem_smem), int(stream), _threads(r), smem,
             torch.cuda.current_stream().cuda_stream,
         )
     _raise_on(err, "serve_slots")

@@ -94,16 +94,24 @@ def serve_slots(
     n_cap: int,
     t_end: int,
     plain: Callable[[], dict],
+    carry: dict | None = None,
+    t0: int = 0,
+    warmup: torch.Tensor | None = None,
 ) -> dict:
-    """Slots ``[0, t_end)`` of the serving engine's fused slot loop for D
-    runs: the dict of ``serve.engine._serve_core``; see
-    ``jsaq_route.serve_slots_cuda``.  ``plain`` computes the same dict on
-    the same inputs (the engine's per-slot loop); it runs on the CPU."""
+    """Slots ``[t0, t0 + t_end)`` of the serving engine's fused slot loop
+    for D runs; see ``jsaq_route.serve_slots_cuda``.  Without ``carry`` the
+    fixed horizon from an empty engine: the dict of
+    ``serve.engine._serve_core``.  With ``carry`` (stream mode; the engine's
+    ``_slots_view``) the loop resumes from it and the carry dict comes
+    back, on the card the same tensors updated in place.  ``plain``
+    computes the same dict on the same inputs (the engine's per-slot loop);
+    it runs on the CPU."""
     if _route(work, "serve_slots"):
         return _cuda.serve_slots_cuda(
             n_arr, work, rid, x, rt_period, msr_drain, rates, horizon, cap=cap,
             comm=comm, decode_slots=decode_slots, use_rates=use_rates,
             trace_occupancy=trace_occupancy, n_cap=n_cap, t_end=t_end,
+            carry=carry, t0=t0, warmup=warmup,
         )
     return plain()
 

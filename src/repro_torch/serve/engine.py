@@ -1,10 +1,11 @@
 """Serving tier: continuous batching with a CARE request dispatcher.
 
-Port of the fixed-horizon engine of ``repro/serve/engine.py``: requests are
-jobs, replica groups are servers, and the front end routes each arriving
-request over the dispatcher's *approximated* per-replica occupancy, which
-replicas correct through the shared push trigger core
-(:mod:`repro_torch.core.care.comm`) only when it fires.
+Port of the fixed-horizon and the streaming engine of
+``repro/serve/engine.py``: requests are jobs, replica groups are servers,
+and the front end routes each arriving request over the dispatcher's
+*approximated* per-replica occupancy, which replicas correct through the
+shared push trigger core (:mod:`repro_torch.core.care.comm`) only when it
+fires.
 
 A slot is one decode iteration across replicas.  In every slot, in this
 order: the slot's arrivals are routed one lane at a time (each routed
@@ -48,9 +49,16 @@ refuses it, as the reference's pallas backend does): replica faults
 sends nothing, and resyncs on recovery), the wire (``network="net"``,
 ``transport`` fire-and-forget or ack; the dispatcher's approximation and
 token pool take the *delivered* snapshot; SQ(d)'s ``2 d`` queries a
-routed request are billed) and suspect masking (``suspect_age``).  The
-streaming engine comes with a later slice and raises
-``NotImplementedError`` naming it.
+routed request are billed) and suspect masking (``suspect_age``).
+
+The streaming (segment) engine, :func:`serve_stream`, runs a cell as chunks
+of slots in O(chunk) memory: :class:`StreamSampler` draws each chunk's
+slab (prefix-stable blocks, byte-identical to the reference's), the engine
+state (:class:`EngineCarry`) resumes from one chunk to the next on the
+absolute slot clock, a request's ring entry is its arrival slot, and every
+slot's completions fold into the :class:`StreamMetrics` JCT accumulators.
+On the card the fused backend runs one ``serve_slots`` launch a chunk,
+which updates the carry in place.
 """
 from __future__ import annotations
 
@@ -62,6 +70,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.care import comm as comm_lib
+from repro_torch.core.care import metrics as metrics_lib
 from repro_torch.core.care import routing as routing_lib
 from repro_torch.core.care import workload as workload_lib
 from repro_torch.core.care.slotted_sim import _resolve_device
@@ -69,8 +78,6 @@ from repro_torch.kernels import ops as kernel_ops
 
 _I32 = torch.int32
 _F32 = torch.float32
-
-SLICE_STREAM = "a later slice of the port (ROADMAP 1, item 11: serve_stream)"
 
 # The serving tier's routing policies (see the reference): ``jsaq`` joins
 # the shortest approximated queue; ``sqd`` the shortest of ``sqd`` sampled
@@ -107,7 +114,10 @@ class EngineStatic:
     per-slot arrival-lane width (0 = derive from the sampled workload).
     ``trace_occupancy`` also returns the end-of-slot per-replica
     occupancy.  ``network`` / ``transport`` / ``fault`` are the control
-    plane's kinds; ``stream`` names the streaming engine of a later slice.
+    plane's kinds; ``stream`` is :func:`serve_stream`'s segment mode (the
+    carry resumes at an absolute slot clock, ring entries are arrival slots
+    and completions fold into :class:`StreamMetrics`), where ``slots`` is
+    the chunk length.
     """
 
     replicas: int = 8
@@ -129,10 +139,11 @@ class EngineStatic:
 
 
 def _check_static(static: EngineStatic) -> None:
-    """Refuse unknown kinds and the streaming engine (a later slice).
+    """Refuse unknown kinds.
 
     The ``"fused"`` backend refuses exactly what the reference's
-    ``"pallas"`` backend refuses (``ServeConfig.static_part``).
+    ``"pallas"`` backend refuses (``ServeConfig.static_part``), in the
+    fixed horizon and in stream mode alike.
     """
     if static.route_backend not in ("dense", "fused"):
         raise ValueError(
@@ -162,8 +173,6 @@ def _check_static(static: EngineStatic) -> None:
     ):
         if value not in allowed:
             raise ValueError(f"unknown {name} kind: {value!r}")
-    if static.stream:
-        raise NotImplementedError(f"the streaming engine comes with {SLICE_STREAM}")
     if static.policy not in PUSH_POLICIES + PULL_POLICIES:
         raise ValueError(f"unknown policy: {static.policy!r}")
     if static.comm not in comm_lib.PUSH_KINDS + comm_lib.PULL_KINDS:
@@ -178,7 +187,9 @@ class EngineScenario:
     :func:`stack_scenarios`.  float32 / int32 as the reference carries
     them; ``load`` rides along for reporting, ``mean_prefill`` /
     ``mean_decode`` feed the ``drain`` policy's E[S] term.  The
-    control-plane operands are neutral when their kinds are off."""
+    control-plane operands are neutral when their kinds are off.
+    ``warmup`` (stream mode) is the absolute slot before which completions
+    stay out of the JCT accumulators."""
 
     load: torch.Tensor
     x: torch.Tensor
@@ -199,6 +210,7 @@ class EngineScenario:
     crash_rate: torch.Tensor
     recover_rate: torch.Tensor
     slow_factor: torch.Tensor
+    warmup: torch.Tensor
 
     @staticmethod
     def create(
@@ -222,6 +234,7 @@ class EngineScenario:
         crash_rate: float = 0.0,
         recover_rate: float = 0.0,
         slow_factor: float = 1.0,
+        warmup: int = 0,
     ) -> "EngineScenario":
         if horizon is None:
             horizon = np.iinfo(np.int32).max
@@ -247,6 +260,7 @@ class EngineScenario:
             backoff_base=f32(backoff_base), max_retries=i32(max_retries),
             ka_period=i32(ka_period), crash_rate=f32(crash_rate),
             recover_rate=f32(recover_rate), slow_factor=f32(slow_factor),
+            warmup=i32(warmup),
         )
 
     def to(self, device) -> "EngineScenario":
@@ -640,6 +654,134 @@ def _route_lanes(static, act, n_arr_t, tie_t, sub_t, q_len, q_head, busy_cnt,
             q_len, approx, rr_ptr, dropped, pull, suspect)
 
 
+@dataclasses.dataclass
+class StreamMetrics:
+    """The streaming JCT accumulators, one row per run (stream mode's
+    ``EngineCarry.comp_slot``).
+
+    ``count`` / ``mean`` / ``m2`` are the Welford running count, mean and
+    sum of squared deviations of the measured (post-warmup) JCTs, combined
+    slot by slot with Chan's batch rule in float32, so that no chunking can
+    change them; ``max_jct`` is the exact maximum and ``hist`` the
+    :func:`repro_torch.core.care.metrics.jct_bucket` histogram, the source
+    of tail quantiles.  Messages and drops stay where the fixed horizon
+    keeps them (``CommState.msgs``, ``NetState.drops``).
+    """
+
+    count: torch.Tensor  # (D,) int32 measured completions
+    mean: torch.Tensor  # (D,) float32
+    m2: torch.Tensor  # (D,) float32
+    max_jct: torch.Tensor  # (D,) int32
+    hist: torch.Tensor  # (D, HIST_BUCKETS) int32
+
+    COUNTERS = ("count",)  # running totals (see comm.snapshot_state)
+
+    @staticmethod
+    def init(d: int, device=None) -> "StreamMetrics":
+        def zeros(*shape, dtype=_I32):
+            return torch.zeros(shape, dtype=dtype, device=device)
+
+        return StreamMetrics(count=zeros(d), mean=zeros(d, dtype=_F32),
+                             m2=zeros(d, dtype=_F32), max_jct=zeros(d),
+                             hist=zeros(d, metrics_lib.HIST_BUCKETS))
+
+    def update(self, jct: torch.Tensor, meas: torch.Tensor) -> "StreamMetrics":
+        """Fold one slot's completions in: ``jct`` int32 and ``meas`` bool
+        (the measured ones), ``(D, ...)`` each.
+
+        Chan's combine in the reference's order of float32 operations: the
+        batch mean, the batch's squared deviations from it, then the
+        running mean and m2.  A run with no measured completion is left as
+        it was, every field.
+        """
+        d = jct.shape[0]
+        jct, meas = jct.reshape(d, -1), meas.reshape(d, -1)
+        n_b = meas.sum(1, dtype=_I32)
+        has = n_b > 0
+        jf = jct.to(_F32)
+        n_bf = n_b.to(_F32)
+        mean_b = torch.where(meas, jf, 0.0).sum(1) / torch.clamp_min(n_bf, 1.0)
+        dv = jf - mean_b[:, None]
+        m2_b = torch.where(meas, dv * dv, 0.0).sum(1)
+        n_af = self.count.to(_F32)
+        tot = torch.clamp_min(n_af + n_bf, 1.0)
+        delta = mean_b - self.mean
+        mean = torch.where(has, self.mean + delta * n_bf / tot, self.mean)
+        m2 = torch.where(has, self.m2 + m2_b + delta * delta * n_af * n_bf / tot, self.m2)
+        # Unmeasured entries go to the trash bucket HIST_BUCKETS (the
+        # reference's out-of-bounds mode="drop").
+        bucket = torch.where(meas, metrics_lib.jct_bucket(jct), metrics_lib.HIST_BUCKETS)
+        add = torch.zeros((d, metrics_lib.HIST_BUCKETS + 1), dtype=_I32, device=jct.device)
+        add.scatter_add_(1, bucket.long(), torch.ones_like(bucket))
+        return StreamMetrics(
+            count=self.count + n_b, mean=mean, m2=m2,
+            max_jct=torch.maximum(self.max_jct, torch.where(meas, jct, 0).amax(1)),
+            hist=self.hist + add[:, :metrics_lib.HIST_BUCKETS],
+        )
+
+
+@dataclasses.dataclass
+class EngineCarry:
+    """The engine's state between slots, one row per run: what a chunk of
+    :func:`serve_stream` resumes from (the reference's scan carry).
+
+    ``q_work`` / ``q_rid`` ``(D, R, C)`` are the pending rings (``q_rid``
+    holds request ids, in stream mode arrival slots), ``rem`` / ``arid``
+    ``(D, R, S)`` the decode slots' remaining work and request (arrival
+    slot), ``comp_slot`` the rid-indexed completion slots ``(D, n_cap)`` or,
+    in stream mode, the :class:`StreamMetrics`.  ``net`` / ``faulted`` are
+    None when their kinds are off, ``pull`` the ``(tokens, token_miss,
+    token_sum)`` pool of the pull policies (else None) and ``suspect`` the
+    ``(masked_routes, suspect_routes)`` counters.
+    """
+
+    q_len: torch.Tensor
+    q_head: torch.Tensor
+    q_work: torch.Tensor
+    q_rid: torch.Tensor
+    rem: torch.Tensor
+    arid: torch.Tensor
+    approx: torch.Tensor
+    comm: comm_lib.CommState
+    rr_ptr: torch.Tensor
+    comp_slot: object
+    total_comp: torch.Tensor
+    dropped: torch.Tensor
+    net: object
+    faulted: Optional[torch.Tensor]
+    pull: Optional[tuple]
+    suspect: tuple
+
+    COUNTERS = ("total_comp", "dropped")  # running totals (see comm.snapshot_state)
+
+
+def _engine_init(static: EngineStatic, n_cap: int, d: int, device) -> EngineCarry:
+    """The carry of ``d`` runs at slot 0 (both modes; ``n_cap`` sizes the
+    fixed horizon's ``comp_slot``)."""
+    r_n, s_n, c_n = static.replicas, static.decode_slots, static.queue_cap
+
+    def zeros(*shape, dtype=_I32):
+        return torch.zeros(shape, dtype=dtype, device=device)
+
+    def minus_one(*shape):
+        return torch.full(shape, -1, dtype=_I32, device=device)
+
+    comm, net, faulted = comm_lib.control_plane_init(
+        r_n, network=static.network, fault=static.fault, transport=static.transport,
+        batch=(d,), device=device, payload_dtype=_F32,
+    )
+    return EngineCarry(
+        q_len=zeros(d, r_n), q_head=zeros(d, r_n), q_work=zeros(d, r_n, c_n),
+        q_rid=minus_one(d, r_n, c_n), rem=zeros(d, r_n, s_n),
+        arid=minus_one(d, r_n, s_n), approx=zeros(d, r_n, dtype=_F32), comm=comm,
+        rr_ptr=zeros(d),
+        comp_slot=StreamMetrics.init(d, device) if static.stream else minus_one(d, n_cap),
+        total_comp=zeros(d), dropped=zeros(d), net=net, faulted=faulted,
+        pull=(zeros(d, r_n), zeros(d), zeros(d)) if static.policy in PULL_POLICIES else None,
+        suspect=(zeros(d), zeros(d)),
+    )
+
+
 class _CoreArgs(NamedTuple):
     """The arguments of :func:`_serve_core`, by name (see there)."""
 
@@ -654,6 +796,8 @@ class _CoreArgs(NamedTuple):
     t_end: int
     live_lanes: np.ndarray
     control: Optional[dict] = None
+    carry: Optional[EngineCarry] = None
+    t0: int = 0
 
 
 # Counters of the degraded control plane and the pull policies in
@@ -661,31 +805,66 @@ class _CoreArgs(NamedTuple):
 CONTROL_COUNTERS = ("net_drops", "retrans", "token_misses", "token_sum",
                     "masked_routes", "suspect_routes")
 
+# The carry fields serve_slots resumes from and writes back, by the names
+# of ops.serve_slots' carry dict.
+_SLOTS_STATE = ("q_len", "q_head", "q_work", "q_rid", "rem", "arid", "approx",
+                "total_comp", "dropped")
+_SLOTS_METRICS = ("count", "mean", "m2", "max_jct", "hist")
+
+
+def _slots_view(carry: EngineCarry) -> dict:
+    """The fields of a stream carry that ``serve_slots`` carries, flat (the
+    tensors themselves, which the kernel updates in place)."""
+    view = {name: getattr(carry, name) for name in _SLOTS_STATE}
+    view.update(deps_since_msg=carry.comm.deps_since_msg,
+                slots_since_msg=carry.comm.slots_since_msg, msgs=carry.comm.msgs)
+    view.update({name: getattr(carry.comp_slot, name) for name in _SLOTS_METRICS})
+    return view
+
+
+def _from_slots_view(carry: EngineCarry, view: dict) -> EngineCarry:
+    """``carry`` with the fields of :func:`_slots_view` taken from ``view``."""
+    return dataclasses.replace(
+        carry, **{name: view[name] for name in _SLOTS_STATE},
+        comm=comm_lib.CommState(view["deps_since_msg"], view["slots_since_msg"],
+                                view["msgs"]),
+        comp_slot=StreamMetrics(**{name: view[name] for name in _SLOTS_METRICS}),
+    )
+
 
 def _serve_core(n_arr, work, tie_u, rid, sub_u, scn: EngineScenario,
                 static: EngineStatic, n_cap: int, t_end: int,
-                live_lanes: np.ndarray, control: Optional[dict] = None) -> dict:
-    """The port of ``_serve_core`` for the fixed horizon, all runs at once.
+                live_lanes: np.ndarray, control: Optional[dict] = None,
+                carry: Optional[EngineCarry] = None, t0: int = 0):
+    """The port of ``_serve_core``: slots ``[t0, t0 + t_end)`` of every run.
 
     Args:
       n_arr: ``(T, D)`` int32 arrivals per slot and run.
       work / tie_u / rid: ``(T, D, A)`` arrival lanes (int32 / float32 /
-        int32); lanes ``>= n_arr`` are masked no-ops.
+        int32); lanes ``>= n_arr`` are masked no-ops.  Stream mode reads no
+        ``rid``: a request's ring entry is its arrival slot.
       sub_u: ``(T, D, A, sqd)`` float32 subset uniforms (``sqd = 0`` unless
         the policy is ``"sqd"``).
       scn: the runs' stacked scenario, on the same device.
-      n_cap: capacity of the rid-indexed completion-slot array.
+      n_cap: capacity of the rid-indexed completion-slot array (fixed mode).
       t_end: the slots to run; every run is frozen from its horizon on.
       live_lanes: ``(T,)`` host-side count of lanes live in some run; the
         dense backend routes only those (a dead lane changes nothing).
       control: the control plane's float32 uniforms, present when their
         kinds are on: ``net_drop_u`` / ``net_jit_u`` / ``fault_u`` ``(T,
         D, R)`` and ``ack_u`` ``(T, D, 4, R)``.
+      carry: the :class:`EngineCarry` to resume from (None: slot 0's).
+      t0: the absolute slot of the first slot (the slot clock of horizons,
+        decode rates, JCTs and the warmup gate).
 
     The fused backend goes through :func:`repro_torch.kernels.ops.serve_slots`:
     on the card all ``t_end`` slots are one ``serve_slots`` launch, on the
     CPU its plain version, the per-slot loop :func:`_serve_loop`.  The dense
-    backend always runs that loop.  Returns a dict of ``(D, ...)`` tensors:
+    backend always runs that loop.
+
+    In stream mode (``static.stream``) returns the advanced carry; on the
+    card the fused backend advances ``carry`` in place (a carry resumes
+    once).  Otherwise returns a dict of ``(D, ...)`` tensors:
     ``comp_slot`` ``(D, n_cap)``, ``msgs``, ``total_comp``, ``dropped``
     ``(D,)``, ``final_occ`` ``(D, R)``, under ``trace_occupancy``
     ``occupancy`` ``(D, T, R)`` (else None), the end-of-run routing state
@@ -694,38 +873,72 @@ def _serve_core(n_arr, work, tie_u, rid, sub_u, scn: EngineScenario,
     :data:`CONTROL_COUNTERS` (see :func:`_route_lanes` for the last two).
     """
     args = _CoreArgs(n_arr, work, tie_u, rid, sub_u, scn, static, n_cap, t_end,
-                     live_lanes, control)
+                     live_lanes, control, carry, t0)
     if static.route_backend != "fused":
-        return _serve_loop(args)
+        carry, occ = _serve_loop(args)
+        return carry if static.stream else _fixed_outputs(carry, occ)
+    kw = dict(cap=static.queue_cap, comm=static.comm, decode_slots=static.decode_slots,
+              use_rates=static.use_rates, trace_occupancy=static.trace_occupancy,
+              n_cap=n_cap, t_end=t_end)
+    slot_args = (n_arr, work, rid, scn.x, scn.rt_period, scn.msr_drain,
+                 scn.decode_rates, scn.horizon)
+    if static.stream:
+        if carry is None:
+            carry = _engine_init(static, n_cap, work.shape[1], work.device)
+            args = args._replace(carry=carry)
+        view = kernel_ops.serve_slots(
+            *slot_args, **kw, carry=_slots_view(carry), t0=t0, warmup=scn.warmup,
+            plain=lambda: _slots_view(_serve_loop(args)[0]),
+        )
+        return _from_slots_view(carry, view)
+    if carry is not None or t0:
+        raise ValueError("the fused fixed horizon starts at slot 0 from an empty "
+                         "engine; resume a carry in stream mode")
     out = kernel_ops.serve_slots(
-        n_arr, work, rid, scn.x, scn.rt_period, scn.msr_drain, scn.decode_rates,
-        scn.horizon, cap=static.queue_cap, comm=static.comm,
-        decode_slots=static.decode_slots, use_rates=static.use_rates,
-        trace_occupancy=static.trace_occupancy, n_cap=n_cap, t_end=t_end,
-        plain=functools.partial(_serve_loop, args),
+        *slot_args, **kw, plain=lambda: _fixed_outputs(*_serve_loop(args)),
     )
     for name in CONTROL_COUNTERS:
         out.setdefault(name, torch.zeros_like(out["msgs"]))
     return out
 
 
-def _serve_loop(args: _CoreArgs) -> dict:
-    """:func:`_serve_core` as a Python loop over slots.
+def _fixed_outputs(carry: EngineCarry, occ_trace) -> dict:
+    """:func:`_serve_core`'s dict of the fixed horizon from the final carry."""
+    busy = (carry.rem > 0).sum(2, dtype=_I32)
+    zero = torch.zeros_like(carry.total_comp)
+    net, pull = carry.net, carry.pull
+    return dict(
+        comp_slot=carry.comp_slot, msgs=carry.comm.msgs,
+        total_comp=carry.total_comp, dropped=carry.dropped,
+        final_occ=carry.q_len + busy, occupancy=occ_trace, q_len=carry.q_len,
+        q_head=carry.q_head, approx=carry.approx, busy=busy,
+        net_drops=zero if net is None else net.drops,
+        retrans=net.retrans if isinstance(net, comm_lib.AckNetState) else zero,
+        token_misses=zero if pull is None else pull[1],
+        token_sum=zero if pull is None else pull[2],
+        masked_routes=carry.suspect[0], suspect_routes=carry.suspect[1],
+    )
+
+
+def _serve_loop(args: _CoreArgs) -> tuple:
+    """:func:`_serve_core` as a Python loop over slots: ``(carry',
+    occupancy)``, the trace None unless ``trace_occupancy``.
 
     Slot ``t`` reads the slot-``t`` views of the inputs and keeps every
     counter on the device, so nothing waits for the card inside the loop.
     The fused backend routes each slot with one
-    :func:`repro_torch.kernels.ops.serve_route` call for all runs.  The
-    rings ``(D, R+1, C)`` and ``comp_slot`` ``(D, n_cap+1)`` carry one
-    trash row / column: the reference's out-of-bounds ``mode="drop"``
-    scatters land there.
+    :func:`repro_torch.kernels.ops.serve_route` call for all runs.  Inside
+    the loop the rings ``(D, R+1, C)`` and ``comp_slot`` ``(D, n_cap+1)``
+    carry one trash row / column, where the reference's out-of-bounds
+    ``mode="drop"`` scatters land; the carry going in and out has none.
     """
     (n_arr, work, tie_u, rid, sub_u, scn, static, n_cap, t_end, live_lanes,
-     control) = args
+     control, carry, t0) = args
     control = control or {}
     t_n, d_n = work.shape[:2]
-    r_n, s_n, c_n = static.replicas, static.decode_slots, static.queue_cap
+    r_n, c_n = static.replicas, static.queue_cap
     dev = work.device
+    stream = static.stream
     ccfg = comm_lib.CommConfig(
         kind=static.comm, x=scn.x[:, None], rt_period=scn.rt_period[:, None]
     )
@@ -748,31 +961,32 @@ def _serve_loop(args: _CoreArgs) -> dict:
         drain_slots = routing_lib.expected_drain_slots(
             (scn.mean_prefill + scn.mean_decode)[:, None], rates
         )
-    active = torch.arange(t_n, device=dev)[:, None] < scn.horizon[None, :]
-    slot_f = torch.arange(t_n, dtype=_F32, device=dev)
+    # The absolute slot clock: horizons, decode credits, JCTs and warmup.
+    clock = t0 + torch.arange(t_n, dtype=torch.int64, device=dev)
+    active = clock[:, None] < scn.horizon[None, :]
+    slot_f = clock.to(_F32)
 
-    def zeros(*shape, dtype=_I32):
-        return torch.zeros(shape, dtype=dtype, device=dev)
-
-    def minus_one(*shape):
-        return torch.full(shape, -1, dtype=_I32, device=dev)
-
-    q_len, q_head = zeros(d_n, r_n), zeros(d_n, r_n)
-    q_work, q_rid = zeros(d_n, r_n + 1, c_n), minus_one(d_n, r_n + 1, c_n)
-    rem, arid = zeros(d_n, r_n, s_n), minus_one(d_n, r_n, s_n)
-    approx = zeros(d_n, r_n, dtype=_F32)
-    comm_state, net, faulted = comm_lib.control_plane_init(
-        r_n, network=static.network, fault=static.fault, transport=static.transport,
-        batch=(d_n,), device=dev, payload_dtype=_F32,
-    )
-    rr_ptr, total_comp, dropped = zeros(d_n), zeros(d_n), zeros(d_n)
-    pull = (zeros(d_n, r_n), zeros(d_n)) if has_pull else None
-    token_sum = zeros(d_n)
-    suspect = (zeros(d_n), zeros(d_n))
-    comp_slot = minus_one(d_n, n_cap + 1)
-    occ_trace = zeros(d_n, t_n, r_n) if static.trace_occupancy else None
+    if carry is None:
+        carry = _engine_init(static, n_cap, d_n, dev)
+    trash = torch.full((d_n, 1, c_n), -1, dtype=_I32, device=dev)
+    q_len, q_head, rem, arid, approx = (carry.q_len, carry.q_head, carry.rem,
+                                        carry.arid, carry.approx)
+    q_work = torch.cat([carry.q_work, torch.zeros_like(trash)], 1)
+    q_rid = torch.cat([carry.q_rid, trash], 1)
+    comm_state, net, faulted = carry.comm, carry.net, carry.faulted
+    rr_ptr, total_comp, dropped = carry.rr_ptr, carry.total_comp, carry.dropped
+    pull = carry.pull[:2] if has_pull else None
+    token_sum = carry.pull[2] if has_pull else None
+    suspect = carry.suspect
+    if stream:
+        metrics = carry.comp_slot
+    else:
+        comp_slot = torch.cat([carry.comp_slot, trash[:, 0, :1]], 1)
+    occ_trace = (torch.zeros((d_n, t_n, r_n), dtype=_I32, device=dev)
+                 if static.trace_occupancy else None)
 
     for t in range(t_end):
+        tt = t0 + t
         act = active[t]
         act_r = act[:, None]
         # The dispatcher routes against the previous slot's replica state.
@@ -807,10 +1021,14 @@ def _serve_loop(args: _CoreArgs) -> dict:
             )
         # Admitted lanes never collide (successive admits to one replica
         # take successive tails); the others go to the trash row R.  The
-        # scatters read the first jv.shape[1] lanes of work / rid.
+        # scatters read the first jv.shape[1] lanes of work / rid; in stream
+        # mode a request's entry is its arrival slot.
         ring_idx = (torch.where(admitv, jv, r_n) * c_n + tailv).long()
         q_work.view(d_n, -1).scatter_(1, ring_idx, work[t])
-        q_rid.view(d_n, -1).scatter_(1, ring_idx, rid[t])
+        if stream:
+            q_rid.view(d_n, -1).scatter_(1, ring_idx, torch.full_like(jv, tt))
+        else:
+            q_rid.view(d_n, -1).scatter_(1, ring_idx, rid[t])
 
         # 1b. replica faults advance after routing, before admission.
         recovered = None
@@ -853,10 +1071,15 @@ def _serve_loop(args: _CoreArgs) -> dict:
             rem = rem - units[..., None] * active_s.to(_I32)
         done = active_s & (rem <= 0)
         completions = done.sum(2, dtype=_I32)
-        # A request completes once, so writing t is the reference's
-        # scatter-max; slots that did not complete write the trash column.
-        comp_idx = torch.where(done, arid, n_cap).reshape(d_n, -1).long()
-        comp_slot.scatter_(1, comp_idx, t)
+        if stream:
+            # arid holds arrival slots: fold the JCTs of the completions
+            # at or past the warmup slot into the accumulators.
+            metrics = metrics.update(tt - arid + 1, done & (scn.warmup <= tt)[:, None, None])
+        else:
+            # A request completes once, so writing t is the reference's
+            # scatter-max; slots that did not complete write the trash column.
+            comp_idx = torch.where(done, arid, n_cap).reshape(d_n, -1).long()
+            comp_slot.scatter_(1, comp_idx, tt)
         arid = torch.where(done, -1, arid)
         total_comp = total_comp + completions.sum(1, dtype=_I32)
 
@@ -912,21 +1135,18 @@ def _serve_loop(args: _CoreArgs) -> dict:
         if occ_trace is not None:
             occ_trace[:, t] = true_occ.to(_I32)
 
-    busy_cnt = (rem > 0).sum(2, dtype=_I32)
-    final_occ = q_len + busy_cnt
     if occ_trace is not None:
-        occ_trace[:, t_end:] = final_occ[:, None]  # frozen past every horizon
-    zero = zeros(d_n)
-    return dict(
-        comp_slot=comp_slot[:, :n_cap], msgs=comm_state.msgs,
-        total_comp=total_comp, dropped=dropped, final_occ=final_occ,
-        occupancy=occ_trace, q_len=q_len, q_head=q_head, approx=approx,
-        busy=busy_cnt,
-        net_drops=zero if net is None else net.drops,
-        retrans=net.retrans if has_ack else zero,
-        token_misses=pull[1] if has_pull else zero, token_sum=token_sum,
-        masked_routes=suspect[0], suspect_routes=suspect[1],
+        # Frozen past every horizon: the final occupancy.
+        occ_trace[:, t_end:] = (q_len + (rem > 0).sum(2, dtype=_I32))[:, None]
+    carry = EngineCarry(
+        q_len=q_len, q_head=q_head, q_work=q_work[:, :r_n].contiguous(),
+        q_rid=q_rid[:, :r_n].contiguous(), rem=rem, arid=arid, approx=approx,
+        comm=comm_state, rr_ptr=rr_ptr,
+        comp_slot=metrics if stream else comp_slot[:, :n_cap].contiguous(),
+        total_comp=total_comp, dropped=dropped, net=net, faulted=faulted,
+        pull=(*pull, token_sum) if has_pull else None, suspect=suspect,
     )
+    return carry, occ_trace
 
 
 @dataclasses.dataclass
@@ -981,17 +1201,19 @@ def _round_up(n: int, mult: int) -> int:
     return ((max(n, 1) + mult - 1) // mult) * mult
 
 
-def _pad_workload(wl: ServeWorkload, t_pad: int, a_pad: int, d: int = 0):
+def _pad_workload(wl: ServeWorkload, t_pad: int, a_pad: int, d: int = 0,
+                  with_rid: bool = True):
     """Pad one workload to the ``(T, A)`` lane grid: ``(n_arr, work, tie_u,
     rid, sub_u)`` with lanes past a slot's arrival count zeroed.  ``d`` is
-    the subset-uniform depth (``sqd`` under the "sqd" policy, else 0).
+    the subset-uniform depth (``sqd`` under the "sqd" policy, else 0);
+    ``with_rid=False`` (stream mode) leaves the rid lanes zero-width.
     The control-plane uniforms are padded by :func:`_pad_control`."""
     t = wl.n_arr.shape[0]
     n_arr = np.zeros(t_pad, np.int32)
     n_arr[:t] = wl.n_arr
     work = np.zeros((t_pad, a_pad), np.int32)
     tie_u = np.zeros((t_pad, a_pad), np.float32)
-    rid = np.zeros((t_pad, a_pad), np.int32)
+    rid = np.zeros((t_pad, a_pad if with_rid else 0), np.int32)
     sub_u = np.zeros((t_pad, a_pad, d), np.float32)
     if wl.total:
         lane = np.arange(a_pad, dtype=np.int64)[None, :]
@@ -999,7 +1221,8 @@ def _pad_workload(wl: ServeWorkload, t_pad: int, a_pad: int, d: int = 0):
         idx = np.minimum(wl.base[:, None] + lane, wl.total - 1)
         work[:t] = np.where(mask, wl.work[idx], 0)
         tie_u[:t] = np.where(mask, wl.tie_u[idx], 0.0)
-        rid[:t] = np.where(mask, idx, 0)
+        if with_rid:
+            rid[:t] = np.where(mask, idx, 0)
         if d:
             sub_u[:t] = np.where(mask[..., None], wl.sub_u[idx, :d], 0.0)
     return n_arr, work, tie_u, rid, sub_u
@@ -1101,6 +1324,9 @@ def _grid_runs(seeds: Sequence[int], static: EngineStatic,
     """The runs of a grid, cell-major: ``(workloads, cells, static with
     the lane width set, n_cap)``; checks every cell against ``static``."""
     _check_static(static)
+    if static.stream:
+        raise ValueError("EngineStatic.stream is the segment mode of serve_stream; "
+                         "serve_grid runs the fixed horizon")
     cells = list(cells)
     seeds = [int(s) for s in seeds]
     for cell in cells:
@@ -1176,3 +1402,367 @@ def serve_one(
         cell.static_part(), max_arrivals=a_pad, trace_occupancy=trace_occupancy
     )
     return _run([wl], [cell], static, _round_up(wl.total, 1024), dev)[0]
+
+
+# ---------------------------------------------------------------------------
+# The streaming (segment) engine: chunks of slots in O(chunk) memory.
+# ---------------------------------------------------------------------------
+
+# Granularity of the prefix-stable stream sampler: every quantity of block
+# j (slots [j*B, (j+1)*B)) is drawn from its own SeedSequence child keyed
+# (stream, j), so block j's bytes never depend on how, or whether, other
+# blocks were sampled.  Chunk boundaries need not align with blocks.
+STREAM_BLOCK = 1024
+
+
+@dataclasses.dataclass(frozen=True)
+class StreamParams:
+    """Workload parameters of one request stream (hashable): what the
+    sampler needs and nothing the router reads.  ``diurnal_amp`` /
+    ``diurnal_period`` modulate the arrival rate as ``rate * (1 + amp *
+    sin(2 pi t / period))``; 0 / 0 keeps it flat."""
+
+    replicas: int
+    decode_slots: int
+    load: float
+    mean_prefill: float = 4.0
+    mean_decode: float = 64.0
+    rate_scale: float = 1.0
+    with_net: bool = False
+    with_fault: bool = False
+    with_ack: bool = False
+    diurnal_amp: float = 0.0
+    diurnal_period: int = 0
+
+    @staticmethod
+    def for_cell(cell: ServeConfig, *, diurnal_amp: float = 0.0,
+                 diurnal_period: int = 0) -> "StreamParams":
+        return StreamParams(
+            replicas=cell.replicas,
+            decode_slots=cell.decode_slots,
+            load=cell.load,
+            mean_prefill=float(cell.mean_prefill),
+            mean_decode=float(cell.mean_decode),
+            rate_scale=cell.rate_scale(),
+            with_net=cell.network != "none",
+            with_fault=cell.fault != "none",
+            with_ack=cell.network != "none" and cell.transport == "ack",
+            diurnal_amp=diurnal_amp,
+            diurnal_period=diurnal_period,
+        )
+
+
+@dataclasses.dataclass
+class _StreamBlock:
+    """One sampled block: per-slot arrivals plus per-arrival draws."""
+
+    n_arr: np.ndarray  # (B,) int64
+    cum: np.ndarray  # (B + 1,) int64 arrivals before each in-block slot
+    prefill: np.ndarray  # (total,) int64
+    decode: np.ndarray  # (total,) int64
+    work: np.ndarray  # (total,) int64
+    tie_u: np.ndarray  # (total,) float32
+    sub_u: np.ndarray  # (total, SQD_MAX) float32
+    net_drop_u: Optional[np.ndarray]  # (B, R) float32
+    net_jit_u: Optional[np.ndarray]  # (B, R) float32
+    fault_u: Optional[np.ndarray]  # (B, R) float32
+    ack_u: Optional[np.ndarray]  # (B, 4, R) float32
+
+
+class StreamSampler:
+    """Prefix-stable chunked workload sampling (the host side of the stream).
+
+    The reference's sampler, line for line: six root ``SeedSequence``
+    children split the streams as :func:`sample_workload` does, and block
+    ``j`` of each stream draws from the j-th child of that child, built
+    statelessly as ``SeedSequence(entropy, spawn_key + (j,))``.  Block j's
+    bytes are a function of (seed, params, j) alone, so slabs of any size
+    in any order assemble into one trace.  A small LRU of blocks keeps
+    sequential slabs O(chunk) in time and memory.
+    """
+
+    _CACHE_BLOCKS = 8
+
+    def __init__(self, seed: int, params: StreamParams):
+        self.seed = int(seed)
+        self.params = params
+        # workload, tie, subset, net, fault, ack
+        self._roots = np.random.SeedSequence(self.seed).spawn(6)
+        self._cache: dict[int, _StreamBlock] = {}
+
+    def _rng(self, stream: int, j: int) -> np.random.Generator:
+        child = self._roots[stream]
+        ss = np.random.SeedSequence(
+            entropy=child.entropy, spawn_key=child.spawn_key + (j,)
+        )
+        return np.random.default_rng(ss)
+
+    def rate_at(self, t: np.ndarray) -> np.ndarray:
+        """Offered per-slot arrival rate at absolute slots ``t``."""
+        p = self.params
+        mean_work = p.mean_prefill + p.mean_decode
+        base = p.load * p.replicas * p.decode_slots * p.rate_scale / mean_work
+        if not p.diurnal_period:
+            return np.full(np.shape(t), base)
+        phase = 2.0 * np.pi * np.asarray(t, np.float64) / p.diurnal_period
+        return base * (1.0 + p.diurnal_amp * np.sin(phase))
+
+    def _block(self, j: int) -> _StreamBlock:
+        blk = self._cache.get(j)
+        if blk is not None:
+            return blk
+        p, b = self.params, STREAM_BLOCK
+        t = j * b + np.arange(b, dtype=np.int64)
+        wrng = self._rng(0, j)
+        n_arr = wrng.poisson(self.rate_at(t)).astype(np.int64)
+        total = int(n_arr.sum())
+        prefill = 1 + wrng.poisson(p.mean_prefill, size=total).astype(np.int64)
+        decode = 1 + wrng.poisson(p.mean_decode, size=total).astype(np.int64)
+        work = np.maximum(prefill + decode, 1)
+        tie_u = self._rng(1, j).random(size=total, dtype=np.float32)
+        sub_u = self._rng(2, j).random(size=(total, SQD_MAX), dtype=np.float32)
+        net_drop_u = net_jit_u = fault_u = ack_u = None
+        if p.with_net:
+            nrng = self._rng(3, j)
+            net_drop_u = nrng.random(size=(b, p.replicas), dtype=np.float32)
+            net_jit_u = nrng.random(size=(b, p.replicas), dtype=np.float32)
+        if p.with_fault:
+            fault_u = self._rng(4, j).random(size=(b, p.replicas), dtype=np.float32)
+        if p.with_ack:
+            ack_u = self._rng(5, j).random(size=(b, 4, p.replicas), dtype=np.float32)
+        blk = _StreamBlock(
+            n_arr=n_arr,
+            cum=np.concatenate([[0], np.cumsum(n_arr)]).astype(np.int64),
+            prefill=prefill, decode=decode, work=work, tie_u=tie_u, sub_u=sub_u,
+            net_drop_u=net_drop_u, net_jit_u=net_jit_u, fault_u=fault_u,
+            ack_u=ack_u,
+        )
+        if len(self._cache) >= self._CACHE_BLOCKS:
+            self._cache.pop(next(iter(self._cache)))
+        self._cache[j] = blk
+        return blk
+
+    def slab(self, t0: int, t1: int) -> ServeWorkload:
+        """The trace of slots ``[t0, t1)`` as a :class:`ServeWorkload`:
+        ``base`` slab-local, ``arrival_slot`` absolute; byte-identical to the
+        same span of any other slabbing."""
+        if not 0 <= t0 < t1:
+            raise ValueError(f"bad slab bounds [{t0}, {t1})")
+        b = STREAM_BLOCK
+        parts = []
+        for j in range(t0 // b, (t1 - 1) // b + 1):
+            blk = self._block(j)
+            lo = max(t0 - j * b, 0)
+            hi = min(t1 - j * b, b)
+            parts.append((blk, lo, hi, int(blk.cum[lo]), int(blk.cum[hi])))
+        n_arr = np.concatenate([blk.n_arr[lo:hi] for blk, lo, hi, _, _ in parts])
+
+        def cat(name):  # per-arrival draws
+            return np.concatenate([getattr(blk, name)[a0:a1]
+                                   for blk, _, _, a0, a1 in parts])
+
+        def cat_slots(name):  # per-slot control-plane rows, None when off
+            if getattr(parts[0][0], name) is None:
+                return None
+            return np.concatenate([getattr(blk, name)[lo:hi]
+                                   for blk, lo, hi, _, _ in parts])
+
+        return ServeWorkload(
+            n_arr=n_arr,
+            base=np.concatenate([[0], np.cumsum(n_arr)[:-1]]).astype(np.int64),
+            prefill=cat("prefill"), decode=cat("decode"), work=cat("work"),
+            tie_u=cat("tie_u"), sub_u=cat("sub_u"),
+            arrival_slot=np.repeat(np.arange(t0, t1, dtype=np.int64), n_arr),
+            net_drop_u=cat_slots("net_drop_u"), net_jit_u=cat_slots("net_jit_u"),
+            fault_u=cat_slots("fault_u"), ack_u=cat_slots("ack_u"),
+        )
+
+    def full(self, slots: int) -> ServeWorkload:
+        """The whole trace of the first ``slots`` slots (O(slots) memory),
+        for ``serve_one(workload=...)``."""
+        return self.slab(0, slots)
+
+
+@dataclasses.dataclass
+class StreamState:
+    """Where a :func:`serve_stream` segment ended, to resume from.
+
+    ``carry`` is the :class:`EngineCarry` on the device the next chunk
+    reads; on the card the fused backend advances it in place, so a state
+    resumes once (copy it with :func:`repro_torch.core.care.comm.snapshot_state`
+    first to keep it).
+    """
+
+    carry: EngineCarry
+    t_next: int
+    offered: int
+    a_pad: int
+    sampler: StreamSampler
+
+
+@dataclasses.dataclass
+class StreamResult:
+    """One stream segment's outputs (host-side numbers and histogram)."""
+
+    slots: int  # slots run, cumulative over resumed segments
+    offered: int
+    completed: int  # all completions, warmup included
+    dropped: int
+    messages: int
+    net_drops: int
+    count: int  # post-warmup completions in the accumulators
+    mean_jct: float
+    std_jct: float
+    max_jct: int
+    hist: np.ndarray  # (HIST_BUCKETS,) int64
+    final_occupancy: np.ndarray  # (R,)
+    state: StreamState
+    token_misses: int = 0  # pull routes that found an empty token pool
+    token_sum: int = 0  # end-of-slot token-pool occupancy over slots
+    retrans: int = 0  # data retransmits (transport="ack")
+
+    @property
+    def msgs_per_slot(self) -> float:
+        return self.messages / max(self.slots, 1)
+
+    @property
+    def msgs_per_completion(self) -> float:
+        return self.messages / max(self.completed, 1)
+
+    def jct_summary(self) -> dict:
+        """Count, mean, std, max and the histogram's tail quantiles; all 0
+        when nothing was measured."""
+        return metrics_lib.stream_summary(
+            self.count, self.mean_jct,
+            self.std_jct * self.std_jct * max(self.count, 1),
+            self.max_jct, self.hist,
+        )
+
+
+def _to_device(arr: np.ndarray, dev: torch.device) -> torch.Tensor:
+    """A host array on ``dev``; to the card through pinned memory without
+    waiting, so that sampling the next chunk overlaps the running one."""
+    t = torch.from_numpy(np.ascontiguousarray(arr))
+    if dev.type == "cuda":
+        return t.pin_memory().to(dev, non_blocking=True)
+    return t.to(dev)
+
+
+def serve_stream(
+    seed: int,
+    cell: ServeConfig,
+    *,
+    chunk: int = 4096,
+    warmup: int = 0,
+    slots: Optional[int] = None,
+    sampler: Optional[StreamSampler] = None,
+    state: Optional[StreamState] = None,
+    prefetch: bool = True,
+    diurnal_amp: float = 0.0,
+    diurnal_period: int = 0,
+    device: str | torch.device | None = None,
+) -> StreamResult:
+    """Run one serving cell as a chunked stream in bounded memory.
+
+    ``slots`` (default ``cell.slots``) run as ``ceil(slots / chunk)`` chunk
+    steps that thread one :class:`EngineCarry`; on the card the fused
+    backend is one ``serve_slots`` launch a chunk.  With ``prefetch=True``
+    the host samples chunk k+1's slab after chunk k is launched and before
+    anything waits for the card; ``prefetch=False`` waits for each chunk
+    first (the same results).
+
+    Any chunking, and the fixed-horizon engine fed
+    ``StreamSampler.full(slots)``, give the same counters and carried
+    state bit for bit.  ``warmup`` keeps completions before that absolute
+    slot out of the JCT accumulators (the counters are never gated).
+    ``state`` resumes a previous segment (once); totals are cumulative.
+    The stream's end must stay below 2^31 (the int32 slot clock).
+    ``device=None`` means the CUDA card; pass ``device="cpu"`` for the
+    plain PyTorch path.
+    """
+    if cell.route_backend == "fused" and cell.policy != "jsaq":
+        raise ValueError("stream mode inherits the fused jsaq-only limits")
+    slots = cell.slots if slots is None else int(slots)
+    if slots <= 0:
+        raise ValueError(f"slots must be positive, got {slots}")
+    if chunk <= 0:
+        raise ValueError(f"chunk must be positive, got {chunk}")
+    base_static = dataclasses.replace(cell.static_part(), stream=True)  # validates the cell
+    dev = _resolve_device(device)
+    d = base_static.sqd if base_static.policy == "sqd" else 0
+
+    if state is not None:
+        where = state.carry.q_len.device
+        if where.type != dev.type or dev.index not in (None, where.index):
+            raise ValueError(f"the state lies on {where}, not {dev}")
+        dev = where
+        sampler = state.sampler
+        t_start, offered = state.t_next, state.offered
+        carry, a_pad = state.carry, state.a_pad
+    else:
+        if sampler is None:
+            sampler = StreamSampler(seed, StreamParams.for_cell(
+                cell, diurnal_amp=diurnal_amp, diurnal_period=diurnal_period))
+        t_start, offered = 0, 0
+        carry, a_pad = _engine_init(base_static, 0, 1, dev), 8
+    t_end = t_start + slots
+    if t_end >= np.iinfo(np.int32).max:
+        raise ValueError(f"stream end {t_end} overflows the int32 slot clock")
+    scn = stack_scenarios([dataclasses.replace(
+        cell.scenario(), horizon=torch.tensor(t_end, dtype=_I32),
+        warmup=torch.tensor(int(warmup), dtype=_I32),
+    )]).to(dev)
+    controls = _control_streams(base_static)
+    n_chunks = -(-slots // chunk)
+
+    def prep(k: int) -> _CoreArgs:
+        """Sample, pad and stage chunk k's slab (the host half of overlap)."""
+        nonlocal a_pad, offered
+        c0 = t_start + k * chunk
+        c1 = min(c0 + chunk, t_end)
+        wl = sampler.slab(c0, c1)
+        offered += wl.total
+        need = int(wl.n_arr.max()) if wl.n_arr.size else 0
+        if need > a_pad:
+            a_pad = _round_up(need, 8)
+        static_k = dataclasses.replace(base_static, slots=chunk, max_arrivals=a_pad)
+        padded = _pad_workload(wl, chunk, a_pad, d, with_rid=False)
+        arrs = [_to_device(p[:, None], dev) for p in padded]
+        control = {name: _to_device(_pad_control(wl, name, chunk)[:, None], dev)
+                   for name in controls}
+        live = np.minimum(padded[0], a_pad)
+        return _CoreArgs(*arrs, scn, static_k, 0, c1 - c0, live, control or None,
+                         None, c0)
+
+    cur = prep(0)
+    for k in range(n_chunks):
+        carry = _serve_core(*cur._replace(carry=carry))
+        if not prefetch and dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        if k + 1 < n_chunks:
+            cur = prep(k + 1)
+
+    q_len = carry.q_len[0].cpu().numpy()
+    final_occ = q_len + (carry.rem[0] > 0).sum(1, dtype=_I32).cpu().numpy()
+    sm = carry.comp_slot
+    count = int(sm.count[0])
+    net, pull = carry.net, carry.pull
+    return StreamResult(
+        slots=t_end,
+        offered=offered,
+        completed=int(carry.total_comp[0]),
+        dropped=int(carry.dropped[0]),
+        messages=int(carry.comm.msgs[0]),
+        net_drops=int(net.drops[0]) if net is not None else 0,
+        count=count,
+        mean_jct=float(sm.mean[0]),
+        std_jct=float(np.sqrt(max(float(sm.m2[0]), 0.0) / max(count, 1))),
+        max_jct=int(sm.max_jct[0]),
+        hist=sm.hist[0].cpu().numpy().astype(np.int64),
+        final_occupancy=final_occ,
+        state=StreamState(carry=carry, t_next=t_end, offered=offered, a_pad=a_pad,
+                          sampler=sampler),
+        token_misses=int(pull[1][0]) if pull is not None else 0,
+        token_sum=int(pull[2][0]) if pull is not None else 0,
+        retrans=int(net.retrans[0]) if isinstance(net, comm_lib.AckNetState) else 0,
+    )

@@ -9,8 +9,11 @@ router kernel), since the softmax sums run in another order, and
 ``flash_attention``'s output: within 2e-5 in float32 (the CUDA-core
 kernel) and 2e-2 in bfloat16 (the tensor-core kernel;
 ``tests/test_flash_kernel.py``'s tolerances), since its dot products and
-row sums run in another order.  Where there is no card, each test
-skips with a reason.
+row sums run in another order; and stream-mode ``serve_slots``' float32
+running mean and m2, within 1e-6 / 2e-5 relative of the dense stream on
+the CPU (``STREAM_MEAN_RTOL``, ``STREAM_M2_RTOL``), since each slot's
+squared deviations are summed in the kernel's order.  Where there is no
+card, each test skips with a reason.
 """
 import dataclasses
 import time
@@ -163,6 +166,90 @@ def slots_vs_dense(dev, static, cell, horizons=None, seeds=(0, 1)):
         else:
             _eq(fused[key].cpu().numpy(), want.cpu().numpy())
     return fused, args, dense_s
+
+
+# serve_slots in stream mode: each SLOTS_CASES run cut into uneven chunks
+# (a chunk of 1 slot, one of 17, one of 39, then the rest, each resuming
+# the carry the last one left), with the warmup gate at slot 10 in run 0.
+# The float32 accumulators mean and m2 sum each slot's squared deviations
+# in the kernel's order (a thread's decode slots, a warp's tree, the warps
+# in order), not PyTorch's: they are held within STREAM_MEAN_RTOL and
+# STREAM_M2_RTOL of the CPU; every other carry field is equal.
+STREAM_CUTS = (1, 18, 57)
+STREAM_WARMUP = (10, 0)
+STREAM_MEAN_RTOL = 1e-6
+STREAM_M2_RTOL = 2e-5
+# A degraded cell of tests/test_serve_engine.py's STREAM_MATRIX (crash
+# faults with suspect masking under ET+RT), dense on the card and the CPU.
+STREAM_DEGRADED = dict(replicas=6, decode_slots=4, slots=400, load=0.9, queue_cap=256,
+                       policy="jsaq", comm="et_rt", fault="crash", crash_rate=0.02,
+                       recover_rate=0.2, suspect_age=10)
+
+
+def stream_carry_equal(got, want, label: str = "") -> None:
+    """Two stream carries (any devices): every field equal, the float
+    accumulators within the stream tolerances."""
+    def leaves(x, path):
+        if x is None:
+            return []
+        if torch.is_tensor(x):
+            return [(path, x.cpu())]
+        if dataclasses.is_dataclass(x):
+            return [leaf for f in dataclasses.fields(x)
+                    for leaf in leaves(getattr(x, f.name), f"{path}.{f.name}")]
+        return [leaf for i, v in enumerate(x) for leaf in leaves(v, f"{path}[{i}]")]
+
+    a, b = leaves(got, "carry"), leaves(want, "carry")
+    assert [p for p, _ in a] == [p for p, _ in b], label
+    for (path, x), (_, y) in zip(a, b):
+        assert x.dtype == y.dtype and x.shape == y.shape, f"{label} {path}"
+        if path.endswith(("comp_slot.mean", "comp_slot.m2")):
+            rtol = STREAM_MEAN_RTOL if path.endswith("mean") else STREAM_M2_RTOL
+            tol = rtol * y.double().abs().clamp_min(1.0)
+            assert bool(((x.double() - y.double()).abs() <= tol).all()), (
+                f"{label} {path}: {x.tolist()} vs {y.tolist()}")
+        else:
+            _eq(x.numpy(), y.numpy())
+
+
+def stream_vs_dense(dev, cell, horizons=None, seeds=(0, 1), cuts=STREAM_CUTS):
+    """serve_slots in stream mode on the card (the fused backend, one launch
+    a chunk) against the dense stream on the CPU, the slots of ``cell``'s
+    runs cut at ``cuts`` and each chunk resuming the last one's carry.
+    Returns the card's carry, its launches and the CPU's seconds; fails on
+    any difference beyond the stream tolerances."""
+    wls, runs, static, _ = serve_engine._grid_runs(list(seeds), cell.static_part(), [cell])
+    static = dataclasses.replace(static, stream=True, trace_occupancy=False)
+    carries, launches, cpu_s = [], 0, 0.0
+    for where, backend in ((dev, "fused"), (torch.device("cpu"), "dense")):
+        args = serve_engine._core_args(wls, runs, static, 0, where)
+        d = args.work.shape[1]
+        hz = horizons if horizons is not None else (cell.slots,) * d
+        scn = dataclasses.replace(
+            args.scn, horizon=torch.tensor(hz, dtype=torch.int32, device=where),
+            warmup=torch.tensor(STREAM_WARMUP[:d], dtype=torch.int32, device=where))
+        t_end = min(static.slots, max(max(hz), 0))
+        st = dataclasses.replace(static, route_backend=backend)
+        carry = serve_engine._engine_init(st, 0, d, where)
+        bounds = sorted({0, t_end, *(c for c in cuts if 0 < c < t_end)})
+        tops.reset_launch_counts()
+        t0 = time.perf_counter()
+        for c0, c1 in zip(bounds[:-1], bounds[1:]):
+            sl = slice(c0, c1)
+            carry = serve_engine._serve_core(
+                args.n_arr[sl], args.work[sl], args.tie_u[sl], args.rid[sl],
+                args.sub_u[sl], scn, st, 0, c1 - c0, args.live_lanes[sl], None,
+                carry, c0)
+        if where.type == "cuda":
+            torch.cuda.synchronize()
+            counts = tops.launch_counts()
+            launches = counts["serve_slots"]
+            assert launches == len(bounds) - 1 and counts["serve_route"] == 0, counts
+        else:
+            cpu_s = time.perf_counter() - t0
+        carries.append(carry)
+    stream_carry_equal(carries[0], carries[1], cell.comm)
+    return carries[0], launches, cpu_s
 
 
 # The slotted tier's policies and workloads on the dense backend: name ->
@@ -479,6 +566,47 @@ class TestOnCard:
             assert int(fused["total_comp"].sum()) > 0
         if "drops" in case:
             assert int(fused["dropped"].sum()) > 0
+
+    @pytest.mark.parametrize("case", list(SLOTS_CASES))
+    def test_serve_slots_stream_mode(self, cuda_device, case):
+        kw, horizons = SLOTS_CASES[case]
+        cell = serve_engine.ServeConfig(**{**SLOTS_BASE, **kw})
+        carry, launches, _ = stream_vs_dense(cuda_device, cell, horizons)
+        if horizons is None or max(horizons) > STREAM_WARMUP[0]:
+            assert int(carry.comp_slot.count.sum()) > 0
+        assert launches >= 1
+
+    def test_serve_stream_one_launch_a_chunk(self, cuda_device):
+        cell = serve_engine.ServeConfig(
+            replicas=64, decode_slots=16, slots=1000, load=0.9, comm="et", x=4,
+            mean_prefill=4, mean_decode=60, msr_drain=0.25, queue_cap=128,
+            deterministic_ties=True, route_backend="fused")
+        tops.reset_launch_counts()
+        got = serve_engine.serve_stream(0, cell, chunk=256, warmup=100, device=cuda_device)
+        counts = tops.launch_counts()
+        assert counts["serve_slots"] == 4 and counts["serve_route"] == 0, counts
+        want = serve_engine.serve_stream(0, cell, chunk=256, warmup=100, device="cpu")
+        stream_carry_equal(got.state.carry, want.state.carry)
+        for name in ("offered", "completed", "messages", "dropped", "count", "max_jct"):
+            assert getattr(got, name) == getattr(want, name), name
+        # Any chunking and a resume give the card's carry bit for bit.
+        one = serve_engine.serve_stream(0, cell, chunk=1000, warmup=100, device=cuda_device)
+        half = serve_engine.serve_stream(0, cell, chunk=256, warmup=100, slots=500,
+                                         device=cuda_device)
+        rest = serve_engine.serve_stream(0, cell, chunk=300, warmup=100, state=half.state,
+                                         slots=500, device=cuda_device)
+        for other in (one, rest):
+            for a, b in zip(other.state.carry.comp_slot.__dict__.values(),
+                            got.state.carry.comp_slot.__dict__.values()):
+                assert torch.equal(a, b)
+            stream_carry_equal(other.state.carry, got.state.carry)
+
+    def test_degraded_stream_card_equals_cpu(self, cuda_device):
+        cell = serve_engine.ServeConfig(**STREAM_DEGRADED)
+        got = serve_engine.serve_stream(3, cell, chunk=64, device=cuda_device)
+        want = serve_engine.serve_stream(3, cell, chunk=64, device="cpu")
+        stream_carry_equal(got.state.carry, want.state.carry)
+        assert got.completed == want.completed > 0
 
     def test_fused_serve_grid_goes_through_the_kernel(self, cuda_device):
         cells = [

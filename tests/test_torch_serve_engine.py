@@ -214,7 +214,7 @@ class TestRefusals:
 
     def test_stream_names_its_slice(self):
         static = dataclasses.replace(teng.ServeConfig(**SMALL).static_part(), stream=True)
-        with pytest.raises(NotImplementedError, match="serve_stream"):
+        with pytest.raises(ValueError, match="serve_stream"):
             teng.serve_grid([0], static, [teng.ServeConfig(**SMALL)], device="cpu")
 
     def test_grid_shapes(self):
