@@ -97,6 +97,34 @@ own failure):
    deviations are summed in the kernel's order.  Cuts: 16,384 slots (the
    reference's soak runs 1e6-1e7), the plain version on 64 slots (~80 ms a
    slot at 1024 replicas).
+3c. The per-request dispatcher, ``dispatch_sim`` and the two examples
+   (no kernel but the examples' own; every count printed, none added to
+   the main paths'). ``run_serving_sim`` at ``examples/serve_care.py``'s
+   cell (8 replicas x 16 decode slots, load 0.9, mean prefill 4 and
+   decode 60, MSR drain 0.25, ET-4), 1000 slots, seed 0, under JSAQ,
+   SQ(2), RR and drain at 2:1 rates, JIQ, hsq, the ack wire (delay 2,
+   jitter 1, drop 0.1, timeout 8, backoff 2, 6 retries, suspect_age 8)
+   and crash faults (0.005 / 0.1, suspect_age 20) (``DISPATCH_CELLS`` of
+   ``tests/test_torch_cuda.py``): each call equals the CPU in every
+   returned field and the dense ``serve_one`` on the card in the JCT
+   vector, messages, final occupancy and control counters; ms a slot on
+   the card and on the CPU, and a profiled ET-4 call's device busy share.
+   The dispatcher at ``serve/replicas1024``'s width (1024 x 16, cap 128,
+   128 slots, lowest-index ties) against the fused ``serve_one`` (one
+   ``serve_slots`` launch): JCT vector, messages and final occupancy
+   equal; ms a slot and us a routed request.  ``dispatch_sim`` at
+   ``bench_moe_balance.py``'s section B (E 64, D 8, T 256, k 8, 800 steps,
+   5 seeds in one ``dispatch_batch``; no_bias, off, exact, dt8, et4, et8):
+   each regime equal to the CPU on the card's draws in every field, each
+   et4 seed and the first seed of the others equal to ``simulate``,
+   exact's messages D x steps and off's 0; prints each regime's wall, ms
+   a step and the bench's aggregates and headline (not asserted).  Then
+   ``python -m repro_torch.examples.quickstart --slots 2000`` and
+   ``serve_care --slots 1000`` as subprocesses: exit 0, their closing
+   lines, and serve_care's 30 ``flash_attention`` launches a prefill and
+   none in decode (SmolLM-135M at its published widths); serve_care
+   asserts its own golden replay.  Cuts: 1000 slots (the example's
+   default 20,000), 128 slots at full width (the bench's 2048).
 4. The slotted dense backend against the fused one on the card, decision
    for decision, at K=200, T=2000, on Bernoulli arrivals and on MMPP
    arrivals under a diurnal curve (``MMPP_FUSED`` of
@@ -210,6 +238,7 @@ from __future__ import annotations
 import dataclasses
 import importlib.util
 import json
+import os
 import re
 import subprocess
 import sys
@@ -351,6 +380,16 @@ STREAM_RECHUNK = 1024
 STREAM_DENSE_CHUNK = 256
 STREAM_TIME_REPS = 3
 STREAM_PLAIN_SLOTS = 64  # the dense loop takes ~80 ms a slot at 1024 replicas
+# Phase 3c: the per-request dispatcher at examples/serve_care's cell for
+# 1000 slots (phase 4c's serving length; the reference runs 20,000) and at
+# serve/replicas1024's width for 128 slots (the bench runs 2048); dispatch_sim
+# at bench_moe_balance's section B in full (800 steps, 5 seeds); the examples
+# at tests/test_examples.py's sizes.
+DISPATCH_SLOTS = 1000
+DISPATCH_WIDE_SLOTS = 128
+MOE_DISPATCH_STEPS = 800
+MOE_DISPATCH_SEEDS = 5
+EXAMPLE_TIMEOUT_S = 600
 # Phase 7: DeepSeek-V2 serving at published widths, depth cut to one dense
 # and two MoE layers; 4 prompts of 512 tokens (2048 routed tokens a MoE
 # layer), greedy decode of 16 tokens each into a cache of 528.
@@ -1963,6 +2002,192 @@ def _serving_stream(dev, times: dict, card_tests) -> dict:
             "stream_slots_per_s": n / main_s}
 
 
+def _dispatch_profile(engine, cell, card_tests, dev, wall_s: float) -> None:
+    """Where the per-request dispatcher's time goes: one profiled
+    ``run_serving_sim`` call; the device busy share against the unprofiled
+    wall of the same call."""
+    from torch.profiler import ProfilerActivity, profile
+
+    args = card_tests._sim_args(cell, 0)
+    for _ in range(2):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            engine.run_serving_sim(cell.engine_config(), device=dev, **args)
+            torch.cuda.synchronize()
+        events = prof.key_averages()
+        device = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
+        device_us = sum(e.self_device_time_total for e in device)
+        if device_us:
+            break
+    else:
+        print("phase 3c dispatcher profile: the profiler saw no device time in two calls; "
+              "device busy share not measured")
+        return
+    launches = sum(e.count for e in device)
+    host = sorted((e for e in events if e.device_type == torch.autograd.DeviceType.CPU),
+                  key=lambda e: e.self_cpu_time_total, reverse=True)
+    host_us = sum(e.self_cpu_time_total for e in host)
+    print(f"phase 3c dispatcher profile ({cell.slots} slots, ET-4): device busy "
+          f"{device_us / 1e3:.3f} ms, {device_us / 1e6 / wall_s:.4f} of the unprofiled "
+          f"wall {wall_s:.3f} s; {launches} device operations ({launches / cell.slots:.1f} "
+          f"a slot); top host ops by self time (profiled): "
+          + ", ".join(f"{e.key} {e.self_cpu_time_total / host_us:.3f}" for e in host[:8]))
+
+
+def _dispatcher_phase(dev, times: dict, card_tests) -> None:
+    """Phase 3c: the per-request dispatcher, dispatch_sim and the two
+    examples on the card (no kernel but the examples' own; every count
+    printed)."""
+    from repro_torch.core import dispatch_sim
+    from repro_torch.kernels import ops
+    from repro_torch.serve import engine
+
+    t_phase = time.perf_counter()
+    # (a) examples/serve_care's cell under each policy and control plane,
+    # the card against the CPU and against the dense serve_one.
+    for name, kw in card_tests.DISPATCH_CELLS.items():
+        cell = card_tests.dispatch_cell(name, DISPATCH_SLOTS)
+        ops.reset_launch_counts()
+        got, card_s, cpu_s = card_tests.dispatcher_card_vs_cpu(dev, cell)
+        res, serve_s = card_tests.dispatcher_vs_serve_one(dev, cell, got)
+        launches = ops.launch_counts()
+        assert sum(launches.values()) == 0, launches
+        assert got["offered"] == got["completed"] + int(got["final_occupancy"].sum())
+        if kw.get("net_drop"):
+            assert got["net_drops"] > 0 and got["retrans"] > 0
+        if name in ("jiq", "hsq"):
+            assert got["token_misses"] >= 0 and got["token_sum"] >= 0
+        times[f"dispatch_{name}_s"] = card_s
+        print(f"phase 3c dispatcher {name} ({cell.replicas} x {cell.decode_slots}, "
+              f"{cell.slots} slots, {got['offered']} requests): equal to the CPU in every "
+              f"field and to serve_one (dense, the card) in {', '.join(card_tests.DISPATCH_VS_SERVE)}; "
+              f"card {card_s / cell.slots * 1e3:.3f} ms a slot ({card_s * 1e6 / max(got['offered'], 1):.1f} "
+              f"us a request), CPU {cpu_s / cell.slots * 1e3:.3f} ms a slot, serve_one "
+              f"{serve_s / cell.slots * 1e3:.3f} ms a slot; messages {got['messages']}, mean "
+              f"JCT {got['mean_jct']:.3f}, net_drops {got['net_drops']}, retrans "
+              f"{got['retrans']}, token_misses {got['token_misses']}, token_sum "
+              f"{got['token_sum']}; launches {launches}")
+    et4 = card_tests.dispatch_cell("et4", DISPATCH_SLOTS)
+    _dispatch_profile(engine, et4, card_tests, dev, times["dispatch_et4_s"])
+
+    # (b) serve/replicas1024's width against the fused serve_one.
+    wide = engine.ServeConfig(**{**SERVE_MAIN, "slots": DISPATCH_WIDE_SLOTS}, **SERVE_WORK,
+                              comm="et", x=4, deterministic_ties=True, route_backend="fused")
+    args = card_tests._sim_args(wide, 0)
+    ops.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = engine.run_serving_sim(wide.engine_config(), device=dev, **args)
+    wide_s = time.perf_counter() - t0
+    assert sum(ops.launch_counts().values()) == 0
+    t0 = time.perf_counter()
+    res = engine.serve_one(0, wide, workload=args["workload"], device=dev)
+    torch.cuda.synchronize()
+    fused_s = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    assert launches["serve_slots"] == 1 and sum(launches.values()) == 1, launches
+    assert res.dropped == 0
+    for name in ("jct_by_rid", "messages", "final_occupancy"):
+        assert np.array_equal(np.asarray(got[name]), np.asarray(getattr(res, name))), name
+    n_req = got["offered"]
+    times["dispatch_wide_s"] = wide_s
+    print(f"phase 3c dispatcher at {wide.replicas} x {wide.decode_slots}, cap "
+          f"{wide.queue_cap}, {wide.slots} slots ({n_req} routed requests, "
+          f"{n_req / wide.slots:.1f} a slot): jct_by_rid, messages and final occupancy "
+          f"equal to the fused serve_one (one serve_slots launch, {fused_s:.3f} s); "
+          f"dispatcher {wide_s:.3f} s, {wide_s / wide.slots * 1e3:.3f} ms a slot, "
+          f"{wide_s * 1e6 / n_req:.2f} us a routed request; messages {got['messages']}, "
+          f"completed {got['completed']}")
+
+    # (c) dispatch_sim at bench_moe_balance's section B.
+    seeds = list(range(MOE_DISPATCH_SEEDS))
+    regimes = [
+        ("no_bias", dict(enabled=False, comm="off")),
+        ("off", dict(comm="off")),
+        ("exact", dict(comm="exact", x=1)),
+        ("dt8", dict(comm="dt", x=8)),
+        ("et4", dict(comm="et", x=4)),
+        ("et8", dict(comm="et", x=8)),
+    ]
+    agg = {}
+    for name, kw in regimes:
+        cfg = dispatch_sim.DispatchSimConfig(steps=MOE_DISPATCH_STEPS, **kw)
+        ops.reset_launch_counts()
+        card, card_s, cpu_s = card_tests.dispatch_sim_card_vs_cpu(dev, cfg, seeds)
+        assert sum(ops.launch_counts().values()) == 0
+        # Each seed of the batch equals simulate: every seed under et4, the
+        # first seed under the others.
+        for seed in seeds if name == "et4" else seeds[:1]:
+            one = dispatch_sim.simulate(seed, cfg, device=dev)
+            assert np.array_equal(one.gap, card[seed].gap), (name, seed)
+            assert np.array_equal(one.backlog, card[seed].backlog), (name, seed)
+            assert (one.messages, one.max_err) == (card[seed].messages, card[seed].max_err)
+        if name == "exact":
+            assert all(r.messages == cfg.dispatchers * cfg.steps for r in card)
+        if name in ("off", "no_bias"):
+            assert all(r.messages == 0 for r in card)
+        for r in card:
+            assert np.isfinite(r.backlog).all() and np.isfinite(r.gap).all()
+        agg[name] = {
+            "tail_gap": float(np.mean([r.tail_gap for r in card])),
+            "transient_gap": float(np.mean([r.transient_gap for r in card])),
+            "tail_backlog": float(np.mean([r.tail_backlog for r in card])),
+            "rel_comm": float(np.mean([r.rel_comm for r in card])),
+            "max_err": float(np.max([r.max_err for r in card])),
+        }
+        times[f"moe_dispatch_{name}_s"] = card_s
+        print(f"phase 3c dispatch_sim {name} (E {cfg.experts}, D {cfg.dispatchers}, T "
+              f"{cfg.tokens_per_step}, k {cfg.top_k}, {cfg.steps} steps, {len(seeds)} seeds "
+              f"in one dispatch_batch): card == CPU on the card's draws in every field; card "
+              f"{card_s:.3f} s ({card_s / cfg.steps * 1e3:.3f} ms a step), CPU {cpu_s:.3f} s "
+              f"({cpu_s / cfg.steps * 1e3:.3f} ms a step); " + json.dumps(agg[name]))
+    ex, et, off = agg["exact"], agg["et4"], agg["off"]
+    print("phase 3c dispatch_sim headline (printed, not asserted; the port's draws are "
+          "not the reference's): " + json.dumps({
+              "et4_gap_vs_exact": et["tail_gap"] / max(ex["tail_gap"], 1e-9),
+              "et4_rel_comm": et["rel_comm"], "comm_saving": 1.0 - et["rel_comm"],
+              "et_matches_exact": bool(et["tail_gap"] <= 1.1 * ex["tail_gap"]),
+              "off_transient_vs_et": off["transient_gap"] / max(et["transient_gap"], 1e-9),
+          }))
+
+    # (d) both examples as subprocesses, at tests/test_examples.py's sizes.
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    for name, argv, closing in (
+        ("quickstart", ["--slots", "2000"], "Next: python -m repro_torch.examples.serve_care"),
+        ("serve_care", ["--slots", "1000"], "Reading: the ET dispatcher matches"),
+    ):
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", f"repro_torch.examples.{name}", *argv],
+                              capture_output=True, text=True, timeout=EXAMPLE_TIMEOUT_S,
+                              env=env, cwd=ROOT)
+        wall = time.perf_counter() - t0
+        assert proc.returncode == 0, f"{name}: {proc.stderr[-3000:]}"
+        assert closing in proc.stdout, proc.stdout[-2000:]
+        times[f"example_{name}_s"] = wall
+        lines = proc.stdout.strip().splitlines()
+        if name == "serve_care":
+            got = [ln for ln in lines if ln.startswith("[decode] flash_attention launches")]
+            want = "[decode] flash_attention launches: 30 in the prefill, 0 in 11 decode steps"
+            assert got == [want], got
+            shown = [ln for ln in lines if ln.startswith(("[decode]", "[golden]", "9 cells"))]
+        else:
+            shown = [ln for ln in lines if "simulate_grid calls" in ln]
+        print(f"phase 3c example {name} {' '.join(argv)}: exit 0 in {wall:.1f} s; "
+              + " | ".join(shown))
+    times["dispatcher_phase_s"] = time.perf_counter() - t_phase
+    print(f"phase 3c: {times['dispatcher_phase_s']:.1f} s")
+
+
+def dispatcher_phase_only() -> None:
+    """Phase 1's build and phase 3c alone, for a short call on the card."""
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.kernels import _build
+
+    _build.build_all()
+    times: dict[str, float] = {}
+    _dispatcher_phase(torch.device("cuda", 0), times, _card_tests())
+    print("times (s): " + json.dumps(times) + f" on {_card()}")
+
+
 def _card_tests():
     """``tests/test_torch_cuda.py``, whose serve_slots cases and comparison
     with the dense backend phases 2 and 3 share (loaded by path)."""
@@ -2344,6 +2569,9 @@ def main() -> int:
 
     # -- 3b. the streaming serving engine ------------------------------------------
     stream = _serving_stream(dev, times, card_tests)
+
+    # -- 3c. the per-request dispatcher, dispatch_sim, the examples --------------
+    _dispatcher_phase(dev, times, card_tests)
 
     # -- 4. dense against fused, then the Section 9 cell ---------------------------
     k, t = DENSE_VS_FUSED

@@ -59,6 +59,12 @@ absolute slot clock, a request's ring entry is its arrival slot, and every
 slot's completions fold into the :class:`StreamMetrics` JCT accumulators.
 On the card the fused backend runs one ``serve_slots`` launch a chunk,
 which updates the carry in place.
+
+The per-request dispatcher, :class:`CareDispatcher` (driven slot by slot
+by :func:`run_serving_sim`), is the pluggable path: it routes one request
+at a time and calls a per-slot ``model_fn`` hook.  Its rings grow instead
+of dropping, its rids and remaining work are int64, and it equals
+``serve_one`` on the same workload wherever ``serve_one`` drops nothing.
 """
 from __future__ import annotations
 
@@ -103,6 +109,81 @@ def mean_decode_rate(decode_rates: Optional[Sequence[float]]) -> float:
     if decode_rates is None:
         return 1.0
     return float(np.mean(np.asarray(decode_rates, np.float64)))
+
+
+@dataclasses.dataclass
+class Request:
+    """One request of the per-request dispatcher; ``started`` / ``finished``
+    are the slots it was admitted and completed in (-1 until then)."""
+
+    rid: int
+    arrival: int
+    prefill_cost: int  # slots of prefill work
+    decode_len: int  # decode iterations to complete
+    started: int = -1
+    finished: int = -1
+
+
+@dataclasses.dataclass(frozen=True)
+class EngineConfig:
+    """The per-request dispatcher's parameters (:class:`CareDispatcher`).
+
+    ``comm`` is one of ``et`` / ``dt`` / ``rt`` / ``et_rt`` / ``exact`` /
+    ``jiq`` / ``hsq``; ``deterministic_ties`` breaks ties to the lowest
+    index instead of by the pre-drawn float32 rank.  The control plane's
+    fields are :class:`ServeConfig`'s.
+    """
+
+    num_replicas: int = 8
+    decode_slots: int = 16  # concurrent sequences per replica
+    et_x: int = 4  # ET threshold on queue-occupancy error
+    comm: str = "et"
+    dt_x: int = 4
+    rt_period: int = 16
+    msr_drain: float = 1.0  # emulated completions per slot per busy replica
+    policy: ServePolicy = "jsaq"
+    sqd: int = 2  # subset size of the "sqd" policy
+    # Per-replica decode speeds in work units per decode iteration; None =
+    # unit rates.
+    decode_rates: Optional[Tuple[float, ...]] = None
+    # Mean request work components; the "drain" policy's E[S] term.
+    mean_prefill: float = 4.0
+    mean_decode: float = 64.0
+    deterministic_ties: bool = False
+    network: str = "none"  # "none" | "net"
+    net_delay: int = 0
+    net_jitter: int = 0
+    net_drop: float = 0.0
+    suspect_age: int = 0  # staleness bound in slots (0 = no suspect masking)
+    transport: str = "fire_forget"  # "fire_forget" | "ack"
+    ack_timeout: int = 0
+    backoff_base: float = 1.0
+    max_retries: int = 0
+    ka_period: int = 0
+    fault: str = "none"  # "none" | "crash" | "slow"
+    crash_rate: float = 0.0
+    recover_rate: float = 0.0
+    slow_factor: float = 1.0
+
+    def comm_config(self) -> comm_lib.CommConfig:
+        """This tier's trigger parameters in shared-core terms."""
+        if self.comm == "et":
+            return comm_lib.CommConfig(kind="et", x=self.et_x)
+        if self.comm == "dt":
+            return comm_lib.CommConfig(kind="dt", x=self.dt_x)
+        if self.comm == "rt":
+            return comm_lib.CommConfig(kind="rt", rt_period=self.rt_period)
+        if self.comm == "et_rt":
+            return comm_lib.CommConfig(kind="et_rt", x=self.et_x, rt_period=self.rt_period)
+        if self.comm == "exact":
+            return comm_lib.CommConfig(kind="exact")
+        if self.comm == "jiq":
+            return comm_lib.CommConfig(kind="jiq")
+        if self.comm == "hsq":
+            # hsq reads the ET threshold as its queue threshold and the RT
+            # period as its token-refresh period.
+            return comm_lib.CommConfig(kind="hsq", x=self.et_x, rt_period=self.rt_period)
+        raise ValueError(f"unknown comm mode: {self.comm}")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -406,6 +487,23 @@ class ServeConfig:
             slow_factor=self.slow_factor,
         )
 
+    def engine_config(self) -> EngineConfig:
+        """This cell's dispatcher parameters (:class:`CareDispatcher`)."""
+        x = int(self.x) if float(self.x).is_integer() else self.x
+        return EngineConfig(
+            num_replicas=self.replicas, decode_slots=self.decode_slots, et_x=x,
+            comm=self.comm, dt_x=x, rt_period=self.rt_period, msr_drain=self.msr_drain,
+            policy=self.policy, sqd=self.sqd, decode_rates=self.decode_rates,
+            mean_prefill=float(self.mean_prefill), mean_decode=float(self.mean_decode),
+            deterministic_ties=self.deterministic_ties, network=self.network,
+            net_delay=self.net_delay, net_jitter=self.net_jitter, net_drop=self.net_drop,
+            suspect_age=self.suspect_age, transport=self.transport,
+            ack_timeout=self.ack_timeout, backoff_base=self.backoff_base,
+            max_retries=self.max_retries, ka_period=self.ka_period, fault=self.fault,
+            crash_rate=self.crash_rate, recover_rate=self.recover_rate,
+            slow_factor=self.slow_factor,
+        )
+
     def workload_key(self) -> tuple:
         """The sampler's parameter tuple: cells sharing it share a stream.
 
@@ -561,6 +659,501 @@ def subset_mask(u_row: torch.Tensor, n: int, d: int) -> torch.Tensor:
         mask = mask | pick
         avail = avail & ~pick
     return mask
+
+
+def _pick_min_tied(occ: torch.Tensor, u: float, mask: Optional[torch.Tensor] = None,
+                   deterministic: bool = False) -> torch.Tensor:
+    """:func:`pick_min_tied` as a 0-d int64 tensor on ``occ``'s device."""
+    if mask is not None:
+        occ = torch.where(mask, occ, torch.inf)
+    is_min = occ == occ.amin()
+    if deterministic:
+        j = torch.argmax(is_min.to(_I32))
+    else:
+        n_ties = is_min.sum(dtype=_I32)
+        rank = torch.minimum((n_ties.to(_F32) * u).to(_I32), n_ties - 1)
+        j = torch.argmax((is_min.cumsum(0, dtype=_I32) == rank + 1).to(_I32))
+    if mask is not None:
+        j = torch.where(mask.any(), j, -1)
+    return j
+
+
+def pick_min_tied(occ, u: float, mask=None, deterministic: bool = False) -> int:
+    """Index of the minimum of ``occ`` ``(R,)``; ties broken by the uniform ``u``.
+
+    The rank is ``int(f32(u) * f32(n_ties))`` clamped to ``n_ties - 1``
+    (``u`` from a float32 draw, such as ``ServeWorkload.tie_u``);
+    ``deterministic=True`` takes the lowest index.  ``mask`` (bool
+    ``(R,)``) restricts the minimum to the candidates (non-candidates are
+    lifted to ``+inf``, so the tie set is the candidates'); an all-False
+    mask returns ``-1``.  Arrays or tensors; the result is a Python int.
+    """
+    occ = torch.as_tensor(occ)
+    if mask is not None:
+        mask = torch.as_tensor(mask, device=occ.device)
+    return int(_pick_min_tied(occ, float(u), mask, deterministic))
+
+
+# ---------------------------------------------------------------------------
+# The per-request dispatcher: the pluggable path with a per-slot model hook.
+# ---------------------------------------------------------------------------
+
+
+class CareDispatcher:
+    """Policy routing over approximated occupancy + shared-core triggers.
+
+    Port of the reference's numpy dispatcher.  Its per-replica state is
+    torch tensors on ``device`` (``None`` means the CUDA card): the decode
+    slots ``active_rem`` / ``active_rid`` (``<= 0`` remaining == free), the
+    FIFO rings of pending request ids ``_q_rid`` / ``_q_head`` / ``_q_len``
+    (grown by doubling, so nothing is dropped), the float32 emulated
+    occupancy ``approx``, the pull-token pool and the fault mask; rids and
+    remaining work are int64.  The trigger, wire, fault and service steps
+    are the shared core's (:mod:`repro_torch.core.care.comm`,
+    :mod:`repro_torch.core.care.workload`).
+
+    ``route`` places one request and returns the replica as a Python int:
+    on the card that is one synchronisation a request (the replica, its
+    ring length and head, and its token count come back together).
+    ``step`` advances one slot and returns the requests that finished in
+    it (one copy to the host a slot).  ``rng`` (or
+    ``np.random.default_rng(seed)``) draws the tie-break and subset
+    uniforms, as float32, when ``route`` is not given them.
+    """
+
+    def __init__(
+        self,
+        cfg: EngineConfig,
+        seed: int = 0,
+        queue_cap: int = 4096,
+        rng: Optional[np.random.Generator] = None,
+        device: str | torch.device | None = None,
+    ):
+        r, s = cfg.num_replicas, cfg.decode_slots
+        if cfg.policy == "sqd" and not 1 <= cfg.sqd <= min(r, SQD_MAX):
+            raise ValueError(
+                f"sqd ({cfg.sqd}) must be in [1, min(num_replicas, {SQD_MAX})]"
+            )
+        if cfg.decode_rates is not None and len(cfg.decode_rates) != r:
+            raise ValueError(
+                f"decode_rates has {len(cfg.decode_rates)} entries for {r} replicas"
+            )
+        comm_lib.validate_control_plane(
+            network=cfg.network, net_delay=cfg.net_delay, net_jitter=cfg.net_jitter,
+            net_drop=cfg.net_drop, suspect_age=cfg.suspect_age, fault=cfg.fault,
+            crash_rate=cfg.crash_rate, recover_rate=cfg.recover_rate,
+            slow_factor=cfg.slow_factor, policy=cfg.policy, comm=cfg.comm,
+            token_refresh=float(cfg.rt_period) if cfg.policy == "hsq" else None,
+        )
+        if cfg.network != "none" and cfg.comm == "exact":
+            raise ValueError(
+                "comm='exact' assumes instant delivery (per-departure "
+                "accounting); it cannot compose with network="
+                f"{cfg.network!r}"
+            )
+        dev = _resolve_device(device)
+        self.device = dev
+        self.cfg = cfg
+        self._ccfg = cfg.comm_config()
+
+        def f32(value):
+            return torch.tensor(np.float32(value), device=dev)
+
+        def i32(value):
+            return torch.tensor(int(value), dtype=_I32, device=dev)
+
+        # The wire (network="net", fire-and-forget or ack) and the fault
+        # mask; the operands are device scalars, so a step copies nothing.
+        self.net = None
+        self._ncfg = None
+        if cfg.network != "none":
+            state = comm_lib.AckNetState if cfg.transport == "ack" else comm_lib.NetState
+            self.net = state.init(r, device=dev, payload_dtype=_F32)
+            self._ncfg = comm_lib.NetworkConfig(
+                kind=cfg.network, delay=i32(cfg.net_delay), jitter=i32(cfg.net_jitter),
+                drop=f32(cfg.net_drop), transport=cfg.transport,
+                ack_timeout=i32(cfg.ack_timeout), backoff_base=f32(cfg.backoff_base),
+                max_retries=i32(cfg.max_retries), ka_period=i32(cfg.ka_period),
+            )
+        self.faulted = torch.zeros(r, dtype=torch.bool, device=dev) if cfg.fault != "none" else None
+        self._crash_rate, self._recover_rate = f32(cfg.crash_rate), f32(cfg.recover_rate)
+        self._slow_factor = f32(cfg.slow_factor)
+        self.active_rem = torch.zeros((r, s), dtype=torch.int64, device=dev)
+        self.active_rid = torch.full((r, s), -1, dtype=torch.int64, device=dev)
+        # The slot each active request was admitted in (its start).
+        self._active_start = torch.full((r, s), -1, dtype=torch.int64, device=dev)
+        self._qcap = queue_cap
+        self._q_rid = torch.full((r, queue_cap), -1, dtype=torch.int64, device=dev)
+        self._q_head = torch.zeros(r, dtype=torch.int64, device=dev)
+        self._q_len = torch.zeros(r, dtype=torch.int64, device=dev)
+        self.approx = torch.zeros(r, dtype=_F32, device=dev)  # emulated occupancy
+        self.comm = comm_lib.CommState.init(r, device=dev)
+        self.total_completions = 0
+        self.rng = rng if rng is not None else np.random.default_rng(seed)
+        self._rr_ptr = 0  # round-robin pointer ("rr" policy)
+        self.last_subset: Optional[torch.Tensor] = None  # "sqd" diagnostics
+        # Pull-policy token pool, refreshed on token-message delivery;
+        # token_misses counts routed arrivals that found it empty,
+        # token_sum integrates its end-of-slot occupancy.
+        self._tokens = (torch.zeros(r, dtype=_I32, device=dev)
+                        if cfg.policy in PULL_POLICIES else None)
+        self._token_x = f32(self._ccfg.x)
+        self.token_misses = 0
+        self._token_sum = torch.zeros((), dtype=torch.int64, device=dev)
+        # float32 drain and drain-score vectors, the same IEEE products as
+        # the fixed-horizon engine's.
+        if cfg.decode_rates is None:
+            self._rates = None
+            rates_f32 = torch.ones(r, dtype=_F32, device=dev)
+        else:
+            self._rates = torch.tensor(np.asarray(cfg.decode_rates, np.float32), device=dev)
+            rates_f32 = self._rates
+        self._drainv = f32(cfg.msr_drain) * rates_f32
+        self._drain_slots = routing_lib.expected_drain_slots(
+            f32(cfg.mean_prefill) + f32(cfg.mean_decode), rates_f32)
+        self._replica = torch.arange(r, dtype=torch.int64, device=dev)
+        # rid-indexed work (grown on demand), the request objects, and the
+        # float32 slot clock of the decode-rate credit schedule.
+        self._work = torch.zeros(1024, dtype=torch.int64, device=dev)
+        self._store: dict[int, Request] = {}
+        self._clock = torch.arange(1024, dtype=_F32, device=dev)
+
+    @property
+    def messages(self) -> int:
+        return int(self.comm.msgs)
+
+    @property
+    def token_sum(self) -> int:
+        return int(self._token_sum)
+
+    def true_occupancy(self) -> torch.Tensor:
+        """Exact per-replica occupancy (queued + active), int64 ``(R,)``."""
+        return self._q_len + (self.active_rem > 0).sum(1)
+
+    def _ensure_rid(self, rid: int):
+        while rid >= self._work.shape[0]:
+            self._work = torch.cat([self._work, torch.zeros_like(self._work)])
+
+    def _grow_queues(self):
+        """Double the rings, each linearised from its head into the new one."""
+        cap = self._qcap
+        pos = torch.arange(cap, dtype=torch.int64, device=self.device)
+        lin = self._q_rid.gather(1, torch.remainder(self._q_head[:, None] + pos, cap))
+        new = torch.full((self.cfg.num_replicas, 2 * cap), -1, dtype=torch.int64,
+                         device=self.device)
+        new[:, :cap] = torch.where(pos[None, :] < self._q_len[:, None], lin, -1)
+        self._q_rid, self._q_head, self._qcap = new, torch.zeros_like(self._q_head), 2 * cap
+
+    def _healthy(self) -> Optional[torch.Tensor]:
+        """The suspect mask: replicas whose last update is within
+        ``suspect_age`` (the last-heard clock and ``gave_up`` under ack, the
+        wire's age under a network, else the trigger's slots since a
+        message); all-suspect degrades to all healthy.  None when off."""
+        cfg = self.cfg
+        if cfg.suspect_age <= 0:
+            return None
+        if self.net is not None and cfg.transport == "ack":
+            healthy = (self.net.ka_age <= cfg.suspect_age) & ~self.net.gave_up
+        else:
+            age = self.net.age if self.net is not None else self.comm.slots_since_msg
+            healthy = age <= cfg.suspect_age
+        return torch.where(healthy.any(), healthy, True)
+
+    def route(self, req: Request, now: int, u: Optional[float] = None,
+              sub_u=None) -> int:
+        cfg = self.cfg
+        r_n = cfg.num_replicas
+        occ = self.true_occupancy().to(_F32) if cfg.comm == "exact" else self.approx
+        self.last_subset = None
+        healthy = self._healthy()
+        if cfg.policy == "rr" and healthy is None:
+            j = torch.full((1,), self._rr_ptr % r_n, dtype=torch.int64, device=self.device)
+            self._rr_ptr += 1
+        elif cfg.policy == "rr":
+            # Masked round robin: the cyclically next healthy replica.
+            off = torch.remainder(self._replica - self._rr_ptr, r_n)
+            j = torch.argmin(torch.where(healthy, off, r_n))
+        else:
+            if u is None:
+                u = self.rng.random(dtype=np.float32)
+            det = cfg.deterministic_ties
+            if cfg.policy == "sqd":
+                if sub_u is None:
+                    sub_u = self.rng.random(size=SQD_MAX, dtype=np.float32)
+                mask = subset_mask(torch.from_numpy(np.asarray(sub_u, np.float32)),
+                                   r_n, cfg.sqd)
+                self.last_subset = mask
+                mask = mask.to(self.device)
+                if healthy is not None:
+                    both = mask & healthy
+                    mask = torch.where(both.any(), both, mask)
+                j = _pick_min_tied(occ, float(u), mask, det)
+            elif cfg.policy == "drain":
+                j = _pick_min_tied(occ * self._drain_slots, float(u), healthy, det)
+            elif cfg.policy in PULL_POLICIES:
+                # Spend a token at the replica holding the most (an empty
+                # pool is an all-tie: the uniform fallback).
+                j = _pick_min_tied((0 - self._tokens).to(_F32), float(u), healthy, det)
+            else:  # jsaq
+                j = _pick_min_tied(occ, float(u), healthy, det)
+        j = j.reshape(1)
+        vals = [j, self._q_len.index_select(0, j), self._q_head.index_select(0, j)]
+        if self._tokens is not None:
+            vals.append(self._tokens.index_select(0, j).to(torch.int64))
+        # The one synchronisation of a route.
+        got = torch.cat(vals).tolist()
+        j, q_len, q_head = got[:3]
+        if cfg.policy == "rr" and healthy is not None:
+            self._rr_ptr = j + 1
+        if self._tokens is not None:
+            if got[3] == 0:
+                self.token_misses += 1
+            self._tokens[j] = max(got[3] - 1, 0)
+        if cfg.policy == "sqd" and self.net is not None:
+            # SQ(d)'s d queries and d replies on the wire.
+            self.comm = dataclasses.replace(self.comm, msgs=self.comm.msgs + 2 * cfg.sqd)
+        if q_len >= self._qcap:
+            self._grow_queues()
+            q_head = 0
+        self._ensure_rid(req.rid)
+        # A zero-work request still takes a decode slot for one iteration.
+        self._work[req.rid] = max(req.prefill_cost + req.decode_len, 1)
+        self._store[req.rid] = req
+        self._q_rid[j, (q_head + q_len) % self._qcap] = req.rid
+        self._q_len[j] += 1
+        self.approx[j] += 1  # arrival known to the dispatcher (Eq. 10)
+        return j
+
+    def _row(self, x) -> torch.Tensor:
+        """A slot's uniforms (array or tensor) as float32 on the device."""
+        if torch.is_tensor(x):
+            return x.to(device=self.device, dtype=_F32)
+        return torch.from_numpy(np.asarray(x, np.float32)).to(self.device)
+
+    def step(self, now: int, drop_u=None, jit_u=None, fault_u=None,
+             ack_u=None) -> list[Request]:
+        cfg = self.cfg
+        while now >= self._clock.shape[0]:
+            self._clock = torch.arange(2 * self._clock.shape[0], dtype=_F32,
+                                       device=self.device)
+        slot_f = self._clock[now]
+
+        # 0. faults advance before admission (arrivals were routed against
+        # the previous slot's state).
+        recovered = None
+        if self.faulted is not None:
+            if fault_u is None:
+                raise ValueError(
+                    "step() needs this slot's fault_u row when "
+                    f"fault={cfg.fault!r} (sample_workload with_fault=True)"
+                )
+            self.faulted, recovered = workload_lib.fault_transitions(
+                self.faulted, self._row(fault_u), self._crash_rate, self._recover_rate)
+
+        # 1. admit: fill free decode slots from the rings, FIFO; a crashed
+        # replica is frozen (its queue waits).  free_rank is -1 on busy
+        # slots: the floor mod keeps the ring index valid.
+        free = self.active_rem <= 0
+        free_rank = free.cumsum(1) - 1
+        n_admit = torch.minimum(self._q_len, free.sum(1))
+        if cfg.fault == "crash":
+            n_admit = torch.where(self.faulted, 0, n_admit)
+        take = free & (free_rank < n_admit[:, None])
+        rid = self._q_rid.gather(1, torch.remainder(self._q_head[:, None] + free_rank,
+                                                    self._qcap))
+        self.active_rid = torch.where(take, rid, self.active_rid)
+        self.active_rem = torch.where(take, self._work[rid.clamp_min(0)], self.active_rem)
+        self._active_start = torch.where(take, now, self._active_start)
+        self._q_head = torch.remainder(self._q_head + n_admit, self._qcap)
+        self._q_len = self._q_len - n_admit
+
+        # 2. service: one decode iteration on every active slot (or the
+        # slot's credit-schedule units); rem may go negative == free.
+        active = self.active_rem > 0
+        if self.faulted is not None:
+            nominal = 1 if self._rates is None else workload_lib.service_units(
+                slot_f, self._rates)
+            units = workload_lib.faulted_service_units(
+                slot_f, self.faulted, nominal, cfg.fault, self._slow_factor,
+                rates=self._rates)
+            self.active_rem = self.active_rem - units[:, None] * active
+        elif self._rates is None:
+            self.active_rem = self.active_rem - active.to(torch.int64)
+        else:
+            units = workload_lib.service_units(slot_f, self._rates)
+            self.active_rem = self.active_rem - units[:, None] * active
+        done = active & (self.active_rem <= 0)
+        completions = done.sum(1, dtype=_I32)
+        # One copy a slot: the finished rids and their start slots, in
+        # (replica, decode slot) order.
+        fin = torch.stack([torch.where(done, self.active_rid, -1),
+                           self._active_start]).cpu().numpy().reshape(2, -1)
+        finished: list[Request] = []
+        for rid_done, start in zip(*fin[:, fin[0] >= 0]):
+            req = self._store.pop(int(rid_done))
+            req.started = int(start)
+            req.finished = now
+            finished.append(req)
+        self.active_rid = torch.where(done, -1, self.active_rid)
+        self.total_completions += len(finished)
+
+        # 3. MSR drain at the nominal rate, per replica (float32).
+        busy = self.approx > 0
+        self.approx = torch.clamp_min(self.approx - self._drainv * busy.to(_F32), 0.0)
+
+        # 4. trigger (shared core): a crashed replica cannot send and a
+        # recovery forces a resync; under a network the trigger is an
+        # intent and the wire bills the messages.
+        true_occ = self.true_occupancy().to(_F32)
+        err = (true_occ - self.approx).abs()
+        can_send = force = None
+        if cfg.fault == "crash":
+            can_send, force = ~self.faulted, recovered
+        trig, self.comm = comm_lib.evaluate(
+            self.comm, self._ccfg, err, completions, can_send=can_send, force=force,
+            q=true_occ, count_msgs=self.net is None,
+        )
+        # 5. the wire: the dispatcher's view advances on *delivery* of the
+        # send-time snapshot.
+        if self.net is not None:
+            if drop_u is None or jit_u is None:
+                raise ValueError(
+                    "step() needs this slot's drop_u/jit_u rows when "
+                    f"network={cfg.network!r} (sample_workload with_net=True)"
+                )
+            if cfg.transport == "ack":
+                if ack_u is None:
+                    raise ValueError(
+                        "step() needs this slot's ack_u rows when "
+                        "transport='ack' (sample_workload with_ack=True)"
+                    )
+                delivered, payload, sent, self.net = comm_lib.net_step_ack(
+                    self.net, self._ncfg, trig, true_occ, self._row(drop_u),
+                    self._row(jit_u), self._row(ack_u), can_send=can_send)
+            else:
+                delivered, payload, sent, self.net = comm_lib.net_step(
+                    self.net, self._ncfg, trig, true_occ, self._row(drop_u),
+                    self._row(jit_u), can_send=can_send)
+            self.comm = dataclasses.replace(self.comm, msgs=self.comm.msgs + sent)
+            snap_mask, snap = delivered, payload
+        else:
+            snap_mask, snap = trig, true_occ
+        self.approx = torch.where(snap_mask, snap, self.approx)
+        # 6. pull tokens: a delivered token message overwrites its replica's
+        # pool entry from the send-time snapshot (1 if idle for jiq, the
+        # headroom below x truncated to int32 for hsq).
+        if self._tokens is not None:
+            if cfg.comm == "jiq":
+                fresh = (snap == 0.0).to(_I32)
+            else:
+                fresh = torch.clamp_min(self._token_x - snap, 0.0).to(_I32)
+            self._tokens = torch.where(snap_mask, fresh, self._tokens)
+            self._token_sum = self._token_sum + self._tokens.sum()
+        return finished
+
+
+def run_serving_sim(
+    cfg: EngineConfig,
+    *,
+    slots: int = 20_000,
+    load: float = 0.9,
+    mean_decode: int = 64,
+    mean_prefill: int = 4,
+    seed: int = 0,
+    model_fn=None,
+    workload=None,
+    checkpoints: Sequence[int] = (),
+    device: str | torch.device | None = None,
+) -> dict:
+    """Drive :class:`CareDispatcher` with a pre-sampled workload; return metrics.
+
+    The workload is :func:`sample_workload`'s unless ``workload`` is given
+    (a port :class:`ServeWorkload`, or any object with its fields, such as
+    the reference's, copied by :meth:`ServeWorkload.from_arrays`).  Each
+    slot routes its arrivals, steps the dispatcher, snapshots the exact
+    occupancy if the slot is in ``checkpoints`` (``out["occupancy"][slot]``,
+    end of slot), then calls ``model_fn(now)``.  ``mean_prefill`` /
+    ``mean_decode`` replace the config's, so the drain policy's ``E[S]`` is
+    the one the workload was sampled with.  ``device=None`` means the CUDA
+    card.
+    """
+    with_net = cfg.network != "none"
+    with_fault = cfg.fault != "none"
+    with_ack = with_net and cfg.transport == "ack"
+    if workload is None:
+        workload = sample_workload(
+            seed, replicas=cfg.num_replicas, decode_slots=cfg.decode_slots,
+            slots=slots, load=load, mean_prefill=mean_prefill,
+            mean_decode=mean_decode, rate_scale=mean_decode_rate(cfg.decode_rates),
+            with_net=with_net, with_fault=with_fault, with_ack=with_ack,
+        )
+    elif not isinstance(workload, ServeWorkload):
+        workload = ServeWorkload.from_arrays(workload)
+    for needed, name, flag in ((with_net, "net_drop_u", "with_net"),
+                               (with_fault, "fault_u", "with_fault"),
+                               (with_ack, "ack_u", "with_ack")):
+        if needed and getattr(workload, name) is None:
+            raise ValueError(
+                f"workload lacks the {name} stream; sample it with {flag}=True"
+            )
+    cfg = dataclasses.replace(
+        cfg, mean_prefill=float(mean_prefill), mean_decode=float(mean_decode)
+    )
+    disp = CareDispatcher(cfg, seed, device=device)
+    # The control plane's uniforms go to the device once; each slot reads
+    # its row.
+    streams = {}
+    for name, on in (("net_drop_u", with_net), ("net_jit_u", with_net),
+                     ("fault_u", with_fault), ("ack_u", with_ack)):
+        if on:
+            streams[name] = torch.from_numpy(np.asarray(getattr(workload, name),
+                                                        np.float32)).to(disp.device)
+
+    def row(name, now):
+        return streams[name][now] if name in streams else None
+
+    finished: list[Request] = []
+    occupancy: dict[int, torch.Tensor] = {}
+    want_ckpt = set(int(c) for c in checkpoints)
+    n_arr, base = workload.n_arr.tolist(), workload.base.tolist()
+    prefill, decode = workload.prefill, workload.decode
+    for now in range(slots):
+        for rid in range(base[now], base[now] + n_arr[now]):
+            req = Request(rid=rid, arrival=now, prefill_cost=int(prefill[rid]),
+                          decode_len=int(decode[rid]))
+            disp.route(req, now, u=float(workload.tie_u[rid]), sub_u=workload.sub_u[rid])
+        finished.extend(disp.step(
+            now, drop_u=row("net_drop_u", now), jit_u=row("net_jit_u", now),
+            fault_u=row("fault_u", now), ack_u=row("ack_u", now),
+        ))
+        if now in want_ckpt:
+            occupancy[now] = disp.true_occupancy().clone()
+        if model_fn is not None:
+            model_fn(now)
+
+    # JCT vector in rid (arrival) order, as the fixed-horizon engine emits it.
+    jct_by_rid = np.full(workload.total, -1, np.int64)
+    for r in finished:
+        jct_by_rid[r.rid] = r.finished - r.arrival + 1
+    jct = jct_by_rid[jct_by_rid >= 0]
+    messages = disp.messages
+    return {
+        "jct": jct,
+        "jct_by_rid": jct_by_rid,
+        "mean_jct": float(jct.mean()) if jct.size else 0.0,
+        "p99_jct": float(np.percentile(jct, 99)) if jct.size else 0.0,
+        "completed": len(finished),
+        "offered": workload.total,
+        "messages": messages,
+        "msgs_per_completion": messages / max(disp.total_completions, 1),
+        "final_occupancy": disp.true_occupancy().cpu().numpy(),
+        "occupancy": {t: o.cpu().numpy() for t, o in occupancy.items()},
+        "requests": finished,
+        "net_drops": int(disp.net.drops) if disp.net is not None else 0,
+        "retrans": int(disp.net.retrans) if with_ack else 0,
+        "token_misses": int(disp.token_misses),
+        "token_sum": disp.token_sum,
+    }
 
 
 # ---------------------------------------------------------------------------

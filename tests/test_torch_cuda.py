@@ -12,7 +12,9 @@ kernel) and 2e-2 in bfloat16 (the tensor-core kernel;
 row sums run in another order; and stream-mode ``serve_slots``' float32
 running mean and m2, within 1e-6 / 2e-5 relative of the dense stream on
 the CPU (``STREAM_MEAN_RTOL``, ``STREAM_M2_RTOL``), since each slot's
-squared deviations are summed in the kernel's order.  Where there is no
+squared deviations are summed in the kernel's order.  The per-request
+dispatcher and ``dispatch_sim`` launch no kernel; they are held card ==
+CPU on the same workload or draws, every field equal.  Where there is no
 card, each test skips with a reason.
 """
 import dataclasses
@@ -23,6 +25,7 @@ import pytest
 import torch
 
 from repro_torch.configs import get_config
+from repro_torch.core import dispatch_sim
 from repro_torch.core.care import slotted_sim
 from repro_torch.kernels import jsaq_route as tcuda
 from repro_torch.kernels import ops as tops
@@ -402,6 +405,110 @@ def grid_vs_cpu(dev, seeds, static, cells, raw_on_card=False):
     return grid, card_s, cpu_s, draws, raw
 
 
+# The per-request dispatcher (CareDispatcher / run_serving_sim) on the card
+# against the CPU, here and in chip_smoke.py's phase 3c: examples/serve_care's
+# cell (8 replicas x 16 decode slots, load 0.9, mean prefill 4 and decode 60,
+# MSR drain 0.25, ET-4) under the policies and control planes named here.
+DISPATCH_BASE = dict(replicas=8, decode_slots=16, load=0.9, mean_prefill=4,
+                     mean_decode=60, msr_drain=0.25, comm="et", x=4)
+_HETERO_21 = (2.0,) * 4 + (1.0,) * 4
+DISPATCH_CELLS = {
+    "et4": dict(),
+    "sqd": dict(policy="sqd"),
+    "rr_21": dict(policy="rr", decode_rates=_HETERO_21),
+    "drain_21": dict(policy="drain", decode_rates=_HETERO_21),
+    "jiq": dict(policy="jiq", comm="jiq"),
+    "hsq": dict(policy="hsq", comm="hsq"),
+    "ack": dict(network="net", net_delay=2, net_jitter=1, net_drop=0.1, transport="ack",
+                ack_timeout=8, backoff_base=2.0, max_retries=6, suspect_age=8),
+    "crash": dict(fault="crash", crash_rate=0.005, recover_rate=0.1, suspect_age=20),
+}
+
+
+def dispatch_cell(name: str, slots: int):
+    """The ``ServeConfig`` of ``DISPATCH_CELLS[name]`` over ``DISPATCH_BASE``."""
+    return serve_engine.ServeConfig(**{**DISPATCH_BASE, **DISPATCH_CELLS[name]}, slots=slots)
+
+
+# The fields a dispatcher run shares with a ServeResult of serve_one.
+DISPATCH_VS_SERVE = ("jct_by_rid", "messages", "final_occupancy", "net_drops", "retrans",
+                     "token_misses", "token_sum")
+
+
+def _sim_args(cell, seed: int) -> dict:
+    return dict(slots=cell.slots, load=cell.load, mean_prefill=cell.mean_prefill,
+                mean_decode=cell.mean_decode, seed=seed,
+                workload=serve_engine.workload_for(cell, seed))
+
+
+def dispatcher_card_vs_cpu(dev, cell, seed: int = 0):
+    """``run_serving_sim`` of ``cell`` on the card against the CPU on the
+    same workload: every returned field equal.  Returns the card's output
+    and both walls in seconds."""
+    args = _sim_args(cell, seed)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    card = serve_engine.run_serving_sim(cell.engine_config(), device=dev, **args)
+    card_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cpu = serve_engine.run_serving_sim(cell.engine_config(), device="cpu", **args)
+    cpu_s = time.perf_counter() - t0
+    for name, value in cpu.items():
+        if name == "requests":
+            assert [(r.rid, r.started, r.finished) for r in card[name]] == \
+                [(r.rid, r.started, r.finished) for r in value], name
+        elif name == "occupancy":
+            assert card[name].keys() == value.keys()
+            for slot, occ in value.items():
+                _eq(card[name][slot], occ)
+        else:
+            _eq(card[name], value)
+    return card, card_s, cpu_s
+
+
+def dispatcher_vs_serve_one(dev, cell, got: dict, seed: int = 0):
+    """A dispatcher run against ``serve_one`` of the same cell on the card,
+    on the same workload (the cell must drop nothing): the JCT vector, the
+    messages, the final occupancy and the control counters equal.  Returns
+    ``serve_one``'s result and wall in seconds."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = serve_engine.serve_one(seed, cell, workload=serve_engine.workload_for(cell, seed),
+                                 device=dev)
+    serve_s = time.perf_counter() - t0
+    assert res.dropped == 0
+    for name in DISPATCH_VS_SERVE:
+        _eq(got[name], getattr(res, name))
+    return res, serve_s
+
+
+# dispatch_sim on the card against the CPU on the card's draws (drawn on the
+# card, then moved), here at a small width and in chip_smoke.py's phase 3c at
+# bench_moe_balance's section B.
+DISPATCH_SIM_SMALL = dict(experts=16, dispatchers=3, tokens_per_step=32, top_k=4,
+                          steps=120, comm="et", x=2)
+
+
+def dispatch_sim_card_vs_cpu(dev, cfg, seeds):
+    """``dispatch_batch`` of ``seeds`` on the card, and ``run_draws`` on the
+    CPU on the same draws: every output equal.  Returns the card's results
+    and both walls in seconds."""
+    seeds = list(seeds)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    card = dispatch_sim.dispatch_batch(seeds, cfg, device=dev)
+    card_s = time.perf_counter() - t0
+    base, draws = dispatch_sim.sample_draws(seeds, cfg, dev)
+    t0 = time.perf_counter()
+    raw = dispatch_sim.run_draws(base.cpu(), ((w.cpu(), n.cpu()) for w, n in draws), cfg)
+    cpu_s = time.perf_counter() - t0
+    for got, want in zip(card, dispatch_sim.results(raw, cfg)):
+        for f in dataclasses.fields(dispatch_sim.DispatchSimResult):
+            np.testing.assert_array_equal(getattr(got, f.name), getattr(want, f.name),
+                                          err_msg=f.name)
+    return card, card_s, cpu_s
+
+
 def _moe_equal(got, logits, bias, k: int, gate_fn: str) -> None:
     """The router's four outputs against the plain versions: ids, counts
     and positions equal, weights within rtol 1e-5 / atol 1e-6."""
@@ -678,6 +785,25 @@ class TestOnCard:
             for f in dataclasses.fields(serve_engine.ServeResult):
                 _eq(getattr(a, f.name), getattr(b, f.name))
             assert a.completed > 0
+
+    @pytest.mark.parametrize("case", ["et4", "ack"])
+    def test_care_dispatcher_card_equals_cpu(self, cuda_device, case):
+        cell = dispatch_cell(case, 300)
+        tops.reset_launch_counts()
+        got, _, _ = dispatcher_card_vs_cpu(cuda_device, cell)
+        assert sum(tops.launch_counts().values()) == 0
+        assert got["completed"] > 0 and got["messages"] > 0
+        dispatcher_vs_serve_one(cuda_device, cell, got)
+
+    def test_dispatch_batch_card_equals_cpu(self, cuda_device):
+        cfg = dispatch_sim.DispatchSimConfig(**DISPATCH_SIM_SMALL)
+        card, _, _ = dispatch_sim_card_vs_cpu(cuda_device, cfg, (0, 1))
+        for seed, got in zip((0, 1), card):
+            one = dispatch_sim.simulate(seed, cfg, device=cuda_device)
+            np.testing.assert_array_equal(got.gap, one.gap)
+            np.testing.assert_array_equal(got.backlog, one.backlog)
+            assert (got.messages, got.max_err) == (one.messages, one.max_err)
+        assert card[0].messages > 0
 
     @pytest.mark.parametrize(
         "t,e,k,gate_fn,dtype",

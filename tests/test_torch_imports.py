@@ -46,6 +46,14 @@ def test_dense_serving_modules_are_checked():
     } <= modules
 
 
+def test_dispatcher_slice_modules_are_checked():
+    modules = {_module_name(p) for p in FILES if p.parent != ROOT}
+    assert {
+        "repro_torch.core.dispatch_sim", "repro_torch.examples.quickstart",
+        "repro_torch.examples.serve_care", "repro_torch.examples.serve_stream",
+    } <= modules
+
+
 def test_every_module_imports_without_jax():
     modules = [_module_name(p) for p in FILES if p.parent != ROOT]
     code = (
