@@ -101,7 +101,7 @@ own failure):
    (no kernel but the examples' own; every count printed, none added to
    the main paths'). ``run_serving_sim`` at ``examples/serve_care.py``'s
    cell (8 replicas x 16 decode slots, load 0.9, mean prefill 4 and
-   decode 60, MSR drain 0.25, ET-4), 1000 slots, seed 0, under JSAQ,
+   decode 60, MSR drain 0.25, ET-4), 500 slots, seed 0, under JSAQ,
    SQ(2), RR and drain at 2:1 rates, JIQ, hsq, the ack wire (delay 2,
    jitter 1, drop 0.1, timeout 8, backoff 2, 6 retries, suspect_age 8)
    and crash faults (0.005 / 0.1, suspect_age 20) (``DISPATCH_CELLS`` of
@@ -113,8 +113,9 @@ own failure):
    128 slots, lowest-index ties) against the fused ``serve_one`` (one
    ``serve_slots`` launch): JCT vector, messages and final occupancy
    equal; ms a slot and us a routed request.  ``dispatch_sim`` at
-   ``bench_moe_balance.py``'s section B (E 64, D 8, T 256, k 8, 800 steps,
-   5 seeds in one ``dispatch_batch``; no_bias, off, exact, dt8, et4, et8):
+   ``bench_moe_balance.py``'s section B (E 64, D 8, T 256, k 8, 400 of its
+   800 steps, 5 seeds in one ``dispatch_batch``; no_bias, off, exact, dt8,
+   et4, et8):
    each regime equal to the CPU on the card's draws in every field, each
    et4 seed and the first seed of the others equal to ``simulate``,
    exact's messages D x steps and off's 0; prints each regime's wall, ms
@@ -123,14 +124,18 @@ own failure):
    ``serve_care --slots 1000`` as subprocesses: exit 0, their closing
    lines, and serve_care's 30 ``flash_attention`` launches a prefill and
    none in decode (SmolLM-135M at its published widths); serve_care
-   asserts its own golden replay.  Cuts: 1000 slots (the example's
-   default 20,000), 128 slots at full width (the bench's 2048).
+   asserts its own golden replay.  Cuts: 500 slots (the example's
+   default 20,000), 128 slots at full width (the bench's 2048), 400
+   dispatch_sim steps (the bench's 800): each halved because the whole
+   run at 1000 slots and 800 steps took 1250.8 s on an H100's host, past
+   the 1200 s limit.
 4. The slotted dense backend against the fused one on the card, decision
    for decision, at K=200, T=2000, on Bernoulli arrivals and on MMPP
    arrivals under a diurnal curve (``MMPP_FUSED`` of
    ``tests/test_torch_cuda.py``, one ``care_route`` launch); then the
    paper's Section 9 cell (K=30, load 0.95, geometric sizes of mean 30,
-   JSAQ with ET-3 and MSR, 20,000 slots) on the dense backend.
+   JSAQ with ET-3 and MSR, 10,000 slots: the paper's 20,000 halved with
+   phase 3c's depth, as that run measured) on the dense backend.
 4b. The slotted tier's breadth on the dense backend (no kernel: every
    launch count stays 0), the Section 9 setting (K=30, cap 2048, geometric
    sizes of mean 30 unless stated, load 0.95 unless stated) at 4 seeds x
@@ -225,10 +230,41 @@ own failure):
    model in float32:
    prefill over S=4224 (B=1, past the window) against prefill over S-1
    and one ``decode_step``, within 2e-2.
+8b. The hybrid, attention-free and encoder-decoder families
+   (``repro_torch.models``) at published widths and full depth, bf16,
+   each initialised on the card from a seed after phase 8's model is
+   freed, each with the launch counts set to 0 just before its prefill
+   and read after its 16 greedy decode steps.  Hymba-1.5B (32 layers of
+   parallel GQA, 25 heads over 5 KV heads of width 64, and Mamba heads;
+   window 1024, layers 0, 15 and 31 global): 2 prompts of 2048 tokens
+   into a cache of 2064; asserts 32 ``flash_attention`` launches for the
+   prefill (3 global, 29 local) and none in decode.  Whisper-small (12
+   encoder and 12 decoder layers of width 768): 4 x 1500 frame embeddings
+   from the seed, decoder prompts of 432 into a cache of 448; asserts 36
+   launches a prefill (12 non-causal encoder, 12 causal decoder, 12
+   cross-attention) and none in decode.  RWKV6-1.6B (24 layers,
+   attention-free): 2 prompts of 2048 (the chunked WKV form); asserts
+   that every count stays 0.  Finite logits throughout.  The kernel
+   against its plain version within 2e-2 on the paths' own q/k/v: Hymba's
+   global and local layer (GQA group 5), Whisper's encoder (S = T = 1500,
+   non-causal), decoder self-attention and cross-attention (S = 432, T =
+   1500); each timed beside its bound, its plain version and PyTorch's
+   ``scaled_dot_product_attention`` (the window as a mask).  Prints each
+   model's parameter count, prefill wall and decode ms a token, and a
+   profiler window of one Hymba prefill and one decode step (device busy
+   share), the Mamba calls' share of one prefill (CUDA events around each
+   layer's call), and one Mamba layer alone at the prefill's shape (device
+   operations a token).  Then each model in float32: prefill over S
+   against prefill over S-1 and one ``decode_step`` within 2e-2, at S =
+   1100 (Hymba, past the window), 64 (Whisper) and 256 (RWKV: the chunked
+   form against the sequential scan and the state hand-off).
 9. Print the kernels line (launch counts from the main paths, parity,
    times and bounds; ``serve_slots`` also carries phase 3b's stream-mode
-   launches, ms a chunk, bound, plain time and error under ``stream_*``),
-   the card's name and power limit, and the contract line last.
+   launches, ms a chunk, bound, plain time and error under ``stream_*``;
+   ``flash_attention`` also carries phase 8b's launches per model under
+   ``family_launches`` and the kernel, plain, bound and SDPA times at its
+   shapes under ``family_shapes``, and its ``max_abs_err`` covers both
+   phases), the card's name and power limit, and the contract line last.
 
 Exits non-zero without printing a result when no CUDA card is present or
 when the port's sources are not beside this script.
@@ -327,7 +363,7 @@ CARE_DROP_ROWS = [[2, 5, 8, 600], [0, 3, 8, 600], [3, 1, 12, 600], [1, 7, 8, 300
 MAIN_KS = (100_000, 1_000_000)
 MAIN_SLOTS = 4000
 DENSE_VS_FUSED = (200, 2000)  # K, T
-SECTION9_SLOTS = 20_000
+SECTION9_SLOTS = 10_000  # the paper's 20,000 halved: see DISPATCH_SLOTS
 # Phase 4b: the paper's Section 9 setting (K = 30, cap 2048, geometric sizes
 # of mean 30) on the dense backend, cut from the benches' 20,000-100,000
 # slots to 4 seeds x 2500 (the dense loop takes ~1.9 ms a slot on the
@@ -381,13 +417,16 @@ STREAM_DENSE_CHUNK = 256
 STREAM_TIME_REPS = 3
 STREAM_PLAIN_SLOTS = 64  # the dense loop takes ~80 ms a slot at 1024 replicas
 # Phase 3c: the per-request dispatcher at examples/serve_care's cell for
-# 1000 slots (phase 4c's serving length; the reference runs 20,000) and at
-# serve/replicas1024's width for 128 slots (the bench runs 2048); dispatch_sim
-# at bench_moe_balance's section B in full (800 steps, 5 seeds); the examples
-# at tests/test_examples.py's sizes.
-DISPATCH_SLOTS = 1000
+# 500 slots (the reference runs 20,000) and at serve/replicas1024's width
+# for 128 slots (the bench runs 2048); dispatch_sim at bench_moe_balance's
+# section B for 400 of its 800 steps, 5 seeds; the examples at
+# tests/test_examples.py's sizes.  With 1000 slots, 800 steps and Section
+# 9's 20,000 slots the whole run took 1250.8 s on an H100's host (phase 3c
+# 285.2 s, Section 9 50.7 s), past the 1200 s limit; halved, the earlier
+# runs took 777-872 s.
+DISPATCH_SLOTS = 500
 DISPATCH_WIDE_SLOTS = 128
-MOE_DISPATCH_STEPS = 800
+MOE_DISPATCH_STEPS = 400
 MOE_DISPATCH_SEEDS = 5
 EXAMPLE_TIMEOUT_S = 600
 # Phase 7: DeepSeek-V2 serving at published widths, depth cut to one dense
@@ -438,6 +477,19 @@ FLASH_CASES = [
     ("ragged S=T=200, window 37, softcap 50", (1, 200, 200, 4, 2, 256, 256), torch.bfloat16,
      dict(causal=True, window=37, softcap=50.0)),
 ]
+# Phase 8b: Hymba-1.5B, Whisper-small and RWKV6-1.6B at published widths and
+# full depth, bf16, 16 greedy decode steps each; then a float32 rebuild of
+# each for prefill over S against prefill over S-1 plus one decode step.
+# Hymba: 2 prompts of 2048 tokens into a cache of 2064 (past the 1024
+# window), float32 S = 1100.  Whisper: 4 x 1500 frame embeddings, decoder
+# prompts of 432 into a cache of 448 (the published text context), float32
+# S = 64.  RWKV: 2 prompts of 2048 (the chunked WKV form, 64 chunks a
+# layer), float32 S = 256 (chunked) against 255 (the sequential scan).
+FAMILY_SEED = 0
+FAMILY_NEW = 16
+HYMBA = dict(arch="hymba-1.5b", batch=2, prompt=2048, cache=2064, f32_prompt=1100)
+WHISPER = dict(arch="whisper-small", batch=4, prompt=432, cache=448, f32_prompt=64)
+RWKV = dict(arch="rwkv6-1.6b", batch=2, prompt=2048, cache=2048, f32_prompt=256)
 # About 25 ms at the H100's 1.98 GHz: longer than the host takes to
 # enqueue MOE_TIME_REPS launches (~35 us each).
 SLEEP_CYCLES = 50_000_000
@@ -1323,6 +1375,333 @@ def _dense_serving(dev, times: dict) -> dict:
     }
 
 
+def _family_config(arch: str):
+    from repro_torch.configs import get_config
+
+    return get_config(arch)
+
+
+def _family_batch(cfg, run: dict, rng, dev, dtype) -> dict:
+    """Token ids (and whisper's frame embeddings) drawn from ``rng``."""
+    batch = {"tokens": torch.from_numpy(
+        rng.integers(0, cfg.vocab_size, (run["batch"], run["prompt"])).astype(np.int64)).to(dev)}
+    if cfg.family == "audio":
+        frames = rng.standard_normal((run["batch"], cfg.encoder_seq, cfg.d_model))
+        batch["frames"] = torch.from_numpy(frames.astype(np.float32)).to(dev, dtype)
+    return batch
+
+
+def _cut(batch: dict, b: int, s: int) -> dict:
+    """The first ``b`` rows of a batch, tokens cut to ``s`` (frames whole)."""
+    return {k: (v[:b, :s] if k == "tokens" else v[:b]) for k, v in batch.items()}
+
+
+def _serve_family(dev, run: dict, times: dict, keep: tuple) -> dict:
+    """One model of phase 8b at published widths and depth, bf16: init on
+    the card from the seed, a warm-up, then the main path with the launch
+    counts set to 0 just before and read just after (prefill, then
+    ``FAMILY_NEW`` greedy decode steps).  A spy forwards every
+    ``flash_attention`` call, records its options and keeps the q/k/v of
+    the calls numbered in ``keep``.  Returns what the checks need."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import model
+
+    name = run["arch"]
+    cfg = _family_config(name)
+    t0 = time.perf_counter()
+    params = model.init_params(torch.Generator(device=dev).manual_seed(FAMILY_SEED), cfg, dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in params.parameters())
+    rng = np.random.default_rng(FAMILY_SEED)
+    batch = _family_batch(cfg, run, rng, dev, torch.bfloat16)
+    warm = _cut(batch, run["batch"], 64)
+    logits, cache = model.prefill(params, warm, cfg, cache_len=128)
+    model.decode_step(params, logits.argmax(-1), cache, 64, cfg)
+    calls, kept = [], []
+    attend = ops.flash_attention
+
+    def spy(q, k, v, **kw):
+        if len(calls) in keep:
+            kept.append((q, k, v, kw))
+        calls.append(kw)
+        return attend(q, k, v, **kw)
+
+    ops.flash_attention = spy
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    logits, cache = model.prefill(params, batch, cfg, cache_len=run["cache"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    prefill_launches = ops.launch_counts()["flash_attention"]
+    nxt = logits.argmax(-1)
+    generated = [nxt]
+    finite = torch.isfinite(logits).all()
+    t0 = time.perf_counter()
+    for i in range(FAMILY_NEW):
+        logits, cache = model.decode_step(params, nxt, cache, run["prompt"] + i, cfg)
+        nxt = logits.argmax(-1)
+        generated.append(nxt)
+        finite &= torch.isfinite(logits).all()
+    torch.cuda.synchronize()
+    decode_ms = (time.perf_counter() - t0) * 1e3 / FAMILY_NEW
+    launches = ops.launch_counts()
+    ops.flash_attention = attend
+    assert bool(finite), f"non-finite logits on the {name} serving path"
+    assert launches["flash_attention"] == prefill_launches, (
+        f"{name}: decode launched flash_attention ({prefill_launches} -> {launches})")
+    assert len(calls) == prefill_launches and len(kept) == len(keep), (len(calls), launches)
+    label = name.split("-")[0]
+    times[f"{label}_init_s"], times[f"{label}_prefill_s"] = init_s, wall
+    times[f"{label}_decode_ms_per_token"] = decode_ms
+    cache_shapes = {k: (tuple(t.shape), str(t.dtype).removeprefix("torch."))
+                    for k, t in cache["scan"].items()}
+    print(f"phase 8b {name} x {cfg.num_layers} layers"
+          + (f" + {cfg.encoder_layers} encoder layers" if cfg.family == "audio" else "")
+          + f", {cfg.param_dtype}: {n_params:,} parameters initialised on the card in "
+          f"{init_s:.2f} s; prefill {run['batch']} x {run['prompt']} tokens "
+          + (f"(and {cfg.encoder_seq} frames) " if cfg.family == "audio" else "")
+          + f"{wall:.4f} s, decode {FAMILY_NEW} steps {decode_ms:.3f} ms a token (cache "
+          f"{run['cache']}); launches {launches}; cache {cache_shapes}; peak "
+          f"{torch.cuda.max_memory_allocated(dev) / 1e9:.1f} GB")
+    print(f"phase 8b {name} generated tokens: {torch.stack(generated, 1).cpu().tolist()}")
+    return dict(cfg=cfg, params=params, batch=batch, calls=calls, kept=kept,
+                launches=launches, wall=wall, decode_ms=decode_ms)
+
+
+def _family_kernel_times(label: str, q, k, v, kw: dict) -> dict:
+    """The kernel at one of phase 8b's shapes: against its plain version
+    (within 2e-2 in bf16), its time, its bound and PyTorch's
+    ``scaled_dot_product_attention`` on the same inputs (causal, the window
+    as a boolean mask, or every key)."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attn as flash_k
+    from repro_torch.kernels import ref
+    from repro_torch.models import transformer as tfm
+
+    causal = kw["causal"]
+    window = kw["window"] if causal and kw["window"] != tfm.BIG_WINDOW else None
+    err = _flash_parity(flash_k, ref, q, k, v, **kw)
+    kernel_ms = _time_ms(lambda: flash_k.flash_attention_cuda(q, k, v, **kw), FLASH_TIME_REPS)
+    plain_ms = _time_ms(lambda: ref.flash_attention_ref(q, k, v, **kw), 2)
+    bound = _flash_bound(q, k, v, causal, window)
+    flop = _flash_flop(q, k, v, causal, window)
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))  # SDPA's (B, H, S, D)
+    mask = None
+    if window is not None:
+        qpos = torch.arange(q.shape[1], device=q.device)
+        kpos = torch.arange(k.shape[1], device=q.device)
+        mask = (kpos[None, :] <= qpos[:, None]) & (qpos[:, None] - kpos[None, :] < window)
+
+    def sdpa():
+        return F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=mask, is_causal=causal and mask is None, scale=kw["scale"],
+            enable_gqa=True)
+
+    sdpa_ms = _time_ms(sdpa, FLASH_TIME_REPS)
+    sdpa_diff = _max_abs_err([sdpa().transpose(1, 2).float()],
+                             [flash_k.flash_attention_cuda(q, k, v, **kw).float()])
+    b, s, h, dh = q.shape
+    shape = (f"B={b} S={s} T={k.shape[1]} H={h} KVH={k.shape[2]} dh={dh}, "
+             + (f"causal, window {window}" if window else "causal" if causal else "non-causal"))
+    print(f"phase 8b flash_attention {label} ({shape}, {q.dtype}): against its plain version "
+          f"max_abs_err {err:.3g}; kernel {kernel_ms:.4f} ms, {flop / kernel_ms / 1e9:.1f} "
+          f"TFLOP/s, bound {bound[0]:.4f} ms ({bound[1]}), bound / kernel "
+          f"{bound[0] / kernel_ms:.3f}; plain {plain_ms:.3f} ms; scaled_dot_product_attention "
+          f"{sdpa_ms:.4f} ms, kernel / SDPA {kernel_ms / sdpa_ms:.3f} (outputs differ by at most "
+          f"{sdpa_diff:.3g})")
+    return {"shape": shape, "max_abs_err": err, "ms": kernel_ms, "plain_ms": plain_ms,
+            "bound_ms": bound[0], "bound_by": bound[1], "library_ms": sdpa_ms}
+
+
+def _family_f32_check(dev, run: dict, times: dict) -> None:
+    """Float32 rebuild of a phase 8b model: logits of prefill over S against
+    prefill over S-1 plus one ``decode_step`` at S-1, within 2e-2 (B=1)."""
+    from repro_torch.models import model
+
+    name, s = run["arch"], run["f32_prompt"]
+    cfg = dataclasses.replace(_family_config(name), param_dtype="float32",
+                              compute_dtype="float32")
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    params = model.init_params(torch.Generator(device=dev).manual_seed(FAMILY_SEED), cfg, dev)
+    rng = np.random.default_rng(FAMILY_SEED + 1)
+    batch = _family_batch(cfg, {**run, "batch": 1, "prompt": s}, rng, dev, torch.float32)
+    full, _ = model.prefill(params, batch, cfg, cache_len=s)
+    _, cache = model.prefill(params, _cut(batch, 1, s - 1), cfg, cache_len=s)
+    step, _ = model.decode_step(params, batch["tokens"][:, -1], cache, s - 1, cfg)
+    torch.cuda.synchronize()
+    label = name.split("-")[0]
+    times[f"{label}_f32_check_s"] = time.perf_counter() - t0
+    err = float((step - full).abs().max())
+    torch.testing.assert_close(step, full, rtol=2e-2, atol=2e-2)
+    print(f"phase 8b {name} float32 prefill over S={s} against prefill over S-1 + decode_step: "
+          f"logits within 2e-2 (max abs difference {err:.3g}, largest logit "
+          f"{float(full.abs().max()):.3g}); init and check {times[f'{label}_f32_check_s']:.2f} "
+          f"s, peak {torch.cuda.max_memory_allocated(dev) / 1e9:.1f} GB")
+    del params, cache, full, step
+    torch.cuda.empty_cache()
+
+
+def _profile_hymba(served: dict, wall_ms: float) -> None:
+    """Where Hymba's time goes: one profiled prefill plus one decode step
+    (device busy share against the unprofiled wall); one unprofiled
+    prefill with CUDA events around the whole of it and around each
+    layer's ``ssm.mamba`` call (the Mamba calls' share of the prefill);
+    and one profiled Mamba call of layer 0 alone at the prefill's shape
+    on a random x: its device operations a token (the selective scan is a
+    loop of small operations)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.models import model, ssm
+
+    cfg, params, batch = served["cfg"], served["params"], served["batch"]
+    # Device activity only: with host activity too, the ~140,000 operations'
+    # host records cost the profiler far more than the window itself.
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        logits, cache = model.prefill(params, batch, cfg, cache_len=HYMBA["cache"])
+        model.decode_step(params, logits.argmax(-1), cache, HYMBA["prompt"], cfg)
+        torch.cuda.synchronize()
+    del logits, cache
+    device = [ev for ev in prof.key_averages()
+              if ev.device_type == torch.autograd.DeviceType.CUDA]
+    device_us = sum(ev.self_device_time_total for ev in device)
+    if device_us == 0:
+        print("phase 8b hymba profile: the profiler saw no device time; busy share not measured")
+        return
+    device.sort(key=lambda ev: ev.self_device_time_total, reverse=True)
+    flash_us = sum(ev.self_device_time_total for ev in device if "flash_" in ev.key)
+    n_ops = sum(ev.count for ev in device)
+    print(f"phase 8b hymba profile of one prefill + one decode step: device busy "
+          f"{device_us / 1e3:.3f} ms against an unprofiled wall of {wall_ms:.3f} ms (busy share "
+          f"{device_us / 1e3 / wall_ms:.3f}); {n_ops} device operations; flash_attention "
+          f"{flash_us / device_us:.4f} of device time; top device operations: "
+          + "; ".join(f"{ev.key[:60]} {ev.self_device_time_total / 1e3:.3f} ms x{ev.count}"
+                      for ev in device[:8]))
+    # The Mamba calls inside one prefill: the stream's time from each
+    # call's first operation to its last (host-bound, so this is the
+    # call's wall as the stream sees it) against the whole prefill's.
+    spans = []
+    plain_mamba = ssm.mamba
+
+    def timed_mamba(*args, **kwargs):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        out = plain_mamba(*args, **kwargs)
+        end.record()
+        spans.append((start, end))
+        return out
+
+    whole = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    ssm.mamba = timed_mamba
+    try:
+        whole[0].record()
+        logits, cache = model.prefill(params, batch, cfg, cache_len=HYMBA["cache"])
+        whole[1].record()
+        torch.cuda.synchronize()
+    finally:
+        ssm.mamba = plain_mamba
+    del logits, cache
+    prefill_ms = whole[0].elapsed_time(whole[1])
+    in_mamba_ms = sum(a.elapsed_time(z) for a, z in spans)
+    assert len(spans) == cfg.num_layers, len(spans)
+    print(f"phase 8b hymba Mamba calls inside one prefill (CUDA events): {len(spans)} calls "
+          f"{in_mamba_ms:.3f} ms of the prefill's {prefill_ms:.3f} ms (share "
+          f"{in_mamba_ms / prefill_ms:.4f})")
+    b, s = batch["tokens"].shape
+    x = torch.randn((b, s, cfg.d_model), device=batch["tokens"].device,
+                    generator=torch.Generator(device=batch["tokens"].device).manual_seed(1))
+    x = x.to(torch.bfloat16)
+    layer = params.layers[0].mamba
+    ssm.mamba(layer, x, cfg)  # warm
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ssm.mamba(layer, x, cfg)
+    torch.cuda.synchronize()
+    mamba_ms = (time.perf_counter() - t0) * 1e3
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        ssm.mamba(layer, x, cfg)
+        torch.cuda.synchronize()
+    device = [ev for ev in prof.key_averages()
+              if ev.device_type == torch.autograd.DeviceType.CUDA]
+    n_ops = sum(ev.count for ev in device)
+    busy_us = sum(ev.self_device_time_total for ev in device)
+    print(f"phase 8b hymba Mamba layer 0 alone on a random x at B={b}, S={s}: {mamba_ms:.2f} "
+          f"ms wall ({mamba_ms * 1e3 / s:.2f} us a token), {n_ops} device operations "
+          f"({n_ops / s:.3f} a token), device busy {busy_us / 1e3:.3f} ms"
+          + (f" ({busy_us / 1e3 / mamba_ms:.3f} of the wall)" if busy_us else " (not measured)"))
+
+
+def _family_serving(dev, times: dict) -> dict:
+    """Phase 8b: Hymba-1.5B, Whisper-small and RWKV6-1.6B at published
+    widths and full depth in bf16, each with the launch counts set to 0
+    just before its prefill and read after its decode steps; the flash
+    kernel against its plain version on the paths' own q/k/v (GQA group 5
+    with window 1024 and global; whisper's non-causal encoder at S = T =
+    1500 and its cross-attention at S = 432, T = 1500), timed beside its
+    bound and SDPA; float32 prefill against decode for each.  Returns the
+    new keys of the flash_attention entry."""
+    from repro_torch.models import transformer as tfm
+
+    torch.backends.cuda.matmul.allow_tf32 = False  # float32 matmuls in full float32
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    assert torch.cuda.memory_allocated(dev) < 1e9, (
+        f"{torch.cuda.memory_allocated(dev) / 1e9:.2f} GB still allocated before phase 8b")
+    other = {"jsaq_route": 0, "care_route": 0, "serve_route": 0, "serve_slots": 0,
+             "moe_route": 0}
+    shapes, launches = {}, {}
+
+    # Hymba: layer 0 is global, layer 1 local (window 1024).
+    served = _serve_family(dev, HYMBA, times, keep=(0, 1))
+    cfg = served["cfg"]
+    windows = [int(w) for w in tfm.layer_windows(cfg)]
+    assert served["launches"] == {**other, "flash_attention": cfg.num_layers} == {
+        **other, "flash_attention": 32}, served["launches"]
+    assert [c["window"] for c in served["calls"]] == windows
+    assert windows.count(tfm.BIG_WINDOW) == 3 and windows.count(cfg.sliding_window) == 29
+    assert cfg.num_heads // cfg.num_kv_heads == 5 and cfg.resolved_head_dim == 64
+    launches[HYMBA["arch"]] = served["launches"]["flash_attention"]
+    for (q, k, v, kw), layer in zip(served["kept"], ("global", "local")):
+        shapes[f"hymba_{layer}"] = _family_kernel_times(f"hymba {layer} layer", q, k, v, kw)
+    t0 = time.perf_counter()
+    _profile_hymba(served, served["wall"] * 1e3 + served["decode_ms"])
+    times["hymba_profile_s"] = time.perf_counter() - t0
+    del served
+    torch.cuda.empty_cache()
+    _family_f32_check(dev, HYMBA, times)
+
+    # Whisper: calls 0-11 are the encoder's, then each decoder layer's self-
+    # and cross-attention; call 13 is layer 0's cross-attention.
+    served = _serve_family(dev, WHISPER, times, keep=(0, 12, 13))
+    cfg = served["cfg"]
+    n_enc, n_dec = cfg.encoder_layers, cfg.num_layers
+    assert served["launches"] == {**other, "flash_attention": n_enc + 2 * n_dec} == {
+        **other, "flash_attention": 36}, served["launches"]
+    assert [c["causal"] for c in served["calls"]] == [False] * n_enc + [True, False] * n_dec
+    assert all(c["window"] is None for c in served["calls"] if not c["causal"])
+    launches[WHISPER["arch"]] = served["launches"]["flash_attention"]
+    for (q, k, v, kw), part in zip(served["kept"], ("encoder", "decoder_self", "cross")):
+        shapes[f"whisper_{part}"] = _family_kernel_times(f"whisper {part}", q, k, v, kw)
+    del served
+    torch.cuda.empty_cache()
+    _family_f32_check(dev, WHISPER, times)
+
+    # RWKV: attention-free; no kernel launches at all.
+    served = _serve_family(dev, RWKV, times, keep=())
+    assert served["launches"] == {**other, "flash_attention": 0}, served["launches"]
+    launches[RWKV["arch"]] = 0
+    del served
+    torch.cuda.empty_cache()
+    _family_f32_check(dev, RWKV, times)
+
+    return {"family_launches": launches,
+            "family_max_abs_err": max(v["max_abs_err"] for v in shapes.values()),
+            "family_shapes": shapes}
+
+
 def _flash_build_report() -> None:
     """Registers, spills and shared memory of each flash kernel instance,
     from the ``-Xptxas -v`` log kept beside the library (shared memory is
@@ -2188,6 +2567,22 @@ def dispatcher_phase_only() -> None:
     print("times (s): " + json.dumps(times) + f" on {_card()}")
 
 
+def family_phase_only() -> None:
+    """Phase 1's build and phase 8b alone, for a short call on the card."""
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.kernels import _build
+
+    _build.build_all()
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    times: dict[str, float] = {}
+    t0 = time.perf_counter()
+    family = _family_serving(dev, times)
+    times["family_phase_s"] = time.perf_counter() - t0
+    print("times (s): " + json.dumps(times) + f" on {_card()}")
+    print(json.dumps(family))
+
+
 def _card_tests():
     """``tests/test_torch_cuda.py``, whose serve_slots cases and comparison
     with the dense backend phases 2 and 3 share (loaded by path)."""
@@ -2687,6 +3082,13 @@ def main() -> int:
     t0 = time.perf_counter()
     flash_kernel = _dense_serving(dev, times)
     times["dense_phase_s"] = time.perf_counter() - t0
+
+    # -- 8b. hybrid, attention-free and encoder-decoder serving -------------------
+    t0 = time.perf_counter()
+    family = _family_serving(dev, times)
+    times["family_phase_s"] = time.perf_counter() - t0
+    flash_kernel = {**flash_kernel, **family,
+                    "max_abs_err": max(flash_kernel["max_abs_err"], family["family_max_abs_err"])}
 
     # -- 9. output ---------------------------------------------------------------
     kernels = [

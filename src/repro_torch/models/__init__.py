@@ -1,2 +1,3 @@
-"""The MLA + MoE language model of slice 4 (DeepSeek V2/V3): parameters as
+"""The port's model stack for serving, every family of the JAX package:
+dense GQA, MLA + MoE, RWKV-6, Hymba and Whisper; parameters as
 ``nn.Module``s named as the JAX leaves, prefill and greedy decode."""

@@ -7,6 +7,8 @@ where the JAX package stacks leaves for ``lax.scan``.
 """
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 import torch.nn.functional as F
@@ -66,6 +68,17 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6, *, offset:
     return (y * (offset + scale.to(torch.float32))).to(dt)
 
 
+def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, eps: float = 1e-5):
+    """LayerNorm with float32 statistics (population variance); scale and
+    bias applied in float32, the result cast back to ``x``'s dtype."""
+    dt = x.dtype
+    xf = x.to(torch.float32)
+    mu = torch.mean(xf, dim=-1, keepdim=True)
+    var = torch.mean(torch.square(xf - mu), dim=-1, keepdim=True)
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    return (y * scale.to(torch.float32) + bias.to(torch.float32)).to(dt)
+
+
 def softcap(x: torch.Tensor, cap: float):
     """Gemma2 logit soft-capping: cap * tanh(x / cap)."""
     return cap * torch.tanh(x / cap)
@@ -97,6 +110,23 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float):
     y2 = x2 * cos + x1 * sin
     out = torch.stack([y1, y2], dim=-1).reshape(x.shape)
     return out.to(x.dtype)
+
+
+def sinusoidal_positions(length: int, dim: int) -> np.ndarray:
+    """Whisper-style sinusoidal embeddings ``(length, dim)``, float32."""
+    log_timescale = np.log(10_000.0) / (dim // 2 - 1)
+    inv = np.exp(-log_timescale * np.arange(dim // 2))
+    scaled = np.arange(length)[:, None] * inv[None, :]
+    return np.concatenate([np.sin(scaled), np.cos(scaled)], axis=1).astype(np.float32)
+
+
+@functools.lru_cache(maxsize=16)
+def sinusoidal_table(length: int, dim: int, dtype: torch.dtype, device) -> torch.Tensor:
+    """:func:`sinusoidal_positions` cast to ``dtype`` on ``device``, built
+    once per ``(length, dim, dtype, device)`` and shared by every caller,
+    so a decode step copies nothing from the host.  Read it; never write
+    to it."""
+    return torch.from_numpy(sinusoidal_positions(length, dim)).to(device=device, dtype=dtype)
 
 
 # --------------------------------------------------------------------------

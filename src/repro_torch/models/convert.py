@@ -1,12 +1,15 @@
 """Carry a JAX parameter tree across to the port.
 
 The JAX package keeps a nested dict of arrays and stacks the scanned
-layers on a leading axis (``layers/<leaf>`` of shape ``(L, ...)``); the
-port keeps one :class:`~repro_torch.models.model.Model` with a module per
-layer.  :func:`params_from_jax` maps each JAX leaf to the parameter of the
-same dotted name, splitting a stacked ``layers`` leaf on axis 0 into
-``layers.<l>.<leaf>``, and refuses a tree whose leaves and the model's
-parameters do not match one to one in name, shape and dtype.
+layers on a leading axis (``layers/<leaf>`` and whisper's
+``enc_layers/<leaf>``, of shape ``(L, ...)``); the port keeps one
+:class:`~repro_torch.models.model.Model` with a module per layer.
+:func:`params_from_jax` maps each JAX leaf to the parameter of the same
+dotted name, splitting a stacked leaf on axis 0 into ``layers.<l>.<leaf>``
+(``enc_layers.<l>.<leaf>``), and refuses a tree whose leaves and the
+model's parameters do not match one to one in name, shape and dtype (the
+float32 leaves of a bfloat16 model, such as RWKV's ``w0`` and ``u`` and
+Mamba's ``a_log``, stay float32 on both sides).
 """
 from __future__ import annotations
 
@@ -16,6 +19,8 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.care.slotted_sim import _resolve_device
 from repro_torch.models.model import Model
+
+STACKED = ("layers", "enc_layers")  # JAX subtrees stacked on a leading layer axis
 
 
 def _flatten(tree, prefix: str = ""):
@@ -39,9 +44,9 @@ def port_leaves(tree) -> dict[str, torch.Tensor]:
     for name, arr in _flatten(tree):
         t = _tensor(arr)
         head, _, rest = name.partition(".")
-        if head == "layers":
+        if head in STACKED:
             for i in range(t.shape[0]):
-                out[f"layers.{i}.{rest}"] = t[i]
+                out[f"{head}.{i}.{rest}"] = t[i]
         else:
             out[name] = t
     return out

@@ -1,20 +1,26 @@
-"""Top-level model API for serving: init / prefill / decode.
+"""Top-level model API for serving: init / prefill / decode, every family.
 
-Port of the dense/moe part of ``repro/models/model.py``.  Parameter names
-follow the JAX tree::
+Port of ``repro/models/model.py`` for serving.  Parameter names follow the
+JAX tree::
 
-  embed        (V, D)
-  head_layers  {"0": block, ...}   leading dense layers of a MoE model
-  layers       one block per scanned layer (the JAX package stacks them)
-  final_norm
-  lm_head      (D, V) unless tied
-  mtp          the multi-token-prediction head (training only; held so
-               that every JAX leaf has its tensor)
+  embed           (V, D)
+  ln_in           RWKV's pre-norm (ssm family)
+  head_layers     {"0": block, ...}   leading dense layers of a MoE model
+  layers          one block per scanned layer (the JAX package stacks them)
+  enc_layers      whisper's encoder blocks (stacked in the JAX package too)
+  final_norm / enc_final_norm
+  lm_head         (D, V) unless tied
+  mtp             the multi-token-prediction head (training only; held so
+                  that every JAX leaf has its tensor)
 
-The cache keeps the JAX layout: for MLA ``{"scan": {"ckv": (L, B, T, R),
-"k_rope": (L, B, T, dr)}, "head": {"0": {"ckv": (B, T, R), ...}}}``; for
-grouped-query attention ``{"scan": {"k": (L, B, T, KVH, dh), "v": ...}}``.
-:func:`decode_step` writes the new token's rows into it in place.
+The cache keeps the JAX layout, ``{"scan": {...}}`` of ``(L, ...)``
+tensors: for MLA ``{"ckv": (L, B, T, R), "k_rope": (L, B, T, dr)}`` plus
+``"head": {"0": {"ckv": (B, T, R), ...}}``; for grouped-query attention
+``{"k": (L, B, T, KVH, dh), "v": ...}``; hymba adds ``"ssm": (L, B, Di, N)``
+(float32) and ``"conv": (L, B, K-1, Di)``; whisper adds ``"cross_k"`` /
+``"cross_v"`` ``(L, B, T_enc, KVH, dh)``; RWKV holds ``"wkv": (L, B, H, n,
+n)`` (float32), ``"tm_shift"`` and ``"cm_shift"`` ``(L, B, D)``.
+:func:`decode_step` writes the new state into it in place.
 Entry points run on the CUDA card unless given ``device="cpu"``.
 """
 from __future__ import annotations
@@ -24,7 +30,7 @@ from torch import nn
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.care.slotted_sim import _resolve_device
-from repro_torch.models import common
+from repro_torch.models import common, mla
 from repro_torch.models import transformer as tfm
 
 
@@ -44,7 +50,7 @@ class MTPHead(nn.Module):
 
 
 class Model(nn.Module):
-    """All parameters of a dense / moe / vlm model (``init_params``).
+    """All parameters of a model of any family (``init_params``).
 
     With ``generator=None`` the parameters are left uninitialised, for
     ``models/convert.py`` to fill; otherwise they are drawn on ``device``
@@ -57,19 +63,31 @@ class Model(nn.Module):
         pdt = common.dtype_of(cfg.param_dtype)
         kw = dict(device=device, generator=generator)
         self.embed = common.dense_init(generator, (cfg.vocab_size, cfg.d_model), pdt, device)
-        self.final_norm = tfm.Norm(cfg, device=device)
+        self.final_norm = tfm.Norm(cfg, device=device, bias=tfm.uses_layer_norm(cfg))
         if not cfg.tie_embeddings:
             self.lm_head = common.dense_init(
                 generator, (cfg.d_model, cfg.vocab_size), pdt, device
             )
-        if cfg.moe and cfg.first_dense_layers:
-            self.head_layers = nn.ModuleDict({
-                str(i): tfm.LMBlock(cfg, moe_layer=False, **kw)
-                for i in range(cfg.first_dense_layers)
-            })
-        self.layers = nn.ModuleList(
-            tfm.LMBlock(cfg, moe_layer=cfg.moe, **kw) for _ in range(num_scanned_layers(cfg))
-        )
+        fam = cfg.family
+        if fam == "ssm":
+            self.ln_in = tfm.Norm(cfg, device=device, bias=True)
+            blocks = [tfm.RWKVBlock(cfg, **kw) for _ in range(cfg.num_layers)]
+        elif fam == "hybrid":
+            blocks = [tfm.HymbaBlock(cfg, **kw) for _ in range(cfg.num_layers)]
+        elif fam == "audio":
+            self.enc_layers = nn.ModuleList(
+                tfm.EncoderBlock(cfg, **kw) for _ in range(cfg.encoder_layers))
+            self.enc_final_norm = tfm.Norm(cfg, device=device, bias=True)
+            blocks = [tfm.DecoderBlock(cfg, **kw) for _ in range(cfg.num_layers)]
+        else:  # dense / moe / vlm
+            if cfg.moe and cfg.first_dense_layers:
+                self.head_layers = nn.ModuleDict({
+                    str(i): tfm.LMBlock(cfg, moe_layer=False, **kw)
+                    for i in range(cfg.first_dense_layers)
+                })
+            blocks = [tfm.LMBlock(cfg, moe_layer=cfg.moe, **kw)
+                      for _ in range(num_scanned_layers(cfg))]
+        self.layers = nn.ModuleList(blocks)
         if cfg.mtp:
             self.mtp = MTPHead(cfg, **kw)
 
@@ -93,6 +111,8 @@ def embed_tokens(params: Model, tokens: torch.Tensor, cfg: ModelConfig):
     x = params.embed[tokens].to(cdt)
     if cfg.embed_scale:
         x = x * torch.tensor(cfg.d_model**0.5, dtype=cdt, device=x.device)
+    if cfg.family == "ssm":
+        x = tfm._norm(params.ln_in, x, cfg)
     return x
 
 
@@ -123,6 +143,33 @@ def _logits(params: Model, x: torch.Tensor, cfg: ModelConfig):
 
 
 # --------------------------------------------------------------------------
+# whisper's encoder and decoder embedding
+# --------------------------------------------------------------------------
+
+
+def _whisper_encode(params: Model, frames: torch.Tensor, cfg: ModelConfig):
+    """Frame embeddings ``(B, T_enc, D)`` (the conv front end is a stub in
+    the JAX package too) plus sinusoidal positions, through the encoder."""
+    cdt = common.dtype_of(cfg.compute_dtype)
+    pos = common.sinusoidal_table(frames.shape[1], cfg.d_model, cdt, frames.device)
+    x = frames.to(cdt) + pos[None]
+    for p in params.enc_layers:
+        x = tfm.encoder_block(p, x, cfg)
+    return tfm._norm(params.enc_final_norm, x, cfg)
+
+
+def _whisper_embed_dec(params: Model, tokens: torch.Tensor, cfg: ModelConfig):
+    """Decoder token embeddings plus sinusoidal positions ``0..S-1``."""
+    cdt = common.dtype_of(cfg.compute_dtype)
+    x = params.embed[tokens].to(cdt)
+    return x + common.sinusoidal_table(tokens.shape[1], cfg.d_model, cdt, x.device)[None]
+
+
+def _stack(caches: list[dict]) -> dict:
+    return {name: torch.stack([c[name] for c in caches]) for name in caches[0]}
+
+
+# --------------------------------------------------------------------------
 # prefill / decode
 # --------------------------------------------------------------------------
 
@@ -131,12 +178,36 @@ def prefill(params: Model, batch: dict, cfg: ModelConfig, ctx=None, cache_len: i
             bias: torch.Tensor | None = None):
     """Full-sequence forward building a decode cache.
 
-    ``batch["tokens"]``: ``(B, S)`` token ids on the parameters' device;
-    ``bias``: ``(L_scan, E)`` CARE selection bias (None for zeros).
-    Returns ``(last-token logits (B, V) float32, cache)``.
+    ``batch["tokens"]``: ``(B, S)`` token ids on the parameters' device
+    (whisper's decoder prompt), and for whisper ``batch["frames"]``: ``(B,
+    T_enc, D)`` frame embeddings; ``bias``: ``(L_scan, E)`` CARE selection
+    bias of a MoE model (None for zeros).  Returns ``(last-token logits (B,
+    V) float32, cache)``.
     """
     tokens = batch["tokens"]
     cache_len = cache_len or tokens.shape[1]
+    fam = cfg.family
+    if fam in ("ssm", "hybrid", "audio"):
+        mla.refuse_ctx(ctx)
+        scan = []
+        if fam == "audio":
+            enc_out = _whisper_encode(params, batch["frames"], cfg)
+            x = _whisper_embed_dec(params, tokens, cfg)
+            for p in params.layers:
+                x, c = tfm.decoder_block(p, x, enc_out, cfg, mode="prefill", cache_len=cache_len)
+                scan.append(c)
+        elif fam == "ssm":
+            x = embed_tokens(params, tokens, cfg)
+            for p in params.layers:
+                x, c = tfm.rwkv_block(p, x, cfg)
+                scan.append(c)
+        else:
+            x = embed_tokens(params, tokens, cfg)
+            for p, w in zip(params.layers, tfm.layer_windows(cfg)):
+                x, c = tfm.hymba_block(p, x, cfg, window=int(w), mode="prefill",
+                                       cache_len=cache_len)
+                scan.append(c)
+        return _logits(params, x[:, -1:, :], cfg), {"scan": _stack(scan)}
     x = embed_tokens(params, tokens, cfg)
     cache: dict = {}
     if cfg.moe and cfg.first_dense_layers:
@@ -156,33 +227,57 @@ def prefill(params: Model, batch: dict, cfg: ModelConfig, ctx=None, cache_len: i
             return_cache=True, cache_len=cache_len,
         )
         scan.append(c)
-    cache["scan"] = {name: torch.stack([c[name] for c in scan]) for name in scan[0]}
+    cache["scan"] = _stack(scan)
     return _logits(params, x[:, -1:, :], cfg), cache
 
 
 def init_decode_cache(params: Model, cfg: ModelConfig, batch: int, cache_len: int, ctx=None):
     """Zero cache for decode without a prefill."""
     tfm.check_supported(cfg)
+    mla.refuse_ctx(ctx)
     cdt = common.dtype_of(cfg.compute_dtype)
     dev = params.embed.device
-    if not cfg.use_mla:
-        shape = (num_scanned_layers(cfg), batch, cache_len, cfg.num_kv_heads,
-                 cfg.resolved_head_dim)
-        return {"scan": {"k": torch.zeros(shape, dtype=cdt, device=dev),
-                         "v": torch.zeros(shape, dtype=cdt, device=dev)}}
+    l = num_scanned_layers(cfg)
+    fam = cfg.family
 
-    def zeros(*lead):
+    def zeros(shape, dtype=cdt):
+        return torch.zeros(shape, dtype=dtype, device=dev)
+
+    if fam == "ssm":
+        h, n = cfg.d_model // cfg.rwkv_head_dim, cfg.rwkv_head_dim
+        return {"scan": {"wkv": zeros((l, batch, h, n, n), torch.float32),
+                         "tm_shift": zeros((l, batch, cfg.d_model)),
+                         "cm_shift": zeros((l, batch, cfg.d_model))}}
+    if not cfg.use_mla:
+        kv = (l, batch, cache_len, cfg.num_kv_heads, cfg.resolved_head_dim)
+        scan = {"k": zeros(kv), "v": zeros(kv)}
+        if fam == "hybrid":
+            di = cfg.ssm_expand * cfg.d_model
+            scan["ssm"] = zeros((l, batch, di, cfg.ssm_state), torch.float32)
+            scan["conv"] = zeros((l, batch, cfg.conv_kernel - 1, di))
+        elif fam == "audio":
+            cross = (l, batch, cfg.encoder_seq, cfg.num_kv_heads, cfg.resolved_head_dim)
+            scan["cross_k"], scan["cross_v"] = zeros(cross), zeros(cross)
+        return {"scan": scan}
+
+    def mla_zeros(*lead):
         return {
-            "ckv": torch.zeros((*lead, batch, cache_len, cfg.kv_lora_rank), dtype=cdt, device=dev),
-            "k_rope": torch.zeros(
-                (*lead, batch, cache_len, cfg.qk_rope_head_dim), dtype=cdt, device=dev
-            ),
+            "ckv": zeros((*lead, batch, cache_len, cfg.kv_lora_rank)),
+            "k_rope": zeros((*lead, batch, cache_len, cfg.qk_rope_head_dim)),
         }
 
-    cache = {"scan": zeros(num_scanned_layers(cfg))}
+    cache = {"scan": mla_zeros(l)}
     if cfg.moe and cfg.first_dense_layers:
-        cache["head"] = {str(i): zeros() for i in range(cfg.first_dense_layers)}
+        cache["head"] = {str(i): mla_zeros() for i in range(cfg.first_dense_layers)}
     return cache
+
+
+def _write_back(scan: dict, l: int, new: dict) -> None:
+    """Layer ``l``'s new state into the stacked cache, in place (K and V
+    were written there by the attention already)."""
+    for name, t in new.items():
+        if t.data_ptr() != scan[name][l].data_ptr():
+            scan[name][l].copy_(t)
 
 
 def decode_step(params: Model, tokens: torch.Tensor, cache: dict, pos: int, cfg: ModelConfig,
@@ -191,6 +286,31 @@ def decode_step(params: Model, tokens: torch.Tensor, cache: dict, pos: int, cfg:
 
     The cache is updated in place.  Returns ``(logits (B, V), cache)``.
     """
+    fam = cfg.family
+    scan = cache["scan"]
+    if fam in ("ssm", "hybrid", "audio"):
+        mla.refuse_ctx(ctx)
+        if fam == "audio":
+            cdt = common.dtype_of(cfg.compute_dtype)
+            x = params.embed[tokens[:, None]].to(cdt)
+            cache_len = scan["k"].shape[2]
+            row = min(max(int(pos), 0), cache_len - 1)  # as dynamic_slice_in_dim clamps
+            x = x + common.sinusoidal_table(cache_len, cfg.d_model, cdt, x.device)[row]
+        else:
+            x = embed_tokens(params, tokens[:, None], cfg)
+        windows = tfm.layer_windows(cfg)
+        for l, p in enumerate(params.layers):
+            layer_cache = {name: t[l] for name, t in scan.items()}
+            if fam == "ssm":
+                x, new = tfm.rwkv_block(p, x, cfg, state=layer_cache)
+            elif fam == "hybrid":
+                x, new = tfm.hymba_block(p, x, cfg, window=int(windows[l]), mode="decode",
+                                         cache=layer_cache, pos=pos)
+            else:
+                x, new = tfm.decoder_block(p, x, None, cfg, mode="decode", cache=layer_cache,
+                                           pos=pos)
+            _write_back(scan, l, new)
+        return _logits(params, x, cfg), cache
     x = embed_tokens(params, tokens[:, None], cfg)
     if cfg.moe and cfg.first_dense_layers:
         for i in range(cfg.first_dense_layers):
@@ -200,7 +320,6 @@ def decode_step(params: Model, tokens: torch.Tensor, cache: dict, pos: int, cfg:
             )
     if bias is None:
         bias = _bias_zeros(cfg, x.device)
-    scan = cache["scan"]
     for l, (p, w, b) in enumerate(zip(params.layers, _windows(cfg), bias)):
         layer_cache = {name: t[l] for name, t in scan.items()}
         x, _, _ = tfm.lm_block_decode(

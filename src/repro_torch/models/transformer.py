@@ -1,12 +1,15 @@
-"""Block definitions of the dense / MoE / VLM language models.
+"""Block definitions for every family.
 
-Port of the dense/moe part of ``repro/models/transformer.py``: a block's
-attention is MLA (DeepSeek V2/V3) or grouped-query attention (Gemma2,
-Qwen, SmolLM, Chameleon).  The JAX package scans one weight-stacked layer
-body with a traced per-layer window; here a stack is a list of
-:class:`LMBlock` modules, the callers loop over it and pass each layer's
-window as a Python int.  The rwkv, hymba and whisper blocks come with
-ROADMAP item 13.
+Port of ``repro/models/transformer.py``: the dense / MoE / VLM block
+(:class:`LMBlock`, MLA for DeepSeek V2/V3, grouped-query attention for
+Gemma2, Qwen, SmolLM, Chameleon), RWKV-6's (:class:`RWKVBlock`), Hymba's
+parallel attention + Mamba block (:class:`HymbaBlock`) and Whisper's
+encoder and decoder blocks (:class:`EncoderBlock`, :class:`DecoderBlock`).
+The JAX package scans one weight-stacked layer body with a traced
+per-layer window; here a stack is a list of block modules, the callers
+loop over it and pass each layer's window as a Python int.  The ssm and
+audio families use LayerNorm (a :class:`Norm` with a bias), the others
+RMSNorm.
 
 Modes: "prefill" (returns the cache) and "decode" (one token, cache in /
 out).
@@ -18,10 +21,10 @@ import torch
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import attention, common, ffn, mla
+from repro_torch.models import attention, common, ffn, mla, ssm
 
 BIG_WINDOW = 1 << 30
-ITEM_13 = "ROADMAP item 13 (the rwkv, hymba and whisper blocks)"
+FAMILIES = ("dense", "moe", "vlm", "ssm", "hybrid", "audio")
 
 
 def layer_windows(cfg: ModelConfig) -> np.ndarray:
@@ -38,9 +41,9 @@ def layer_windows(cfg: ModelConfig) -> np.ndarray:
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """The port runs the dense / moe / vlm families, with MLA or GQA."""
-    if cfg.family not in ("dense", "moe", "vlm"):
-        raise NotImplementedError(f"the {cfg.family!r} family's blocks come with {ITEM_13}")
+    """The port runs every family of the JAX package."""
+    if cfg.family not in FAMILIES:
+        raise ValueError(f"unknown model family {cfg.family!r}; known: {FAMILIES}")
 
 
 # --------------------------------------------------------------------------
@@ -49,15 +52,24 @@ def check_supported(cfg: ModelConfig) -> None:
 
 
 class Norm(nn.Module):
-    """RMSNorm parameters ``{"scale"}`` (``_norm_params``).  The LayerNorm
-    variant belongs to the ssm / audio families (ROADMAP item 13)."""
+    """Norm parameters (``_norm_params``): ``{"scale"}`` for RMSNorm,
+    ``{"scale", "bias"}`` for LayerNorm."""
 
-    def __init__(self, cfg: ModelConfig, *, device):
+    def __init__(self, cfg: ModelConfig, *, device, bias: bool = False):
         super().__init__()
-        self.scale = common.ones_init((cfg.d_model,), common.dtype_of(cfg.param_dtype), device)
+        pdt = common.dtype_of(cfg.param_dtype)
+        self.scale = common.ones_init((cfg.d_model,), pdt, device)
+        if bias:
+            self.bias = common.zeros_init((cfg.d_model,), pdt, device)
+
+
+def uses_layer_norm(cfg: ModelConfig) -> bool:
+    return cfg.family in ("ssm", "audio")
 
 
 def _norm(p: Norm, x: torch.Tensor, cfg: ModelConfig):
+    if hasattr(p, "bias"):
+        return common.layer_norm(x, p.scale, p.bias, cfg.norm_eps)
     return common.rms_norm(x, p.scale, cfg.norm_eps)
 
 
@@ -68,19 +80,76 @@ class LMBlock(nn.Module):
     def __init__(self, cfg: ModelConfig, *, moe_layer: bool, device, generator=None):
         super().__init__()
         check_supported(cfg)
-        self.ln1 = Norm(cfg, device=device)
-        self.ln2 = Norm(cfg, device=device)
+        ln = uses_layer_norm(cfg)
+        self.ln1 = Norm(cfg, device=device, bias=ln)
+        self.ln2 = Norm(cfg, device=device, bias=ln)
         if cfg.use_mla:
             self.attn = mla.MLA(cfg, device=device, generator=generator)
         else:
             self.attn = attention.Attention(cfg, device=device, generator=generator)
         if cfg.post_norms:
-            self.ln1_post = Norm(cfg, device=device)
-            self.ln2_post = Norm(cfg, device=device)
+            self.ln1_post = Norm(cfg, device=device, bias=ln)
+            self.ln2_post = Norm(cfg, device=device, bias=ln)
         if moe_layer:
             self.moe = ffn.MoEFFN(cfg, device=device, generator=generator)
         else:
             self.ffn = ffn.DenseFFN(cfg, device=device, generator=generator)
+
+
+class RWKVBlock(nn.Module):
+    """``init_rwkv_block``: LayerNorms ``ln1`` / ``ln2``, time mix ``tm``,
+    channel mix ``cm``."""
+
+    def __init__(self, cfg: ModelConfig, *, device, generator=None):
+        super().__init__()
+        self.ln1 = Norm(cfg, device=device, bias=True)
+        self.ln2 = Norm(cfg, device=device, bias=True)
+        self.tm = ssm.RWKVTimeMix(cfg, device=device, generator=generator)
+        self.cm = ssm.RWKVChannelMix(cfg, device=device, generator=generator)
+
+
+class HymbaBlock(nn.Module):
+    """``init_hymba_block``: RMSNorms ``ln1`` / ``ln2``, attention and Mamba
+    heads side by side, the dense FFN, and the bare scales of the two
+    branches' output norms."""
+
+    def __init__(self, cfg: ModelConfig, *, device, generator=None):
+        super().__init__()
+        pdt = common.dtype_of(cfg.param_dtype)
+        self.ln1 = Norm(cfg, device=device)
+        self.ln2 = Norm(cfg, device=device)
+        self.attn = attention.Attention(cfg, device=device, generator=generator)
+        self.mamba = ssm.Mamba(cfg, device=device, generator=generator)
+        self.ffn = ffn.DenseFFN(cfg, device=device, generator=generator)
+        self.attn_out_norm = common.ones_init((cfg.d_model,), pdt, device)
+        self.ssm_out_norm = common.ones_init((cfg.d_model,), pdt, device)
+
+
+class EncoderBlock(nn.Module):
+    """``init_encoder_block``: whisper's encoder layer (LayerNorms,
+    non-causal attention without RoPE, dense FFN)."""
+
+    def __init__(self, cfg: ModelConfig, *, device, generator=None):
+        super().__init__()
+        self.ln1 = Norm(cfg, device=device, bias=True)
+        self.ln2 = Norm(cfg, device=device, bias=True)
+        self.attn = attention.Attention(cfg, device=device, generator=generator)
+        self.ffn = ffn.DenseFFN(cfg, device=device, generator=generator)
+
+
+class DecoderBlock(nn.Module):
+    """``init_decoder_block``: whisper's decoder layer (causal
+    self-attention ``attn``, cross-attention ``cross`` after ``ln_x``,
+    dense FFN)."""
+
+    def __init__(self, cfg: ModelConfig, *, device, generator=None):
+        super().__init__()
+        self.ln1 = Norm(cfg, device=device, bias=True)
+        self.ln_x = Norm(cfg, device=device, bias=True)
+        self.ln2 = Norm(cfg, device=device, bias=True)
+        self.attn = attention.Attention(cfg, device=device, generator=generator)
+        self.cross = attention.Attention(cfg, device=device, generator=generator)
+        self.ffn = ffn.DenseFFN(cfg, device=device, generator=generator)
 
 
 # --------------------------------------------------------------------------
@@ -149,3 +218,79 @@ def lm_block_decode(
         a = _norm(p.ln1_post, a, cfg)
     x, counts = _ffn_part(p, x + a, cfg, ctx, bias, moe_layer)
     return x, cache, counts
+
+
+def rwkv_block(p: RWKVBlock, x: torch.Tensor, cfg: ModelConfig, state: dict | None = None,
+               ctx=None):
+    """``state``: None (zeros) or ``{"wkv", "tm_shift", "cm_shift"}``.
+    Returns ``(x, new state)``."""
+    mla.refuse_ctx(ctx)
+    st = state or {}
+    h, wkv, tm_shift = ssm.rwkv_time_mix(
+        p.tm, _norm(p.ln1, x, cfg), cfg, state=st.get("wkv"), shift_prev=st.get("tm_shift"))
+    x = x + h
+    h, cm_shift = ssm.rwkv_channel_mix(p.cm, _norm(p.ln2, x, cfg), cfg,
+                                       shift_prev=st.get("cm_shift"))
+    return x + h, {"wkv": wkv, "tm_shift": tm_shift, "cm_shift": cm_shift}
+
+
+def hymba_block(p: HymbaBlock, x: torch.Tensor, cfg: ModelConfig, *, window: int, mode: str,
+                cache: dict | None = None, pos: int | None = None, cache_len: int = 0):
+    """Attention and Mamba on the same normed input, fused as ``0.5 *
+    (rms(attn) + rms(ssm))``.  ``mode`` "prefill" returns the layer's cache
+    ``{"k", "v", "ssm", "conv"}``; "decode" takes it (K and V written in
+    place) and returns the new one."""
+    h = _norm(p.ln1, x, cfg)
+    st = cache or {}
+    if mode == "decode":
+        a, kv = attention.attention_decode(p.attn, h, {"k": st["k"], "v": st["v"]}, pos, cfg,
+                                           window=window)
+    else:
+        a, kv = attention.attention_full(p.attn, h, cfg, window=window,
+                                         return_cache=(mode == "prefill"), cache_len=cache_len)
+    s, ssm_state, conv_state = ssm.mamba(p.mamba, h, cfg, state=st.get("ssm"),
+                                         conv_state=st.get("conv"))
+    fused = 0.5 * (common.rms_norm(a, p.attn_out_norm, cfg.norm_eps)
+                   + common.rms_norm(s, p.ssm_out_norm, cfg.norm_eps))
+    x = x + fused
+    x = x + ffn.dense_ffn(p.ffn, _norm(p.ln2, x, cfg), cfg)
+    return x, {"ssm": ssm_state, "conv": conv_state, **(kv or {})}
+
+
+def encoder_block(p: EncoderBlock, x: torch.Tensor, cfg: ModelConfig):
+    h = _norm(p.ln1, x, cfg)
+    a, _ = attention.attention_full(p.attn, h, cfg, window=BIG_WINDOW, causal=False,
+                                    use_rope=False)
+    x = x + a
+    return x + ffn.dense_ffn(p.ffn, _norm(p.ln2, x, cfg), cfg)
+
+
+def decoder_block(p: DecoderBlock, x: torch.Tensor, enc_out: torch.Tensor | None,
+                  cfg: ModelConfig, *, mode: str, cache: dict | None = None,
+                  pos: int | None = None, cache_len: int = 0):
+    """Causal self-attention (no RoPE), cross-attention on the encoder
+    output, dense FFN.  "prefill" attends ``enc_out`` through the kernel
+    and returns the layer's cache ``{"k", "v", "cross_k", "cross_v"}``;
+    "decode" attends the cached ``cross_k`` / ``cross_v`` (``enc_out`` is
+    not used) and writes K and V in place."""
+    st = cache or {}
+    h = _norm(p.ln1, x, cfg)
+    if mode == "decode":
+        a, kv = attention.attention_decode(p.attn, h, {"k": st["k"], "v": st["v"]}, pos, cfg,
+                                           window=BIG_WINDOW, use_rope=False)
+    else:
+        a, kv = attention.attention_full(p.attn, h, cfg, window=BIG_WINDOW, use_rope=False,
+                                         return_cache=(mode == "prefill"), cache_len=cache_len)
+    x = x + a
+    h = _norm(p.ln_x, x, cfg)
+    if mode == "decode":
+        cross_kv = {"k": st["cross_k"], "v": st["cross_v"]}
+        c = attention.cross_attention_decode(p.cross, h, cross_kv, cfg)
+    else:
+        # The cross K / V come back as the call's cache, projected once.
+        c, cross_kv = attention.attention_full(p.cross, h, cfg, window=BIG_WINDOW,
+                                               kv_src=enc_out, causal=False, use_rope=False,
+                                               return_cache=True, cache_len=enc_out.shape[1])
+    x = x + c
+    x = x + ffn.dense_ffn(p.ffn, _norm(p.ln2, x, cfg), cfg)
+    return x, {**(kv or {}), "cross_k": cross_kv["k"], "cross_v": cross_kv["v"]}

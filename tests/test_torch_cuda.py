@@ -9,7 +9,9 @@ router kernel), since the softmax sums run in another order, and
 ``flash_attention``'s output: within 2e-5 in float32 (the CUDA-core
 kernel) and 2e-2 in bfloat16 (the tensor-core kernel;
 ``tests/test_flash_kernel.py``'s tolerances), since its dot products and
-row sums run in another order; and stream-mode ``serve_slots``' float32
+row sums run in another order; the reduced hybrid, attention-free and
+encoder-decoder models' logits and caches, card against CPU in float32,
+within 1e-4 (cuBLAS and the kernel sum in other orders); and stream-mode ``serve_slots``' float32
 running mean and m2, within 1e-6 / 2e-5 relative of the dense stream on
 the CPU (``STREAM_MEAN_RTOL``, ``STREAM_M2_RTOL``), since each slot's
 squared deviations are summed in the kernel's order.  The per-request
@@ -921,6 +923,18 @@ class TestOnCard:
             (1, 300, 100, 2, 1, 64, 64, torch.bfloat16, dict(causal=True, window=20)),
             (1, 200, 163, 2, 2, 256, 256, torch.bfloat16, dict(causal=True, window=37)),
             (1, 256, 256, 2, 2, 256, 256, torch.bfloat16, dict(causal=True, window=2**31 - 1)),
+            # Hymba: GQA group 5 (25 heads over 5), dh 64, window 1024 and
+            # global (its 2**30), ragged S = T = 1100 past the window
+            (1, 1100, 1100, 25, 5, 64, 64, torch.bfloat16, dict(causal=True, window=1024)),
+            (1, 1100, 1100, 25, 5, 64, 64, torch.bfloat16, dict(causal=True, window=1 << 30)),
+            (1, 1100, 1100, 25, 5, 64, 64, torch.float32, dict(causal=True, window=1024)),
+            (1, 1100, 1100, 25, 5, 64, 64, torch.float32, dict(causal=True)),
+            # Whisper: the encoder, S = T = 1500 non-causal at 12 heads, and
+            # the cross-attention of 432 decoder rows against its 1500 frames
+            (2, 1500, 1500, 12, 12, 64, 64, torch.bfloat16, dict(causal=False)),
+            (1, 1500, 1500, 12, 12, 64, 64, torch.float32, dict(causal=False)),
+            (2, 432, 1500, 12, 12, 64, 64, torch.bfloat16, dict(causal=False)),
+            (1, 432, 1500, 12, 12, 64, 64, torch.float32, dict(causal=False)),
         ],
     )
     def test_flash_attention_kernel(self, cuda_device, b, s, t, h, kvh, dh, dv, dtype, kw):
@@ -999,6 +1013,47 @@ class TestOnCard:
         with pytest.raises(ValueError, match="16-byte boundary"):
             tops.flash_attention(q, q, q, scale=1.0)
         assert tops.launch_counts()["flash_attention"] == before + 1
+
+    @pytest.mark.parametrize("arch,flash_per_layer",
+                             [("hymba-1.5b", 1), ("rwkv6-1.6b", 0), ("whisper-small", 3)])
+    def test_reduced_family_card_equals_cpu(self, cuda_device, arch, flash_per_layer):
+        # Prefill and a decode step of the reduced model (float32) on the
+        # card and, with the same weights, on the CPU: logits and every cache
+        # leaf within 1e-4 (cuBLAS and the flash kernel sum in other orders
+        # than the CPU); one flash_attention launch per full-sequence
+        # attention (hymba's layers, whisper's encoder, decoder and cross
+        # attention; none for RWKV), none in decode.
+        cfg = get_config(arch).reduced()
+        params = tmodel.init_params(torch.Generator(device=cuda_device).manual_seed(0), cfg,
+                                    device=cuda_device)
+        rng = np.random.default_rng(0)
+        s = 64  # past hymba's reduced window of 16; RWKV's chunked form
+        batch = {"tokens": torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, s)))}
+        if cfg.family == "audio":
+            batch["frames"] = torch.from_numpy(
+                rng.standard_normal((2, cfg.encoder_seq, cfg.d_model)).astype(np.float32))
+        cpu = tmodel.Model(cfg, device="cpu")
+        cpu.load_state_dict({n: p.cpu() for n, p in params.state_dict().items()})
+        tops.reset_launch_counts()
+        logits, cache = tmodel.prefill(params, {k: v.to(cuda_device) for k, v in batch.items()},
+                                       cfg, cache_len=s + 4)
+        nxt = logits.argmax(-1)
+        logits2, _ = tmodel.decode_step(params, nxt, cache, s, cfg)
+        torch.cuda.synchronize()
+        n_flash = flash_per_layer * cfg.num_layers
+        if cfg.family == "audio":
+            n_flash = cfg.encoder_layers + 2 * cfg.num_layers
+        assert tops.launch_counts() == {"jsaq_route": 0, "care_route": 0, "serve_route": 0,
+                                        "serve_slots": 0, "moe_route": 0,
+                                        "flash_attention": n_flash}
+        want, want_cache = tmodel.prefill(cpu, batch, cfg, cache_len=s + 4)
+        np.testing.assert_allclose(logits.cpu().numpy(), want.numpy(), rtol=1e-4, atol=1e-4)
+        want2, _ = tmodel.decode_step(cpu, nxt.cpu(), want_cache, s, cfg)
+        np.testing.assert_allclose(logits2.cpu().numpy(), want2.numpy(), rtol=1e-4, atol=1e-4)
+        assert cache["scan"].keys() == want_cache["scan"].keys()
+        for name, t in cache["scan"].items():
+            np.testing.assert_allclose(t.cpu().numpy(), want_cache["scan"][name].numpy(),
+                                       rtol=1e-4, atol=1e-4, err_msg=name)
 
     @pytest.mark.parametrize("arch", ["gemma2-9b", "qwen3-0.6b", "smollm-135m"])
     def test_reduced_dense_prefill_goes_through_the_kernel(self, cuda_device, arch):

@@ -54,6 +54,14 @@ def test_dispatcher_slice_modules_are_checked():
     } <= modules
 
 
+def test_family_serving_modules_are_checked():
+    modules = {_module_name(p) for p in FILES if p.parent != ROOT}
+    assert {
+        "repro_torch.models.ssm", "repro_torch.configs.hymba_1p5b",
+        "repro_torch.configs.rwkv6_1p6b", "repro_torch.configs.whisper_small",
+    } <= modules
+
+
 def test_every_module_imports_without_jax():
     modules = [_module_name(p) for p in FILES if p.parent != ROOT]
     code = (

@@ -24,10 +24,12 @@ import numpy as np
 import pytest
 import torch
 
+from repro import configs as jconfigs
 from repro.configs import get_config as jget
 from repro.core import moe_balancer as jbal
 from repro.models import ffn as jffn
 from repro.models import model as jmodel
+from repro_torch import configs as tconfigs
 from repro_torch.configs import get_config as tget
 from repro_torch.core import moe_balancer as tbal
 from repro_torch.models import convert
@@ -256,11 +258,18 @@ def test_config_options_match_jax(options):
     np.testing.assert_allclose(tl2.numpy(), np.asarray(jl2), **TOL)
 
 
-def test_unported_architectures_raise():
-    for arch in ("hymba-1.5b", "rwkv6-1.6b", "whisper-small"):
-        with pytest.raises(NotImplementedError, match="item 13"):
-            tget(arch)
+def test_registry_serves_every_jax_architecture():
+    # The port's registry holds the JAX package's ten ids, in its order, with
+    # every config field equal apart from the JAX package's two use_pallas_*
+    # switches; each family builds a model.
+    assert tuple(tconfigs.ARCH_IDS) == tuple(jconfigs.ARCH_IDS) and len(jconfigs.ARCH_IDS) == 10
+    for name in jconfigs.ARCH_IDS:
+        want = {k: v for k, v in dataclasses.asdict(jget(name)).items()
+                if k not in ("use_pallas_router", "use_pallas_attention")}
+        assert dataclasses.asdict(tget(name)) == want, name
     for family in ("ssm", "hybrid", "audio"):
-        cfg = dataclasses.replace(tget("deepseek-v2-236b").reduced(), family=family)
-        with pytest.raises(NotImplementedError, match="item 13"):
-            tmodel.init_params(torch.Generator().manual_seed(0), cfg, device="cpu")
+        cfg = next(tget(n).reduced() for n in tconfigs.ARCH_IDS if tget(n).family == family)
+        model = tmodel.init_params(torch.Generator().manual_seed(0), cfg, device="cpu")
+        assert len(model.layers) == cfg.num_layers
+    with pytest.raises(KeyError, match="unknown arch"):
+        tget("mamba-2.8b")
