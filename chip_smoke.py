@@ -8,7 +8,7 @@ Run from the root of a checkout on a machine with a CUDA card:
 Phases (any mismatch or exception exits non-zero; no phase catches its
 own failure):
 
-1. Build the Hopper kernels from the five sources of
+1. Build the Hopper kernels from the seven sources of
    ``src/repro_torch/csrc`` with ``nvcc`` (one process per source, started
    together; ``serve_route.cu`` holds ``serve_route`` and ``serve_slots``)
    and print the
@@ -101,7 +101,7 @@ own failure):
    (no kernel but the examples' own; every count printed, none added to
    the main paths'). ``run_serving_sim`` at ``examples/serve_care.py``'s
    cell (8 replicas x 16 decode slots, load 0.9, mean prefill 4 and
-   decode 60, MSR drain 0.25, ET-4), 500 slots, seed 0, under JSAQ,
+   decode 60, MSR drain 0.25, ET-4), 250 slots, seed 0, under JSAQ,
    SQ(2), RR and drain at 2:1 rates, JIQ, hsq, the ack wire (delay 2,
    jitter 1, drop 0.1, timeout 8, backoff 2, 6 retries, suspect_age 8)
    and crash faults (0.005 / 0.1, suspect_age 20) (``DISPATCH_CELLS`` of
@@ -113,7 +113,7 @@ own failure):
    128 slots, lowest-index ties) against the fused ``serve_one`` (one
    ``serve_slots`` launch): JCT vector, messages and final occupancy
    equal; ms a slot and us a routed request.  ``dispatch_sim`` at
-   ``bench_moe_balance.py``'s section B (E 64, D 8, T 256, k 8, 400 of its
+   ``bench_moe_balance.py``'s section B (E 64, D 8, T 256, k 8, 200 of its
    800 steps, 5 seeds in one ``dispatch_batch``; no_bias, off, exact, dt8,
    et4, et8):
    each regime equal to the CPU on the card's draws in every field, each
@@ -124,11 +124,11 @@ own failure):
    ``serve_care --slots 1000`` as subprocesses: exit 0, their closing
    lines, and serve_care's 30 ``flash_attention`` launches a prefill and
    none in decode (SmolLM-135M at its published widths); serve_care
-   asserts its own golden replay.  Cuts: 500 slots (the example's
-   default 20,000), 128 slots at full width (the bench's 2048), 400
-   dispatch_sim steps (the bench's 800): each halved because the whole
-   run at 1000 slots and 800 steps took 1250.8 s on an H100's host, past
-   the 1200 s limit.
+   asserts its own golden replay.  Cuts: 250 slots (the example's
+   default 20,000), 128 slots at full width (the bench's 2048), 200
+   dispatch_sim steps (the bench's 800): halved because the whole run at
+   1000 slots and 800 steps took 1250.8 s on an H100's host, past the
+   1200 s limit, and halved again when phase 9 came and a run took ~1150 s.
 4. The slotted dense backend against the fused one on the card, decision
    for decision, at K=200, T=2000, on Bernoulli arrivals and on MMPP
    arrivals under a diurnal curve (``MMPP_FUSED`` of
@@ -139,7 +139,7 @@ own failure):
 4b. The slotted tier's breadth on the dense backend (no kernel: every
    launch count stays 0), the Section 9 setting (K=30, cap 2048, geometric
    sizes of mean 30 unless stated, load 0.95 unless stated) at 4 seeds x
-   2500 slots, one ``simulate_grid`` call per static kind: SQ(2) (and a
+   1250 slots, one ``simulate_grid`` call per static kind: SQ(2) (and a
    diurnal cell at load 0.9, amp 0.1, period 2000), random, MMPP bursts of
    intensity 1.7 under JSAQ + ET-3 + MSR and SQ(2), rates 1.5 / 0.5 on
    the two halves under rate-aware JSAQ + ET-3 + MSR and SQ(2), Pareto
@@ -156,7 +156,7 @@ own failure):
 4c. The degraded control plane on both dense backends (no kernel: every
    launch count stays 0), each call against the CPU on the same draws,
    every result field equal.  Slotted, at the Section 9.1 setting (K=30,
-   load 0.95, geometric sizes of mean 30, cap 2048), 4 seeds x 1500
+   load 0.95, geometric sizes of mean 30, cap 2048), 4 seeds x 750
    slots, one ``simulate_grid`` call per static kind: CARE (JSAQ + ET-3 +
    MSR) over the delay ladder {1, 4, 8, 16} and the drop ladder {0, 0.1,
    0.3, 0.5} at delay 2 (``benchmarks/bench_faults.py:104-170``); SQ(2)
@@ -173,8 +173,8 @@ own failure):
    on the card, on both tiers.  Serving: ``bench_pull.py:68-92``'s
    frontier, 8 replicas x 16 decode slots, load 0.9, CARE / SQ(2) / JIQ /
    hsq, degraded (delay 2, drop 0.1, suspect_age 8) and clean, 4 seeds x
-   1000 slots; ``bench_faults.py:203-240``'s engineered crash / recovery
-   (its quick 2500 slots) through ``serve_one`` with suspect masking on
+   500 slots; ``bench_faults.py:203-240``'s engineered crash / recovery
+   (1250 slots, half its quick 2500) through ``serve_one`` with suspect masking on
    and off and a fault-free control.  Then CARE with delay 4 and drop 0.1 at K=1e5, cap 16, 2 seeds
    x 1000 slots, with the draws' and the call's peak device memory.
 5. The serving bench's ET ladder (``bench_serving._ladder``): 8 replicas,
@@ -258,13 +258,49 @@ own failure):
    against prefill over S-1 and one ``decode_step`` within 2e-2, at S =
    1100 (Hymba, past the window), 64 (Whisper) and 256 (RWKV: the chunked
    form against the sequential scan and the state hand-off).
-9. Print the kernels line (launch counts from the main paths, parity,
+9. Training, after phase 8b's models are freed.  Each backward
+   kernel against its plain version (``FLASH_BWD_CASES`` / ``MOE_BWD_CASES``
+   of ``tests/test_torch_cuda.py``): ``flash_attention_bwd`` at
+   SmolLM-135M's training shape (B 1, S 2048, 9 heads over 3 KV heads of
+   64, causal, bf16), Gemma2's dh 256 with window 4096 and softcap 50 (S
+   1024) and a window that masks, Hymba's GQA 5 local, Whisper's
+   non-causal encoder (S = T = 1500) and cross-attention (S 432, T 1500),
+   float32, odd float32 widths, S = 1 and rows with no key, within 2e-2
+   (bf16) and 1e-4 (float32) of the largest of dq, dk and dv;
+   ``moe_route_bwd`` at DeepSeek-V2's (T 2048, E 160, k 6, softmax) and
+   V3's (E 256, k 8, sigmoid) shapes, T = 1 and all-tied batches.  Then
+   two train steps on the card against the same steps on the CPU
+   (``train_step_card_vs_cpu``: SmolLM-135M's and DeepSeek-V2's reduced
+   configs in float32, the balancer sync off and on, 1 and 2
+   microbatches): loss, ``grad_norm``, ``lr``, parameters, ``m``, ``v``
+   and the balancer within 1e-4, routed counts equal.  Then SmolLM-135M
+   at its published width and full depth (bf16, seed 0) through
+   ``repro_torch.launch.train --full-size``, 8 x 2048 tokens a step, 12
+   steps, a checkpoint every 4, a crash after step 8, a relaunch that
+   resumes, and an uninterrupted run with the launch counts set to 0
+   just before and read just after: 30 ``flash_attention`` and 30
+   ``flash_attention_bwd`` launches a step, no plain version called,
+   finite losses, the last below the first, the resumed losses equal to
+   the uninterrupted run's within ``TRAIN_RESUME_RTOL``; prints ms a
+   step, tokens/s, peak memory, a profiled step's device busy share and
+   the backward kernel's share, AdamW's share (CUDA events), and the
+   backward kernel at the path's shape (layer 0's q/k/v, B 8) beside its
+   bound, its plain version and SDPA's own backward.  Then
+   ``moe_route_bwd``'s time at DeepSeek-V2's shape, and
+   ``repro_torch.examples.train_moe_care`` as a subprocess at
+   ``tests/test_examples.py``'s sizes (exit 0, "[done]", one
+   ``moe_route`` and one ``moe_route_bwd`` launch per MoE layer per
+   step).
+10. Print the kernels line (launch counts from the main paths, parity,
    times and bounds; ``serve_slots`` also carries phase 3b's stream-mode
    launches, ms a chunk, bound, plain time and error under ``stream_*``;
    ``flash_attention`` also carries phase 8b's launches per model under
    ``family_launches`` and the kernel, plain, bound and SDPA times at its
    shapes under ``family_shapes``, and its ``max_abs_err`` covers both
-   phases), the card's name and power limit, and the contract line last.
+   phases; ``flash_attention_bwd`` and ``moe_route_bwd`` carry phase 9's
+   launches, times and bounds, and the training step's numbers under
+   ``train_*``), the card's name and power limit, and the contract line
+   last.
 
 Exits non-zero without printing a result when no CUDA card is present or
 when the port's sources are not beside this script.
@@ -346,6 +382,8 @@ SERVE_SLOT_OPS_PER_DECODE_SLOT = 12
 SERVE_FOLD_OPS_PER_COMPLETION = 13
 
 KINDS = ("rt", "dt", "et", "et_rt", "exact", "none")
+# The backward kernels' counts, which no serving path may move.
+NO_BWD = {"moe_route_bwd": 0, "flash_attention_bwd": 0}
 
 # Shapes of the phases (see the module docstring).
 JSAQ_SHAPE = (64, 1000, 256)  # D, K, N
@@ -366,10 +404,11 @@ DENSE_VS_FUSED = (200, 2000)  # K, T
 SECTION9_SLOTS = 10_000  # the paper's 20,000 halved: see DISPATCH_SLOTS
 # Phase 4b: the paper's Section 9 setting (K = 30, cap 2048, geometric sizes
 # of mean 30) on the dense backend, cut from the benches' 20,000-100,000
-# slots to 4 seeds x 2500 (the dense loop takes ~1.9 ms a slot on the
-# card; 4000 until phase 4c came and the whole run passed 600 s); then
-# SQ(2) at K = 1e5, cap 16, 2 seeds x 1000 slots, for width.
-BREADTH_SLOTS = 2500
+# slots to 4 seeds x 1250 (the dense loop takes ~1.7-3.8 ms a slot on the
+# card; 4000 until phase 4c came and the whole run passed 600 s, 2500
+# until phase 9 came and a whole run took ~1150 s); then SQ(2) at K = 1e5,
+# cap 16, 2 seeds x 1000 slots, for width.
+BREADTH_SLOTS = 1250
 BREADTH_SEEDS = (0, 1, 2, 3)
 BREADTH_PROFILE_SLOTS = 100  # the profiled SQ(2) call; the profiler slows the loop many fold
 BREADTH_WIDE = dict(servers=100_000, buffer_cap=16, slots=1000, load=0.95,
@@ -379,15 +418,16 @@ BREADTH_WIDE_SEEDS = (0, 1)
 # cells (Section 9.1 setting for the slotted tier; bench_pull's and
 # bench_faults' serving cells) cut from the benches' 20,000-100,000 slots
 # to 4 seeds x DEGRADED_SLOTS (slotted) and SERVE_DEGRADED_SLOTS (serving),
-# the engineered crash / recovery to bench_faults' quick 2500 slots (the
-# phase took 333 s with 4000 slots everywhere and 178 s at 2000 / 1500,
-# over the 150 s aimed at); the
+# the engineered crash / recovery to half bench_faults' quick 2500 slots
+# (the phase took 333 s with 4000 slots everywhere, 178 s at 2000 / 1500,
+# and 225 s at 1500 / 1000 / 2500 in a whole run of ~1150 s once phase 9
+# came, so each was halved again); the
 # identity checks at IDENTITY_SLOTS; the width check at K = 1e5, cap 16,
 # 2 seeds x 1000 slots.
-DEGRADED_SLOTS = 1500
+DEGRADED_SLOTS = 750
 DEGRADED_SEEDS = (0, 1, 2, 3)
-SERVE_DEGRADED_SLOTS = 1000
-CRASH_SLOTS = 2500
+SERVE_DEGRADED_SLOTS = 500
+CRASH_SLOTS = 1250
 IDENTITY_SLOTS = 500
 DEGRADED_WIDE = dict(servers=100_000, buffer_cap=16, slots=1000, load=0.95,
                      mean_service=30, policy="jsaq", comm="et", x=3, network="net",
@@ -417,16 +457,18 @@ STREAM_DENSE_CHUNK = 256
 STREAM_TIME_REPS = 3
 STREAM_PLAIN_SLOTS = 64  # the dense loop takes ~80 ms a slot at 1024 replicas
 # Phase 3c: the per-request dispatcher at examples/serve_care's cell for
-# 500 slots (the reference runs 20,000) and at serve/replicas1024's width
+# 250 slots (the reference runs 20,000) and at serve/replicas1024's width
 # for 128 slots (the bench runs 2048); dispatch_sim at bench_moe_balance's
-# section B for 400 of its 800 steps, 5 seeds; the examples at
+# section B for 200 of its 800 steps, 5 seeds; the examples at
 # tests/test_examples.py's sizes.  With 1000 slots, 800 steps and Section
 # 9's 20,000 slots the whole run took 1250.8 s on an H100's host (phase 3c
 # 285.2 s, Section 9 50.7 s), past the 1200 s limit; halved, the earlier
-# runs took 777-872 s.
-DISPATCH_SLOTS = 500
+# runs took 777-872 s; with phase 9 a whole run took ~1150 s (phase 3c
+# 186 s), so the dispatcher's slots and dispatch_sim's steps were halved
+# again.
+DISPATCH_SLOTS = 250
 DISPATCH_WIDE_SLOTS = 128
-MOE_DISPATCH_STEPS = 400
+MOE_DISPATCH_STEPS = 200
 MOE_DISPATCH_SEEDS = 5
 EXAMPLE_TIMEOUT_S = 600
 # Phase 7: DeepSeek-V2 serving at published widths, depth cut to one dense
@@ -490,6 +532,24 @@ FAMILY_NEW = 16
 HYMBA = dict(arch="hymba-1.5b", batch=2, prompt=2048, cache=2064, f32_prompt=1100)
 WHISPER = dict(arch="whisper-small", batch=4, prompt=432, cache=448, f32_prompt=64)
 RWKV = dict(arch="rwkv6-1.6b", batch=2, prompt=2048, cache=2048, f32_prompt=256)
+# Phase 9: training.  SmolLM-135M at its published width and full depth
+# (the JAX launcher's default arch, --full-size), bf16, from seed 0; batch
+# 8 x 2048 tokens (SmolLM's training context); 12 steps, a checkpoint every
+# 4, a crash after step 8 and a relaunch, then 12 uninterrupted steps.  The
+# resumed losses must equal the uninterrupted run's within
+# TRAIN_RESUME_RTOL: every kernel of the step is deterministic (the two
+# backward kernels use no atomics), but the embedding's gradient is an
+# index_put_ with accumulate on the card, whose float sums PyTorch does not
+# promise to order the same way twice.
+TRAIN_ARCH = "smollm-135m"
+TRAIN_BATCH, TRAIN_SEQ = 8, 2048
+TRAIN_ARGS = ["--arch", TRAIN_ARCH, "--full-size", "--steps", "12", "--batch", str(TRAIN_BATCH),
+              "--seq", str(TRAIN_SEQ), "--ckpt-every", "4", "--log-every", "4"]
+TRAIN_CRASH_AT = 8
+TRAIN_RESUME_RTOL = 1e-3
+BWD_TIME_REPS = 5
+# The example at tests/test_examples.py's sizes.
+TRAIN_EXAMPLE_ARGS = ["--steps", "6", "--batch", "2", "--seq", "32", "--ckpt-every", "2"]
 # About 25 ms at the H100's 1.98 GHz: longer than the host takes to
 # enqueue MOE_TIME_REPS launches (~35 us each).
 SLEEP_CYCLES = 50_000_000
@@ -873,7 +933,8 @@ def _moe_serving(dev, times: dict, floor_ms: float) -> dict:
     ops.moe_route = route
     expected = n_moe * (2 + MOE_NEW - 1)
     assert launches == {"jsaq_route": 0, "care_route": 0, "serve_route": 0, "serve_slots": 0,
-                        "moe_route": expected, "flash_attention": 0}, (launches, expected)
+                        "moe_route": expected, "flash_attention": 0, **NO_BWD}, (
+        launches, expected)
     assert bool(finite), "non-finite logits on the MoE serving path"
     times["moe_prefill1_s"], times["moe_prefill2_s"] = wall1, wall2
     times["moe_decode_ms_per_token"] = decode_ms
@@ -1185,7 +1246,7 @@ def _dense_serving(dev, times: dict) -> dict:
     ops.flash_attention = attend
     assert prefill_launches == cfg.num_layers, (prefill_launches, cfg.num_layers)
     assert launches == {"jsaq_route": 0, "care_route": 0, "serve_route": 0, "serve_slots": 0,
-                        "moe_route": 0, "flash_attention": cfg.num_layers}, launches
+                        "moe_route": 0, "flash_attention": cfg.num_layers, **NO_BWD}, launches
     assert bool(finite), "non-finite logits on the dense serving path"
     assert [kw["window"] for *_, kw in kept] == [int(windows[0]), int(windows[1])]
     times["dense_prefill_s"], times["dense_decode_ms_per_token"] = wall, decode_ms
@@ -1651,7 +1712,7 @@ def _family_serving(dev, times: dict) -> dict:
     assert torch.cuda.memory_allocated(dev) < 1e9, (
         f"{torch.cuda.memory_allocated(dev) / 1e9:.2f} GB still allocated before phase 8b")
     other = {"jsaq_route": 0, "care_route": 0, "serve_route": 0, "serve_slots": 0,
-             "moe_route": 0}
+             "moe_route": 0, **NO_BWD}
     shapes, launches = {}, {}
 
     # Hymba: layer 0 is global, layer 1 local (window 1024).
@@ -1700,6 +1761,305 @@ def _family_serving(dev, times: dict) -> dict:
     return {"family_launches": launches,
             "family_max_abs_err": max(v["max_abs_err"] for v in shapes.values()),
             "family_shapes": shapes}
+
+
+def _flash_bwd_bound(q, k, v, causal: bool, window) -> tuple[float, str]:
+    """flash_attention's backward bound: q, k, v, the output and its
+    gradient read once, dq, dk and dv written once, against 2 (3 dh + 2 dv)
+    FLOP per attended (query, key) pair and head (the scores recomputed, dp,
+    dv, dk and dq) on the tensor cores (bf16) or the CUDA cores (float32)."""
+    b, s, h, dh = q.shape
+    t, kvh, dv = k.shape[1], k.shape[2], v.shape[3]
+    n_bytes = q.element_size() * 2 * (b * s * h * (dh + dv) + b * t * kvh * (dh + dv))
+    n_ops = 2 * (3 * dh + 2 * dv) * b * h * _attn_pairs(s, t, causal, window)
+    rate = BF16_TENSOR_FLOP_PER_S if q.dtype == torch.bfloat16 else F32_FLOP_PER_S
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_ops / rate
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def _path_qkv(params, cfg, tokens):
+    """Layer 0's attention inputs on the training path: the normed
+    embeddings projected to q, k, v with RoPE, as ``attention_full`` makes
+    them."""
+    from repro_torch.models import attention, common, model
+    from repro_torch.models import transformer as tfm
+
+    with torch.no_grad():
+        h = tfm._norm(params.layers[0].ln1, model.embed_tokens(params, tokens, cfg), cfg)
+        q, k, v = attention._project_qkv(params.layers[0].attn, h, h, cfg)
+        pos = torch.arange(tokens.shape[1], dtype=torch.int32, device=tokens.device)[None]
+        q = common.apply_rope(q, pos, cfg.rope_theta)
+        k = common.apply_rope(k, pos, cfg.rope_theta)
+    return q.contiguous(), k.contiguous(), v.contiguous()
+
+
+def _plain_guard(ref) -> tuple[dict, callable]:
+    """Count every call of the kernels' plain versions until ``undo()``."""
+    calls = {}
+    saved = {}
+    for name in ("flash_attention_ref", "flash_attention_bwd_ref", "moe_route_ref",
+                 "moe_route_weights_vjp_ref"):
+        fn = saved[name] = getattr(ref, name)
+
+        def counted(*a, _fn=fn, _name=name, **kw):
+            calls[_name] = calls.get(_name, 0) + 1
+            return _fn(*a, **kw)
+
+        setattr(ref, name, counted)
+
+    def undo():
+        for name, fn in saved.items():
+            setattr(ref, name, fn)
+
+    return calls, undo
+
+
+def _profile_train_step(step_fn, state, batch, step_ms: float) -> dict:
+    """One profiled train step (device activity only): device busy time
+    against the unprofiled step, the backward flash kernels' and AdamW's
+    shares of the step."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        state, metrics = step_fn(state, batch)
+        float(metrics["loss"])
+        torch.cuda.synchronize()
+    device = [ev for ev in prof.key_averages()
+              if ev.device_type == torch.autograd.DeviceType.CUDA]
+    busy_us = sum(ev.self_device_time_total for ev in device)
+    if busy_us == 0:
+        print("phase 9 profile: the profiler saw no device time; busy share not measured")
+        return {"busy_share": None, "bwd_share": None}
+    device.sort(key=lambda ev: ev.self_device_time_total, reverse=True)
+    bwd_us = sum(ev.self_device_time_total for ev in device if "bwd_d" in ev.key)
+    fwd_us = sum(ev.self_device_time_total for ev in device
+                 if "flash_" in ev.key and "bwd" not in ev.key)
+    print(f"phase 9 profile of one train step: device busy {busy_us / 1e3:.3f} ms against an "
+          f"unprofiled step of {step_ms:.3f} ms (busy share {busy_us / 1e3 / step_ms:.4f}); "
+          f"flash_attention backward {bwd_us / 1e3:.3f} ms ({bwd_us / 1e3 / step_ms:.4f} of the "
+          f"step), forward {fwd_us / 1e3:.3f} ms; {sum(ev.count for ev in device)} device "
+          f"operations; top: " + "; ".join(
+              f"{ev.key[:50]} {ev.self_device_time_total / 1e3:.2f} ms x{ev.count}"
+              for ev in device[:8]))
+    return {"busy_share": busy_us / 1e3 / step_ms, "bwd_share": bwd_us / 1e3 / step_ms}
+
+
+def _training_phase(dev, times: dict, card_tests) -> list:
+    """Phase 9: the backward kernels against their plain versions, the
+    train step on the card against the CPU, SmolLM-135M trained at full
+    width and depth through ``repro_torch.launch.train`` (crash and resume),
+    and the MoE training example.  Returns the kernels line's entries of
+    ``flash_attention_bwd`` and ``moe_route_bwd``."""
+    import shutil
+
+    import torch.nn.functional as F
+
+    from repro_torch.ckpt import checkpoint
+    from repro_torch.configs import get_config
+    from repro_torch.data import pipeline
+    from repro_torch.kernels import flash_attn, moe_route, ops, ref
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models import common
+    from repro_torch.optim import adamw
+    from repro_torch.train import train_loop
+
+    t_phase = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.cuda.empty_cache()
+    assert torch.cuda.memory_allocated(dev) < 1e9, (
+        f"{torch.cuda.memory_allocated(dev) / 1e9:.2f} GB still allocated before phase 9")
+
+    # (a) each backward kernel against its plain version.
+    flash_err, moe_err = 0.0, 0.0
+    for case in card_tests.FLASH_BWD_CASES:
+        q, k, v, dout, kw = card_tests.flash_bwd_inputs(case, dev)
+        err = card_tests.flash_bwd_vs_plain(q, k, v, dout, kw)
+        flash_err = max(flash_err, err)
+        print(f"phase 9 flash_attention_bwd {case} {card_tests.FLASH_BWD_CASES[case][:8]} "
+              f"{kw}: largest error / largest of dq, dk, dv {err:.3g} (at most "
+              f"{card_tests.FLASH_BWD_TOL[q.dtype]})")
+    del q, k, v, dout
+    for case in card_tests.MOE_BWD_CASES:
+        err = card_tests.moe_bwd_vs_plain(*card_tests.moe_bwd_inputs(case, dev))
+        moe_err = max(moe_err, err)
+        print(f"phase 9 moe_route_bwd {case} {card_tests.MOE_BWD_CASES[case]}: max abs err "
+              f"{err:.3g} (within atol 1e-6, rtol 1e-5)")
+    times["train_kernels_s"] = time.perf_counter() - t_phase
+
+    # (b) one train step on the card against the same step on the CPU.
+    t0 = time.perf_counter()
+    for arch, sync, micro in card_tests.TRAIN_STEP_CASES:
+        r = card_tests.train_step_card_vs_cpu(dev, arch, sync, micro)
+        print(f"phase 9 train step card == CPU, {arch} reduced float32, sync {sync}, "
+              f"{micro} microbatch(es), 2 steps: largest difference {r['max_rel_err']:.3g} of "
+              f"each leaf's largest magnitude (at most 1e-4), routed counts equal; card launches "
+              f"flash_attention {r['launches']['flash_attention']} / bwd "
+              f"{r['launches']['flash_attention_bwd']}, moe_route {r['launches']['moe_route']} / "
+              f"bwd {r['launches']['moe_route_bwd']}")
+    times["train_step_vs_cpu_s"] = time.perf_counter() - t0
+
+    # (c) SmolLM-135M at full width and depth through the launcher.
+    t0 = time.perf_counter()
+    cfg = get_config(TRAIN_ARCH)
+    assert (cfg.num_layers, cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim,
+            cfg.d_ff, cfg.vocab_size, cfg.tie_embeddings, cfg.param_dtype) == (
+        30, 576, 9, 3, 64, 1536, 49152, True, "bfloat16"), cfg
+    ckpt_dir = ROOT / "build" / "train_ckpt"
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    calls, undo = _plain_guard(ref)
+    try:
+        try:
+            launch_train.main(TRAIN_ARGS + ["--ckpt-dir", str(ckpt_dir),
+                                            "--crash-at", str(TRAIN_CRASH_AT)])
+            raise AssertionError("the launcher did not crash")
+        except SystemExit as exc:
+            assert exc.code == 42, exc.code
+        assert checkpoint.latest_step(ckpt_dir) == TRAIN_CRASH_AT
+        resumed = launch_train.main(TRAIN_ARGS + ["--ckpt-dir", str(ckpt_dir)])
+        assert resumed["start_step"] == TRAIN_CRASH_AT
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        ops.reset_launch_counts()
+        whole = launch_train.main(TRAIN_ARGS)
+        torch.cuda.synchronize()
+        launches = ops.launch_counts()
+        peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    finally:
+        undo()
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    n_steps = len(whole["losses"])
+    assert not calls, f"plain versions ran on the card's training path: {calls}"
+    assert launches == {"jsaq_route": 0, "care_route": 0, "serve_route": 0, "serve_slots": 0,
+                        "moe_route": 0, "flash_attention": 30 * n_steps, "moe_route_bwd": 0,
+                        "flash_attention_bwd": 30 * n_steps}, launches
+    losses = np.array(whole["losses"])
+    assert np.all(np.isfinite(losses)) and losses[-1] < losses[0], losses
+    resume_diff = np.abs(np.array(resumed["losses"]) - losses[TRAIN_CRASH_AT:]) / np.abs(
+        losses[TRAIN_CRASH_AT:])
+    assert resume_diff.max() <= TRAIN_RESUME_RTOL, (resumed["losses"], losses)
+    step_ms = float(np.median(whole["step_s"][1:])) * 1e3
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    times["train_full_s"] = time.perf_counter() - t0
+    print(f"phase 9 {TRAIN_ARCH} full width and depth (30 layers, d_model 576, 9 heads / 3 KV "
+          f"of 64, d_ff 1536, vocab 49152, tied, bf16), batch {TRAIN_BATCH} x {TRAIN_SEQ}, "
+          f"{n_steps} steps: losses "
+          + ", ".join(f"{x:.4f}" for x in losses)
+          + f"; crash after step {TRAIN_CRASH_AT} and relaunch: resumed losses "
+          + ", ".join(f"{x:.4f}" for x in resumed["losses"])
+          + f" (largest relative difference from the uninterrupted run {resume_diff.max():.3g}, "
+          f"at most {TRAIN_RESUME_RTOL}); launches a step: flash_attention "
+          f"{launches['flash_attention'] // n_steps}, flash_attention_bwd "
+          f"{launches['flash_attention_bwd'] // n_steps}; no plain version called; step "
+          f"{step_ms:.1f} ms (median of steps 2-{n_steps}), "
+          f"{tokens / step_ms * 1e3:,.0f} tokens/s; "
+          f"peak memory {peak_gb:.2f} GB; {times['train_full_s']:.1f} s")
+
+    # (d) a profiled step, AdamW's share, and the kernel at the path's shape.
+    t0 = time.perf_counter()
+    opt_cfg = adamw.OptimConfig(lr=3e-4, total_steps=12, warmup_steps=2)
+    state = train_loop.init_state(torch.Generator(device=dev).manual_seed(0), cfg, device=dev)
+    step_fn = train_loop.make_train_step(cfg, opt_cfg)
+    data = pipeline.DataConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+                               global_batch=TRAIN_BATCH)
+    batch = pipeline.global_batch_at(0, data)
+    state, _ = step_fn(state, batch)  # warm
+    prof = _profile_train_step(step_fn, state, batch, step_ms)
+    grads = {n: torch.full_like(p, 1e-3) for n, p in state.params.named_parameters()}
+    adamw_ms = _time_ms(lambda: adamw.update(grads, state.opt, state.params, opt_cfg), 3)
+    del grads
+    print(f"phase 9 AdamW update alone ({common.param_count(state.params):,} parameters, "
+          f"{len(state.opt.m)} tensors): "
+          f"{adamw_ms:.3f} ms, {adamw_ms / step_ms:.4f} of the step")
+    tokens_t = torch.from_numpy(batch["tokens"]).to(dev)
+    q, k, v = _path_qkv(state.params, cfg, tokens_t)
+    del state
+    kw = dict(scale=cfg.resolved_head_dim ** -0.5, causal=True, window=None, softcap=0.0)
+    dout = torch.randn(q.shape[:3] + (v.shape[3],), generator=torch.Generator(
+        device=dev).manual_seed(1), device=dev).to(q.dtype)
+    one = card_tests.flash_bwd_vs_plain(q[:1].contiguous(), k[:1].contiguous(),
+                                        v[:1].contiguous(), dout[:1].contiguous(), kw)
+    flash_err = max(flash_err, one)
+    out = flash_attn.flash_attention_cuda(q, k, v, **kw)
+    bwd_ms = _time_ms(lambda: flash_attn.flash_attention_bwd_cuda(q, k, v, out, dout, **kw),
+                      BWD_TIME_REPS)
+    plain_ms = _time_ms(lambda: ref.flash_attention_bwd_ref(q, k, v, dout, **kw), 1)
+    bound = _flash_bwd_bound(q, k, v, True, None)
+    g = q.shape[2] // k.shape[2]
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_(True)
+                  for x in (q, k.repeat_interleave(g, 2), v.repeat_interleave(g, 2)))
+    sdpa_out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, scale=kw["scale"])
+    dout_t = dout.transpose(1, 2)
+    sdpa_ms = _time_ms(lambda: torch.autograd.grad(sdpa_out, (qt, kt, vt), dout_t,
+                                                   retain_graph=True), BWD_TIME_REPS)
+    del qt, kt, vt, sdpa_out, out
+    print(f"phase 9 flash_attention_bwd at the path's shape (layer 0's q/k/v, "
+          f"{tuple(q.shape)}, {q.dtype}, causal): against its plain version at B=1 "
+          f"{one:.3g} of the largest gradient; kernel {bwd_ms:.3f} ms, plain {plain_ms:.3f} ms, "
+          f"bound {bound[0]:.4f} ms ({bound[1]}), bound / kernel {bound[0] / bwd_ms:.4f}; "
+          f"PyTorch SDPA's own backward (K and V repeated to 9 heads) {sdpa_ms:.3f} ms, kernel / "
+          f"SDPA {bwd_ms / sdpa_ms:.2f}; 30 layers' backward {30 * bwd_ms:.1f} ms, "
+          f"{30 * bwd_ms / step_ms:.4f} of the step")
+    del q, k, v, dout
+    torch.cuda.empty_cache()
+
+    logits, idx, gw, gate = card_tests.moe_bwd_inputs("deepseek_v2", dev)
+    moe_ms = _device_ms(lambda: moe_route.moe_route_bwd_cuda(logits, idx, gw, gate_fn=gate),
+                        MOE_TIME_REPS)
+    moe_plain_ms = _time_ms(lambda: ref.moe_route_weights_vjp_ref(logits, idx, gw, gate), 3)
+    t_, e_ = logits.shape
+    k_ = idx.shape[1]
+    moe_bound = _bound_ms(4 * (2 * t_ * e_ + 2 * t_ * k_), (6 + k_) * t_ * e_)
+    print(f"phase 9 moe_route_bwd at DeepSeek-V2's shape (T={t_}, E={e_}, k={k_}, softmax): "
+          f"kernel {moe_ms:.5f} ms (device time, queue filled), plain {moe_plain_ms:.3f} ms, "
+          f"bound {moe_bound[0]:.6f} ms ({moe_bound[1]})")
+    times["train_profile_s"] = time.perf_counter() - t0
+
+    # (e) the MoE training example on the card, as a subprocess.
+    t0 = time.perf_counter()
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    proc = subprocess.run([sys.executable, "-m", "repro_torch.examples.train_moe_care",
+                           *TRAIN_EXAMPLE_ARGS], capture_output=True, text=True,
+                          timeout=EXAMPLE_TIMEOUT_S, env=env, cwd=ROOT)
+    times["train_example_s"] = time.perf_counter() - t0
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "[done]" in proc.stdout, proc.stdout[-2000:]
+    lines = proc.stdout.strip().splitlines()
+    ex_launches = json.loads(next(ln for ln in lines if ln.startswith("[launches]")).split(
+        " ", 1)[1])
+    ecfg = get_config("deepseek-v2-236b").reduced()
+    steps, every = int(TRAIN_EXAMPLE_ARGS[1]), int(TRAIN_EXAMPLE_ARGS[7])
+    crash = steps // 2
+    n_run = crash + steps - (crash - crash % every)  # to the crash, then from its checkpoint
+    n_moe = ecfg.num_layers - ecfg.first_dense_layers
+    assert ex_launches["moe_route"] == ex_launches["moe_route_bwd"] == n_moe * n_run, (
+        ex_launches, n_moe, n_run)
+    print(f"phase 9 example train_moe_care {' '.join(TRAIN_EXAMPLE_ARGS)}: exit 0 in "
+          f"{times['train_example_s']:.1f} s; " + " | ".join(
+              ln.strip() for ln in lines if ln.startswith(("[done]", "[launches]"))))
+    times["train_phase_s"] = time.perf_counter() - t_phase
+    print(f"phase 9: {times['train_phase_s']:.1f} s")
+
+    return [
+        {
+            "name": "flash_attention_bwd", "route": "cuda",
+            "source": "src/repro_torch/csrc/flash_attn_bwd.cu",
+            "replaces": "src/repro/kernels/flash_attn.py:84",
+            "launches": launches["flash_attention_bwd"], "launches_per_step": 30,
+            "max_abs_err": flash_err, "ms": bwd_ms, "plain_ms": plain_ms,
+            "bound_ms": bound[0], "bound_by": bound[1], "library_ms": sdpa_ms,
+            "train_step_ms": step_ms, "train_tokens_per_s": tokens / step_ms * 1e3,
+            "train_peak_gb": peak_gb, "train_busy_share": prof["busy_share"],
+            "train_bwd_share": prof["bwd_share"], "train_adamw_share": adamw_ms / step_ms,
+        },
+        {
+            "name": "moe_route_bwd", "route": "cuda",
+            "source": "src/repro_torch/csrc/moe_route_bwd.cu",
+            "replaces": "src/repro/kernels/moe_route.py:89",
+            "launches": ex_launches["moe_route_bwd"], "max_abs_err": moe_err, "ms": moe_ms,
+            "plain_ms": moe_plain_ms, "bound_ms": moe_bound[0], "bound_by": moe_bound[1],
+            "library_ms": None,
+        },
+    ]
 
 
 def _flash_build_report() -> None:
@@ -2207,7 +2567,7 @@ def _serving_stream(dev, times: dict, card_tests) -> dict:
     launches = ops.launch_counts()
     assert launches == {"jsaq_route": 0, "care_route": 0, "serve_route": 0,
                         "serve_slots": -(-n // chunk), "moe_route": 0,
-                        "flash_attention": 0}, launches
+                        "flash_attention": 0, **NO_BWD}, launches
     assert main.dropped == 0 and main.count > 0
     assert main.offered == main.completed + int(main.final_occupancy.sum())
 
@@ -2583,6 +2943,20 @@ def family_phase_only() -> None:
     print(json.dumps(family))
 
 
+def training_phase_only() -> None:
+    """Phase 1's build and phase 9 alone, for a short call on the card."""
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.kernels import _build
+
+    _build.build_all()
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    times: dict[str, float] = {}
+    kernels = _training_phase(dev, times, _card_tests())
+    print("times (s): " + json.dumps(times) + f" on {_card()}")
+    print(json.dumps(kernels))
+
+
 def _card_tests():
     """``tests/test_torch_cuda.py``, whose serve_slots cases and comparison
     with the dense backend phases 2 and 3 share (loaded by path)."""
@@ -2602,6 +2976,7 @@ def _card() -> str:
 
 
 def main() -> int:
+    t_main = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
         return 2
@@ -2797,8 +3172,8 @@ def main() -> int:
         wall = time.perf_counter() - t0
         main_launches = ops.launch_counts()
         assert main_launches == {"jsaq_route": 0, "care_route": 1, "serve_route": 0,
-                                 "serve_slots": 0, "moe_route": 0, "flash_attention": 0}, \
-            main_launches
+                                 "serve_slots": 0, "moe_route": 0, "flash_attention": 0,
+                                 **NO_BWD}, main_launches
         for c, x in enumerate((2, 3)):
             for res in grid[c]:
                 assert res.max_aq <= x - 1, f"Theorem 2.3 violated: {res.max_aq}"
@@ -2879,8 +3254,8 @@ def main() -> int:
     wall = time.perf_counter() - t0
     serve_launches = ops.launch_counts()
     assert serve_launches == {"jsaq_route": 0, "care_route": 0, "serve_route": 0,
-                              "serve_slots": 1, "moe_route": 0, "flash_attention": 0}, \
-        serve_launches
+                              "serve_slots": 1, "moe_route": 0, "flash_attention": 0,
+                              **NO_BWD}, serve_launches
     for res in served:
         assert res.dropped == 0, f"{res.dropped} requests dropped"
         assert res.offered == res.completed + res.dropped + int(res.final_occupancy.sum())
@@ -3090,7 +3465,10 @@ def main() -> int:
     flash_kernel = {**flash_kernel, **family,
                     "max_abs_err": max(flash_kernel["max_abs_err"], family["family_max_abs_err"])}
 
-    # -- 9. output ---------------------------------------------------------------
+    # -- 9. training ---------------------------------------------------------------
+    train_kernels = _training_phase(dev, times, card_tests)
+
+    # -- 10. output --------------------------------------------------------------
     kernels = [
         {
             "name": "care_route", "route": "cuda",
@@ -3127,7 +3505,9 @@ def main() -> int:
         },
         moe_kernel,
         flash_kernel,
+        *train_kernels,
     ]
+    times["total_s"] = time.perf_counter() - t_main
     print("times (s): " + json.dumps(times) + f" on {card}")
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -21,7 +21,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "kernels"
-KERNELS = ("jsaq_route", "care_route", "serve_route", "moe_route", "flash_attn")
+KERNELS = ("jsaq_route", "care_route", "serve_route", "moe_route", "flash_attn",
+           "moe_route_bwd", "flash_attn_bwd")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

@@ -167,3 +167,75 @@ def smem_bytes(dtype: torch.dtype, dh: int, dv: int) -> int:
     these widths (-1 for widths it refuses); builds the library if needed."""
     query = _lib("flash_attn", "flash_attn_smem_bytes", (_I, _I, _I))
     return query(int(dtype == torch.bfloat16), dh, dv)
+
+
+def flash_attention_bwd_cuda(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    out: torch.Tensor,
+    dout: torch.Tensor,
+    *,
+    scale: float,
+    causal: bool = True,
+    window: int | None = None,
+    softcap: float = 0.0,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The gradient of :func:`flash_attention_cuda` on the card; see
+    ``ref.flash_attention_bwd_ref``.  ``out`` is the forward's output and
+    ``dout`` its upstream gradient, both ``(B, S, H, dv)``; the inputs and
+    options are the forward's, which refuses what this refuses.  Returns
+    ``(dq, dk, dv)`` in the inputs' dtype, summed in float32.  An input off
+    a 16-byte boundary is first copied to one."""
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention_bwd_cuda needs a CUDA tensor, got {q.device}")
+    b, s, t, h, kvh, dh, dv = check_inputs(q, k, v)
+    check_window(window)
+    if softcap < 0:
+        raise ValueError(f"softcap must be >= 0, got {softcap}")
+    _check(out, "out", (b, s, h, dv), q.device, q.dtype)
+    _check(dout, "dout", (b, s, h, dv), q.device, q.dtype)
+    q, k, v, out, dout = (x if x.data_ptr() % 16 == 0 else x.clone()
+                          for x in (q, k, v, out, dout))
+    launch = _lib(
+        "flash_attn_bwd", "flash_attn_bwd_launch",
+        (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _F, _I,
+         _I, _P),
+    )
+    dq, dk, dv_ = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    stats = torch.empty((2, b * h * s), dtype=torch.float32, device=q.device)
+    with torch.cuda.device(q.device):
+        err = launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), dout.data_ptr(),
+            dq.data_ptr(), dk.data_ptr(), dv_.data_ptr(), stats[0].data_ptr(),
+            stats[1].data_ptr(), int(q.dtype == torch.bfloat16), b, s, t, h, kvh, dh, dv,
+            float(scale), float(softcap), int(causal),
+            window if causal and window is not None else 0,
+            torch.cuda.current_stream().cuda_stream,
+        )
+    _raise_on(err, "flash_attention_bwd")
+    flash_attention_bwd_cuda.launches += 1
+    return dq, dk, dv_
+
+
+flash_attention_bwd_cuda.launches = 0
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """:func:`flash_attention_cuda` with a gradient: the forward launches
+    the forward kernel and keeps q, k, v and the output; the backward
+    launches :func:`flash_attention_bwd_cuda`."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale: float, causal: bool, window, softcap: float):
+        kw = dict(scale=scale, causal=causal, window=window, softcap=softcap)
+        out = flash_attention_cuda(q, k, v, **kw)
+        ctx.save_for_backward(q, k, v, out)
+        ctx.kw = kw
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd_cuda(q, k, v, out, dout.contiguous(), **ctx.kw)
+        return dq, dk, dv, None, None, None, None

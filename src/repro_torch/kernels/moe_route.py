@@ -5,11 +5,14 @@ Pallas kernel ``moe_route_pallas`` (``repro/kernels/moe_route.py:89``) and
 the capacity positions the reference computes around it
 (``repro/models/ffn.py:110-114``): one launch returns the route, the
 per-expert counts and each (token, slot)'s position in its expert's
-buffer.  Like the routing bindings in :mod:`repro_torch.kernels.jsaq_route`,
-it checks device, dtype, shape and contiguity, allocates the outputs with
-``torch.empty``, launches on PyTorch's current stream, raises if the launch
-reports an error, and adds one to its ``launches`` count.  The library is
-built at first use.
+buffer.  :func:`moe_route_bwd_cuda` launches ``csrc/moe_route_bwd.cu``,
+the gradient of the combine weights with respect to the logits, and
+:class:`MoERouteFn` joins the two for autograd.  Like the routing bindings
+in :mod:`repro_torch.kernels.jsaq_route`, each binding checks device,
+dtype, shape and contiguity, allocates the outputs with ``torch.empty``,
+launches on PyTorch's current stream, raises if the launch reports an
+error, and adds one to its ``launches`` count.  The libraries are built at
+first use.
 
 :func:`moe_positions_tiled` replays the kernel's schedule for the
 positions in plain torch (warp ranks, the scan over warps, the prefix
@@ -148,6 +151,67 @@ def moe_route_cuda(
 
 moe_route_cuda.launches = 0
 
+
+
+def moe_route_bwd_cuda(
+    logits: torch.Tensor, idx: torch.Tensor, grad_w: torch.Tensor, *, gate_fn: str = "softmax"
+) -> torch.Tensor:
+    """The gradient of the router's combine weights with respect to the
+    ``(T, E)`` float32 logits on the card; see
+    ``ref.moe_route_weights_vjp_ref``.  ``idx`` is the forward's ``(T, k)``
+    int32 route, ``grad_w`` the ``(T, k)`` float32 upstream gradient.
+    Returns ``(T, E)`` float32."""
+    if logits.device.type != "cuda":
+        raise ValueError(f"moe_route_bwd_cuda needs a CUDA tensor, got {logits.device}")
+    if gate_fn not in GATE_FNS:
+        raise ValueError(f"unknown gate_fn {gate_fn!r}; expected one of {GATE_FNS}")
+    if logits.dim() != 2 or idx.dim() != 2:
+        raise ValueError(f"logits and idx must be 2-D, got {tuple(logits.shape)}, "
+                         f"{tuple(idx.shape)}")
+    dev = logits.device
+    t, e = logits.shape
+    k = idx.shape[1]
+    if t < 1 or not 1 <= e <= MAX_EXPERTS or not 1 <= k <= e:
+        raise ValueError(f"moe_route_bwd_cuda: no route for T={t} E={e} k={k}")
+    _check(logits, "logits", (t, e), dev, torch.float32)
+    _check(idx, "idx", (t, k), dev, torch.int32)
+    _check(grad_w, "grad_w", (t, k), dev, torch.float32)
+    launch = _lib("moe_route_bwd", "moe_route_bwd_launch", (_P, _P, _P, _P, _I, _I, _I, _I, _P))
+    dlogits = torch.empty((t, e), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        err = launch(logits.data_ptr(), idx.data_ptr(), grad_w.data_ptr(), dlogits.data_ptr(),
+                     t, e, k, int(gate_fn == "softmax"),
+                     torch.cuda.current_stream().cuda_stream)
+    _raise_on(err, "moe_route_bwd")
+    moe_route_bwd_cuda.launches += 1
+    return dlogits
+
+
+moe_route_bwd_cuda.launches = 0
+
+
+class MoERouteFn(torch.autograd.Function):
+    """``moe_route_cuda`` with a gradient: the forward is its one launch;
+    ``idx``, ``counts`` and ``pos`` take no gradient, and the weights' goes
+    to the float32 logits through ``moe_route_bwd_cuda`` (the bias reaches
+    only the argmax, so it takes none)."""
+
+    @staticmethod
+    def forward(ctx, logits, bias, top_k: int, gate_fn: str):
+        idx, weights, counts, pos = moe_route_cuda(logits, bias, top_k, gate_fn=gate_fn)
+        ctx.mark_non_differentiable(idx, counts, pos)
+        ctx.save_for_backward(logits, idx)
+        ctx.gate_fn = gate_fn
+        return idx, weights, counts, pos
+
+    @staticmethod
+    def backward(ctx, _g_idx, g_weights, _g_counts, _g_pos):
+        logits, idx = ctx.saved_tensors
+        if g_weights is None:
+            return None, None, None, None
+        d = moe_route_bwd_cuda(logits.to(torch.float32), idx, g_weights.contiguous(),
+                               gate_fn=ctx.gate_fn)
+        return d.to(logits.dtype), None, None, None
 
 def launch_floor_cuda() -> None:
     """Launch one empty block on the current stream: the floor any launch

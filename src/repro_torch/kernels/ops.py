@@ -7,7 +7,11 @@ hand-written kernel (bindings in :mod:`repro_torch.kernels.jsaq_route`,
 which either launches or raises --
 nothing on the CUDA path falls back to the plain version.  The kernels mask
 by bound, so no lane, domain or token padding is needed.  Only a kernel
-launch counts in :func:`launch_counts`.  The plain version of
+launch counts in :func:`launch_counts`.  :func:`moe_route` and
+:func:`flash_attention` carry a gradient: on a CUDA tensor that requires one
+they go through ``moe_route.MoERouteFn`` / ``flash_attn.FlashAttentionFn``,
+whose backward is a kernel too; on a CPU tensor autograd differentiates the
+plain version itself.  The plain version of
 :func:`serve_slots`, the serving engine's fused slot loop, is the engine's
 own per-slot loop, which the caller passes in.
 """
@@ -128,6 +132,8 @@ def moe_route(
     if not 1 <= top_k <= logits.shape[-1]:
         raise ValueError(f"top_k must be in [1, {logits.shape[-1]}], got {top_k}")
     if _route(logits, "moe_route"):
+        if torch.is_grad_enabled() and logits.requires_grad:
+            return _moe.MoERouteFn.apply(logits, bias, top_k, gate_fn)
         return _moe.moe_route_cuda(logits, bias, top_k, gate_fn=gate_fn)
     out = _ref.moe_route_ref(logits, bias, top_k, gate_fn)
     return (*out, _ref.moe_positions_ref(out[0], logits.shape[-1]))
@@ -150,6 +156,8 @@ def flash_attention(
     _flash.check_window(window)
     kw = dict(scale=scale, causal=causal, window=window, softcap=softcap)
     if _route(q, "flash_attention"):
+        if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
+            return _flash.FlashAttentionFn.apply(q, k, v, scale, causal, window, softcap)
         return _flash.flash_attention_cuda(q, k, v, **kw)
     return _ref.flash_attention_ref(q, k, v, **kw)
 
@@ -161,6 +169,8 @@ _KERNELS = {
     "serve_slots": _cuda.serve_slots_cuda,
     "moe_route": _moe.moe_route_cuda,
     "flash_attention": _flash.flash_attention_cuda,
+    "moe_route_bwd": _moe.moe_route_bwd_cuda,
+    "flash_attention_bwd": _flash.flash_attention_bwd_cuda,
 }
 
 

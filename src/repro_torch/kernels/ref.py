@@ -8,6 +8,9 @@ them on the card.  Integer and bool outputs are compared for equality;
 ``moe_route``'s float32 combine weights within rtol 1e-5 / atol 1e-6 (the
 JAX package's own tolerance for its router kernel); ``flash_attention``
 within 2e-5 in float32 and 2e-2 in bfloat16 (``tests/test_flash_kernel.py``).
+The two backward versions, :func:`flash_attention_bwd_ref` and
+:func:`moe_route_weights_vjp_ref`, are ``torch.autograd.grad`` of the forward
+versions; their kernels' tolerances are stated in ``tests/test_torch_cuda.py``.
 """
 from __future__ import annotations
 
@@ -336,3 +339,47 @@ def moe_positions_ref(idx: torch.Tensor, e: int) -> torch.Tensor:
     onehot = torch.nn.functional.one_hot(flat.long(), e).to(torch.int32)
     pos = torch.cumsum(onehot, dim=0, dtype=torch.int32) - onehot
     return torch.sum(pos * onehot, dim=1, dtype=torch.int32)
+
+
+def flash_attention_bwd_ref(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    dout: torch.Tensor,
+    *,
+    scale: float,
+    causal: bool = True,
+    window: int | None = None,
+    softcap: float = 0.0,
+):
+    """The gradient of :func:`flash_attention_ref` with respect to ``q``,
+    ``k`` and ``v`` for the upstream gradient ``dout`` ``(B, S, H, dv)``:
+    ``torch.autograd.grad`` of the forward version, so the fill ``-1e30``
+    blocks every masked score's gradient and a row with no key at all
+    spreads its ``dout`` over every value row as its uniform softmax does.
+    Returns ``(dq, dk, dv)`` in the inputs' dtypes."""
+    with torch.enable_grad():
+        leaves = [x.detach().requires_grad_(True) for x in (q, k, v)]
+        out = flash_attention_ref(*leaves, scale=scale, causal=causal, window=window,
+                                  softcap=softcap)
+        return torch.autograd.grad(out, leaves, dout)
+
+
+def moe_route_weights_vjp_ref(
+    logits: torch.Tensor, idx: torch.Tensor, grad_w: torch.Tensor, gate_fn: str = "softmax"
+) -> torch.Tensor:
+    """The gradient of :func:`moe_route_ref`'s ``(T, k)`` combine weights
+    with respect to the ``(T, E)`` float32 logits, for the upstream gradient
+    ``grad_w`` and the route ``idx`` the forward chose: the weights are the
+    chosen gates over ``(their sum + 1e-20)``, the gates the softmax (every
+    expert takes a share) or the sigmoid (only the chosen ones) of the
+    logits.  The selection bias reaches only the argmax and takes none.
+    Returns ``(T, E)`` float32."""
+    if gate_fn not in GATE_FNS:
+        raise ValueError(f"unknown gate_fn {gate_fn!r}; expected one of {GATE_FNS}")
+    with torch.enable_grad():
+        x = logits.detach().to(torch.float32).requires_grad_(True)
+        gates = torch.softmax(x, dim=1) if gate_fn == "softmax" else torch.sigmoid(x)
+        w = torch.gather(gates, 1, idx.long())
+        w = w / (w.sum(dim=1, keepdim=True) + 1e-20)
+        return torch.autograd.grad(w, x, grad_w.to(torch.float32))[0]

@@ -48,8 +48,8 @@ def zeros_init(shape, dtype: torch.dtype, device) -> torch.nn.Parameter:
 
 
 def _param(t: torch.Tensor) -> torch.nn.Parameter:
-    # Serving only: the router and attention kernels have no backward yet,
-    # so parameters carry no gradient (the training path is a later slice).
+    # Created without a gradient, so that serving records no graph;
+    # ``train.train_loop.init_state`` turns it on for the model it trains.
     return torch.nn.Parameter(t, requires_grad=False)
 
 
@@ -142,3 +142,48 @@ def activation(name: str):
     if name == "relu":
         return F.relu
     raise ValueError(name)
+
+
+# --------------------------------------------------------------------------
+# training
+# --------------------------------------------------------------------------
+
+
+class _GradDtypeBarrier(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        ctx.dtype = x.dtype
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, ct):
+        return ct.to(ctx.dtype)
+
+
+def grad_dtype_barrier(x: torch.Tensor) -> torch.Tensor:
+    """Identity forward; backward casts the cotangent to ``x.dtype``.
+
+    Placed at block boundaries, as the JAX package places it, so activation
+    gradients flow in the compute dtype.  PyTorch's autograd already hands
+    each input its own dtype's gradient, so this only states the contract;
+    outside a graph (serving) it returns ``x`` itself."""
+    if not (torch.is_grad_enabled() and x.requires_grad):
+        return x
+    return _GradDtypeBarrier.apply(x)
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor, final_cap: float = 0.0):
+    """Token-mean cross entropy in float32; labels < 0 are masked out."""
+    logits = logits.to(torch.float32)
+    if final_cap:
+        logits = softcap(logits, final_cap)
+    mask = (labels >= 0).to(torch.float32)
+    safe = torch.clamp(labels, min=0).long()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, safe[..., None])[..., 0]
+    nll = (logz - gold) * mask
+    return nll.sum() / torch.clamp(mask.sum(), min=1.0)
+
+
+def param_count(params: torch.nn.Module) -> int:
+    return int(sum(p.numel() for p in params.parameters()))

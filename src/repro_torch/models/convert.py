@@ -9,7 +9,10 @@ dotted name, splitting a stacked leaf on axis 0 into ``layers.<l>.<leaf>``
 (``enc_layers.<l>.<leaf>``), and refuses a tree whose leaves and the
 model's parameters do not match one to one in name, shape and dtype (the
 float32 leaves of a bfloat16 model, such as RWKV's ``w0`` and ``u`` and
-Mamba's ``a_log``, stay float32 on both sides).
+Mamba's ``a_log``, stay float32 on both sides).  :func:`train_state_from_jax`
+carries a whole JAX ``TrainState`` across the same way (parameters, AdamW's
+``m``, ``v`` and ``step``, the balancer and the step), so that both packages
+train from one state.
 """
 from __future__ import annotations
 
@@ -73,3 +76,36 @@ def params_from_jax(tree, cfg: ModelConfig, device=None) -> Model:
             )
         p.data.copy_(src)
     return model
+
+
+def train_state_from_jax(jstate, cfg: ModelConfig, device=None):
+    """A ``train.train_loop.TrainState`` on ``device`` (None means the CUDA
+    card) holding the values of the JAX ``TrainState`` ``jstate`` (its
+    leaves anything ``np.asarray`` takes); the parameters take gradients."""
+    from repro_torch.core.moe_balancer import BalancerState
+    from repro_torch.optim.adamw import OptState
+    from repro_torch.train.train_loop import TrainState, trainable
+
+    dev = _resolve_device(device)
+
+    def tree(t):
+        return {k: tree(v) for k, v in t.items()} if isinstance(t, dict) else np.asarray(t)
+
+    def scalar(x):
+        return torch.from_numpy(np.array(np.asarray(x))).to(dev)
+
+    params = trainable(params_from_jax(tree(jstate.params), cfg, dev))
+    names = [n for n, _ in params.named_parameters()]
+
+    def moments(t):
+        leaves = port_leaves(tree(t))
+        return {n: leaves[n].to(device=dev, dtype=torch.float32).contiguous() for n in names}
+
+    opt = OptState(m=moments(jstate.opt.m), v=moments(jstate.opt.v),
+                   step=scalar(jstate.opt.step))
+    bal = None
+    if jstate.balancer is not None:
+        b = jstate.balancer
+        bal = BalancerState(**{f: scalar(getattr(b, f)) for f in (
+            "load_approx", "true_load", "true_counts", "bias", "steps_since_sync")})
+    return TrainState(params=params, opt=opt, balancer=bal, step=scalar(jstate.step))

@@ -1,7 +1,6 @@
-"""Top-level model API for serving: init / prefill / decode, every family.
+"""Top-level model API: init / train loss / prefill / decode, every family.
 
-Port of ``repro/models/model.py`` for serving.  Parameter names follow the
-JAX tree::
+Port of ``repro/models/model.py``.  Parameter names follow the JAX tree::
 
   embed           (V, D)
   ln_in           RWKV's pre-norm (ssm family)
@@ -10,8 +9,7 @@ JAX tree::
   enc_layers      whisper's encoder blocks (stacked in the JAX package too)
   final_norm / enc_final_norm
   lm_head         (D, V) unless tied
-  mtp             the multi-token-prediction head (training only; held so
-                  that every JAX leaf has its tensor)
+  mtp             DeepSeek-V3's multi-token-prediction head (training only)
 
 The cache keeps the JAX layout, ``{"scan": {...}}`` of ``(L, ...)``
 tensors: for MLA ``{"ckv": (L, B, T, R), "k_rope": (L, B, T, dr)}`` plus
@@ -24,6 +22,8 @@ n)`` (float32), ``"tm_shift"`` and ``"cm_shift"`` ``(L, B, D)``.
 Entry points run on the CUDA card unless given ``device="cpu"``.
 """
 from __future__ import annotations
+
+import functools
 
 import torch
 from torch import nn
@@ -154,7 +154,7 @@ def _whisper_encode(params: Model, frames: torch.Tensor, cfg: ModelConfig):
     pos = common.sinusoidal_table(frames.shape[1], cfg.d_model, cdt, frames.device)
     x = frames.to(cdt) + pos[None]
     for p in params.enc_layers:
-        x = tfm.encoder_block(p, x, cfg)
+        x = tfm.run_layer(cfg, functools.partial(tfm.encoder_block, cfg=cfg), p, x)
     return tfm._norm(params.enc_final_norm, x, cfg)
 
 
@@ -167,6 +167,109 @@ def _whisper_embed_dec(params: Model, tokens: torch.Tensor, cfg: ModelConfig):
 
 def _stack(caches: list[dict]) -> dict:
     return {name: torch.stack([c[name] for c in caches]) for name in caches[0]}
+
+
+# --------------------------------------------------------------------------
+# training
+# --------------------------------------------------------------------------
+
+
+def _rwkv_train(p, x, cfg):
+    return tfm.rwkv_block(p, x, cfg)[0]
+
+
+def _hymba_train(p, x, cfg, window):
+    return tfm.hymba_block(p, x, cfg, window=window, mode="train")[0]
+
+
+def _lm_train(p, x, b, cfg, ctx, window, moe_layer):
+    x, _, counts = tfm.lm_block_full(p, x, cfg, ctx, window=window, bias=b, moe_layer=moe_layer)
+    return x, counts
+
+
+def _decoder_train(p, x, enc_out, cfg):
+    return tfm.decoder_block(p, x, enc_out, cfg, mode="train")[0]
+
+
+def _run_train_stack(params: Model, x: torch.Tensor, cfg: ModelConfig, ctx, bias):
+    """The layer stack of a training forward.  Returns ``(x, counts)``:
+    ``counts`` the ``(L_scan, E)`` float32 routed counts of a MoE model,
+    else None.  ``cfg.remat`` recomputes each scanned layer in the
+    backward (:func:`transformer.run_layer`)."""
+    fam = cfg.family
+    if fam == "ssm":
+        mla.refuse_ctx(ctx)
+        for p in params.layers:
+            x = tfm.run_layer(cfg, functools.partial(_rwkv_train, cfg=cfg), p, x)
+        return x, None
+    if fam == "hybrid":
+        mla.refuse_ctx(ctx)
+        for p, w in zip(params.layers, tfm.layer_windows(cfg)):
+            fn = functools.partial(_hymba_train, cfg=cfg, window=int(w))
+            x = tfm.run_layer(cfg, fn, p, x)
+        return x, None
+    if fam == "audio":
+        raise AssertionError("audio is handled in train_loss")
+    if cfg.moe and cfg.first_dense_layers:
+        for i in range(cfg.first_dense_layers):
+            x, _, _ = tfm.lm_block_full(
+                params.head_layers[str(i)], x, cfg, ctx, window=tfm.BIG_WINDOW, bias=None,
+                moe_layer=False,
+            )
+    if bias is None:
+        bias = _bias_zeros(cfg, x.device)
+    counts = []
+    for p, w, b in zip(params.layers, _windows(cfg), bias):
+        fn = functools.partial(_lm_train, cfg=cfg, ctx=ctx, window=int(w), moe_layer=cfg.moe)
+        x, c = tfm.run_layer(cfg, fn, p, x, b)
+        counts.append(c)
+    return x, (torch.stack(counts) if cfg.moe else None)
+
+
+def train_loss(params: Model, batch: dict, cfg: ModelConfig, ctx=None,
+               bias: torch.Tensor | None = None):
+    """Token-mean cross entropy of next-token prediction.
+
+    ``batch``: ``{"tokens", "labels"}`` ``(B, S)`` on the parameters' device
+    (labels < 0 are masked), plus whisper's ``"frames"``; ``bias``: the
+    ``(L_scan, E)`` CARE selection bias of a MoE model (None for zeros).
+    Returns ``(loss, aux)``: ``aux["counts"]`` the per-layer routed counts
+    (MoE) or None, ``aux["loss_main"]``, and with DeepSeek-V3's MTP head
+    ``aux["loss_mtp"]``, added to the loss with weight 0.3."""
+    if cfg.family == "audio":
+        mla.refuse_ctx(ctx)
+        return _whisper_train_loss(params, batch, cfg)
+    tokens, labels = batch["tokens"], batch["labels"]
+    x = embed_tokens(params, tokens, cfg)
+    x, counts = _run_train_stack(params, x, cfg, ctx, bias)
+    h_final = x
+    x = tfm._norm(params.final_norm, x, cfg)
+    loss = common.cross_entropy(lm_head(params, x, cfg), labels, cfg.final_softcap)
+    aux = {"counts": counts, "loss_main": loss}
+    if cfg.mtp:
+        mtp = params.mtp
+        nxt = embed_tokens(params, tokens, cfg)[:, 1:, :]
+        h = torch.cat(
+            [common.rms_norm(h_final[:, :-1, :], mtp.norm.scale, cfg.norm_eps), nxt], dim=-1
+        ) @ mtp.proj
+        h, _, _ = tfm.lm_block_full(mtp.block, h, cfg, ctx, window=tfm.BIG_WINDOW, bias=None,
+                                    moe_layer=False)
+        h = tfm._norm(params.final_norm, h, cfg)
+        mtp_loss = common.cross_entropy(lm_head(params, h, cfg), labels[:, 1:],
+                                        cfg.final_softcap)
+        aux["loss_mtp"] = mtp_loss
+        loss = loss + 0.3 * mtp_loss
+    return loss, aux
+
+
+def _whisper_train_loss(params: Model, batch: dict, cfg: ModelConfig):
+    enc_out = _whisper_encode(params, batch["frames"], cfg)
+    x = _whisper_embed_dec(params, batch["tokens"], cfg)
+    for p in params.layers:
+        x = tfm.run_layer(cfg, functools.partial(_decoder_train, cfg=cfg), p, x, enc_out)
+    x = tfm._norm(params.final_norm, x, cfg)
+    loss = common.cross_entropy(lm_head(params, x, cfg), batch["labels"])
+    return loss, {"counts": None, "loss_main": loss}
 
 
 # --------------------------------------------------------------------------

@@ -303,7 +303,9 @@ def mamba(p: Mamba, x: torch.Tensor, cfg: ModelConfig, state=None, conv_state=No
     the reference's step, so the same values), which leaves two device
     operations a step; the chunk's states are kept and contracted with
     ``c`` once after its loop.  The chunk bounds the transient memory to
-    a few ``(B, chunk, Di, N)`` float32 tensors whatever ``S`` is.
+    a few ``(B, chunk, Di, N)`` float32 tensors whatever ``S`` is.  With
+    grad enabled the chunk's states are a list that autograd can take
+    (``out=`` and ``+=`` would refuse it), the same values.
     """
     b, s, d = x.shape
     di = cfg.ssm_expand * d
@@ -326,10 +328,19 @@ def mamba(p: Mamba, x: torch.Tensor, cfg: ModelConfig, state=None, conv_state=No
         dt_c, x_c = dt[:, c0 : c0 + chunk], xif[:, c0 : c0 + chunk]
         da = torch.exp(dt_c[..., None] * a)  # (B, C, Di, N)
         dbx = (dt_c * x_c)[..., None] * bmat[:, c0 : c0 + chunk, None, :]  # (B, C, Di, N)
-        hs = torch.empty_like(da)
-        for t in range(da.shape[1]):
-            state = torch.mul(da[:, t], state, out=hs[:, t])
-            state += dbx[:, t]
+        if torch.is_grad_enabled():
+            # Training: autograd keeps every state anyway; the same two
+            # operations a step, without the writes into hs.
+            steps = []
+            for t in range(da.shape[1]):
+                state = da[:, t] * state + dbx[:, t]
+                steps.append(state)
+            hs = torch.stack(steps, dim=1)
+        else:
+            hs = torch.empty_like(da)
+            for t in range(da.shape[1]):
+                state = torch.mul(da[:, t], state, out=hs[:, t])
+                state += dbx[:, t]
         del da, dbx
         ys.append((hs * cmat[:, c0 : c0 + chunk, None, :]).sum(-1))
         state = state.clone()  # free the chunk's states

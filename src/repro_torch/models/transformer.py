@@ -11,13 +11,16 @@ loop over it and pass each layer's window as a Python int.  The ssm and
 audio families use LayerNorm (a :class:`Norm` with a bias), the others
 RMSNorm.
 
-Modes: "prefill" (returns the cache) and "decode" (one token, cache in /
-out).
+Modes: "train" (no cache), "prefill" (returns the cache) and "decode" (one
+token, cache in / out).  Each full-sequence block ends in
+``common.grad_dtype_barrier`` where the JAX package has it; :func:`run_layer`
+is ``scan_stack``'s ``remat``: ``torch.utils.checkpoint`` around a layer.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
+import torch.utils.checkpoint
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
@@ -157,6 +160,16 @@ class DecoderBlock(nn.Module):
 # --------------------------------------------------------------------------
 
 
+def run_layer(cfg: ModelConfig, fn, *args):
+    """``fn(*args)``; with ``cfg.remat`` and a graph being recorded, under
+    non-reentrant ``torch.utils.checkpoint``, so that the layer's
+    activations are recomputed in the backward instead of kept.  ``fn``
+    must not read loop variables late: bind them (``functools.partial``)."""
+    if cfg.remat and torch.is_grad_enabled():
+        return torch.utils.checkpoint.checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
+
+
 def _ffn_part(p: LMBlock, x, cfg: ModelConfig, ctx, bias, moe_layer: bool):
     h = _norm(p.ln2, x, cfg)
     if moe_layer:
@@ -196,7 +209,7 @@ def lm_block_full(
     if cfg.post_norms:
         a = _norm(p.ln1_post, a, cfg)
     x, counts = _ffn_part(p, x + a, cfg, ctx, bias, moe_layer)
-    return x, cache, counts
+    return common.grad_dtype_barrier(x), cache, counts
 
 
 def _zero_counts(cfg: ModelConfig, device):
@@ -231,7 +244,8 @@ def rwkv_block(p: RWKVBlock, x: torch.Tensor, cfg: ModelConfig, state: dict | No
     x = x + h
     h, cm_shift = ssm.rwkv_channel_mix(p.cm, _norm(p.ln2, x, cfg), cfg,
                                        shift_prev=st.get("cm_shift"))
-    return x + h, {"wkv": wkv, "tm_shift": tm_shift, "cm_shift": cm_shift}
+    new = {"wkv": wkv, "tm_shift": tm_shift, "cm_shift": cm_shift}
+    return common.grad_dtype_barrier(x + h), new
 
 
 def hymba_block(p: HymbaBlock, x: torch.Tensor, cfg: ModelConfig, *, window: int, mode: str,
@@ -239,7 +253,7 @@ def hymba_block(p: HymbaBlock, x: torch.Tensor, cfg: ModelConfig, *, window: int
     """Attention and Mamba on the same normed input, fused as ``0.5 *
     (rms(attn) + rms(ssm))``.  ``mode`` "prefill" returns the layer's cache
     ``{"k", "v", "ssm", "conv"}``; "decode" takes it (K and V written in
-    place) and returns the new one."""
+    place) and returns the new one; "train" returns None."""
     h = _norm(p.ln1, x, cfg)
     st = cache or {}
     if mode == "decode":
@@ -253,7 +267,9 @@ def hymba_block(p: HymbaBlock, x: torch.Tensor, cfg: ModelConfig, *, window: int
     fused = 0.5 * (common.rms_norm(a, p.attn_out_norm, cfg.norm_eps)
                    + common.rms_norm(s, p.ssm_out_norm, cfg.norm_eps))
     x = x + fused
-    x = x + ffn.dense_ffn(p.ffn, _norm(p.ln2, x, cfg), cfg)
+    x = common.grad_dtype_barrier(x + ffn.dense_ffn(p.ffn, _norm(p.ln2, x, cfg), cfg))
+    if mode == "train":
+        return x, None
     return x, {"ssm": ssm_state, "conv": conv_state, **(kv or {})}
 
 
@@ -262,7 +278,7 @@ def encoder_block(p: EncoderBlock, x: torch.Tensor, cfg: ModelConfig):
     a, _ = attention.attention_full(p.attn, h, cfg, window=BIG_WINDOW, causal=False,
                                     use_rope=False)
     x = x + a
-    return x + ffn.dense_ffn(p.ffn, _norm(p.ln2, x, cfg), cfg)
+    return common.grad_dtype_barrier(x + ffn.dense_ffn(p.ffn, _norm(p.ln2, x, cfg), cfg))
 
 
 def decoder_block(p: DecoderBlock, x: torch.Tensor, enc_out: torch.Tensor | None,
@@ -272,7 +288,7 @@ def decoder_block(p: DecoderBlock, x: torch.Tensor, enc_out: torch.Tensor | None
     output, dense FFN.  "prefill" attends ``enc_out`` through the kernel
     and returns the layer's cache ``{"k", "v", "cross_k", "cross_v"}``;
     "decode" attends the cached ``cross_k`` / ``cross_v`` (``enc_out`` is
-    not used) and writes K and V in place."""
+    not used) and writes K and V in place; "train" returns None."""
     st = cache or {}
     h = _norm(p.ln1, x, cfg)
     if mode == "decode":
@@ -290,7 +306,10 @@ def decoder_block(p: DecoderBlock, x: torch.Tensor, enc_out: torch.Tensor | None
         # The cross K / V come back as the call's cache, projected once.
         c, cross_kv = attention.attention_full(p.cross, h, cfg, window=BIG_WINDOW,
                                                kv_src=enc_out, causal=False, use_rope=False,
-                                               return_cache=True, cache_len=enc_out.shape[1])
+                                               return_cache=(mode == "prefill"),
+                                               cache_len=enc_out.shape[1])
     x = x + c
-    x = x + ffn.dense_ffn(p.ffn, _norm(p.ln2, x, cfg), cfg)
+    x = common.grad_dtype_barrier(x + ffn.dense_ffn(p.ffn, _norm(p.ln2, x, cfg), cfg))
+    if mode == "train":
+        return x, None
     return x, {**(kv or {}), "cross_k": cross_kv["k"], "cross_v": cross_kv["v"]}

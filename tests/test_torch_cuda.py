@@ -16,7 +16,16 @@ running mean and m2, within 1e-6 / 2e-5 relative of the dense stream on
 the CPU (``STREAM_MEAN_RTOL``, ``STREAM_M2_RTOL``), since each slot's
 squared deviations are summed in the kernel's order.  The per-request
 dispatcher and ``dispatch_sim`` launch no kernel; they are held card ==
-CPU on the same workload or draws, every field equal.  Where there is no
+CPU on the same workload or draws, every field equal.  The two backward
+kernels of training: ``flash_attention``'s dq, dk and dv against
+``ref.flash_attention_bwd_ref`` within ``FLASH_BWD_TOL`` of the largest
+of the three: 1e-4 in float32, 2e-2 in bfloat16, whose reference rounds p
+and the products to bfloat16 where the kernel sums in float32; and
+``moe_route``'s logits gradient against ``ref.moe_route_weights_vjp_ref``
+within atol 1e-6 / rtol 1e-5 (softmax sums in another order); a train
+step on the card against the same step on the CPU (float32, reduced
+configs), every float within 1e-4 of its leaf's largest magnitude and the
+routed counts equal (``train_step_card_vs_cpu``).  Where there is no
 card, each test skips with a reason.
 """
 import dataclasses
@@ -521,6 +530,200 @@ def _moe_equal(got, logits, bias, k: int, gate_fn: str) -> None:
     np.testing.assert_allclose(got[1].cpu().numpy(), weights.cpu().numpy(), rtol=1e-5, atol=1e-6)
 
 
+# The backward kernels' cases, here and in chip_smoke.py's phase 9: name ->
+# (B, S, T, H, KVH, dh, dv, dtype, options).  SmolLM-135M's training shape
+# at B = 1; Gemma2's dh 256 with its window and softcap, and a window that
+# masks; Hymba's GQA group of 5 with its local window; Whisper's encoder
+# and cross-attention (non-causal, S != T); float32; odd float32 widths;
+# S = 1; rows with no key (causal, S > T - 1 + window).
+FLASH_BWD_CASES = {
+    "smollm_path": (1, 2048, 2048, 9, 3, 64, 64, "bfloat16", dict(causal=True)),
+    "gemma2_dh256": (1, 1024, 1024, 16, 8, 256, 256, "bfloat16",
+                     dict(causal=True, window=4096, softcap=50.0)),
+    "gemma2_window_masks": (1, 600, 600, 4, 2, 256, 256, "bfloat16",
+                            dict(causal=True, window=100, softcap=50.0)),
+    "hymba_gqa5_local": (1, 1536, 1536, 25, 5, 64, 64, "bfloat16",
+                         dict(causal=True, window=1024)),
+    "whisper_encoder": (1, 1500, 1500, 12, 12, 64, 64, "bfloat16", dict(causal=False)),
+    "whisper_cross": (2, 432, 1500, 12, 12, 64, 64, "bfloat16", dict(causal=False)),
+    "float32": (2, 512, 512, 9, 3, 64, 64, "float32", dict(causal=True)),
+    "float32_window_softcap": (1, 300, 300, 4, 2, 256, 256, "float32",
+                               dict(causal=True, window=100, softcap=50.0)),
+    "float32_odd_widths": (2, 200, 160, 4, 2, 36, 44, "float32", dict(causal=False)),
+    "s1": (2, 1, 64, 4, 2, 64, 64, "float32", dict(causal=True)),
+    "s1_bf16": (3, 1, 70, 4, 4, 128, 128, "bfloat16", dict(causal=False)),
+    "rows_with_no_key": (2, 300, 100, 4, 2, 64, 64, "float32", dict(causal=True, window=50)),
+    "rows_with_no_key_bf16": (1, 300, 100, 4, 2, 64, 64, "bfloat16",
+                              dict(causal=True, window=50)),
+}
+FLASH_BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+
+
+def flash_bwd_inputs(case: str, dev, seed: int = 0):
+    """``(q, k, v, dout, kw)`` of a case on ``dev``, from a seeded
+    generator; ``kw`` holds the scale and the options."""
+    b, s, t, h, kvh, dh, dv, dtype, kw = FLASH_BWD_CASES[case]
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    dt = getattr(torch, dtype)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(dt)
+
+    return (rnd(b, s, h, dh), rnd(b, t, kvh, dh), rnd(b, t, kvh, dv), rnd(b, s, h, dv),
+            dict(scale=dh ** -0.5, **kw))
+
+
+def flash_bwd_vs_plain(q, k, v, dout, kw) -> float:
+    """``flash_attention_bwd_cuda`` after the forward kernel against
+    ``ref.flash_attention_bwd_ref`` on the same card tensors; returns the
+    largest error over the three gradients relative to the largest
+    magnitude of the three, and fails past ``FLASH_BWD_TOL``.  (Relative to
+    the call's, not each gradient's own: a query that sees one key has p =
+    1 and a dq of exactly 0 in the reference, but of rounding noise, the
+    difference of two equal dot products, in the kernel.)"""
+    from repro_torch.kernels import flash_attn
+
+    out = flash_attn.flash_attention_cuda(q, k, v, **kw)
+    got = flash_attn.flash_attention_bwd_cuda(q, k, v, out, dout, **kw)
+    want = tref.flash_attention_bwd_ref(q, k, v, dout, **kw)
+    scale = max(max(float(w.float().abs().max()) for w in want), 1e-30)
+    err = 0.0
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert g.shape == w.shape and g.dtype == w.dtype, name
+        e = float((g.float() - w.float()).abs().max()) / scale
+        assert e <= FLASH_BWD_TOL[q.dtype], (name, e, tuple(q.shape), kw)
+        err = max(err, e)
+    return err
+
+
+# name -> (T, E, k, gate, all-tied logits): DeepSeek-V2's prefill shape and
+# V3's (sigmoid gates), one token, and all-tied batches.
+MOE_BWD_CASES = {
+    "deepseek_v2": (2048, 160, 6, "softmax", False),
+    "deepseek_v3": (2048, 256, 8, "sigmoid", False),
+    "t1": (1, 160, 6, "softmax", False),
+    "all_ties": (64, 160, 6, "softmax", True),
+    "all_ties_sigmoid": (64, 256, 8, "sigmoid", True),
+}
+
+
+def moe_bwd_inputs(case: str, dev, seed: int = 0):
+    """``(logits, idx, grad_w, gate)``: the forward kernel's route of the
+    case's logits (bias 0) and a seeded upstream gradient."""
+    from repro_torch.kernels import moe_route
+
+    t, e, k, gate, ties = MOE_BWD_CASES[case]
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    logits = (torch.zeros((t, e), device=dev) if ties
+              else torch.randn((t, e), generator=gen, device=dev))
+    idx = moe_route.moe_route_cuda(logits, torch.zeros((e,), device=dev), k, gate_fn=gate)[0]
+    return logits, idx, torch.randn((t, k), generator=gen, device=dev), gate
+
+
+def moe_bwd_vs_plain(logits, idx, grad_w, gate) -> float:
+    """``moe_route_bwd_cuda`` against ``ref.moe_route_weights_vjp_ref``;
+    returns the max abs error."""
+    from repro_torch.kernels import moe_route
+
+    got = moe_route.moe_route_bwd_cuda(logits, idx, grad_w, gate_fn=gate)
+    want = tref.moe_route_weights_vjp_ref(logits, idx, grad_w, gate)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
+    return float((got - want).abs().max())
+
+
+# One train step on the card against the CPU: (arch, sync, microbatches).
+TRAIN_STEP_CASES = [("smollm-135m", False, 1), ("smollm-135m", True, 2),
+                    ("deepseek-v2-236b", False, 1), ("deepseek-v2-236b", True, 1),
+                    ("deepseek-v2-236b", False, 2), ("deepseek-v2-236b", True, 2)]
+# AdamW's eps is 1e-4 in these steps: at 1e-8 the first update g / (|g| +
+# eps) is the sign of any gradient above ~1e-8, so float32 noise in a
+# gradient of that size (cuBLAS and the kernels sum in other orders) would
+# move its parameter by a tenth of lr.
+TRAIN_STEP_OPT = dict(lr=1e-2, warmup_steps=1, total_steps=4, eps=1e-4)
+
+
+def state_to(state, dev):
+    """A copy of a ``TrainState`` on ``dev``, sharing no storage with it."""
+    import copy
+
+    from repro_torch.core import moe_balancer
+    from repro_torch.optim import adamw
+    from repro_torch.train import train_loop
+
+    def move(t):
+        return t.to(dev, copy=True)
+
+    opt = adamw.OptState(m={n: move(t) for n, t in state.opt.m.items()},
+                         v={n: move(t) for n, t in state.opt.v.items()},
+                         step=move(state.opt.step))
+    bal = state.balancer
+    if bal is not None:
+        bal = moe_balancer.BalancerState(**{
+            f.name: move(getattr(bal, f.name)) for f in dataclasses.fields(bal)})
+    return train_loop.TrainState(params=copy.deepcopy(state.params).to(dev), opt=opt,
+                                 balancer=bal, step=move(state.step))
+
+
+def train_step_card_vs_cpu(dev, arch: str, sync: bool, micro: int, steps: int = 2) -> dict:
+    """``steps`` train steps of the reduced ``arch`` (float32; DeepSeek with
+    the CARE balancer under ET-2) from one state on the card and on the CPU,
+    on the data pipeline's batches.  Asserts the loss, ``grad_norm``,
+    ``lr``, every parameter, ``m``, ``v`` and the balancer within 1e-4 of
+    each leaf's largest magnitude, the trigger and the routed counts equal,
+    and the card's backward launches (one ``flash_attention_bwd`` a GQA
+    layer, one ``moe_route_bwd`` a MoE layer, per microbatch).  Returns the
+    largest difference and the card's launch counts."""
+    from repro_torch.configs.base import CareConfig
+    from repro_torch.data import pipeline
+    from repro_torch.optim import adamw
+    from repro_torch.train import train_loop
+
+    cfg = get_config(arch).reduced()
+    if cfg.moe:
+        cfg = dataclasses.replace(cfg, care=CareConfig(enabled=True, comm="et", x=2))
+    cpu = train_loop.init_state(torch.Generator().manual_seed(0), cfg, device="cpu")
+    card = state_to(cpu, dev)
+    opt = adamw.OptimConfig(**TRAIN_STEP_OPT)
+    step = train_loop.make_train_step(cfg, opt, sync=sync, microbatches=micro)
+    data = pipeline.DataConfig(vocab_size=cfg.vocab_size, seq_len=16, global_batch=4)
+    worst = 0.0
+
+    def close(got, want, label):
+        nonlocal worst
+        got, want = got.detach().double().cpu(), want.detach().double()
+        scale = max(float(want.abs().max()), 1e-30)
+        err = float((got - want).abs().max()) / scale
+        assert err <= 1e-4, (label, err)
+        worst = max(worst, err)
+
+    tops.reset_launch_counts()
+    for i in range(steps):
+        batch = pipeline.global_batch_at(i, data)
+        card, cm = step(card, batch)
+        cpu, pm = step(cpu, batch)
+        for key in ("loss", "grad_norm", "lr"):
+            close(cm[key], pm[key], f"step {i} {key}")
+        assert bool(cm["sync_trigger"]) == bool(pm["sync_trigger"])
+        cparams = dict(card.params.named_parameters())
+        for name, p in cpu.params.named_parameters():
+            close(cparams[name], p, f"step {i} {name}")
+            close(card.opt.m[name], cpu.opt.m[name], f"step {i} m {name}")
+            close(card.opt.v[name], cpu.opt.v[name], f"step {i} v {name}")
+        if cfg.moe:
+            _eq(card.balancer.true_counts.cpu().numpy(), cpu.balancer.true_counts.numpy())
+            for f in ("load_approx", "true_load", "bias"):
+                close(getattr(card.balancer, f), getattr(cpu.balancer, f), f"balancer {f}")
+    torch.cuda.synchronize()
+    launches = tops.launch_counts()
+    n_gqa = 0 if cfg.use_mla else cfg.num_layers
+    n_moe = tmodel.num_scanned_layers(cfg) if cfg.moe else 0
+    assert launches["flash_attention_bwd"] == n_gqa * steps * micro, launches
+    assert launches["flash_attention"] == n_gqa * steps * micro, launches
+    assert launches["moe_route_bwd"] == n_moe * steps * micro, launches
+    assert launches["moe_route"] == n_moe * steps * micro, launches
+    return {"max_rel_err": worst, "launches": launches}
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -615,7 +818,8 @@ class TestOnCard:
         fused = slotted_sim.simulate_grid([0, 1], static, cells, device=cuda_device)
         assert tops.launch_counts() == {"jsaq_route": 0, "care_route": 1, "serve_route": 0,
                                         "serve_slots": 0,
-                                        "moe_route": 0, "flash_attention": 0}
+                                        "moe_route": 0, "flash_attention": 0,
+                                        "moe_route_bwd": 0, "flash_attention_bwd": 0}
         dense = slotted_sim.simulate_grid(
             [0, 1], slotted_sim.StaticConfig(**{**static.__dict__, "route_backend": "dense"}),
             cells, device=cuda_device,
@@ -731,7 +935,8 @@ class TestOnCard:
         fused = serve_engine.serve_grid([0, 1], static, cells, device=cuda_device)
         assert tops.launch_counts() == {"jsaq_route": 0, "care_route": 0, "serve_route": 0,
                                         "serve_slots": 1,
-                                        "moe_route": 0, "flash_attention": 0}
+                                        "moe_route": 0, "flash_attention": 0,
+                                        "moe_route_bwd": 0, "flash_attention_bwd": 0}
         dense_cells = [
             serve_engine.ServeConfig(**{**c.__dict__, "route_backend": "dense"}) for c in cells
         ]
@@ -878,7 +1083,8 @@ class TestOnCard:
         n_moe = tmodel.num_scanned_layers(cfg)
         assert tops.launch_counts() == {"jsaq_route": 0, "care_route": 0, "serve_route": 0,
                                         "serve_slots": 0,
-                                        "moe_route": 2 * n_moe, "flash_attention": 0}
+                                        "moe_route": 2 * n_moe, "flash_attention": 0,
+                                        "moe_route_bwd": 0, "flash_attention_bwd": 0}
         assert bool(torch.isfinite(logits).all()) and bool(torch.isfinite(logits2).all())
         # The same weights on the CPU take the plain router.  Both run in
         # float32 (no TF32); cuBLAS and the CPU sum in other orders.
@@ -1045,7 +1251,8 @@ class TestOnCard:
             n_flash = cfg.encoder_layers + 2 * cfg.num_layers
         assert tops.launch_counts() == {"jsaq_route": 0, "care_route": 0, "serve_route": 0,
                                         "serve_slots": 0, "moe_route": 0,
-                                        "flash_attention": n_flash}
+                                        "flash_attention": n_flash,
+                                        "moe_route_bwd": 0, "flash_attention_bwd": 0}
         want, want_cache = tmodel.prefill(cpu, batch, cfg, cache_len=s + 4)
         np.testing.assert_allclose(logits.cpu().numpy(), want.numpy(), rtol=1e-4, atol=1e-4)
         want2, _ = tmodel.decode_step(cpu, nxt.cpu(), want_cache, s, cfg)
@@ -1069,9 +1276,57 @@ class TestOnCard:
         torch.cuda.synchronize()
         assert tops.launch_counts() == {"jsaq_route": 0, "care_route": 0, "serve_route": 0,
                                         "serve_slots": 0,
-                                        "moe_route": 0, "flash_attention": cfg.num_layers}
+                                        "moe_route": 0, "flash_attention": cfg.num_layers,
+                                        "moe_route_bwd": 0, "flash_attention_bwd": 0}
         assert bool(torch.isfinite(logits).all()) and bool(torch.isfinite(logits2).all())
         cpu = tmodel.Model(cfg, device="cpu")
         cpu.load_state_dict({n: p.cpu() for n, p in params.state_dict().items()})
         want, _ = tmodel.prefill(cpu, {"tokens": tokens.cpu()}, cfg, cache_len=44)
         np.testing.assert_allclose(logits.cpu().numpy(), want.numpy(), rtol=1e-3, atol=1e-4)
+
+
+@pytest.mark.cuda
+class TestTrainingOnCard:
+    @pytest.mark.parametrize("case", list(FLASH_BWD_CASES))
+    def test_flash_attention_bwd_kernel(self, cuda_device, case):
+        q, k, v, dout, kw = flash_bwd_inputs(case, cuda_device)
+        before = tops.launch_counts()["flash_attention_bwd"]
+        flash_bwd_vs_plain(q, k, v, dout, kw)
+        torch.cuda.synchronize()
+        assert tops.launch_counts()["flash_attention_bwd"] == before + 1
+
+    def test_flash_attention_autograd_goes_through_both_kernels(self, cuda_device):
+        q, k, v, dout, kw = flash_bwd_inputs("float32", cuda_device)
+        q, k, v = (x.requires_grad_(True) for x in (q, k, v))
+        tops.reset_launch_counts()
+        out = tops.flash_attention(q, k, v, **kw)
+        got = torch.autograd.grad(out, (q, k, v), dout)
+        torch.cuda.synchronize()
+        assert tops.launch_counts()["flash_attention"] == 1
+        assert tops.launch_counts()["flash_attention_bwd"] == 1
+        want = tref.flash_attention_bwd_ref(q, k, v, dout, **kw)
+        for g, w in zip(got, want):
+            torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-4)
+
+    @pytest.mark.parametrize("case", list(MOE_BWD_CASES))
+    def test_moe_route_bwd_kernel(self, cuda_device, case):
+        before = tops.launch_counts()["moe_route_bwd"]
+        moe_bwd_vs_plain(*moe_bwd_inputs(case, cuda_device))
+        torch.cuda.synchronize()
+        assert tops.launch_counts()["moe_route_bwd"] == before + 1
+
+    def test_moe_route_autograd_goes_through_both_kernels(self, cuda_device):
+        logits, _, gw, gate = moe_bwd_inputs("deepseek_v2", cuda_device)
+        logits.requires_grad_(True)
+        tops.reset_launch_counts()
+        idx, w, counts, pos = tops.moe_route(logits, torch.zeros(160, device=cuda_device), 6)
+        assert not (idx.requires_grad or counts.requires_grad or pos.requires_grad)
+        (got,) = torch.autograd.grad(w, logits, gw)
+        torch.cuda.synchronize()
+        assert tops.launch_counts()["moe_route"] == tops.launch_counts()["moe_route_bwd"] == 1
+        want = tref.moe_route_weights_vjp_ref(logits.detach(), idx, gw, gate)
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
+
+    @pytest.mark.parametrize("arch,sync,micro", TRAIN_STEP_CASES)
+    def test_train_step_card_equals_cpu(self, cuda_device, arch, sync, micro):
+        train_step_card_vs_cpu(cuda_device, arch, sync, micro)

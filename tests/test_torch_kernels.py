@@ -182,7 +182,8 @@ class TestDispatch:
             tref.flash_attention_ref(q, k, v, scale=0.5).numpy())
         assert tops.launch_counts() == {"jsaq_route": 0, "care_route": 0, "serve_route": 0,
                                         "serve_slots": 0, "moe_route": 0,
-                                        "flash_attention": 0}
+                                        "flash_attention": 0,
+                                        "moe_route_bwd": 0, "flash_attention_bwd": 0}
 
     def test_kernel_binding_refuses_cpu_tensors(self):
         q = torch.zeros((2, 5), dtype=torch.int32)
