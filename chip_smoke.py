@@ -15,7 +15,9 @@ own failure):
    build time and the compiler's register and spill report; for each
    instance of the two flash kernels (bf16 on the tensor cores for dh, dv
    in {64, 128, 256}; float32 on the CUDA cores) its registers, spills
-   and dynamic shared memory; and the launch floor (an empty block with
+   and dynamic shared memory, and the same for the backward's D pass, its
+   bf16 dq and dk/dv kernels (``wgmma``) and its float32 pair; and the
+   launch floor (an empty block with
    the queue filled) that phases 2 and 7 print beside their kernels.
 2. Hold each kernel against its plain PyTorch version on the card, on the
    same inputs, with exact equality (outputs are int32, bool, or float32
@@ -265,8 +267,10 @@ own failure):
    64, causal, bf16), Gemma2's dh 256 with window 4096 and softcap 50 (S
    1024) and a window that masks, Hymba's GQA 5 local, Whisper's
    non-causal encoder (S = T = 1500) and cross-attention (S 432, T 1500),
-   float32, odd float32 widths, S = 1 and rows with no key, within 2e-2
-   (bf16) and 1e-4 (float32) of the largest of dq, dk and dv;
+   float32, odd float32 widths, S = 1, rows with no key and dh 128 with a
+   window over ragged tiles, within 2e-2 (bf16) and 1e-4 (float32) of the
+   largest of dq, dk and dv, and two calls equal bit for bit at SmolLM's
+   and Gemma2's dh 256 shapes;
    ``moe_route_bwd`` at DeepSeek-V2's (T 2048, E 160, k 6, softmax) and
    V3's (E 256, k 8, sigmoid) shapes, T = 1 and all-tied batches.  Then
    two train steps on the card against the same steps on the CPU
@@ -285,7 +289,10 @@ own failure):
    step, tokens/s, peak memory, a profiled step's device busy share and
    the backward kernel's share, AdamW's share (CUDA events), and the
    backward kernel at the path's shape (layer 0's q/k/v, B 8) beside its
-   bound, its plain version and SDPA's own backward.  Then
+   bound (and bound / kernel, TFLOP/s), its plain version, SDPA's own
+   backward and the CUDA-core design's time, each of its three launches'
+   device time (the D pass's share), and the forward there with and
+   without its lse.  Then
    ``moe_route_bwd``'s time at DeepSeek-V2's shape, and
    ``repro_torch.examples.train_moe_care`` as a subprocess at
    ``tests/test_examples.py``'s sizes (exit 0, "[done]", one
@@ -829,6 +836,49 @@ def slots_ab(src: str, reps: int = 5, mode: str = "fixed", lanes: bool = True) -
     ms = _time_ms(fn, reps)
     print(json.dumps({"src": src, "mode": mode, "lanes": lanes, "card": _card(),
                       "serve_slots_ms": ms, "us_a_slot": ms / t_end * 1e3}))
+
+
+# flash_bwd_ab's shapes, bf16: SmolLM-135M's training shape (B 8), Gemma2's
+# dh 256 with its window and softcap, and dh 128 at GQA 2.
+FLASH_BWD_AB = [
+    ("smollm_path", (8, 2048, 2048, 9, 3, 64), dict(causal=True)),
+    ("gemma2_dh256", (1, 4096, 4096, 16, 8, 256), dict(causal=True, window=4096, softcap=50.0)),
+    ("dh128", (2, 2048, 2048, 16, 8, 128), dict(causal=True)),
+]
+
+
+def flash_bwd_ab(src: str, reps: int = 20) -> None:
+    """Time the bf16 ``flash_attention_bwd_cuda`` of the package under
+    ``src`` (this or another checkout's ``src`` directory) at
+    ``FLASH_BWD_AB``'s shapes by CUDA events, with each launch's device time
+    from a profile at SmolLM's shape, and print one JSON line.  Run on the
+    card from this checkout's root, one process per tree, e.g. parent,
+    change, change, parent::
+
+        python3 -c 'import chip_smoke; chip_smoke.flash_bwd_ab("path/to/src")'
+    """
+    sys.path.insert(0, str(Path(src).resolve()))
+    from repro_torch.kernels import flash_attn
+
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    out = {"src": src, "card": _card()}
+    for name, (b, s, t, h, kvh, d), opts in FLASH_BWD_AB:
+        q, dout = (torch.randn(b, s, h, d, generator=gen, device=dev).to(torch.bfloat16)
+                   for _ in range(2))
+        k, v = (torch.randn(b, t, kvh, d, generator=gen, device=dev).to(torch.bfloat16)
+                for _ in range(2))
+        kw = dict(scale=d ** -0.5, **opts)
+        o, lse = flash_attn.flash_attention_cuda(q, k, v, return_lse=True, **kw)
+
+        def call():
+            return flash_attn.flash_attention_bwd_cuda(q, k, v, o, dout, lse, **kw)
+
+        out[name] = {"ms": _time_ms(call, reps)}
+        if name == "smollm_path":
+            out[name]["device_us"] = _bwd_kernel_us(call)
+    print(json.dumps(out))
 
 
 def _moe_bound(t: int, e: int, k: int, logit_bytes: int) -> tuple[float, str]:
@@ -1763,15 +1813,24 @@ def _family_serving(dev, times: dict) -> dict:
             "family_shapes": shapes}
 
 
+def _flash_bwd_flop(q, k, v, causal: bool, window) -> int:
+    """flash_attention's backward work: 2 (3 dh + 2 dv) FLOP per attended
+    (query, key) pair and head, the five products (the scores recomputed,
+    dp, dv, dk and dq)."""
+    b, s, h, dh = q.shape
+    t, dv = k.shape[1], v.shape[3]
+    return 2 * (3 * dh + 2 * dv) * b * h * _attn_pairs(s, t, causal, window)
+
+
 def _flash_bwd_bound(q, k, v, causal: bool, window) -> tuple[float, str]:
     """flash_attention's backward bound: q, k, v, the output and its
-    gradient read once, dq, dk and dv written once, against 2 (3 dh + 2 dv)
-    FLOP per attended (query, key) pair and head (the scores recomputed, dp,
-    dv, dk and dq) on the tensor cores (bf16) or the CUDA cores (float32)."""
+    gradient read once, dq, dk and dv written once, against
+    ``_flash_bwd_flop`` on the tensor cores (bf16) or the CUDA cores
+    (float32)."""
     b, s, h, dh = q.shape
     t, kvh, dv = k.shape[1], k.shape[2], v.shape[3]
     n_bytes = q.element_size() * 2 * (b * s * h * (dh + dv) + b * t * kvh * (dh + dv))
-    n_ops = 2 * (3 * dh + 2 * dv) * b * h * _attn_pairs(s, t, causal, window)
+    n_ops = _flash_bwd_flop(q, k, v, causal, window)
     rate = BF16_TENSOR_FLOP_PER_S if q.dtype == torch.bfloat16 else F32_FLOP_PER_S
     t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_ops / rate
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
@@ -1814,10 +1873,27 @@ def _plain_guard(ref) -> tuple[dict, callable]:
     return calls, undo
 
 
+def _bwd_kernel_us(call) -> dict:
+    """Device us a call of each kernel that ``call`` (one backward) launches,
+    by name, from a profile of 5 calls; empty if the profiler saw no device
+    time (as in a process that has profiled before)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    call()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(5):
+            call()
+        torch.cuda.synchronize()
+    return {ev.key.split("<")[0].split("::")[-1]: ev.self_device_time_total / 5
+            for ev in prof.key_averages()
+            if ev.device_type == torch.autograd.DeviceType.CUDA and ev.self_device_time_total}
+
+
 def _profile_train_step(step_fn, state, batch, step_ms: float) -> dict:
     """One profiled train step (device activity only): device busy time
-    against the unprofiled step, the backward flash kernels' and AdamW's
-    shares of the step."""
+    against the unprofiled step, the backward flash kernels' share of the
+    step and each one's device us a launch (``bwd_kernels``)."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -1829,7 +1905,7 @@ def _profile_train_step(step_fn, state, batch, step_ms: float) -> dict:
     busy_us = sum(ev.self_device_time_total for ev in device)
     if busy_us == 0:
         print("phase 9 profile: the profiler saw no device time; busy share not measured")
-        return {"busy_share": None, "bwd_share": None}
+        return {"busy_share": None, "bwd_share": None, "bwd_kernels": {}}
     device.sort(key=lambda ev: ev.self_device_time_total, reverse=True)
     bwd_us = sum(ev.self_device_time_total for ev in device if "bwd_d" in ev.key)
     fwd_us = sum(ev.self_device_time_total for ev in device
@@ -1841,7 +1917,9 @@ def _profile_train_step(step_fn, state, batch, step_ms: float) -> dict:
           f"operations; top: " + "; ".join(
               f"{ev.key[:50]} {ev.self_device_time_total / 1e3:.2f} ms x{ev.count}"
               for ev in device[:8]))
-    return {"busy_share": busy_us / 1e3 / step_ms, "bwd_share": bwd_us / 1e3 / step_ms}
+    return {"busy_share": busy_us / 1e3 / step_ms, "bwd_share": bwd_us / 1e3 / step_ms,
+            "bwd_kernels": {ev.key.split("<")[0].split("::")[-1]: ev.self_device_time_total
+                            / ev.count for ev in device if "bwd_d" in ev.key}}
 
 
 def _training_phase(dev, times: dict, card_tests) -> list:
@@ -1878,6 +1956,9 @@ def _training_phase(dev, times: dict, card_tests) -> list:
         print(f"phase 9 flash_attention_bwd {case} {card_tests.FLASH_BWD_CASES[case][:8]} "
               f"{kw}: largest error / largest of dq, dk, dv {err:.3g} (at most "
               f"{card_tests.FLASH_BWD_TOL[q.dtype]})")
+    for case in ("smollm_path", "gemma2_dh256"):
+        card_tests.flash_bwd_repeat_equal(*card_tests.flash_bwd_inputs(case, dev))
+        print(f"phase 9 flash_attention_bwd {case}: two calls give equal dq, dk, dv bits")
     del q, k, v, dout
     for case in card_tests.MOE_BWD_CASES:
         err = card_tests.moe_bwd_vs_plain(*card_tests.moe_bwd_inputs(case, dev))
@@ -1979,11 +2060,16 @@ def _training_phase(dev, times: dict, card_tests) -> list:
     one = card_tests.flash_bwd_vs_plain(q[:1].contiguous(), k[:1].contiguous(),
                                         v[:1].contiguous(), dout[:1].contiguous(), kw)
     flash_err = max(flash_err, one)
-    out = flash_attn.flash_attention_cuda(q, k, v, **kw)
-    bwd_ms = _time_ms(lambda: flash_attn.flash_attention_bwd_cuda(q, k, v, out, dout, **kw),
+    out, lse = flash_attn.flash_attention_cuda(q, k, v, return_lse=True, **kw)
+    bwd_ms = _time_ms(lambda: flash_attn.flash_attention_bwd_cuda(q, k, v, out, dout, lse, **kw),
                       BWD_TIME_REPS)
+    fwd_ms = _time_ms(lambda: flash_attn.flash_attention_cuda(q, k, v, **kw), BWD_TIME_REPS)
+    fwd_lse_ms = _time_ms(lambda: flash_attn.flash_attention_cuda(q, k, v, return_lse=True, **kw),
+                          BWD_TIME_REPS)
+    split = prof["bwd_kernels"]  # the step's layers run the path's shape
     plain_ms = _time_ms(lambda: ref.flash_attention_bwd_ref(q, k, v, dout, **kw), 1)
     bound = _flash_bwd_bound(q, k, v, True, None)
+    bwd_tflops = _flash_bwd_flop(q, k, v, True, None) / bwd_ms / 1e9
     g = q.shape[2] // k.shape[2]
     qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_(True)
                   for x in (q, k.repeat_interleave(g, 2), v.repeat_interleave(g, 2)))
@@ -1991,14 +2077,22 @@ def _training_phase(dev, times: dict, card_tests) -> list:
     dout_t = dout.transpose(1, 2)
     sdpa_ms = _time_ms(lambda: torch.autograd.grad(sdpa_out, (qt, kt, vt), dout_t,
                                                    retain_graph=True), BWD_TIME_REPS)
-    del qt, kt, vt, sdpa_out, out
+    del qt, kt, vt, sdpa_out, out, lse
+    split_total = sum(split.values())
+    d_us = split.get("bwd_dot_kernel")
     print(f"phase 9 flash_attention_bwd at the path's shape (layer 0's q/k/v, "
           f"{tuple(q.shape)}, {q.dtype}, causal): against its plain version at B=1 "
-          f"{one:.3g} of the largest gradient; kernel {bwd_ms:.3f} ms, plain {plain_ms:.3f} ms, "
-          f"bound {bound[0]:.4f} ms ({bound[1]}), bound / kernel {bound[0] / bwd_ms:.4f}; "
-          f"PyTorch SDPA's own backward (K and V repeated to 9 heads) {sdpa_ms:.3f} ms, kernel / "
-          f"SDPA {bwd_ms / sdpa_ms:.2f}; 30 layers' backward {30 * bwd_ms:.1f} ms, "
-          f"{30 * bwd_ms / step_ms:.4f} of the step")
+          f"{one:.3g} of the largest gradient; kernel {bwd_ms:.4f} ms (the CUDA-core design "
+          f"it replaced: 13.274-13.399 ms, PERF.md), {bwd_tflops:.1f} TFLOP/s (the bound's five "
+          f"products), plain {plain_ms:.3f} ms, bound {bound[0]:.4f} ms ({bound[1]}), bound / "
+          f"kernel {bound[0] / bwd_ms:.4f}; PyTorch SDPA's own backward (K and V repeated to 9 "
+          f"heads) {sdpa_ms:.4f} ms, kernel / SDPA {bwd_ms / sdpa_ms:.3f}; 30 layers' backward "
+          f"{30 * bwd_ms:.1f} ms, {30 * bwd_ms / step_ms:.4f} of the step")
+    print("phase 9 flash_attention_bwd's launches, device us a launch (the profiled step): "
+          + (", ".join(f"{n} {us:.1f}" for n, us in split.items())
+             + f"; the D pass {d_us / split_total:.4f} of them" if d_us else "not measured")
+          + f"; the forward at this shape {fwd_ms:.4f} ms without lse, {fwd_lse_ms:.4f} ms "
+          f"writing it ({fwd_lse_ms / fwd_ms:.4f}x)")
     del q, k, v, dout
     torch.cuda.empty_cache()
 
@@ -2047,6 +2141,10 @@ def _training_phase(dev, times: dict, card_tests) -> list:
             "launches": launches["flash_attention_bwd"], "launches_per_step": 30,
             "max_abs_err": flash_err, "ms": bwd_ms, "plain_ms": plain_ms,
             "bound_ms": bound[0], "bound_by": bound[1], "library_ms": sdpa_ms,
+            "bound_share": bound[0] / bwd_ms, "tflops": bwd_tflops,
+            "over_library": bwd_ms / sdpa_ms, "kernel_device_us": split,
+            "d_pass_share": d_us / split_total if d_us else None,
+            "fwd_ms": fwd_ms, "fwd_lse_ms": fwd_lse_ms,
             "train_step_ms": step_ms, "train_tokens_per_s": tokens / step_ms * 1e3,
             "train_peak_gb": peak_gb, "train_busy_share": prof["busy_share"],
             "train_bwd_share": prof["bwd_share"], "train_adamw_share": adamw_ms / step_ms,
@@ -2086,6 +2184,29 @@ def _flash_build_report() -> None:
                 else "232 a consumer, 40 a producer thread)")
             print(f"phase 1 flash_attn {label}: {regs}, {spill}, {smem} B of dynamic shared "
                   f"memory a block")
+            name = None
+    # The backward's kernels: the D pass, and bf16's dq and dk/dv on wgmma
+    # (setmaxnreg 240 / 24 but in the one-consumer dq block at dh = dv =
+    # 256), and the float32 CUDA-core pair (by float4 column groups a thread).
+    log = (_build.build_dir() / "libflash_attn_bwd.log").read_text(errors="replace")
+    name, spill = None, ""
+    kinds = "bwd_dq_wgmma|bwd_dkv_wgmma|bwd_dot_kernel|bwd_dq_kernel|bwd_dkv_kernel"
+    for line in log.splitlines():
+        if m := re.search(rf"entry function .*({kinds})I(\w+?)EEv", line):
+            name, widths = m.group(1), [int(w) for w in re.findall(r"Li(\d+)E", m.group(2) + "E")]
+        elif m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line):
+            spill = f"spill stores {m.group(1)} B, loads {m.group(2)} B"
+        elif (m := re.search(r"Used (\d+) registers", line)) and name:
+            if name.endswith("wgmma"):
+                dh, dv = widths
+                kernel = "dq" if name == "bwd_dq_wgmma" else "dkv"
+                at = "" if kernel == "dq" and dh + dv > 384 else " at launch (setmaxnreg)"
+                print(f"phase 1 flash_attn_bwd {name}<{dh}, {dv}>: {m.group(1)} registers{at}, "
+                      f"{spill}, {flash_k.bwd_smem_bytes(kernel, dh, dv)} B of dynamic shared "
+                      f"memory a block")
+            else:
+                print(f"phase 1 flash_attn_bwd {name}<{widths[0]}>: {m.group(1)} registers, "
+                      f"{spill}")
             name = None
 
 

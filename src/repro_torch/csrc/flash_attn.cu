@@ -27,6 +27,11 @@
 // outputs (0.12 ms at 3.35 TB/s).
 //
 // Two kernels, chosen by the input type; neither falls back to the other.
+// Either also stores each row's log-sum-exp when given an lse pointer
+// (row_lse: natural log of the filled, softcapped, scaled scores' sum of
+// exponentials, +inf for a row with no key), which the backward
+// (csrc/flash_attn_bwd.cu) reads in place of recomputing it; a null pointer
+// stores nothing.
 //
 // bfloat16, flash_wgmma: both products on the tensor cores (wgmma, float32
 // accumulators in registers).  One block of three warpgroups handles 128
@@ -93,12 +98,9 @@
 // V reads 32, one wavefront each).  dh and dv multiples of 4 up to 256; the
 // schedule of tiles is mirrored by kernels/flash_attn.py:key_tiles(...,
 // block_q=64, block_k=32).
-#include <cuda.h>
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-
 #include <climits>
-#include <cstdint>
+
+#include "flash_wgmma.cuh"
 
 namespace {
 
@@ -107,15 +109,24 @@ namespace {
 constexpr int kBQ = 64;         // float32 query rows per block
 constexpr int kMaxDim = 256;    // largest dh and dv
 constexpr float kNeg = -1e30f;
-constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kNegL2 = kNeg * kLog2e;  // the -1e30 fill, in base 2
+constexpr float kLn2 = 0.6931471805599453f;
+
+// A row's log-sum-exp in natural-log units from its base-2 running max m2
+// and sum l: (m2 + log2 l) ln 2 over the filled, softcapped, scaled scores;
+// +inf for a row with no key (causal, row >= T - 1 + window), which the
+// backward reads as p = 0.
+__device__ __forceinline__ float row_lse(float m2, float l, int row, int t_n, int causal,
+                                         int window) {
+  if (causal && (long long)row >= (long long)t_n - 1 + window) return INFINITY;
+  return (m2 + log2f(l)) * kLn2;
+}
 
 // ---- bfloat16: tensor cores --------------------------------------------------
 
 constexpr int kRows = 128;              // query rows per block: two warpgroups of 64
 constexpr int kKeys = 64;               // keys per tile
 constexpr int kStages = 2;              // K and V tiles in flight
-constexpr int kBox = 64 * 64 * 2;       // one TMA box: 64 rows of 64 bf16 (128 B each)
 constexpr int kWgThreads = 3 * 128;     // consumer warpgroups 0, 1; producer warpgroup 2
 constexpr int kConsumers = 2 * 128;
 
@@ -170,213 +181,11 @@ __device__ __forceinline__ bool tile_masked(const Tiles& r, int k0, int row0, in
          (causal && ((long long)k0 + kTile - 1 > row0 || (long long)row_last - k0 >= window));
 }
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
-               "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
-}
-
-// Returns once the phase of parity `parity` has completed.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done = 0;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-// One box of a 4-D tensor map, at coordinates (column, head, row, batch),
-// into shared memory; completion is counted on `bar`.
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar,
-                                         int col, int head, int row, int batch) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(col), "r"(head), "r"(row), "r"(batch)
-      : "memory");
-}
-
-// A wgmma operand in shared memory with the 128-byte swizzle: start address,
-// leading and stride byte offsets (in 16-byte units), layout 1 (B128).
-__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | (uint64_t)(lbo >> 4) << 16 |
-         (uint64_t)(sbo >> 4) << 32 | 1ull << 62;
-}
-
-// K-major (Q and K: a row's dh values along the box's 128 B): 8-row groups
-// 1024 B apart; the leading offset is unused.
-__device__ __forceinline__ uint64_t kmajor_desc(uint32_t addr) {
-  return sw128_desc(addr, 16, 1024);
-}
-
-// MN-major (V: a key's dv values along the row): the next 64 columns are the
-// next box, the next 8 keys 1024 B on.
-__device__ __forceinline__ uint64_t mnmajor_desc(uint32_t addr) {
-  return sw128_desc(addr, kBox, 1024);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-
-// Orders register arrays against the asynchronous wgmma: kept live and
-// unmoved across the fence / wait around it.
-template <int N>
-__device__ __forceinline__ void keep(float (&d)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-template <int N>
-__device__ __forceinline__ void keep(uint32_t (&d)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(d[i])::"memory");
-}
-
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ float rcp(float x) {
-  float y;
-  asm("rcp.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// d (64 x 64, float32) = A (64 x 16) . B (16 x 64), plus d when `accumulate`;
-// A and B bf16 in shared memory, both K-major (a row's 16 values contiguous).
-__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da, uint64_t db,
-                                             int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "%32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(accumulate));
-}
-
-// d (64 x 64, float32) += A (64 x 16, bf16 in registers) . B (16 x 64, bf16
-// in shared memory, MN-major: a row's 64 values contiguous, which the
-// transpose flag reads as B).
-__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], uint32_t a0, uint32_t a1,
-                                              uint32_t a2, uint32_t a3, uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(1));
-}
-
-// d (64 x 128, float32) += A (64 x 16, bf16 in registers) . B (16 x 128, bf16
-// in shared memory, MN-major: a row's 128 values contiguous, which the
-// transpose flag reads as B).
-__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], uint32_t a0, uint32_t a1,
-                                              uint32_t a2, uint32_t a3, uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(1));
-}
-
-// d (64 x 256, float32) += A (64 x 16, bf16 in registers) . B (16 x 256, bf16
-// in shared memory, MN-major: a row's 256 values contiguous, which the
-// transpose flag reads as B).
-__device__ __forceinline__ void wgmma_rs_n256(float (&d)[128], uint32_t a0, uint32_t a1,
-                                              uint32_t a2, uint32_t a3, uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
-      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
-      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
-      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
-      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}, "
-      "{%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
-        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
-        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
-        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
-        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
-        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
-        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
-        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
-        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(1));
-}
-
-template <int DV>
-__device__ __forceinline__ void wgmma_pv(float (&o)[DV / 2], const uint32_t* a, uint64_t db) {
-  if constexpr (DV == 64) wgmma_rs_n64(o, a[0], a[1], a[2], a[3], db);
-  if constexpr (DV == 128) wgmma_rs_n128(o, a[0], a[1], a[2], a[3], db);
-  if constexpr (DV == 256) wgmma_rs_n256(o, a[0], a[1], a[2], a[3], db);
-}
-
 template <int DH, int DV>
 __global__ void __launch_bounds__(kWgThreads, 1)
 flash_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
-            const __grid_constant__ CUtensorMap tv, __nv_bfloat16* __restrict__ out, int b_n,
+            const __grid_constant__ CUtensorMap tv, __nv_bfloat16* __restrict__ out,
+            float* __restrict__ lse, int b_n,
             int s_n, int t_n, int h_n, int kvh_n, float scale, float softcap, int causal,
             int window) {
   using L = Layout<DH, DV>;
@@ -548,7 +357,7 @@ flash_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUte
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk)
-        wgmma_pv<DV>(o, p + 4 * kk, mnmajor_desc(sv + st * L::kV + kk * 2048));
+        wgmma_rs<DV>(o, p + 4 * kk, mnmajor_desc(sv + st * L::kV + kk * 2048));
       wgmma_commit();
       wgmma_wait_all();
       keep(o);
@@ -563,6 +372,9 @@ flash_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUte
       sum += __shfl_xor_sync(0xffffffffu, sum, 2);
       const int row = qrow + 8 * r;
       if (row >= s_n) continue;
+      if (lse != nullptr && qcol == 0) {
+        lse[((long long)b * h_n + h) * s_n + row] = row_lse(m[r], sum, row, t_n, causal, window);
+      }
       const float denom = fmaxf(sum, 1e-30f);
       __nv_bfloat16* dst = out + (((long long)b * s_n + row) * h_n + h) * DV + qcol;
 #pragma unroll
@@ -573,49 +385,9 @@ flash_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUte
   }
 }
 
-// cuTensorMapEncodeTiled is a driver function; the library links only the
-// runtime, so it is looked up once through the runtime's entry-point query.
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static const EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found = cudaDriverEntryPointSymbolNotFound;
-#if CUDART_VERSION >= 12050
-    cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault,
-                                     &found);
-#else
-    cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    return found == cudaDriverEntryPointSuccess ? reinterpret_cast<EncodeTiled>(p) : nullptr;
-  }();
-  return fn;
-}
-
-// A (batch, rows, heads, width) bf16 tensor as a 4-D map of 64 x 64 boxes
-// (64 rows of one head, 64 columns), swizzled 128 B; out-of-range rows read 0.
-int encode_map(CUtensorMap* map, const void* ptr, int width, int heads, int rows, int batch) {
-  const EncodeTiled fn = encode_tiled();
-  if (fn == nullptr) return static_cast<int>(cudaErrorSymbolNotFound);
-  const cuuint64_t dims[4] = {(cuuint64_t)width, (cuuint64_t)heads, (cuuint64_t)rows,
-                              (cuuint64_t)batch};
-  const cuuint64_t strides[3] = {2ull * width, 2ull * width * heads,
-                                 2ull * width * heads * rows};
-  const cuuint32_t box[4] = {64, 1, 64, 1};
-  const cuuint32_t elem[4] = {1, 1, 1, 1};
-  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
-                        strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                        CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
-}
-
 template <int DH, int DV>
-int launch_wgmma(const void* q, const void* k, const void* v, void* out, int b, int s, int t,
-                 int h, int kvh, float scale, float softcap, int causal, int window,
+int launch_wgmma(const void* q, const void* k, const void* v, void* out, float* lse, int b,
+                 int s, int t, int h, int kvh, float scale, float softcap, int causal, int window,
                  cudaStream_t stream) {
   CUtensorMap tq, tk, tv;
   int err = encode_map(&tq, q, DH, h, s, b);
@@ -628,41 +400,41 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* out, int b, 
   if (e != cudaSuccess) return static_cast<int>(e);
   const long long blocks = (long long)((s + kRows - 1) / kRows) * b * h;
   flash_wgmma<DH, DV><<<(unsigned)blocks, kWgThreads, smem, stream>>>(
-      tq, tk, tv, static_cast<__nv_bfloat16*>(out), b, s, t, h, kvh, scale, softcap, causal,
-      window);
+      tq, tk, tv, static_cast<__nv_bfloat16*>(out), lse, b, s, t, h, kvh, scale, softcap,
+      causal, window);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <int DH>
-int launch_dv(const void* q, const void* k, const void* v, void* out, int b, int s, int t,
-              int h, int kvh, int dv, float scale, float softcap, int causal, int window,
+int launch_dv(const void* q, const void* k, const void* v, void* out, float* lse, int b, int s,
+              int t, int h, int kvh, int dv, float scale, float softcap, int causal, int window,
               cudaStream_t stream) {
   switch (dv) {
     case 64:
-      return launch_wgmma<DH, 64>(q, k, v, out, b, s, t, h, kvh, scale, softcap, causal, window,
-                                  stream);
+      return launch_wgmma<DH, 64>(q, k, v, out, lse, b, s, t, h, kvh, scale, softcap, causal,
+                                  window, stream);
     case 128:
-      return launch_wgmma<DH, 128>(q, k, v, out, b, s, t, h, kvh, scale, softcap, causal,
+      return launch_wgmma<DH, 128>(q, k, v, out, lse, b, s, t, h, kvh, scale, softcap, causal,
                                    window, stream);
     case 256:
-      return launch_wgmma<DH, 256>(q, k, v, out, b, s, t, h, kvh, scale, softcap, causal,
+      return launch_wgmma<DH, 256>(q, k, v, out, lse, b, s, t, h, kvh, scale, softcap, causal,
                                    window, stream);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-int launch_bf16(const void* q, const void* k, const void* v, void* out, int b, int s, int t,
-                int h, int kvh, int dh, int dv, float scale, float softcap, int causal,
-                int window, cudaStream_t stream) {
+int launch_bf16(const void* q, const void* k, const void* v, void* out, float* lse, int b,
+                int s, int t, int h, int kvh, int dh, int dv, float scale, float softcap,
+                int causal, int window, cudaStream_t stream) {
   switch (dh) {
     case 64:
-      return launch_dv<64>(q, k, v, out, b, s, t, h, kvh, dv, scale, softcap, causal, window,
+      return launch_dv<64>(q, k, v, out, lse, b, s, t, h, kvh, dv, scale, softcap, causal, window,
                            stream);
     case 128:
-      return launch_dv<128>(q, k, v, out, b, s, t, h, kvh, dv, scale, softcap, causal, window,
+      return launch_dv<128>(q, k, v, out, lse, b, s, t, h, kvh, dv, scale, softcap, causal, window,
                             stream);
     case 256:
-      return launch_dv<256>(q, k, v, out, b, s, t, h, kvh, dv, scale, softcap, causal, window,
+      return launch_dv<256>(q, k, v, out, lse, b, s, t, h, kvh, dv, scale, softcap, causal, window,
                             stream);
   }
   return static_cast<int>(cudaErrorInvalidValue);
@@ -710,7 +482,8 @@ __device__ __forceinline__ void group_sync(int group) {
 
 __global__ void __launch_bounds__(kF32Threads, 1)
 flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
-             const float* __restrict__ v, float* __restrict__ out, int b_n, int s_n, int t_n,
+             const float* __restrict__ v, float* __restrict__ out, float* __restrict__ lse,
+             int b_n, int s_n, int t_n,
              int h_n, int kvh_n, int dh, int dv, float score_mul, float cap_mul, int softcapped,
              int causal, int window) {
   extern __shared__ float4 smem4[];
@@ -882,7 +655,13 @@ flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
       m2[u] = m_new;
       if (g == 0) {
         alp[row] = alpha;
-        if (j == n_tiles - 1) ls[kGroupRows * grp + row] = lsum[u];
+        if (j == n_tiles - 1) {
+          ls[kGroupRows * grp + row] = lsum[u];
+          if (lse != nullptr && qpos < s_n) {
+            lse[((long long)b * h_n + h) * s_n + qpos] =
+                row_lse(m2[u], lsum[u], qpos, t_n, causal, window);
+          }
+        }
       }
     }
     // p j is written; the group's P V of tile j - 1 is done.
@@ -940,9 +719,9 @@ size_t f32_smem_bytes(int dh, int dv) {
                           kGroups * 2 * (kBK * kLdp + kGroupRows) + kBQ);
 }
 
-int launch_f32(const void* q, const void* k, const void* v, void* out, int b, int s, int t,
-               int h, int kvh, int dh, int dv, float scale, float softcap, int causal, int window,
-               cudaStream_t stream) {
+int launch_f32(const void* q, const void* k, const void* v, void* out, float* lse, int b, int s,
+               int t, int h, int kvh, int dh, int dv, float scale, float softcap, int causal,
+               int window, cudaStream_t stream) {
   const size_t smem = f32_smem_bytes(dh, dv);
   cudaError_t err =
       cudaFuncSetAttribute(flash_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -954,7 +733,7 @@ int launch_f32(const void* q, const void* k, const void* v, void* out, int b, in
   const long long blocks = (long long)((s + kBQ - 1) / kBQ) * b * h;
   flash_kernel<<<(unsigned)blocks, kF32Threads, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<float*>(out), b, s, t, h, kvh, dh, dv, score_mul, softcap * kLog2e,
+      static_cast<float*>(out), lse, b, s, t, h, kvh, dh, dv, score_mul, softcap * kLog2e,
       (int)capped, causal, window);
   return static_cast<int>(cudaGetLastError());
 }
@@ -964,7 +743,9 @@ bool wgmma_width(int d) { return d == 64 || d == 128 || d == 256; }
 }  // namespace
 
 // Launches on `stream`.  `is_bf16` picks bfloat16 (1, the tensor-core kernel)
-// or float32 (0, the CUDA-core kernel) for all four tensors.  `window` <= 0
+// or float32 (0, the CUDA-core kernel) for q, k, v and out.  `lse`, when not
+// null, is float32 (B, H, S): each row's log-sum-exp (row_lse); a null
+// pointer stores nothing.  `window` <= 0
 // means no window.  Returns cudaGetLastError() (0 on success), or
 // cudaErrorInvalidValue for a shape the kernel does not take: any size below
 // 1, H not a multiple of KVH, T within 64 of INT_MAX, a pointer not 16-byte
@@ -972,8 +753,8 @@ bool wgmma_width(int d) { return d == 64 || d == 128 || d == 256; }
 // float32); in float32 dh or dv above 256 or not a multiple of 4; in
 // bfloat16 dh or dv outside {64, 128, 256}.
 extern "C" int flash_attn_launch(const void* q, const void* k, const void* v, void* out,
-                                 int is_bf16, int b, int s, int t, int h, int kvh, int dh,
-                                 int dv, float scale, float softcap, int causal, int window,
+                                 void* lse, int is_bf16, int b, int s, int t, int h, int kvh,
+                                 int dh, int dv, float scale, float softcap, int causal, int window,
                                  cudaStream_t stream) {
   const bool aligned = ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
                          reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(out)) &
@@ -984,14 +765,15 @@ extern "C" int flash_attn_launch(const void* q, const void* k, const void* v, vo
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (window <= 0) window = INT_MAX;
+  float* lse_f = static_cast<float*>(lse);
   if (is_bf16) {
     if (!wgmma_width(dh) || !wgmma_width(dv)) {
       return static_cast<int>(cudaErrorInvalidValue);
     }
-    return launch_bf16(q, k, v, out, b, s, t, h, kvh, dh, dv, scale, softcap, causal, window,
-                       stream);
+    return launch_bf16(q, k, v, out, lse_f, b, s, t, h, kvh, dh, dv, scale, softcap, causal,
+                       window, stream);
   }
-  return launch_f32(q, k, v, out, b, s, t, h, kvh, dh, dv, scale, softcap, causal, window,
+  return launch_f32(q, k, v, out, lse_f, b, s, t, h, kvh, dh, dv, scale, softcap, causal, window,
                     stream);
 }
 

@@ -6,7 +6,11 @@ The source holds two kernels, chosen by the input type: bfloat16 runs on the
 tensor cores (``wgmma``, tiles fed by TMA), float32 on the CUDA cores
 (register tiles fed by a ``cp.async`` ring from a producer warpgroup), since the tensor cores' TF32
 cannot meet float32's tolerance.  Both kernels' tile schedules are mirrored
-by :func:`key_tiles`.  Like the other
+by :func:`key_tiles`.  Either writes each row's log-sum-exp when asked
+(``return_lse``), which :func:`flash_attention_bwd_cuda` (``csrc/
+flash_attn_bwd.cu``) reads: in bfloat16 a D pass, a dq kernel and a dk/dv
+kernel, all on ``wgmma`` fed by TMA, whose tile schedules
+:func:`bwd_key_tiles` and :func:`bwd_query_tiles` mirror.  Like the other
 bindings it checks device, dtype, shape and contiguity, allocates the output,
 launches on PyTorch's current stream, raises if the launch reports an error,
 and adds one to its ``launches`` count.  The library is built at first use.
@@ -84,6 +88,64 @@ def key_tiles(
     return first, end, masked
 
 
+def bwd_blocks(dh: int, dv: int) -> tuple[int, int]:
+    """``(block_q, block_k)`` of the bfloat16 backward at these widths: query
+    rows a dq block owns (``DqCfg::kRows``: 64 at dh = dv = 256, where two
+    warpgroups' Q, dO and K / V stages would not fit in shared memory) and
+    keys a dk/dv block owns (``DkvCfg::kKeys``: 64 past dh + dv = 256, where
+    dK and dV are split over the two warpgroups)."""
+    return (64 if dh + dv > 384 else 128), (64 if dh + dv > 256 else 128)
+
+
+def bwd_key_tiles(qb: int, s: int, t: int, causal: bool, window: int | None, *,
+                  block_q: int = BLOCK_Q):
+    """64-key tiles that the backward's dq block ``qb`` (``block_q`` rows)
+    visits: every key one of its rows attends, none when no row has a key
+    (their p is 0 through the forward's +inf lse).  Returns ``(first, end,
+    masked)`` as :func:`key_tiles`; the arithmetic of ``bwd_key_tiles`` and
+    ``key_tile_masked`` in ``csrc/flash_attn_bwd.cu``."""
+    w = window if causal and window is not None else _NO_WINDOW
+    row0 = qb * block_q
+    row_last = min(row0 + block_q, s) - 1
+    first, end = 0, -(-t // 64)
+    if causal:
+        lo, hi = max(0, row0 - w + 1), min(t, row_last + 1)
+        first, end = (lo // 64, -(-hi // 64)) if lo < hi else (0, 0)
+    masked = [k0 + 64 > t or (causal and (k0 + 63 > row0 or row_last - k0 >= w))
+              for k0 in range(first * 64, end * 64, 64)]
+    return first, end, masked
+
+
+def bwd_query_tiles(kb: int, s: int, t: int, causal: bool, window: int | None, *,
+                    block_k: int = BLOCK_Q):
+    """64-row query tiles that the backward's dk/dv block ``kb`` (keys
+    ``block_k kb ..``) walks for each query head of its group: ``(main,
+    none)``, two ``range``s, ``main`` holding every row that attends one of
+    its keys, ``none`` every row with no key at all (causal and ``row >= T -
+    1 + window``), whose uniform softmax adds ``dout / T`` to every key's
+    dv.  The arithmetic of ``bwd_query_tiles`` in ``csrc/flash_attn_bwd.cu``."""
+    w = window if causal and window is not None else _NO_WINDOW
+    n = -(-s // 64)
+    if not causal:
+        return range(0, n), range(0)
+    k0 = kb * block_k
+    lo, hi = k0, min(s, min(k0 + block_k, t) - 1 + w)
+    main = range(lo // 64, -(-hi // 64) if lo < hi else lo // 64)
+    none = t - 1 + w
+    return main, (range(none // 64, n) if none < s else range(0))
+
+
+def bwd_pair(kw0: int, q0: int, causal: bool, window: int | None) -> tuple[bool, bool]:
+    """``(masked, skipped)`` of a dk/dv warpgroup's 64 keys ``kw0 ..``
+    against query rows ``q0 .. q0 + 63``: whether some pair must not attend,
+    and whether none may (the warpgroup then runs no product); the
+    arithmetic of ``pair_masked`` and ``pair_skipped``."""
+    w = window if causal and window is not None else _NO_WINDOW
+    masked = causal and (q0 < kw0 + 63 or q0 + 63 - kw0 >= w)
+    skipped = causal and (q0 + 63 < kw0 or q0 - kw0 - 63 >= w)
+    return masked, skipped
+
+
 def check_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> tuple:
     """Raise ``ValueError`` for what the kernels do not take; else return
     ``(B, S, T, H, KVH, dh, dv)``.  float32 takes ``dh`` and ``dv`` that are
@@ -124,7 +186,8 @@ def flash_attention_cuda(
     causal: bool = True,
     window: int | None = None,
     softcap: float = 0.0,
-) -> torch.Tensor:
+    return_lse: bool = False,
+):
     """Flash attention on the card; see ``ref.flash_attention_ref``.
 
     ``q`` is ``(B, S, H, dh)``, ``k`` ``(B, T, KVH, dh)``, ``v`` ``(B, T,
@@ -132,7 +195,9 @@ def flash_attention_cuda(
     multiple of ``KVH``, any ``S, T >= 1``; widths and alignment as
     :func:`check_inputs` says (a float32 input off a 16-byte boundary is
     first copied to one).  ``window`` applies only with ``causal``.  Returns ``(B, S, H,
-    dv)`` in ``q``'s dtype.
+    dv)`` in ``q``'s dtype; with ``return_lse``, also the float32 ``(B, H,
+    S)`` log-sum-exp of each row's scores (``ref.flash_attention_lse_ref``;
+    +inf for a row with no key), which the kernel writes in the same launch.
     """
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention_cuda needs a CUDA tensor, got {q.device}")
@@ -144,19 +209,21 @@ def flash_attention_cuda(
         q, k, v = (x if x.data_ptr() % 16 == 0 else x.clone() for x in (q, k, v))
     launch = _lib(
         "flash_attn", "flash_attn_launch",
-        (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _F, _I, _I, _P),
+        (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _F, _I, _I, _P),
     )
     out = torch.empty((b, s, h, dv), dtype=q.dtype, device=q.device)
+    lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device) if return_lse else None
     with torch.cuda.device(q.device):
         err = launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            lse.data_ptr() if return_lse else None,
             int(q.dtype == torch.bfloat16), b, s, t, h, kvh, dh, dv, float(scale),
             float(softcap), int(causal), window if causal and window is not None else 0,
             torch.cuda.current_stream().cuda_stream,
         )
     _raise_on(err, "flash_attention")
     flash_attention_cuda.launches += 1
-    return out
+    return (out, lse) if return_lse else out
 
 
 flash_attention_cuda.launches = 0
@@ -169,12 +236,20 @@ def smem_bytes(dtype: torch.dtype, dh: int, dv: int) -> int:
     return query(int(dtype == torch.bfloat16), dh, dv)
 
 
+def bwd_smem_bytes(kernel: str, dh: int, dv: int) -> int:
+    """Dynamic shared memory a block of the bfloat16 backward's ``"dq"`` or
+    ``"dkv"`` kernel takes at these widths (-1 for widths it refuses)."""
+    query = _lib("flash_attn_bwd", "flash_attn_bwd_smem_bytes", (_I, _I, _I))
+    return query(int(kernel == "dkv"), dh, dv)
+
+
 def flash_attention_bwd_cuda(
     q: torch.Tensor,
     k: torch.Tensor,
     v: torch.Tensor,
     out: torch.Tensor,
     dout: torch.Tensor,
+    lse: torch.Tensor,
     *,
     scale: float,
     causal: bool = True,
@@ -183,10 +258,12 @@ def flash_attention_bwd_cuda(
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The gradient of :func:`flash_attention_cuda` on the card; see
     ``ref.flash_attention_bwd_ref``.  ``out`` is the forward's output and
-    ``dout`` its upstream gradient, both ``(B, S, H, dv)``; the inputs and
-    options are the forward's, which refuses what this refuses.  Returns
-    ``(dq, dk, dv)`` in the inputs' dtype, summed in float32.  An input off
-    a 16-byte boundary is first copied to one."""
+    ``dout`` its upstream gradient, both ``(B, S, H, dv)``; ``lse`` the
+    float32 ``(B, H, S)`` log-sum-exp the forward returned with
+    ``return_lse``; the inputs and options are the forward's, which refuses
+    what this refuses.  Returns ``(dq, dk, dv)`` in the inputs' dtype,
+    summed in float32; two calls on the same inputs give the same bits (no
+    atomics).  An input off a 16-byte boundary is first copied to one."""
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention_bwd_cuda needs a CUDA tensor, got {q.device}")
     b, s, t, h, kvh, dh, dv = check_inputs(q, k, v)
@@ -195,6 +272,7 @@ def flash_attention_bwd_cuda(
         raise ValueError(f"softcap must be >= 0, got {softcap}")
     _check(out, "out", (b, s, h, dv), q.device, q.dtype)
     _check(dout, "dout", (b, s, h, dv), q.device, q.dtype)
+    _check(lse, "lse", (b, h, s), q.device, torch.float32)
     q, k, v, out, dout = (x if x.data_ptr() % 16 == 0 else x.clone()
                           for x in (q, k, v, out, dout))
     launch = _lib(
@@ -203,12 +281,12 @@ def flash_attention_bwd_cuda(
          _I, _P),
     )
     dq, dk, dv_ = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    stats = torch.empty((2, b * h * s), dtype=torch.float32, device=q.device)
+    d_rows = torch.empty((b, h, s), dtype=torch.float32, device=q.device)  # D = dout . out
     with torch.cuda.device(q.device):
         err = launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), dout.data_ptr(),
-            dq.data_ptr(), dk.data_ptr(), dv_.data_ptr(), stats[0].data_ptr(),
-            stats[1].data_ptr(), int(q.dtype == torch.bfloat16), b, s, t, h, kvh, dh, dv,
+            lse.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv_.data_ptr(), d_rows.data_ptr(),
+            int(q.dtype == torch.bfloat16), b, s, t, h, kvh, dh, dv,
             float(scale), float(softcap), int(causal),
             window if causal and window is not None else 0,
             torch.cuda.current_stream().cuda_stream,
@@ -223,19 +301,20 @@ flash_attention_bwd_cuda.launches = 0
 
 class FlashAttentionFn(torch.autograd.Function):
     """:func:`flash_attention_cuda` with a gradient: the forward launches
-    the forward kernel and keeps q, k, v and the output; the backward
-    launches :func:`flash_attention_bwd_cuda`."""
+    the forward kernel, which also writes each row's log-sum-exp, and keeps
+    q, k, v, the output and the lse; the backward launches
+    :func:`flash_attention_bwd_cuda` on them."""
 
     @staticmethod
     def forward(ctx, q, k, v, scale: float, causal: bool, window, softcap: float):
         kw = dict(scale=scale, causal=causal, window=window, softcap=softcap)
-        out = flash_attention_cuda(q, k, v, **kw)
-        ctx.save_for_backward(q, k, v, out)
+        out, lse = flash_attention_cuda(q, k, v, return_lse=True, **kw)
+        ctx.save_for_backward(q, k, v, out, lse)
         ctx.kw = kw
         return out
 
     @staticmethod
     def backward(ctx, dout):
-        q, k, v, out = ctx.saved_tensors
-        dq, dk, dv = flash_attention_bwd_cuda(q, k, v, out, dout.contiguous(), **ctx.kw)
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd_cuda(q, k, v, out, dout.contiguous(), lse, **ctx.kw)
         return dq, dk, dv, None, None, None, None

@@ -7,8 +7,9 @@ against the JAX package, and ``chip_smoke.py`` holds the kernels against
 them on the card.  Integer and bool outputs are compared for equality;
 ``moe_route``'s float32 combine weights within rtol 1e-5 / atol 1e-6 (the
 JAX package's own tolerance for its router kernel); ``flash_attention``
-within 2e-5 in float32 and 2e-2 in bfloat16 (``tests/test_flash_kernel.py``).
-The two backward versions, :func:`flash_attention_bwd_ref` and
+within 2e-5 in float32 and 2e-2 in bfloat16 (``tests/test_flash_kernel.py``),
+its log-sum-exp (:func:`flash_attention_lse_ref`) as
+``tests/test_torch_cuda.py`` states.  The two backward versions, :func:`flash_attention_bwd_ref` and
 :func:`moe_route_weights_vjp_ref`, are ``torch.autograd.grad`` of the forward
 versions; their kernels' tolerances are stated in ``tests/test_torch_cuda.py``.
 """
@@ -236,6 +237,28 @@ def serve_route_ref(
     return jv, tail, admit, q, ap, drops
 
 
+def _flash_scores(q, k, *, scale, causal, window, softcap):
+    """The filled float32 scores ``(B, S, KVH, G, T)`` of
+    :func:`flash_attention_ref` and the ``(1, S, 1, 1, T)`` mask of the pairs
+    that attend (None without ``causal``)."""
+    b, s, h, dh = q.shape
+    t, kvh = k.shape[1], k.shape[2]
+    g = h // kvh
+    qg = q.reshape(b, s, kvh, g, dh)
+    sc = torch.einsum("bskgd,btkd->bskgt", qg.float(), k.float()) * scale
+    if softcap:
+        sc = softcap * torch.tanh(sc / softcap)
+    ok = None
+    if causal:
+        qpos = torch.arange(s, dtype=torch.int32, device=q.device)[None, :, None, None, None]
+        kpos = torch.arange(t, dtype=torch.int32, device=q.device)[None, None, None, None, :]
+        ok = kpos <= qpos
+        if window is not None:
+            ok = ok & (qpos - kpos < window)
+        sc = torch.where(ok, sc, FLASH_NEG)
+    return sc, ok
+
+
 def flash_attention_ref(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -263,23 +286,34 @@ def flash_attention_ref(
     Returns:
       ``(B, S, H, dv)``.
     """
-    b, s, h, dh = q.shape
-    t, kvh = k.shape[1], k.shape[2]
-    g = h // kvh
-    qg = q.reshape(b, s, kvh, g, dh)
-    sc = torch.einsum("bskgd,btkd->bskgt", qg.float(), k.float()) * scale
-    if softcap:
-        sc = softcap * torch.tanh(sc / softcap)
-    if causal:
-        qpos = torch.arange(s, dtype=torch.int32, device=q.device)[None, :, None, None, None]
-        kpos = torch.arange(t, dtype=torch.int32, device=q.device)[None, None, None, None, :]
-        ok = kpos <= qpos
-        if window is not None:
-            ok = ok & (qpos - kpos < window)
-        sc = torch.where(ok, sc, FLASH_NEG)
+    b, s, h, _ = q.shape
+    sc, _ = _flash_scores(q, k, scale=scale, causal=causal, window=window, softcap=softcap)
     p = torch.softmax(sc, dim=-1)
     out = torch.einsum("bskgt,btkd->bskgd", p.to(v.dtype), v)
     return out.to(q.dtype).reshape(b, s, h, v.shape[3])
+
+
+def flash_attention_lse_ref(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    *,
+    scale: float,
+    causal: bool = True,
+    window: int | None = None,
+    softcap: float = 0.0,
+) -> torch.Tensor:
+    """Each row's log-sum-exp of the scores :func:`flash_attention_ref`
+    builds (filled, softcapped, scaled, float32), in natural-log units, as
+    the forward kernels write it for the backward: ``(B, H, S)`` float32,
+    ``+inf`` for a row with no key at all (causal and ``row >= T - 1 +
+    window``), for which the backward reads p = 0.  Then ``exp(s - lse)``
+    is the softmax of every row that has a key."""
+    b, s, h, _ = q.shape
+    sc, ok = _flash_scores(q, k, scale=scale, causal=causal, window=window, softcap=softcap)
+    lse = torch.logsumexp(sc, dim=-1)
+    if ok is not None:
+        lse = torch.where(ok.any(dim=-1), lse, torch.inf)
+    return lse.reshape(b, s, h).transpose(1, 2).contiguous()
 
 
 def moe_route_ref(

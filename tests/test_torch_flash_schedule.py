@@ -10,7 +10,13 @@ here against a brute-force list of the (query, key) pairs that the dense
 softmax attends, over ragged S and T, windows from 1 to 2**31 - 1, and
 queries past T - 1 + window, which have no key and average all of them.  A
 walk of the schedule in float64 (masks applied only on the tiles it marks) is
-held against the dense softmax within 1e-12.
+held against the dense softmax within 1e-12.  The bfloat16 backward's
+schedules (``bwd_key_tiles``, ``bwd_query_tiles``, ``bwd_pair`` in
+``csrc/flash_attn_bwd.cu``) are held against the same brute force: each dq
+block visits exactly the key tiles its rows attend, each dk/dv block exactly
+the query tiles that attend its keys and, apart, the tiles of rows with no
+key, and a warpgroup leaves unmasked or skips only pairs that all attend or
+none does.
 """
 import numpy as np
 import pytest
@@ -178,3 +184,68 @@ def test_bf16_needs_16_byte_aligned_pointers():
         tflash.check_inputs(q, k, k)
     q32 = torch.zeros(1 * 3 * 2 * 64 + 1)[1:].view(1, 3, 2, 64)  # float32 has no such rule
     assert q32.data_ptr() % 16 and tflash.check_inputs(q32, k.float(), k.float())[0] == 1
+
+
+# The bfloat16 backward's schedules (csrc/flash_attn_bwd.cu), at each of its
+# block shapes: dq blocks of 128 or 64 rows, dk/dv blocks of 128 keys (two
+# warpgroups of 64) or 64 (both warpgroups on the same keys).
+BWD_BLOCKS = sorted({tflash.bwd_blocks(dh, dv) for dh in (64, 128, 256) for dv in (64, 128, 256)})
+
+
+def _sees(s: int, t: int, causal: bool, window) -> np.ndarray:
+    """(S, T) bool: the pairs that attend, rows with no key attending none."""
+    q = np.arange(s)[:, None]
+    k = np.arange(t)[None, :]
+    if not causal:
+        return np.ones((s, t), bool)
+    ok = k <= q
+    if window is not None:
+        ok &= q - k < window
+    return ok
+
+
+def _check_bwd(s: int, t: int, causal: bool, window, block_q: int, block_k: int) -> None:
+    ok = _sees(s, t, causal, window)
+    no_key = ~ok.any(axis=1)
+    for qb in range(-(-s // block_q)):
+        first, end, masked = tflash.bwd_key_tiles(qb, s, t, causal, window, block_q=block_q)
+        rows = ok[qb * block_q:min(qb * block_q + block_q, s)]
+        keys = np.flatnonzero(rows.any(axis=0))
+        assert len(masked) == end - first
+        if not len(keys):  # no row of the block has a key: dq is 0
+            assert first == end, (qb, first, end)
+            continue
+        assert keys[0] // 64 == first and keys[-1] // 64 == end - 1, (qb, first, end)
+        for j, m in zip(range(first, end), masked):
+            if not m:
+                assert (j + 1) * 64 <= t and rows[:, j * 64:(j + 1) * 64].all(), (qb, j)
+    for kb in range(-(-t // block_k)):
+        main, none = tflash.bwd_query_tiles(kb, s, t, causal, window, block_k=block_k)
+        k0, k1 = kb * block_k, min(kb * block_k + block_k, t)
+        seen = np.flatnonzero(ok[:, k0:k1].any(axis=1))
+        if len(seen):
+            assert seen[0] // 64 == main.start and seen[-1] // 64 == main.stop - 1, (kb, main)
+        else:
+            assert len(main) == 0, (kb, main)
+        lost = np.flatnonzero(no_key)
+        assert list(none) == (list(range(lost[0] // 64, -(-s // 64))) if len(lost) else []), kb
+        for w in range(block_k // 64):
+            kw0 = k0 + (64 * w if block_k == 128 else 0)
+            for j in main:
+                masked, skipped = tflash.bwd_pair(kw0, 64 * j, causal, window)
+                pair = ok[64 * j:min(64 * j + 64, s), kw0:min(kw0 + 64, t)]
+                assert not (skipped and pair.any()), (kb, w, j)
+                assert masked or pair.all(), (kb, w, j)
+
+
+@pytest.mark.parametrize("block_q,block_k", BWD_BLOCKS)
+@pytest.mark.parametrize("s,t", SIZES)
+@pytest.mark.parametrize("causal,window", [(False, None)] + [(True, w) for w in WINDOWS])
+def test_bwd_tiles_cover_exactly_the_attended_pairs(s, t, causal, window, block_q, block_k):
+    _check_bwd(s, t, causal, window, block_q, block_k)
+
+
+def test_bwd_blocks_follow_the_widths():
+    assert tflash.bwd_blocks(64, 64) == tflash.bwd_blocks(128, 128) == (128, 128)
+    assert tflash.bwd_blocks(64, 256) == tflash.bwd_blocks(256, 128) == (128, 64)
+    assert tflash.bwd_blocks(256, 256) == (64, 64)
