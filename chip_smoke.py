@@ -272,7 +272,10 @@ own failure):
    largest of dq, dk and dv, and two calls equal bit for bit at SmolLM's
    and Gemma2's dh 256 shapes;
    ``moe_route_bwd`` at DeepSeek-V2's (T 2048, E 160, k 6, softmax) and
-   V3's (E 256, k 8, sigmoid) shapes, T = 1 and all-tied batches.  Then
+   V3's (E 256, k 8, sigmoid) shapes, a microbatch of 16,384 tokens, T =
+   1, all-tied batches, E 67 and E 3, routes that name an expert twice
+   and logits off a 16-byte boundary, each within atol 1e-6 / rtol 1e-5
+   and two calls equal bit for bit.  Then
    two train steps on the card against the same steps on the CPU
    (``train_step_card_vs_cpu``: SmolLM-135M's and DeepSeek-V2's reduced
    configs in float32, the balancer sync off and on, 1 and 2
@@ -293,7 +296,9 @@ own failure):
    backward and the CUDA-core design's time, each of its three launches'
    device time (the D pass's share), and the forward there with and
    without its lse.  Then
-   ``moe_route_bwd``'s time at DeepSeek-V2's shape, and
+   ``moe_route_bwd``'s time at DeepSeek-V2's and V3's shapes and at 16,384
+   tokens (``MOE_BWD_TIMED``), each beside its bound and its plain
+   version, and
    ``repro_torch.examples.train_moe_care`` as a subprocess at
    ``tests/test_examples.py``'s sizes (exit 0, "[done]", one
    ``moe_route`` and one ``moe_route_bwd`` launch per MoE layer per
@@ -314,6 +319,7 @@ when the port's sources are not beside this script.
 """
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 import importlib.util
 import json
@@ -488,6 +494,10 @@ MOE_SEED = 0
 MOE_TIME_REPS = 100
 # A 4 x 4096-token prefill chunk: 4 tokens a warp on the card.
 MOE_LONG_T = 16384
+# moe_route_bwd's timed cases (tests/test_torch_cuda.MOE_BWD_CASES), the
+# first the kernels line's: DeepSeek-V2's and V3's shapes and a training
+# microbatch of MOE_LONG_T tokens.
+MOE_BWD_TIMED = ("deepseek_v2", "deepseek_v3", "long")
 # moe_route: per logit, the gate (max, subtract, exp, sum, divide) and the
 # score (subtract) are 6 operations; each of the k sweeps compares and
 # selects (2 more).  Per (token, slot) entry, its position takes a match,
@@ -879,6 +889,80 @@ def flash_bwd_ab(src: str, reps: int = 20) -> None:
         if name == "smollm_path":
             out[name]["device_us"] = _bwd_kernel_us(call)
     print(json.dumps(out))
+
+
+def _moe_bwd_bound(t: int, e: int, k: int) -> tuple[float, str]:
+    """moe_route_bwd's bound: the float32 logits, idx and grad_w read once
+    and the logits' gradient written once; (6 + k) operations a logit."""
+    return _bound_ms(4 * (2 * t * e + 2 * t * k), (6 + k) * t * e)
+
+
+def _ab_library(csrc: Path, out: Path) -> subprocess.Popen:
+    """Start ``nvcc`` on ``csrc/moe_route_bwd.cu`` into ``out``, with the
+    port's flags."""
+    from repro_torch.kernels import _build
+
+    out.mkdir(parents=True, exist_ok=True)
+    return subprocess.Popen([_build._nvcc(), *_build.NVCC_FLAGS, "-o",
+                             str(out / "libmoe_route_bwd.so"), str(csrc / "moe_route_bwd.cu")],
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+
+
+def moe_bwd_ab(src: str, reps: int = MOE_TIME_REPS) -> None:
+    """Time the ``moe_route_bwd`` kernel of the package under ``src`` (another
+    checkout's ``src`` directory) against this checkout's, in one process,
+    in turns (``src``, this, this, ``src``) at each ``MOE_BWD_TIMED`` shape,
+    by device time with the queue filled, and print one JSON line with each
+    shape's bound and plain time and each kernel's largest error against
+    the plain version.  Both sources are built here with the port's flags
+    and called through their C interface, so the two calls are alike.  Run
+    on the card from this checkout's root::
+
+        python3 -c 'import chip_smoke; chip_smoke.moe_bwd_ab("path/to/src")'
+    """
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.kernels import ref
+
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    card_tests = _card_tests()
+    out_dir = ROOT / "build" / "moe_bwd_ab"
+    trees = {"src": Path(src).resolve() / "repro_torch" / "csrc",
+             "here": ROOT / "src" / "repro_torch" / "csrc"}
+    procs = {name: _ab_library(csrc, out_dir / name) for name, csrc in trees.items()}
+    launch = {}
+    for name, proc in procs.items():
+        log, _ = proc.communicate()
+        assert proc.returncode == 0, log.decode(errors="replace")[-3000:]
+        fn = ctypes.CDLL(str(out_dir / name / "libmoe_route_bwd.so")).moe_route_bwd_launch
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        launch[name] = fn
+    result = {"src": src, "card": _card(), "reps": reps}
+    for case in MOE_BWD_TIMED:
+        logits, idx, gw, gate = card_tests.moe_bwd_inputs(case, dev)
+        t, e = logits.shape
+        k = idx.shape[1]
+        want = ref.moe_route_weights_vjp_ref(logits, idx, gw, gate)
+        outs = {name: torch.empty_like(want) for name in launch}
+
+        def call(name):
+            err = launch[name](logits.data_ptr(), idx.data_ptr(), gw.data_ptr(),
+                               outs[name].data_ptr(), t, e, k, int(gate == "softmax"),
+                               torch.cuda.current_stream().cuda_stream)
+            assert err == 0, (name, err)
+
+        row = {"src_ms": [], "here_ms": []}
+        for name in ("src", "here", "here", "src"):
+            row[f"{name}_ms"].append(_device_ms(lambda n=name: call(n), reps))
+        for name, got in outs.items():
+            torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
+            row[f"{name}_max_abs_err"] = float((got - want).abs().max())
+        bound = _moe_bwd_bound(t, e, k)
+        plain_ms = _time_ms(lambda: ref.moe_route_weights_vjp_ref(logits, idx, gw, gate), 3)
+        row.update(plain_ms=plain_ms, bound_ms=bound[0], bound_by=bound[1])
+        result[case] = row
+    print(json.dumps(result))
 
 
 def _moe_bound(t: int, e: int, k: int, logit_bytes: int) -> tuple[float, str]:
@@ -1961,10 +2045,13 @@ def _training_phase(dev, times: dict, card_tests) -> list:
         print(f"phase 9 flash_attention_bwd {case}: two calls give equal dq, dk, dv bits")
     del q, k, v, dout
     for case in card_tests.MOE_BWD_CASES:
-        err = card_tests.moe_bwd_vs_plain(*card_tests.moe_bwd_inputs(case, dev))
+        inputs = card_tests.moe_bwd_inputs(case, dev)
+        err = card_tests.moe_bwd_vs_plain(*inputs)
+        card_tests.moe_bwd_repeat_equal(*inputs)
         moe_err = max(moe_err, err)
         print(f"phase 9 moe_route_bwd {case} {card_tests.MOE_BWD_CASES[case]}: max abs err "
-              f"{err:.3g} (within atol 1e-6, rtol 1e-5)")
+              f"{err:.3g} (within atol 1e-6, rtol 1e-5), two calls equal bit for bit")
+    del inputs
     times["train_kernels_s"] = time.perf_counter() - t_phase
 
     # (b) one train step on the card against the same step on the CPU.
@@ -2096,16 +2183,20 @@ def _training_phase(dev, times: dict, card_tests) -> list:
     del q, k, v, dout
     torch.cuda.empty_cache()
 
-    logits, idx, gw, gate = card_tests.moe_bwd_inputs("deepseek_v2", dev)
-    moe_ms = _device_ms(lambda: moe_route.moe_route_bwd_cuda(logits, idx, gw, gate_fn=gate),
+    moe_shapes = {}
+    for case in MOE_BWD_TIMED:
+        logits, idx, gw, gate = card_tests.moe_bwd_inputs(case, dev)
+        ms = _device_ms(lambda: moe_route.moe_route_bwd_cuda(logits, idx, gw, gate_fn=gate),
                         MOE_TIME_REPS)
-    moe_plain_ms = _time_ms(lambda: ref.moe_route_weights_vjp_ref(logits, idx, gw, gate), 3)
-    t_, e_ = logits.shape
-    k_ = idx.shape[1]
-    moe_bound = _bound_ms(4 * (2 * t_ * e_ + 2 * t_ * k_), (6 + k_) * t_ * e_)
-    print(f"phase 9 moe_route_bwd at DeepSeek-V2's shape (T={t_}, E={e_}, k={k_}, softmax): "
-          f"kernel {moe_ms:.5f} ms (device time, queue filled), plain {moe_plain_ms:.3f} ms, "
-          f"bound {moe_bound[0]:.6f} ms ({moe_bound[1]})")
+        plain = _time_ms(lambda: ref.moe_route_weights_vjp_ref(logits, idx, gw, gate), 3)
+        bound = _moe_bwd_bound(*logits.shape, idx.shape[1])
+        moe_shapes[case] = {"ms": ms, "plain_ms": plain, "bound_ms": bound[0],
+                            "bound_by": bound[1], "bound_share": bound[0] / ms}
+        print(f"phase 9 moe_route_bwd at {case} {card_tests.MOE_BWD_CASES[case][:4]}: kernel "
+              f"{ms:.5f} ms (device time, queue filled), plain {plain:.3f} ms, bound "
+              f"{bound[0]:.6f} ms ({bound[1]}), bound / kernel {bound[0] / ms:.4f}")
+    del logits, idx, gw
+    main_moe = moe_shapes[MOE_BWD_TIMED[0]]
     times["train_profile_s"] = time.perf_counter() - t0
 
     # (e) the MoE training example on the card, as a subprocess.
@@ -2153,9 +2244,10 @@ def _training_phase(dev, times: dict, card_tests) -> list:
             "name": "moe_route_bwd", "route": "cuda",
             "source": "src/repro_torch/csrc/moe_route_bwd.cu",
             "replaces": "src/repro/kernels/moe_route.py:89",
-            "launches": ex_launches["moe_route_bwd"], "max_abs_err": moe_err, "ms": moe_ms,
-            "plain_ms": moe_plain_ms, "bound_ms": moe_bound[0], "bound_by": moe_bound[1],
-            "library_ms": None,
+            "launches": ex_launches["moe_route_bwd"], "max_abs_err": moe_err,
+            "ms": main_moe["ms"], "plain_ms": main_moe["plain_ms"],
+            "bound_ms": main_moe["bound_ms"], "bound_by": main_moe["bound_by"],
+            "library_ms": None, "shapes": moe_shapes,
         },
     ]
 

@@ -18,6 +18,10 @@ first use.
 positions in plain torch (warp ranks, the scan over warps, the prefix
 inside a cluster and the look-back across clusters), so the CPU tests can
 hold it against ``ref.moe_positions_ref``; change it with the kernel.
+:func:`moe_route_bwd_tiled` replays the backward kernel's (its tiling of
+tokens and lanes, the k-term sums and the scatter of dg in slot order),
+held against ``jax.vjp`` of the reference router and
+``ref.moe_route_weights_vjp_ref``.
 """
 from __future__ import annotations
 
@@ -281,3 +285,120 @@ def moe_positions_tiled(
     warp_of = (torch.arange(t * k) // k - block_of * tile) // warp
     pos = base[block_of, flat] + offset[block_of, warp_of, flat] + rank
     return pos.to(torch.int32), (cluster_base[-1] + total[-1]).to(torch.int32)
+
+
+# Threads a block of csrc/moe_route_bwd.cu (kThreads); a token takes
+# moe_bwd_tiling(E)[0] of them.
+MOE_BWD_THREADS = 128
+
+
+def moe_bwd_tiling(e: int) -> tuple[int, int]:
+    """``(lanes, per_lane)``: the lanes of ``csrc/moe_route_bwd.cu`` a token
+    takes for ``e`` experts, and the float4 chunks each lane owns (lane
+    ``l``'s chunk ``v`` holds experts ``4 (l + lanes v)`` to ``+ 3``).
+    Eight lanes from 9 chunks (33 experts) up, else the fewest lanes, a
+    power of two, that give each chunk its own lane; only a lane's last
+    chunk can fall past the row."""
+    chunks = -(-e // 4)
+    if chunks <= 8:
+        return 1 << (chunks - 1).bit_length(), 1
+    return 8, -(-chunks // 8)
+
+
+def _butterfly(parts: torch.Tensor, op) -> torch.Tensor:
+    """The kernel's xor-shuffle reduction over a token's lanes (the last
+    dimension), in its order: every lane ends with lane 0's value."""
+    lane = torch.arange(parts.shape[-1])
+    off = parts.shape[-1] // 2
+    while off:
+        parts = op(parts, parts[..., lane ^ off])
+        off //= 2
+    return parts[..., 0]
+
+
+def moe_route_bwd_tiled(
+    logits: torch.Tensor, idx: torch.Tensor, grad_w: torch.Tensor, *, gate_fn: str = "softmax"
+) -> torch.Tensor:
+    """The backward kernel's schedule in plain torch: what
+    ``ref.moe_route_weights_vjp_ref`` computes, by ``csrc/moe_route_bwd.cu``'s
+    formula and order.
+
+    A block takes ``MOE_BWD_THREADS // lanes`` consecutive tokens
+    (:func:`moe_bwd_tiling`); a token's lanes each sum their own experts
+    (the row max, and the softmax sum as a partial sum per float4
+    component, ``(s0 + s1) + (s2 + s3)``) and their own slots ``j = l +
+    lanes m``, in order, then reduce by butterfly: ``S = sum_j r_j`` and
+    ``A = sum_j gw_j r_j`` (for the softmax, sums of ``exp(x - max)`` times
+    the inverse row sum); ``Z = S + 1e-20`` and ``c = sum_j r_j dr_j = (A -
+    (A / Z) S) / Z`` follow from the two sums.  ``dg`` is the scatter of
+    the slots' ``dr_j``: the first slot naming an expert writes the sum of
+    that expert's ``dr_j`` in slot order (times ``g (1 - g)`` for the
+    sigmoid), so a repeated expert sums its slots; the softmax writes ``g_e
+    (dg_e - c)`` for every expert, the sigmoid ``dg_e`` and 0 elsewhere.
+    Returns ``(T, E)`` float32.
+    """
+    if gate_fn not in GATE_FNS:
+        raise ValueError(f"unknown gate_fn {gate_fn!r}; expected one of {GATE_FNS}")
+    t, e = logits.shape
+    k = idx.shape[1]
+    lanes, per_lane = moe_bwd_tiling(e)
+    tokens = MOE_BWD_THREADS // lanes
+    softmax = gate_fn == "softmax"
+    # (lanes, per_lane, 4): the expert of lane l's chunk v, component q.
+    lane_e = (4 * (torch.arange(lanes)[:, None, None] + lanes * torch.arange(per_lane)[:, None])
+              + torch.arange(4))
+    valid = lane_e < e
+    owned = lane_e.clamp(max=e - 1)
+    slot_lane = torch.arange(k) % lanes
+    later = torch.arange(k)[None, :] > torch.arange(k)[:, None]  # [i, j]: i < j
+    out = torch.empty((t, e), dtype=torch.float32, device=logits.device)
+
+    for t0 in range(0, t, tokens):  # a block
+        x = logits[t0:t0 + tokens].to(torch.float32)
+        ids = idx[t0:t0 + tokens].long()
+        gw = grad_w[t0:t0 + tokens].to(torch.float32)
+        n = x.shape[0]
+
+        def slot_sum(vals):
+            parts = torch.zeros((n, lanes), dtype=torch.float32, device=x.device)
+            for j in range(k):  # each lane's slots in order
+                parts[:, slot_lane[j]] += vals[:, j]
+            return _butterfly(parts, torch.add)
+
+        xe = torch.gather(x, 1, ids)
+        if softmax:
+            xl = x[:, owned]
+            m = _butterfly(torch.where(valid, xl, -torch.inf).flatten(2).amax(2), torch.maximum)
+            g = torch.where(valid, torch.exp(xl - m[:, None, None, None]), 0.0)
+            sq = torch.zeros((n, lanes, 4), dtype=torch.float32, device=x.device)
+            for v in range(per_lane):
+                sq = sq + g[:, :, v]
+            inv = 1.0 / _butterfly((sq[..., 0] + sq[..., 1]) + (sq[..., 2] + sq[..., 3]),
+                                   torch.add)
+            g = g * inv[:, None, None, None]
+            p = torch.exp(xe - m[:, None])
+            s_r, s_a = slot_sum(p) * inv, slot_sum(gw * p) * inv
+        else:
+            r = 1.0 / (1.0 + torch.exp(-xe))
+            s_r, s_a = slot_sum(r), slot_sum(gw * r)
+        inv_z = 1.0 / (s_r + 1e-20)
+        gw_dot_w = s_a * inv_z
+        c = (s_a - gw_dot_w * s_r) * inv_z
+        dr = (gw - gw_dot_w[:, None]) * inv_z[:, None]
+
+        s = torch.zeros((n, k), dtype=torch.float32, device=x.device)
+        first = torch.ones((n, k), dtype=torch.bool, device=x.device)
+        for i in range(k):
+            same = ids[:, i:i + 1] == ids
+            s = s + torch.where(same, dr[:, i:i + 1], 0.0)
+            first &= ~(same & later[i])
+        if not softmax:
+            s = s * r * (1.0 - r)
+        dg = torch.zeros((n, e), dtype=torch.float32, device=x.device)
+        rows = torch.arange(n, device=x.device)[:, None].expand(n, k)
+        dg[rows[first], ids[first]] = s[first]
+        if softmax:
+            res = g * (dg[:, owned] - c[:, None, None, None])
+            dg[:, lane_e[valid]] = res[:, valid]
+        out[t0:t0 + n] = dg
+    return out

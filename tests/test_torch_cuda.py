@@ -671,27 +671,55 @@ def flash_bwd_repeat_equal(q, k, v, dout, kw) -> None:
         assert torch.equal(a, b), name
 
 
-# name -> (T, E, k, gate, all-tied logits): DeepSeek-V2's prefill shape and
-# V3's (sigmoid gates), one token, and all-tied batches.
+# name -> (T, E, k, gate, inputs): DeepSeek-V2's prefill shape and V3's
+# (sigmoid gates), a training microbatch of 16,384 tokens, one token, E not
+# a multiple of 4 (67: 4-byte access), E < 4, k = E (more slots than a
+# token's lanes; at E 256 past 48 KB of shared memory), and inputs "randn"
+# (seeded logits, the forward kernel's route), "ties" (all-tied logits),
+# "dup" (a route made by hand that names experts twice and three times) or
+# "unaligned" (the logits 4 bytes past a 16-byte boundary: 4-byte access
+# at E 160).
 MOE_BWD_CASES = {
-    "deepseek_v2": (2048, 160, 6, "softmax", False),
-    "deepseek_v3": (2048, 256, 8, "sigmoid", False),
-    "t1": (1, 160, 6, "softmax", False),
-    "all_ties": (64, 160, 6, "softmax", True),
-    "all_ties_sigmoid": (64, 256, 8, "sigmoid", True),
+    "deepseek_v2": (2048, 160, 6, "softmax", "randn"),
+    "deepseek_v3": (2048, 256, 8, "sigmoid", "randn"),
+    "long": (16384, 160, 6, "softmax", "randn"),
+    "t1": (1, 160, 6, "softmax", "randn"),
+    "all_ties": (64, 160, 6, "softmax", "ties"),
+    "all_ties_sigmoid": (64, 256, 8, "sigmoid", "ties"),
+    "e_tail": (1000, 67, 5, "sigmoid", "randn"),
+    "e_small": (37, 3, 3, "softmax", "randn"),
+    "dup_slots": (1000, 160, 6, "softmax", "dup"),
+    "dup_slots_sigmoid": (999, 256, 8, "sigmoid", "dup"),
+    "unaligned": (500, 160, 6, "softmax", "unaligned"),
+    "k_all": (64, 256, 256, "softmax", "randn"),
+    "k_all_sigmoid": (50, 67, 67, "sigmoid", "randn"),
 }
 
 
 def moe_bwd_inputs(case: str, dev, seed: int = 0):
     """``(logits, idx, grad_w, gate)``: the forward kernel's route of the
-    case's logits (bias 0) and a seeded upstream gradient."""
+    case's logits (bias 0), or the hand-made route of a ``"dup"`` case, and
+    a seeded upstream gradient."""
     from repro_torch.kernels import moe_route
 
-    t, e, k, gate, ties = MOE_BWD_CASES[case]
+    t, e, k, gate, kind = MOE_BWD_CASES[case]
     gen = torch.Generator(device=dev).manual_seed(seed)
-    logits = (torch.zeros((t, e), device=dev) if ties
+    logits = (torch.zeros((t, e), device=dev) if kind == "ties"
               else torch.randn((t, e), generator=gen, device=dev))
-    idx = moe_route.moe_route_cuda(logits, torch.zeros((e,), device=dev), k, gate_fn=gate)[0]
+    if kind == "dup":  # distinct experts, then repeats
+        idx = torch.argsort(torch.rand((t, e), generator=gen, device=dev), dim=1)[:, :k]
+        idx = idx.to(torch.int32)
+        idx[::2, -1] = idx[::2, 0]
+        idx[::3, 0] = idx[::3, 1]
+        idx[::5, 1:4] = idx[::5, 2:3]
+    else:
+        idx = moe_route.moe_route_cuda(logits, torch.zeros((e,), device=dev), k,
+                                       gate_fn=gate)[0]
+    if kind == "unaligned":
+        buf = torch.empty((t * e + 1,), device=dev)
+        buf[1:] = logits.reshape(-1)
+        logits = buf[1:].view(t, e)
+        assert logits.data_ptr() % 16 == 4
     return logits, idx, torch.randn((t, k), generator=gen, device=dev), gate
 
 
@@ -703,7 +731,21 @@ def moe_bwd_vs_plain(logits, idx, grad_w, gate) -> float:
     got = moe_route.moe_route_bwd_cuda(logits, idx, grad_w, gate_fn=gate)
     want = tref.moe_route_weights_vjp_ref(logits, idx, grad_w, gate)
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
+    if gate == "sigmoid":  # the experts not chosen take an exact 0
+        chosen = torch.zeros_like(got, dtype=torch.bool).scatter_(1, idx.long(), True)
+        assert not got[~chosen].any()
     return float((got - want).abs().max())
+
+
+def moe_bwd_repeat_equal(logits, idx, grad_w, gate) -> None:
+    """Two ``moe_route_bwd_cuda`` calls on the same inputs give the same
+    bits (no atomics)."""
+    from repro_torch.kernels import moe_route
+
+    first = moe_route.moe_route_bwd_cuda(logits, idx, grad_w, gate_fn=gate)
+    second = moe_route.moe_route_bwd_cuda(logits, idx, grad_w, gate_fn=gate)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
 
 
 # One train step on the card against the CPU: (arch, sync, microbatches).
@@ -1402,6 +1444,10 @@ class TestTrainingOnCard:
         moe_bwd_vs_plain(*moe_bwd_inputs(case, cuda_device))
         torch.cuda.synchronize()
         assert tops.launch_counts()["moe_route_bwd"] == before + 1
+
+    @pytest.mark.parametrize("case", list(MOE_BWD_CASES))
+    def test_moe_route_bwd_kernel_repeats_bit_for_bit(self, cuda_device, case):
+        moe_bwd_repeat_equal(*moe_bwd_inputs(case, cuda_device))
 
     def test_moe_route_autograd_goes_through_both_kernels(self, cuda_device):
         logits, _, gw, gate = moe_bwd_inputs("deepseek_v2", cuda_device)
