@@ -303,7 +303,27 @@ own failure):
    ``tests/test_examples.py``'s sizes (exit 0, "[done]", one
    ``moe_route`` and one ``moe_route_bwd`` launch per MoE layer per
    step).
-10. Print the kernels line (launch counts from the main paths, parity,
+10. The parallel context on one card (``models/parallel.py``,
+   ``launch/mesh.py``): a world-size-1 NCCL process group (a failure to
+   start it fails the phase; no gloo or CPU fallback), a (1, 1)
+   ``DeviceMesh`` on the card, DeepSeek-V2's context from
+   ``make_context`` and one ``all_reduce`` over its dispatcher grid.
+   Phase 7's model (published widths, 3 layers, bf16, seed 0) with a
+   random CARE bias under the context and with ``ctx=None``, after a
+   warm-up: prefill of phase 7's 4 x 512 prompts, 4 greedy decode steps,
+   and ``train_loss`` with the gradient of every parameter at 2 x 128
+   tokens; the launch counts set to 0 just before the context's run and
+   read just after (``moe_route`` 2 + 4 a MoE layer, ``moe_route_bwd``
+   one).  Every routed id and count equal, the training counts as one
+   dispatcher's ``(L, 1, 1, E)`` rows, logits, loss and gradients within
+   1e-4 of each one's largest magnitude; ``moe_route`` against its plain
+   version on the context's own inputs.  Then one train step of the
+   reduced config (float32, balancer sync on; AdamW's moments as ZeRO-1
+   blocks) under the context against ``ctx=None``, and
+   ``repro_torch.launch.train --mesh 1,1`` against the same run without
+   a mesh.  Expert parallelism across ranks (``ep > 1``) needs more than
+   one card: the CPU tests run it over gloo ranks.
+11. Print the kernels line (launch counts from the main paths, parity,
    times and bounds; ``serve_slots`` also carries phase 3b's stream-mode
    launches, ms a chunk, bound, plain time and error under ``stream_*``;
    ``flash_attention`` also carries phase 8b's launches per model under
@@ -311,8 +331,9 @@ own failure):
    shapes under ``family_shapes``, and its ``max_abs_err`` covers both
    phases; ``flash_attention_bwd`` and ``moe_route_bwd`` carry phase 9's
    launches, times and bounds, and the training step's numbers under
-   ``train_*``), the card's name and power limit, and the contract line
-   last.
+   ``train_*``; ``moe_route`` and ``moe_route_bwd`` carry phase 10's
+   launches under ``parallel_launches``), the card's name and power
+   limit, and the contract line last.
 
 Exits non-zero without printing a result when no CUDA card is present or
 when the port's sources are not beside this script.
@@ -567,6 +588,15 @@ TRAIN_RESUME_RTOL = 1e-3
 BWD_TIME_REPS = 5
 # The example at tests/test_examples.py's sizes.
 TRAIN_EXAMPLE_ARGS = ["--steps", "6", "--batch", "2", "--seq", "32", "--ckpt-every", "2"]
+# Phase 10: the parallel context on one card (a world-size-1 NCCL group, a
+# (1, 1) DeviceMesh).  Phase 7's model and prompts, PARALLEL_NEW decode
+# steps, a forward and backward at PARALLEL_TRAIN (batch, seq) tokens, then
+# a train step and the launcher at the reduced config.
+PARALLEL_NEW = 4
+PARALLEL_TRAIN = (2, 128)
+PARALLEL_TOL = 1e-4
+PARALLEL_LAUNCH_ARGS = ["--arch", MOE_ARCH, "--steps", "3", "--batch", "2", "--seq", "32",
+                        "--log-every", "0", "--lr", "1e-2"]
 # About 25 ms at the H100's 1.98 GHz: longer than the host takes to
 # enqueue MOE_TIME_REPS launches (~35 us each).
 SLEEP_CYCLES = 50_000_000
@@ -3156,6 +3186,193 @@ def family_phase_only() -> None:
     print(json.dumps(family))
 
 
+def _scaled_err(got, want) -> float:
+    """Largest ``|got - want|`` over the largest ``|want|``."""
+    w = want.detach().float()
+    return float((got.detach().float() - w).abs().max()) / max(float(w.abs().max()), 1e-30)
+
+
+def _parallel_phase(dev, times: dict) -> dict:
+    """Phase 10: the port's parallel context on one card.  Returns the
+    launches of the phase's path, by kernel."""
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import moe_route as moe_k
+    from repro_torch.kernels import ops, ref
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models import model
+    from repro_torch.optim import adamw
+    from repro_torch.train import train_loop
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    assert torch.cuda.memory_allocated(dev) < 1e9, (
+        f"{torch.cuda.memory_allocated(dev) / 1e9:.2f} GB still allocated before phase 10")
+    backend = "nccl" if dev.type == "cuda" else "gloo"
+    assert mesh_lib.init_ranks(dev), "a process group was already running"
+    try:
+        assert dist.get_backend() == backend, dist.get_backend()
+        dmesh = mesh_lib.make_debug_mesh((1, 1), dev)
+        cfg = _moe_config()
+        ctx = mesh_lib.make_context(dmesh, cfg.n_routed_experts)
+        one = torch.ones(1, device=dev)
+        dist.all_reduce(one, group=ctx.group(ctx.grid_axes))
+        assert float(one) == 1.0
+        times["parallel_init_s"] = time.perf_counter() - t_phase
+        print(f"phase 10 {backend} group of world size {dist.get_world_size()}, DeviceMesh "
+              f"{dmesh.device_type} (1, 1) ('data', 'model'); {cfg.name} context: ep_axes "
+              f"{ctx.ep_axes}, fsdp {ctx.fsdp_axis}, ep/dp/tp {ctx.ep_size}/{ctx.dp_size}/"
+              f"{ctx.tp_size}; an all_reduce over the grid group gives 1.0; "
+              f"{times['parallel_init_s']:.2f} s")
+
+        # (a) phase 7's model under the context and without one: prefill,
+        # decode, and a forward and backward; after a warm-up, the
+        # context's runs first, with the launch counts set to 0 just
+        # before and read just after.
+        params = model.init_params(torch.Generator(device=dev).manual_seed(MOE_SEED), cfg, dev)
+        n_moe = model.num_scanned_layers(cfg)
+        e, k = cfg.n_routed_experts, cfg.moe_top_k
+        rng = np.random.default_rng(MOE_SEED)
+        tokens = torch.from_numpy(
+            rng.integers(0, cfg.vocab_size, (MOE_BATCH, MOE_PROMPT)).astype(np.int64)).to(dev)
+        bias = torch.from_numpy(rng.standard_normal((n_moe, e)).astype(np.float32)).to(dev)
+        tb = tokens[:PARALLEL_TRAIN[0], :PARALLEL_TRAIN[1]]
+        batch = {"tokens": tb, "labels": torch.roll(tb, -1, 1)}
+        calls = []
+        route = ops.moe_route
+
+        def spy(logits, b, top_k, *, gate_fn):
+            out = route(logits, b, top_k, gate_fn=gate_fn)
+            calls.append((logits, b, out))
+            return out
+
+        def run(c):
+            b = bias if c is None else bias[:, None, None, :]
+            start = len(calls)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with torch.no_grad():
+                logits, cache = model.prefill(params, {"tokens": tokens}, cfg, c,
+                                              cache_len=MOE_PROMPT + PARALLEL_NEW, bias=b)
+                out = [logits]
+                for i in range(PARALLEL_NEW):
+                    logits, cache = model.decode_step(params, out[-1].argmax(-1), cache,
+                                                      MOE_PROMPT + i, cfg, c, bias=b)
+                    out.append(logits)
+            torch.cuda.synchronize()
+            serve_s = time.perf_counter() - t0
+            del cache
+            params.requires_grad_(True)
+            t0 = time.perf_counter()
+            loss, aux = model.train_loss(params, batch, cfg, c, b)
+            grads = torch.autograd.grad(loss, list(params.parameters()))
+            torch.cuda.synchronize()
+            params.requires_grad_(False)
+            return dict(logits=torch.stack(out), routes=calls[start:], loss=loss.detach(),
+                        counts=aux["counts"], grads=grads, serve_s=serve_s,
+                        train_s=time.perf_counter() - t0)
+
+        ops.moe_route = spy
+        try:
+            run(None)  # a warm-up, dropped: the timed runs below start warm
+            calls.clear()
+            ops.reset_launch_counts()
+            got = run(ctx)
+            launches = ops.launch_counts()
+            want = run(None)
+        finally:
+            ops.moe_route = route
+        assert launches == {"jsaq_route": 0, "care_route": 0, "serve_route": 0,
+                            "serve_slots": 0, "moe_route": n_moe * (2 + PARALLEL_NEW),
+                            "flash_attention": 0, "flash_attention_bwd": 0,
+                            "moe_route_bwd": n_moe}, launches
+        assert len(got["routes"]) == len(want["routes"]) == n_moe * (2 + PARALLEL_NEW)
+        for (_, _, a), (_, _, w) in zip(got["routes"], want["routes"]):
+            assert torch.equal(a[0], w[0]) and torch.equal(a[2], w[2]), "routes differ"
+        assert got["counts"].shape == (n_moe, 1, 1, e)
+        assert torch.equal(got["counts"][:, 0, 0], want["counts"]), "train counts differ"
+        errs = {"logits": _scaled_err(got["logits"], want["logits"]),
+                "loss": _scaled_err(got["loss"], want["loss"]),
+                "grads": max(_scaled_err(a, w) for a, w in zip(got["grads"], want["grads"]))}
+        assert max(errs.values()) <= PARALLEL_TOL, errs
+        assert bool(torch.isfinite(got["logits"]).all()) and bool(torch.isfinite(got["loss"]))
+        # The router kernel inside the context's path against its plain
+        # version on that path's own inputs (a prefill and a decode call).
+        kerr = max(_moe_parity(moe_k, ref, lg, b, k, cfg.gate_fn, got=o)
+                   for lg, b, o in (got["routes"][0], got["routes"][n_moe]))
+        times["parallel_serve_s"], times["none_serve_s"] = got["serve_s"], want["serve_s"]
+        times["parallel_fwd_bwd_s"], times["none_fwd_bwd_s"] = got["train_s"], want["train_s"]
+        print(f"phase 10 {cfg.name} x {MOE_LAYERS} layers, {cfg.param_dtype}, under the (1, 1) "
+              f"context against ctx=None: prefill {MOE_BATCH} x {MOE_PROMPT} + {PARALLEL_NEW} "
+              f"decode steps {got['serve_s']:.4f} s (ctx=None {want['serve_s']:.4f} s), "
+              f"forward + backward {PARALLEL_TRAIN[0]} x {PARALLEL_TRAIN[1]} "
+              f"{got['train_s']:.4f} s ({want['train_s']:.4f} s); every routed id and count "
+              f"equal, train counts (L, 1, 1, E) equal; largest error / largest magnitude: "
+              f"logits {errs['logits']:.3g}, loss {errs['loss']:.3g}, gradients "
+              f"{errs['grads']:.3g} (at most {PARALLEL_TOL}); launches {launches}; moe_route "
+              f"on the path's inputs against its plain version: max abs err {kerr:.3g}; "
+              f"peak {torch.cuda.max_memory_allocated(dev) / 1e9:.1f} GB")
+        del params, got, want, calls, tokens, batch
+        torch.cuda.empty_cache()
+
+        # (b) one train step at the reduced config (AdamW's ZeRO-1 path over
+        # the mesh), under the context and without one.
+        rcfg = get_config(MOE_ARCH).reduced()
+        rctx = mesh_lib.make_context(dmesh, rcfg.n_routed_experts)
+        opt = adamw.OptimConfig(lr=1e-2, warmup_steps=1, total_steps=4, eps=1e-4)
+        tok = torch.from_numpy(rng.integers(0, rcfg.vocab_size, (4, 32)).astype(np.int64))
+        rbatch = {"tokens": tok, "labels": torch.roll(tok, -1, 1)}
+        res = {}
+        for name, c in (("ctx", rctx), ("none", None)):
+            state = train_loop.init_state(torch.Generator(device=dev).manual_seed(0), rcfg, c,
+                                          device=dev)
+            state, metrics = train_loop.make_train_step(rcfg, opt, c, sync=True)(state, rbatch)
+            res[name] = (metrics, dict(state.params.named_parameters()),
+                         adamw.gather_state(state.opt, state.params, c), state.balancer)
+        (gm, gp, go, gb), (wm, wp, wo, wb) = res["ctx"], res["none"]
+        assert torch.equal(gb.true_counts[:, 0, 0], wb.true_counts)
+        step_err = max([_scaled_err(gm[n], wm[n]) for n in ("loss", "grad_norm")]
+                       + [_scaled_err(gp[n], wp[n]) for n in wp]
+                       + [_scaled_err(go.m[n], wo.m[n]) for n in wp]
+                       + [_scaled_err(go.v[n], wo.v[n]) for n in wp])
+        assert step_err <= PARALLEL_TOL, step_err
+        print(f"phase 10 train step, {rcfg.name} float32, balancer sync on, under the (1, 1) "
+              f"context (moments as ZeRO-1 blocks of the JAX leaves) against ctx=None: counts "
+              f"equal, loss, grad_norm, parameters and moments within {step_err:.3g} of each "
+              f"leaf's largest magnitude")
+        del res, state
+
+        # (c) the launcher with --mesh 1,1 against the same run without it.
+        t0 = time.perf_counter()
+        with_mesh = launch_train.main(PARALLEL_LAUNCH_ARGS + ["--mesh", "1,1"])["losses"]
+        plain = launch_train.main(PARALLEL_LAUNCH_ARGS)["losses"]
+        np.testing.assert_allclose(with_mesh, plain, rtol=PARALLEL_TOL)
+        print(f"phase 10 launch.train {' '.join(PARALLEL_LAUNCH_ARGS)} --mesh 1,1: losses "
+              f"{[round(x, 6) for x in with_mesh]} equal the run without a mesh within "
+              f"{PARALLEL_TOL}; {time.perf_counter() - t0:.1f} s")
+    finally:
+        dist.destroy_process_group()
+    times["parallel_phase_s"] = time.perf_counter() - t_phase
+    print(f"phase 10: {times['parallel_phase_s']:.1f} s")
+    return launches
+
+
+def parallel_phase_only() -> None:
+    """Phase 1's build and phase 10 alone, for a short call on the card."""
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.kernels import _build
+
+    _build.build_all()
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    times: dict[str, float] = {}
+    launches = _parallel_phase(dev, times)
+    print("times (s): " + json.dumps(times) + f" on {_card()}")
+    print(json.dumps(launches))
+
+
 def training_phase_only() -> None:
     """Phase 1's build and phase 9 alone, for a short call on the card."""
     sys.path.insert(0, str(ROOT / "src"))
@@ -3681,7 +3898,14 @@ def main() -> int:
     # -- 9. training ---------------------------------------------------------------
     train_kernels = _training_phase(dev, times, card_tests)
 
-    # -- 10. output --------------------------------------------------------------
+    # -- 10. the parallel context on one card ------------------------------------
+    parallel = _parallel_phase(dev, times)
+    moe_kernel["parallel_launches"] = parallel["moe_route"]
+    for entry in train_kernels:
+        if entry["name"] == "moe_route_bwd":
+            entry["parallel_launches"] = parallel["moe_route_bwd"]
+
+    # -- 11. output --------------------------------------------------------------
     kernels = [
         {
             "name": "care_route", "route": "cuda",

@@ -34,23 +34,9 @@ from pathlib import Path
 import numpy as np
 import torch
 
-STACKED = ("layers", "enc_layers")  # subtrees the JAX package stacks per layer
+from repro_torch.models.partitioning import STACKED, jax_param_paths
+
 _BF16 = "bfloat16"
-
-
-def _jax_param_paths(named: dict) -> dict[str, list]:
-    """``{JAX path: [port tensor, ...]}``: a stacked leaf lists its layers'
-    tensors in layer order, any other one its single tensor."""
-    out: dict[str, list] = {}
-    for name, t in named.items():
-        head, _, rest = name.partition(".")
-        if head in STACKED:
-            layer, _, leaf = rest.partition(".")
-            key = f"{head}/{leaf.replace('.', '/')}"
-            out.setdefault(key, []).append((int(layer), t))
-        else:
-            out[name.replace(".", "/")] = [(0, t)]
-    return {k: [t for _, t in sorted(v, key=lambda e: e[0])] for k, v in out.items()}
 
 
 def _state_paths(state) -> dict[str, tuple[list, bool]]:
@@ -58,7 +44,7 @@ def _state_paths(state) -> dict[str, tuple[list, bool]]:
     named = dict(state.params.named_parameters())
     paths: dict[str, tuple[list, bool]] = {}
     for prefix, tree in (("params", named), ("opt/m", state.opt.m), ("opt/v", state.opt.v)):
-        for key, ts in _jax_param_paths(tree).items():
+        for key, ts in jax_param_paths(tree).items():
             stacked = key.split("/", 1)[0] in STACKED
             paths[f"{prefix}/{key}"] = (ts, stacked)
     paths["opt/step"] = ([state.opt.step], False)

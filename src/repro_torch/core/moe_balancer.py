@@ -41,10 +41,13 @@ class BalancerState:
     steps_since_sync: torch.Tensor  # () int32
 
     @staticmethod
-    def init(num_layers: int, num_experts: int, device=None) -> "BalancerState":
-        """Zero state on ``device`` (None means the CUDA card)."""
+    def init(num_layers: int, num_experts: int, device=None,
+             dispatchers: tuple[int, int] = ()) -> "BalancerState":
+        """Zero state on ``device`` (None means the CUDA card); with
+        ``dispatchers=(DP, TP)`` one row per dispatcher."""
         dev = _resolve_device(device)
-        z = torch.zeros((num_layers, num_experts), dtype=torch.float32, device=dev)
+        z = torch.zeros((num_layers, *dispatchers, num_experts), dtype=torch.float32,
+                        device=dev)
         return BalancerState(
             load_approx=z,
             true_load=z,

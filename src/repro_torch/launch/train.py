@@ -13,19 +13,31 @@ Port of ``repro/launch/train.py``.  Flow:
      same command again resumes from the latest checkpoint;
   5. a ``StragglerMonitor`` consumes the per-step times.
 
+With ``--mesh DATA,MODEL`` the run takes a parallel context
+(``launch/mesh.py``) over the ranks of ``torchrun``'s environment (one
+rank without it): NCCL on the card, gloo on the CPU.  Every rank runs the
+whole batch; MoE layers exchange tokens over the mesh and AdamW keeps
+ZeRO-1 blocks of the moments, gathered whole for a checkpoint, which rank
+0 writes.
+
 Usage (the card unless ``--device cpu``):
   PYTHONPATH=src python -m repro_torch.launch.train --arch smollm-135m \\
       --steps 200 --batch 8 --seq 256 --ckpt-dir /tmp/run1
+  torchrun --nproc-per-node 4 -m repro_torch.launch.train --device cpu \\
+      --arch deepseek-v2-236b --mesh 2,2 --batch 4 --seq 32
 """
 import argparse
+import dataclasses
 import time
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.ckpt import checkpoint
 from repro_torch.configs import get_config
 from repro_torch.core.care.slotted_sim import _resolve_device
 from repro_torch.data.pipeline import DataConfig, ShardedLoader
+from repro_torch.launch import mesh as mesh_lib
 from repro_torch.optim import adamw
 from repro_torch.train import train_loop
 from repro_torch.train.elastic import StragglerMonitor
@@ -58,6 +70,8 @@ def main(argv=None):
                     help="simulate a failure at this step (testing)")
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA card; 'cpu' for the plain path)")
+    ap.add_argument("--mesh", default="",
+                    help="DATA,MODEL: train under a parallel context on this mesh")
     args = ap.parse_args(argv)
 
     cfg, opt_cfg, data_cfg = build(
@@ -65,17 +79,48 @@ def main(argv=None):
         batch=args.batch, steps=args.steps, lr=args.lr,
     )
     dev = _resolve_device(args.device)
-    state = train_loop.init_state(torch.Generator(device=dev).manual_seed(0), cfg, device=dev)
+    ctx, started = None, False
+    if args.mesh:
+        started = mesh_lib.init_ranks(dev)
+        shape = tuple(int(a) for a in args.mesh.split(","))
+        ctx = mesh_lib.make_context(mesh_lib.make_debug_mesh(shape, dev),
+                                    cfg.n_routed_experts if cfg.moe else 0)
+    try:
+        return _run(args, cfg, opt_cfg, data_cfg, dev, ctx)
+    finally:
+        if started:
+            dist.destroy_process_group()
+
+
+def _whole(state, ctx):
+    """The state with its moments whole (a ZeRO-1 state gathered)."""
+    return dataclasses.replace(state, opt=adamw.gather_state(state.opt, state.params, ctx))
+
+
+def _run(args, cfg, opt_cfg, data_cfg, dev, ctx):
+    lead = ctx is None or dist.get_rank() == 0
+    log = print if lead else (lambda *a, **k: None)
+
+    def save(state, step):
+        whole = _whole(state, ctx)
+        if lead:
+            checkpoint.save(whole, args.ckpt_dir, step)
+
+    state = train_loop.init_state(torch.Generator(device=dev).manual_seed(0), cfg, ctx, device=dev)
     start_step = 0
     if args.ckpt_dir and checkpoint.latest_step(args.ckpt_dir) is not None:
-        state, start_step = checkpoint.restore(state, args.ckpt_dir)
-        print(f"[train] restored checkpoint at step {start_step}")
+        whole, start_step = checkpoint.restore(_whole(state, ctx), args.ckpt_dir)
+        opt = whole.opt
+        if state.opt.specs is not None:
+            opt = adamw.shard_state(opt, whole.params, ctx, state.opt.specs)
+        state = dataclasses.replace(whole, opt=opt)
+        log(f"[train] restored checkpoint at step {start_step}")
 
     loader = ShardedLoader(data_cfg, start_step=start_step)
     step_fn = train_loop.make_train_step(
-        cfg, opt_cfg, None, sync=False, microbatches=args.microbatches)
+        cfg, opt_cfg, ctx, sync=False, microbatches=args.microbatches)
     step_sync_fn = train_loop.make_train_step(
-        cfg, opt_cfg, None, sync=True, microbatches=args.microbatches)
+        cfg, opt_cfg, ctx, sync=True, microbatches=args.microbatches)
 
     monitor = StragglerMonitor(num_hosts=1)
     care = cfg.care
@@ -99,23 +144,23 @@ def main(argv=None):
         monitor.host_report(0, step_s[-1])
 
         if args.log_every and (step + 1) % args.log_every == 0:
-            print(f"[train] step {step+1} loss {loss:.4f} "
+            log(f"[train] step {step+1} loss {loss:.4f} "
                   f"lr {float(metrics['lr']):.2e} gnorm {float(metrics['grad_norm']):.2f}"
                   + (f" sync={use_sync}" if cfg.moe else ""))
         if args.ckpt_dir and (step + 1) % args.ckpt_every == 0:
-            checkpoint.save(state, args.ckpt_dir, step + 1)
+            save(state, step + 1)
         if args.crash_at == step + 1:
-            print(f"[train] simulated crash at step {step+1}")
+            log(f"[train] simulated crash at step {step+1}")
             raise SystemExit(42)
 
     dt = time.time() - t_start
     n = args.steps - start_step
-    print(f"[train] done: {n} steps in {dt:.1f}s "
+    log(f"[train] done: {n} steps in {dt:.1f}s "
           f"({dt/max(n,1)*1e3:.0f} ms/step), final loss {losses[-1]:.4f}, "
           f"first loss {losses[0]:.4f}"
           + (f", balancer syncs {syncs}/{n}" if cfg.moe else ""))
     if args.ckpt_dir:
-        checkpoint.save(state, args.ckpt_dir, args.steps)
+        save(state, args.steps)
     return {"final_loss": losses[-1], "first_loss": losses[0], "syncs": syncs,
             "losses": losses, "step_s": step_s, "start_step": start_step}
 

@@ -22,8 +22,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.care.slotted_sim import _resolve_device
 from repro_torch.models.model import Model
-
-STACKED = ("layers", "enc_layers")  # JAX subtrees stacked on a leading layer axis
+from repro_torch.models.partitioning import STACKED
 
 
 def _flatten(tree, prefix: str = ""):

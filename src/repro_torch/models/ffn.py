@@ -1,24 +1,34 @@
-"""Feed-forward blocks: dense (GLU / plain) and the CARE-routed MoE.
+"""Feed-forward blocks: dense (GLU / plain) and the expert-parallel MoE.
 
-Port of ``repro/models/ffn.py`` for one device (``ctx=None``): route ->
-scatter tokens into per-expert capacity buffers -> expert matmuls ->
-weighted gather-combine.  Routing always goes through
-:func:`repro_torch.kernels.ops.moe_route`, which launches the Hopper
-kernel for a CUDA tensor and runs its plain version for a CPU one; the
-kernel also returns each (token, slot)'s position in its expert's buffer,
-so no one-hot or cumsum runs on the card.  Counts
-are returned per layer; the CARE balancer (``core/moe_balancer.py``)
-consumes them.
+Port of ``repro/models/ffn.py``: route locally -> scatter tokens into
+per-expert capacity buffers -> all_to_all over the EP axes -> expert
+matmuls -> all_to_all back -> weighted gather-combine.  Routing always goes
+through :func:`repro_torch.kernels.ops.moe_route`, which launches the
+Hopper kernel for a CUDA tensor and runs its plain version for a CPU one;
+the kernel also returns each (token, slot)'s position in its expert's
+buffer, so no one-hot or cumsum runs on the card.
+
+Under a parallel context whose mesh divides the batch, the sequence and
+the experts (the reference's manual region), each rank is one dispatcher:
+it takes its ``(B/DP, S/TP)`` block of the tokens, its bias row and its
+experts' block of the weights (``models/partitioning``'s layout, gathered
+over the FSDP axis when E divides only the TP axis), exchanges capacity
+buffers with ``all_to_all_single`` over the EP group and returns the whole
+``y`` (gathered over the mesh) with ``(DP, TP, E)`` per-dispatcher counts.
+Counts are never reduced here: the CARE balancer's sparse sync
+(``core/moe_balancer.py``) is the only place global counts are formed.
 """
 from __future__ import annotations
 
+import types
+
 import torch
+import torch.distributed as dist
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
-from repro_torch.models import common
-from repro_torch.models.mla import refuse_ctx
+from repro_torch.models import common, parallel
 
 
 class DenseFFN(nn.Module):
@@ -74,15 +84,27 @@ def _capacity(t_loc: int, k: int, e: int, factor: float) -> int:
     return min(cap, t_loc * k)
 
 
-def _moe_local(xt: torch.Tensor, bias: torch.Tensor, p: MoEFFN, cfg: ModelConfig):
-    """MoE body on one device.  xt: ``(T, D)`` tokens, bias ``(E,)``.
+def _moe_local(xt: torch.Tensor, bias: torch.Tensor, p, cfg: ModelConfig,
+               ctx: parallel.ParallelContext | None = None):
+    """Per-rank MoE body.  xt: ``(T, D)`` local tokens, bias ``(E,)``.
 
-    Returns ``(y (T, D), counts (E,) float32)``.  A (token, slot) pair
-    past its expert's capacity goes to a sink row and contributes nothing.
+    Expert weights in ``p`` are this rank's blocks: ``(E_loc, D, F)`` under
+    pure EP sharding, or ``(E_loc, D/fsdp, F)`` under EP+FSDP (gathered
+    here); all E of them without a context.  Returns ``(y (T, D), counts
+    (E,) float32)``.  A (token, slot) pair past its expert's capacity goes
+    to a sink row and contributes nothing.
     """
     t_loc, d = xt.shape
     e, k = cfg.n_routed_experts, cfg.moe_top_k
     cdt = common.dtype_of(cfg.compute_dtype)
+
+    w_in_l, w_gate_l, w_out_l = p.w_in, p.w_gate_h, p.w_out
+    if ctx is not None and ctx.fsdp_axis is not None:
+        # Expert weights are FSDP-sharded on the D/F dim: gather per layer.
+        g = ctx.group(ctx.fsdp_axis)
+        w_in_l = parallel.all_gather(w_in_l, g, 1)
+        w_gate_l = parallel.all_gather(w_gate_l, g, 1)
+        w_out_l = parallel.all_gather(w_out_l, g, 2)
 
     logits = xt.to(torch.float32) @ p.gate
     # pos: each (token, slot)'s position within its expert's capacity buffer.
@@ -96,36 +118,105 @@ def _moe_local(xt: torch.Tensor, bias: torch.Tensor, p: MoEFFN, cfg: ModelConfig
     buf = torch.zeros((e * cap + 1, d), dtype=cdt, device=xt.device)
     tok_rows = xt.to(cdt).repeat_interleave(k, dim=0)  # (t*k, D)
     buf.index_add_(0, lin, tok_rows)
-    work = buf[: e * cap].reshape(e, cap, d)
+    buf = buf[: e * cap]
+
+    ep = ctx.ep_size if ctx is not None else 1
+    e_loc = e // ep
+    if ep > 1:
+        group = ctx.group(ctx.ep_axes)
+        # (EP, E_loc*cap, D) in rank order: block [j] goes to rank j, and
+        # block [j] of what comes back came from rank j.
+        recv = parallel.all_to_all(buf, group).reshape(ep, e_loc, cap, d)
+        work = recv.transpose(0, 1).reshape(e_loc, ep * cap, d)
+    else:
+        work = buf.reshape(e, cap, d)
 
     act = common.activation(cfg.act)
-    h = act(torch.einsum("end,edf->enf", work, p.w_in))
-    h = h * torch.einsum("end,edf->enf", work, p.w_gate_h)
-    out = torch.einsum("enf,efd->end", h, p.w_out)
+    h = act(torch.einsum("end,edf->enf", work, w_in_l))
+    h = h * torch.einsum("end,edf->enf", work, w_gate_l)
+    out = torch.einsum("enf,efd->end", h, w_out_l)
 
-    back = torch.cat([out.reshape(e * cap, d), out.new_zeros((1, d))], dim=0)
+    if ep > 1:
+        out = out.reshape(e_loc, ep, cap, d).transpose(0, 1).reshape(e * cap, d)
+        back = parallel.all_to_all(out, group)
+    else:
+        back = out.reshape(e * cap, d)
+
+    back = torch.cat([back, back.new_zeros((1, d))], dim=0)
     picked = back[lin]  # (t*k, D); sink row is zero
     w_flat = (weights.reshape(-1, 1) * keep[:, None]).to(cdt)
     y = torch.sum((picked * w_flat).reshape(t_loc, k, d), dim=1)
     return y, counts.to(torch.float32)
 
 
-def moe_ffn(p: MoEFFN, x: torch.Tensor, bias: torch.Tensor, cfg: ModelConfig, ctx=None):
-    """MoE forward on one device.
+def _expert_specs(ctx: parallel.ParallelContext):
+    """The layouts of ``(w_in, w_gate_h, w_out)`` (``partitioning.param_specs``)."""
+    if ctx.fsdp_axis is not None:
+        w = parallel.Spec(ctx.tp_axis, ctx.fsdp_axis, None)
+        return w, w, parallel.Spec(ctx.tp_axis, None, ctx.fsdp_axis)
+    w = parallel.Spec(ctx.ep_axes, None, None)
+    return w, w, w
+
+
+def _moe_manual(p: MoEFFN, x: torch.Tensor, bias: torch.Tensor, cfg: ModelConfig,
+                ctx: parallel.ParallelContext):
+    """The reference's ``shard_map`` region: this rank's dispatcher on its
+    block of ``x``; ``y`` gathered whole, counts ``(DP, TP, E)``."""
+    b, s, d = x.shape
+    dp, tp = ctx.dp_size, ctx.tp_size
+    bl, sl = b // dp, s // tp
+    grid = ctx.group(ctx.grid_axes)
+    # Group rank r is dispatcher (r // TP, r % TP): its rows and positions.
+    blocks = [(slice(i * bl, (i + 1) * bl), slice(j * sl, (j + 1) * sl))
+              for i in range(dp) for j in range(tp)]
+    me = ctx.index(ctx.grid_axes)
+    # Each rank holds the whole x and whole weights: the blocks' gradients
+    # are summed over the grid, so every rank ends with whole gradients.
+    weights = {}
+    for name, spec in zip(("w_in", "w_gate_h", "w_out"), _expert_specs(ctx)):
+        w = getattr(p, name)
+        weights[name] = parallel.scatter(w, parallel.shard_index(spec, w.shape, ctx), grid)
+    local = types.SimpleNamespace(gate=parallel.scatter(p.gate, (), grid), **weights)
+    x_loc = parallel.scatter(x, blocks[me], grid)
+    y, counts = _moe_local(x_loc.reshape(bl * sl, d), bias[me // tp, me % tp], local, cfg, ctx)
+    y = parallel.gather_blocks(y.reshape(bl, sl, d), grid, blocks, (b, s, d))
+    rows = [torch.empty_like(counts) for _ in blocks]
+    dist.all_gather(rows, counts, group=grid)
+    return y, torch.stack(rows).reshape(dp, tp, cfg.n_routed_experts)
+
+
+def moe_ffn(p: MoEFFN, x: torch.Tensor, bias: torch.Tensor, cfg: ModelConfig,
+            ctx: parallel.ParallelContext | None = None):
+    """Expert-parallel MoE forward.
 
     Args:
-      p: layer params.  x: ``(B, S, D)``.  bias: the CARE selection bias,
-        ``(E,)`` (a per-dispatcher ``(..., E)`` bias is averaged over its
-        rows, as the JAX package's single-device path does).
+      p: layer params.  x: ``(B, S, D)``.  bias: per-dispatcher CARE
+        selection bias -- ``(E,)`` when ctx is None, else ``(DP, TP, E)``,
+        one row per dispatcher.  ctx: parallel context (None = one device).
 
     Returns:
-      ``(y (B, S, D), counts (E,) float32)``.
+      ``(y, counts)``: y ``(B, S, D)``; counts -- ``(E,)`` float32 local
+      counts when ctx is None, else ``(DP, TP, E)`` per-dispatcher counts
+      (no cross-device reduction here; the CARE balancer syncs sparsely).
     """
-    refuse_ctx(ctx)
     b, s, d = x.shape
-    bias_flat = bias.reshape(-1, cfg.n_routed_experts).mean(dim=0)
-    y, counts = _moe_local(x.reshape(b * s, d), bias_flat, p, cfg)
-    y = y.reshape(b, s, d)
+    manual = (
+        ctx is not None
+        and s % ctx.tp_size == 0
+        and b % ctx.dp_size == 0
+        and ctx.ep_size > 1
+    )
+    if not manual:
+        # One device, and the decode path (tokens too few to shard over
+        # TP): the whole batch on every rank, averaged bias rows.
+        bias_flat = bias.reshape(-1, cfg.n_routed_experts).mean(dim=0)
+        y, counts = _moe_local(x.reshape(b * s, d), bias_flat, p, cfg)
+        y = y.reshape(b, s, d)
+        if ctx is not None:
+            counts = (counts[None, None, :] / (ctx.dp_size * ctx.tp_size)).expand(
+                ctx.dp_size, ctx.tp_size, cfg.n_routed_experts)
+    else:
+        y, counts = _moe_manual(p, x, bias, cfg, ctx)
     if cfg.n_shared_experts:
         y = y + dense_ffn(p.shared, x, cfg)
     return y, counts

@@ -10,8 +10,8 @@ latent (``kv_lora_rank``) plus one shared RoPE key head.
   the query and ``W_uv`` into the output, so one token attends MQA-style
   against the compressed cache.
 
-The JAX package's sharding hints (``parallel.hint``) have no counterpart
-on one card; a parallel context is refused (ROADMAP item 14).
+Under a parallel context the expanded per-head K and V carry the JAX
+package's head-sharding hints (``parallel.hint``, which moves nothing).
 """
 from __future__ import annotations
 
@@ -19,14 +19,7 @@ import torch
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import common, flash
-
-ITEM_14 = "expert parallelism and sharding come with ROADMAP item 14"
-
-
-def refuse_ctx(ctx) -> None:
-    if ctx is not None:
-        raise NotImplementedError(f"a parallel context is not supported: {ITEM_14}")
+from repro_torch.models import common, flash, parallel
 
 
 class MLA(nn.Module):
@@ -90,7 +83,6 @@ def mla_full(
     ``{"ckv": (B, cache_len, R), "k_rope": (B, cache_len, dr)}`` with the
     first S rows filled, or None without ``return_cache``.
     """
-    refuse_ctx(ctx)
     b, s, _ = x.shape
     h = cfg.num_heads
     dn, dr, dv = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
@@ -103,12 +95,16 @@ def mla_full(
 
     k_nope = (ckv @ p.w_uk).reshape(b, s, h, dn)
     v = (ckv @ p.w_uv).reshape(b, s, h, dv)
-    q = torch.cat([q_nope, q_rope], dim=-1)
-    k = torch.cat([k_nope, k_rope[:, :, None, :].expand(b, s, h, dr)], dim=-1)
+    dp, tp = (ctx.dp_axes, ctx.tp_axis) if ctx is not None else (None, None)
+    shard = lambda a: parallel.hint(a, ctx, dp, None, tp, None)  # noqa: E731
+    q = shard(torch.cat([q_nope, q_rope], dim=-1))
+    k = shard(torch.cat([k_nope, k_rope[:, :, None, :].expand(b, s, h, dr)], dim=-1))
+    v = shard(v)
 
     scale = 1.0 / (dn + dr) ** 0.5
     out = flash.flash_sdpa(q, k, v, scale=scale, q_positions=positions, causal=True)
-    out = out @ p.wo
+    out = parallel.hint(out, ctx, dp, None, tp) @ p.wo
+    out = parallel.hint(out, ctx, dp, tp)  # reduce-scatter landing (SP)
 
     if not return_cache:
         return out, None

@@ -30,7 +30,7 @@ from torch import nn
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.care.slotted_sim import _resolve_device
-from repro_torch.models import common, mla
+from repro_torch.models import common
 from repro_torch.models import transformer as tfm
 
 
@@ -121,10 +121,11 @@ def lm_head(params: Model, x: torch.Tensor, cfg: ModelConfig):
     return (x @ w.to(x.dtype)).to(torch.float32)
 
 
-def _bias_zeros(cfg: ModelConfig, device):
+def _bias_zeros(cfg: ModelConfig, ctx, device):
     l = num_scanned_layers(cfg)
     e = max(cfg.n_routed_experts, 1)
-    return torch.zeros((l, e), dtype=torch.float32, device=device)
+    shape = (l, e) if ctx is None else (l, ctx.dp_size, ctx.tp_size, e)
+    return torch.zeros(shape, dtype=torch.float32, device=device)
 
 
 def _windows(cfg: ModelConfig):
@@ -174,8 +175,8 @@ def _stack(caches: list[dict]) -> dict:
 # --------------------------------------------------------------------------
 
 
-def _rwkv_train(p, x, cfg):
-    return tfm.rwkv_block(p, x, cfg)[0]
+def _rwkv_train(p, x, cfg, ctx):
+    return tfm.rwkv_block(p, x, cfg, ctx=ctx)[0]
 
 
 def _hymba_train(p, x, cfg, window):
@@ -193,17 +194,16 @@ def _decoder_train(p, x, enc_out, cfg):
 
 def _run_train_stack(params: Model, x: torch.Tensor, cfg: ModelConfig, ctx, bias):
     """The layer stack of a training forward.  Returns ``(x, counts)``:
-    ``counts`` the ``(L_scan, E)`` float32 routed counts of a MoE model,
-    else None.  ``cfg.remat`` recomputes each scanned layer in the
-    backward (:func:`transformer.run_layer`)."""
+    ``counts`` the ``(L_scan, E)`` float32 routed counts of a MoE model
+    (``(L_scan, DP, TP, E)`` under a context), else None.  ``cfg.remat``
+    recomputes each scanned layer in the backward
+    (:func:`transformer.run_layer`)."""
     fam = cfg.family
     if fam == "ssm":
-        mla.refuse_ctx(ctx)
         for p in params.layers:
-            x = tfm.run_layer(cfg, functools.partial(_rwkv_train, cfg=cfg), p, x)
+            x = tfm.run_layer(cfg, functools.partial(_rwkv_train, cfg=cfg, ctx=ctx), p, x)
         return x, None
     if fam == "hybrid":
-        mla.refuse_ctx(ctx)
         for p, w in zip(params.layers, tfm.layer_windows(cfg)):
             fn = functools.partial(_hymba_train, cfg=cfg, window=int(w))
             x = tfm.run_layer(cfg, fn, p, x)
@@ -217,7 +217,7 @@ def _run_train_stack(params: Model, x: torch.Tensor, cfg: ModelConfig, ctx, bias
                 moe_layer=False,
             )
     if bias is None:
-        bias = _bias_zeros(cfg, x.device)
+        bias = _bias_zeros(cfg, ctx, x.device)
     counts = []
     for p, w, b in zip(params.layers, _windows(cfg), bias):
         fn = functools.partial(_lm_train, cfg=cfg, ctx=ctx, window=int(w), moe_layer=cfg.moe)
@@ -232,12 +232,12 @@ def train_loss(params: Model, batch: dict, cfg: ModelConfig, ctx=None,
 
     ``batch``: ``{"tokens", "labels"}`` ``(B, S)`` on the parameters' device
     (labels < 0 are masked), plus whisper's ``"frames"``; ``bias``: the
-    ``(L_scan, E)`` CARE selection bias of a MoE model (None for zeros).
+    ``(L_scan, E)`` CARE selection bias of a MoE model, ``(L_scan, DP, TP,
+    E)`` under a context (None for zeros).
     Returns ``(loss, aux)``: ``aux["counts"]`` the per-layer routed counts
     (MoE) or None, ``aux["loss_main"]``, and with DeepSeek-V3's MTP head
     ``aux["loss_mtp"]``, added to the loss with weight 0.3."""
     if cfg.family == "audio":
-        mla.refuse_ctx(ctx)
         return _whisper_train_loss(params, batch, cfg)
     tokens, labels = batch["tokens"], batch["labels"]
     x = embed_tokens(params, tokens, cfg)
@@ -284,14 +284,13 @@ def prefill(params: Model, batch: dict, cfg: ModelConfig, ctx=None, cache_len: i
     ``batch["tokens"]``: ``(B, S)`` token ids on the parameters' device
     (whisper's decoder prompt), and for whisper ``batch["frames"]``: ``(B,
     T_enc, D)`` frame embeddings; ``bias``: ``(L_scan, E)`` CARE selection
-    bias of a MoE model (None for zeros).  Returns ``(last-token logits (B,
-    V) float32, cache)``.
+    bias of a MoE model, ``(L_scan, DP, TP, E)`` under a context (None for
+    zeros).  Returns ``(last-token logits (B, V) float32, cache)``.
     """
     tokens = batch["tokens"]
     cache_len = cache_len or tokens.shape[1]
     fam = cfg.family
     if fam in ("ssm", "hybrid", "audio"):
-        mla.refuse_ctx(ctx)
         scan = []
         if fam == "audio":
             enc_out = _whisper_encode(params, batch["frames"], cfg)
@@ -302,7 +301,7 @@ def prefill(params: Model, batch: dict, cfg: ModelConfig, ctx=None, cache_len: i
         elif fam == "ssm":
             x = embed_tokens(params, tokens, cfg)
             for p in params.layers:
-                x, c = tfm.rwkv_block(p, x, cfg)
+                x, c = tfm.rwkv_block(p, x, cfg, ctx=ctx)
                 scan.append(c)
         else:
             x = embed_tokens(params, tokens, cfg)
@@ -322,7 +321,7 @@ def prefill(params: Model, batch: dict, cfg: ModelConfig, ctx=None, cache_len: i
             )
             cache["head"][str(i)] = c
     if bias is None:
-        bias = _bias_zeros(cfg, x.device)
+        bias = _bias_zeros(cfg, ctx, x.device)
     scan = []
     for p, w, b in zip(params.layers, _windows(cfg), bias):
         x, c, _ = tfm.lm_block_full(
@@ -337,7 +336,6 @@ def prefill(params: Model, batch: dict, cfg: ModelConfig, ctx=None, cache_len: i
 def init_decode_cache(params: Model, cfg: ModelConfig, batch: int, cache_len: int, ctx=None):
     """Zero cache for decode without a prefill."""
     tfm.check_supported(cfg)
-    mla.refuse_ctx(ctx)
     cdt = common.dtype_of(cfg.compute_dtype)
     dev = params.embed.device
     l = num_scanned_layers(cfg)
@@ -392,7 +390,6 @@ def decode_step(params: Model, tokens: torch.Tensor, cache: dict, pos: int, cfg:
     fam = cfg.family
     scan = cache["scan"]
     if fam in ("ssm", "hybrid", "audio"):
-        mla.refuse_ctx(ctx)
         if fam == "audio":
             cdt = common.dtype_of(cfg.compute_dtype)
             x = params.embed[tokens[:, None]].to(cdt)
@@ -405,7 +402,7 @@ def decode_step(params: Model, tokens: torch.Tensor, cache: dict, pos: int, cfg:
         for l, p in enumerate(params.layers):
             layer_cache = {name: t[l] for name, t in scan.items()}
             if fam == "ssm":
-                x, new = tfm.rwkv_block(p, x, cfg, state=layer_cache)
+                x, new = tfm.rwkv_block(p, x, cfg, state=layer_cache, ctx=ctx)
             elif fam == "hybrid":
                 x, new = tfm.hymba_block(p, x, cfg, window=int(windows[l]), mode="decode",
                                          cache=layer_cache, pos=pos)
@@ -422,7 +419,7 @@ def decode_step(params: Model, tokens: torch.Tensor, cache: dict, pos: int, cfg:
                 window=tfm.BIG_WINDOW, bias=None, moe_layer=False,
             )
     if bias is None:
-        bias = _bias_zeros(cfg, x.device)
+        bias = _bias_zeros(cfg, ctx, x.device)
     for l, (p, w, b) in enumerate(zip(params.layers, _windows(cfg), bias)):
         layer_cache = {name: t[l] for name, t in scan.items()}
         x, _, _ = tfm.lm_block_decode(

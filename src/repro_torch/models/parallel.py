@@ -1,0 +1,340 @@
+"""Parallel context: which mesh axes the model's manual regions use.
+
+Port of ``repro/models/parallel.py``.  The JAX package is mostly GSPMD
+(pjit plus sharding hints) with one manual region, the MoE layer
+(``shard_map`` + ``all_to_all``).  The port keeps the logical view: every
+rank runs the model on the whole batch with whole parameters, and the
+layouts that the hints ask GSPMD for have no eager counterpart, so
+:func:`hint` only applies the hints' rule (and checks a DTensor's layout
+against it).  The MoE layer is the port's manual region too
+(``models/ffn.py``): each rank takes its dispatcher's slice of the tokens
+and its experts' slice of the weights, and tokens cross ranks with
+``all_to_all_single`` over the expert-parallel group; the autograd
+functions below carry the gradients back across the same groups.
+
+A context holds a ``torch.distributed.device_mesh.DeviceMesh`` with axes
+named ``("data", "model")`` and optionally ``"pod"`` first, or a
+:class:`MeshShape` (names and sizes, no devices) for the spec rules alone
+(``models/partitioning.py``, ``launch/mesh.make_production_mesh``).
+``None`` in place of a context means one device.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import torch
+import torch.distributed as dist
+
+
+class Spec(tuple):
+    """A layout, one entry per leading dimension, as ``PartitionSpec``: an
+    axis name, a tuple of names (sharded over their product, row-major), or
+    None (whole); trailing dimensions left out are whole.  A tuple of one
+    name is that name, as ``PartitionSpec`` normalises it."""
+
+    def __new__(cls, *entries):
+        return super().__new__(cls, (e[0] if isinstance(e, tuple) and len(e) == 1 else e
+                                     for e in entries))
+
+    def __repr__(self) -> str:
+        return f"Spec{tuple.__repr__(self)}"
+
+
+@dataclasses.dataclass(frozen=True)
+class MeshShape:
+    """A mesh's axis sizes and names with no devices behind it."""
+
+    sizes: tuple[int, ...]
+    axis_names: tuple[str, ...]
+
+    @property
+    def shape(self) -> dict[str, int]:
+        return dict(zip(self.axis_names, self.sizes))
+
+
+def mesh_shape(mesh) -> dict[str, int]:
+    """``{axis name: size}`` of a ``DeviceMesh`` or :class:`MeshShape`."""
+    if isinstance(mesh, MeshShape):
+        return mesh.shape
+    return dict(zip(mesh.mesh_dim_names, mesh.mesh.shape))
+
+
+def _axes(entry) -> tuple[str, ...]:
+    return entry if isinstance(entry, tuple) else (entry,)
+
+
+@dataclasses.dataclass(frozen=True)
+class ParallelContext:
+    mesh: object  # DeviceMesh, or MeshShape for the spec rules alone
+    dp_axes: tuple[str, ...] = ("data",)  # batch / gradient axes
+    tp_axis: str = "model"  # tensor-parallel axis
+    ep_axes: tuple[str, ...] = ("data", "model")  # expert-parallel axes
+    fsdp_axis: str | None = None  # shard expert D dim when E doesn't
+    #                               divide the full EP product
+    _groups: dict = dataclasses.field(default_factory=dict, init=False, compare=False, repr=False)
+
+    def __post_init__(self):
+        if isinstance(self.mesh, MeshShape):
+            return
+        # Groups are made collectively: every rank makes them here, in one order.
+        sets = [self.ep_axes, self.dp_axes, self.grid_axes, (self.tp_axis,)]
+        if self.fsdp_axis is not None:
+            sets.append((self.fsdp_axis,))
+        for axes in sets:
+            self.group(axes)
+
+    @property
+    def shape(self) -> dict[str, int]:
+        return mesh_shape(self.mesh)
+
+    def size(self, axes) -> int:
+        return math.prod(self.shape[a] for a in _axes(axes))
+
+    @property
+    def ep_size(self) -> int:
+        return self.size(self.ep_axes)
+
+    @property
+    def dp_size(self) -> int:
+        return self.size(self.dp_axes)
+
+    @property
+    def tp_size(self) -> int:
+        return self.shape[self.tp_axis]
+
+    @property
+    def grid_axes(self) -> tuple[str, ...]:
+        """The dispatcher grid ``(dp..., tp)``: one MoE dispatcher a rank."""
+        return (*self.dp_axes, self.tp_axis)
+
+    def index(self, axes) -> int:
+        """This rank's row-major position over ``axes``."""
+        if isinstance(self.mesh, MeshShape):
+            raise ValueError("a MeshShape has no ranks; build the context on a DeviceMesh")
+        coord = dict(zip(self.mesh.mesh_dim_names, self.mesh.get_coordinate()))
+        i = 0
+        for a in _axes(axes):
+            i = i * self.shape[a] + coord[a]
+        return i
+
+    def group(self, axes):
+        """The process group of ``axes`` that holds this rank; its ranks are
+        in row-major order over ``axes``, so group rank == :meth:`index`."""
+        axes = _axes(axes)
+        if axes in self._groups:
+            return self._groups[axes]
+        if isinstance(self.mesh, MeshShape):
+            raise ValueError("a MeshShape has no process groups")
+        names = list(self.mesh.mesh_dim_names)
+        if [a for a in names if a in axes] != list(axes):
+            raise ValueError(f"axes {axes} are not in the mesh's order {tuple(names)}")
+        if len(axes) == 1:
+            group = self.mesh.get_group(axes[0])
+        else:
+            ranks = self.mesh.mesh
+            rest = [i for i, a in enumerate(names) if a not in axes]
+            dims = [names.index(a) for a in axes]
+            rows = ranks.permute(*rest, *dims).reshape(-1, self.size(axes)).tolist()
+            group, _ = dist.new_subgroups_by_enumeration(rows)
+        if dist.get_rank(group) != self.index(axes):
+            raise ValueError(f"group of {axes}: rank {dist.get_rank(group)} != "
+                             f"row-major index {self.index(axes)}")
+        self._groups[axes] = group
+        return group
+
+
+def divisible(spec, shape, sizes: dict[str, int]) -> Spec:
+    """``spec`` padded to ``len(shape)`` entries, any entry whose dimension
+    does not divide over its axes downgraded to None."""
+    fixed = []
+    for dim, names in zip(shape, tuple(spec) + (None,) * (len(shape) - len(spec))):
+        if names is None:
+            fixed.append(None)
+            continue
+        size = math.prod(sizes[a] for a in _axes(names))
+        fixed.append(names if dim % size == 0 else None)
+    return Spec(*fixed)
+
+
+def placements(spec, mesh) -> tuple:
+    """DTensor placements of ``spec``, one per mesh axis: ``Shard(i)``
+    where the axis names entry ``i``, else ``Replicate()``."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    names = list(mesh_shape(mesh))
+    out = [Replicate()] * len(names)
+    for i, entry in enumerate(spec):
+        if entry is not None:
+            for a in _axes(entry):
+                out[names.index(a)] = Shard(i)
+    return tuple(out)
+
+
+def hint(x, ctx: ParallelContext | None, *entries):
+    """The JAX package's sharding hint; returns ``x`` itself.
+
+    ``entries`` are leading spec entries (an axis name, a tuple of names,
+    or None); trailing dims are whole.  An entry whose dimension is not
+    divisible on the mesh is downgraded to None (:func:`divisible`), so the
+    same hints fit any mesh.  A plain tensor is the whole logical array on
+    every rank and nothing moves; a DTensor must already be laid out so on
+    every mesh axis wider than one.
+    """
+    if ctx is None:
+        return x
+    from torch.distributed.tensor import DTensor
+
+    if isinstance(x, DTensor):
+        want = placements(divisible(entries, x.shape, ctx.shape), ctx.mesh)
+        wide = [i for i, n in enumerate(ctx.shape.values()) if n > 1]
+        if [x.placements[i] for i in wide] != [want[i] for i in wide]:
+            raise ValueError(f"DTensor placed {x.placements}, the hint asks for {want}")
+    return x
+
+
+def choose_ep_axes(ctx_or_mesh, num_experts: int, dp_axes, tp_axis) -> tuple:
+    """Pick EP axes: the widest mesh-axis product that divides E.
+
+    Prefers (data..., model) for storage economy (deepseek-v3: 256 experts
+    over 256 chips); falls back to (model,) + FSDP weight sharding over
+    'data' when E only divides the TP axis (deepseek-v2: 160 = 10 x 16).
+    """
+    if isinstance(ctx_or_mesh, ParallelContext):
+        shape = ctx_or_mesh.shape
+    else:
+        shape = mesh_shape(ctx_or_mesh)
+    full = [a for a in (*dp_axes, tp_axis) if a != "pod"]
+    full_size = math.prod(shape[a] for a in full)
+    if num_experts % full_size == 0:
+        return tuple(full), None
+    tp_size = shape[tp_axis]
+    if num_experts % tp_size == 0:
+        fsdp = "data" if "data" in shape else None
+        return (tp_axis,), fsdp
+    raise ValueError(f"num_experts={num_experts} not divisible by mesh axes {shape}")
+
+
+# --------------------------------------------------------------------------
+# blocks of a tensor laid out by a spec
+# --------------------------------------------------------------------------
+
+
+def shard_index(spec, shape, ctx: ParallelContext) -> tuple:
+    """This rank's block of a tensor of ``shape`` laid out by ``spec``."""
+    idx = []
+    for dim, entry in zip(shape, tuple(spec) + (None,) * (len(shape) - len(spec))):
+        if entry is None:
+            idx.append(slice(None))
+            continue
+        step = dim // ctx.size(entry)
+        i = ctx.index(entry)
+        idx.append(slice(i * step, (i + 1) * step))
+    return tuple(idx)
+
+
+def gather(local: torch.Tensor, spec, ctx: ParallelContext) -> torch.Tensor:
+    """The whole tensor from every rank's block of it, laid out by ``spec``."""
+    out = local
+    for i, entry in enumerate(spec):
+        if entry is not None and ctx.size(entry) > 1:
+            out = all_gather(out, ctx.group(entry), i)
+    return out
+
+
+# --------------------------------------------------------------------------
+# collectives under autograd (the manual MoE region)
+# --------------------------------------------------------------------------
+
+
+class _AllToAll(torch.autograd.Function):
+    """Equal blocks of dim 0: block ``j`` goes to group rank ``j``, and
+    block ``j`` of the result came from rank ``j``.  Its own adjoint."""
+
+    @staticmethod
+    def forward(fctx, x, group):
+        fctx.group = group
+        out = torch.empty_like(x)
+        dist.all_to_all_single(out, x.contiguous(), group=group)
+        return out
+
+    @staticmethod
+    def backward(fctx, g):
+        out = torch.empty_like(g)
+        dist.all_to_all_single(out, g.contiguous(), group=fctx.group)
+        return out, None
+
+
+class _AllGather(torch.autograd.Function):
+    """The group's blocks concatenated on ``dim``, in rank order.  Each rank
+    uses the whole for its own work, so the adjoint sums the gradients
+    over the group and takes this rank's block (a reduce-scatter)."""
+
+    @staticmethod
+    def forward(fctx, x, group, dim: int):
+        fctx.group, fctx.dim = group, dim
+        parts = [torch.empty_like(x) for _ in range(dist.get_world_size(group))]
+        dist.all_gather(parts, x.contiguous(), group=group)
+        return torch.cat(parts, dim=dim)
+
+    @staticmethod
+    def backward(fctx, g):
+        g = g.contiguous().clone()
+        dist.all_reduce(g, group=fctx.group)
+        n, me = dist.get_world_size(fctx.group), dist.get_rank(fctx.group)
+        return g.chunk(n, dim=fctx.dim)[me].contiguous(), None, None
+
+
+class _Scatter(torch.autograd.Function):
+    """This rank's block ``index`` of a tensor every rank of ``group`` holds
+    whole.  The blocks' gradients land in a zero tensor of the whole shape,
+    summed over the group: each rank ends with the whole gradient."""
+
+    @staticmethod
+    def forward(fctx, full, index, group):
+        fctx.index, fctx.group, fctx.shape = index, group, full.shape
+        return full[index].contiguous()
+
+    @staticmethod
+    def backward(fctx, g):
+        out = g.new_zeros(fctx.shape)
+        out[fctx.index] = g
+        dist.all_reduce(out, group=fctx.group)
+        return out, None, None
+
+
+class _Gather(torch.autograd.Function):
+    """The whole tensor of ``shape`` from the group's blocks (``blocks[r]``
+    the index of group rank ``r``'s).  Every rank then computes the same
+    thing from it, so the adjoint is this rank's block of the gradient."""
+
+    @staticmethod
+    def forward(fctx, local, group, blocks, shape):
+        me = dist.get_rank(group)
+        fctx.block = blocks[me]
+        parts = [torch.empty_like(local) for _ in blocks]
+        dist.all_gather(parts, local.contiguous(), group=group)
+        out = local.new_empty(shape)
+        for idx, part in zip(blocks, parts):
+            out[idx] = part
+        return out
+
+    @staticmethod
+    def backward(fctx, g):
+        return g[fctx.block].contiguous(), None, None, None
+
+
+def all_to_all(x: torch.Tensor, group) -> torch.Tensor:
+    return _AllToAll.apply(x, group)
+
+
+def all_gather(x: torch.Tensor, group, dim: int) -> torch.Tensor:
+    return _AllGather.apply(x, group, dim)
+
+
+def scatter(full: torch.Tensor, index: tuple, group) -> torch.Tensor:
+    return _Scatter.apply(full, index, group)
+
+
+def gather_blocks(local: torch.Tensor, group, blocks: list, shape) -> torch.Tensor:
+    return _Gather.apply(local, group, blocks, tuple(shape))

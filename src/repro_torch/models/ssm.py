@@ -23,8 +23,8 @@ cfg.ssm_state``.
 None of these recurrences reached a Pallas kernel in the JAX package
 (``lax.scan`` and ``jnp`` code), so they stay plain PyTorch here: loops
 over tokens or chunks of small device operations, host-bound on the card.
-The JAX sharding hints (``parallel.hint``) are no-ops without a parallel
-context and have no counterpart; a context is refused (ROADMAP item 14).
+RWKV's time and channel mix take a parallel context for the JAX package's
+sharding hints (``parallel.hint``, which moves nothing).
 """
 from __future__ import annotations
 
@@ -33,8 +33,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import common
-from repro_torch.models.mla import refuse_ctx
+from repro_torch.models import common, parallel
 
 RWKV_LORA = 32
 RWKV_DECAY_LORA = 64
@@ -202,25 +201,35 @@ def rwkv_time_mix(p: RWKVTimeMix, x: torch.Tensor, cfg: ModelConfig, state=None,
     """x: ``(B, S, D)``; state: ``(B, H, n, n)`` float32 or None (zeros);
     shift_prev: ``(B, D)`` or None.  Returns ``(out (B, S, D), state, x[:,
     -1])``."""
-    refuse_ctx(ctx)
     b, s, d = x.shape
     n = cfg.rwkv_head_dim
     h = d // n
     xw, xk, xv, xr, xg = _ddlerp(p, x, _shifted(x, shift_prev))
     decay = p.w0 + (torch.tanh(xw @ p.decay_w1) @ p.decay_w2).to(torch.float32)
-    lw = -torch.exp(decay.to(torch.float32)).reshape(b, s, h, n)  # log w (<= 0)
-    r = (xr @ p.wr).reshape(b, s, h, n)
-    k = (xk @ p.wk).reshape(b, s, h, n)
-    v = (xv @ p.wv).reshape(b, s, h, n)
-    g = F.silu(xg @ p.wg)
+    lw = -torch.exp(decay.to(torch.float32))  # log w (<= 0)
+    # The WKV path's head-sharding hints; single-token decode skips them,
+    # as the reference does.
+    if s <= 1:
+        ctx = None
+    dp, tp = (ctx.dp_axes, ctx.tp_axis) if ctx is not None else (None, None)
+    shard = lambda a: parallel.hint(a, ctx, dp, None, tp, None)  # noqa: E731
+    r = shard((xr @ p.wr).reshape(b, s, h, n))
+    k = shard((xk @ p.wk).reshape(b, s, h, n))
+    v = shard((xv @ p.wv).reshape(b, s, h, n))
+    g = parallel.hint(F.silu(xg @ p.wg), ctx, dp, None, tp)
+    lw = shard(lw.reshape(b, s, h, n))
     if state is None:
         state = torch.zeros((b, h, n, n), dtype=torch.float32, device=x.device)
+    state = parallel.hint(state, ctx, dp, tp)
     if s % WKV_CHUNK == 0 and s > WKV_CHUNK:
         out, state = _wkv6_chunked(r, k, v, lw, p.u, state)
     else:
         out, state = _wkv6_scan(r, k, v, torch.exp(lw), p.u, state)
-    out = _group_norm(out).reshape(b, s, d) * p.gn_scale + p.gn_bias
+    state = parallel.hint(state, ctx, dp, tp)
+    out = parallel.hint(_group_norm(shard(out)).reshape(b, s, d), ctx, dp, None, tp)
+    out = out * p.gn_scale + p.gn_bias
     out = (out.to(x.dtype) * g) @ p.wo
+    out = parallel.hint(out, ctx, dp, tp)
     return out, state, x[:, -1, :]
 
 
@@ -228,11 +237,12 @@ def rwkv_channel_mix(p: RWKVChannelMix, x: torch.Tensor, cfg: ModelConfig, shift
                      ctx=None):
     """The squared-ReLU FFN with token shift and a receptance gate.
     Returns ``(out (B, S, D), x[:, -1])``."""
-    refuse_ctx(ctx)
     dx = _shifted(x, shift_prev) - x
     xk = x + dx * p.mu_k
     xr = x + dx * p.mu_r
+    dp, tp = (ctx.dp_axes, ctx.tp_axis) if ctx is not None else (None, None)
     k = torch.square(F.relu(xk @ p.wk))
+    k = parallel.hint(k, ctx, dp, None, tp)  # (B, S, F/tp) hidden sharded
     return torch.sigmoid(xr @ p.wr) * (k @ p.wv), x[:, -1, :]
 
 

@@ -24,7 +24,7 @@ import torch.utils.checkpoint
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import attention, common, ffn, mla, ssm
+from repro_torch.models import attention, common, ffn, mla, parallel, ssm
 
 BIG_WINDOW = 1 << 30
 FAMILIES = ("dense", "moe", "vlm", "ssm", "hybrid", "audio")
@@ -176,7 +176,7 @@ def _ffn_part(p: LMBlock, x, cfg: ModelConfig, ctx, bias, moe_layer: bool):
         f, counts = ffn.moe_ffn(p.moe, h, bias, cfg, ctx)
     else:
         f = ffn.dense_ffn(p.ffn, h, cfg)
-        counts = _zero_counts(cfg, x.device)
+        counts = _zero_counts(cfg, ctx, x.device)
     if cfg.post_norms:
         f = _norm(p.ln2_post, f, cfg)
     return x + f, counts
@@ -202,7 +202,6 @@ def lm_block_full(
             p.attn, h, cfg, return_cache=return_cache, cache_len=cache_len, ctx=ctx
         )
     else:
-        mla.refuse_ctx(ctx)
         a, cache = attention.attention_full(
             p.attn, h, cfg, window=window, return_cache=return_cache, cache_len=cache_len
         )
@@ -212,8 +211,10 @@ def lm_block_full(
     return common.grad_dtype_barrier(x), cache, counts
 
 
-def _zero_counts(cfg: ModelConfig, device):
-    return torch.zeros((max(cfg.n_routed_experts, 1),), dtype=torch.float32, device=device)
+def _zero_counts(cfg: ModelConfig, ctx, device):
+    e = max(cfg.n_routed_experts, 1)
+    shape = (e,) if ctx is None else (ctx.dp_size, ctx.tp_size, e)
+    return torch.zeros(shape, dtype=torch.float32, device=device)
 
 
 def lm_block_decode(
@@ -221,7 +222,6 @@ def lm_block_decode(
 ):
     """One-token block against its cache (updated in place).  Returns
     ``(x, cache, counts)``."""
-    mla.refuse_ctx(ctx)
     h = _norm(p.ln1, x, cfg)
     if cfg.use_mla:
         a, cache = mla.mla_decode(p.attn, h, cache, pos, cfg)
@@ -236,16 +236,20 @@ def lm_block_decode(
 def rwkv_block(p: RWKVBlock, x: torch.Tensor, cfg: ModelConfig, state: dict | None = None,
                ctx=None):
     """``state``: None (zeros) or ``{"wkv", "tm_shift", "cm_shift"}``.
-    Returns ``(x, new state)``."""
-    mla.refuse_ctx(ctx)
+    Returns ``(x, new state)``.  Under a context the residual stream
+    carries the reference's sequence-parallel hints (``(B, S/tp, D)``)."""
     st = state or {}
+    dp, tp = (ctx.dp_axes, ctx.tp_axis) if ctx is not None else (None, None)
+    sp = lambda a: parallel.hint(a, ctx, dp, tp)  # noqa: E731
+    x = sp(x)
     h, wkv, tm_shift = ssm.rwkv_time_mix(
-        p.tm, _norm(p.ln1, x, cfg), cfg, state=st.get("wkv"), shift_prev=st.get("tm_shift"))
-    x = x + h
+        p.tm, _norm(p.ln1, x, cfg), cfg, state=st.get("wkv"), shift_prev=st.get("tm_shift"),
+        ctx=ctx)
+    x = sp(x + sp(h))
     h, cm_shift = ssm.rwkv_channel_mix(p.cm, _norm(p.ln2, x, cfg), cfg,
-                                       shift_prev=st.get("cm_shift"))
+                                       shift_prev=st.get("cm_shift"), ctx=ctx)
     new = {"wkv": wkv, "tm_shift": tm_shift, "cm_shift": cm_shift}
-    return common.grad_dtype_barrier(x + h), new
+    return common.grad_dtype_barrier(sp(x + h)), new
 
 
 def hymba_block(p: HymbaBlock, x: torch.Tensor, cfg: ModelConfig, *, window: int, mode: str,

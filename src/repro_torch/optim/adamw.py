@@ -7,6 +7,14 @@ The arithmetic is the reference's, in its order, in float32, on the
 parameters' device (no host synchronisation); :func:`update` writes the
 new parameters and moments in place under ``torch.no_grad`` (the JAX
 package returns new arrays).
+
+ZeRO-1: under a parallel context the moments follow
+``models/partitioning.zero1_specs``, keyed by the JAX leaves' paths (a
+scanned layer's leaf stacked on its layer axis): each rank keeps only its
+block of each leaf's moments, updates that block of the parameter from
+the whole gradient, and gathers the parameter whole again (where GSPMD
+inserts the same all-gather in the reference).  The arithmetic is the
+same elementwise, so the result equals the unsharded update.
 """
 from __future__ import annotations
 
@@ -14,6 +22,9 @@ import dataclasses
 import math
 
 import torch
+
+from repro_torch.models import parallel
+from repro_torch.models.partitioning import STACKED, jax_param_paths
 
 
 @dataclasses.dataclass(frozen=True)
@@ -30,21 +41,66 @@ class OptimConfig:
 
 @dataclasses.dataclass
 class OptState:
-    m: dict[str, torch.Tensor]  # float32, one per parameter
+    m: dict[str, torch.Tensor]  # float32, one per parameter (or per JAX leaf under specs)
     v: dict[str, torch.Tensor]
     step: torch.Tensor  # () int32
+    specs: dict | None = None  # {JAX path: Spec}: the moments' ZeRO-1 layout
 
 
-def init(params: torch.nn.Module) -> OptState:
+def _leaves(params: torch.nn.Module) -> dict[str, tuple[list[str], bool]]:
+    """``{JAX path: (port parameter names in layer order, stacked)}``."""
+    names = jax_param_paths({n: n for n, _ in params.named_parameters()})
+    return {path: (ns, path.split("/", 1)[0] in STACKED) for path, ns in names.items()}
+
+
+def _whole(tensors: list, stacked: bool) -> torch.Tensor:
+    return torch.stack(tensors) if stacked else tensors[0]
+
+
+def init(params: torch.nn.Module, ctx=None, specs: dict | None = None) -> OptState:
+    """Zero moments: whole, one per parameter, or with ``specs`` (and the
+    ``ctx`` they were made for) this rank's block of each JAX leaf's."""
     named = dict(params.named_parameters())
-    zeros = {n: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
-             for n, p in named.items()}
     dev = next(iter(named.values())).device
+    if specs is None:
+        zeros = {n: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+                 for n, p in named.items()}
+    else:
+        zeros = {}
+        for path, (names, stacked) in _leaves(params).items():
+            shape = _whole([named[n] for n in names], stacked).shape
+            block = torch.empty(shape, device="meta")[parallel.shard_index(specs[path], shape, ctx)]
+            zeros[path] = torch.zeros(block.shape, dtype=torch.float32, device=dev)
     return OptState(
         m=zeros,
         v={n: torch.zeros_like(z) for n, z in zeros.items()},
         step=torch.zeros((), dtype=torch.int32, device=dev),
+        specs=specs,
     )
+
+
+def gather_state(state: OptState, params: torch.nn.Module, ctx) -> OptState:
+    """The whole moments, one per parameter, of a ZeRO-1 state (a state
+    without specs is returned as it is)."""
+    if state.specs is None:
+        return state
+    m, v = {}, {}
+    for path, (names, stacked) in _leaves(params).items():
+        for whole, blocks in ((m, state.m), (v, state.v)):
+            t = parallel.gather(blocks[path], state.specs[path], ctx)
+            for i, n in enumerate(names):
+                whole[n] = t[i] if stacked else t
+    return OptState(m=m, v=v, step=state.step)
+
+
+def shard_state(state: OptState, params: torch.nn.Module, ctx, specs: dict) -> OptState:
+    """This rank's ZeRO-1 blocks of a state of whole moments."""
+    m, v = {}, {}
+    for path, (names, stacked) in _leaves(params).items():
+        for blocks, whole in ((m, state.m), (v, state.v)):
+            t = _whole([whole[n] for n in names], stacked)
+            blocks[path] = t[parallel.shard_index(specs[path], t.shape, ctx)].clone()
+    return OptState(m=m, v=v, step=state.step, specs=specs)
 
 
 def schedule(step: torch.Tensor, cfg: OptimConfig) -> torch.Tensor:
@@ -76,25 +132,41 @@ def clip_by_global_norm(grads: dict, max_norm: float):
 
 
 @torch.no_grad()
-def update(grads: dict, state: OptState, params: torch.nn.Module, cfg: OptimConfig):
+def update(grads: dict, state: OptState, params: torch.nn.Module, cfg: OptimConfig, ctx=None):
     """One AdamW step on ``params`` and ``state``, both in place.  Returns
     ``(params, state, {"grad_norm", "lr"})``, the metrics 0-d float32
-    tensors on the device."""
+    tensors on the device.  A ZeRO-1 state (``state.specs``) needs the
+    ``ctx`` its specs were made for, and the whole gradients on every
+    rank."""
     grads, gnorm = clip_by_global_norm(grads, cfg.clip_norm)
     step = state.step + 1
     lr = schedule(step, cfg)
     b1, b2 = cfg.betas
     bc1 = 1.0 - torch.pow(b1, step.to(torch.float32))
     bc2 = 1.0 - torch.pow(b2, step.to(torch.float32))
-    for name, p in params.named_parameters():
-        g32 = grads[name].to(torch.float32)
-        m, v = state.m[name], state.v[name]
+
+    def adam(p, g, m, v):
+        g32 = g.to(torch.float32)
         m.mul_(b1).add_((1 - b1) * g32)
         v.mul_(b2).add_((1 - b2) * torch.square(g32))
         mhat = m / bc1
         vhat = v / bc2
         p32 = p.to(torch.float32)
         delta = mhat / (torch.sqrt(vhat) + cfg.eps) + cfg.weight_decay * p32
-        p.copy_((p32 - lr * delta).to(p.dtype))
+        return (p32 - lr * delta).to(p.dtype)
+
+    if state.specs is None:
+        for name, p in params.named_parameters():
+            p.copy_(adam(p, grads[name], state.m[name], state.v[name]))
+    else:
+        named = dict(params.named_parameters())
+        for path, (names, stacked) in _leaves(params).items():
+            spec = state.specs[path]
+            p = _whole([named[n] for n in names], stacked)
+            idx = parallel.shard_index(spec, p.shape, ctx)
+            g = _whole([grads[n] for n in names], stacked)
+            t = parallel.gather(adam(p[idx], g[idx], state.m[path], state.v[path]), spec, ctx)
+            for i, n in enumerate(names):
+                named[n].copy_(t[i] if stacked else t)
     state.step = step
     return params, state, {"grad_norm": gnorm, "lr": lr}

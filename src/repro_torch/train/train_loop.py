@@ -1,7 +1,7 @@
 """Train step: loss -> grads -> AdamW -> CARE balancer advance.
 
-Port of ``repro/train/train_loop.py`` for one device.  Two programs
-implement the paper's sparse synchronisation at the framework level:
+Port of ``repro/train/train_loop.py``.  Two programs implement the
+paper's sparse synchronisation at the framework level:
 
 * ``make_train_step(..., sync=False)`` -- the balancer advances by local
   emulation (the paper's approximation component);
@@ -24,7 +24,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import moe_balancer
-from repro_torch.models import mla, model
+from repro_torch.models import model, partitioning
 from repro_torch.optim import adamw
 
 
@@ -46,17 +46,24 @@ def init_state(generator: torch.Generator, cfg: ModelConfig, ctx=None, *,
                device=None) -> TrainState:
     """A fresh state on ``device`` (None means the CUDA card): parameters
     drawn from ``generator`` (on the same device), zero moments, a zero
-    ``(L_scan, E)`` balancer for a MoE model."""
-    mla.refuse_ctx(ctx)
+    ``(L_scan, E)`` balancer for a MoE model.  Under a parallel context
+    the balancer has one row per dispatcher, ``(L_scan, DP, TP, E)``, and
+    each rank keeps its ZeRO-1 block of the moments
+    (``partitioning.zero1_specs``)."""
     params = trainable(model.init_params(generator, cfg, device))
     dev = params.embed.device
     bal = None
     if cfg.moe:
         bal = moe_balancer.BalancerState.init(
-            model.num_scanned_layers(cfg), cfg.n_routed_experts, dev)
+            model.num_scanned_layers(cfg), cfg.n_routed_experts, dev,
+            dispatchers=() if ctx is None else (ctx.dp_size, ctx.tp_size))
+    specs = None
+    if ctx is not None:
+        specs = partitioning.zero1_specs(
+            partitioning.param_specs(params, cfg, ctx), params, ctx)
     return TrainState(
         params=params,
-        opt=adamw.init(params),
+        opt=adamw.init(params, ctx, specs),
         balancer=bal,
         step=torch.zeros((), dtype=torch.int32, device=dev),
     )
@@ -81,8 +88,11 @@ def make_train_step(
     ``batch``: ``{"tokens", "labels"}`` (and whisper's ``"frames"``), numpy
     arrays or tensors, moved to the parameters' device.  ``metrics``:
     ``loss``, ``sync_trigger`` (0-d bool), ``grad_norm`` and ``lr``, 0-d
-    tensors on the device.  ``sync`` selects the balancer-sync program."""
-    mla.refuse_ctx(ctx)
+    tensors on the device.  ``sync`` selects the balancer-sync program.
+    Under a parallel context ``ctx`` every rank runs the step on the whole
+    batch; the MoE layers exchange tokens over the mesh
+    (``models/ffn.py``) and AdamW updates this rank's ZeRO-1 block of each
+    parameter, then gathers the parameter whole."""
 
     def step_fn(state: TrainState, batch: dict):
         params = dict(state.params.named_parameters())
@@ -115,7 +125,7 @@ def make_train_step(
             grads = {n: g / microbatches for n, g in grads.items()}
             loss = loss / microbatches
 
-        _, opt, opt_metrics = adamw.update(grads, state.opt, state.params, opt_cfg)
+        _, opt, opt_metrics = adamw.update(grads, state.opt, state.params, opt_cfg, ctx)
 
         balancer = state.balancer
         trigger = torch.zeros((), dtype=torch.bool, device=dev)

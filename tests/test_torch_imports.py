@@ -62,6 +62,14 @@ def test_family_serving_modules_are_checked():
     } <= modules
 
 
+def test_sharding_slice_modules_are_checked():
+    modules = {_module_name(p) for p in FILES if p.parent != ROOT}
+    assert {
+        "repro_torch.models.parallel", "repro_torch.models.partitioning",
+        "repro_torch.launch.mesh",
+    } <= modules
+
+
 def test_every_module_imports_without_jax():
     modules = [_module_name(p) for p in FILES if p.parent != ROOT]
     code = (

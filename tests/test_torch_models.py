@@ -28,6 +28,7 @@ from repro_torch.models import convert
 from repro_torch.models import ffn as tffn
 from repro_torch.models import flash as tflash
 from repro_torch.models import mla as tmla
+from torch_ranks import one_rank
 
 TOL = dict(rtol=1e-4, atol=1e-5)
 ARCH = "deepseek-v2-236b"
@@ -201,8 +202,15 @@ def test_capacity(t, k, e, factor):
     assert tffn._capacity(t, k, e, factor) == jffn._capacity(t, k, e, factor)
 
 
-def test_moe_refuses_a_parallel_context(models):
+def test_moe_takes_a_parallel_context(models, tmp_path):
+    """On a (1, 1) mesh (one expert-parallel rank: the reference's
+    single-device path) ``moe_ffn`` gives the ``ctx=None`` result and the
+    counts as one dispatcher's ``(1, 1, E)`` row."""
     _, tcfg, _, tp = models
-    x = torch.zeros((1, 4, tcfg.d_model))
-    with pytest.raises(NotImplementedError, match="item 14"):
-        tffn.moe_ffn(tp.layers[0].moe, x, torch.zeros(tcfg.n_routed_experts), tcfg, ctx=object())
+    x = torch.from_numpy(_rand((2, 16, tcfg.d_model), 14))
+    bias = torch.from_numpy(_rand((tcfg.n_routed_experts,), 15, scale=2.0))
+    want_y, want_c = tffn.moe_ffn(tp.layers[0].moe, x, bias, tcfg)
+    with one_rank(tmp_path / "store", tcfg.n_routed_experts) as ctx:
+        y, c = tffn.moe_ffn(tp.layers[0].moe, x, bias.reshape(1, 1, -1), tcfg, ctx)
+    assert torch.equal(y, want_y)
+    assert torch.equal(c, want_c.reshape(1, 1, -1))

@@ -42,6 +42,7 @@ from repro_torch.launch import train as tlaunch
 from repro_torch.models import convert
 from repro_torch.optim import adamw as tadamw
 from repro_torch.train import train_loop
+from torch_ranks import one_rank
 
 RTOL, ATOL = 1e-4, 1e-4
 OPT = dict(lr=1e-2, warmup_steps=1, total_steps=4, eps=1e-4)
@@ -98,15 +99,23 @@ def test_train_step_matches_jax(arch, sync, micro):
                 _close(getattr(tb, f), getattr(jb, f), f"step {i} balancer {f}")
 
 
-def test_init_state_turns_on_grads_and_zero_moments():
+def test_init_state_turns_on_grads_and_zero_moments(tmp_path):
     cfg = tget("deepseek-v2-236b").reduced()
     state = train_loop.init_state(torch.Generator().manual_seed(0), cfg, device="cpu")
     assert all(p.requires_grad for p in state.params.parameters())
     assert all(float(m.abs().sum()) == 0 for m in state.opt.m.values())
     assert state.balancer.true_counts.shape == (1, cfg.n_routed_experts)
     assert state.step.dtype == state.opt.step.dtype == torch.int32
-    with pytest.raises(NotImplementedError):
-        train_loop.init_state(torch.Generator(), cfg, ctx=object(), device="cpu")
+    # Under a (1, 1) context: the same parameters, a (L, 1, 1, E) balancer,
+    # whole moments keyed by the JAX leaves' paths (ZeRO-1 over one rank).
+    with one_rank(tmp_path / "store", cfg.n_routed_experts) as ctx:
+        got = train_loop.init_state(torch.Generator().manual_seed(0), cfg, ctx, device="cpu")
+        whole = tadamw.gather_state(got.opt, got.params, ctx)
+    assert got.balancer.true_counts.shape == (1, 1, 1, cfg.n_routed_experts)
+    assert got.opt.m["layers/moe/w_in"].shape == (1, *state.params.layers[0].moe.w_in.shape)
+    for name, p in state.params.named_parameters():
+        assert torch.equal(dict(got.params.named_parameters())[name], p)
+        assert torch.equal(whole.m[name], state.opt.m[name])
 
 
 def test_launch_train_crash_restart_resumes_the_stream(tmp_path):
