@@ -323,7 +323,19 @@ own failure):
    ``repro_torch.launch.train --mesh 1,1`` against the same run without
    a mesh.  Expert parallelism across ranks (``ep > 1``) needs more than
    one card: the CPU tests run it over gloo ranks.
-11. Print the kernels line (launch counts from the main paths, parity,
+11. The dry run against the card (``launch/dryrun.py``).  Phase 9's
+   SmolLM-135M train step (8 x 2048, full width and depth, bf16, no
+   context) traced on fake CUDA tensors (no kernel launched), then run for
+   real under the same ``FlopCounterMode`` and op recorder: the FLOPs
+   equal exactly, and each of the 60 kernel calls' fake outputs has its
+   real launch's shapes, dtypes and strides.  Prints the predicted and
+   measured peak memory and their ratio, the roofline's three terms at
+   H100 peaks (``launch/roofline.py``), the median of three real steps
+   and the step's roofline share (6ND over the peak times the step).
+   Then ``smollm-135m / train_4k`` and ``deepseek-v2-236b / decode_32k``
+   on the 256-rank production mesh (a fake process group), with their
+   records' totals and trace seconds.
+12. Print the kernels line (launch counts from the main paths, parity,
    times and bounds; ``serve_slots`` also carries phase 3b's stream-mode
    launches, ms a chunk, bound, plain time and error under ``stream_*``;
    ``flash_attention`` also carries phase 8b's launches per model under
@@ -2219,12 +2231,13 @@ def _training_phase(dev, times: dict, card_tests) -> list:
         ms = _device_ms(lambda: moe_route.moe_route_bwd_cuda(logits, idx, gw, gate_fn=gate),
                         MOE_TIME_REPS)
         plain = _time_ms(lambda: ref.moe_route_weights_vjp_ref(logits, idx, gw, gate), 3)
-        bound = _moe_bwd_bound(*logits.shape, idx.shape[1])
-        moe_shapes[case] = {"ms": ms, "plain_ms": plain, "bound_ms": bound[0],
-                            "bound_by": bound[1], "bound_share": bound[0] / ms}
+        # (its own name: ``bound`` is the attention backward's, for the kernels line)
+        moe_bound = _moe_bwd_bound(*logits.shape, idx.shape[1])
+        moe_shapes[case] = {"ms": ms, "plain_ms": plain, "bound_ms": moe_bound[0],
+                            "bound_by": moe_bound[1], "bound_share": moe_bound[0] / ms}
         print(f"phase 9 moe_route_bwd at {case} {card_tests.MOE_BWD_CASES[case][:4]}: kernel "
               f"{ms:.5f} ms (device time, queue filled), plain {plain:.3f} ms, bound "
-              f"{bound[0]:.6f} ms ({bound[1]}), bound / kernel {bound[0] / ms:.4f}")
+              f"{moe_bound[0]:.6f} ms ({moe_bound[1]}), bound / kernel {moe_bound[0] / ms:.4f}")
     del logits, idx, gw
     main_moe = moe_shapes[MOE_BWD_TIMED[0]]
     times["train_profile_s"] = time.perf_counter() - t0
@@ -3359,6 +3372,189 @@ def _parallel_phase(dev, times: dict) -> dict:
     return launches
 
 
+DRYRUN_CELLS = (("smollm-135m", "train_4k"), ("deepseek-v2-236b", "decode_32k"))
+DRYRUN_STEPS = 3  # real steps timed after the traced one
+
+
+def _dryrun_phase(dev, times: dict) -> dict:
+    """Phase 11: the dry run against the card.  (a) Phase 9's SmolLM-135M
+    train step (8 x 2048, full width and depth, bf16, no context) traced
+    on fake tensors, then run for real under the same ``FlopCounterMode``
+    and op recorder: the FLOPs must be equal and every kernel call's fake
+    outputs must have the real launch's shapes, dtypes and strides; the
+    predicted and measured peak memory, the roofline's three terms at
+    H100 peaks and the step's roofline share are printed.  (b) Two cells
+    of ``launch/dryrun.py`` on the production mesh."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import pipeline
+    from repro_torch.kernels import ops
+    from repro_torch.launch import dryrun, model_stats, roofline
+    from repro_torch.models import parallel
+    from repro_torch.optim import adamw
+    from repro_torch.train import train_loop
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    assert torch.cuda.memory_allocated(dev) < 1e9, (
+        f"{torch.cuda.memory_allocated(dev) / 1e9:.2f} GB still allocated before phase 11")
+    card = _card()
+    cfg = get_config(TRAIN_ARCH)
+    step_fn = train_loop.make_train_step(
+        cfg, adamw.OptimConfig(lr=3e-4, total_steps=12, warmup_steps=2))
+
+    # (a) the fake trace, then the same step for real.
+    ops.reset_launch_counts()
+    with FakeTensorMode(allow_non_fake_inputs=True):
+        fstate = dryrun.fake_train_state(cfg, None, dev)
+        fbatch = {k: torch.empty((TRAIN_BATCH, TRAIN_SEQ), dtype=torch.int32, device=dev)
+                  for k in ("tokens", "labels")}
+        fake = dryrun.trace_step(lambda: step_fn(fstate, fbatch), (fstate, fbatch))
+    del fstate, fbatch
+    assert not any(ops.launch_counts().values()), ops.launch_counts()
+    state = train_loop.init_state(torch.Generator(device=dev).manual_seed(0), cfg, device=dev)
+    data = pipeline.DataConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+                               global_batch=TRAIN_BATCH)
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in pipeline.global_batch_at(0, data).items()}
+    assert all(t.dtype == torch.int32 for t in batch.values())
+    state, _ = step_fn(state, batch)  # warm
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    real = dryrun.trace_step(lambda: step_fn(state, batch), (state, batch))
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    assert launches["flash_attention"] == launches["flash_attention_bwd"] == cfg.num_layers, (
+        launches)
+    assert fake["flops"] == real["flops"], (fake["flops"], real["flops"])
+    assert fake["analysis"]["flops"] == real["analysis"]["flops"]
+    calls = [(name, [(shape, dt, st) for shape, dt, st in outs])
+             for name, outs in real["kernel_calls"]]
+    assert len(calls) == 2 * cfg.num_layers and fake["kernel_calls"] == calls, (
+        [c for c in zip(fake["kernel_calls"], calls) if c[0] != c[1]][:2])
+    real_flops = real["flops"]
+    del real
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    walls = []
+    for _ in range(DRYRUN_STEPS):
+        t0 = time.perf_counter()
+        state, metrics = step_fn(state, batch)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated(dev)
+    assert bool(torch.isfinite(metrics["loss"])), metrics
+    del state, batch, metrics
+    step_s = float(np.median(walls))
+    an = fake["analysis"]
+    predicted = an["argument_bytes"] + an["peak_bytes"]
+    rec = dryrun.cell_record(fake, parallel.MeshShape((1,), ("data",)), [cfg.num_layers])
+    cell = roofline.cell_roofline(
+        {"arch": TRAIN_ARCH, "shape": "phase9", "mesh": "one card", **rec}, 1)
+    model_flops = 6.0 * model_stats.count_active_params(cfg) * TRAIN_BATCH * TRAIN_SEQ
+    share = model_flops / (roofline.PEAK_FLOPS * step_s)
+    times["dryrun_step_s"] = time.perf_counter() - t_phase
+    print(f"phase 11 dry run of phase 9's step ({TRAIN_ARCH}, {TRAIN_BATCH} x {TRAIN_SEQ}, bf16, "
+          f"no context) on {card}: fake trace {fake['seconds']:.2f} s, {an['n_ops']} ops, no "
+          f"kernel launched; FLOPs fake {fake['flops']:.6e} == real {real_flops:.6e} "
+          f"(FlopCounterMode, equal), the op trace's {an['flops']:.6e}; "
+          f"{len(calls)} kernel calls, fake outputs equal the real launches' shapes, dtypes and "
+          f"strides; arguments predicted {an['argument_bytes'] / 1e9:.3f} GB, held "
+          f"{held / 1e9:.3f} GB; peak predicted {predicted / 1e9:.3f} GB, measured "
+          f"{peak / 1e9:.3f} GB (ratio {predicted / peak:.3f})")
+    print(f"phase 11 roofline at H100 peaks (989e12 FLOP/s, 3.35e12 B/s, 450e9 B/s) on {card}: "
+          f"compute {cell.compute_s * 1e3:.3f} ms, memory {cell.memory_s * 1e3:.3f} ms, "
+          f"collective {cell.collective_s * 1e3:.3f} ms ({cell.dominant}); measured step "
+          f"{step_s * 1e3:.1f} ms (median of {DRYRUN_STEPS}: "
+          + ", ".join(f"{w * 1e3:.1f}" for w in walls)
+          + f"); model FLOPs 6ND {model_flops:.4e}, roofline share {share:.4f}; the bound "
+          f"{cell.step_s * 1e3:.3f} ms over the step {cell.step_s / step_s:.4f}")
+
+    # (b) two cells of the dry run on the production mesh.
+    out_dir = ROOT / "build" / "dryrun"
+    for arch, shape in DRYRUN_CELLS:
+        rec = dryrun.run_cell(arch, shape, multi_pod=False, out_dir=out_dir, force=True)
+        assert rec["ok"], rec.get("traceback")
+        assert rec["trace_device"] == "cuda" and rec["hlo_flops"] == rec["cost"]["flops"] > 0
+        print(f"phase 11 dry run {arch} / {shape} / pod16x16 (256 fake ranks, fake cuda "
+              f"tensors): traced in {rec['lower_s']} s, {rec['n_ops']} ops; per rank flops "
+              f"{rec['hlo_flops']:.4e}, HBM bytes {rec['hlo_bytes_hbm_v2']:.4e}, collective "
+              f"bytes {rec['collectives']['total']:.4e} " + json.dumps(rec["collectives"])
+              + f", arguments {rec['memory']['argument_size_in_bytes'] / 1e9:.2f} GB, "
+              f"temporaries {rec['memory']['temp_size_in_bytes'] / 1e9:.2f} GB")
+    assert not any(ops.launch_counts()[k] for k in ops.launch_counts()
+                   if k not in ("flash_attention", "flash_attention_bwd")), ops.launch_counts()
+
+    # (c) what calling the kernels as operators costs the host.
+    host = _op_host_cost(dev)
+    print(f"phase 11 host time a call through the operator against the binding alone "
+          f"(median of {OP_COST_ROUNDS} rounds of {OP_COST_CALLS} calls, in turns) on {card}: "
+          + "; ".join(f"{name} {op_us:.2f} us against {bind_us:.2f} us (+{op_us - bind_us:.2f})"
+                      for name, (op_us, bind_us) in host.items()))
+    times["dryrun_phase_s"] = time.perf_counter() - t_phase
+    return {"fake_flops": fake["flops"], "step_ms": step_s * 1e3, "share": share,
+            "peak_ratio": predicted / peak, "host_us": host}
+
+
+OP_COST_CALLS = 200
+OP_COST_ROUNDS = 5
+
+
+def _op_host_cost(dev) -> dict:
+    """``name -> (us a call through ops.*, us a call of the binding)`` at a
+    decode step's router shape (T 4, E 160, k 6) and a small attention,
+    each timed with the host clock over ``OP_COST_CALLS`` calls ending in a
+    synchronise, in turns (binding, operator, operator, binding)."""
+    from repro_torch.kernels import flash_attn, moe_route, ops
+
+    g = torch.Generator(device=dev).manual_seed(0)
+    logits = torch.randn((4, 160), generator=g, device=dev)
+    bias = torch.zeros(160, device=dev)
+    q = torch.randn((1, 16, 8, 64), generator=g, device=dev).to(torch.bfloat16)
+    calls = {
+        "moe_route": (lambda: ops.moe_route(logits, bias, 6),
+                      lambda: moe_route.moe_route_cuda(logits, bias, 6)),
+        "flash_attention": (lambda: ops.flash_attention(q, q, q, scale=0.125),
+                            lambda: flash_attn.flash_attention_cuda(q, q, q, scale=0.125)),
+    }
+
+    def per_call_us(fn) -> float:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(OP_COST_CALLS):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / OP_COST_CALLS * 1e6
+
+    out = {}
+    with torch.no_grad():
+        for name, (op, binding) in calls.items():
+            op(), binding()  # warm
+            ops_us, bind_us = [], []
+            for _ in range(OP_COST_ROUNDS):
+                bind_us.append(per_call_us(binding))
+                ops_us.append(per_call_us(op))
+                ops_us.append(per_call_us(op))
+                bind_us.append(per_call_us(binding))
+            out[name] = (float(np.median(ops_us)), float(np.median(bind_us)))
+    return out
+
+
+def dryrun_phase_only() -> None:
+    """Phase 1's build and phase 11 alone, for a short call on the card."""
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.kernels import _build
+
+    _build.build_all()
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    times: dict[str, float] = {}
+    result = _dryrun_phase(dev, times)
+    print("times (s): " + json.dumps(times) + f" on {_card()}")
+    print(json.dumps(result))
+
+
 def parallel_phase_only() -> None:
     """Phase 1's build and phase 10 alone, for a short call on the card."""
     sys.path.insert(0, str(ROOT / "src"))
@@ -3905,7 +4101,10 @@ def main() -> int:
         if entry["name"] == "moe_route_bwd":
             entry["parallel_launches"] = parallel["moe_route_bwd"]
 
-    # -- 11. output --------------------------------------------------------------
+    # -- 11. the dry run against the card ----------------------------------------
+    _dryrun_phase(dev, times)
+
+    # -- 12. output --------------------------------------------------------------
     kernels = [
         {
             "name": "care_route", "route": "cuda",

@@ -34,3 +34,21 @@ def get_config(arch: str) -> ModelConfig:
         raise KeyError(f"unknown arch {arch!r}; known: {sorted(_ARCH_MODULES)}")
     mod = importlib.import_module(f"repro_torch.configs.{_ARCH_MODULES[arch]}")
     return mod.CONFIG
+
+
+def get_shape(shape: str) -> ShapeConfig:
+    return SHAPES[shape]
+
+
+def cells(include_skipped: bool = False):
+    """All (arch, shape) cells in the JAX package's order; ``long_500k`` is
+    skipped for full-attention archs (``include_skipped`` lists it with its
+    flag)."""
+    out = []
+    for arch in ARCH_IDS:
+        cfg = get_config(arch)
+        for shape in SHAPES.values():
+            skip = shape.name == "long_500k" and not cfg.supports_long_context
+            if include_skipped or not skip:
+                out.append((arch, shape.name, skip))
+    return out

@@ -14,6 +14,10 @@ kernel, all on ``wgmma`` fed by TMA, whose tile schedules
 bindings it checks device, dtype, shape and contiguity, allocates the output,
 launches on PyTorch's current stream, raises if the launch reports an error,
 and adds one to its ``launches`` count.  The library is built at first use.
+The operators ``repro_torch::flash_attention`` and
+``repro_torch::flash_attention_bwd`` (:data:`flash_attention_op`,
+:data:`flash_attention_bwd_op`) wrap the two bindings for autograd and for
+fake tensors.
 """
 from __future__ import annotations
 
@@ -151,21 +155,7 @@ def check_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> tuple:
     ``(B, S, T, H, KVH, dh, dv)``.  float32 takes ``dh`` and ``dv`` that are
     multiples of 4 up to 256; bfloat16 takes them in ``BF16_WIDTHS``, with
     16-byte aligned pointers (TMA's rule)."""
-    if q.dtype not in DTYPES:
-        raise ValueError(f"q must be float32 or bfloat16, got {q.dtype}")
-    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
-        raise ValueError(
-            f"q, k, v must be 4-D, got {tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}"
-        )
-    b, s, h, dh = q.shape
-    t, kvh, dv = k.shape[1], k.shape[2], v.shape[3]
-    if min(b, s, t, h, kvh) < 1 or h % kvh:
-        raise ValueError(f"no attention for B={b} S={s} T={t} H={h} KVH={kvh}")
-    for name, width in (("dh", dh), ("dv", dv)):
-        if q.dtype == torch.bfloat16 and width not in BF16_WIDTHS:
-            raise ValueError(f"{name} must be one of {BF16_WIDTHS} in bfloat16, got {width}")
-        if not (4 <= width <= MAX_HEAD_DIM and width % 4 == 0):
-            raise ValueError(f"{name} must be a multiple of 4 in [4, {MAX_HEAD_DIM}], got {width}")
+    b, s, t, h, kvh, dh, dv = check_shapes(q, k, v)
     dev = q.device
     _check(q, "q", (b, s, h, dh), dev, q.dtype)
     _check(k, "k", (b, t, kvh, dh), dev, q.dtype)
@@ -299,22 +289,121 @@ def flash_attention_bwd_cuda(
 flash_attention_bwd_cuda.launches = 0
 
 
-class FlashAttentionFn(torch.autograd.Function):
-    """:func:`flash_attention_cuda` with a gradient: the forward launches
-    the forward kernel, which also writes each row's log-sum-exp, and keeps
-    q, k, v, the output and the lse; the backward launches
-    :func:`flash_attention_bwd_cuda` on them."""
+# --------------------------------------------------------------------------
+# the kernels as PyTorch operators
+# --------------------------------------------------------------------------
+#
+# ``repro_torch::flash_attention`` and ``repro_torch::flash_attention_bwd``
+# wrap the two bindings as ``torch.library`` operators.  Their CUDA
+# implementation is the binding itself (it launches or raises); their fake
+# implementation gives the outputs' shapes, dtypes and strides and builds
+# nothing, so the step traces under ``FakeTensorMode`` (``launch/dryrun.py``);
+# the forward's gradient is the backward kernel, and each has the FLOP
+# formula ``torch.utils.flop_counter.FlopCounterMode`` reads.
 
-    @staticmethod
-    def forward(ctx, q, k, v, scale: float, causal: bool, window, softcap: float):
-        kw = dict(scale=scale, causal=causal, window=window, softcap=softcap)
-        out, lse = flash_attention_cuda(q, k, v, return_lse=True, **kw)
-        ctx.save_for_backward(q, k, v, out, lse)
-        ctx.kw = kw
-        return out
 
-    @staticmethod
-    def backward(ctx, dout):
-        q, k, v, out, lse = ctx.saved_tensors
-        dq, dk, dv = flash_attention_bwd_cuda(q, k, v, out, dout.contiguous(), lse, **ctx.kw)
-        return dq, dk, dv, None, None, None, None
+def check_shapes(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> tuple:
+    """The refusals of :func:`check_inputs` that depend on shapes and
+    dtypes alone (a fake tensor has no pointer); the same tuple."""
+    if q.dtype not in DTYPES:
+        raise ValueError(f"q must be float32 or bfloat16, got {q.dtype}")
+    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
+        raise ValueError(
+            f"q, k, v must be 4-D, got {tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}"
+        )
+    b, s, h, dh = q.shape
+    t, kvh, dv = k.shape[1], k.shape[2], v.shape[3]
+    if min(b, s, t, h, kvh) < 1 or h % kvh:
+        raise ValueError(f"no attention for B={b} S={s} T={t} H={h} KVH={kvh}")
+    for name, width in (("dh", dh), ("dv", dv)):
+        if q.dtype == torch.bfloat16 and width not in BF16_WIDTHS:
+            raise ValueError(f"{name} must be one of {BF16_WIDTHS} in bfloat16, got {width}")
+        if not (4 <= width <= MAX_HEAD_DIM and width % 4 == 0):
+            raise ValueError(f"{name} must be a multiple of 4 in [4, {MAX_HEAD_DIM}], got {width}")
+    return b, s, t, h, kvh, dh, dv
+
+
+def _flash_op(q, k, v, scale: float, causal: bool, window, softcap: float, return_lse: bool):
+    kw = dict(scale=scale, causal=causal, window=window, softcap=softcap)
+    if return_lse:
+        return flash_attention_cuda(q, k, v, return_lse=True, **kw)
+    out = flash_attention_cuda(q, k, v, **kw)
+    return out, out.new_empty((0,), dtype=torch.float32)
+
+
+flash_attention_op = torch.library.custom_op(
+    "repro_torch::flash_attention", _flash_op, mutates_args=(), device_types="cuda",
+    schema="(Tensor q, Tensor k, Tensor v, float scale, bool causal, SymInt? window, "
+           "float softcap, bool return_lse) -> (Tensor, Tensor)",
+)
+
+
+@flash_attention_op.register_fake
+def _flash_fake(q, k, v, scale, causal, window, softcap, return_lse):
+    b, s, _t, h, _kvh, _dh, dv = check_shapes(q, k, v)
+    check_window(window)
+    if softcap < 0:
+        raise ValueError(f"softcap must be >= 0, got {softcap}")
+    lse = q.new_empty((b, h, s) if return_lse else (0,), dtype=torch.float32)
+    return q.new_empty((b, s, h, dv)), lse
+
+
+def _flash_bwd_op(q, k, v, out, dout, lse, scale: float, causal: bool, window, softcap: float):
+    return flash_attention_bwd_cuda(q, k, v, out, dout, lse, scale=scale, causal=causal,
+                                    window=window, softcap=softcap)
+
+
+flash_attention_bwd_op = torch.library.custom_op(
+    "repro_torch::flash_attention_bwd", _flash_bwd_op, mutates_args=(), device_types="cuda",
+    schema="(Tensor q, Tensor k, Tensor v, Tensor out, Tensor dout, Tensor lse, float scale, "
+           "bool causal, SymInt? window, float softcap) -> (Tensor, Tensor, Tensor)",
+)
+
+
+@flash_attention_bwd_op.register_fake
+def _flash_bwd_fake(q, k, v, out, dout, lse, scale, causal, window, softcap):
+    check_shapes(q, k, v)
+    return torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+
+
+def _flash_setup(ctx, inputs, output):
+    q, k, v, scale, causal, window, softcap, _return_lse = inputs
+    out, lse = output
+    ctx.mark_non_differentiable(lse)
+    ctx.save_for_backward(q, k, v, out, lse)
+    ctx.kw = (scale, causal, window, softcap)
+
+
+def _flash_grad(ctx, dout, _dlse):
+    q, k, v, out, lse = ctx.saved_tensors
+    if lse.numel() == 0:
+        raise RuntimeError("flash_attention: a gradient needs the forward's lse (return_lse)")
+    dq, dk, dv = flash_attention_bwd_op(q, k, v, out, dout.contiguous(), lse, *ctx.kw)
+    return dq, dk, dv, None, None, None, None, None
+
+
+flash_attention_op.register_autograd(_flash_grad, setup_context=_flash_setup)
+
+
+def flash_flops(q, k, v) -> int:
+    """Dense attention's forward work, ``2 B H S T (dh + dv)``: the score
+    and value products over every (query, key) pair, masked or not, as the
+    JAX package's dense SDPA counts them.  The backward is twice this."""
+    b, s, h, dh = q
+    t, dv = k[1], v[3]
+    return 2 * b * h * s * t * (dh + dv)
+
+
+def _register_flops():
+    from torch.utils.flop_counter import register_flop_formula
+
+    @register_flop_formula(torch.ops.repro_torch.flash_attention)
+    def _fwd(q, k, v, *args, out_shape=None, **kwargs) -> int:
+        return flash_flops(q, k, v)
+
+    @register_flop_formula(torch.ops.repro_torch.flash_attention_bwd)
+    def _bwd(q, k, v, *args, out_shape=None, **kwargs) -> int:
+        return 2 * flash_flops(q, k, v)
+
+
+_register_flops()

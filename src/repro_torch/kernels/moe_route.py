@@ -6,8 +6,10 @@ the capacity positions the reference computes around it
 (``repro/models/ffn.py:110-114``): one launch returns the route, the
 per-expert counts and each (token, slot)'s position in its expert's
 buffer.  :func:`moe_route_bwd_cuda` launches ``csrc/moe_route_bwd.cu``,
-the gradient of the combine weights with respect to the logits, and
-:class:`MoERouteFn` joins the two for autograd.  Like the routing bindings
+the gradient of the combine weights with respect to the logits, and the
+operators ``repro_torch::moe_route`` / ``repro_torch::moe_route_bwd``
+(:data:`moe_route_op`, :data:`moe_route_bwd_op`) join the two for autograd
+and give their outputs' shapes on fake tensors.  Like the routing bindings
 in :mod:`repro_torch.kernels.jsaq_route`, each binding checks device,
 dtype, shape and contiguity, allocates the outputs with ``torch.empty``,
 launches on PyTorch's current stream, raises if the launch reports an
@@ -112,20 +114,8 @@ def moe_route_cuda(
     """
     if logits.device.type != "cuda":
         raise ValueError(f"moe_route_cuda needs a CUDA tensor, got {logits.device}")
-    if gate_fn not in GATE_FNS:
-        raise ValueError(f"unknown gate_fn {gate_fn!r}; expected one of {GATE_FNS}")
-    if logits.dtype not in (torch.float32, torch.bfloat16):
-        raise ValueError(f"logits must be float32 or bfloat16, got {logits.dtype}")
-    if logits.dim() != 2:
-        raise ValueError(f"logits must be (T, E), got shape {tuple(logits.shape)}")
+    t, e = check_route_shapes(logits, top_k, gate_fn)
     dev = logits.device
-    t, e = logits.shape
-    if t < 1:
-        raise ValueError("moe_route_cuda needs at least one token")
-    if not 1 <= e <= MAX_EXPERTS:
-        raise ValueError(f"moe_route_cuda takes 1..{MAX_EXPERTS} experts, got {e}")
-    if not 1 <= top_k <= e:
-        raise ValueError(f"top_k must be in [1, {e}], got {top_k}")
     _check(logits, "logits", (t, e), dev, logits.dtype)
     _check(bias, "bias", (e,), dev, torch.float32)
     if torch.cuda.is_current_stream_capturing():
@@ -194,28 +184,92 @@ def moe_route_bwd_cuda(
 moe_route_bwd_cuda.launches = 0
 
 
-class MoERouteFn(torch.autograd.Function):
-    """``moe_route_cuda`` with a gradient: the forward is its one launch;
-    ``idx``, ``counts`` and ``pos`` take no gradient, and the weights' goes
-    to the float32 logits through ``moe_route_bwd_cuda`` (the bias reaches
-    only the argmax, so it takes none)."""
+# --------------------------------------------------------------------------
+# the kernels as PyTorch operators
+# --------------------------------------------------------------------------
+#
+# ``repro_torch::moe_route`` and ``repro_torch::moe_route_bwd`` wrap the two
+# bindings as ``torch.library`` operators: the CUDA implementation is the
+# binding (it launches or raises), the fake implementation gives the
+# outputs' shapes, dtypes and strides and builds nothing (``launch/
+# dryrun.py`` traces the step under ``FakeTensorMode``), and the route's
+# gradient is the backward kernel.  The router multiplies no matrix, so it
+# has no FLOP formula (``FlopCounterMode`` counts matrix products).
 
-    @staticmethod
-    def forward(ctx, logits, bias, top_k: int, gate_fn: str):
-        idx, weights, counts, pos = moe_route_cuda(logits, bias, top_k, gate_fn=gate_fn)
-        ctx.mark_non_differentiable(idx, counts, pos)
-        ctx.save_for_backward(logits, idx)
-        ctx.gate_fn = gate_fn
-        return idx, weights, counts, pos
 
-    @staticmethod
-    def backward(ctx, _g_idx, g_weights, _g_counts, _g_pos):
-        logits, idx = ctx.saved_tensors
-        if g_weights is None:
-            return None, None, None, None
-        d = moe_route_bwd_cuda(logits.to(torch.float32), idx, g_weights.contiguous(),
-                               gate_fn=ctx.gate_fn)
-        return d.to(logits.dtype), None, None, None
+def check_route_shapes(logits: torch.Tensor, top_k: int, gate_fn: str) -> tuple[int, int]:
+    """The refusals of :func:`moe_route_cuda` that depend on shapes and
+    dtypes alone; returns ``(T, E)``."""
+    if gate_fn not in GATE_FNS:
+        raise ValueError(f"unknown gate_fn {gate_fn!r}; expected one of {GATE_FNS}")
+    if logits.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"logits must be float32 or bfloat16, got {logits.dtype}")
+    if logits.dim() != 2:
+        raise ValueError(f"logits must be (T, E), got shape {tuple(logits.shape)}")
+    t, e = logits.shape
+    if t < 1:
+        raise ValueError("moe_route_cuda needs at least one token")
+    if not 1 <= e <= MAX_EXPERTS:
+        raise ValueError(f"moe_route_cuda takes 1..{MAX_EXPERTS} experts, got {e}")
+    if not 1 <= top_k <= e:
+        raise ValueError(f"top_k must be in [1, {e}], got {top_k}")
+    return t, e
+
+
+def _route_op(logits, bias, top_k: int, gate_fn: str):
+    return moe_route_cuda(logits, bias, top_k, gate_fn=gate_fn)
+
+
+moe_route_op = torch.library.custom_op(
+    "repro_torch::moe_route", _route_op, mutates_args=(), device_types="cuda",
+    schema="(Tensor logits, Tensor bias, int top_k, str gate_fn) "
+           "-> (Tensor, Tensor, Tensor, Tensor)",
+)
+
+
+@moe_route_op.register_fake
+def _route_fake(logits, bias, top_k, gate_fn):
+    t, e = check_route_shapes(logits, top_k, gate_fn)
+    return (logits.new_empty((t, top_k), dtype=torch.int32),
+            logits.new_empty((t, top_k), dtype=torch.float32),
+            logits.new_empty((e,), dtype=torch.int32),
+            logits.new_empty((t * top_k,), dtype=torch.int32))
+
+
+def _route_bwd_op(logits, idx, grad_w, gate_fn: str):
+    return moe_route_bwd_cuda(logits, idx, grad_w, gate_fn=gate_fn)
+
+
+moe_route_bwd_op = torch.library.custom_op(
+    "repro_torch::moe_route_bwd", _route_bwd_op, mutates_args=(), device_types="cuda",
+    schema="(Tensor logits, Tensor idx, Tensor grad_w, str gate_fn) -> Tensor",
+)
+
+
+@moe_route_bwd_op.register_fake
+def _route_bwd_fake(logits, idx, grad_w, gate_fn):
+    return logits.new_empty(logits.shape, dtype=torch.float32)
+
+
+def _route_setup(ctx, inputs, output):
+    logits, _bias, _top_k, gate_fn = inputs
+    idx, _weights, counts, pos = output
+    # idx, counts and pos take no gradient; the bias reaches only the argmax.
+    ctx.mark_non_differentiable(idx, counts, pos)
+    ctx.save_for_backward(logits, idx)
+    ctx.gate_fn = gate_fn
+
+
+def _route_grad(ctx, _g_idx, g_weights, _g_counts, _g_pos):
+    logits, idx = ctx.saved_tensors
+    if g_weights is None:
+        return None, None, None, None
+    d = moe_route_bwd_op(logits.to(torch.float32), idx, g_weights.contiguous(), ctx.gate_fn)
+    return d.to(logits.dtype), None, None, None
+
+
+moe_route_op.register_autograd(_route_grad, setup_context=_route_setup)
+
 
 def launch_floor_cuda() -> None:
     """Launch one empty block on the current stream: the floor any launch

@@ -8,10 +8,14 @@ which either launches or raises --
 nothing on the CUDA path falls back to the plain version.  The kernels mask
 by bound, so no lane, domain or token padding is needed.  Only a kernel
 launch counts in :func:`launch_counts`.  :func:`moe_route` and
-:func:`flash_attention` carry a gradient: on a CUDA tensor that requires one
-they go through ``moe_route.MoERouteFn`` / ``flash_attn.FlashAttentionFn``,
-whose backward is a kernel too; on a CPU tensor autograd differentiates the
-plain version itself.  The plain version of
+:func:`flash_attention` call their kernels as ``torch.library`` operators
+(``repro_torch::moe_route``, ``repro_torch::flash_attention``; see
+``kernels/moe_route.py`` and ``kernels/flash_attn.py``): on a CUDA tensor
+the operator launches the kernel, and its gradient is a kernel too; on a
+fake tensor (``FakeTensorMode``, whatever device it claims) it gives the
+outputs' shapes and launches nothing, which is how ``launch/dryrun.py``
+traces the card's path without a card; on a CPU tensor autograd
+differentiates the plain version itself.  The plain version of
 :func:`serve_slots`, the serving engine's fused slot loop, is the engine's
 own per-slot loop, which the caller passes in.
 """
@@ -20,6 +24,7 @@ from __future__ import annotations
 from typing import Callable
 
 import torch
+from torch._subclasses.fake_tensor import is_fake
 
 from repro_torch.kernels import flash_attn as _flash
 from repro_torch.kernels import jsaq_route as _cuda
@@ -29,6 +34,8 @@ from repro_torch.kernels import ref as _ref
 
 def _route(t: torch.Tensor, name: str) -> bool:
     """True for the kernel, False for the plain version; raises otherwise."""
+    if is_fake(t):
+        raise ValueError(f"{name}: a fake tensor has no kernel here (no fake implementation)")
     if t.device.type == "cuda":
         return True
     if t.device.type == "cpu":
@@ -131,10 +138,8 @@ def moe_route(
     ``1 <= top_k <= E``."""
     if not 1 <= top_k <= logits.shape[-1]:
         raise ValueError(f"top_k must be in [1, {logits.shape[-1]}], got {top_k}")
-    if _route(logits, "moe_route"):
-        if torch.is_grad_enabled() and logits.requires_grad:
-            return _moe.MoERouteFn.apply(logits, bias, top_k, gate_fn)
-        return _moe.moe_route_cuda(logits, bias, top_k, gate_fn=gate_fn)
+    if is_fake(logits) or _route(logits, "moe_route"):
+        return _moe.moe_route_op(logits, bias, top_k, gate_fn)
     out = _ref.moe_route_ref(logits, bias, top_k, gate_fn)
     return (*out, _ref.moe_positions_ref(out[0], logits.shape[-1]))
 
@@ -155,10 +160,10 @@ def flash_attention(
     ``window``: None or an int >= 1, applied only with ``causal``."""
     _flash.check_window(window)
     kw = dict(scale=scale, causal=causal, window=window, softcap=softcap)
-    if _route(q, "flash_attention"):
-        if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
-            return _flash.FlashAttentionFn.apply(q, k, v, scale, causal, window, softcap)
-        return _flash.flash_attention_cuda(q, k, v, **kw)
+    if is_fake(q) or _route(q, "flash_attention"):
+        # The backward reads the forward's log-sum-exp: ask for it only then.
+        lse = torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v))
+        return _flash.flash_attention_op(q, k, v, scale, causal, window, softcap, lse)[0]
     return _ref.flash_attention_ref(q, k, v, **kw)
 
 

@@ -375,10 +375,15 @@ def init_decode_cache(params: Model, cfg: ModelConfig, batch: int, cache_len: in
 
 def _write_back(scan: dict, l: int, new: dict) -> None:
     """Layer ``l``'s new state into the stacked cache, in place (K and V
-    were written there by the attention already)."""
+    were written there by the attention already).  Memory is compared by
+    storage and offset: a fake tensor (``launch/dryrun.py``) has no data
+    pointer."""
     for name, t in new.items():
-        if t.data_ptr() != scan[name][l].data_ptr():
-            scan[name][l].copy_(t)
+        dst = scan[name][l]
+        same = (t.untyped_storage()._cdata == dst.untyped_storage()._cdata
+                and t.storage_offset() == dst.storage_offset())
+        if not same:
+            dst.copy_(t)
 
 
 def decode_step(params: Model, tokens: torch.Tensor, cache: dict, pos: int, cfg: ModelConfig,

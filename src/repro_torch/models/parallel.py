@@ -57,7 +57,9 @@ def mesh_shape(mesh) -> dict[str, int]:
     """``{axis name: size}`` of a ``DeviceMesh`` or :class:`MeshShape`."""
     if isinstance(mesh, MeshShape):
         return mesh.shape
-    return dict(zip(mesh.mesh_dim_names, mesh.mesh.shape))
+    # DeviceMesh.shape reads the layout; .mesh would build a tensor, which
+    # a trace under FakeTensorMode refuses.
+    return dict(zip(mesh.mesh_dim_names, mesh.shape))
 
 
 def _axes(entry) -> tuple[str, ...]:

@@ -28,8 +28,12 @@ dS to bfloat16 for its tensor-core products), two calls equal bit for bit; and
 within atol 1e-6 / rtol 1e-5 (softmax sums in another order); a train
 step on the card against the same step on the CPU (float32, reduced
 configs), every float within 1e-4 of its leaf's largest magnitude and the
-routed counts equal (``train_step_card_vs_cpu``).  Where there is no
-card, each test skips with a reason.
+routed counts equal (``train_step_card_vs_cpu``).  The four kernels as
+``torch.library`` operators: on fake copies of the inputs each gives
+outputs of its real launch's shapes, dtypes and strides and launches
+nothing, a real CUDA tensor launches once a call, and the refusals still
+raise (``TestKernelOperators``).  Where there is no card, each test
+skips with a reason.
 """
 import dataclasses
 import time
@@ -1464,3 +1468,126 @@ class TestTrainingOnCard:
     @pytest.mark.parametrize("arch,sync,micro", TRAIN_STEP_CASES)
     def test_train_step_card_equals_cpu(self, cuda_device, arch, sync, micro):
         train_step_card_vs_cpu(cuda_device, arch, sync, micro)
+
+
+# --------------------------------------------------------------------------
+# the kernels as torch.library operators (FakeTensorMode, launch/dryrun.py)
+# --------------------------------------------------------------------------
+
+
+def fake_meta_mismatches(op, args, outs) -> list[str]:
+    """Run ``op`` on fake copies of ``args`` (``FakeTensorMode``: no launch)
+    and list every output whose shape, dtype or strides differ from
+    ``outs``, the real launch's; empty when all agree."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    with FakeTensorMode() as mode:
+        fargs = [mode.from_tensor(a) if isinstance(a, torch.Tensor) else a for a in args]
+        fouts = op(*fargs)
+    fouts = fouts if isinstance(fouts, (tuple, list)) else (fouts,)
+    outs = outs if isinstance(outs, (tuple, list)) else (outs,)
+    bad = []
+    for i, (f, r) in enumerate(zip(fouts, outs)):
+        meta = lambda t: (tuple(t.shape), t.dtype, tuple(t.stride()), t.device.type)  # noqa: E731
+        if meta(f) != meta(r):
+            bad.append(f"output {i}: fake {meta(f)} real {meta(r)}")
+    if len(fouts) != len(outs):
+        bad.append(f"{len(fouts)} fake outputs, {len(outs)} real")
+    return bad
+
+
+def kernel_op_cases(dev):
+    """``name -> (operator, arguments)``: each kernel's operator at a small
+    shape of every dtype and option the model path uses."""
+    from repro_torch.kernels import flash_attn, moe_route
+
+    g = torch.Generator(device="cpu").manual_seed(0)
+
+    def rand(*shape, dtype=torch.float32):
+        return torch.randn(shape, generator=g).to(dev, dtype)
+
+    q, k, v = rand(2, 200, 6, 64, dtype=torch.bfloat16), rand(2, 200, 2, 64,
+                                                              dtype=torch.bfloat16), None
+    v = rand(2, 200, 2, 128, dtype=torch.bfloat16)
+    q32, k32 = rand(1, 70, 4, 32), rand(1, 70, 4, 32)
+    out, lse = flash_attn.flash_attention_op(q, k, v, 0.125, True, 64, 30.0, True)
+    logits = rand(300, 160)
+    idx = moe_route.moe_route_op(logits, rand(160), 6, "softmax")[0]
+    cases = {
+        "flash_attention_bf16_lse": (flash_attn.flash_attention_op,
+                                     (q, k, v, 0.125, True, 64, 30.0, True)),
+        "flash_attention_bf16": (flash_attn.flash_attention_op,
+                                 (q, k, v, 0.125, True, None, 0.0, False)),
+        "flash_attention_f32_lse": (flash_attn.flash_attention_op,
+                                    (q32, k32, k32, 0.2, False, None, 0.0, True)),
+        "flash_attention_bwd_bf16": (flash_attn.flash_attention_bwd_op,
+                                     (q, k, v, out, torch.ones_like(out), lse, 0.125, True, 64,
+                                      30.0)),
+        "moe_route_f32": (moe_route.moe_route_op, (logits, rand(160), 6, "softmax")),
+        "moe_route_bf16_sigmoid": (moe_route.moe_route_op,
+                                   (rand(77, 256, dtype=torch.bfloat16), rand(256), 8,
+                                    "sigmoid")),
+        "moe_route_bwd": (moe_route.moe_route_bwd_op,
+                          (logits, idx, rand(300, 6), "softmax")),
+    }
+    return cases
+
+
+@pytest.mark.cuda
+class TestKernelOperators:
+    @pytest.mark.parametrize("case", [
+        "flash_attention_bf16_lse", "flash_attention_bf16", "flash_attention_f32_lse",
+        "flash_attention_bwd_bf16", "moe_route_f32", "moe_route_bf16_sigmoid", "moe_route_bwd",
+    ])
+    def test_fake_output_equals_the_real_launch(self, cuda_device, case):
+        op, args = kernel_op_cases(cuda_device)[case]
+        name = op._name.split("::")[-1]
+        before = tops.launch_counts()[name]
+        outs = op(*args)
+        torch.cuda.synchronize()
+        assert tops.launch_counts()[name] == before + 1  # a real tensor reaches the kernel
+        assert fake_meta_mismatches(op, args, outs) == []
+        assert tops.launch_counts()[name] == before + 1  # the fake one launched nothing
+
+    def test_wrappers_launch_once_a_call(self, cuda_device):
+        cases = kernel_op_cases(cuda_device)
+        q, k, v = cases["flash_attention_bf16"][1][:3]
+        logits, bias = cases["moe_route_f32"][1][:2]
+        tops.reset_launch_counts()
+        for n in range(1, 4):
+            tops.flash_attention(q, k, v, scale=0.125)
+            tops.moe_route(logits, bias, 6)
+            counts = tops.launch_counts()
+            assert counts["flash_attention"] == counts["moe_route"] == n
+        qg = q.clone().requires_grad_(True)
+        tops.flash_attention(qg, k, v, scale=0.125).float().sum().backward()
+        lg = logits.clone().requires_grad_(True)
+        tops.moe_route(lg, bias, 6)[1].sum().backward()
+        torch.cuda.synchronize()
+        counts = tops.launch_counts()
+        assert counts["flash_attention"] == counts["moe_route"] == 4
+        assert counts["flash_attention_bwd"] == counts["moe_route_bwd"] == 1
+
+    def test_the_refusals_still_raise(self, cuda_device):
+        from repro_torch.kernels import flash_attn, moe_route
+
+        tops.reset_launch_counts()
+        q = torch.zeros((1, 8, 2, 96), dtype=torch.bfloat16, device=cuda_device)
+        with pytest.raises(ValueError, match="dh must be one of"):
+            tops.flash_attention(q, q, q, scale=1.0)
+        with pytest.raises(ValueError, match="dh must be one of"):
+            flash_attn.flash_attention_bwd_op(q, q, q, q, q, torch.zeros(
+                (1, 2, 8), device=cuda_device), 1.0, True, None, 0.0)
+        with pytest.raises(ValueError, match="experts"):
+            tops.moe_route(torch.zeros((4, 257), device=cuda_device),
+                           torch.zeros(257, device=cuda_device), 2)
+        logits = torch.zeros((4, 16), device=cuda_device)
+        bias = torch.zeros(16, device=cuda_device)
+        tops.moe_route(logits, bias, 2)  # builds the scratch before the capture
+        graph = torch.cuda.CUDAGraph()
+        with pytest.raises(RuntimeError, match="CUDA graph"):
+            with torch.cuda.graph(graph):
+                moe_route.moe_route_op(logits, bias, 2, "softmax")
+        counts = tops.launch_counts()
+        assert counts["flash_attention"] == counts["flash_attention_bwd"] == 0
+        assert counts["moe_route"] == 1

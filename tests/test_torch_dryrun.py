@@ -1,0 +1,122 @@
+"""The port's dry run (``launch/dryrun.py``) and its registry functions.
+
+``cells()`` and ``get_shape`` equal the JAX package's; every cell's
+``input_specs`` has the reference's leaves, shapes and dtypes (the decode
+cache from ``init_decode_cache`` included; the reference's cache does not
+read its context, so its specs are taken without a mesh).  One SmolLM-135M
+cell of each kind and one MoE cell (DeepSeek-V2 decode) trace on the
+256-rank mesh and write ``ok`` records that ``roofline.cell_roofline``
+reads, with no kernel built or launched.
+"""
+import os
+
+import jax
+import pytest
+import torch
+
+from repro.configs import cells as jcells
+from repro.configs import get_shape as jget_shape
+from repro_torch.configs import cells, get_shape
+from repro_torch.kernels import _build, ops
+from repro_torch.launch import dryrun, model_stats, roofline
+
+
+@pytest.fixture(scope="module")
+def jdryrun():
+    # The reference module sets XLA_FLAGS for 512 host devices when it is
+    # imported; keep that from leaking into this process's environment.
+    before = os.environ.get("XLA_FLAGS")
+    try:
+        from repro.launch import dryrun as module
+    finally:
+        if before is None:
+            os.environ.pop("XLA_FLAGS", None)
+        else:
+            os.environ["XLA_FLAGS"] = before
+    return module
+
+
+def test_cells_and_shapes_equal_the_reference():
+    assert cells() == jcells() and cells(True) == jcells(True)
+    for _arch, shape, _skip in cells(True):
+        assert get_shape(shape) == type(get_shape(shape))(**vars(jget_shape(shape)))
+
+
+def _leaves(tree, prefix=""):
+    if isinstance(tree, dict):
+        out = {}
+        for k, v in tree.items():
+            out.update(_leaves(v, f"{prefix}/{k}"))
+        return out
+    return {prefix: tree}
+
+
+@pytest.mark.parametrize("arch,shape", [(a, s) for a, s, _ in jcells()])
+def test_input_specs_equal_the_reference(arch, shape, jdryrun):
+    got = _leaves(dryrun.input_specs(arch, shape))
+    want = _leaves(jdryrun.input_specs(arch, shape, None))
+    assert sorted(got) == sorted(want)
+    for name, spec in want.items():
+        t = got[name]
+        assert isinstance(spec, jax.ShapeDtypeStruct), name
+        if name == "/pos":  # a traced int32 scalar there, a Python int in the port
+            assert spec.shape == () and str(spec.dtype) == "int32"
+            assert isinstance(t, int) and 0 <= t < dryrun.SHAPES[shape].seq_len
+            continue
+        assert tuple(t.shape) == spec.shape, name
+        assert str(t.dtype).removeprefix("torch.") == str(spec.dtype), name
+
+
+@pytest.fixture
+def no_kernel(monkeypatch):
+    def refuse(*args, **kwargs):
+        raise AssertionError("a dry run built a kernel")
+
+    monkeypatch.setattr(_build, "load", refuse)
+    monkeypatch.setattr(_build, "build_all", refuse)
+    ops.reset_launch_counts()
+    yield
+    assert not any(ops.launch_counts().values())
+
+
+@pytest.mark.parametrize("arch,shape", [
+    ("smollm-135m", "train_4k"), ("smollm-135m", "prefill_32k"),
+    ("smollm-135m", "decode_32k"), ("deepseek-v2-236b", "decode_32k"),
+])
+def test_cell_writes_an_ok_record(arch, shape, tmp_path, no_kernel):
+    rec = dryrun.run_cell(arch, shape, multi_pod=False, out_dir=tmp_path)
+    assert rec["ok"], rec.get("traceback")
+    assert (tmp_path / f"{arch}__{shape}__pod16x16.json").exists()
+    assert rec["num_devices"] == 256 and rec["trace_device"] in ("cuda", "cpu")
+    assert rec["hlo_flops"] == rec["cost"]["flops"] > 0  # op trace == FlopCounterMode
+    assert rec["hlo_bytes"] >= rec["hlo_bytes_hbm"] > 0
+    assert rec["memory"]["argument_size_in_bytes"] > 0 and rec["memory"]["temp_size_in_bytes"] > 0
+    if dryrun.SHAPES[shape].kind == "train":  # ZeRO-1: AdamW gathers each parameter
+        assert rec["collectives"]["all-gather"] > 0
+    if arch.startswith("deepseek"):  # the decode batch takes the one-device MoE path
+        assert rec["memory"]["argument_size_in_bytes"] > 2 * model_stats.count_params(
+            dryrun.get_config(arch))
+    cell = roofline.cell_roofline(rec, model_stats.count_active_params(dryrun.get_config(arch)))
+    assert cell.tag == f"{arch}__{shape}__pod16x16" and cell.step_s > 0
+    assert not torch.distributed.is_initialized()
+
+
+def test_main_runs_both_meshes(tmp_path, no_kernel):
+    assert dryrun.main(["--arch", "smollm-135m", "--shape", "decode_32k",
+                        "--out", str(tmp_path)]) == 0
+    assert sorted(p.name for p in tmp_path.iterdir()) == [
+        "smollm-135m__decode_32k__pod16x16.json", "smollm-135m__decode_32k__pod2x16x16.json"]
+    rec = dryrun.run_cell("smollm-135m", "decode_32k", multi_pod=True, out_dir=tmp_path)
+    assert rec["num_devices"] == 512  # read back, not traced again
+
+
+def test_a_failed_cell_is_recorded(tmp_path, monkeypatch):
+    def boom(*args, **kwargs):
+        raise ValueError("refused")
+
+    monkeypatch.setattr(dryrun.model, "decode_step", boom)
+    assert dryrun.main(["--arch", "smollm-135m", "--shape", "decode_32k", "--single-pod-only",
+                        "--out", str(tmp_path)]) == 1
+    rec = dryrun.run_cell("smollm-135m", "decode_32k", multi_pod=False, out_dir=tmp_path)
+    assert not rec["ok"] and rec["error"] == "ValueError: refused" and "traceback" in rec
+    assert not torch.distributed.is_initialized()

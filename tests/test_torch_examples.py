@@ -62,3 +62,22 @@ def test_serve_care_table_equals_the_reference_grid(capsys):
     replay = dispatch["replay"]
     assert replay["messages"] == want[1].messages
     np.testing.assert_array_equal(replay["jct_by_rid"], want[1].jct_by_rid)
+
+
+def test_multipod_dryrun_runs_as_a_subprocess():
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    root = Path(__file__).resolve().parents[1]
+    env = {**os.environ, "PYTHONPATH": str(root / "src")}
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.examples.multipod_dryrun", "--arch", "smollm-135m",
+         "--shape", "decode_32k", "--single-pod"],
+        cwd=root, env=env, capture_output=True, text=True, timeout=300,
+    )
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    lines = proc.stdout.strip().splitlines()
+    assert "  chips:                256" in lines
+    assert lines[-1] == "  -> traces cleanly; the sharding is coherent for this mesh."

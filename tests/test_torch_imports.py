@@ -70,6 +70,15 @@ def test_sharding_slice_modules_are_checked():
     } <= modules
 
 
+def test_launch_tooling_modules_are_checked():
+    modules = {_module_name(p) for p in FILES if p.parent != ROOT}
+    assert {
+        "repro_torch.launch.model_stats", "repro_torch.launch.op_analysis",
+        "repro_torch.launch.roofline", "repro_torch.launch.dryrun",
+        "repro_torch.launch.op_breakdown", "repro_torch.examples.multipod_dryrun",
+    } <= modules
+
+
 def test_every_module_imports_without_jax():
     modules = [_module_name(p) for p in FILES if p.parent != ROOT]
     code = (
