@@ -607,6 +607,7 @@ TRAIN_EXAMPLE_ARGS = ["--steps", "6", "--batch", "2", "--seq", "32", "--ckpt-eve
 PARALLEL_NEW = 4
 PARALLEL_TRAIN = (2, 128)
 PARALLEL_TOL = 1e-4
+PARALLEL_WALL_ROUNDS = 10  # (ctx=None, context, context, ctx=None) rounds of phase 10's walls
 PARALLEL_LAUNCH_ARGS = ["--arch", MOE_ARCH, "--steps", "3", "--batch", "2", "--seq", "32",
                         "--log-every", "0", "--lr", "1e-2"]
 # About 25 ms at the H100's 1.98 GHz: longer than the host takes to
@@ -3315,13 +3316,47 @@ def _parallel_phase(dev, times: dict) -> dict:
         # version on that path's own inputs (a prefill and a decode call).
         kerr = max(_moe_parity(moe_k, ref, lg, b, k, cfg.gate_fn, got=o)
                    for lg, b, o in (got["routes"][0], got["routes"][n_moe]))
+        # The single runs above follow their order (the context's first after
+        # the warm-up); the walls compared are warm and taken in turns.
+        def serve_turn(c, b):
+            with torch.no_grad():
+                logits, cache = model.prefill(params, {"tokens": tokens}, cfg, c,
+                                              cache_len=MOE_PROMPT + PARALLEL_NEW, bias=b)
+                for i in range(PARALLEL_NEW):
+                    logits, cache = model.decode_step(params, logits.argmax(-1), cache,
+                                                      MOE_PROMPT + i, cfg, c, bias=b)
+
+        def train_turn(c, b):
+            params.requires_grad_(True)
+            torch.autograd.grad(model.train_loss(params, batch, cfg, c, b)[0],
+                                list(params.parameters()))
+            params.requires_grad_(False)
+
+        turns = {(part, name): [] for part in ("serve", "train") for name in ("ctx", "none")}
+        for _ in range(PARALLEL_WALL_ROUNDS):
+            for name, c in (("none", None), ("ctx", ctx), ("ctx", ctx), ("none", None)):
+                for part, fn in (("serve", serve_turn), ("train", train_turn)):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    fn(c, bias if c is None else bias[:, None, None, :])
+                    torch.cuda.synchronize()
+                    turns[part, name].append(time.perf_counter() - t0)
+        turn_ms = {k: float(np.median(v)) * 1e3 for k, v in turns.items()}
         times["parallel_serve_s"], times["none_serve_s"] = got["serve_s"], want["serve_s"]
         times["parallel_fwd_bwd_s"], times["none_fwd_bwd_s"] = got["train_s"], want["train_s"]
         print(f"phase 10 {cfg.name} x {MOE_LAYERS} layers, {cfg.param_dtype}, under the (1, 1) "
               f"context against ctx=None: prefill {MOE_BATCH} x {MOE_PROMPT} + {PARALLEL_NEW} "
-              f"decode steps {got['serve_s']:.4f} s (ctx=None {want['serve_s']:.4f} s), "
-              f"forward + backward {PARALLEL_TRAIN[0]} x {PARALLEL_TRAIN[1]} "
-              f"{got['train_s']:.4f} s ({want['train_s']:.4f} s); every routed id and count "
+              f"decode steps {got['serve_s']:.4f} s (ctx=None {want['serve_s']:.4f} s, ratio "
+              f"{got['serve_s'] / want['serve_s']:.3f}), forward + backward "
+              f"{PARALLEL_TRAIN[0]} x {PARALLEL_TRAIN[1]} {got['train_s']:.4f} s "
+              f"({want['train_s']:.4f} s, ratio {got['train_s'] / want['train_s']:.3f}); warm, "
+              f"in turns ({PARALLEL_WALL_ROUNDS} x none, ctx, ctx, none), medians: prefill + "
+              f"decode {turn_ms['serve', 'ctx']:.2f} ms against {turn_ms['serve', 'none']:.2f} "
+              f"ms, ratio {turn_ms['serve', 'ctx'] / turn_ms['serve', 'none']:.3f}, forward + "
+              f"backward {turn_ms['train', 'ctx']:.2f} ms against {turn_ms['train', 'none']:.2f} "
+              f"ms, ratio {turn_ms['train', 'ctx'] / turn_ms['train', 'none']:.3f}; a dp group "
+              f"of one issues no collective; "
+              f"every routed id and count "
               f"equal, train counts (L, 1, 1, E) equal; largest error / largest magnitude: "
               f"logits {errs['logits']:.3g}, loss {errs['loss']:.3g}, gradients "
               f"{errs['grads']:.3g} (at most {PARALLEL_TOL}); launches {launches}; moe_route "
@@ -3373,6 +3408,10 @@ def _parallel_phase(dev, times: dict) -> dict:
 
 
 DRYRUN_CELLS = (("smollm-135m", "train_4k"), ("deepseek-v2-236b", "decode_32k"))
+# FLOPs a rank of smollm-135m / train_4k / pod16x16 when every rank held
+# the whole batch of 256 rows (the dry run's record of that layout); each
+# rank now holds its 16 rows, so the split record counts 1/16 of it.
+WHOLE_BATCH_TRAIN_FLOPS = 2.2005e15
 DRYRUN_STEPS = 3  # real steps timed after the traced one
 
 
@@ -3471,18 +3510,32 @@ def _dryrun_phase(dev, times: dict) -> dict:
           + f"); model FLOPs 6ND {model_flops:.4e}, roofline share {share:.4f}; the bound "
           f"{cell.step_s * 1e3:.3f} ms over the step {cell.step_s / step_s:.4f}")
 
-    # (b) two cells of the dry run on the production mesh.
+    # (b) two cells of the dry run on the production mesh, each rank on its
+    # dp block of the rows, against the whole batch a rank.
     out_dir = ROOT / "build" / "dryrun"
     for arch, shape in DRYRUN_CELLS:
         rec = dryrun.run_cell(arch, shape, multi_pod=False, out_dir=out_dir, force=True)
         assert rec["ok"], rec.get("traceback")
         assert rec["trace_device"] == "cuda" and rec["hlo_flops"] == rec["cost"]["flops"] > 0
+        if dryrun.SHAPES[shape].kind == "train":
+            ratio = rec["hlo_flops"] / WHOLE_BATCH_TRAIN_FLOPS
+            assert abs(ratio * 16 - 1) <= 1e-3, ratio
+            split = (f"flops over the whole batch's {WHOLE_BATCH_TRAIN_FLOPS:.4e}: {ratio:.6f} "
+                     f"(1/16 = {1 / 16:.6f}); gradient all-reduce "
+                     f"{rec['collectives'].get('all-reduce', 0):.4e} bytes")
+        else:
+            whole, rank = _decode_cache_bytes(arch, shape)
+            assert rank * 16 == whole, (rank, whole)
+            split = (f"the rank's decode cache {rank / 2**30:.3f} GiB over the whole batch's "
+                     f"{whole / 2**30:.3f} GiB: {rank / whole:.6f}")
         print(f"phase 11 dry run {arch} / {shape} / pod16x16 (256 fake ranks, fake cuda "
-              f"tensors): traced in {rec['lower_s']} s, {rec['n_ops']} ops; per rank flops "
-              f"{rec['hlo_flops']:.4e}, HBM bytes {rec['hlo_bytes_hbm_v2']:.4e}, collective "
-              f"bytes {rec['collectives']['total']:.4e} " + json.dumps(rec["collectives"])
+              f"tensors, each rank its dp block of the rows): traced in {rec['lower_s']} s, "
+              f"{rec['n_ops']} ops; per rank flops {rec['hlo_flops']:.4e}, HBM bytes "
+              f"{rec['hlo_bytes_hbm_v2']:.4e}, collective bytes "
+              f"{rec['collectives']['total']:.4e} " + json.dumps(rec["collectives"])
               + f", arguments {rec['memory']['argument_size_in_bytes'] / 1e9:.2f} GB, "
-              f"temporaries {rec['memory']['temp_size_in_bytes'] / 1e9:.2f} GB")
+              f"temporaries {rec['memory']['temp_size_in_bytes'] / 1e9:.2f} GB "
+              f"({rec['memory']['temp_size_in_bytes'] / 2**30:.2f} GiB); {split}")
     assert not any(ops.launch_counts()[k] for k in ops.launch_counts()
                    if k not in ("flash_attention", "flash_attention_bwd")), ops.launch_counts()
 
@@ -3499,6 +3552,27 @@ def _dryrun_phase(dev, times: dict) -> dict:
 
 OP_COST_CALLS = 200
 OP_COST_ROUNDS = 5
+
+
+def _decode_cache_bytes(arch: str, shape: str) -> tuple[int, int]:
+    """Bytes of a decode cell's cache (meta tensors): the whole batch's, and
+    a rank's on the production mesh (``init_decode_cache``'s dp rows)."""
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_context, make_production_mesh
+    from repro_torch.models import model
+
+    cfg = dryrun.cell_config(arch, dryrun.SHAPES[shape])
+    ctx = make_context(make_production_mesh(), cfg.n_routed_experts if cfg.moe else 0)
+    params = model.Model(cfg, device="meta")
+    b, s = dryrun.SHAPES[shape].global_batch, dryrun.SHAPES[shape].seq_len
+
+    def nbytes(tree) -> int:
+        if isinstance(tree, dict):
+            return sum(nbytes(v) for v in tree.values())
+        return tree.numel() * tree.element_size()
+
+    return (nbytes(model.init_decode_cache(params, cfg, b, s)),
+            nbytes(model.init_decode_cache(params, cfg, b, s, ctx)))
 
 
 def _op_host_cost(dev) -> dict:

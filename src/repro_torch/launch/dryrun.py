@@ -12,18 +12,22 @@ cell this module
   2. builds the parallel context with ``make_context``;
   3. under ``FakeTensorMode`` (no memory, no card) builds the parameters
      and the optimizer state this rank holds (whole parameters, ZeRO-1
-     blocks of the moments) and every input, then runs the train step
-     (with ``remat`` and the microbatches of :func:`microbatches_for`), the
-     prefill or one decode step;
+     blocks of the moments) and this rank's rows of every input (its dp
+     block of the batch, of each microbatch, and of the decode cache), then
+     runs the train step (with ``remat`` and the microbatches of
+     :func:`microbatches_for`), the prefill or one decode step;
   4. records ``FlopCounterMode``'s FLOPs and the op trace of
      ``launch/op_analysis.py`` (FLOPs, bytes, collective bytes by kind,
      arguments and the peak of temporaries);
   5. writes ``artifacts/dryrun_torch/<arch>__<shape>__<mesh>.json`` with
      the JAX package's keys (``launch/roofline.py`` reads both).
 
-The numbers are one rank's: outside the MoE layer's manual region every
-rank of the port runs the whole batch (``models/parallel.py``), so they
-are not the reference's per-chip numbers divided over the mesh.
+The numbers are one rank's.  Each rank holds its dp block of the rows, as
+the reference's chip does (``partitioning.batch_specs``, ``cache_specs``'
+dp entry), but every rank computes whole layers on them: tensor
+parallelism over ``model`` is still logical (``models/parallel.py``), so a
+rank's FLOPs and temporaries are above the reference's per chip by about
+the work the reference divides over ``model``.
 
 The fake tensors claim the CUDA device and go through the card's path:
 ``kernels/ops.py`` sends them to the kernels' operators, whose fake
@@ -106,11 +110,12 @@ def fake_world(multi_pod: bool):
         dist.destroy_process_group()
 
 
-def input_specs(arch: str, shape_name: str, ctx=None, *, device="meta", params=None) -> dict:
-    """Stand-ins for every model input of the cell: tensors on ``device``
-    (``meta`` by default: shapes and dtypes, no memory), the decode cache
-    from ``model.init_decode_cache`` (on ``params``' device; a model is
-    built on ``device`` when none is given)."""
+def input_specs(arch: str, shape_name: str, *, device="meta", params=None) -> dict:
+    """Stand-ins for every model input of the cell at its global shapes:
+    tensors on ``device`` (``meta`` by default: shapes and dtypes, no
+    memory), the decode cache from ``model.init_decode_cache`` (on
+    ``params``' device; a model is built on ``device`` when none is given).
+    :func:`lower_cell` takes each rank's rows of them."""
     shape = SHAPES[shape_name]
     cfg = cell_config(arch, shape)
     b, s = shape.global_batch, shape.seq_len
@@ -131,7 +136,7 @@ def input_specs(arch: str, shape_name: str, ctx=None, *, device="meta", params=N
         params = model.Model(cfg, device=dev)
     return {
         "tokens": sds((b,)),
-        "cache": model.init_decode_cache(params, cfg, b, s, ctx),
+        "cache": model.init_decode_cache(params, cfg, b, s),
         "pos": s - 1,  # the last row: the step attends over the whole cache
     }
 
@@ -156,12 +161,14 @@ def fake_train_state(cfg: ModelConfig, ctx, dev) -> train_loop.TrainState:
 
 def lower_cell(arch: str, shape_name: str, *, multi_pod: bool, sync_variant: bool = False,
                keep_ops: bool = False):
-    """Trace one cell; returns ``(trace, mesh_shape, cfg, scan_trips)``,
-    ``trace`` the dict of :func:`trace_step`."""
+    """Trace one cell on this rank's rows; returns ``(trace, mesh_shape,
+    cfg, scan_trips)``, ``trace`` the dict of :func:`trace_step`."""
     shape = SHAPES[shape_name]
     cfg = cell_config(arch, shape)
+    mb = microbatches_for(cfg, shape)
     with fake_world(multi_pod) as mesh:
         ctx = make_context(mesh, cfg.n_routed_experts if cfg.moe else 0)
+        ctx = ctx.for_batch(shape.global_batch, mb)
         from torch._subclasses.fake_tensor import FakeTensorMode
 
         # Tables the model builds from numpy (RoPE's frequencies) enter as
@@ -170,31 +177,38 @@ def lower_cell(arch: str, shape_name: str, *, multi_pod: bool, sync_variant: boo
             dev = trace_device()
             if shape.kind == "train":
                 state = fake_train_state(cfg, ctx, dev)
-                batch = input_specs(arch, shape_name, ctx, device=dev)["batch"]
+                batch = rank_rows(input_specs(arch, shape_name, device=dev)["batch"], ctx, mb)
                 step = train_loop.make_train_step(
-                    cfg, adamw.OptimConfig(), ctx, sync=sync_variant,
-                    microbatches=microbatches_for(cfg, shape))
+                    cfg, adamw.OptimConfig(), ctx, sync=sync_variant, microbatches=mb)
                 args = (state, batch)
 
                 def call():
                     return step(state, batch)
             elif shape.kind == "prefill":
                 params = model.Model(cfg, device=dev)
-                batch = input_specs(arch, shape_name, ctx, device=dev)["batch"]
+                batch = rank_rows(input_specs(arch, shape_name, device=dev)["batch"], ctx)
                 args = (params, batch)
 
                 def call():
                     return model.prefill(params, batch, cfg, ctx, cache_len=shape.seq_len)
             else:
                 params = model.Model(cfg, device=dev)
-                spec = input_specs(arch, shape_name, ctx, device=dev, params=params)
-                args = (params, spec["tokens"], spec["cache"])
+                spec = input_specs(arch, shape_name, device=dev, params=params)
+                tokens = rank_rows({"tokens": spec["tokens"]}, ctx)["tokens"]
+                cache = model.init_decode_cache(params, cfg, shape.global_batch, shape.seq_len,
+                                                ctx)
+                args = (params, tokens, cache)
 
                 def call():
-                    return model.decode_step(params, spec["tokens"], spec["cache"],
-                                             spec["pos"], cfg, ctx)
+                    return model.decode_step(params, tokens, cache, spec["pos"], cfg, ctx)
             trace = trace_step(call, args, keep_ops=keep_ops)
     return trace, make_production_mesh(multi_pod=multi_pod), cfg, [model.num_scanned_layers(cfg)]
+
+
+def rank_rows(batch: dict, ctx, microbatches: int = 1) -> dict:
+    """``ctx.take_rows`` of a global batch, each leaf a tensor of its own
+    (a view would hold the global batch's storage among the arguments)."""
+    return {k: t.clone() for k, t in ctx.take_rows(batch, microbatches).items()}
 
 
 def trace_step(call, arguments, *, keep_ops: bool = False) -> dict:

@@ -15,10 +15,12 @@ Port of ``repro/launch/train.py``.  Flow:
 
 With ``--mesh DATA,MODEL`` the run takes a parallel context
 (``launch/mesh.py``) over the ranks of ``torchrun``'s environment (one
-rank without it): NCCL on the card, gloo on the CPU.  Every rank runs the
-whole batch; MoE layers exchange tokens over the mesh and AdamW keeps
-ZeRO-1 blocks of the moments, gathered whole for a checkpoint, which rank
-0 writes.
+rank without it): NCCL on the card, gloo on the CPU.  Each rank steps on
+its dp block of every step's global batch (contiguous rows of each
+microbatch; the whole batch where they do not divide over dp), the step
+sums the gradients over dp, MoE layers exchange tokens over the mesh and
+AdamW keeps ZeRO-1 blocks of the moments, gathered whole for a
+checkpoint, which rank 0 writes.
 
 Usage (the card unless ``--device cpu``):
   PYTHONPATH=src python -m repro_torch.launch.train --arch smollm-135m \\
@@ -116,7 +118,9 @@ def _run(args, cfg, opt_cfg, data_cfg, dev, ctx):
         state = dataclasses.replace(whole, opt=opt)
         log(f"[train] restored checkpoint at step {start_step}")
 
-    loader = ShardedLoader(data_cfg, start_step=start_step)
+    loader = ShardedLoader(data_cfg, start_step=start_step)  # the global batch
+    if ctx is not None:
+        ctx = ctx.for_batch(data_cfg.global_batch, args.microbatches)
     step_fn = train_loop.make_train_step(
         cfg, opt_cfg, ctx, sync=False, microbatches=args.microbatches)
     step_sync_fn = train_loop.make_train_step(
@@ -130,6 +134,9 @@ def _run(args, cfg, opt_cfg, data_cfg, dev, ctx):
     t_start = time.time()
     for step in range(start_step, args.steps):
         batch = next(loader)
+        if ctx is not None:
+            batch = ctx.take_rows({k: torch.from_numpy(v) for k, v in batch.items()},
+                                  args.microbatches)
         t0 = time.time()
         use_sync = cfg.moe and (
             pending_sync if care.comm == "et" else (step + 1) % care.x == 0

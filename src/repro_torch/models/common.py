@@ -172,8 +172,14 @@ def grad_dtype_barrier(x: torch.Tensor) -> torch.Tensor:
     return _GradDtypeBarrier.apply(x)
 
 
-def cross_entropy(logits: torch.Tensor, labels: torch.Tensor, final_cap: float = 0.0):
-    """Token-mean cross entropy in float32; labels < 0 are masked out."""
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor, final_cap: float = 0.0,
+                  ctx=None):
+    """Token-mean cross entropy in float32; labels < 0 are masked out.
+
+    Under a context whose ranks each hold their block of the rows
+    (``ParallelContext.split``) it is this rank's summed token losses over
+    the whole batch's unmasked count (summed over dp), so that the ranks'
+    values sum to the whole batch's token mean."""
     logits = logits.to(torch.float32)
     if final_cap:
         logits = softcap(logits, final_cap)
@@ -182,7 +188,10 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor, final_cap: float =
     logz = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, safe[..., None])[..., 0]
     nll = (logz - gold) * mask
-    return nll.sum() / torch.clamp(mask.sum(), min=1.0)
+    count = mask.sum()
+    if ctx is not None:
+        count = ctx.dp_sum(count)
+    return nll.sum() / torch.clamp(count, min=1.0)
 
 
 def param_count(params: torch.nn.Module) -> int:

@@ -8,15 +8,17 @@ Hopper kernel for a CUDA tensor and runs its plain version for a CPU one;
 the kernel also returns each (token, slot)'s position in its expert's
 buffer, so no one-hot or cumsum runs on the card.
 
-Under a parallel context whose mesh divides the batch, the sequence and
-the experts (the reference's manual region), each rank is one dispatcher:
-it takes its ``(B/DP, S/TP)`` block of the tokens, its bias row and its
-experts' block of the weights (``models/partitioning``'s layout, gathered
-over the FSDP axis when E divides only the TP axis), exchanges capacity
-buffers with ``all_to_all_single`` over the EP group and returns the whole
-``y`` (gathered over the mesh) with ``(DP, TP, E)`` per-dispatcher counts.
-Counts are never reduced here: the CARE balancer's sparse sync
-(``core/moe_balancer.py``) is the only place global counts are formed.
+Under a parallel context each rank holds its dp block of the batch's rows
+(``models/parallel.py``).  Where the mesh divides the batch, the sequence
+and the experts (the reference's manual region), each rank is one
+dispatcher: it takes its ``S/TP`` block of its rows' positions, its bias
+row and its experts' block of the weights (``models/partitioning``'s
+layout, gathered over the FSDP axis when E divides only the TP axis),
+exchanges capacity buffers with ``all_to_all_single`` over the EP group
+and returns its rows' ``y`` (gathered over the TP group) with ``(DP, TP,
+E)`` per-dispatcher counts.  Counts are never reduced here: the CARE
+balancer's sparse sync (``core/moe_balancer.py``) is the only place global
+counts are formed.
 """
 from __future__ import annotations
 
@@ -85,14 +87,19 @@ def _capacity(t_loc: int, k: int, e: int, factor: float) -> int:
 
 
 def _moe_local(xt: torch.Tensor, bias: torch.Tensor, p, cfg: ModelConfig,
-               ctx: parallel.ParallelContext | None = None):
+               ctx: parallel.ParallelContext | None = None,
+               rows: parallel.ParallelContext | None = None):
     """Per-rank MoE body.  xt: ``(T, D)`` local tokens, bias ``(E,)``.
 
     Expert weights in ``p`` are this rank's blocks: ``(E_loc, D, F)`` under
     pure EP sharding, or ``(E_loc, D/fsdp, F)`` under EP+FSDP (gathered
     here); all E of them without a context.  Returns ``(y (T, D), counts
     (E,) float32)``.  A (token, slot) pair past its expert's capacity goes
-    to a sink row and contributes nothing.
+    to a sink row and contributes nothing.  With ``rows`` (a context whose
+    dp ranks hold the batch's other rows) the capacity, the positions and
+    the counts are the whole batch's, as one device computes them on it:
+    the dp group's counts are gathered and the earlier ranks' tokens come
+    first in each expert's buffer.
     """
     t_loc, d = xt.shape
     e, k = cfg.n_routed_experts, cfg.moe_top_k
@@ -109,9 +116,18 @@ def _moe_local(xt: torch.Tensor, bias: torch.Tensor, p, cfg: ModelConfig,
     logits = xt.to(torch.float32) @ p.gate
     # pos: each (token, slot)'s position within its expert's capacity buffer.
     idx, weights, counts, pos = _route(logits, bias, cfg)  # (t,k),(t,k),(E,),(t*k,)
-
-    cap = _capacity(t_loc, k, e, cfg.moe_capacity_factor)
     flat_e = idx.reshape(-1)  # (t*k,) int32
+
+    t_all = t_loc
+    if rows is not None:
+        every = [torch.empty_like(counts) for _ in range(rows.dp_size)]
+        dist.all_gather(every, counts.contiguous(), group=rows.group(rows.dp_axes))
+        every = torch.stack(every)
+        before = every[: rows.index(rows.dp_axes)].sum(dim=0).to(pos.dtype)
+        pos = pos + before[flat_e.long()]
+        counts = every.sum(dim=0)
+        t_all = t_loc * rows.dp_size
+    cap = _capacity(t_all, k, e, cfg.moe_capacity_factor)
     keep = pos < cap
     lin = torch.where(keep, flat_e * cap + pos, e * cap).long()  # overflow -> sink row
 
@@ -161,26 +177,38 @@ def _expert_specs(ctx: parallel.ParallelContext):
 def _moe_manual(p: MoEFFN, x: torch.Tensor, bias: torch.Tensor, cfg: ModelConfig,
                 ctx: parallel.ParallelContext):
     """The reference's ``shard_map`` region: this rank's dispatcher on its
-    block of ``x``; ``y`` gathered whole, counts ``(DP, TP, E)``."""
+    block of the tokens; ``y`` of ``x``'s rows, counts ``(DP, TP, E)``.
+
+    Where each rank holds its dp block of the rows (``ctx.split``, or dp
+    1), the dispatcher takes its positions block of them and ``y`` is
+    gathered over the TP group; where every rank holds the whole batch, it
+    takes its ``(B/DP, S/TP)`` block and ``y`` is gathered over the grid."""
     b, s, d = x.shape
     dp, tp = ctx.dp_size, ctx.tp_size
-    bl, sl = b // dp, s // tp
-    grid = ctx.group(ctx.grid_axes)
-    # Group rank r is dispatcher (r // TP, r % TP): its rows and positions.
-    blocks = [(slice(i * bl, (i + 1) * bl), slice(j * sl, (j + 1) * sl))
-              for i in range(dp) for j in range(tp)]
+    sl = s // tp
+    cols = [slice(j * sl, (j + 1) * sl) for j in range(tp)]
+    if ctx.whole_batch:
+        group, bl = ctx.group(ctx.grid_axes), b // dp
+        # Group rank r is dispatcher (r // TP, r % TP): its rows and positions.
+        blocks = [(slice(i * bl, (i + 1) * bl), c) for i in range(dp) for c in cols]
+    else:
+        group, bl = ctx.group(ctx.tp_axis), b
+        blocks = [(slice(None), c) for c in cols]
     me = ctx.index(ctx.grid_axes)
-    # Each rank holds the whole x and whole weights: the blocks' gradients
-    # are summed over the grid, so every rank ends with whole gradients.
+    # Every rank of the group holds the same rows and whole weights: the
+    # blocks' gradients are summed over the group.  Over the TP group that
+    # leaves each dp rank its rows' share, which the train step sums over
+    # dp with every other gradient (each is summed once).
     weights = {}
     for name, spec in zip(("w_in", "w_gate_h", "w_out"), _expert_specs(ctx)):
         w = getattr(p, name)
-        weights[name] = parallel.scatter(w, parallel.shard_index(spec, w.shape, ctx), grid)
-    local = types.SimpleNamespace(gate=parallel.scatter(p.gate, (), grid), **weights)
-    x_loc = parallel.scatter(x, blocks[me], grid)
+        weights[name] = parallel.scatter(w, parallel.shard_index(spec, w.shape, ctx), group)
+    local = types.SimpleNamespace(gate=parallel.scatter(p.gate, (), group), **weights)
+    x_loc = parallel.scatter(x, blocks[dist.get_rank(group)], group)
     y, counts = _moe_local(x_loc.reshape(bl * sl, d), bias[me // tp, me % tp], local, cfg, ctx)
-    y = parallel.gather_blocks(y.reshape(bl, sl, d), grid, blocks, (b, s, d))
-    rows = [torch.empty_like(counts) for _ in blocks]
+    y = parallel.gather_blocks(y.reshape(bl, sl, d), group, blocks, (b, s, d))
+    grid = ctx.group(ctx.grid_axes)
+    rows = [torch.empty_like(counts) for _ in range(dp * tp)]
     dist.all_gather(rows, counts, group=grid)
     return y, torch.stack(rows).reshape(dp, tp, cfg.n_routed_experts)
 
@@ -190,9 +218,10 @@ def moe_ffn(p: MoEFFN, x: torch.Tensor, bias: torch.Tensor, cfg: ModelConfig,
     """Expert-parallel MoE forward.
 
     Args:
-      p: layer params.  x: ``(B, S, D)``.  bias: per-dispatcher CARE
-        selection bias -- ``(E,)`` when ctx is None, else ``(DP, TP, E)``,
-        one row per dispatcher.  ctx: parallel context (None = one device).
+      p: layer params.  x: ``(B, S, D)``, this rank's rows under a context
+        (``models/parallel.py``).  bias: per-dispatcher CARE selection bias
+        -- ``(E,)`` when ctx is None, else ``(DP, TP, E)``, one row per
+        dispatcher.  ctx: parallel context (None = one device).
 
     Returns:
       ``(y, counts)``: y ``(B, S, D)``; counts -- ``(E,)`` float32 local
@@ -203,14 +232,17 @@ def moe_ffn(p: MoEFFN, x: torch.Tensor, bias: torch.Tensor, cfg: ModelConfig,
     manual = (
         ctx is not None
         and s % ctx.tp_size == 0
-        and b % ctx.dp_size == 0
+        and (ctx.split or b % ctx.dp_size == 0)  # the global batch divides over dp
         and ctx.ep_size > 1
     )
     if not manual:
         # One device, and the decode path (tokens too few to shard over
-        # TP): the whole batch on every rank, averaged bias rows.
+        # TP): the reference's one-device computation on the whole batch,
+        # averaged bias rows.  Where each rank holds its rows, it computes
+        # them with the whole batch's capacity, positions and counts.
         bias_flat = bias.reshape(-1, cfg.n_routed_experts).mean(dim=0)
-        y, counts = _moe_local(x.reshape(b * s, d), bias_flat, p, cfg)
+        rows = ctx if ctx is not None and ctx.split else None
+        y, counts = _moe_local(x.reshape(b * s, d), bias_flat, p, cfg, rows=rows)
         y = y.reshape(b, s, d)
         if ctx is not None:
             counts = (counts[None, None, :] / (ctx.dp_size * ctx.tp_size)).expand(

@@ -231,20 +231,24 @@ def train_loss(params: Model, batch: dict, cfg: ModelConfig, ctx=None,
     """Token-mean cross entropy of next-token prediction.
 
     ``batch``: ``{"tokens", "labels"}`` ``(B, S)`` on the parameters' device
-    (labels < 0 are masked), plus whisper's ``"frames"``; ``bias``: the
+    (labels < 0 are masked), plus whisper's ``"frames"``; under a context,
+    this rank's rows (``ParallelContext.take_rows``).  ``bias``: the
     ``(L_scan, E)`` CARE selection bias of a MoE model, ``(L_scan, DP, TP,
     E)`` under a context (None for zeros).
     Returns ``(loss, aux)``: ``aux["counts"]`` the per-layer routed counts
     (MoE) or None, ``aux["loss_main"]``, and with DeepSeek-V3's MTP head
-    ``aux["loss_mtp"]``, added to the loss with weight 0.3."""
+    ``aux["loss_mtp"]``, added to the loss with weight 0.3.  Where each
+    rank holds its block of the rows, every term is this rank's share of
+    the whole batch's token mean (``common.cross_entropy``): the shares sum
+    over dp to the mean."""
     if cfg.family == "audio":
-        return _whisper_train_loss(params, batch, cfg)
+        return _whisper_train_loss(params, batch, cfg, ctx)
     tokens, labels = batch["tokens"], batch["labels"]
     x = embed_tokens(params, tokens, cfg)
     x, counts = _run_train_stack(params, x, cfg, ctx, bias)
     h_final = x
     x = tfm._norm(params.final_norm, x, cfg)
-    loss = common.cross_entropy(lm_head(params, x, cfg), labels, cfg.final_softcap)
+    loss = common.cross_entropy(lm_head(params, x, cfg), labels, cfg.final_softcap, ctx)
     aux = {"counts": counts, "loss_main": loss}
     if cfg.mtp:
         mtp = params.mtp
@@ -256,19 +260,19 @@ def train_loss(params: Model, batch: dict, cfg: ModelConfig, ctx=None,
                                     moe_layer=False)
         h = tfm._norm(params.final_norm, h, cfg)
         mtp_loss = common.cross_entropy(lm_head(params, h, cfg), labels[:, 1:],
-                                        cfg.final_softcap)
+                                        cfg.final_softcap, ctx)
         aux["loss_mtp"] = mtp_loss
         loss = loss + 0.3 * mtp_loss
     return loss, aux
 
 
-def _whisper_train_loss(params: Model, batch: dict, cfg: ModelConfig):
+def _whisper_train_loss(params: Model, batch: dict, cfg: ModelConfig, ctx):
     enc_out = _whisper_encode(params, batch["frames"], cfg)
     x = _whisper_embed_dec(params, batch["tokens"], cfg)
     for p in params.layers:
         x = tfm.run_layer(cfg, functools.partial(_decoder_train, cfg=cfg), p, x, enc_out)
     x = tfm._norm(params.final_norm, x, cfg)
-    loss = common.cross_entropy(lm_head(params, x, cfg), batch["labels"])
+    loss = common.cross_entropy(lm_head(params, x, cfg), batch["labels"], ctx=ctx)
     return loss, {"counts": None, "loss_main": loss}
 
 
@@ -285,7 +289,8 @@ def prefill(params: Model, batch: dict, cfg: ModelConfig, ctx=None, cache_len: i
     (whisper's decoder prompt), and for whisper ``batch["frames"]``: ``(B,
     T_enc, D)`` frame embeddings; ``bias``: ``(L_scan, E)`` CARE selection
     bias of a MoE model, ``(L_scan, DP, TP, E)`` under a context (None for
-    zeros).  Returns ``(last-token logits (B, V) float32, cache)``.
+    zeros).  Returns ``(last-token logits (B, V) float32, cache)``.  Under a
+    context the batch, the logits and the cache are this rank's rows.
     """
     tokens = batch["tokens"]
     cache_len = cache_len or tokens.shape[1]
@@ -334,8 +339,13 @@ def prefill(params: Model, batch: dict, cfg: ModelConfig, ctx=None, cache_len: i
 
 
 def init_decode_cache(params: Model, cfg: ModelConfig, batch: int, cache_len: int, ctx=None):
-    """Zero cache for decode without a prefill."""
+    """Zero cache for decode without a prefill.  ``batch`` is the global
+    batch; under a context the cache holds this rank's rows of it (the dp
+    entry of ``partitioning.cache_specs``: its block where they divide over
+    dp, else all of them; the TP entries stay logical)."""
     tfm.check_supported(cfg)
+    if ctx is not None:
+        batch = ctx.local_rows(batch)
     cdt = common.dtype_of(cfg.compute_dtype)
     dev = params.embed.device
     l = num_scanned_layers(cfg)
@@ -391,6 +401,9 @@ def decode_step(params: Model, tokens: torch.Tensor, cache: dict, pos: int, cfg:
     """One decode step.  tokens: ``(B,)``; ``pos``: the next position.
 
     The cache is updated in place.  Returns ``(logits (B, V), cache)``.
+    Under a context the tokens, the cache and the logits are this rank's
+    rows; ``ctx.for_batch`` of the global batch says whether they are a
+    block of it.
     """
     fam = cfg.family
     scan = cache["scan"]

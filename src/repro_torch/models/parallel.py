@@ -1,14 +1,20 @@
-"""Parallel context: which mesh axes the model's manual regions use.
+"""Parallel context: the mesh's axes, its process groups and the batch's rows.
 
 Port of ``repro/models/parallel.py``.  The JAX package is mostly GSPMD
 (pjit plus sharding hints) with one manual region, the MoE layer
-(``shard_map`` + ``all_to_all``).  The port keeps the logical view: every
-rank runs the model on the whole batch with whole parameters, and the
+(``shard_map`` + ``all_to_all``).  The port keeps the reference's
+data-parallel layout: under a context each rank of the dp group holds its
+block of the batch's rows (``partitioning.batch_specs``; the whole batch
+where its rows do not divide over dp, as GSPMD downgrades the spec), the
+loss is the whole batch's token mean (``common.cross_entropy`` sums the
+unmasked count over dp), and the train step sums each gradient over dp
+once.  Tensor parallelism is still logical: every rank holds whole
+parameters and computes every head and hidden unit of its rows, and the
 layouts that the hints ask GSPMD for have no eager counterpart, so
 :func:`hint` only applies the hints' rule (and checks a DTensor's layout
 against it).  The MoE layer is the port's manual region too
-(``models/ffn.py``): each rank takes its dispatcher's slice of the tokens
-and its experts' slice of the weights, and tokens cross ranks with
+(``models/ffn.py``): each rank takes its dispatcher's positions of its
+rows and its experts' slice of the weights, and tokens cross ranks with
 ``all_to_all_single`` over the expert-parallel group; the autograd
 functions below carry the gradients back across the same groups.
 
@@ -20,6 +26,7 @@ named ``("data", "model")`` and optionally ``"pod"`` first, or a
 """
 from __future__ import annotations
 
+import copy
 import dataclasses
 import math
 
@@ -74,6 +81,7 @@ class ParallelContext:
     ep_axes: tuple[str, ...] = ("data", "model")  # expert-parallel axes
     fsdp_axis: str | None = None  # shard expert D dim when E doesn't
     #                               divide the full EP product
+    whole_batch: bool = False  # every rank holds the whole batch (:meth:`for_batch`)
     _groups: dict = dataclasses.field(default_factory=dict, init=False, compare=False, repr=False)
 
     def __post_init__(self):
@@ -109,6 +117,66 @@ class ParallelContext:
     def grid_axes(self) -> tuple[str, ...]:
         """The dispatcher grid ``(dp..., tp)``: one MoE dispatcher a rank."""
         return (*self.dp_axes, self.tp_axis)
+
+    @property
+    def split(self) -> bool:
+        """Whether each rank holds only its dp block of the batch's rows (and
+        a sum over the dp group is needed to make a whole-batch value)."""
+        return self.dp_size > 1 and not self.whole_batch
+
+    def for_batch(self, rows: int, microbatches: int = 1) -> ParallelContext:
+        """The context for a global batch of ``rows`` rows taken in
+        ``microbatches`` microbatches: one whose ranks hold their block of
+        each microbatch where its rows divide over dp, else one whose ranks
+        all hold the whole batch (``batch_specs``' downgrade).  The copy
+        shares this context's process groups."""
+        whole = (rows // microbatches) % self.dp_size != 0
+        return self if whole == self.whole_batch else self.with_whole_batch(whole)
+
+    def with_whole_batch(self, whole: bool = True) -> ParallelContext:
+        """This context saying every rank holds the whole batch (``whole``) or
+        its block of the rows; the copy shares the process groups."""
+        view = copy.copy(self)
+        object.__setattr__(view, "whole_batch", whole)
+        return view
+
+    def local_rows(self, rows: int) -> int:
+        """The rows of a ``rows``-row batch, cache or microbatch that this
+        rank holds: its dp block where they divide (and the context does
+        not say every rank holds the whole batch), else all of them."""
+        return rows // self.dp_size if self.split and rows % self.dp_size == 0 else rows
+
+    def take_rows(self, batch: dict, microbatches: int = 1) -> dict:
+        """This rank's rows of each leaf of a global batch (dimension 0 the
+        rows): its block, by ``partitioning.batch_specs``' spec of one
+        microbatch, of each of ``microbatches`` equal microbatches, so that
+        the step's microbatch ``i`` holds the reference's microbatch ``i``'s
+        block.  Every leaf stays whole where the context says each rank
+        holds the whole batch (:meth:`for_batch` of a batch whose rows do not
+        divide over dp)."""
+        from repro_torch.models.partitioning import batch_specs
+
+        if not self.split:
+            return dict(batch)
+        out = {}
+        for name, t in batch.items():
+            mb = t.reshape(microbatches, t.shape[0] // microbatches, *t.shape[1:])
+            spec = batch_specs({name: mb[0]}, self)[name]
+            if spec[0] is None:
+                raise ValueError(
+                    f"{name}: {mb.shape[1]} rows a microbatch do not divide over dp "
+                    f"{self.dp_size}; take them under ctx.for_batch({t.shape[0]}, {microbatches})")
+            block = mb[(slice(None), *shard_index(spec, mb.shape[1:], self))]
+            out[name] = block.reshape(-1, *t.shape[1:])
+        return out
+
+    def dp_sum(self, t: torch.Tensor) -> torch.Tensor:
+        """``t`` summed over the dp group, in place, where each rank holds
+        its block of the rows (:attr:`split`); else ``t`` as it is, and no
+        collective is issued."""
+        if self.split:
+            dist.all_reduce(t, group=self.group(self.dp_axes))
+        return t
 
     def index(self, axes) -> int:
         """This rank's row-major position over ``axes``."""
@@ -179,9 +247,10 @@ def hint(x, ctx: ParallelContext | None, *entries):
     ``entries`` are leading spec entries (an axis name, a tuple of names,
     or None); trailing dims are whole.  An entry whose dimension is not
     divisible on the mesh is downgraded to None (:func:`divisible`), so the
-    same hints fit any mesh.  A plain tensor is the whole logical array on
-    every rank and nothing moves; a DTensor must already be laid out so on
-    every mesh axis wider than one.
+    same hints fit any mesh.  A plain tensor is this rank's rows of the
+    logical array (its dp block where the batch is split, the tensor
+    parallel dimensions whole) and nothing moves; a DTensor must already be
+    laid out so on every mesh axis wider than one.
     """
     if ctx is None:
         return x

@@ -89,10 +89,15 @@ def make_train_step(
     arrays or tensors, moved to the parameters' device.  ``metrics``:
     ``loss``, ``sync_trigger`` (0-d bool), ``grad_norm`` and ``lr``, 0-d
     tensors on the device.  ``sync`` selects the balancer-sync program.
-    Under a parallel context ``ctx`` every rank runs the step on the whole
-    batch; the MoE layers exchange tokens over the mesh
-    (``models/ffn.py``) and AdamW updates this rank's ZeRO-1 block of each
-    parameter, then gathers the parameter whole."""
+    Under a parallel context ``ctx`` the batch is this rank's rows:
+    ``ctx.take_rows(batch, microbatches)`` of the global batch, stepped
+    under ``ctx.for_batch(rows, microbatches)``, so that microbatch ``i``
+    of every rank is its dp block of the reference's microbatch ``i``.  The
+    loss is the whole batch's token mean, each gradient is summed over the
+    dp group once, and AdamW clips by the summed gradients' norm and
+    updates this rank's ZeRO-1 block of each parameter, then gathers the
+    parameter whole; the MoE layers exchange tokens over the mesh
+    (``models/ffn.py``).  ``loss`` is the same on every rank."""
 
     def step_fn(state: TrainState, batch: dict):
         params = dict(state.params.named_parameters())
@@ -125,6 +130,11 @@ def make_train_step(
             grads = {n: g / microbatches for n, g in grads.items()}
             loss = loss / microbatches
 
+        if ctx is not None:
+            # Each rank's loss and gradients are its rows' shares of the
+            # whole batch's; no collective is issued when it holds them all.
+            grads = {n: ctx.dp_sum(g.contiguous()) for n, g in grads.items()}
+            loss = ctx.dp_sum(loss.clone())
         _, opt, opt_metrics = adamw.update(grads, state.opt, state.params, opt_cfg, ctx)
 
         balancer = state.balancer

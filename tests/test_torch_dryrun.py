@@ -6,19 +6,27 @@ cache from ``init_decode_cache`` included; the reference's cache does not
 read its context, so its specs are taken without a mesh).  One SmolLM-135M
 cell of each kind and one MoE cell (DeepSeek-V2 decode) trace on the
 256-rank mesh and write ``ok`` records that ``roofline.cell_roofline``
-reads, with no kernel built or launched.
+reads, with no kernel built or launched; a train record's collectives hold
+the gradients' all-reduce over dp.  A rank of the 256-rank mesh (dp 16)
+traces its 1/16 of the reduced SmolLM's step: its FLOPs are the one-rank
+trace of the whole batch's over 16.
 """
+import dataclasses
 import os
 
 import jax
 import pytest
 import torch
+from torch._subclasses.fake_tensor import FakeTensorMode
 
 from repro.configs import cells as jcells
 from repro.configs import get_shape as jget_shape
 from repro_torch.configs import cells, get_shape
 from repro_torch.kernels import _build, ops
 from repro_torch.launch import dryrun, model_stats, roofline
+from repro_torch.launch.mesh import make_context
+from repro_torch.optim import adamw
+from repro_torch.train import train_loop
 
 
 @pytest.fixture(scope="module")
@@ -93,6 +101,9 @@ def test_cell_writes_an_ok_record(arch, shape, tmp_path, no_kernel):
     assert rec["memory"]["argument_size_in_bytes"] > 0 and rec["memory"]["temp_size_in_bytes"] > 0
     if dryrun.SHAPES[shape].kind == "train":  # ZeRO-1: AdamW gathers each parameter
         assert rec["collectives"]["all-gather"] > 0
+        # Each rank holds its rows: the step sums every (bf16) gradient over dp.
+        assert rec["collectives"]["all-reduce"] >= 2 * model_stats.count_params(
+            dryrun.get_config(arch))
     if arch.startswith("deepseek"):  # the decode batch takes the one-device MoE path
         assert rec["memory"]["argument_size_in_bytes"] > 2 * model_stats.count_params(
             dryrun.get_config(arch))
@@ -120,3 +131,34 @@ def test_a_failed_cell_is_recorded(tmp_path, monkeypatch):
     rec = dryrun.run_cell("smollm-135m", "decode_32k", multi_pod=False, out_dir=tmp_path)
     assert not rec["ok"] and rec["error"] == "ValueError: refused" and "traceback" in rec
     assert not torch.distributed.is_initialized()
+
+
+@pytest.mark.parametrize("micro", [1, 2])
+def test_a_rank_traces_its_share_of_the_batch(micro, no_kernel):
+    """The reduced SmolLM's train step on a rank's rows of a 32 x 64 batch at
+    the 256-rank mesh (dp 16) counts 1/16 of the FLOPs of one rank's trace
+    of the whole batch without a context, within 0.1%, and all-reduces the
+    gradients (float32 here) over dp."""
+    cfg = dataclasses.replace(dryrun.get_config("smollm-135m").reduced(), remat=True)
+    rows, seq = 32, 64
+
+    def trace(ctx):
+        with FakeTensorMode(allow_non_fake_inputs=True):
+            dev = dryrun.trace_device()
+            state = dryrun.fake_train_state(cfg, ctx, dev)
+            batch = {k: torch.empty((rows, seq), dtype=torch.int32, device=dev)
+                     for k in ("tokens", "labels")}
+            if ctx is not None:
+                batch = dryrun.rank_rows(batch, ctx, micro)
+                assert batch["tokens"].shape == (rows // 16, seq)
+            step = train_loop.make_train_step(cfg, adamw.OptimConfig(), ctx, microbatches=micro)
+            return dryrun.trace_step(lambda: step(state, batch), (state, batch))
+
+    whole = trace(None)
+    with dryrun.fake_world(False) as mesh:
+        ctx = make_context(mesh, 0).for_batch(rows, micro)
+        assert ctx.split and ctx.dp_size == 16
+        rank = trace(ctx)
+    assert rank["flops"] == pytest.approx(whole["flops"] / 16, rel=1e-3)
+    assert whole["analysis"]["collectives"]["total"] == 0
+    assert rank["analysis"]["collectives"]["all-reduce"] >= 4 * model_stats.count_params(cfg)
