@@ -90,7 +90,7 @@ own failure):
    slots, in turns, beside its bound; the plain version (the dense stream
    on the card) on the chunk's first 64 slots, the carry equal; the
    host's slab sampling a chunk.  Then the dense stream against the fused
-   one at 64 replicas x 16, 1000 slots, chunk 256; a degraded cell (crash
+   one at 64 replicas x 16, 500 slots, chunk 256; a degraded cell (crash
    faults, ET+RT, suspect masking) on the card against the CPU; and
    stream-mode ``serve_slots`` on ``SLOTS_CASES`` cut into uneven chunks
    against the dense stream on the CPU (``stream_vs_dense`` of
@@ -103,7 +103,7 @@ own failure):
    (no kernel but the examples' own; every count printed, none added to
    the main paths'). ``run_serving_sim`` at ``examples/serve_care.py``'s
    cell (8 replicas x 16 decode slots, load 0.9, mean prefill 4 and
-   decode 60, MSR drain 0.25, ET-4), 250 slots, seed 0, under JSAQ,
+   decode 60, MSR drain 0.25, ET-4), 160 slots, seed 0, under JSAQ,
    SQ(2), RR and drain at 2:1 rates, JIQ, hsq, the ack wire (delay 2,
    jitter 1, drop 0.1, timeout 8, backoff 2, 6 retries, suspect_age 8)
    and crash faults (0.005 / 0.1, suspect_age 20) (``DISPATCH_CELLS`` of
@@ -126,22 +126,23 @@ own failure):
    ``serve_care --slots 1000`` as subprocesses: exit 0, their closing
    lines, and serve_care's 30 ``flash_attention`` launches a prefill and
    none in decode (SmolLM-135M at its published widths); serve_care
-   asserts its own golden replay.  Cuts: 250 slots (the example's
+   asserts its own golden replay.  Cuts: 160 slots (the example's
    default 20,000), 128 slots at full width (the bench's 2048), 200
    dispatch_sim steps (the bench's 800): halved because the whole run at
    1000 slots and 800 steps took 1250.8 s on an H100's host, past the
-   1200 s limit, and halved again when phase 9 came and a run took ~1150 s.
+   1200 s limit, halved again when phase 9 came and a run took ~1150 s,
+   and cut from 250 slots when a run took 1063.8 s on a slow host.
 4. The slotted dense backend against the fused one on the card, decision
-   for decision, at K=200, T=2000, on Bernoulli arrivals and on MMPP
+   for decision, at K=200, T=1000, on Bernoulli arrivals and on MMPP
    arrivals under a diurnal curve (``MMPP_FUSED`` of
    ``tests/test_torch_cuda.py``, one ``care_route`` launch); then the
    paper's Section 9 cell (K=30, load 0.95, geometric sizes of mean 30,
-   JSAQ with ET-3 and MSR, 10,000 slots: the paper's 20,000 halved with
+   JSAQ with ET-3 and MSR, 5,000 slots: the paper's 20,000 cut with
    phase 3c's depth, as that run measured) on the dense backend.
 4b. The slotted tier's breadth on the dense backend (no kernel: every
    launch count stays 0), the Section 9 setting (K=30, cap 2048, geometric
    sizes of mean 30 unless stated, load 0.95 unless stated) at 4 seeds x
-   1250 slots, one ``simulate_grid`` call per static kind: SQ(2) (and a
+   800 slots, one ``simulate_grid`` call per static kind: SQ(2) (and a
    diurnal cell at load 0.9, amp 0.1, period 2000), random, MMPP bursts of
    intensity 1.7 under JSAQ + ET-3 + MSR and SQ(2), rates 1.5 / 0.5 on
    the two halves under rate-aware JSAQ + ET-3 + MSR and SQ(2), Pareto
@@ -158,7 +159,7 @@ own failure):
 4c. The degraded control plane on both dense backends (no kernel: every
    launch count stays 0), each call against the CPU on the same draws,
    every result field equal.  Slotted, at the Section 9.1 setting (K=30,
-   load 0.95, geometric sizes of mean 30, cap 2048), 4 seeds x 750
+   load 0.95, geometric sizes of mean 30, cap 2048), 4 seeds x 500
    slots, one ``simulate_grid`` call per static kind: CARE (JSAQ + ET-3 +
    MSR) over the delay ladder {1, 4, 8, 16} and the drop ladder {0, 0.1,
    0.3, 0.5} at delay 2 (``benchmarks/bench_faults.py:104-170``); SQ(2)
@@ -175,7 +176,7 @@ own failure):
    on the card, on both tiers.  Serving: ``bench_pull.py:68-92``'s
    frontier, 8 replicas x 16 decode slots, load 0.9, CARE / SQ(2) / JIQ /
    hsq, degraded (delay 2, drop 0.1, suspect_age 8) and clean, 4 seeds x
-   500 slots; ``bench_faults.py:203-240``'s engineered crash / recovery
+   350 slots; ``bench_faults.py:203-240``'s engineered crash / recovery
    (1250 slots, half its quick 2500) through ``serve_one`` with suspect masking on
    and off and a fault-free control.  Then CARE with delay 4 and drop 0.1 at K=1e5, cap 16, 2 seeds
    x 1000 slots, with the draws' and the call's peak device memory.
@@ -186,7 +187,7 @@ own failure):
    prints ``et_comm_vs_exact``.
 6. The serving dense backend against the fused one (one ``serve_slots``
    launch) on the card, field for field, at 64 replicas x 16 decode slots,
-   1000 slots, comm et / dt / exact, seeds (0, 1).
+   500 slots, comm et / dt / exact, seeds (0, 1).
 7. The MoE serving path (``repro_torch.models``): DeepSeek-V2 at its
    published widths (bf16, d_model 5120, 128 heads, MLA, 160 routed + 2
    shared experts, top-6 softmax) with the depth cut to 3 layers (one
@@ -228,7 +229,11 @@ own failure):
    the path's shapes beside their bound, with TFLOP/s, bound / kernel and
    kernel / SDPA; times the float32 kernel and float32 SDPA (the window as
    a mask) at the float32 case with softcap 0; prints the prefill wall, decode ms a token and a
-   profiler window of one prefill and one decode step.  Then the same
+   profiler window of one prefill and one decode step.  ``ops.flash_attention``
+   on each tensor-parallel rank's heads of the global layer at TP 2 and 4
+   (8 and 4 query heads over 4 and 2 KV heads) equals those heads of the
+   whole-head call bit for bit; each rank's call is timed beside the whole
+   call's.  Then the same
    model in float32:
    prefill over S=4224 (B=1, past the window) against prefill over S-1
    and one ``decode_step``, within 2e-2.
@@ -321,8 +326,20 @@ own failure):
    reduced config (float32, balancer sync on; AdamW's moments as ZeRO-1
    blocks) under the context against ``ctx=None``, and
    ``repro_torch.launch.train --mesh 1,1`` against the same run without
-   a mesh.  Expert parallelism across ranks (``ep > 1``) needs more than
-   one card: the CPU tests run it over gloo ranks.
+   a mesh.  Then SmolLM-135M (published width and depth, bf16, seed 0)
+   under a (1, 1) dense context against ``ctx=None``: one TP rank takes
+   the unsplit path (``partitioning.tp_layout`` gives no layout), so this
+   holds that path's equality, not the split arithmetic (the gloo tests
+   hold that): a prefill of 2 x 512, 4 decode steps and ``train_loss``
+   with every gradient at 2 x 256, each under the op recorder with the
+   launch counts set to 0 just before: logits, loss and gradients equal
+   bit for bit, the same launches (60 ``flash_attention``, 30
+   ``flash_attention_bwd``), no collective issued.  Then decode's
+   log-sum-exp softmax of a row-split cache (``attention._sdpa_seq_split``
+   over a group of one) against the plain softmax at Gemma2-9B's global
+   layer.  Expert and tensor
+   parallelism across ranks (``ep`` or ``tp > 1``) need more than one
+   card: the CPU tests run them over gloo ranks.
 11. The dry run against the card (``launch/dryrun.py``).  Phase 9's
    SmolLM-135M train step (8 x 2048, full width and depth, bf16, no
    context) traced on fake CUDA tensors (no kernel launched), then run for
@@ -332,9 +349,14 @@ own failure):
    measured peak memory and their ratio, the roofline's three terms at
    H100 peaks (``launch/roofline.py``), the median of three real steps
    and the step's roofline share (6ND over the peak times the step).
-   Then ``smollm-135m / train_4k`` and ``deepseek-v2-236b / decode_32k``
-   on the 256-rank production mesh (a fake process group), with their
-   records' totals and trace seconds.
+   Then ``smollm-135m / train_4k``, ``deepseek-v2-236b / decode_32k`` and
+   ``gemma2-9b / decode_32k`` on the 256-rank production mesh (a fake
+   process group; each rank its dp block of the rows and a dense decoder's
+   TP blocks), with their records' totals, collective bytes by group (dp,
+   TP) and trace seconds: SmolLM's FLOPs a rank at most 9.15e13 beside the
+   reference chip's 7.817e13, and each decode cache 1/16 of the whole
+   batch's (DeepSeek-V2, rows over dp) or 1/256 (Gemma2-9B, rows over dp
+   and the sequence over TP).
 12. Print the kernels line (launch counts from the main paths, parity,
    times and bounds; ``serve_slots`` also carries phase 3b's stream-mode
    launches, ms a chunk, bound, plain time and error under ``stream_*``;
@@ -343,9 +365,11 @@ own failure):
    shapes under ``family_shapes``, and its ``max_abs_err`` covers both
    phases; ``flash_attention_bwd`` and ``moe_route_bwd`` carry phase 9's
    launches, times and bounds, and the training step's numbers under
-   ``train_*``; ``moe_route`` and ``moe_route_bwd`` carry phase 10's
-   launches under ``parallel_launches``), the card's name and power
-   limit, and the contract line last.
+   ``train_*``; ``moe_route``, ``moe_route_bwd``, ``flash_attention`` and
+   ``flash_attention_bwd`` carry phase 10's launches under
+   ``parallel_launches``, and ``flash_attention`` phase 8's rank-heads
+   check under ``tp_heads``), the card's name and power limit, and the
+   contract line last.
 
 Exits non-zero without printing a result when no CUDA card is present or
 when the port's sources are not beside this script.
@@ -545,6 +569,7 @@ DENSE_BATCH, DENSE_PROMPT, DENSE_NEW, DENSE_CACHE = 2, 8064, 16, 8192
 DENSE_SEED = 0
 DENSE_F32_PROMPT = 4224
 FLASH_TIME_REPS = 5
+TP_HEAD_SPLITS = (2, 4)  # phase 8: flash_attention on one rank's heads at these TP widths
 # Further shapes of the kernel against its plain version: name, (B, S, T, H,
 # KVH, dh, dv), dtype, options (the scale is 1 / sqrt(dh)).
 FLASH_CASES = [
@@ -607,6 +632,9 @@ TRAIN_EXAMPLE_ARGS = ["--steps", "6", "--batch", "2", "--seq", "32", "--ckpt-eve
 PARALLEL_NEW = 4
 PARALLEL_TRAIN = (2, 128)
 PARALLEL_TOL = 1e-4
+PARALLEL_DENSE_ARCH = "smollm-135m"  # phase 10 (d): a dense decoder under the (1, 1) context
+PARALLEL_DENSE_PROMPT = (2, 512)
+PARALLEL_DENSE_TRAIN = 256
 PARALLEL_WALL_ROUNDS = 10  # (ctx=None, context, context, ctx=None) rounds of phase 10's walls
 PARALLEL_LAUNCH_ARGS = ["--arch", MOE_ARCH, "--steps", "3", "--batch", "2", "--seq", "32",
                         "--log-every", "0", "--lr", "1e-2"]
@@ -1561,6 +1589,8 @@ def _dense_serving(dev, times: dict) -> dict:
         sdpa_diff = _max_abs_err([sdpa().transpose(1, 2).float()],
                                  [flash_k.flash_attention_cuda(q, k, v, **nocap).float()])
         rows[layer] = (kernel_ms, plain_ms, bound, sdpa_ms)
+        if layer == "global":
+            tp_heads = _tp_heads_check(q, k, v, kw, kernel_ms)
         print(f"phase 8 flash_attention {layer} layer (B={q.shape[0]}, S=T={q.shape[1]}, "
               f"H={q.shape[2]}, KVH={k.shape[2]}, dh={q.shape[3]}, window {kw['window']}, "
               f"softcap {kw['softcap']}): kernel {kernel_ms:.3f} ms, {flop / kernel_ms / 1e9:.1f} "
@@ -1610,7 +1640,41 @@ def _dense_serving(dev, times: dict) -> dict:
         "launches": launches["flash_attention"],
         "max_abs_err": max(errs), "ms": kernel_ms, "plain_ms": plain_ms,
         "bound_ms": bound[0], "bound_by": bound[1], "library_ms": sdpa_ms,
+        "tp_heads": tp_heads,
     }
+
+
+def _tp_heads_check(q, k, v, kw: dict, whole_ms: float) -> dict:
+    """``ops.flash_attention`` on each TP rank's heads of a layer (its
+    query heads and, since the KV heads divide too, its KV heads, as
+    ``attention_full`` calls it under a context) against those heads of
+    the whole-head call, bit for bit, at TP 2 and 4; each rank's call
+    timed beside the whole call's.  Returns ``{tp: {...}}``."""
+    from repro_torch.kernels import flash_attn as flash_k
+    from repro_torch.kernels import ops
+
+    whole = ops.flash_attention(q, k, v, **kw)
+    h, kvh = q.shape[2], k.shape[2]
+    out = {}
+    for tp in TP_HEAD_SPLITS:
+        hl, kl = h // tp, kvh // tp
+        equal, rank_ms = True, []
+        for r in range(tp):
+            qr, kr, vr = (x[:, :, i * n:(i + 1) * n].contiguous()
+                          for x, i, n in ((q, r, hl), (k, r, kl), (v, r, kl)))
+            got = ops.flash_attention(qr, kr, vr, **kw)
+            equal &= torch.equal(got, whole[:, :, r * hl:(r + 1) * hl])
+            rank_ms.append(_time_ms(lambda: flash_k.flash_attention_cuda(qr, kr, vr, **kw),
+                                    FLASH_TIME_REPS))
+        assert equal, f"a rank's heads at tp {tp} differ from the whole call's"
+        out[tp] = {"heads": hl, "kv_heads": kl, "equal": equal, "rank_ms": rank_ms,
+                   "whole_ms": whole_ms}
+        print(f"phase 8 flash_attention on one rank's heads of the global layer at tp {tp} "
+              f"({hl} query heads over {kl} KV heads, B={q.shape[0]}, S=T={q.shape[1]}): "
+              f"every rank's output equals its heads of the whole call bit for bit; a rank's "
+              f"call {min(rank_ms):.3f}-{max(rank_ms):.3f} ms against the whole call's "
+              f"{whole_ms:.3f} ms ({whole_ms / tp:.3f} over {tp})")
+    return out
 
 
 def _family_config(arch: str):
@@ -3400,18 +3464,138 @@ def _parallel_phase(dev, times: dict) -> dict:
         print(f"phase 10 launch.train {' '.join(PARALLEL_LAUNCH_ARGS)} --mesh 1,1: losses "
               f"{[round(x, 6) for x in with_mesh]} equal the run without a mesh within "
               f"{PARALLEL_TOL}; {time.perf_counter() - t0:.1f} s")
+
+        # (d) a dense decoder under the (1, 1) context (the unsplit path)
+        # against ctx=None, and the row-split decode's softmax.
+        dense = _parallel_dense(dev, dmesh)
     finally:
         dist.destroy_process_group()
     times["parallel_phase_s"] = time.perf_counter() - t_phase
     print(f"phase 10: {times['parallel_phase_s']:.1f} s")
+    return {"moe": launches, "dense": dense}
+
+
+def _parallel_dense(dev, dmesh) -> dict:
+    """Phase 10 (d): a dense decoder at published width and depth (bf16,
+    seed 0) under the (1, 1) context against ``ctx=None``: a prefill and
+    greedy decode steps, then ``train_loss`` with every gradient.  One TP
+    rank takes the unsplit path (no layout, no collective).  Each run under
+    the op recorder with the launch counts set to 0 just before it; the
+    context's logits, loss and gradients equal ``ctx=None``'s bit for bit,
+    its launches equal, and it issues no collective.  Then
+    :func:`_seq_split_softmax`.  Returns the context's launches."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch import op_analysis
+    from repro_torch.models import model, partitioning
+
+    cfg = get_config(PARALLEL_DENSE_ARCH)
+    ctx = mesh_lib.make_context(dmesh, 0)
+    assert partitioning.tp_layout(cfg, ctx) is None and not ctx.tp_split
+    params = model.init_params(torch.Generator(device=dev).manual_seed(0), cfg, dev, ctx)
+    b, s = PARALLEL_DENSE_PROMPT
+    rng = np.random.default_rng(0)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (b, s)).astype(np.int64)).to(dev)
+    tb = tokens[:, :PARALLEL_DENSE_TRAIN]
+    batch = {"tokens": tb, "labels": torch.roll(tb, -1, 1)}
+
+    def run(c):
+        ops.reset_launch_counts()
+        with op_analysis.OpRecorder() as rec:
+            with torch.no_grad():
+                logits, cache = model.prefill(params, {"tokens": tokens}, cfg, c,
+                                              cache_len=s + PARALLEL_NEW)
+                out = [logits]
+                for i in range(PARALLEL_NEW):
+                    logits, cache = model.decode_step(params, out[-1].argmax(-1), cache, s + i,
+                                                      cfg, c)
+                    out.append(logits)
+            params.requires_grad_(True)
+            loss, _ = model.train_loss(params, batch, cfg, c)
+            grads = torch.autograd.grad(loss, list(params.parameters()))
+            params.requires_grad_(False)
+        torch.cuda.synchronize()
+        return dict(logits=torch.stack(out), loss=loss.detach(), grads=grads,
+                    launches=ops.launch_counts(), collectives=rec.n_coll)
+
+    t0 = time.perf_counter()
+    want = run(None)
+    got = run(ctx)
+    errs = {"logits": _scaled_err(got["logits"], want["logits"]),
+            "loss": _scaled_err(got["loss"], want["loss"]),
+            "grads": max(_scaled_err(a, w) for a, w in zip(got["grads"], want["grads"]))}
+    assert max(errs.values()) == 0.0, errs
+    assert got["launches"] == want["launches"], (got["launches"], want["launches"])
+    assert got["launches"]["flash_attention"] == 2 * cfg.num_layers, got["launches"]
+    assert got["launches"]["flash_attention_bwd"] == cfg.num_layers, got["launches"]
+    assert got["collectives"] == 0 == want["collectives"], got["collectives"]
+    assert bool(torch.isfinite(got["logits"]).all()) and bool(torch.isfinite(got["loss"]))
+    print(f"phase 10 {cfg.name} x {cfg.num_layers} layers, {cfg.param_dtype}, under the (1, 1) "
+          f"context (one TP rank: no layout, the unsplit path) against ctx=None: "
+          f"prefill {b} x {s} + {PARALLEL_NEW} decode steps and train_loss at {b} x "
+          f"{PARALLEL_DENSE_TRAIN} with every gradient; largest error / largest magnitude: "
+          f"logits {errs['logits']:.3g}, loss {errs['loss']:.3g}, gradients "
+          f"{errs['grads']:.3g} (bit for bit); launches {got['launches']} equal; collectives "
+          f"issued {got['collectives']}; {time.perf_counter() - t0:.1f} s")
+    launches = got["launches"]
+    del params, got, want
+    torch.cuda.empty_cache()
+    _seq_split_softmax(dev)
     return launches
 
 
-DRYRUN_CELLS = (("smollm-135m", "train_4k"), ("deepseek-v2-236b", "decode_32k"))
-# FLOPs a rank of smollm-135m / train_4k / pod16x16 when every rank held
-# the whole batch of 256 rows (the dry run's record of that layout); each
-# rank now holds its 16 rows, so the split record counts 1/16 of it.
+SEQ_SPLIT_ARCH = "gemma2-9b"
+SEQ_SPLIT_SHAPE = (2, 8192, 6000)  # batch, cache rows, decode position
+SEQ_SPLIT_TOL = 1e-2  # of the largest magnitude: the plain path rounds its probabilities to bf16
+
+
+def _seq_split_softmax(dev) -> None:
+    """Decode's softmax over a row-split cache, combined by log-sum-exp
+    (``attention._sdpa_seq_split``, here over a TP group of one: its max
+    and sums issue nothing), against the plain softmax (``_sdpa``) at
+    Gemma2-9B's global layer (16 query heads, 8 KV heads of 256, soft-cap
+    50), bf16, one-token queries against a cache of SEQ_SPLIT_SHAPE's rows
+    filled up to its position, on the card."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import attention
+
+    cfg = get_config(SEQ_SPLIT_ARCH)
+    b, rows, pos = SEQ_SPLIT_SHAPE
+    g = torch.Generator(device=dev).manual_seed(0)
+    dh = cfg.resolved_head_dim
+    q = torch.randn((b, 1, cfg.num_heads, dh), generator=g, device=dev).to(torch.bfloat16)
+    k, v = (torch.randn((b, rows, cfg.num_kv_heads, dh), generator=g, device=dev)
+            .to(torch.bfloat16) for _ in range(2))
+    kpos = torch.arange(rows, device=dev)
+    mask = (kpos <= pos)[None, None, None, None, :]
+    got = attention._sdpa_seq_split(q, k, v, mask, cfg, None)
+    want = attention._sdpa(q, k, v, mask, cfg)
+    torch.cuda.synchronize()
+    err = _scaled_err(got, want)
+    assert got.shape == want.shape and bool(torch.isfinite(got).all()), got.shape
+    assert err <= SEQ_SPLIT_TOL, err
+    print(f"phase 10 decode's row-split softmax (log-sum-exp combine, float32) against the plain "
+          f"softmax at {cfg.name}'s global layer, batch {b}, {rows} cache rows, position {pos}, "
+          f"bf16, on the card: largest error / largest magnitude {err:.3g} (tolerance "
+          f"{SEQ_SPLIT_TOL})")
+
+
+DRYRUN_CELLS = (("smollm-135m", "train_4k"), ("deepseek-v2-236b", "decode_32k"),
+                ("gemma2-9b", "decode_32k"))
+# FLOPs a rank of smollm-135m / train_4k / pod16x16: with every rank
+# holding the whole batch of 256 rows; on its 16 rows with whole layers;
+# the reference's chip (its examples/multipod_dryrun.py --single-pod).
 WHOLE_BATCH_TRAIN_FLOPS = 2.2005e15
+ROWS_TRAIN_FLOPS = 1.375334e14
+REFERENCE_TRAIN_FLOPS = 7.817e13
+# A rank's FLOPs with the dense decoder split over model, bounded just
+# above its count by term (65,536 tokens x (30 layers x 4 passes with
+# remat x 11.54 MFLOP of whole attention and 1/16 of the FFN + 3 passes x
+# 1/16 of the head's 56.6)).  It stays above the reference chip's: the 9
+# heads do not divide over 16 ranks, so each rank computes the whole
+# attention (ROADMAP item 19d).
+TP_TRAIN_FLOPS_MAX = 9.15e13
 DRYRUN_STEPS = 3  # real steps timed after the traced one
 
 
@@ -3422,8 +3606,10 @@ def _dryrun_phase(dev, times: dict) -> dict:
     and op recorder: the FLOPs must be equal and every kernel call's fake
     outputs must have the real launch's shapes, dtypes and strides; the
     predicted and measured peak memory, the roofline's three terms at
-    H100 peaks and the step's roofline share are printed.  (b) Two cells
-    of ``launch/dryrun.py`` on the production mesh."""
+    H100 peaks and the step's roofline share are printed.  (b) Three cells
+    of ``launch/dryrun.py`` on the production mesh: a rank's FLOPs,
+    temporaries and collective bytes by group (dp, TP), and its decode
+    cache against the whole batch's."""
     from torch._subclasses.fake_tensor import FakeTensorMode
 
     from repro_torch.configs import get_config
@@ -3510,24 +3696,28 @@ def _dryrun_phase(dev, times: dict) -> dict:
           + f"); model FLOPs 6ND {model_flops:.4e}, roofline share {share:.4f}; the bound "
           f"{cell.step_s * 1e3:.3f} ms over the step {cell.step_s / step_s:.4f}")
 
-    # (b) two cells of the dry run on the production mesh, each rank on its
-    # dp block of the rows, against the whole batch a rank.
+    # (b) three cells of the dry run on the production mesh, each rank on its
+    # dp block of the rows and a dense decoder's TP blocks.
     out_dir = ROOT / "build" / "dryrun"
     for arch, shape in DRYRUN_CELLS:
         rec = dryrun.run_cell(arch, shape, multi_pod=False, out_dir=out_dir, force=True)
         assert rec["ok"], rec.get("traceback")
         assert rec["trace_device"] == "cuda" and rec["hlo_flops"] == rec["cost"]["flops"] > 0
+        by_group = json.dumps(rec["collectives_by_group"])
         if dryrun.SHAPES[shape].kind == "train":
-            ratio = rec["hlo_flops"] / WHOLE_BATCH_TRAIN_FLOPS
-            assert abs(ratio * 16 - 1) <= 1e-3, ratio
-            split = (f"flops over the whole batch's {WHOLE_BATCH_TRAIN_FLOPS:.4e}: {ratio:.6f} "
-                     f"(1/16 = {1 / 16:.6f}); gradient all-reduce "
-                     f"{rec['collectives'].get('all-reduce', 0):.4e} bytes")
+            assert rec["hlo_flops"] <= TP_TRAIN_FLOPS_MAX, rec["hlo_flops"]
+            split = (f"flops over the whole batch's {WHOLE_BATCH_TRAIN_FLOPS:.4e}: "
+                     f"{rec['hlo_flops'] / WHOLE_BATCH_TRAIN_FLOPS:.6f}, over the rank's with "
+                     f"whole layers {ROWS_TRAIN_FLOPS:.6e}: "
+                     f"{rec['hlo_flops'] / ROWS_TRAIN_FLOPS:.4f}, over the reference chip's "
+                     f"{REFERENCE_TRAIN_FLOPS:.4e}: {rec['hlo_flops'] / REFERENCE_TRAIN_FLOPS:.4f}; "
+                     f"collective bytes by group {by_group}")
         else:
-            whole, rank = _decode_cache_bytes(arch, shape)
-            assert rank * 16 == whole, (rank, whole)
-            split = (f"the rank's decode cache {rank / 2**30:.3f} GiB over the whole batch's "
-                     f"{whole / 2**30:.3f} GiB: {rank / whole:.6f}")
+            whole, rank, parts = _decode_cache_bytes(arch, shape)
+            assert rank * parts == whole, (rank, whole, parts)
+            split = (f"the rank's decode cache {rank / 2**30:.4f} GiB over the whole batch's "
+                     f"{whole / 2**30:.3f} GiB: {rank / whole:.6f} (1/{parts}); collective bytes "
+                     f"by group {by_group}")
         print(f"phase 11 dry run {arch} / {shape} / pod16x16 (256 fake ranks, fake cuda "
               f"tensors, each rank its dp block of the rows): traced in {rec['lower_s']} s, "
               f"{rec['n_ops']} ops; per rank flops {rec['hlo_flops']:.4e}, HBM bytes "
@@ -3554,12 +3744,15 @@ OP_COST_CALLS = 200
 OP_COST_ROUNDS = 5
 
 
-def _decode_cache_bytes(arch: str, shape: str) -> tuple[int, int]:
-    """Bytes of a decode cell's cache (meta tensors): the whole batch's, and
-    a rank's on the production mesh (``init_decode_cache``'s dp rows)."""
+def _decode_cache_bytes(arch: str, shape: str) -> tuple[int, int, int]:
+    """Bytes of a decode cell's cache (meta tensors): the whole batch's, a
+    rank's on the production mesh (``init_decode_cache``: its dp rows and a
+    dense decoder's ``cache_specs`` block over TP), and the number of
+    blocks the whole cache should split into (dp, times TP where it
+    splits)."""
     from repro_torch.launch import dryrun
     from repro_torch.launch.mesh import make_context, make_production_mesh
-    from repro_torch.models import model
+    from repro_torch.models import model, partitioning
 
     cfg = dryrun.cell_config(arch, dryrun.SHAPES[shape])
     ctx = make_context(make_production_mesh(), cfg.n_routed_experts if cfg.moe else 0)
@@ -3571,8 +3764,10 @@ def _decode_cache_bytes(arch: str, shape: str) -> tuple[int, int]:
             return sum(nbytes(v) for v in tree.values())
         return tree.numel() * tree.element_size()
 
-    return (nbytes(model.init_decode_cache(params, cfg, b, s)),
-            nbytes(model.init_decode_cache(params, cfg, b, s, ctx)))
+    tree = {k: v for k, v in model.init_decode_cache(params, cfg, b, s, ctx).items()
+            if k != "kv_split"}
+    parts = ctx.dp_size * (ctx.tp_size if partitioning.kv_cache_split(cfg, ctx, s) else 1)
+    return nbytes(model.init_decode_cache(params, cfg, b, s)), nbytes(tree), parts
 
 
 def _op_host_cost(dev) -> dict:
@@ -4170,10 +4365,13 @@ def main() -> int:
 
     # -- 10. the parallel context on one card ------------------------------------
     parallel = _parallel_phase(dev, times)
-    moe_kernel["parallel_launches"] = parallel["moe_route"]
+    moe_kernel["parallel_launches"] = parallel["moe"]["moe_route"]
+    flash_kernel["parallel_launches"] = parallel["dense"]["flash_attention"]
     for entry in train_kernels:
         if entry["name"] == "moe_route_bwd":
-            entry["parallel_launches"] = parallel["moe_route_bwd"]
+            entry["parallel_launches"] = parallel["moe"]["moe_route_bwd"]
+        if entry["name"] == "flash_attention_bwd":
+            entry["parallel_launches"] = parallel["dense"]["flash_attention_bwd"]
 
     # -- 11. the dry run against the card ----------------------------------------
     _dryrun_phase(dev, times)

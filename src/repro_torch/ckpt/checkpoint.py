@@ -22,6 +22,13 @@ as its raw 2-byte patterns, numpy dtype ``'<V2'`` (what ``np.savez`` writes
 for the JAX package's ``ml_dtypes`` bfloat16), with dtype ``"bfloat16"`` in
 the manifest; on restore an array the manifest calls bfloat16 is read back
 bit for bit from those patterns.
+
+A checkpoint always holds whole leaves.  Under a parallel context every
+rank calls :func:`save` and :func:`restore`: a rank's tensor-parallel
+blocks and ZeRO-1 moment blocks are gathered onto rank 0 one leaf at a
+time, and rank 0 writes each leaf before it gathers the next, so no rank
+holds more than one whole leaf; on restore each rank reads one leaf at a
+time and keeps its block of it.
 """
 from __future__ import annotations
 
@@ -29,30 +36,101 @@ import json
 import os
 import shutil
 import threading
+import zipfile
 from pathlib import Path
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
+from repro_torch.models import parallel
 from repro_torch.models.partitioning import STACKED, jax_param_paths
 
 _BF16 = "bfloat16"
 
 
-def _state_paths(state) -> dict[str, tuple[list, bool]]:
-    """``{path: (tensors, stacked)}`` of a ``train_loop.TrainState``."""
+def _state_paths(state) -> dict[str, tuple[list, bool, tuple | None]]:
+    """``{path: (tensors, stacked, spec)}`` of a ``train_loop.TrainState``:
+    ``spec`` lays out the rank's tensor (the stacked one where ``stacked``)
+    within the whole leaf, None where the rank holds it whole."""
     named = dict(state.params.named_parameters())
-    paths: dict[str, tuple[list, bool]] = {}
-    for prefix, tree in (("params", named), ("opt/m", state.opt.m), ("opt/v", state.opt.v)):
-        for key, ts in jax_param_paths(tree).items():
-            stacked = key.split("/", 1)[0] in STACKED
-            paths[f"{prefix}/{key}"] = (ts, stacked)
-    paths["opt/step"] = ([state.opt.step], False)
+    tp = getattr(state.params, "tp_specs", {})
+    paths: dict[str, tuple[list, bool, tuple | None]] = {}
+    for key, ts in jax_param_paths(named).items():
+        paths[f"params/{key}"] = (ts, key.split("/", 1)[0] in STACKED, tp.get(key))
+    for part in ("m", "v"):
+        tree = getattr(state.opt, part)
+        if state.opt.specs is None:  # one moment a parameter, shaped like it
+            for key, ts in jax_param_paths(tree).items():
+                paths[f"opt/{part}/{key}"] = (ts, key.split("/", 1)[0] in STACKED, tp.get(key))
+        else:  # ZeRO-1: a block of each JAX leaf's moments, of the TP block
+            for key, t in tree.items():
+                paths[f"opt/{part}/{key}"] = ([t], False, _merge(tp.get(key), state.opt.specs[key]))
+    paths["opt/step"] = ([state.opt.step], False, None)
     if state.balancer is not None:
         for field in ("load_approx", "true_load", "true_counts", "bias", "steps_since_sync"):
-            paths[f"balancer/{field}"] = ([getattr(state.balancer, field)], False)
-    paths["step"] = ([state.step], False)
+            paths[f"balancer/{field}"] = ([getattr(state.balancer, field)], False, None)
+    paths["step"] = ([state.step], False, None)
     return paths
+
+
+def _merge(tp, zero):
+    """The layout of a ZeRO-1 block (``zero``, within the rank's TP block)
+    of a TP block (``tp``) within the whole leaf; they split no dimension
+    both."""
+    if tp is None:
+        return zero
+    n = max(len(tp), len(zero))
+    tp, zero = (tuple(s) + (None,) * (n - len(s)) for s in (tp, zero))
+    if any(a is not None and b is not None for a, b in zip(tp, zero)):
+        raise ValueError(f"TP layout {tp} and ZeRO-1 layout {zero} split one dimension")
+    return parallel.Spec(*(a if a is not None else b for a, b in zip(tp, zero)))
+
+
+def _local(ts, stacked) -> torch.Tensor:
+    return torch.stack([x.detach() for x in ts]) if stacked else ts[0].detach()
+
+
+def _split_axes(spec, ctx) -> tuple[str, ...]:
+    """The mesh axes wider than one rank that ``spec`` splits, in mesh order."""
+    if spec is None or ctx is None:
+        return ()
+    used = {a for e in spec if e is not None for a in (e if isinstance(e, tuple) else (e,))}
+    return tuple(a for a in ctx.mesh.mesh_dim_names if a in used and ctx.size(a) > 1)
+
+
+def _whole_shape(t: torch.Tensor, spec, ctx) -> tuple:
+    entries = tuple(spec or ()) + (None,) * t.dim()
+    return tuple(d * (ctx.size(e) if e is not None else 1) for d, e in zip(t.shape, entries))
+
+
+def _gather_to_rank0(t: torch.Tensor, spec, ctx) -> torch.Tensor | None:
+    """The whole leaf on the host of rank 0 (None on every other rank) from
+    each rank's block ``t`` of it, laid out by ``spec``.  Only the ranks of
+    rank 0's group over the split axes send; the others hold copies."""
+    axes = _split_axes(spec, ctx)
+    if not axes:
+        return t if ctx is None or dist.get_rank() == 0 else None
+    group = ctx.group(axes)
+    if 0 not in dist.get_process_group_ranks(group):
+        return None
+    t = t.contiguous()
+    lead = dist.get_rank() == 0
+    got = [torch.empty_like(t) for _ in range(ctx.size(axes))] if lead else None
+    dist.gather(t, got, dst=0, group=group)
+    if not lead:
+        return None
+    shape = _whole_shape(t, spec, ctx)
+    out = torch.empty(shape, dtype=t.dtype)
+    for j, blk in enumerate(got):
+        coord = dict(zip(axes, np.unravel_index(j, [ctx.size(a) for a in axes])))
+        out[parallel.shard_index(spec, shape, ctx, coord)] = blk.cpu()
+    return out
+
+
+def _check_ctx(state, ctx) -> None:
+    if ctx is None and (state.opt.specs is not None or getattr(state.params, "tp_specs", {})):
+        raise ValueError("a state of blocks needs the parallel context it was made for")
 
 
 def _to_numpy(t: torch.Tensor) -> np.ndarray:
@@ -64,18 +142,32 @@ def _to_numpy(t: torch.Tensor) -> np.ndarray:
     return t.numpy()
 
 
+def _host_leaves(state, ctx=None):
+    """``(path, host array or None, dtype name)`` for each leaf in turn,
+    whole; under ``ctx`` gathered onto rank 0 (None on the others)."""
+    _check_ctx(state, ctx)
+    for path, (ts, stacked, spec) in _state_paths(state).items():
+        local = _local(ts, stacked)
+        t = _gather_to_rank0(local, spec, ctx)
+        if t is None:
+            yield path, None, None
+        else:
+            arr = _to_numpy(t)
+            yield path, arr, _BF16 if t.dtype == torch.bfloat16 else str(arr.dtype)
+
+
 def flatten(state) -> tuple[dict[str, np.ndarray], dict[str, str]]:
-    """The state as host arrays ``{path: array}`` and their dtype names."""
+    """The state (whole leaves) as host arrays ``{path: array}`` and their
+    dtype names."""
     arrays, dtypes = {}, {}
-    for path, (ts, stacked) in _state_paths(state).items():
-        t = torch.stack([x.detach() for x in ts]) if stacked else ts[0]
-        arrays[path] = _to_numpy(t)
-        dtypes[path] = _BF16 if t.dtype == torch.bfloat16 else str(arrays[path].dtype)
+    for path, arr, dtype in _host_leaves(state):
+        arrays[path], dtypes[path] = arr, dtype
     return arrays, dtypes
 
 
-def _write(flat, directory, step: int, keep: int, extra: dict | None) -> Path:
-    arrays, dtypes = flat
+def _write(leaves, directory, step: int, keep: int, extra: dict | None) -> Path:
+    """Write ``leaves`` (``(path, array, dtype name)`` in turn, each written
+    before the next is drawn) as ``directory/step-<step>``."""
     directory = Path(directory)
     directory.mkdir(parents=True, exist_ok=True)
     tmp = directory / f"tmp-{step}"
@@ -83,12 +175,14 @@ def _write(flat, directory, step: int, keep: int, extra: dict | None) -> Path:
     if tmp.exists():
         shutil.rmtree(tmp)
     tmp.mkdir()
-    np.savez(tmp / "arrays.npz", **arrays)
-    manifest = {
-        "step": step,
-        "arrays": {k: {"shape": list(v.shape), "dtype": dtypes[k]} for k, v in arrays.items()},
-        "extra": extra or {},
-    }
+    arrays = {}
+    # the layout np.savez writes: one uncompressed ``<path>.npy`` a leaf
+    with zipfile.ZipFile(tmp / "arrays.npz", "w", zipfile.ZIP_STORED, allowZip64=True) as zf:
+        for path, arr, dtype in leaves:
+            with zf.open(f"{path}.npy", "w", force_zip64=True) as f:
+                np.lib.format.write_array(f, np.asanyarray(arr), allow_pickle=False)
+            arrays[path] = {"shape": list(arr.shape), "dtype": dtype}
+    manifest = {"step": step, "arrays": arrays, "extra": extra or {}}
     (tmp / "manifest.json").write_text(json.dumps(manifest, indent=1))
     if final.exists():
         shutil.rmtree(final)
@@ -99,9 +193,16 @@ def _write(flat, directory, step: int, keep: int, extra: dict | None) -> Path:
 
 
 def save(state, directory: str | os.PathLike, step: int, *, keep: int = 3,
-         extra: dict | None = None) -> Path:
-    """Atomically write ``state`` under ``directory/step-<step>``."""
-    return _write(flatten(state), directory, step, keep, extra)
+         extra: dict | None = None, ctx=None) -> Path | None:
+    """Atomically write ``state`` under ``directory/step-<step>``.  Under a
+    parallel context every rank calls it and rank 0 writes: it returns the
+    path there and None on the other ranks."""
+    leaves = _host_leaves(state, ctx)
+    if ctx is not None and dist.get_rank() != 0:
+        for _ in leaves:  # take part in each leaf's gather
+            pass
+        return None
+    return _write(leaves, directory, step, keep, extra)
 
 
 _PENDING: list[threading.Thread] = []
@@ -111,7 +212,7 @@ def async_save(state, directory, step: int, *, keep: int = 3,
                extra: dict | None = None) -> threading.Thread:
     """Save on a background thread.  The state is copied to host memory
     before the thread starts, so the caller may update it at once."""
-    flat = flatten(state)
+    flat = list(_host_leaves(state))
     t = threading.Thread(target=_write, args=(flat, directory, step, keep, extra), daemon=True)
     t.start()
     _PENDING.append(t)
@@ -147,11 +248,13 @@ def _from_numpy(arr: np.ndarray, dtype: str) -> torch.Tensor:
 
 
 @torch.no_grad()
-def restore(like, directory, step: int | None = None):
+def restore(like, directory, step: int | None = None, ctx=None):
     """Restore into ``like`` (a ``TrainState`` of the right structure, on
-    the device to fill), in place.  Returns ``(like, step)``.  Raises
+    the device to fill), in place; under ``ctx`` each rank keeps its blocks
+    of the whole leaves.  Returns ``(like, step)``.  Raises
     ``FileNotFoundError`` without a checkpoint, ``KeyError`` for a path
     the checkpoint lacks and ``ValueError`` for a shape that differs."""
+    _check_ctx(like, ctx)
     directory = Path(directory)
     step = step if step is not None else latest_step(directory)
     if step is None:
@@ -159,14 +262,17 @@ def restore(like, directory, step: int | None = None):
     src = directory / f"step-{step}"
     manifest = json.loads((src / "manifest.json").read_text())["arrays"]
     data = np.load(src / "arrays.npz")
-    for path, (ts, stacked) in _state_paths(like).items():
+    for path, (ts, stacked, spec) in _state_paths(like).items():
         if path not in data.files:
             raise KeyError(f"checkpoint missing array {path!r}")
-        arr = data[path]
-        want = ((len(ts), *ts[0].shape) if stacked else tuple(ts[0].shape))
+        arr = data[path]  # one whole leaf at a time
+        local = torch.empty((len(ts), *ts[0].shape) if stacked else ts[0].shape, device="meta")
+        want = _whole_shape(local, spec, ctx)
         if tuple(arr.shape) != tuple(want):
             raise ValueError(f"shape mismatch for {path}: ckpt {arr.shape} vs {want}")
         t = _from_numpy(arr, manifest[path]["dtype"])
+        if spec is not None and ctx is not None:
+            t = t[parallel.shard_index(spec, t.shape, ctx)]
         if path.startswith(("params/", "opt/m/", "opt/v/")):
             for i, dst in enumerate(ts):
                 dst.copy_(t[i] if stacked else t)

@@ -51,6 +51,10 @@ def main(argv=None) -> dict:
     coll = analysis["collectives"]
     print(f"  collective bytes/rank: {coll['total']:.3e}  "
           f"({', '.join(f'{k}={v:.2e}' for k, v in sorted(coll.items()) if k != 'total')})")
+    for group, kinds in sorted(analysis["collectives_by_group"].items()):
+        print(f"    over {group}: {kinds['total']:.3e}  ("
+              + ", ".join(f"{k}={v:.2e}" for k, v in sorted(kinds.items()) if k != "total")
+              + ")")
     print(f"  FlopCounterMode flops: {trace['flops']:.3e}  ({analysis['n_ops']} ops traced "
           f"in {trace['seconds']:.1f} s)")
     cell = roofline.cell_roofline(rec, model_stats.count_active_params(cfg))

@@ -11,22 +11,27 @@ cell this module
      (``launch/mesh.make_production_mesh``);
   2. builds the parallel context with ``make_context``;
   3. under ``FakeTensorMode`` (no memory, no card) builds the parameters
-     and the optimizer state this rank holds (whole parameters, ZeRO-1
-     blocks of the moments) and this rank's rows of every input (its dp
-     block of the batch, of each microbatch, and of the decode cache), then
-     runs the train step (with ``remat`` and the microbatches of
+     and the optimizer state this rank holds (its TP blocks of a dense
+     decoder's split leaves, every other leaf whole; ZeRO-1 blocks of the
+     moments) and this rank's rows of every input (its dp block of the
+     batch, of each microbatch, and of the decode cache, and its
+     ``cache_specs`` block of a dense decoder's KV cache), then runs the
+     train step (with ``remat`` and the microbatches of
      :func:`microbatches_for`), the prefill or one decode step;
   4. records ``FlopCounterMode``'s FLOPs and the op trace of
-     ``launch/op_analysis.py`` (FLOPs, bytes, collective bytes by kind,
-     arguments and the peak of temporaries);
+     ``launch/op_analysis.py`` (FLOPs, bytes, collective bytes by kind and
+     by group, dp or TP, arguments and the peak of temporaries);
   5. writes ``artifacts/dryrun_torch/<arch>__<shape>__<mesh>.json`` with
-     the JAX package's keys (``launch/roofline.py`` reads both).
+     the JAX package's keys (``launch/roofline.py`` reads both) and
+     ``collectives_by_group``.
 
 The numbers are one rank's.  Each rank holds its dp block of the rows, as
 the reference's chip does (``partitioning.batch_specs``, ``cache_specs``'
-dp entry), but every rank computes whole layers on them: tensor
-parallelism over ``model`` is still logical (``models/parallel.py``), so a
-rank's FLOPs and temporaries are above the reference's per chip by about
+dp entry).  A dense decoder (SmolLM, Gemma2, Qwen, Chameleon) computes
+its heads, hidden units and vocabulary columns over ``model``
+(``partitioning.tp_layout``: whole heads only, so SmolLM's 9 heads on 16
+ranks stay whole); the other families still compute whole layers, so
+their FLOPs and temporaries are above the reference's per chip by about
 the work the reference divides over ``model``.
 
 The fake tensors claim the CUDA device and go through the card's path:
@@ -141,14 +146,21 @@ def input_specs(arch: str, shape_name: str, *, device="meta", params=None) -> di
     }
 
 
+def fake_params(cfg: ModelConfig, ctx, dev) -> model.Model:
+    """The parameters one rank holds (uninitialised), built under the
+    caller's ``FakeTensorMode``: its TP blocks of the leaves its layout
+    splits, every other leaf whole."""
+    return partitioning.take_blocks(model.Model(cfg, device=dev), cfg, ctx)
+
+
 def fake_train_state(cfg: ModelConfig, ctx, dev) -> train_loop.TrainState:
     """The train state one rank holds, built under the caller's
-    ``FakeTensorMode``: whole parameters (uninitialised), the ZeRO-1 blocks
-    of the moments under a context, the balancer of a MoE model."""
-    params = train_loop.trainable(model.Model(cfg, device=dev))
+    ``FakeTensorMode``: :func:`fake_params`, the ZeRO-1 blocks of the
+    moments under a context, the balancer of a MoE model."""
+    params = train_loop.trainable(fake_params(cfg, ctx, dev))
     specs = None
     if ctx is not None:
-        specs = partitioning.zero1_specs(partitioning.param_specs(params, cfg, ctx), params, ctx)
+        specs = partitioning.moment_specs(params, cfg, ctx)
     bal = None
     if cfg.moe:
         bal = moe_balancer.BalancerState.init(
@@ -185,14 +197,14 @@ def lower_cell(arch: str, shape_name: str, *, multi_pod: bool, sync_variant: boo
                 def call():
                     return step(state, batch)
             elif shape.kind == "prefill":
-                params = model.Model(cfg, device=dev)
+                params = fake_params(cfg, ctx, dev)
                 batch = rank_rows(input_specs(arch, shape_name, device=dev)["batch"], ctx)
                 args = (params, batch)
 
                 def call():
                     return model.prefill(params, batch, cfg, ctx, cache_len=shape.seq_len)
             else:
-                params = model.Model(cfg, device=dev)
+                params = fake_params(cfg, ctx, dev)
                 spec = input_specs(arch, shape_name, device=dev, params=params)
                 tokens = rank_rows({"tokens": spec["tokens"]}, ctx)["tokens"]
                 cache = model.init_decode_cache(params, cfg, shape.global_batch, shape.seq_len,
@@ -201,8 +213,14 @@ def lower_cell(arch: str, shape_name: str, *, multi_pod: bool, sync_variant: boo
 
                 def call():
                     return model.decode_step(params, tokens, cache, spec["pos"], cfg, ctx)
-            trace = trace_step(call, args, keep_ops=keep_ops)
+            trace = trace_step(call, args, keep_ops=keep_ops, groups=rank_groups(ctx))
     return trace, make_production_mesh(multi_pod=multi_pod), cfg, [model.num_scanned_layers(cfg)]
+
+
+def rank_groups(ctx) -> dict:
+    """``{"dp": group, "tp": group}`` of a context, for the op recorder's
+    collective bytes by group."""
+    return {"dp": ctx.group(ctx.dp_axes), "tp": ctx.group(ctx.tp_axis)}
 
 
 def rank_rows(batch: dict, ctx, microbatches: int = 1) -> dict:
@@ -211,8 +229,9 @@ def rank_rows(batch: dict, ctx, microbatches: int = 1) -> dict:
     return {k: t.clone() for k, t in ctx.take_rows(batch, microbatches).items()}
 
 
-def trace_step(call, arguments, *, keep_ops: bool = False) -> dict:
-    """Run ``call()`` once under ``FlopCounterMode`` and the op recorder.
+def trace_step(call, arguments, *, keep_ops: bool = False, groups: dict | None = None) -> dict:
+    """Run ``call()`` once under ``FlopCounterMode`` and the op recorder
+    (``groups``: its process groups by name, :func:`rank_groups`).
     Returns ``{"flops": FlopCounterMode's total, "analysis": the op
     trace's dict, "output_bytes": new buffers in the result, "seconds",
     "rows": each op's charge (``OpRecorder.rows``; with ``keep_ops``),
@@ -222,7 +241,7 @@ def trace_step(call, arguments, *, keep_ops: bool = False) -> dict:
     t0 = time.perf_counter()
     arguments = _plain(arguments)
     with (FlopCounterMode(display=False) as fc,
-          op_analysis.OpRecorder(arguments, keep_ops=keep_ops) as rec):
+          op_analysis.OpRecorder(arguments, keep_ops=keep_ops, groups=groups) as rec):
         out = call()
     seconds = time.perf_counter() - t0
     args = {op_analysis.storage_key(t) for t in op_analysis.tensors_of(arguments)}
@@ -269,6 +288,7 @@ def cell_record(trace: dict, mesh, scan_trips) -> dict:
         hlo_bytes_hbm=analysis["bytes_hbm"],
         hlo_bytes_hbm_v2=analysis["bytes_hbm_v2"],
         collectives=analysis["collectives"],
+        collectives_by_group=analysis["collectives_by_group"],
         scan_trips=scan_trips,
         num_devices=math.prod(mesh.sizes),
         n_ops=analysis["n_ops"],

@@ -33,7 +33,9 @@ dict as ``hlo_analysis.analyze_module``:
     in-place update, which an eager op does not have.
 * ``collectives`` -- the operand bytes of every c10d op, by kind
   (all-reduce, all-gather, reduce-scatter, all-to-all; send and recv as
-  collective-permute), and ``total``.
+  collective-permute), and ``total``; ``collectives_by_group`` the same
+  for each process group the recorder is given by name (e.g. ``dp`` and
+  ``tp``), the rest under ``other``.
 
 The recorder also tracks the bytes alive: tensors made during the step,
 by storage, from the op that makes them to the last reference's end
@@ -48,6 +50,7 @@ import weakref
 from collections import defaultdict
 
 import torch
+import torch.distributed as dist
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_flatten
 
@@ -179,13 +182,17 @@ class OpRecorder(TorchDispatchMode):
     inputs); their buffers count as arguments, not temporaries.  With
     ``keep_ops`` each op's charge is also kept in :attr:`rows` as
     ``(bytes_hbm, flops, op name, where)``, for ``launch/op_breakdown.py``.
+    ``groups`` (``{name: process group}``) labels each collective's bytes
+    by the group it runs over (:meth:`result`'s ``collectives_by_group``).
     :attr:`kernel_calls` lists each call of a hand-written kernel's
     operator as ``(name, [(shape, dtype, strides) of each output])``, which
     a fake trace and a real run of the same step must give alike.
     """
 
-    def __init__(self, arguments=(), *, keep_ops: bool = False):
+    def __init__(self, arguments=(), *, keep_ops: bool = False, groups: dict | None = None):
         super().__init__()
+        self._group_names = {g.group_name: name for name, g in (groups or {}).items()}
+        self.colls_by: dict[str, dict[str, float]] = defaultdict(lambda: defaultdict(float))
         self.flops = 0.0
         self.bytes = 0.0
         self.bytes_hbm = 0.0
@@ -236,6 +243,7 @@ class OpRecorder(TorchDispatchMode):
             sent = tensors_of(args[src]) if src is not None else ins
             op_bytes = float(sum(touched_bytes(t) for t in sent))
             self.colls[kind] += op_bytes
+            self.colls_by[self._group_of(args)][kind] += op_bytes
             self.n_coll += 1
             self.bytes += op_bytes + sum(buffer_bytes(t) for t in outs)
             return op_bytes + sum(touched_bytes(t) for t in outs), 0.0
@@ -254,6 +262,17 @@ class OpRecorder(TorchDispatchMode):
             if isinstance(upd, torch.Tensor):
                 return 2.0 * touched_bytes(upd), flops
         return float(sum(touched_bytes(t) for t in ins) + sum(touched_bytes(t) for t in outs)), flops
+
+    def _group_of(self, args) -> str:
+        """The name of the group a c10d op's arguments run over."""
+        for a in args:
+            if isinstance(a, torch.ScriptObject):
+                try:
+                    pg = dist.ProcessGroup.unbox(a)
+                except RuntimeError:  # another script object (a reduce op)
+                    continue
+                return self._group_names.get(pg.group_name, "other")
+        return "other"
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
@@ -279,12 +298,16 @@ class OpRecorder(TorchDispatchMode):
         del scan_trips
         colls = dict(self.colls)
         colls["total"] = float(sum(self.colls.values()))
+        by_group = {}
+        for name, kinds in self.colls_by.items():
+            by_group[name] = {**kinds, "total": float(sum(kinds.values()))}
         return {
             "flops": self.flops,
             "bytes": self.bytes,
             "bytes_hbm": self.bytes_hbm,
             "bytes_hbm_v2": self.bytes_hbm,
             "collectives": colls,
+            "collectives_by_group": by_group,
             "n_collectives_static": self.n_coll,
             "n_ops": self.n_ops,
             "argument_bytes": self.argument_bytes,

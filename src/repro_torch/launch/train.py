@@ -18,18 +18,22 @@ With ``--mesh DATA,MODEL`` the run takes a parallel context
 rank without it): NCCL on the card, gloo on the CPU.  Each rank steps on
 its dp block of every step's global batch (contiguous rows of each
 microbatch; the whole batch where they do not divide over dp), the step
-sums the gradients over dp, MoE layers exchange tokens over the mesh and
-AdamW keeps ZeRO-1 blocks of the moments, gathered whole for a
-checkpoint, which rank 0 writes.
+sums the gradients over dp, a dense decoder (SmolLM, Gemma2, Qwen,
+Chameleon) computes its heads, hidden units and vocabulary columns over
+the ``MODEL`` ranks of the TP group, MoE layers exchange tokens over the
+mesh and AdamW keeps ZeRO-1 blocks of the moments.  A checkpoint holds
+whole leaves, gathered over TP and dp for rank 0 to write; a run restores
+each rank's blocks of it.
 
 Usage (the card unless ``--device cpu``):
   PYTHONPATH=src python -m repro_torch.launch.train --arch smollm-135m \\
       --steps 200 --batch 8 --seq 256 --ckpt-dir /tmp/run1
   torchrun --nproc-per-node 4 -m repro_torch.launch.train --device cpu \\
       --arch deepseek-v2-236b --mesh 2,2 --batch 4 --seq 32
+  torchrun --nproc-per-node 2 -m repro_torch.launch.train --device cpu \\
+      --arch gemma2-9b --mesh 1,2 --batch 4 --seq 32
 """
 import argparse
-import dataclasses
 import time
 
 import torch
@@ -94,28 +98,17 @@ def main(argv=None):
             dist.destroy_process_group()
 
 
-def _whole(state, ctx):
-    """The state with its moments whole (a ZeRO-1 state gathered)."""
-    return dataclasses.replace(state, opt=adamw.gather_state(state.opt, state.params, ctx))
-
-
 def _run(args, cfg, opt_cfg, data_cfg, dev, ctx):
     lead = ctx is None or dist.get_rank() == 0
     log = print if lead else (lambda *a, **k: None)
 
     def save(state, step):
-        whole = _whole(state, ctx)
-        if lead:
-            checkpoint.save(whole, args.ckpt_dir, step)
+        checkpoint.save(state, args.ckpt_dir, step, ctx=ctx)
 
     state = train_loop.init_state(torch.Generator(device=dev).manual_seed(0), cfg, ctx, device=dev)
     start_step = 0
     if args.ckpt_dir and checkpoint.latest_step(args.ckpt_dir) is not None:
-        whole, start_step = checkpoint.restore(_whole(state, ctx), args.ckpt_dir)
-        opt = whole.opt
-        if state.opt.specs is not None:
-            opt = adamw.shard_state(opt, whole.params, ctx, state.opt.specs)
-        state = dataclasses.replace(whole, opt=opt)
+        state, start_step = checkpoint.restore(state, args.ckpt_dir, ctx=ctx)
         log(f"[train] restored checkpoint at step {start_step}")
 
     loader = ShardedLoader(data_cfg, start_step=start_step)  # the global batch

@@ -28,7 +28,7 @@ from torch import nn
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
-from repro_torch.models import common
+from repro_torch.models import common, parallel, partitioning
 
 class Attention(nn.Module):
     """Attention parameters, named as the JAX leaves and drawn in
@@ -54,24 +54,38 @@ class Attention(nn.Module):
             self.k_norm = common.ones_init((dh,), pdt, device)
 
 
-def _project_q(p: Attention, x: torch.Tensor, cfg: ModelConfig):
+def _project_q(p: Attention, x: torch.Tensor, cfg: ModelConfig, ctx=None):
+    """The query heads of the ``wq`` columns ``p`` holds.  ``ctx``: a TP
+    context whose ranks each project their own heads, so that the whole
+    ``q_norm``'s gradient is summed over the TP group."""
     q = x @ p.wq
     if cfg.qkv_bias:
         q = q + p.bq
-    q = q.reshape(*x.shape[:-1], cfg.num_heads, cfg.resolved_head_dim)
+    q = q.reshape(*x.shape[:-1], -1, cfg.resolved_head_dim)
     if cfg.qk_norm:
-        q = common.rms_norm(q, p.q_norm, cfg.norm_eps)
+        q = common.rms_norm(q, parallel.tp_copy(p.q_norm, ctx), cfg.norm_eps)
     return q
 
 
-def _project_kv(p: Attention, kv_src: torch.Tensor, cfg: ModelConfig):
-    k, v = kv_src @ p.wk, kv_src @ p.wv
+def _project_kv(p: Attention, kv_src: torch.Tensor, cfg: ModelConfig, ctx=None,
+                heads: range | None = None):
+    """The KV heads of the ``wk`` / ``wv`` columns ``p`` holds, or with
+    ``heads`` those KV heads of whole ``wk`` / ``wv``.  ``ctx``: a TP
+    context whose ranks each use part of the whole leaves they read
+    (``k_norm``, and ``wk``, ``wv``, ``bk``, ``bv`` with ``heads``), so
+    that their gradients are summed over the TP group."""
+    dh = cfg.resolved_head_dim
+    w = {n: getattr(p, n) for n in ("wk", "wv", "bk", "bv") if hasattr(p, n)}
+    if heads is not None:
+        cols = slice(heads.start * dh, heads.stop * dh)
+        w = {n: parallel.tp_copy(t, ctx)[..., cols] for n, t in w.items()}
+    k, v = kv_src @ w["wk"], kv_src @ w["wv"]
     if cfg.qkv_bias:
-        k, v = k + p.bk, v + p.bv
-    shape = (*kv_src.shape[:-1], cfg.num_kv_heads, cfg.resolved_head_dim)
+        k, v = k + w["bk"], v + w["bv"]
+    shape = (*kv_src.shape[:-1], -1, dh)
     k, v = k.reshape(shape), v.reshape(shape)
     if cfg.qk_norm:
-        k = common.rms_norm(k, p.k_norm, cfg.norm_eps)
+        k = common.rms_norm(k, parallel.tp_copy(p.k_norm, ctx), cfg.norm_eps)
     return k, v
 
 
@@ -79,8 +93,33 @@ def _project_qkv(p: Attention, x: torch.Tensor, kv_src: torch.Tensor, cfg: Model
     return (_project_q(p, x, cfg), *_project_kv(p, kv_src, cfg))
 
 
+def _rank_heads(cfg: ModelConfig, lay, rank: int) -> tuple[int, int, range]:
+    """``(first query head, query heads, KV heads they use)`` of TP rank
+    ``rank`` under the layout ``lay`` (every head without a head split).
+    ``tp_layout`` splits the query heads only where each rank's use whole
+    groups of KV heads or share one, so the KV heads are consecutive."""
+    h, kvh = cfg.num_heads, cfg.num_kv_heads
+    if lay is None or not lay.heads:
+        return 0, h, range(kvh)
+    hl = h // lay.size
+    h0, g = rank * hl, h // kvh
+    return h0, hl, range(h0 // g, (h0 + hl - 1) // g + 1)
+
+
 def _scale(cfg: ModelConfig, dh: int) -> float:
     return cfg.query_scale or 1.0 / dh**0.5
+
+
+def _scores(q, k, mask, cfg: ModelConfig):
+    """Float32 scores ``(B, Kv, G, S, T)`` of q ``(B,S,H,Dh)`` against k
+    ``(B,T,Kv,Dh)``, soft-capped, masked to -1e30."""
+    b, s, h, dh = q.shape
+    kvh = k.shape[2]
+    qg = q.reshape(b, s, kvh, h // kvh, dh)
+    scores = torch.einsum("bskgd,btkd->bkgst", qg.float(), k.float()) * _scale(cfg, dh)
+    if cfg.attn_softcap:
+        scores = common.softcap(scores, cfg.attn_softcap)
+    return torch.where(mask, scores, -1e30)
 
 
 def _sdpa(q, k, v, mask, cfg: ModelConfig):
@@ -88,16 +127,25 @@ def _sdpa(q, k, v, mask, cfg: ModelConfig):
     ``(B,1,1,S,T)``.  Float32 scores and softmax, probabilities in q's
     dtype, as the JAX ``_sdpa``."""
     b, s, h, dh = q.shape
-    kvh = k.shape[2]
-    g = h // kvh
-    qg = q.reshape(b, s, kvh, g, dh)
-    scores = torch.einsum("bskgd,btkd->bkgst", qg.float(), k.float()) * _scale(cfg, dh)
-    if cfg.attn_softcap:
-        scores = common.softcap(scores, cfg.attn_softcap)
-    scores = torch.where(mask, scores, -1e30)
-    probs = torch.softmax(scores, dim=-1).to(q.dtype)
+    probs = torch.softmax(_scores(q, k, mask, cfg), dim=-1).to(q.dtype)
     out = torch.einsum("bkgst,btkd->bskgd", probs, v)
     return out.reshape(b, s, h * dh)
+
+
+def _sdpa_seq_split(q, k, v, mask, cfg: ModelConfig, ctx):
+    """:func:`_sdpa` of every head over the TP group's sequence blocks of
+    k and v (this rank's block here, ``mask`` over its rows): each rank's
+    partial softmax, combined by its log-sum-exp (the group's maximum,
+    then the sums of the exponentials and of their products with v, in
+    float32)."""
+    b, s, h, dh = q.shape
+    scores = _scores(q, k, mask, cfg)
+    m = parallel.tp_max(scores.amax(dim=-1, keepdim=True), ctx)
+    e = torch.exp(scores - m)
+    den = parallel.tp_reduce(e.sum(dim=-1), ctx)  # (B, Kv, G, S)
+    num = parallel.tp_reduce(torch.einsum("bkgst,btkd->bskgd", e, v.float()), ctx)
+    out = num / den.permute(0, 3, 1, 2)[..., None]
+    return out.to(q.dtype).reshape(b, s, h * dh)
 
 
 def attention_full(
@@ -111,6 +159,7 @@ def attention_full(
     use_rope: bool = True,
     return_cache: bool = False,
     cache_len: int = 0,
+    ctx=None,
 ):
     """Full-sequence attention.  x: ``(B, S, D)``; ``kv_src`` ``(B, T, D)``
     makes it cross-attention (keys and values from ``kv_src``, no RoPE).
@@ -119,12 +168,27 @@ def attention_full(
     < window`` attend, or None) applies only with ``causal``.  Returns
     ``(out (B, S, D), cache)``; the cache is ``{"k", "v"}`` of ``(B,
     cache_len, KVH, dh)`` with the first T rows filled, or None without
-    ``return_cache``."""
+    ``return_cache``.
+
+    Under a TP context of the dense decoder (``partitioning.tp_layout``)
+    whose query heads divide over TP, each rank projects its query heads
+    and the KV heads they use, runs the kernel on those, multiplies by its
+    rows of ``wo`` and sums the result over the TP group.  Its cache is
+    its ``cache_specs`` block (``partitioning.kv_cache_split``): its KV
+    heads, or its block of the rows of every KV head."""
     b, s, _ = x.shape
     self_attn = kv_src is None
     kv_src = x if self_attn else kv_src
     t = kv_src.shape[1]
-    q, k, v = _project_qkv(p, x, kv_src, cfg)
+    lay = partitioning.tp_layout(cfg, ctx) if self_attn else None
+    rank = ctx.tp_index if lay is not None else 0
+    _, _, kv_heads = _rank_heads(cfg, lay, rank)
+    part = lay is not None and lay.heads  # this rank computes its heads only
+    tctx = ctx if part else None
+    x = parallel.tp_copy(x, tctx)
+    kv_src = x if self_attn else kv_src
+    q = _project_q(p, x, cfg, tctx)
+    k, v = _project_kv(p, kv_src, cfg, tctx, None if not part or lay.kv else kv_heads)
     if use_rope and self_attn:
         positions = torch.arange(s, dtype=torch.int32, device=x.device)[None, :]
         q = common.apply_rope(q, positions, cfg.rope_theta)
@@ -133,40 +197,83 @@ def attention_full(
         q, k, v, scale=_scale(cfg, q.shape[-1]), causal=causal,
         window=window if causal else None, softcap=cfg.attn_softcap,
     )
-    out = out.reshape(b, s, -1) @ p.wo
+    out = parallel.tp_reduce(out.reshape(b, s, -1) @ p.wo, tctx)
     if not return_cache:
         return out, None
     if t > cache_len:
         raise ValueError(f"a sequence of {t} tokens does not fit a cache of {cache_len}")
+    split = partitioning.kv_cache_split(cfg, ctx, cache_len) if lay is not None else None
+    lo, rows = 0, cache_len
+    if split == "seq":
+        rows = cache_len // lay.size
+        lo = rank * rows
+    hi = min(lo + rows, t)
+    if part and not lay.kv:  # k and v hold the rank's KV heads: project every one
+        k, v = _project_kv(p, kv_src[:, lo:hi], cfg)
+        if use_rope and self_attn:
+            positions = torch.arange(lo, hi, dtype=torch.int32, device=x.device)[None, :]
+            k = common.apply_rope(k, positions, cfg.rope_theta)
+    else:
+        k, v = k[:, lo:hi], v[:, lo:hi]
     kvh, dh = k.shape[2], k.shape[3]
-    kc = torch.zeros((b, cache_len, kvh, dh), dtype=k.dtype, device=x.device)
-    vc = torch.zeros((b, cache_len, kvh, dh), dtype=v.dtype, device=x.device)
-    kc[:, :t] = k
-    vc[:, :t] = v
+    kc = torch.zeros((b, rows, kvh, dh), dtype=k.dtype, device=x.device)
+    vc = torch.zeros((b, rows, kvh, dh), dtype=v.dtype, device=x.device)
+    kc[:, : max(hi - lo, 0)] = k
+    vc[:, : max(hi - lo, 0)] = v
     return out, {"k": kc, "v": vc}
 
 
 def attention_decode(p: Attention, x: torch.Tensor, cache: dict, pos: int, cfg: ModelConfig, *,
-                     window: int, use_rope: bool = True):
+                     window: int, use_rope: bool = True, ctx=None, kv_split: str | None = None):
     """One-token decode.  x: ``(B, 1, D)``; cache ``k``/``v``: ``(B, T, Kv,
     Dh)``, written in place at row ``pos`` clamped to the cache as
     ``lax.dynamic_update_slice`` clamps it; the mask keeps keys with
     ``k_pos <= pos`` and ``pos - k_pos < window``.  Returns ``(out (B, 1,
-    D), cache)``."""
+    D), cache)``.
+
+    Under a TP context of the dense decoder the cache is this rank's block
+    (``kv_split`` of ``partitioning.kv_cache_split``).  By KV heads
+    (``"heads"``): the rank attends its heads and sums its rows of ``wo``'s
+    product over TP.  By rows (``"seq"``): the one-token queries of every
+    head are gathered, the rank writes the new K and V only where ``pos``
+    falls in its block, every head's partial softmax over its block is
+    combined over TP by its log-sum-exp, and the rank keeps its heads for
+    its rows of ``wo``.  Whole (None): the rank attends its heads against
+    the KV heads they use."""
     b = x.shape[0]
+    lay = partitioning.tp_layout(cfg, ctx)
+    rank = ctx.tp_index if lay is not None else 0
+    h0, hl, kv_heads = _rank_heads(cfg, lay, rank)
+    part = lay is not None and lay.heads
+    if (kv_split == "heads") != (lay is not None and lay.kv):
+        raise ValueError(f"a cache split {kv_split!r} under the layout {lay}")
     q, k, v = _project_qkv(p, x, x, cfg)
     if use_rope:
         positions = torch.full((b, 1), pos, dtype=torch.int32, device=x.device)
         q = common.apply_rope(q, positions, cfg.rope_theta)
         k = common.apply_rope(k, positions, cfg.rope_theta)
     kc, vc = cache["k"], cache["v"]
-    t = kc.shape[1]
+    rows = kc.shape[1]
+    lo, t = (rank * rows, rows * lay.size) if kv_split == "seq" else (0, rows)
     row = min(max(int(pos), 0), t - 1)
-    kc[:, row : row + 1] = k.to(kc.dtype)
-    vc[:, row : row + 1] = v.to(vc.dtype)
-    kpos = torch.arange(t, dtype=torch.int32, device=x.device)
+    if lo <= row < lo + rows:
+        kc[:, row - lo : row - lo + 1] = k.to(kc.dtype)
+        vc[:, row - lo : row - lo + 1] = v.to(vc.dtype)
+    kpos = torch.arange(lo, lo + rows, dtype=torch.int32, device=x.device)
     mask = ((kpos <= pos) & (pos - kpos < window))[None, None, None, None, :]
-    out = _sdpa(q, kc, vc, mask, cfg) @ p.wo
+    if kv_split == "seq":
+        if part:
+            q = parallel.tp_gather(q, ctx, dim=2)
+        out = _sdpa_seq_split(q, kc, vc, mask, cfg, ctx)
+        if part:
+            dh = cfg.resolved_head_dim
+            out = out[..., h0 * dh : (h0 + hl) * dh]
+    elif part and not lay.kv:
+        used = slice(kv_heads.start, kv_heads.stop)
+        out = _sdpa(q, kc[:, :, used], vc[:, :, used], mask, cfg)
+    else:
+        out = _sdpa(q, kc, vc, mask, cfg)
+    out = parallel.tp_reduce(out @ p.wo, ctx if part else None)
     return out, {"k": kc, "v": vc}
 
 

@@ -13,6 +13,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch.models import parallel
+
 
 def dtype_of(name: str) -> torch.dtype:
     return {"float32": torch.float32, "bfloat16": torch.bfloat16, "float16": torch.float16}[
@@ -173,20 +175,35 @@ def grad_dtype_barrier(x: torch.Tensor) -> torch.Tensor:
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor, final_cap: float = 0.0,
-                  ctx=None):
+                  ctx=None, split_vocab: bool = False):
     """Token-mean cross entropy in float32; labels < 0 are masked out.
 
     Under a context whose ranks each hold their block of the rows
     (``ParallelContext.split``) it is this rank's summed token losses over
     the whole batch's unmasked count (summed over dp), so that the ranks'
-    values sum to the whole batch's token mean."""
+    values sum to the whole batch's token mean.  With ``split_vocab`` the
+    logits are this TP rank's block of the vocabulary's columns: the
+    maximum and the sum of the exponentials are taken over the TP group
+    and the gold logit comes from the rank that holds it, so the result is
+    the whole vocabulary's loss on every TP rank without gathering the
+    logits."""
     logits = logits.to(torch.float32)
     if final_cap:
         logits = softcap(logits, final_cap)
     mask = (labels >= 0).to(torch.float32)
     safe = torch.clamp(labels, min=0).long()
-    logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, safe[..., None])[..., 0]
+    if split_vocab:
+        vl = logits.shape[-1]
+        local = safe - ctx.tp_index * vl
+        own = (local >= 0) & (local < vl)
+        m = parallel.tp_max(logits.amax(dim=-1), ctx)
+        sumexp = parallel.tp_reduce(torch.exp(logits - m[..., None]).sum(dim=-1), ctx)
+        logz = m + torch.log(sumexp)
+        gold = torch.gather(logits, -1, local.clamp(0, vl - 1)[..., None])[..., 0]
+        gold = parallel.tp_reduce(torch.where(own, gold, 0.0), ctx)
+    else:
+        logz = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, safe[..., None])[..., 0]
     nll = (logz - gold) * mask
     count = mask.sum()
     if ctx is not None:

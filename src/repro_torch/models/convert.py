@@ -12,7 +12,10 @@ float32 leaves of a bfloat16 model, such as RWKV's ``w0`` and ``u`` and
 Mamba's ``a_log``, stay float32 on both sides).  :func:`train_state_from_jax`
 carries a whole JAX ``TrainState`` across the same way (parameters, AdamW's
 ``m``, ``v`` and ``step``, the balancer and the step), so that both packages
-train from one state.
+train from one state.  Under a parallel context :func:`params_from_jax`
+gives this rank's blocks of the leaves its tensor-parallel layout splits
+(``partitioning.take_blocks``), and :func:`whole_model` turns a rank's
+model back into whole leaves.
 """
 from __future__ import annotations
 
@@ -21,6 +24,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.care.slotted_sim import _resolve_device
+from repro_torch.models import partitioning
 from repro_torch.models.model import Model
 from repro_torch.models.partitioning import STACKED
 
@@ -54,12 +58,27 @@ def port_leaves(tree) -> dict[str, torch.Tensor]:
     return out
 
 
-def params_from_jax(tree, cfg: ModelConfig, device=None) -> Model:
+def params_from_jax(tree, cfg: ModelConfig, device=None, ctx=None) -> Model:
     """A :class:`Model` on ``device`` (None means the CUDA card) holding the
     values of the JAX parameter tree ``tree`` (nested dicts of numpy
-    arrays, as ``jax.tree.map(np.asarray, params)`` gives)."""
+    arrays, as ``jax.tree.map(np.asarray, params)`` gives); under a
+    context, this rank's blocks of them."""
     dev = _resolve_device(device)
-    leaves = port_leaves(tree)
+    return partitioning.take_blocks(_load(port_leaves(tree), cfg, dev), cfg, ctx)
+
+
+def whole_model(params: Model, cfg: ModelConfig, ctx=None) -> Model:
+    """A :class:`Model` of the whole leaves of a rank's ``params`` (its TP
+    blocks gathered over the TP group), on the same device; ``params``
+    itself when it holds no block."""
+    if not params.tp_specs:
+        return params
+    whole = _load(partitioning.whole_leaves(params, ctx), cfg, params.embed.device)
+    return whole.requires_grad_(params.embed.requires_grad)
+
+
+def _load(leaves: dict, cfg: ModelConfig, dev) -> Model:
+    """A :class:`Model` on ``dev`` holding ``{port name: tensor}``."""
     model = Model(cfg, device=dev)
     params = dict(model.named_parameters())
     if leaves.keys() != params.keys():

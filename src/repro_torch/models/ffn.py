@@ -30,7 +30,7 @@ from torch import nn
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
-from repro_torch.models import common, parallel
+from repro_torch.models import common, parallel, partitioning
 
 
 class DenseFFN(nn.Module):
@@ -47,12 +47,19 @@ class DenseFFN(nn.Module):
             self.w_gate = common.dense_init(generator, (d, f), pdt, device)
 
 
-def dense_ffn(p: DenseFFN, x: torch.Tensor, cfg: ModelConfig):
+def dense_ffn(p: DenseFFN, x: torch.Tensor, cfg: ModelConfig, ctx=None):
+    """The (GLU) FFN.  Under a TP context of the dense decoder whose hidden
+    units divide over TP (``partitioning.tp_layout``), ``p`` holds this
+    rank's columns of ``w_in`` / ``w_gate`` and rows of ``w_out``, and the
+    product is summed over the TP group."""
+    lay = partitioning.tp_layout(cfg, ctx)
+    tctx = ctx if lay is not None and lay.ffn else None
+    x = parallel.tp_copy(x, tctx)
     act = common.activation(cfg.act)
     h = act(x @ p.w_in)
     if cfg.glu:
         h = h * (x @ p.w_gate)
-    return h @ p.w_out
+    return parallel.tp_reduce(h @ p.w_out, tctx)
 
 
 class MoEFFN(nn.Module):

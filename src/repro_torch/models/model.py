@@ -20,6 +20,16 @@ tensors: for MLA ``{"ckv": (L, B, T, R), "k_rope": (L, B, T, dr)}`` plus
 n)`` (float32), ``"tm_shift"`` and ``"cm_shift"`` ``(L, B, D)``.
 :func:`decode_step` writes the new state into it in place.
 Entry points run on the CUDA card unless given ``device="cpu"``.
+
+Under a parallel context whose TP group has several ranks, a dense
+decoder (``partitioning.tp_layout``) holds this rank's blocks of the
+leaves ``partitioning.local_specs`` lists (``init_params(..., ctx=)``,
+``partitioning.take_blocks``; ``Model.tp_specs`` records them), computes
+its heads, hidden units and vocabulary columns, and keeps its
+``cache_specs`` block of the KV cache (the cache then carries
+``"kv_split"``, ``"heads"`` or ``"seq"``, from
+``partitioning.kv_cache_split``).  The logits of :func:`prefill` and
+:func:`decode_step` are gathered whole; training never gathers them.
 """
 from __future__ import annotations
 
@@ -30,7 +40,7 @@ from torch import nn
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.care.slotted_sim import _resolve_device
-from repro_torch.models import common
+from repro_torch.models import common, parallel, partitioning
 from repro_torch.models import transformer as tfm
 
 
@@ -90,15 +100,28 @@ class Model(nn.Module):
         self.layers = nn.ModuleList(blocks)
         if cfg.mtp:
             self.mtp = MTPHead(cfg, **kw)
+        self.tp_specs: dict = {}  # {JAX path: Spec} of the leaves held as blocks
 
 
-def init_params(generator: torch.Generator, cfg: ModelConfig, device=None) -> Model:
+def check_blocks(params: Model, cfg: ModelConfig, ctx) -> None:
+    """Raise unless ``params`` holds the blocks the context's layout asks
+    for (``partitioning.local_specs``)."""
+    want = partitioning.local_specs(cfg, ctx)
+    if params.tp_specs != want:
+        raise ValueError(
+            f"the parameters hold blocks of {sorted(params.tp_specs)}, the context's layout "
+            f"{sorted(want)}; take the rank's blocks with partitioning.take_blocks")
+
+
+def init_params(generator: torch.Generator, cfg: ModelConfig, device=None, ctx=None) -> Model:
     """Random parameters drawn from ``generator`` on ``device`` (None means
-    the CUDA card), each created in its own dtype on the device."""
+    the CUDA card), each created in its own dtype on the device; under a
+    context, this rank's blocks of them (every rank draws the whole leaves
+    from the same generator state)."""
     dev = _resolve_device(device)
     if generator.device.type != dev.type:
         raise ValueError(f"generator is on {generator.device}, parameters go to {dev}")
-    return Model(cfg, device=dev, generator=generator)
+    return partitioning.take_blocks(Model(cfg, device=dev, generator=generator), cfg, ctx)
 
 
 # --------------------------------------------------------------------------
@@ -106,9 +129,25 @@ def init_params(generator: torch.Generator, cfg: ModelConfig, device=None) -> Mo
 # --------------------------------------------------------------------------
 
 
-def embed_tokens(params: Model, tokens: torch.Tensor, cfg: ModelConfig):
+def _split_vocab(cfg: ModelConfig, ctx) -> bool:
+    """Whether each TP rank holds its block of the vocabulary."""
+    lay = partitioning.tp_layout(cfg, ctx)
+    return lay is not None and lay.vocab
+
+
+def embed_tokens(params: Model, tokens: torch.Tensor, cfg: ModelConfig, ctx=None):
+    """Token embeddings; under a TP context that splits the vocabulary each
+    rank looks up the ids in its rows (others zero) and the rows are summed
+    over the TP group."""
     cdt = common.dtype_of(cfg.compute_dtype)
-    x = params.embed[tokens].to(cdt)
+    if _split_vocab(cfg, ctx):
+        vl = params.embed.shape[0]
+        local = tokens - ctx.tp_index * vl
+        own = ((local >= 0) & (local < vl))[..., None]
+        rows = params.embed[local.clamp(0, vl - 1)]
+        x = parallel.tp_reduce(torch.where(own, rows, 0), ctx).to(cdt)
+    else:
+        x = params.embed[tokens].to(cdt)
     if cfg.embed_scale:
         x = x * torch.tensor(cfg.d_model**0.5, dtype=cdt, device=x.device)
     if cfg.family == "ssm":
@@ -116,7 +155,10 @@ def embed_tokens(params: Model, tokens: torch.Tensor, cfg: ModelConfig):
     return x
 
 
-def lm_head(params: Model, x: torch.Tensor, cfg: ModelConfig):
+def lm_head(params: Model, x: torch.Tensor, cfg: ModelConfig, ctx=None):
+    """Float32 logits; under a TP context that splits the vocabulary, this
+    rank's columns of them."""
+    x = parallel.tp_copy(x, ctx if _split_vocab(cfg, ctx) else None)
     w = params.embed.T if cfg.tie_embeddings else params.lm_head
     return (x @ w.to(x.dtype)).to(torch.float32)
 
@@ -135,9 +177,11 @@ def _windows(cfg: ModelConfig):
     return w
 
 
-def _logits(params: Model, x: torch.Tensor, cfg: ModelConfig):
+def _logits(params: Model, x: torch.Tensor, cfg: ModelConfig, ctx=None):
     x = tfm._norm(params.final_norm, x, cfg)
-    logits = lm_head(params, x, cfg)[:, 0, :]
+    logits = lm_head(params, x, cfg, ctx)[:, 0, :]
+    if _split_vocab(cfg, ctx):
+        logits = parallel.tp_gather(logits, ctx, dim=-1)
     if cfg.final_softcap:
         logits = common.softcap(logits, cfg.final_softcap)
     return logits
@@ -243,12 +287,14 @@ def train_loss(params: Model, batch: dict, cfg: ModelConfig, ctx=None,
     over dp to the mean."""
     if cfg.family == "audio":
         return _whisper_train_loss(params, batch, cfg, ctx)
+    check_blocks(params, cfg, ctx)
     tokens, labels = batch["tokens"], batch["labels"]
-    x = embed_tokens(params, tokens, cfg)
+    x = embed_tokens(params, tokens, cfg, ctx)
     x, counts = _run_train_stack(params, x, cfg, ctx, bias)
     h_final = x
     x = tfm._norm(params.final_norm, x, cfg)
-    loss = common.cross_entropy(lm_head(params, x, cfg), labels, cfg.final_softcap, ctx)
+    loss = common.cross_entropy(lm_head(params, x, cfg, ctx), labels, cfg.final_softcap, ctx,
+                                _split_vocab(cfg, ctx))
     aux = {"counts": counts, "loss_main": loss}
     if cfg.mtp:
         mtp = params.mtp
@@ -295,6 +341,7 @@ def prefill(params: Model, batch: dict, cfg: ModelConfig, ctx=None, cache_len: i
     tokens = batch["tokens"]
     cache_len = cache_len or tokens.shape[1]
     fam = cfg.family
+    check_blocks(params, cfg, ctx)
     if fam in ("ssm", "hybrid", "audio"):
         scan = []
         if fam == "audio":
@@ -315,7 +362,7 @@ def prefill(params: Model, batch: dict, cfg: ModelConfig, ctx=None, cache_len: i
                                        cache_len=cache_len)
                 scan.append(c)
         return _logits(params, x[:, -1:, :], cfg), {"scan": _stack(scan)}
-    x = embed_tokens(params, tokens, cfg)
+    x = embed_tokens(params, tokens, cfg, ctx)
     cache: dict = {}
     if cfg.moe and cfg.first_dense_layers:
         cache["head"] = {}
@@ -335,17 +382,22 @@ def prefill(params: Model, batch: dict, cfg: ModelConfig, ctx=None, cache_len: i
         )
         scan.append(c)
     cache["scan"] = _stack(scan)
-    return _logits(params, x[:, -1:, :], cfg), cache
+    split = partitioning.kv_cache_split(cfg, ctx, cache_len)
+    if split is not None:
+        cache["kv_split"] = split
+    return _logits(params, x[:, -1:, :], cfg, ctx), cache
 
 
 def init_decode_cache(params: Model, cfg: ModelConfig, batch: int, cache_len: int, ctx=None):
     """Zero cache for decode without a prefill.  ``batch`` is the global
     batch; under a context the cache holds this rank's rows of it (the dp
     entry of ``partitioning.cache_specs``: its block where they divide over
-    dp, else all of them; the TP entries stay logical)."""
+    dp, else all of them) and, for a dense decoder under TP, its block of
+    the KV heads or of the rows (``partitioning.kv_cache_split``)."""
     tfm.check_supported(cfg)
     if ctx is not None:
         batch = ctx.local_rows(batch)
+    split = partitioning.kv_cache_split(cfg, ctx, cache_len)
     cdt = common.dtype_of(cfg.compute_dtype)
     dev = params.embed.device
     l = num_scanned_layers(cfg)
@@ -360,8 +412,15 @@ def init_decode_cache(params: Model, cfg: ModelConfig, batch: int, cache_len: in
                          "tm_shift": zeros((l, batch, cfg.d_model)),
                          "cm_shift": zeros((l, batch, cfg.d_model))}}
     if not cfg.use_mla:
-        kv = (l, batch, cache_len, cfg.num_kv_heads, cfg.resolved_head_dim)
+        rows, heads = cache_len, cfg.num_kv_heads
+        if split == "seq":
+            rows //= ctx.tp_size
+        elif split == "heads":
+            heads //= ctx.tp_size
+        kv = (l, batch, rows, heads, cfg.resolved_head_dim)
         scan = {"k": zeros(kv), "v": zeros(kv)}
+        if split is not None:
+            return {"scan": scan, "kv_split": split}
         if fam == "hybrid":
             di = cfg.ssm_expand * cfg.d_model
             scan["ssm"] = zeros((l, batch, di, cfg.ssm_state), torch.float32)
@@ -429,7 +488,8 @@ def decode_step(params: Model, tokens: torch.Tensor, cache: dict, pos: int, cfg:
                                            pos=pos)
             _write_back(scan, l, new)
         return _logits(params, x, cfg), cache
-    x = embed_tokens(params, tokens[:, None], cfg)
+    check_blocks(params, cfg, ctx)
+    x = embed_tokens(params, tokens[:, None], cfg, ctx)
     if cfg.moe and cfg.first_dense_layers:
         for i in range(cfg.first_dense_layers):
             x, _, _ = tfm.lm_block_decode(
@@ -441,6 +501,7 @@ def decode_step(params: Model, tokens: torch.Tensor, cache: dict, pos: int, cfg:
     for l, (p, w, b) in enumerate(zip(params.layers, _windows(cfg), bias)):
         layer_cache = {name: t[l] for name, t in scan.items()}
         x, _, _ = tfm.lm_block_decode(
-            p, x, layer_cache, pos, cfg, ctx, window=int(w), bias=b, moe_layer=cfg.moe
+            p, x, layer_cache, pos, cfg, ctx, window=int(w), bias=b, moe_layer=cfg.moe,
+            kv_split=cache.get("kv_split"),
         )
-    return _logits(params, x, cfg), cache
+    return _logits(params, x, cfg, ctx), cache

@@ -8,15 +8,27 @@ block of the batch's rows (``partitioning.batch_specs``; the whole batch
 where its rows do not divide over dp, as GSPMD downgrades the spec), the
 loss is the whole batch's token mean (``common.cross_entropy`` sums the
 unmasked count over dp), and the train step sums each gradient over dp
-once.  Tensor parallelism is still logical: every rank holds whole
-parameters and computes every head and hidden unit of its rows, and the
-layouts that the hints ask GSPMD for have no eager counterpart, so
-:func:`hint` only applies the hints' rule (and checks a DTensor's layout
-against it).  The MoE layer is the port's manual region too
-(``models/ffn.py``): each rank takes its dispatcher's positions of its
-rows and its experts' slice of the weights, and tokens cross ranks with
-``all_to_all_single`` over the expert-parallel group; the autograd
-functions below carry the gradients back across the same groups.
+once.
+
+Tensor parallelism over ``model`` is eager and Megatron-style for the
+dense decoder families (``partitioning.tp_layout``): each rank of the TP
+group holds its blocks of the leaves the layout splits (whole query and
+KV heads, FFN hidden units, vocabulary rows and columns;
+``partitioning.local_specs``), computes only those, and sums the
+row-parallel products over the TP group where GSPMD inserts the same
+all-reduce for the reference.  The autograd functions :func:`tp_copy`
+(identity forward, all-reduce backward), :func:`tp_reduce` (all-reduce
+forward, identity backward) and :func:`tp_gather` (all-gather forward,
+this rank's block backward) carry it; none issues a collective over a
+group of one rank.  The other families keep whole parameters on every TP
+rank and compute every head and hidden unit of their rows; the layouts
+their hints ask GSPMD for have no eager counterpart yet, so :func:`hint`
+only checks a DTensor's layout against the hints' rule.  The MoE layer is
+the port's manual region too (``models/ffn.py``): each rank takes its
+dispatcher's positions of its rows and its experts' slice of the
+weights, and tokens cross ranks with ``all_to_all_single`` over the
+expert-parallel group; the autograd functions below carry the gradients
+back across the same groups.
 
 A context holds a ``torch.distributed.device_mesh.DeviceMesh`` with axes
 named ``("data", "model")`` and optionally ``"pod"`` first, or a
@@ -46,6 +58,10 @@ class Spec(tuple):
 
     def __repr__(self) -> str:
         return f"Spec{tuple.__repr__(self)}"
+
+    def __getnewargs__(self):
+        # Unpickled as Spec(*entries), not Spec(entries).
+        return tuple(self)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -112,6 +128,16 @@ class ParallelContext:
     @property
     def tp_size(self) -> int:
         return self.shape[self.tp_axis]
+
+    @property
+    def tp_split(self) -> bool:
+        """Whether the TP group has more than one rank."""
+        return self.tp_size > 1
+
+    @property
+    def tp_index(self) -> int:
+        """This rank's position in the TP group."""
+        return self.index(self.tp_axis)
 
     @property
     def grid_axes(self) -> tuple[str, ...]:
@@ -291,15 +317,22 @@ def choose_ep_axes(ctx_or_mesh, num_experts: int, dp_axes, tp_axis) -> tuple:
 # --------------------------------------------------------------------------
 
 
-def shard_index(spec, shape, ctx: ParallelContext) -> tuple:
-    """This rank's block of a tensor of ``shape`` laid out by ``spec``."""
+def shard_index(spec, shape, ctx: ParallelContext, coord: dict | None = None) -> tuple:
+    """This rank's block of a tensor of ``shape`` laid out by ``spec``; with
+    ``coord`` (``{axis: index}``, 0 for an axis it omits) the block of the
+    rank at those mesh coordinates."""
     idx = []
     for dim, entry in zip(shape, tuple(spec) + (None,) * (len(shape) - len(spec))):
         if entry is None:
             idx.append(slice(None))
             continue
         step = dim // ctx.size(entry)
-        i = ctx.index(entry)
+        if coord is None:
+            i = ctx.index(entry)
+        else:
+            i = 0
+            for a in _axes(entry):
+                i = i * ctx.size(a) + coord.get(a, 0)
         idx.append(slice(i * step, (i + 1) * step))
     return tuple(idx)
 
@@ -314,7 +347,7 @@ def gather(local: torch.Tensor, spec, ctx: ParallelContext) -> torch.Tensor:
 
 
 # --------------------------------------------------------------------------
-# collectives under autograd (the manual MoE region)
+# collectives under autograd (the manual MoE region, tensor parallelism)
 # --------------------------------------------------------------------------
 
 
@@ -393,6 +426,92 @@ class _Gather(torch.autograd.Function):
     @staticmethod
     def backward(fctx, g):
         return g[fctx.block].contiguous(), None, None, None
+
+
+class _TPCopy(torch.autograd.Function):
+    """Identity forward.  Every rank of the group feeds the same input to
+    its own block of the work, so the adjoint sums the blocks' gradients
+    over the group."""
+
+    @staticmethod
+    def forward(fctx, x, group):
+        fctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(fctx, g):
+        g = g.contiguous().clone()
+        dist.all_reduce(g, group=fctx.group)
+        return g, None
+
+
+class _TPReduce(torch.autograd.Function):
+    """The group's partial sums added (an all-reduce).  Every rank then
+    computes the same thing from the sum, so the adjoint is the identity."""
+
+    @staticmethod
+    def forward(fctx, x, group):
+        out = x.contiguous().clone()
+        dist.all_reduce(out, group=group)
+        return out
+
+    @staticmethod
+    def backward(fctx, g):
+        return g, None
+
+
+class _TPGather(torch.autograd.Function):
+    """The group's blocks concatenated on ``dim``, in rank order.  Every
+    rank then computes the same thing from the whole, so the adjoint is
+    this rank's block of the gradient."""
+
+    @staticmethod
+    def forward(fctx, x, group, dim: int):
+        fctx.dim = dim
+        fctx.n, fctx.me = dist.get_world_size(group), dist.get_rank(group)
+        parts = [torch.empty_like(x) for _ in range(fctx.n)]
+        dist.all_gather(parts, x.contiguous(), group=group)
+        return torch.cat(parts, dim=dim)
+
+    @staticmethod
+    def backward(fctx, g):
+        return g.chunk(fctx.n, dim=fctx.dim)[fctx.me].contiguous(), None, None
+
+
+def _tp_group(ctx: ParallelContext | None):
+    """The TP group of a context whose TP group has several ranks, else None."""
+    return ctx.group(ctx.tp_axis) if ctx is not None and ctx.tp_split else None
+
+
+def tp_copy(x: torch.Tensor, ctx: ParallelContext | None) -> torch.Tensor:
+    """``x`` as it is, its gradient summed over the TP group: the input of a
+    column-parallel product, or a whole parameter each rank uses part of."""
+    group = _tp_group(ctx)
+    return x if group is None else _TPCopy.apply(x, group)
+
+
+def tp_reduce(x: torch.Tensor, ctx: ParallelContext | None) -> torch.Tensor:
+    """``x`` summed over the TP group: the output of a row-parallel product."""
+    group = _tp_group(ctx)
+    return x if group is None else _TPReduce.apply(x, group)
+
+
+def tp_gather(x: torch.Tensor, ctx: ParallelContext | None, dim: int) -> torch.Tensor:
+    """The TP group's blocks of ``x`` concatenated on ``dim`` in rank order."""
+    group = _tp_group(ctx)
+    return x if group is None else _TPGather.apply(x, group, dim)
+
+
+def tp_max(x: torch.Tensor, ctx: ParallelContext | None) -> torch.Tensor:
+    """``x``'s elementwise maximum over the TP group, out of the graph (a
+    softmax's shift)."""
+    group = _tp_group(ctx)
+    x = x.detach()
+    if group is None:
+        return x
+    x = x.contiguous().clone()
+    dist.all_reduce(x, op=dist.ReduceOp.MAX, group=group)
+    return x
 
 
 def all_to_all(x: torch.Tensor, group) -> torch.Tensor:

@@ -21,12 +21,25 @@ stacks it (``layers/attn/wq`` is ``(L, D, H dh)``).  :func:`param_specs`
 and :func:`zero1_specs` return ``{JAX path: Spec}``; :func:`batch_specs`,
 :func:`cache_specs` and :func:`balancer_specs` return their input's
 structure with a spec in place of each tensor.
+
+A rank's eager layout under tensor parallelism (:func:`tp_layout`,
+:func:`local_specs`) differs from :func:`param_specs` by design.  GSPMD
+may split a flat dimension anywhere that divides, e.g. SmolLM-135M's
+``wq`` columns (9 heads of 64) over 16 ranks into blocks of 36 columns,
+0.56 of a head; eager code computes a head on one rank, so the eager
+layout splits only whole heads (query heads where they divide over TP,
+KV heads where those divide too) and keeps a leaf whole otherwise.  The
+numbers are the reference's either way; only which rank holds which
+columns differs.  The KV cache takes :func:`cache_specs` as it stands.
 """
 from __future__ import annotations
 
 import dataclasses
 
+import torch
+
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models import parallel
 from repro_torch.models.parallel import ParallelContext, divisible, mesh_shape, placements
 from repro_torch.models.parallel import Spec as P
 
@@ -93,7 +106,10 @@ def jax_param_paths(named: dict) -> dict[str, list]:
 
 def leaf_shapes(params) -> dict[str, tuple]:
     """``{JAX path: shape}`` of a ``Model`` (or ``{port name: tensor}``), a
-    stacked leaf with its leading layer axis."""
+    stacked leaf with its leading layer axis; ``{JAX path: shape}`` is
+    returned as it is."""
+    if isinstance(params, dict) and all(isinstance(v, tuple) for v in params.values()):
+        return params
     named = dict(params.named_parameters()) if hasattr(params, "named_parameters") else params
     shapes = {}
     for path, ts in jax_param_paths(named).items():
@@ -103,7 +119,8 @@ def leaf_shapes(params) -> dict[str, tuple]:
 
 
 def param_specs(abstract_params, cfg: ModelConfig, ctx: ParallelContext) -> dict[str, P]:
-    """``{JAX path: Spec}`` of a model's parameters."""
+    """``{JAX path: Spec}`` of a model's parameters (whole ones, or
+    ``{JAX path: whole shape}``; :func:`whole_shapes` of a rank's)."""
     tp = ctx.tp_axis
 
     def rule_for(keys, shape):
@@ -258,3 +275,167 @@ def to_shardings(spec_tree, mesh):
     if isinstance(spec_tree, P):
         return placements(spec_tree, mesh)
     return {k: to_shardings(v, mesh) for k, v in spec_tree.items()}
+
+
+# --------------------------------------------------------------------------
+# a rank's eager layout under tensor parallelism (the dense decoder)
+# --------------------------------------------------------------------------
+
+TP_FAMILIES = ("dense", "vlm")  # grouped-query attention + dense FFN, no MoE
+
+
+@dataclasses.dataclass(frozen=True)
+class TPLayout:
+    """What each rank of a TP group of ``size`` holds a block of."""
+
+    size: int
+    heads: bool  # query heads: wq's and bq's columns, wo's rows
+    kv: bool  # KV heads: wk's, wv's, bk's and bv's columns
+    ffn: bool  # hidden units: w_in's and w_gate's columns, w_out's rows
+    vocab: bool  # vocabulary: embed's rows, lm_head's columns
+
+
+def tp_layout(cfg: ModelConfig, ctx: ParallelContext | None) -> TPLayout | None:
+    """The dense decoder's layout over a TP group of several ranks, else
+    None (no context, one TP rank, or a family this layout does not split:
+    MLA, MoE, RWKV, Hymba and Whisper keep whole parameters).  KV heads
+    split where both head counts divide over TP; query heads where
+    ``num_heads`` does and, with the KV heads whole, each rank's query
+    heads use whole groups of KV heads or share one (every config's do);
+    a dimension that does not divide stays whole."""
+    if ctx is None or not ctx.tp_split or cfg.family not in TP_FAMILIES:
+        return None
+    if cfg.use_mla or cfg.moe:
+        return None
+    tp, h, kvh = ctx.tp_size, cfg.num_heads, cfg.num_kv_heads
+    kv = h % tp == 0 and kvh % tp == 0
+    hl, g = h // tp, h // kvh
+    heads = kv or (h % tp == 0 and (hl % g == 0 or g % hl == 0))
+    return TPLayout(size=tp, heads=heads, kv=kv, ffn=cfg.d_ff % tp == 0,
+                    vocab=cfg.vocab_size % tp == 0)
+
+
+def local_specs(cfg: ModelConfig, ctx: ParallelContext | None) -> dict[str, P]:
+    """``{JAX path: Spec}`` of the leaves a rank holds a block of
+    (:func:`tp_layout`); every leaf not listed is whole on every rank.
+
+    Unlike :func:`param_specs` it splits only whole heads: ``wq``, ``bq``
+    and ``wo``'s rows by query heads where ``num_heads % tp == 0`` (and
+    the KV heads they use are whole groups or one); ``wk``,
+    ``wv``, ``bk`` and ``bv`` by KV heads where ``num_kv_heads % tp == 0``
+    too (else whole, and a rank reads the KV heads its query heads use);
+    ``w_in`` / ``w_gate`` by columns and ``w_out`` by rows where ``d_ff %
+    tp == 0``; ``embed``'s rows and an untied ``lm_head``'s columns where
+    ``vocab_size % tp == 0``.  Norms, ``q_norm`` and ``k_norm`` stay whole."""
+    lay = tp_layout(cfg, ctx)
+    if lay is None:
+        return {}
+    tp = ctx.tp_axis
+    col, row, vec = P(None, None, tp), P(None, tp, None), P(None, tp)
+    out = {}
+    if lay.heads:
+        out.update({"layers/attn/wq": col, "layers/attn/wo": row})
+        if cfg.qkv_bias:
+            out["layers/attn/bq"] = vec
+    if lay.kv:
+        out.update({"layers/attn/wk": col, "layers/attn/wv": col})
+        if cfg.qkv_bias:
+            out.update({"layers/attn/bk": vec, "layers/attn/bv": vec})
+    if lay.ffn:
+        out.update({"layers/ffn/w_in": col, "layers/ffn/w_out": row})
+        if cfg.glu:
+            out["layers/ffn/w_gate"] = col
+    if lay.vocab:
+        out["embed"] = P(tp, None)
+        if not cfg.tie_embeddings:
+            out["lm_head"] = P(None, tp)
+    return out
+
+
+def port_specs(names, specs: dict[str, P]) -> dict[str, P]:
+    """``{port name: Spec of that tensor}`` of the names whose JAX leaf is in
+    ``specs`` (a stacked leaf's spec without its layer axis)."""
+    out = {}
+    for path, ns in jax_param_paths({n: n for n in names}).items():
+        if path in specs:
+            spec = specs[path]
+            for n in ns:
+                out[n] = P(*spec[1:]) if path.split("/", 1)[0] in STACKED else spec
+    return out
+
+
+def block_names(params) -> dict[str, P]:
+    """``{port name: Spec}`` of the parameters of which ``params`` (a
+    ``Model``) holds a block (:func:`take_blocks`)."""
+    return port_specs([n for n, _ in params.named_parameters()], getattr(params, "tp_specs", {}))
+
+
+def _set_param(module: torch.nn.Module, name: str, t: torch.Tensor) -> None:
+    *path, leaf = name.split(".")
+    for key in path:
+        module = getattr(module, key)
+    old = getattr(module, leaf)
+    setattr(module, leaf, torch.nn.Parameter(t, requires_grad=old.requires_grad))
+
+
+@torch.no_grad()
+def take_blocks(params, cfg: ModelConfig, ctx: ParallelContext | None):
+    """``params`` (a ``Model`` of whole leaves) with each leaf of
+    :func:`local_specs` replaced by this rank's block of it, in place;
+    records the layout as ``params.tp_specs``.  Returns ``params``."""
+    specs = local_specs(cfg, ctx)
+    for name, spec in port_specs([n for n, _ in params.named_parameters()], specs).items():
+        t = params.get_parameter(name)
+        _set_param(params, name, t[parallel.shard_index(spec, t.shape, ctx)].clone())
+    params.tp_specs = specs
+    return params
+
+
+@torch.no_grad()
+def whole_leaves(params, ctx: ParallelContext | None) -> dict[str, torch.Tensor]:
+    """``{port name: whole tensor}`` of a rank's ``Model``: each block
+    gathered over the TP group, every other parameter as it is."""
+    blocks = block_names(params)
+    return {n: parallel.gather(t.detach(), blocks[n], ctx) if n in blocks else t.detach()
+            for n, t in params.named_parameters()}
+
+
+def whole_shapes(params, ctx: ParallelContext | None) -> dict[str, tuple]:
+    """``{JAX path: whole shape}`` of a rank's ``Model``."""
+    shapes = leaf_shapes(params)
+    specs = getattr(params, "tp_specs", {})
+    out = {}
+    for path, shape in shapes.items():
+        entries = tuple(specs.get(path, ())) + (None,) * len(shape)
+        out[path] = tuple(d * ctx.size(e) if e is not None else d
+                          for d, e in zip(shape, entries))
+    return out
+
+
+def moment_specs(params, cfg: ModelConfig, ctx: ParallelContext) -> dict[str, P]:
+    """ZeRO-1 specs of a rank's ``Model``'s moments, relative to the tensor
+    it holds: :func:`zero1_specs` of the whole leaves, less the TP entry of
+    each leaf the rank holds a block of (its moments are its dp block of
+    that block, gathered over dp only)."""
+    shapes = whole_shapes(params, ctx)
+    z = zero1_specs(param_specs(shapes, cfg, ctx), shapes, ctx)
+    local = getattr(params, "tp_specs", {})
+    out = {}
+    for path, spec in z.items():
+        if path in local:
+            lent = tuple(local[path]) + (None,) * (len(spec) - len(local[path]))
+            spec = P(*(None if le is not None else e for e, le in zip(spec, lent)))
+        out[path] = spec
+    return out
+
+
+def kv_cache_split(cfg: ModelConfig, ctx: ParallelContext | None, cache_len: int) -> str | None:
+    """How a rank of the TP group holds the dense decoder's KV cache of
+    ``cache_len`` rows (:func:`cache_specs`' TP entry): ``"heads"`` (its
+    block of the KV heads), ``"seq"`` (its block of the rows, every KV
+    head) or None (whole, or no TP split)."""
+    if tp_layout(cfg, ctx) is None:
+        return None
+    k = torch.empty((1, 1, cache_len, cfg.num_kv_heads, 1), device="meta")
+    spec = cache_specs({"scan": {"k": k}}, ctx)["scan"]["k"]
+    return "seq" if spec[2] == ctx.tp_axis else "heads" if spec[3] == ctx.tp_axis else None

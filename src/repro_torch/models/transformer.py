@@ -175,7 +175,7 @@ def _ffn_part(p: LMBlock, x, cfg: ModelConfig, ctx, bias, moe_layer: bool):
     if moe_layer:
         f, counts = ffn.moe_ffn(p.moe, h, bias, cfg, ctx)
     else:
-        f = ffn.dense_ffn(p.ffn, h, cfg)
+        f = ffn.dense_ffn(p.ffn, h, cfg, ctx)
         counts = _zero_counts(cfg, ctx, x.device)
     if cfg.post_norms:
         f = _norm(p.ln2_post, f, cfg)
@@ -195,7 +195,10 @@ def lm_block_full(
     cache_len: int = 0,
 ):
     """Full-sequence block.  Returns ``(x, cache, counts)``.  ``window``
-    (a Python int) masks GQA attention; MLA attends globally."""
+    (a Python int) masks GQA attention; MLA attends globally.  Under a TP
+    context of the dense decoder the attention and the FFN compute this
+    rank's heads and hidden units (``partitioning.tp_layout``) and the
+    cache is its block."""
     h = _norm(p.ln1, x, cfg)
     if cfg.use_mla:
         a, cache = mla.mla_full(
@@ -203,7 +206,8 @@ def lm_block_full(
         )
     else:
         a, cache = attention.attention_full(
-            p.attn, h, cfg, window=window, return_cache=return_cache, cache_len=cache_len
+            p.attn, h, cfg, window=window, return_cache=return_cache, cache_len=cache_len,
+            ctx=ctx,
         )
     if cfg.post_norms:
         a = _norm(p.ln1_post, a, cfg)
@@ -218,15 +222,19 @@ def _zero_counts(cfg: ModelConfig, ctx, device):
 
 
 def lm_block_decode(
-    p: LMBlock, x, cache, pos, cfg: ModelConfig, ctx=None, *, window, bias, moe_layer
+    p: LMBlock, x, cache, pos, cfg: ModelConfig, ctx=None, *, window, bias, moe_layer,
+    kv_split: str | None = None,
 ):
-    """One-token block against its cache (updated in place).  Returns
-    ``(x, cache, counts)``."""
+    """One-token block against its cache (updated in place; under a TP
+    context this rank's block, ``kv_split`` as
+    ``partitioning.kv_cache_split`` gave it).  Returns ``(x, cache,
+    counts)``."""
     h = _norm(p.ln1, x, cfg)
     if cfg.use_mla:
         a, cache = mla.mla_decode(p.attn, h, cache, pos, cfg)
     else:
-        a, cache = attention.attention_decode(p.attn, h, cache, pos, cfg, window=window)
+        a, cache = attention.attention_decode(p.attn, h, cache, pos, cfg, window=window,
+                                              ctx=ctx, kv_split=kv_split)
     if cfg.post_norms:
         a = _norm(p.ln1_post, a, cfg)
     x, counts = _ffn_part(p, x + a, cfg, ctx, bias, moe_layer)

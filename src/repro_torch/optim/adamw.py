@@ -9,12 +9,18 @@ new parameters and moments in place under ``torch.no_grad`` (the JAX
 package returns new arrays).
 
 ZeRO-1: under a parallel context the moments follow
-``models/partitioning.zero1_specs``, keyed by the JAX leaves' paths (a
+``models/partitioning.moment_specs``, keyed by the JAX leaves' paths (a
 scanned layer's leaf stacked on its layer axis): each rank keeps only its
 block of each leaf's moments, updates that block of the parameter from
 the whole gradient, and gathers the parameter whole again (where GSPMD
-inserts the same all-gather in the reference).  The arithmetic is the
-same elementwise, so the result equals the unsharded update.
+inserts the same all-gather in the reference).  A leaf the rank holds a
+TP block of (``partitioning.take_blocks``) has moments of its dp block of
+that block, gathered over dp only.  The arithmetic is the same
+elementwise, so the result equals the unsharded update; the clipping norm
+sums the TP blocks' squares over the TP group and counts every whole
+leaf once.  :func:`gather_state` gives whole moments, one per parameter
+of the whole model, on every rank; a checkpoint gathers them one leaf at
+a time onto rank 0 instead (``ckpt.checkpoint``).
 """
 from __future__ import annotations
 
@@ -24,7 +30,7 @@ import math
 import torch
 
 from repro_torch.models import parallel
-from repro_torch.models.partitioning import STACKED, jax_param_paths
+from repro_torch.models.partitioning import STACKED, block_names, jax_param_paths
 
 
 @dataclasses.dataclass(frozen=True)
@@ -80,27 +86,21 @@ def init(params: torch.nn.Module, ctx=None, specs: dict | None = None) -> OptSta
 
 
 def gather_state(state: OptState, params: torch.nn.Module, ctx) -> OptState:
-    """The whole moments, one per parameter, of a ZeRO-1 state (a state
-    without specs is returned as it is)."""
+    """The whole moments, one per parameter of the whole model, of a ZeRO-1
+    state over a rank's ``params`` (each TP block's moments gathered over
+    TP too); a state without specs is returned as it is."""
     if state.specs is None:
         return state
+    tp = block_names(params)
     m, v = {}, {}
     for path, (names, stacked) in _leaves(params).items():
         for whole, blocks in ((m, state.m), (v, state.v)):
             t = parallel.gather(blocks[path], state.specs[path], ctx)
             for i, n in enumerate(names):
                 whole[n] = t[i] if stacked else t
+                if n in tp:
+                    whole[n] = parallel.gather(whole[n], tp[n], ctx)
     return OptState(m=m, v=v, step=state.step)
-
-
-def shard_state(state: OptState, params: torch.nn.Module, ctx, specs: dict) -> OptState:
-    """This rank's ZeRO-1 blocks of a state of whole moments."""
-    m, v = {}, {}
-    for path, (names, stacked) in _leaves(params).items():
-        for blocks, whole in ((m, state.m), (v, state.v)):
-            t = _whole([whole[n] for n in names], stacked)
-            blocks[path] = t[parallel.shard_index(specs[path], t.shape, ctx)].clone()
-    return OptState(m=m, v=v, step=state.step, specs=specs)
 
 
 def schedule(step: torch.Tensor, cfg: OptimConfig) -> torch.Tensor:
@@ -115,18 +115,31 @@ def schedule(step: torch.Tensor, cfg: OptimConfig) -> torch.Tensor:
     return cfg.lr * warm * frac
 
 
-def global_norm(tensors) -> torch.Tensor:
+def _sum_squares(tensors):
     total = None
     for g in tensors:
         sq = torch.sum(torch.square(g.to(torch.float32)))
         total = sq if total is None else total + sq
+    return total
+
+
+def global_norm(tensors, split=(), ctx=None) -> torch.Tensor:
+    """The norm of ``tensors`` and of the TP blocks ``split`` (this rank's
+    blocks, their squares summed over the TP group of ``ctx``)."""
+    total = _sum_squares(tensors)
+    if split:
+        part = parallel.tp_reduce(_sum_squares(split), ctx)
+        total = part if total is None else total + part
     return torch.sqrt(total)
 
 
-def clip_by_global_norm(grads: dict, max_norm: float):
+def clip_by_global_norm(grads: dict, max_norm: float, split: set | frozenset = frozenset(),
+                        ctx=None):
     """``(clipped grads, norm)``: each gradient times ``min(1, max_norm /
-    (norm + 1e-9))`` in its own dtype."""
-    norm = global_norm(grads.values())
+    (norm + 1e-9))`` in its own dtype.  ``split``: the names of the
+    gradients that are this rank's TP blocks (summed over TP in the norm)."""
+    norm = global_norm([g for n, g in grads.items() if n not in split],
+                       [g for n, g in grads.items() if n in split], ctx)
     scale = torch.clamp(max_norm / (norm + 1e-9), max=1.0)
     return {n: g * scale.to(g.dtype) for n, g in grads.items()}, norm
 
@@ -138,7 +151,7 @@ def update(grads: dict, state: OptState, params: torch.nn.Module, cfg: OptimConf
     tensors on the device.  A ZeRO-1 state (``state.specs``) needs the
     ``ctx`` its specs were made for, and the whole gradients on every
     rank."""
-    grads, gnorm = clip_by_global_norm(grads, cfg.clip_norm)
+    grads, gnorm = clip_by_global_norm(grads, cfg.clip_norm, set(block_names(params)), ctx)
     step = state.step + 1
     lr = schedule(step, cfg)
     b1, b2 = cfg.betas

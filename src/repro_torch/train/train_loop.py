@@ -47,10 +47,11 @@ def init_state(generator: torch.Generator, cfg: ModelConfig, ctx=None, *,
     """A fresh state on ``device`` (None means the CUDA card): parameters
     drawn from ``generator`` (on the same device), zero moments, a zero
     ``(L_scan, E)`` balancer for a MoE model.  Under a parallel context
-    the balancer has one row per dispatcher, ``(L_scan, DP, TP, E)``, and
-    each rank keeps its ZeRO-1 block of the moments
-    (``partitioning.zero1_specs``)."""
-    params = trainable(model.init_params(generator, cfg, device))
+    the balancer has one row per dispatcher, ``(L_scan, DP, TP, E)``, a
+    dense decoder's parameters are this rank's TP blocks
+    (``partitioning.take_blocks``), and each rank keeps its ZeRO-1 block of
+    the moments (``partitioning.moment_specs``)."""
+    params = trainable(model.init_params(generator, cfg, device, ctx))
     dev = params.embed.device
     bal = None
     if cfg.moe:
@@ -59,8 +60,7 @@ def init_state(generator: torch.Generator, cfg: ModelConfig, ctx=None, *,
             dispatchers=() if ctx is None else (ctx.dp_size, ctx.tp_size))
     specs = None
     if ctx is not None:
-        specs = partitioning.zero1_specs(
-            partitioning.param_specs(params, cfg, ctx), params, ctx)
+        specs = partitioning.moment_specs(params, cfg, ctx)
     return TrainState(
         params=params,
         opt=adamw.init(params, ctx, specs),
@@ -97,7 +97,11 @@ def make_train_step(
     dp group once, and AdamW clips by the summed gradients' norm and
     updates this rank's ZeRO-1 block of each parameter, then gathers the
     parameter whole; the MoE layers exchange tokens over the mesh
-    (``models/ffn.py``).  ``loss`` is the same on every rank."""
+    (``models/ffn.py``).  Under tensor parallelism a dense decoder's split
+    leaf's gradient is the rank's block of the whole one and a whole leaf's
+    is already equal on every TP rank, so the sum stays over dp only;
+    AdamW's norm sums the split leaves' squares over TP.  ``loss`` is the
+    same on every rank."""
 
     def step_fn(state: TrainState, batch: dict):
         params = dict(state.params.named_parameters())

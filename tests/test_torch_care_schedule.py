@@ -29,6 +29,20 @@ SLOTS = 40
 SHAPES = [(1, 4, 1), (5, 8, 2), (23, 4, 1), (64, 8, 16)]
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_cpu_thread():
+    """Run this file's per-slot loops on one intra-op thread.
+
+    Each operation of ``care_route_ref``'s loop over ``(D, K)`` tensors is
+    too small to gain from intra-op threads, which only add a barrier per
+    operation; when other processes share the cores, the threads spin at
+    each barrier and the main-path shape takes many times longer."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _eq(a, b):
     np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
 

@@ -8,8 +8,9 @@ cell of each kind and one MoE cell (DeepSeek-V2 decode) trace on the
 256-rank mesh and write ``ok`` records that ``roofline.cell_roofline``
 reads, with no kernel built or launched; a train record's collectives hold
 the gradients' all-reduce over dp.  A rank of the 256-rank mesh (dp 16)
-traces its 1/16 of the reduced SmolLM's step: its FLOPs are the one-rank
-trace of the whole batch's over 16.
+traces its 1/16 of the reduced SmolLM's step: its FLOPs are the same
+rank's trace of the whole batch's over 16, below the one-device trace's
+over 16 by the work its TP group divides.
 """
 import dataclasses
 import os
@@ -24,7 +25,9 @@ from repro.configs import get_shape as jget_shape
 from repro_torch.configs import cells, get_shape
 from repro_torch.kernels import _build, ops
 from repro_torch.launch import dryrun, model_stats, roofline
-from repro_torch.launch.mesh import make_context
+from repro_torch.launch.mesh import make_context, make_production_mesh
+from repro_torch.models import model, partitioning
+from repro_torch.models.parallel import ParallelContext
 from repro_torch.optim import adamw
 from repro_torch.train import train_loop
 
@@ -101,9 +104,15 @@ def test_cell_writes_an_ok_record(arch, shape, tmp_path, no_kernel):
     assert rec["memory"]["argument_size_in_bytes"] > 0 and rec["memory"]["temp_size_in_bytes"] > 0
     if dryrun.SHAPES[shape].kind == "train":  # ZeRO-1: AdamW gathers each parameter
         assert rec["collectives"]["all-gather"] > 0
-        # Each rank holds its rows: the step sums every (bf16) gradient over dp.
-        assert rec["collectives"]["all-reduce"] >= 2 * model_stats.count_params(
-            dryrun.get_config(arch))
+        # Each rank holds its rows: the step sums every (bf16) gradient it
+        # holds (its TP blocks, every other leaf whole) over dp.
+        cfg = dryrun.get_config(arch)
+        split = partitioning.port_specs(
+            [n for n, _ in model.Model(cfg, device="meta").named_parameters()],
+            partitioning.local_specs(cfg, ParallelContext(mesh=make_production_mesh())))
+        held = sum(t.numel() // (16 if n in split else 1)
+                   for n, t in model.Model(cfg, device="meta").named_parameters())
+        assert rec["collectives_by_group"]["dp"]["all-reduce"] >= 2 * held
     if arch.startswith("deepseek"):  # the decode batch takes the one-device MoE path
         assert rec["memory"]["argument_size_in_bytes"] > 2 * model_stats.count_params(
             dryrun.get_config(arch))
@@ -136,29 +145,38 @@ def test_a_failed_cell_is_recorded(tmp_path, monkeypatch):
 @pytest.mark.parametrize("micro", [1, 2])
 def test_a_rank_traces_its_share_of_the_batch(micro, no_kernel):
     """The reduced SmolLM's train step on a rank's rows of a 32 x 64 batch at
-    the 256-rank mesh (dp 16) counts 1/16 of the FLOPs of one rank's trace
-    of the whole batch without a context, within 0.1%, and all-reduces the
-    gradients (float32 here) over dp."""
+    the 256-rank mesh (dp 16, TP 16) counts 1/16 of the FLOPs of the same
+    rank's trace of the whole batch (``ctx.with_whole_batch()``: its TP
+    blocks, every row), within 0.1%, less than 1/16 of one device's trace
+    of the whole batch (the FFN's hidden units and the vocabulary divide
+    over TP; its 4 heads stay whole on 16 ranks), and all-reduces its
+    gradients (float32 here) over dp only where it holds its rows."""
     cfg = dataclasses.replace(dryrun.get_config("smollm-135m").reduced(), remat=True)
     rows, seq = 32, 64
 
-    def trace(ctx):
+    def trace(ctx, groups=None):
         with FakeTensorMode(allow_non_fake_inputs=True):
             dev = dryrun.trace_device()
             state = dryrun.fake_train_state(cfg, ctx, dev)
             batch = {k: torch.empty((rows, seq), dtype=torch.int32, device=dev)
                      for k in ("tokens", "labels")}
-            if ctx is not None:
+            if ctx is not None and ctx.split:
                 batch = dryrun.rank_rows(batch, ctx, micro)
                 assert batch["tokens"].shape == (rows // 16, seq)
             step = train_loop.make_train_step(cfg, adamw.OptimConfig(), ctx, microbatches=micro)
-            return dryrun.trace_step(lambda: step(state, batch), (state, batch))
+            return dryrun.trace_step(lambda: step(state, batch), (state, batch), groups=groups)
 
-    whole = trace(None)
+    one = trace(None)
     with dryrun.fake_world(False) as mesh:
         ctx = make_context(mesh, 0).for_batch(rows, micro)
-        assert ctx.split and ctx.dp_size == 16
-        rank = trace(ctx)
+        assert ctx.split and ctx.dp_size == 16 and ctx.tp_size == 16
+        rank = trace(ctx, dryrun.rank_groups(ctx))
+        whole = trace(ctx.with_whole_batch(), dryrun.rank_groups(ctx))
     assert rank["flops"] == pytest.approx(whole["flops"] / 16, rel=1e-3)
-    assert whole["analysis"]["collectives"]["total"] == 0
-    assert rank["analysis"]["collectives"]["all-reduce"] >= 4 * model_stats.count_params(cfg)
+    assert rank["flops"] < 0.9 * one["flops"] / 16
+    assert one["analysis"]["collectives"]["total"] == 0
+    assert "all-reduce" not in whole["analysis"]["collectives_by_group"]["dp"]
+    by_group = rank["analysis"]["collectives_by_group"]
+    held = sum(t.numel() for t in dryrun.fake_params(cfg, ctx, "meta").parameters())
+    assert by_group["dp"]["all-reduce"] >= 4 * held
+    assert by_group["tp"]["all-reduce"] > 0

@@ -1,0 +1,375 @@
+"""The port's tensor parallelism over ``model`` for the dense decoder
+families: each rank of the TP group holds its blocks of the split leaves,
+computes its heads, hidden units and vocabulary columns, and sums the
+row-parallel products over the group.
+
+Three gloo jobs (``tests/torch_ranks.py``, job ``"tp"``) run on meshes
+(1, 2), (2, 2) and (1, 4) while a subprocess of the JAX package for each
+mesh runs its cases over 4 forced host devices; all start together and
+the tests read their results.  The reference's compiles take most of the
+time (~5 s a case), so XLA compiles them without its expensive backend
+passes (``REF_XLA_FLAGS``: 0.6 of the CPU time; the arithmetic is the
+same float32 program).  The cases are the reduced SmolLM-135M, Gemma2-9B (softcap,
+local and global windows), Qwen1.5-4B (QKV bias) and Qwen3-0.6B (qk-norm):
+4 query heads over 2 KV heads, so (1, 2) and (2, 2) split both head
+counts and (1, 4) splits the query heads only (each rank reads the KV
+head its query head uses) with the KV cache split by rows.  One more
+case at (1, 4), SmolLM with 6 heads over 3 KV heads (SmolLM-135M's 9 over
+3 on 16 ranks, cut to size), keeps its attention whole on every rank, and
+a cache of 18 rows at (1, 4) keeps the cache whole (``cache_specs``
+downgrades it).
+
+* *Against the JAX reference.* Two train steps on two global batches of
+  4 x 16 whose labels are masked unevenly, each rank on its dp block of
+  the rows.  The reference jits ``train_loop.make_train_step`` under an
+  ``AxisType.Auto`` mesh of the same shape, its parameters laid out by
+  its ``param_specs`` and its moments by ``zero1_specs``, the batch
+  ``P("data")``.  Loss, ``grad_norm`` and ``lr`` of each step, every
+  parameter and AdamW moment gathered whole after the second, within
+  1e-4 of each leaf's largest magnitude; every rank's whole state equal
+  to rank 0's.
+* *Against the port's own runs.* A prefill and two greedy decode steps,
+  and a decode step from a zero cache, under the context equal the
+  rank's rows of the ``ctx=None`` logits within 1e-5.
+* *Layout.* Each rank holds ``1/tp`` of every leaf
+  ``partitioning.local_specs`` splits and the whole of every other leaf;
+  the KV cache from a prefill and from ``init_decode_cache`` is the
+  rank's ``cache_specs`` block of the whole cache.
+* *Checkpoints* under (2, 2): the trained state saved whole from rank 0
+  and restored into a fresh state's blocks gives every block back bit
+  for bit.
+* *The families this slice does not split* (Hymba, RWKV6, Whisper) hold
+  no block under (1, 2), and one train step equals ``ctx=None``'s within
+  1e-5 (DeepSeek-V2's MoE and MLA under TP: ``tests/test_torch_moe_ep.py``).
+* *One TP rank* (a (1, 1) context in this process): the primitives
+  return their input and a dense decoder's prefill, decode and train
+  step issue no collective.
+"""
+import dataclasses
+import math
+import os
+import pickle
+import subprocess
+import sys
+from pathlib import Path
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import get_config as jget
+from repro.train import train_loop as jloop
+from repro_torch.configs import get_config as tget
+from repro_torch.launch import op_analysis
+from repro_torch.launch.mesh import make_production_mesh
+from repro_torch.models import convert, model, parallel, partitioning
+from repro_torch.models.parallel import MeshShape, ParallelContext
+from repro_torch.optim import adamw
+from repro_torch.train import train_loop
+from torch_ranks import one_rank
+
+ROOT = Path(__file__).resolve().parents[1]
+WORKER = Path(__file__).resolve().parent / "torch_ranks.py"
+TIMEOUT_S = 240  # all jobs and the reference together
+JAX_TOL, OWN_TOL = 1e-4, 1e-5
+OPT = dict(lr=1e-2, warmup_steps=1, total_steps=4, eps=1e-4)
+B, S = 4, 16
+CACHE = S + 4  # divides over TP 2 and 4
+MESHES = {"1x2": (1, 2), "2x2": (2, 2), "1x4": (1, 4)}
+ARCHS = {"smollm": "smollm-135m", "gemma2": "gemma2-9b", "qwen15": "qwen1.5-4b",
+         "qwen3": "qwen3-0.6b"}
+CASES = {  # name: arch, mesh, config changes, cache rows
+    **{f"{short}-{mesh}": (arch, mesh, {}, CACHE) for short, arch in ARCHS.items()
+       for mesh in MESHES},
+    "smollm-6h-1x4": ("smollm-135m", "1x4", dict(num_heads=6, num_kv_heads=3), CACHE),
+    "gemma2-cache18-1x4": ("gemma2-9b", "1x4", {}, S + 2),
+}
+CKPT_CASE = "qwen3-2x2"
+WHOLE_FAMILIES = ("hymba-1.5b", "rwkv6-1.6b", "whisper-small")  # under (1, 2)
+# The cache's rows do not enter a train step: that case's reference is
+# gemma2-1x4's.
+SAME_STEP = {"gemma2-cache18-1x4": "gemma2-1x4"}
+REF_XLA_FLAGS = ("--xla_force_host_platform_device_count=4 --xla_backend_optimization_level=0 "
+                 "--xla_llvm_disable_expensive_passes=true")
+
+_REFERENCE = r'''
+import dataclasses, math, pickle, sys
+import numpy as np
+import jax
+from jax.sharding import AxisType, NamedSharding, PartitionSpec as P
+from repro.configs import get_config
+from repro.launch.mesh import make_context
+from repro.models import partitioning
+from repro.optim import adamw
+from repro.train import train_loop
+
+cases = pickle.loads(open(sys.argv[1], "rb").read())
+out = {}
+for name, c in cases.items():
+    cfg = dataclasses.replace(get_config(c["arch"]).reduced(), **c["replace"])
+    mesh = jax.make_mesh(c["mesh"], ("data", "model"), axis_types=(AxisType.Auto,) * 2,
+                         devices=jax.devices()[:math.prod(c["mesh"])])
+    ctx = make_context(mesh, 0)
+    state = train_loop.init_state(jax.random.key(0), cfg, ctx)
+    pspecs = partitioning.param_specs(state.params, cfg, ctx)
+    zspecs = partitioning.zero1_specs(pspecs, state.params, ctx)
+    rep = NamedSharding(mesh, P())
+    opt = adamw.OptState(m=jax.device_put(state.opt.m, partitioning.to_shardings(zspecs, mesh)),
+                         v=jax.device_put(state.opt.v, partitioning.to_shardings(zspecs, mesh)),
+                         step=jax.device_put(state.opt.step, rep))
+    state = train_loop.TrainState(
+        params=jax.device_put(state.params, partitioning.to_shardings(pspecs, mesh)), opt=opt,
+        balancer=None, step=jax.device_put(state.step, rep))
+    step = jax.jit(train_loop.make_train_step(cfg, adamw.OptimConfig(**c["opt"]), ctx))
+    metrics = []
+    for batch in c["batches"]:
+        rows = {k: jax.device_put(v, NamedSharding(mesh, P("data"))) for k, v in batch.items()}
+        state, m = step(state, rows)
+        metrics.append({k: np.asarray(v) for k, v in m.items()})
+    out[name] = {"metrics": metrics, "state": jax.tree_util.tree_map(np.asarray, state)}
+open(sys.argv[2], "wb").write(pickle.dumps(out))
+'''
+
+
+def _batches(vocab: int) -> list[dict]:
+    """Two global batches; the first rows lose more labels than the last."""
+    rng = np.random.default_rng(7)
+    out = []
+    for _ in range(2):
+        tok = rng.integers(0, vocab, (B, S)).astype(np.int32)
+        lab = np.roll(tok, -1, 1)
+        lab[0, :9] = -1
+        lab[1, ::3] = -1
+        lab[B - 1, 5:7] = -1
+        out.append({"tokens": tok, "labels": lab})
+    return out
+
+
+def _configs(arch: str, replace: dict):
+    return (dataclasses.replace(jget(arch).reduced(), **replace),
+            dataclasses.replace(tget(arch).reduced(), **replace))
+
+
+def _jobs() -> tuple[dict, dict]:
+    """Each mesh's reference cases and gloo job."""
+    ref, jobs = {m: {} for m in MESHES}, {m: {} for m in MESHES}
+    opt = adamw.OptimConfig(**OPT)
+    trees = {}
+    for name, (arch, mesh, replace, cache_len) in CASES.items():
+        jcfg, tcfg = _configs(arch, replace)
+        batches = _batches(tcfg.vocab_size)
+        key = (arch, tuple(replace.items()))
+        if key not in trees:
+            trees[key] = jax.tree.map(np.asarray, jloop.init_state(jax.random.key(0), jcfg).params)
+        tree = trees[key]
+        if name not in SAME_STEP:
+            ref[mesh][name] = dict(arch=arch, replace=replace, mesh=MESHES[mesh], opt=OPT,
+                                   batches=batches)
+        jobs[mesh][name] = dict(cfg=tcfg, tree=tree, opt=opt, cache_len=cache_len,
+                                ckpt=name == CKPT_CASE,
+                                batches=[{k: torch.from_numpy(v) for k, v in b.items()}
+                                         for b in batches])
+    for arch in WHOLE_FAMILIES:
+        cfg = tget(arch).reduced()
+        batch = {k: torch.from_numpy(v) for k, v in _batches(cfg.vocab_size)[0].items()}
+        if cfg.family == "audio":
+            rng = np.random.default_rng(11)
+            batch["frames"] = torch.from_numpy(
+                rng.standard_normal((B, cfg.encoder_seq, cfg.d_model)).astype(np.float32))
+        jobs["1x2"][arch] = dict(cfg=cfg, batch=batch, opt=opt)
+    return ref, jobs
+
+
+def _env(**extra) -> dict:
+    return {**os.environ, "PYTHONPATH": str(ROOT / "src"), "OMP_NUM_THREADS": "1", **extra}
+
+
+@pytest.fixture(scope="module")
+def runs(tmp_path_factory):
+    """``{"jax": {case: ...}, mesh: [rank's results, ...]}``: every job and
+    the reference started together, each rank a process."""
+    work = tmp_path_factory.mktemp("tp")
+    ref, jobs = _jobs()
+    procs, logs = [], []
+
+    def start(argv, log, env):
+        logs.append(log)
+        with open(log, "wb") as f:
+            procs.append(subprocess.Popen(argv, env=env, cwd=ROOT, stdout=f,
+                                          stderr=subprocess.STDOUT))
+
+    for mesh, cases in ref.items():
+        (work / f"ref_in_{mesh}.pkl").write_bytes(pickle.dumps(cases))
+        start([sys.executable, "-c", _REFERENCE, str(work / f"ref_in_{mesh}.pkl"),
+               str(work / f"ref_{mesh}.pkl")], work / f"ref_{mesh}.log",
+              _env(JAX_PLATFORMS="cpu", XLA_FLAGS=REF_XLA_FLAGS))
+    for mesh, cases in jobs.items():
+        d = work / mesh
+        d.mkdir()
+        world = math.prod(MESHES[mesh])
+        torch.save(dict(kind="tp", mesh=MESHES[mesh], axes=("data", "model"), cases=cases),
+                   d / "job.pt")
+        for r in range(world):
+            start([sys.executable, str(WORKER), str(r), str(world), str(d)], d / f"rank{r}.log",
+                  _env())
+    try:
+        for p in procs:
+            p.wait(timeout=TIMEOUT_S)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for p, log in zip(procs, logs):
+        assert p.returncode == 0, f"{log} exit {p.returncode}:\n{log.read_text()[-4000:]}"
+    out = {"jax": {}}
+    for mesh in ref:
+        out["jax"].update(pickle.loads((work / f"ref_{mesh}.pkl").read_bytes()))
+    for mesh in jobs:
+        out[mesh] = [torch.load(work / mesh / f"out{r}.pt", weights_only=False)
+                     for r in range(math.prod(MESHES[mesh]))]
+    return out
+
+
+def _close(got: torch.Tensor, want, tol: float, label: str) -> None:
+    w = np.asarray(want, dtype=np.float64)
+    scale = max(float(np.abs(w).max()), 1e-30)
+    np.testing.assert_allclose(got.detach().double().numpy() / scale, w / scale, rtol=tol,
+                               atol=tol, err_msg=label)
+
+
+def _rank_rows(mesh: str, rank: int) -> slice:
+    dp, tp = MESHES[mesh]
+    i = rank // tp
+    return slice(i * B // dp, (i + 1) * B // dp)
+
+
+def _ctx(mesh: str) -> ParallelContext:
+    return ParallelContext(mesh=MeshShape(MESHES[mesh], ("data", "model")))
+
+
+@pytest.mark.parametrize("case", CASES)
+def test_tp_step_equals_the_jax_mesh_step(runs, case):
+    arch, mesh, replace, _ = CASES[case]
+    _, tcfg = _configs(arch, replace)
+    ref = runs["jax"][SAME_STEP.get(case, case)]
+    want = convert.train_state_from_jax(ref["state"], tcfg, "cpu")
+    want = {"params": dict(want.params.named_parameters()), "m": want.opt.m, "v": want.opt.v}
+    outs = [o["cases"][case] for o in runs[mesh]]
+    for r, got in enumerate(outs):
+        for i, (gm, wm) in enumerate(zip(got["metrics"], ref["metrics"])):
+            for k in ("loss", "grad_norm", "lr"):
+                _close(gm[k], wm[k], JAX_TOL, f"rank {r} step {i} {k}")
+        for part in ("params", "m", "v"):
+            assert got[part].keys() == want[part].keys()
+            for n, t in want[part].items():
+                _close(got[part][n], t.detach().numpy(), JAX_TOL, f"rank {r} {part} {n}")
+                assert torch.equal(got[part][n], outs[0][part][n]), (r, part, n)
+
+
+@pytest.mark.parametrize("case", CASES)
+def test_serving_equals_ctx_none(runs, case):
+    _, mesh, _, _ = CASES[case]
+    for r, o in enumerate(runs[mesh]):
+        res = o["cases"][case]
+        rows = _rank_rows(mesh, r)
+        assert res["ctx_serve"].shape[1] == B // MESHES[mesh][0]
+        _close(res["ctx_serve"], res["none_serve"][:, rows].numpy(), OWN_TOL, f"rank {r} serve")
+        _close(res["ctx_zero"], res["none_zero"][rows].numpy(), OWN_TOL, f"rank {r} zero cache")
+
+
+@pytest.mark.parametrize("case", CASES)
+def test_each_rank_holds_its_blocks(runs, case):
+    arch, mesh, replace, cache_len = CASES[case]
+    _, tcfg = _configs(arch, replace)
+    dp, tp = MESHES[mesh]
+    specs = partitioning.local_specs(tcfg, _ctx(mesh))
+    lay = partitioning.tp_layout(tcfg, _ctx(mesh))
+    assert ("layers/attn/wq" in specs) == lay.heads == (tcfg.num_heads % tp == 0)
+    assert ("layers/attn/wk" in specs) == lay.kv
+    assert {"layers/ffn/w_in", "layers/ffn/w_out", "embed"} <= specs.keys()
+    split = set(partitioning.port_specs(list(runs[mesh][0]["cases"][case]["blocks"]), specs))
+    for o in runs[mesh]:
+        res = o["cases"][case]
+        assert res["tp_specs"] == specs
+        for n, (local, whole) in res["blocks"].items():
+            assert math.prod(local) * (tp if n in split else 1) == math.prod(whole), n
+        # The cache: the dp rows and the cache_specs block of the whole one.
+        kv = (tcfg.num_layers, B, cache_len, tcfg.num_kv_heads, tcfg.resolved_head_dim)
+        cspec = partitioning.cache_specs({"scan": {"k": torch.empty(kv, device="meta")}},
+                                         _ctx(mesh))["scan"]["k"]
+        want = tuple(d if e is None else d // _ctx(mesh).size(e) for d, e in zip(kv, cspec))
+        split_kind = "seq" if cspec[2] == "model" else "heads" if cspec[3] == "model" else None
+        assert o["cases"][case]["ctx_cache"] == (split_kind, want)
+        assert o["cases"][case]["ctx_zero_cache"] == (split_kind, want)
+        assert o["cases"][case]["none_cache"] == (None, kv)
+
+
+def test_the_cases_cover_every_cache_and_head_layout():
+    kinds = set()
+    for arch, mesh, replace, cache_len in CASES.values():
+        _, tcfg = _configs(arch, replace)
+        lay = partitioning.tp_layout(tcfg, _ctx(mesh))
+        kinds.add((lay.heads, lay.kv, partitioning.kv_cache_split(tcfg, _ctx(mesh), cache_len)))
+    assert kinds == {(True, True, "heads"), (True, False, "seq"), (False, False, "seq"),
+                     (True, False, None)}
+
+
+def test_checkpoint_round_trip_restores_every_block(runs):
+    assert all(o["cases"][CKPT_CASE]["ckpt_written"] for o in runs["2x2"])
+    assert all(o["cases"][CKPT_CASE]["ckpt_same"] for o in runs["2x2"])
+
+
+@pytest.mark.parametrize("arch", ["smollm-135m", "gemma2-9b", "qwen1.5-4b", "qwen3-0.6b",
+                                  "chameleon-34b", "deepseek-v2-236b", "hymba-1.5b",
+                                  "rwkv6-1.6b", "whisper-small"])
+def test_production_layout(arch):
+    """On the 16-wide ``model`` axis: SmolLM's 9 heads and Qwen1.5's 20 stay
+    whole, Gemma2's and Qwen3's 16 query heads split with their 8 KV heads
+    whole and the cache split by rows, Chameleon's 64 over 8 the same; the
+    FFN and the vocabulary split wherever they divide; the other families
+    hold no block."""
+    cfg = tget(arch)
+    ctx = ParallelContext(mesh=make_production_mesh())
+    lay = partitioning.tp_layout(cfg, ctx)
+    if cfg.family not in partitioning.TP_FAMILIES:
+        assert lay is None and partitioning.local_specs(cfg, ctx) == {}
+        assert partitioning.kv_cache_split(cfg, ctx, 32768) is None
+        return
+    assert lay.heads == (cfg.num_heads % 16 == 0) and not lay.kv
+    assert lay.ffn and lay.vocab
+    assert partitioning.kv_cache_split(cfg, ctx, 32768) == "seq"
+
+
+def test_one_tp_rank_issues_no_collective(tmp_path):
+    cfg = tget("gemma2-9b").reduced()
+    tok = torch.from_numpy(_batches(cfg.vocab_size)[0]["tokens"]).long()
+    batch = {"tokens": tok, "labels": torch.roll(tok, -1, 1)}
+    with one_rank(tmp_path / "store") as ctx:
+        x = torch.ones(2, 3, requires_grad=True)
+        assert parallel.tp_copy(x, ctx) is x and parallel.tp_reduce(x, ctx) is x
+        assert parallel.tp_gather(x, ctx, 1) is x and torch.equal(parallel.tp_max(x, ctx), x)
+        assert partitioning.tp_layout(cfg, ctx) is None
+        state = train_loop.init_state(torch.Generator().manual_seed(0), cfg, ctx, device="cpu")
+        step = train_loop.make_train_step(cfg, adamw.OptimConfig(**OPT), ctx)
+        with op_analysis.OpRecorder() as rec:
+            with torch.no_grad():
+                logits, cache = model.prefill(state.params, batch, cfg, ctx, cache_len=CACHE)
+                model.decode_step(state.params, logits.argmax(-1), cache, S, cfg, ctx)
+            step(state, batch)
+        assert rec.n_coll == 0
+        assert "kv_split" not in cache and state.params.tp_specs == {}
+
+
+@pytest.mark.parametrize("arch", WHOLE_FAMILIES)
+def test_families_not_split_keep_whole_leaves(runs, arch):
+    for r, o in enumerate(runs["1x2"]):
+        res = o["cases"][arch]
+        assert res["ctx"]["tp_specs"] == {} == res["none"]["tp_specs"]
+        for k in ("loss", "grad_norm"):
+            _close(res["ctx"]["metrics"][k], res["none"]["metrics"][k].numpy(), OWN_TOL,
+                   f"rank {r} {k}")
+        for n, t in res["none"]["params"].items():
+            assert res["ctx"]["params"][n].shape == t.shape, n
+            _close(res["ctx"]["params"][n], t.numpy(), OWN_TOL, f"rank {r} {n}")

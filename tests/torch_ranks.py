@@ -22,23 +22,35 @@ parallel context, runs the job and writes its results to
   global batches, microbatches), train steps and serving under the
   context's views of the batch: ``"split"`` (``ctx.for_batch``: this
   rank's rows where they divide over dp), ``"whole"`` (every rank holds
-  the whole batch) and ``"none"`` (no context); see :func:`_dp_case`.
+  the whole batch) and ``"none"`` (no context); see :func:`_dp_case`;
+* ``"tp"``: for each of the job's cases (a dense config, the JAX
+  package's initial parameters, global batches), tensor parallelism over
+  ``model``: the rank's blocks of the parameters, two train steps under
+  the context, the state gathered whole, a prefill and two decode steps
+  and a decode from a zero cache against ``ctx=None``, and a checkpoint
+  saved under the context (each leaf gathered onto rank 0, which writes
+  it) and restored into a fresh state's blocks; see
+  :func:`_tp_case`; and for a family the layout does not split, one train
+  step under the context and without one (:func:`_tp_whole_case`).
 
 :func:`one_rank` gives a test a context on a (1, 1) mesh in its own
 process (a world-size-1 gloo group).
 """
 import contextlib
 import dataclasses
+import json
 import sys
 from pathlib import Path
 
+import numpy as np
 import torch
 import torch.distributed as dist
 from torch.distributed.device_mesh import init_device_mesh
 from torch.distributed.tensor import Shard, distribute_tensor
 
+from repro_torch.ckpt import checkpoint
 from repro_torch.launch import mesh as tmesh
-from repro_torch.models import ffn, model, parallel
+from repro_torch.models import convert, ffn, model, parallel, partitioning
 from repro_torch.optim import adamw
 from repro_torch.train import train_loop
 
@@ -203,13 +215,120 @@ def _dp(job, ctx):
             "whole_rows": ctx.for_batch(ctx.dp_size + 1).take_rows({"t": rows})["t"]}
 
 
+def _tp_state(params, cfg, c) -> train_loop.TrainState:
+    """A train state over a rank's ``params`` (fresh moments)."""
+    params = train_loop.trainable(params)
+    specs = None if c is None else partitioning.moment_specs(params, cfg, c)
+    return train_loop.TrainState(params=params, opt=adamw.init(params, c, specs), balancer=None,
+                                 step=torch.zeros((), dtype=torch.int32))
+
+
+def _tp_case(case, ctx, work: Path) -> dict:
+    """One case of a ``"tp"`` job.  ``case["tree"]``: the JAX package's
+    parameters (numpy); ``case["batches"]``: global batches.  Returns the
+    shapes of the blocks this rank holds and of their whole leaves; the
+    metrics of one train step a batch under the context and the state
+    gathered whole; this rank's rows of the logits of a prefill (cache of
+    ``case["cache_len"]``) and two greedy decode steps, under the context
+    and without one, with the cache's ``kv_split`` and shapes; a decode
+    step from a zero cache both ways; with ``case["ckpt"]``, whether the
+    checkpoint saved under the context is rank 0's alone and equals a
+    whole state's, and whether restoring it into a fresh state's blocks
+    gives the trained state's blocks back bit for bit."""
+    cfg = case["cfg"]
+    batches = case["batches"]
+    rows = batches[0]["tokens"].shape[0]
+    c = ctx.for_batch(rows)
+    out = {}
+    state = _tp_state(convert.params_from_jax(case["tree"], cfg, "cpu", c), cfg, c)
+    whole = convert.params_from_jax(case["tree"], cfg, "cpu")
+    out["blocks"] = {n: (tuple(t.shape), tuple(whole.get_parameter(n).shape))
+                     for n, t in state.params.named_parameters()}
+    out["tp_specs"] = dict(state.params.tp_specs)
+    mine = [c.take_rows(b) for b in batches]
+    with torch.no_grad():
+        for name, cc, p, first in (("ctx", c, state.params, mine[0]),
+                                   ("none", None, whole, batches[0])):
+            logits, cache = model.prefill(p, {"tokens": first["tokens"]}, cfg, cc,
+                                          cache_len=case["cache_len"])
+            served = [logits]
+            for i in range(2):
+                logits, cache = model.decode_step(p, served[-1].argmax(-1), cache,
+                                                  first["tokens"].shape[1] + i, cfg, cc)
+                served.append(logits)
+            out[f"{name}_serve"] = torch.stack(served)
+            out[f"{name}_cache"] = (cache.get("kv_split"), tuple(cache["scan"]["k"].shape))
+            zero = model.init_decode_cache(p, cfg, rows, case["cache_len"], cc)
+            out[f"{name}_zero_cache"] = (zero.get("kv_split"), tuple(zero["scan"]["k"].shape))
+            out[f"{name}_zero"] = model.decode_step(p, first["tokens"][:, 0], zero, 3, cfg, cc)[0]
+    step = train_loop.make_train_step(cfg, case["opt"], c)
+    out["metrics"] = []
+    for b in mine:
+        state, metrics = step(state, b)
+        out["metrics"].append({k: v.detach().clone() for k, v in metrics.items()})
+    full = dataclasses.replace(state, params=convert.whole_model(state.params, cfg, c),
+                               opt=adamw.gather_state(state.opt, state.params, c))
+    out["params"] = {n: t.detach().clone() for n, t in full.params.named_parameters()}
+    out["m"], out["v"] = full.opt.m, full.opt.v
+    if case.get("ckpt"):
+        directory = work / "ckpt"
+        written = checkpoint.save(state, directory, 2, ctx=c)
+        out["ckpt_written"] = (written is not None) == (dist.get_rank() == 0)
+        if written is not None:  # the file a whole state's save writes
+            want, dtypes = checkpoint.flatten(full)
+            data = np.load(written / "arrays.npz")
+            manifest = json.loads((written / "manifest.json").read_text())["arrays"]
+            out["ckpt_written"] &= (sorted(data.files) == sorted(want) and all(
+                np.array_equal(data[k], a) and manifest[k]["dtype"] == dtypes[k]
+                for k, a in want.items()))
+        dist.barrier()
+        fresh = _tp_state(model.init_params(torch.Generator().manual_seed(5), cfg, "cpu", c),
+                          cfg, c)
+        fresh, at = checkpoint.restore(fresh, directory, ctx=c)
+        same = at == 2 and int(fresh.step) == int(state.step) == 2
+        for n, t in state.params.named_parameters():
+            same &= torch.equal(t, fresh.params.get_parameter(n))
+        for part in ("m", "v"):
+            for k, t in getattr(state.opt, part).items():
+                same &= torch.equal(t, getattr(fresh.opt, part)[k])
+        out["ckpt_same"] = same
+    return out
+
+
+def _tp_whole_case(case, ctx) -> dict:
+    """A family ``tp_layout`` does not split: the blocks it holds (none),
+    and the metrics and parameters of one train step from the same seed on
+    the same batch under the context (this rank's rows) and without one."""
+    cfg, batch = case["cfg"], case["batch"]
+    c = tmesh.make_context(ctx.mesh, cfg.n_routed_experts if cfg.moe else 0).for_batch(
+        batch["tokens"].shape[0])
+    out = {}
+    for name, cc in (("ctx", c), ("none", None)):
+        state = train_loop.init_state(torch.Generator().manual_seed(0), cfg, cc, device="cpu")
+        step = train_loop.make_train_step(cfg, case["opt"], cc)
+        state, metrics = step(state, batch if cc is None else cc.take_rows(batch))
+        out[name] = {"metrics": {k: v.detach().clone() for k, v in metrics.items()},
+                     "params": {n: t.detach().clone() for n, t in state.params.named_parameters()},
+                     "tp_specs": dict(state.params.tp_specs)}
+    return out
+
+
+def _tp(job, ctx, work: Path) -> dict:
+    cases = {name: _tp_case(case, ctx, work) if "tree" in case else _tp_whole_case(case, ctx)
+             for name, case in job["cases"].items()}
+    return {"cases": cases, "tp": ctx.index(ctx.tp_axis)}
+
+
 def main(rank: int, world: int, work: Path) -> None:
     job = torch.load(work / "job.pt", weights_only=False)
     tmesh.init_ranks("cpu", rank=rank, world_size=world, init_method=f"file://{work / 'store'}")
     try:
         dmesh = init_device_mesh("cpu", job["mesh"], mesh_dim_names=job["axes"])
         ctx = tmesh.make_context(dmesh, job["cfg"].n_routed_experts if "cfg" in job else 0)
-        out = {"moe": _moe, "model": _model, "dp": _dp}[job["kind"]](job, ctx)
+        if job["kind"] == "tp":
+            out = _tp(job, ctx, work)
+        else:
+            out = {"moe": _moe, "model": _model, "dp": _dp}[job["kind"]](job, ctx)
         out["ctx"] = {"ep_axes": ctx.ep_axes, "fsdp_axis": ctx.fsdp_axis,
                       "grid": ctx.index(ctx.grid_axes), "dp": ctx.index(ctx.dp_axes)}
         torch.save(out, work / f"out{rank}.pt")
