@@ -337,9 +337,18 @@ own failure):
    ``flash_attention_bwd``), no collective issued.  Then decode's
    log-sum-exp softmax of a row-split cache (``attention._sdpa_seq_split``
    over a group of one) against the plain softmax at Gemma2-9B's global
-   layer.  Expert and tensor
-   parallelism across ranks (``ep`` or ``tp > 1``) need more than one
-   card: the CPU tests run them over gloo ranks.
+   layer.  Then the MoE family's split arithmetic at published width,
+   the ranks simulated in this process through the functions they call:
+   DeepSeek-V2's absorbed MLA decode on a cache of 2 x 8192 rows in 4 row
+   blocks (each block's scores and partial softmax, combined by
+   log-sum-exp in float32) against the plain ``mla_decode``, and one MoE
+   layer's 160 experts in 16 blocks of 10 (``ffn._moe_local`` on each
+   block's weights: the whole batch routed, its experts' buffers only),
+   the shares of ``y`` on 128 decode tokens added, against the whole
+   layer (~7.5 GB of bf16 weights), each within 1e-2 of the largest
+   magnitude.  Expert and tensor parallelism across ranks (``ep`` or
+   ``tp > 1``) need more than one card: the CPU tests run them over gloo
+   ranks.
 11. The dry run against the card (``launch/dryrun.py``).  Phase 9's
    SmolLM-135M train step (8 x 2048, full width and depth, bf16, no
    context) traced on fake CUDA tensors (no kernel launched), then run for
@@ -351,12 +360,12 @@ own failure):
    and the step's roofline share (6ND over the peak times the step).
    Then ``smollm-135m / train_4k``, ``deepseek-v2-236b / decode_32k`` and
    ``gemma2-9b / decode_32k`` on the 256-rank production mesh (a fake
-   process group; each rank its dp block of the rows and a dense decoder's
-   TP blocks), with their records' totals, collective bytes by group (dp,
-   TP) and trace seconds: SmolLM's FLOPs a rank at most 9.15e13 beside the
-   reference chip's 7.817e13, and each decode cache 1/16 of the whole
-   batch's (DeepSeek-V2, rows over dp) or 1/256 (Gemma2-9B, rows over dp
-   and the sequence over TP).
+   process group; each rank its dp block of the rows and its TP and
+   expert blocks), with their records' totals, collective bytes by group
+   (dp, TP, EP) and trace seconds: SmolLM's FLOPs a rank at most 9.15e13
+   beside the reference chip's 7.817e13; each decode cache 1/256 of the
+   whole batch's (rows over dp, the sequence over TP); a DeepSeek-V2
+   decode rank's arguments at most 6.5e9 B and its FLOPs at most 1.0e12.
 12. Print the kernels line (launch counts from the main paths, parity,
    times and bounds; ``serve_slots`` also carries phase 3b's stream-mode
    launches, ms a chunk, bound, plain time and error under ``stream_*``;
@@ -3470,6 +3479,10 @@ def _parallel_phase(dev, times: dict) -> dict:
         dense = _parallel_dense(dev, dmesh)
     finally:
         dist.destroy_process_group()
+    # (e) the MoE family's split arithmetic at published width, with the
+    # ranks simulated in this process through the functions they call.
+    _mla_row_blocks(dev)
+    _expert_blocks(dev)
     times["parallel_phase_s"] = time.perf_counter() - t_phase
     print(f"phase 10: {times['parallel_phase_s']:.1f} s")
     return {"moe": launches, "dense": dense}
@@ -3581,6 +3594,103 @@ def _seq_split_softmax(dev) -> None:
           f"{SEQ_SPLIT_TOL})")
 
 
+MLA_BLOCKS = (2, 8192, 4, 6000)  # batch, cache rows, row blocks, decode position
+MLA_BLOCKS_TOL = 1e-2  # of the largest magnitude: the plain path rounds its probabilities to bf16
+EXPERT_BLOCKS = (128, 16)  # decode tokens, expert blocks (160 / 16 = 10 experts a rank)
+EXPERT_BLOCKS_TOL = 1e-2  # of the largest magnitude: bf16 partial sums added in another order
+
+
+def _mla_row_blocks(dev) -> None:
+    """DeepSeek-V2's absorbed MLA decode (published width: 128 heads, R
+    512, bf16) on a cache of MLA_BLOCKS' rows cut into row blocks, as the
+    TP ranks of a row-split cache hold it: each block's scores
+    (``mla.absorbed_scores``) against the largest maximum of any block,
+    its partial softmax (``mla.partial_softmax``), the sums added and
+    divided in float32 (the ranks' log-sum-exp combine), then ``W_uv`` and
+    ``wo`` (``mla.decode_out``); against the plain ``mla.mla_decode`` on
+    the whole cache.  The position leaves the last block masked."""
+    from repro_torch.models import mla
+
+    cfg = _moe_config()
+    b, rows, nblk, pos = MLA_BLOCKS
+    g = torch.Generator(device=dev).manual_seed(0)
+    p = mla.MLA(cfg, device=dev, generator=g)
+    x = torch.randn((b, 1, cfg.d_model), generator=g, device=dev).to(torch.bfloat16)
+    cache = {"ckv": torch.randn((b, rows, cfg.kv_lora_rank), generator=g, device=dev),
+             "k_rope": torch.randn((b, rows, cfg.qk_rope_head_dim), generator=g, device=dev)}
+    cache = {k: v.to(torch.bfloat16) for k, v in cache.items()}
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        want, _ = mla.mla_decode(p, x, {k: v.clone() for k, v in cache.items()}, pos, cfg)
+        q_eff, q_rope, ckv_t, kr_t = mla.decode_queries(p, x, pos, cfg)
+        ckv, kr = cache["ckv"], cache["k_rope"]
+        ckv[:, pos], kr[:, pos] = ckv_t[:, 0], kr_t[:, 0]
+        blk = rows // nblk
+        cuts = [slice(i * blk, (i + 1) * blk) for i in range(nblk)]
+        kpos = torch.arange(rows, dtype=torch.int32, device=dev)
+        scores = [mla.absorbed_scores(q_eff, q_rope, ckv[:, c], kr[:, c], kpos[c], pos, cfg)
+                  for c in cuts]
+        m = torch.stack([sc.amax(dim=-1, keepdim=True) for sc in scores]).amax(dim=0)
+        parts = [mla.partial_softmax(sc, ckv[:, c], m) for sc, c in zip(scores, cuts)]
+        den = sum(d for d, _ in parts)
+        num = sum(n for _, n in parts)
+        got = mla.decode_out(p, (num / den.permute(0, 2, 1)[..., None]).to(x.dtype), cfg)
+    torch.cuda.synchronize()
+    err = _scaled_err(got, want)
+    assert got.shape == want.shape and bool(torch.isfinite(got).all()), got.shape
+    assert err <= MLA_BLOCKS_TOL, err
+    print(f"phase 10 {cfg.name}'s absorbed MLA decode ({cfg.num_heads} heads, R "
+          f"{cfg.kv_lora_rank}, bf16) on {b} x {rows} cache rows in {nblk} row blocks, "
+          f"position {pos}, combined by log-sum-exp in float32, against the plain decode on "
+          f"the whole cache, on the card: largest error / largest magnitude {err:.3g} "
+          f"(tolerance {MLA_BLOCKS_TOL}); {time.perf_counter() - t0:.2f} s")
+    del p, cache, got, want
+    torch.cuda.empty_cache()
+
+
+def _expert_blocks(dev) -> None:
+    """One DeepSeek-V2 MoE layer at published width (160 experts of 5120 x
+    1536, bf16, ~7.5 GB) on EXPERT_BLOCKS' decode tokens: each block of
+    experts' share of ``y`` (``ffn._moe_local`` on the block's weights,
+    ``first`` its first expert: the whole batch routed, only its experts'
+    buffers filled), the shares added as the EP group's all-reduce adds
+    them, against ``_moe_local`` on the whole layer; every block's counts
+    equal the whole layer's."""
+    import types
+
+    from repro_torch.models import ffn
+
+    cfg = _moe_config()
+    t, nblk = EXPERT_BLOCKS
+    e = cfg.n_routed_experts
+    g = torch.Generator(device=dev).manual_seed(0)
+    p = ffn.MoEFFN(cfg, device=dev, generator=g)
+    x = torch.randn((t, cfg.d_model), generator=g, device=dev).to(torch.bfloat16)
+    bias = 0.1 * torch.randn((e,), generator=g, device=dev)
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        want, counts = ffn._moe_local(x, bias, p, cfg)
+        got = torch.zeros(want.shape, dtype=torch.float32, device=dev)
+        el = e // nblk
+        for j in range(nblk):
+            rows = slice(j * el, (j + 1) * el)
+            blk = types.SimpleNamespace(gate=p.gate, w_in=p.w_in[rows], w_gate_h=p.w_gate_h[rows],
+                                        w_out=p.w_out[rows])
+            part, c = ffn._moe_local(x, bias, blk, cfg, first=j * el)
+            assert torch.equal(c, counts), f"block {j}: counts differ"
+            got += part.float()
+    torch.cuda.synchronize()
+    err = _scaled_err(got.to(want.dtype), want)
+    assert bool(torch.isfinite(got).all()) and err <= EXPERT_BLOCKS_TOL, err
+    print(f"phase 10 {cfg.name}'s MoE layer ({e} experts of {cfg.d_model} x {cfg.moe_d_ff}, "
+          f"top-{cfg.moe_top_k}, bf16) on {t} decode tokens as {nblk} expert blocks of {el}, "
+          f"each block's share of y added, against the whole layer, on the card: counts equal, "
+          f"largest error / largest magnitude {err:.3g} (tolerance {EXPERT_BLOCKS_TOL}); "
+          f"{time.perf_counter() - t0:.2f} s")
+    del p, x, got, want
+    torch.cuda.empty_cache()
+
+
 DRYRUN_CELLS = (("smollm-135m", "train_4k"), ("deepseek-v2-236b", "decode_32k"),
                 ("gemma2-9b", "decode_32k"))
 # FLOPs a rank of smollm-135m / train_4k / pod16x16: with every rank
@@ -3596,6 +3706,11 @@ REFERENCE_TRAIN_FLOPS = 7.817e13
 # heads do not divide over 16 ranks, so each rank computes the whole
 # attention (ROADMAP item 19d).
 TP_TRAIN_FLOPS_MAX = 9.15e13
+# A deepseek-v2-236b / decode_32k rank holding its blocks (MLA heads and
+# the shared experts over TP, 10 experts' 1/16 of D, 1/256 of the cache):
+# ~5.0e9 B of arguments and ~5.2e11 FLOPs (8.1443e12 with whole MLA).
+MOE_DECODE_ARGS_MAX = 6.5e9
+MOE_DECODE_FLOPS_MAX = 1.0e12
 DRYRUN_STEPS = 3  # real steps timed after the traced one
 
 
@@ -3714,7 +3829,10 @@ def _dryrun_phase(dev, times: dict) -> dict:
                      f"collective bytes by group {by_group}")
         else:
             whole, rank, parts = _decode_cache_bytes(arch, shape)
-            assert rank * parts == whole, (rank, whole, parts)
+            assert rank * parts == whole == rank * 256, (rank, whole, parts)
+            if arch.startswith("deepseek"):  # MLA, shared and expert blocks held
+                assert rec["memory"]["argument_size_in_bytes"] <= MOE_DECODE_ARGS_MAX, rec["memory"]
+                assert rec["hlo_flops"] <= MOE_DECODE_FLOPS_MAX, rec["hlo_flops"]
             split = (f"the rank's decode cache {rank / 2**30:.4f} GiB over the whole batch's "
                      f"{whole / 2**30:.3f} GiB: {rank / whole:.6f} (1/{parts}); collective bytes "
                      f"by group {by_group}")

@@ -148,8 +148,8 @@ def input_specs(arch: str, shape_name: str, *, device="meta", params=None) -> di
 
 def fake_params(cfg: ModelConfig, ctx, dev) -> model.Model:
     """The parameters one rank holds (uninitialised), built under the
-    caller's ``FakeTensorMode``: its TP blocks of the leaves its layout
-    splits, every other leaf whole."""
+    caller's ``FakeTensorMode``: its TP and expert blocks of the leaves its
+    layout splits, every other leaf whole."""
     return partitioning.take_blocks(model.Model(cfg, device=dev), cfg, ctx)
 
 
@@ -218,9 +218,14 @@ def lower_cell(arch: str, shape_name: str, *, multi_pod: bool, sync_variant: boo
 
 
 def rank_groups(ctx) -> dict:
-    """``{"dp": group, "tp": group}`` of a context, for the op recorder's
-    collective bytes by group."""
-    return {"dp": ctx.group(ctx.dp_axes), "tp": ctx.group(ctx.tp_axis)}
+    """``{"dp": group, "tp": group}`` of a context, and ``"ep"`` where the
+    EP group is neither, for the op recorder's collective bytes by group
+    (the FSDP gathers of DeepSeek-V2's experts run over ``data``, the dp
+    group of one pod)."""
+    out = {"dp": ctx.group(ctx.dp_axes), "tp": ctx.group(ctx.tp_axis)}
+    if ctx.ep_axes not in (ctx.dp_axes, (ctx.tp_axis,)):
+        out["ep"] = ctx.group(ctx.ep_axes)
+    return out
 
 
 def rank_rows(batch: dict, ctx, microbatches: int = 1) -> dict:

@@ -19,11 +19,12 @@ rank without it): NCCL on the card, gloo on the CPU.  Each rank steps on
 its dp block of every step's global batch (contiguous rows of each
 microbatch; the whole batch where they do not divide over dp), the step
 sums the gradients over dp, a dense decoder (SmolLM, Gemma2, Qwen,
-Chameleon) computes its heads, hidden units and vocabulary columns over
-the ``MODEL`` ranks of the TP group, MoE layers exchange tokens over the
-mesh and AdamW keeps ZeRO-1 blocks of the moments.  A checkpoint holds
-whole leaves, gathered over TP and dp for rank 0 to write; a run restores
-each rank's blocks of it.
+Chameleon) or a MoE model (DeepSeek-V2, V3) computes its heads, hidden
+units and vocabulary columns over the ``MODEL`` ranks of the TP group,
+each rank holds its block of the routed experts, MoE layers exchange
+tokens over the mesh and AdamW keeps ZeRO-1 blocks of the moments.  A
+checkpoint holds whole leaves, gathered over TP and dp for rank 0 to
+write; a run restores each rank's blocks of it.
 
 Usage (the card unless ``--device cpu``):
   PYTHONPATH=src python -m repro_torch.launch.train --arch smollm-135m \\

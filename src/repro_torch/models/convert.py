@@ -13,9 +13,9 @@ Mamba's ``a_log``, stay float32 on both sides).  :func:`train_state_from_jax`
 carries a whole JAX ``TrainState`` across the same way (parameters, AdamW's
 ``m``, ``v`` and ``step``, the balancer and the step), so that both packages
 train from one state.  Under a parallel context :func:`params_from_jax`
-gives this rank's blocks of the leaves its tensor-parallel layout splits
-(``partitioning.take_blocks``), and :func:`whole_model` turns a rank's
-model back into whole leaves.
+gives this rank's blocks of the leaves its tensor- and expert-parallel
+layout splits (``partitioning.take_blocks``), and :func:`whole_model`
+turns a rank's model back into whole leaves.
 """
 from __future__ import annotations
 
@@ -68,9 +68,9 @@ def params_from_jax(tree, cfg: ModelConfig, device=None, ctx=None) -> Model:
 
 
 def whole_model(params: Model, cfg: ModelConfig, ctx=None) -> Model:
-    """A :class:`Model` of the whole leaves of a rank's ``params`` (its TP
-    blocks gathered over the TP group), on the same device; ``params``
-    itself when it holds no block."""
+    """A :class:`Model` of the whole leaves of a rank's ``params`` (its
+    blocks gathered over the axes that split them), on the same device;
+    ``params`` itself when it holds no block."""
     if not params.tp_specs:
         return params
     whole = _load(partitioning.whole_leaves(params, ctx), cfg, params.embed.device)

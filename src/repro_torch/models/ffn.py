@@ -9,16 +9,19 @@ the kernel also returns each (token, slot)'s position in its expert's
 buffer, so no one-hot or cumsum runs on the card.
 
 Under a parallel context each rank holds its dp block of the batch's rows
-(``models/parallel.py``).  Where the mesh divides the batch, the sequence
-and the experts (the reference's manual region), each rank is one
-dispatcher: it takes its ``S/TP`` block of its rows' positions, its bias
-row and its experts' block of the weights (``models/partitioning``'s
-layout, gathered over the FSDP axis when E divides only the TP axis),
+(``models/parallel.py``) and, wherever the EP group has several ranks, its
+block of the routed experts (``partitioning.expert_specs``: its experts,
+or under EP+FSDP its experts' block of ``D``, gathered over the FSDP axis
+for each layer).  Where the mesh divides the batch, the sequence and the
+experts (the reference's manual region), each rank is one dispatcher: it
+takes its ``S/TP`` block of its rows' positions and its bias row,
 exchanges capacity buffers with ``all_to_all_single`` over the EP group
 and returns its rows' ``y`` (gathered over the TP group) with ``(DP, TP,
-E)`` per-dispatcher counts.  Counts are never reduced here: the CARE
-balancer's sparse sync (``core/moe_balancer.py``) is the only place global
-counts are formed.
+E)`` per-dispatcher counts.  Elsewhere (decode, or a sequence that does
+not divide over TP) each rank routes the whole batch as one device does,
+multiplies only its own experts' buffers and sums ``y`` over the EP
+group.  Counts are never reduced here: the CARE balancer's sparse sync
+(``core/moe_balancer.py``) is the only place global counts are formed.
 """
 from __future__ import annotations
 
@@ -39,6 +42,7 @@ class DenseFFN(nn.Module):
     def __init__(self, cfg: ModelConfig, *, device, generator=None, d_ff: int | None = None):
         super().__init__()
         d, f = cfg.d_model, d_ff or cfg.d_ff
+        self.d_ff = f  # the whole width, of which a TP rank may hold a block
         pdt = common.dtype_of(cfg.param_dtype)
         out_scale = 0.02 / max(cfg.num_layers, 1) ** 0.5
         self.w_in = common.dense_init(generator, (d, f), pdt, device)
@@ -48,12 +52,11 @@ class DenseFFN(nn.Module):
 
 
 def dense_ffn(p: DenseFFN, x: torch.Tensor, cfg: ModelConfig, ctx=None):
-    """The (GLU) FFN.  Under a TP context of the dense decoder whose hidden
-    units divide over TP (``partitioning.tp_layout``), ``p`` holds this
-    rank's columns of ``w_in`` / ``w_gate`` and rows of ``w_out``, and the
-    product is summed over the TP group."""
-    lay = partitioning.tp_layout(cfg, ctx)
-    tctx = ctx if lay is not None and lay.ffn else None
+    """The (GLU) FFN.  Where ``p`` holds this rank's block of the hidden
+    units (``partitioning.local_specs``: columns of ``w_in`` / ``w_gate``,
+    rows of ``w_out``), the product is summed over the TP group of
+    ``ctx``."""
+    tctx = ctx if p.w_in.shape[-1] < p.d_ff else None
     x = parallel.tp_copy(x, tctx)
     act = common.activation(cfg.act)
     h = act(x @ p.w_in)
@@ -94,26 +97,25 @@ def _capacity(t_loc: int, k: int, e: int, factor: float) -> int:
 
 
 def _moe_local(xt: torch.Tensor, bias: torch.Tensor, p, cfg: ModelConfig,
-               ctx: parallel.ParallelContext | None = None,
-               rows: parallel.ParallelContext | None = None):
+               ctx: parallel.ParallelContext | None = None, first: int = 0):
     """Per-rank MoE body.  xt: ``(T, D)`` local tokens, bias ``(E,)``.
 
-    Expert weights in ``p`` are this rank's blocks: ``(E_loc, D, F)`` under
-    pure EP sharding, or ``(E_loc, D/fsdp, F)`` under EP+FSDP (gathered
-    here); all E of them without a context.  Returns ``(y (T, D), counts
-    (E,) float32)``.  A (token, slot) pair past its expert's capacity goes
-    to a sink row and contributes nothing.  With ``rows`` (a context whose
-    dp ranks hold the batch's other rows) the capacity, the positions and
-    the counts are the whole batch's, as one device computes them on it:
-    the dp group's counts are gathered and the earlier ranks' tokens come
-    first in each expert's buffer.
+    With ``ctx`` (the manual region) the expert weights in ``p`` are this
+    rank's blocks: ``(E_loc, D, F)`` under pure EP sharding, or ``(E_loc,
+    D/fsdp, F)`` under EP+FSDP (gathered here), and buffers of every
+    expert cross the EP group.  Without it ``p`` holds experts ``first ..
+    first + E_loc`` (all E on one device) and only theirs are filled and
+    multiplied: the tokens' share of ``y`` those experts give.  Returns
+    ``(y (T, D), counts (E,) float32)``.  A (token, slot) pair past its
+    expert's capacity, or routed to an expert ``p`` does not hold, goes to
+    a sink row and contributes nothing.
     """
     t_loc, d = xt.shape
     e, k = cfg.n_routed_experts, cfg.moe_top_k
     cdt = common.dtype_of(cfg.compute_dtype)
 
     w_in_l, w_gate_l, w_out_l = p.w_in, p.w_gate_h, p.w_out
-    if ctx is not None and ctx.fsdp_axis is not None:
+    if ctx is not None and w_in_l.shape[1] < d:
         # Expert weights are FSDP-sharded on the D/F dim: gather per layer.
         g = ctx.group(ctx.fsdp_axis)
         w_in_l = parallel.all_gather(w_in_l, g, 1)
@@ -125,25 +127,20 @@ def _moe_local(xt: torch.Tensor, bias: torch.Tensor, p, cfg: ModelConfig,
     idx, weights, counts, pos = _route(logits, bias, cfg)  # (t,k),(t,k),(E,),(t*k,)
     flat_e = idx.reshape(-1)  # (t*k,) int32
 
-    t_all = t_loc
-    if rows is not None:
-        every = [torch.empty_like(counts) for _ in range(rows.dp_size)]
-        dist.all_gather(every, counts.contiguous(), group=rows.group(rows.dp_axes))
-        every = torch.stack(every)
-        before = every[: rows.index(rows.dp_axes)].sum(dim=0).to(pos.dtype)
-        pos = pos + before[flat_e.long()]
-        counts = every.sum(dim=0)
-        t_all = t_loc * rows.dp_size
-    cap = _capacity(t_all, k, e, cfg.moe_capacity_factor)
+    cap = _capacity(t_loc, k, e, cfg.moe_capacity_factor)
+    ep = ctx.ep_size if ctx is not None else 1
+    held = e if ep > 1 else w_in_l.shape[0]  # experts with a buffer here
+    slot = flat_e - first
     keep = pos < cap
-    lin = torch.where(keep, flat_e * cap + pos, e * cap).long()  # overflow -> sink row
+    if held < e:  # only experts first .. first + held have a buffer here
+        keep = keep & (slot >= 0) & (slot < held)
+    lin = torch.where(keep, slot * cap + pos, held * cap).long()  # overflow -> sink row
 
-    buf = torch.zeros((e * cap + 1, d), dtype=cdt, device=xt.device)
+    buf = torch.zeros((held * cap + 1, d), dtype=cdt, device=xt.device)
     tok_rows = xt.to(cdt).repeat_interleave(k, dim=0)  # (t*k, D)
     buf.index_add_(0, lin, tok_rows)
-    buf = buf[: e * cap]
+    buf = buf[: held * cap]
 
-    ep = ctx.ep_size if ctx is not None else 1
     e_loc = e // ep
     if ep > 1:
         group = ctx.group(ctx.ep_axes)
@@ -152,7 +149,7 @@ def _moe_local(xt: torch.Tensor, bias: torch.Tensor, p, cfg: ModelConfig,
         recv = parallel.all_to_all(buf, group).reshape(ep, e_loc, cap, d)
         work = recv.transpose(0, 1).reshape(e_loc, ep * cap, d)
     else:
-        work = buf.reshape(e, cap, d)
+        work = buf.reshape(held, cap, d)
 
     act = common.activation(cfg.act)
     h = act(torch.einsum("end,edf->enf", work, w_in_l))
@@ -163,7 +160,7 @@ def _moe_local(xt: torch.Tensor, bias: torch.Tensor, p, cfg: ModelConfig,
         out = out.reshape(e_loc, ep, cap, d).transpose(0, 1).reshape(e * cap, d)
         back = parallel.all_to_all(out, group)
     else:
-        back = out.reshape(e * cap, d)
+        back = out.reshape(held * cap, d)
 
     back = torch.cat([back, back.new_zeros((1, d))], dim=0)
     picked = back[lin]  # (t*k, D); sink row is zero
@@ -172,13 +169,71 @@ def _moe_local(xt: torch.Tensor, bias: torch.Tensor, p, cfg: ModelConfig,
     return y, counts.to(torch.float32)
 
 
-def _expert_specs(ctx: parallel.ParallelContext):
-    """The layouts of ``(w_in, w_gate_h, w_out)`` (``partitioning.param_specs``)."""
-    if ctx.fsdp_axis is not None:
-        w = parallel.Spec(ctx.tp_axis, ctx.fsdp_axis, None)
-        return w, w, parallel.Spec(ctx.tp_axis, None, ctx.fsdp_axis)
-    w = parallel.Spec(ctx.ep_axes, None, None)
-    return w, w, w
+def _check_expert_blocks(p: MoEFFN, cfg: ModelConfig, ctx: parallel.ParallelContext) -> None:
+    e_loc = cfg.n_routed_experts // ctx.ep_size
+    if p.w_in.shape[0] != e_loc:
+        raise ValueError(
+            f"the layer holds {p.w_in.shape[0]} experts, a rank of an EP group of "
+            f"{ctx.ep_size} holds {e_loc}: take its blocks (partitioning.take_blocks)")
+
+
+def _moe_held(p: MoEFFN, x: torch.Tensor, bias: torch.Tensor, cfg: ModelConfig,
+              ctx: parallel.ParallelContext):
+    """The one-device computation on the whole batch under a context whose
+    ranks hold their expert blocks: ``y`` of ``x``'s rows, counts ``(E,)``.
+
+    Where each rank holds its dp block of the rows, the dp group's rows are
+    gathered first.  Every rank routes the whole batch alike (the whole
+    batch's capacity, positions and drops), fills and multiplies only its
+    experts' buffers (gathered over the FSDP axis), and the partial ``y``
+    is summed over the EP group; the rank keeps its rows.
+
+    Gradients: ``y``'s is summed over the dp axes the EP group spans (the
+    ranks whose experts serve each other's rows) and is then the same on
+    every rank of the EP group, so each rank's share of ``x``'s and the
+    router ``gate``'s gradients is summed over the EP group (``gate``'s over
+    TP only where the train step's dp sum adds the rest); an expert block's
+    is complete over the rows its EP group routes, and summed over the
+    ranks that hold other rows (the FSDP gather's adjoint, the train
+    step's dp sum over the axes the block does not split)."""
+    b, s, d = x.shape
+    e = cfg.n_routed_experts
+    t = b * s
+    xt = x.reshape(t, d)
+    if ctx.split:
+        n = ctx.dp_size
+        blocks = [(slice(i * t, (i + 1) * t),) for i in range(n)]
+        xt = parallel.gather_blocks(xt, ctx.group(ctx.dp_axes), blocks, (n * t, d))
+    xt = parallel.group_copy(xt, ctx, ctx.ep_axes)
+    local = types.SimpleNamespace(
+        gate=parallel.group_copy(p.gate, ctx, ctx.tp_axis if ctx.split else ctx.ep_axes),
+        w_in=p.w_in, w_gate_h=p.w_gate_h, w_out=p.w_out)
+    first = 0
+    if ctx.ep_size > 1:
+        _check_expert_blocks(p, cfg, ctx)
+        spec = partitioning.expert_specs(ctx)[0]
+        first = parallel.shard_index(spec, (e, d, cfg.moe_d_ff), ctx)[0].start
+    if p.w_in.shape[1] < d:
+        group = ctx.group(ctx.fsdp_axis)
+        if ctx.split:  # the FSDP ranks hold other rows: their shares are summed
+            local.w_in, local.w_gate_h, local.w_out = (
+                parallel.all_gather(w, group, dim) for w, dim in
+                ((p.w_in, 1), (p.w_gate_h, 1), (p.w_out, 2)))
+        else:  # every FSDP rank computes the same whole gradient
+            local.w_in, local.w_gate_h, local.w_out = (
+                parallel.gather_same(w, group, dim) for w, dim in
+                ((p.w_in, 1), (p.w_gate_h, 1), (p.w_out, 2)))
+    y, counts = _moe_local(xt, bias, local, cfg, first=first)
+    y = parallel.group_reduce(y, ctx, ctx.ep_axes)
+    if ctx.split:
+        i = ctx.index(ctx.dp_axes)
+        rows = (slice(i * t, (i + 1) * t),)
+        spanned = tuple(a for a in ctx.dp_axes if a in ctx.ep_axes)
+        if ctx.size(spanned) > 1:
+            y = parallel.scatter(y, rows, ctx.group(spanned))
+        else:
+            y = y[rows]
+    return y, counts
 
 
 def _moe_manual(p: MoEFFN, x: torch.Tensor, bias: torch.Tensor, cfg: ModelConfig,
@@ -189,7 +244,9 @@ def _moe_manual(p: MoEFFN, x: torch.Tensor, bias: torch.Tensor, cfg: ModelConfig
     Where each rank holds its dp block of the rows (``ctx.split``, or dp
     1), the dispatcher takes its positions block of them and ``y`` is
     gathered over the TP group; where every rank holds the whole batch, it
-    takes its ``(B/DP, S/TP)`` block and ``y`` is gathered over the grid."""
+    takes its ``(B/DP, S/TP)`` block and ``y`` is gathered over the grid.
+    The expert weights are the rank's blocks as it holds them."""
+    _check_expert_blocks(p, cfg, ctx)
     b, s, d = x.shape
     dp, tp = ctx.dp_size, ctx.tp_size
     sl = s // tp
@@ -202,15 +259,12 @@ def _moe_manual(p: MoEFFN, x: torch.Tensor, bias: torch.Tensor, cfg: ModelConfig
         group, bl = ctx.group(ctx.tp_axis), b
         blocks = [(slice(None), c) for c in cols]
     me = ctx.index(ctx.grid_axes)
-    # Every rank of the group holds the same rows and whole weights: the
+    # Every rank of the group holds the same rows and the whole gate: the
     # blocks' gradients are summed over the group.  Over the TP group that
     # leaves each dp rank its rows' share, which the train step sums over
-    # dp with every other gradient (each is summed once).
-    weights = {}
-    for name, spec in zip(("w_in", "w_gate_h", "w_out"), _expert_specs(ctx)):
-        w = getattr(p, name)
-        weights[name] = parallel.scatter(w, parallel.shard_index(spec, w.shape, ctx), group)
-    local = types.SimpleNamespace(gate=parallel.scatter(p.gate, (), group), **weights)
+    # dp with every other whole leaf's.
+    local = types.SimpleNamespace(gate=parallel.scatter(p.gate, (), group), w_in=p.w_in,
+                                  w_gate_h=p.w_gate_h, w_out=p.w_out)
     x_loc = parallel.scatter(x, blocks[dist.get_rank(group)], group)
     y, counts = _moe_local(x_loc.reshape(bl * sl, d), bias[me // tp, me % tp], local, cfg, ctx)
     y = parallel.gather_blocks(y.reshape(bl, sl, d), group, blocks, (b, s, d))
@@ -245,11 +299,14 @@ def moe_ffn(p: MoEFFN, x: torch.Tensor, bias: torch.Tensor, cfg: ModelConfig,
     if not manual:
         # One device, and the decode path (tokens too few to shard over
         # TP): the reference's one-device computation on the whole batch,
-        # averaged bias rows.  Where each rank holds its rows, it computes
-        # them with the whole batch's capacity, positions and counts.
+        # averaged bias rows.  Under a context whose ranks hold expert
+        # blocks or rows of their own, each rank computes its experts'
+        # share of the whole batch (:func:`_moe_held`).
         bias_flat = bias.reshape(-1, cfg.n_routed_experts).mean(dim=0)
-        rows = ctx if ctx is not None and ctx.split else None
-        y, counts = _moe_local(x.reshape(b * s, d), bias_flat, p, cfg, rows=rows)
+        if ctx is None or (ctx.ep_size == 1 and not ctx.split):
+            y, counts = _moe_local(x.reshape(b * s, d), bias_flat, p, cfg)
+        else:
+            y, counts = _moe_held(p, x, bias_flat, cfg, ctx)
         y = y.reshape(b, s, d)
         if ctx is not None:
             counts = (counts[None, None, :] / (ctx.dp_size * ctx.tp_size)).expand(
@@ -257,5 +314,5 @@ def moe_ffn(p: MoEFFN, x: torch.Tensor, bias: torch.Tensor, cfg: ModelConfig,
     else:
         y, counts = _moe_manual(p, x, bias, cfg, ctx)
     if cfg.n_shared_experts:
-        y = y + dense_ffn(p.shared, x, cfg)
+        y = y + dense_ffn(p.shared, x, cfg, ctx)
     return y, counts

@@ -22,14 +22,18 @@ n)`` (float32), ``"tm_shift"`` and ``"cm_shift"`` ``(L, B, D)``.
 Entry points run on the CUDA card unless given ``device="cpu"``.
 
 Under a parallel context whose TP group has several ranks, a dense
-decoder (``partitioning.tp_layout``) holds this rank's blocks of the
-leaves ``partitioning.local_specs`` lists (``init_params(..., ctx=)``,
-``partitioning.take_blocks``; ``Model.tp_specs`` records them), computes
-its heads, hidden units and vocabulary columns, and keeps its
-``cache_specs`` block of the KV cache (the cache then carries
-``"kv_split"``, ``"heads"`` or ``"seq"``, from
-``partitioning.kv_cache_split``).  The logits of :func:`prefill` and
-:func:`decode_step` are gathered whole; training never gathers them.
+decoder or a MoE model (``partitioning.tp_layout``) holds this rank's
+blocks of the leaves ``partitioning.local_specs`` lists
+(``init_params(..., ctx=)``, ``partitioning.take_blocks``;
+``Model.tp_specs`` records them), computes its heads, hidden units and
+vocabulary columns (a MoE model looks up its ``D`` columns of the
+embedding and gathers them), and keeps its ``cache_specs`` block of the
+KV cache (the cache then carries ``"kv_split"``, ``"heads"`` or
+``"seq"``, from ``partitioning.kv_cache_split``; MLA's compressed cache
+splits only by rows).  A MoE model holds its block of the routed experts
+wherever the EP group has several ranks, split over TP or not.  The
+logits of :func:`prefill` and :func:`decode_step` are gathered whole;
+training never gathers them.
 """
 from __future__ import annotations
 
@@ -130,22 +134,29 @@ def init_params(generator: torch.Generator, cfg: ModelConfig, device=None, ctx=N
 
 
 def _split_vocab(cfg: ModelConfig, ctx) -> bool:
-    """Whether each TP rank holds its block of the vocabulary."""
+    """Whether each TP rank holds its block of the vocabulary's logits."""
     lay = partitioning.tp_layout(cfg, ctx)
     return lay is not None and lay.vocab
 
 
 def embed_tokens(params: Model, tokens: torch.Tensor, cfg: ModelConfig, ctx=None):
-    """Token embeddings; under a TP context that splits the vocabulary each
-    rank looks up the ids in its rows (others zero) and the rows are summed
-    over the TP group."""
+    """Token embeddings.  Under a TP context that splits the vocabulary
+    each rank looks up the ids in its rows (others zero) and the rows are
+    summed over the TP group; under one that splits ``embed``'s ``D``
+    columns (a MoE model's ``embed_d``) each rank looks up its columns and
+    they are gathered over the group (every rank's gradient of the whole
+    is the same, so each keeps its columns' share)."""
     cdt = common.dtype_of(cfg.compute_dtype)
-    if _split_vocab(cfg, ctx):
+    lay = partitioning.tp_layout(cfg, ctx)
+    split = lay.embed if lay is not None else None
+    if split == "rows":
         vl = params.embed.shape[0]
         local = tokens - ctx.tp_index * vl
         own = ((local >= 0) & (local < vl))[..., None]
         rows = params.embed[local.clamp(0, vl - 1)]
         x = parallel.tp_reduce(torch.where(own, rows, 0), ctx).to(cdt)
+    elif split == "cols":
+        x = parallel.tp_gather(params.embed[tokens], ctx, dim=-1).to(cdt)
     else:
         x = params.embed[tokens].to(cdt)
     if cfg.embed_scale:
@@ -298,15 +309,15 @@ def train_loss(params: Model, batch: dict, cfg: ModelConfig, ctx=None,
     aux = {"counts": counts, "loss_main": loss}
     if cfg.mtp:
         mtp = params.mtp
-        nxt = embed_tokens(params, tokens, cfg)[:, 1:, :]
+        nxt = embed_tokens(params, tokens, cfg, ctx)[:, 1:, :]
         h = torch.cat(
             [common.rms_norm(h_final[:, :-1, :], mtp.norm.scale, cfg.norm_eps), nxt], dim=-1
         ) @ mtp.proj
         h, _, _ = tfm.lm_block_full(mtp.block, h, cfg, ctx, window=tfm.BIG_WINDOW, bias=None,
                                     moe_layer=False)
         h = tfm._norm(params.final_norm, h, cfg)
-        mtp_loss = common.cross_entropy(lm_head(params, h, cfg), labels[:, 1:],
-                                        cfg.final_softcap, ctx)
+        mtp_loss = common.cross_entropy(lm_head(params, h, cfg, ctx), labels[:, 1:],
+                                        cfg.final_softcap, ctx, _split_vocab(cfg, ctx))
         aux["loss_mtp"] = mtp_loss
         loss = loss + 0.3 * mtp_loss
     return loss, aux
@@ -430,15 +441,19 @@ def init_decode_cache(params: Model, cfg: ModelConfig, batch: int, cache_len: in
             scan["cross_k"], scan["cross_v"] = zeros(cross), zeros(cross)
         return {"scan": scan}
 
+    rows = cache_len // ctx.tp_size if split == "seq" else cache_len
+
     def mla_zeros(*lead):
         return {
-            "ckv": zeros((*lead, batch, cache_len, cfg.kv_lora_rank)),
-            "k_rope": zeros((*lead, batch, cache_len, cfg.qk_rope_head_dim)),
+            "ckv": zeros((*lead, batch, rows, cfg.kv_lora_rank)),
+            "k_rope": zeros((*lead, batch, rows, cfg.qk_rope_head_dim)),
         }
 
     cache = {"scan": mla_zeros(l)}
     if cfg.moe and cfg.first_dense_layers:
         cache["head"] = {str(i): mla_zeros() for i in range(cfg.first_dense_layers)}
+    if split is not None:
+        cache["kv_split"] = split
     return cache
 
 
@@ -495,6 +510,7 @@ def decode_step(params: Model, tokens: torch.Tensor, cache: dict, pos: int, cfg:
             x, _, _ = tfm.lm_block_decode(
                 params.head_layers[str(i)], x, cache["head"][str(i)], pos, cfg, ctx,
                 window=tfm.BIG_WINDOW, bias=None, moe_layer=False,
+                kv_split=cache.get("kv_split"),
             )
     if bias is None:
         bias = _bias_zeros(cfg, ctx, x.device)

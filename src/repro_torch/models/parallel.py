@@ -11,24 +11,27 @@ unmasked count over dp), and the train step sums each gradient over dp
 once.
 
 Tensor parallelism over ``model`` is eager and Megatron-style for the
-dense decoder families (``partitioning.tp_layout``): each rank of the TP
-group holds its blocks of the leaves the layout splits (whole query and
-KV heads, FFN hidden units, vocabulary rows and columns;
+dense decoder and MoE families (``partitioning.tp_layout``): each rank of
+the TP group holds its blocks of the leaves the layout splits (whole
+query and KV heads, MLA's heads, FFN and shared-expert hidden units,
+vocabulary rows and columns, the MoE family's embedding columns;
 ``partitioning.local_specs``), computes only those, and sums the
 row-parallel products over the TP group where GSPMD inserts the same
 all-reduce for the reference.  The autograd functions :func:`tp_copy`
 (identity forward, all-reduce backward), :func:`tp_reduce` (all-reduce
 forward, identity backward) and :func:`tp_gather` (all-gather forward,
-this rank's block backward) carry it; none issues a collective over a
-group of one rank.  The other families keep whole parameters on every TP
-rank and compute every head and hidden unit of their rows; the layouts
-their hints ask GSPMD for have no eager counterpart yet, so :func:`hint`
-only checks a DTensor's layout against the hints' rule.  The MoE layer is
-the port's manual region too (``models/ffn.py``): each rank takes its
-dispatcher's positions of its rows and its experts' slice of the
-weights, and tokens cross ranks with ``all_to_all_single`` over the
-expert-parallel group; the autograd functions below carry the gradients
-back across the same groups.
+this rank's block backward) carry it, and :func:`group_copy` /
+:func:`group_reduce` do the same over any axes; none issues a collective
+over a group of one rank.  RWKV, Hymba and Whisper keep whole parameters
+on every TP rank and compute every head and hidden unit of their rows;
+the layouts their hints ask GSPMD for have no eager counterpart yet, so
+:func:`hint` only checks a DTensor's layout against the hints' rule.
+Each rank holds its block of the routed experts wherever the EP group
+has several ranks (``partitioning.expert_specs``).  The MoE layer is the
+port's manual region too (``models/ffn.py``): each rank takes its
+dispatcher's positions of its rows, and tokens cross ranks with
+``all_to_all_single`` over the expert-parallel group; the autograd
+functions below carry the gradients back across the same groups.
 
 A context holds a ``torch.distributed.device_mesh.DeviceMesh`` with axes
 named ``("data", "model")`` and optionally ``"pod"`` first, or a
@@ -196,12 +199,17 @@ class ParallelContext:
             out[name] = block.reshape(-1, *t.shape[1:])
         return out
 
-    def dp_sum(self, t: torch.Tensor) -> torch.Tensor:
+    def dp_sum(self, t: torch.Tensor, spec=None) -> torch.Tensor:
         """``t`` summed over the dp group, in place, where each rank holds
         its block of the rows (:attr:`split`); else ``t`` as it is, and no
-        collective is issued."""
+        collective is issued.  With ``spec`` (the layout of a block ``t`` is
+        the gradient of) only over the dp axes it does not split: a block
+        over a dp axis gathers its gradient over that axis itself (the EP
+        exchange, the FSDP gather's adjoint)."""
         if self.split:
-            dist.all_reduce(t, group=self.group(self.dp_axes))
+            axes = tuple(a for a in self.dp_axes if a not in spec_axes(spec))
+            if self.size(axes) > 1:
+                dist.all_reduce(t, group=self.group(axes))
         return t
 
     def index(self, axes) -> int:
@@ -238,6 +246,11 @@ class ParallelContext:
                              f"row-major index {self.index(axes)}")
         self._groups[axes] = group
         return group
+
+
+def spec_axes(spec) -> set[str]:
+    """The mesh axes ``spec`` splits a dimension over (none for None)."""
+    return {a for e in (spec or ()) if e is not None for a in _axes(e)}
 
 
 def divisible(spec, shape, sizes: dict[str, int]) -> Spec:
@@ -428,7 +441,7 @@ class _Gather(torch.autograd.Function):
         return g[fctx.block].contiguous(), None, None, None
 
 
-class _TPCopy(torch.autograd.Function):
+class _Copy(torch.autograd.Function):
     """Identity forward.  Every rank of the group feeds the same input to
     its own block of the work, so the adjoint sums the blocks' gradients
     over the group."""
@@ -445,7 +458,7 @@ class _TPCopy(torch.autograd.Function):
         return g, None
 
 
-class _TPReduce(torch.autograd.Function):
+class _Reduce(torch.autograd.Function):
     """The group's partial sums added (an all-reduce).  Every rank then
     computes the same thing from the sum, so the adjoint is the identity."""
 
@@ -460,7 +473,7 @@ class _TPReduce(torch.autograd.Function):
         return g, None
 
 
-class _TPGather(torch.autograd.Function):
+class _GatherSame(torch.autograd.Function):
     """The group's blocks concatenated on ``dim``, in rank order.  Every
     rank then computes the same thing from the whole, so the adjoint is
     this rank's block of the gradient."""
@@ -483,23 +496,37 @@ def _tp_group(ctx: ParallelContext | None):
     return ctx.group(ctx.tp_axis) if ctx is not None and ctx.tp_split else None
 
 
+def group_copy(x: torch.Tensor, ctx: ParallelContext | None, axes) -> torch.Tensor:
+    """``x`` as it is, its gradient summed over the group of ``axes``: an
+    input every rank of the group feeds to its own share of the work."""
+    if ctx is None or ctx.size(axes) == 1:
+        return x
+    return _Copy.apply(x, ctx.group(axes))
+
+
+def group_reduce(x: torch.Tensor, ctx: ParallelContext | None, axes) -> torch.Tensor:
+    """``x`` summed over the group of ``axes``, whose ranks then all hold
+    the same gradient of the sum (the adjoint is the identity)."""
+    if ctx is None or ctx.size(axes) == 1:
+        return x
+    return _Reduce.apply(x, ctx.group(axes))
+
+
 def tp_copy(x: torch.Tensor, ctx: ParallelContext | None) -> torch.Tensor:
     """``x`` as it is, its gradient summed over the TP group: the input of a
     column-parallel product, or a whole parameter each rank uses part of."""
-    group = _tp_group(ctx)
-    return x if group is None else _TPCopy.apply(x, group)
+    return group_copy(x, ctx, ctx.tp_axis) if ctx is not None else x
 
 
 def tp_reduce(x: torch.Tensor, ctx: ParallelContext | None) -> torch.Tensor:
     """``x`` summed over the TP group: the output of a row-parallel product."""
-    group = _tp_group(ctx)
-    return x if group is None else _TPReduce.apply(x, group)
+    return group_reduce(x, ctx, ctx.tp_axis) if ctx is not None else x
 
 
 def tp_gather(x: torch.Tensor, ctx: ParallelContext | None, dim: int) -> torch.Tensor:
     """The TP group's blocks of ``x`` concatenated on ``dim`` in rank order."""
     group = _tp_group(ctx)
-    return x if group is None else _TPGather.apply(x, group, dim)
+    return x if group is None else _GatherSame.apply(x, group, dim)
 
 
 def tp_max(x: torch.Tensor, ctx: ParallelContext | None) -> torch.Tensor:
@@ -520,6 +547,13 @@ def all_to_all(x: torch.Tensor, group) -> torch.Tensor:
 
 def all_gather(x: torch.Tensor, group, dim: int) -> torch.Tensor:
     return _AllGather.apply(x, group, dim)
+
+
+def gather_same(x: torch.Tensor, group, dim: int) -> torch.Tensor:
+    """The group's blocks of ``x`` concatenated on ``dim`` in rank order,
+    for work every rank of the group does alike (the adjoint is this
+    rank's block of the gradient); :func:`all_gather` sums it instead."""
+    return _GatherSame.apply(x, group, dim)
 
 
 def scatter(full: torch.Tensor, index: tuple, group) -> torch.Tensor:

@@ -28,7 +28,9 @@ may split a flat dimension anywhere that divides, e.g. SmolLM-135M's
 ``wq`` columns (9 heads of 64) over 16 ranks into blocks of 36 columns,
 0.56 of a head; eager code computes a head on one rank, so the eager
 layout splits only whole heads (query heads where they divide over TP,
-KV heads where those divide too) and keeps a leaf whole otherwise.  The
+KV heads where those divide too, MLA's heads) and keeps a leaf whole
+otherwise.  The routed experts are held as :func:`param_specs` lays them
+out (:func:`expert_specs`) wherever the EP group has several ranks.  The
 numbers are the reference's either way; only which rank holds which
 columns differs.  The KV cache takes :func:`cache_specs` as it stands.
 """
@@ -40,7 +42,8 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import parallel
-from repro_torch.models.parallel import ParallelContext, divisible, mesh_shape, placements
+from repro_torch.models.parallel import (ParallelContext, divisible, mesh_shape, placements,
+                                         spec_axes)
 from repro_torch.models.parallel import Spec as P
 
 STACKED = ("layers", "enc_layers")  # JAX subtrees stacked on a leading layer axis
@@ -278,10 +281,10 @@ def to_shardings(spec_tree, mesh):
 
 
 # --------------------------------------------------------------------------
-# a rank's eager layout under tensor parallelism (the dense decoder)
+# a rank's eager layout under tensor and expert parallelism
 # --------------------------------------------------------------------------
 
-TP_FAMILIES = ("dense", "vlm")  # grouped-query attention + dense FFN, no MoE
+TP_FAMILIES = ("dense", "vlm", "moe")  # GQA or MLA, dense FFN or MoE
 
 
 @dataclasses.dataclass(frozen=True)
@@ -289,30 +292,69 @@ class TPLayout:
     """What each rank of a TP group of ``size`` holds a block of."""
 
     size: int
-    heads: bool  # query heads: wq's and bq's columns, wo's rows
+    heads: bool  # query heads: wq's (MLA: w_uq's, w_uk's, w_uv's) columns, wo's rows
     kv: bool  # KV heads: wk's, wv's, bk's and bv's columns
-    ffn: bool  # hidden units: w_in's and w_gate's columns, w_out's rows
-    vocab: bool  # vocabulary: embed's rows, lm_head's columns
+    ffn: bool  # a dense FFN's hidden units: w_in's and w_gate's columns, w_out's rows
+    vocab: bool  # vocabulary: lm_head's columns (a tied head's: embed's rows)
+    embed: str | None = None  # embed's "rows" (vocabulary) or "cols" (embed_d), else whole
+    q_lora: bool = False  # MLA's w_dq columns
+    shared: bool = False  # the shared experts' hidden units
 
 
 def tp_layout(cfg: ModelConfig, ctx: ParallelContext | None) -> TPLayout | None:
-    """The dense decoder's layout over a TP group of several ranks, else
-    None (no context, one TP rank, or a family this layout does not split:
-    MLA, MoE, RWKV, Hymba and Whisper keep whole parameters).  KV heads
-    split where both head counts divide over TP; query heads where
-    ``num_heads`` does and, with the KV heads whole, each rank's query
-    heads use whole groups of KV heads or share one (every config's do);
-    a dimension that does not divide stays whole."""
+    """The layout over a TP group of several ranks, else None (no context,
+    one TP rank, or a family this layout does not split: RWKV, Hymba and
+    Whisper keep whole parameters).  KV heads split where both head counts
+    divide over TP; query heads where ``num_heads`` does and, with the KV
+    heads whole, each rank's query heads use whole groups of KV heads or
+    share one (every config's do); MLA's heads where ``num_heads`` divides,
+    and ``w_dq``'s columns with them where ``q_lora_rank`` does too; a
+    dense FFN's and the shared experts' hidden units where each one's own
+    width divides.  A MoE model with an untied head holds ``embed`` by its
+    ``D`` columns (the reference's ``embed_d``), any other by vocabulary
+    rows; a dimension that does not divide stays whole."""
     if ctx is None or not ctx.tp_split or cfg.family not in TP_FAMILIES:
         return None
-    if cfg.use_mla or cfg.moe:
-        return None
-    tp, h, kvh = ctx.tp_size, cfg.num_heads, cfg.num_kv_heads
-    kv = h % tp == 0 and kvh % tp == 0
-    hl, g = h // tp, h // kvh
-    heads = kv or (h % tp == 0 and (hl % g == 0 or g % hl == 0))
-    return TPLayout(size=tp, heads=heads, kv=kv, ffn=cfg.d_ff % tp == 0,
-                    vocab=cfg.vocab_size % tp == 0)
+    tp, h = ctx.tp_size, cfg.num_heads
+    if cfg.use_mla:
+        heads, kv = h % tp == 0, False
+    else:
+        kvh = cfg.num_kv_heads
+        kv = h % tp == 0 and kvh % tp == 0
+        hl, g = h // tp, h // kvh
+        heads = kv or (h % tp == 0 and (hl % g == 0 or g % hl == 0))
+    vocab = cfg.vocab_size % tp == 0
+    if cfg.moe and not cfg.tie_embeddings:
+        embed = "cols" if cfg.d_model % tp == 0 else None
+    else:
+        embed = "rows" if vocab else None
+    shared = cfg.moe_d_ff * cfg.n_shared_experts if cfg.moe else 0
+    return TPLayout(size=tp, heads=heads, kv=kv, ffn=cfg.d_ff % tp == 0, vocab=vocab,
+                    embed=embed,
+                    q_lora=cfg.use_mla and heads and bool(cfg.q_lora_rank)
+                    and cfg.q_lora_rank % tp == 0,
+                    shared=bool(shared) and shared % tp == 0)
+
+
+def expert_specs(ctx: ParallelContext) -> tuple[P, P, P]:
+    """The layouts of a MoE layer's ``(w_in, w_gate_h, w_out)``
+    (:func:`param_specs`): ``(E/ep, D, F)`` over the EP axes, or under
+    EP+FSDP ``(E/tp, D/fsdp, F)`` and ``(E/tp, F, D/fsdp)``."""
+    if ctx.fsdp_axis is not None:
+        w = P(ctx.tp_axis, ctx.fsdp_axis, None)
+        return w, w, P(ctx.tp_axis, None, ctx.fsdp_axis)
+    w = P(ctx.ep_axes, None, None)
+    return w, w, w
+
+
+def _block_prefixes(cfg: ModelConfig) -> list[tuple[str, bool]]:
+    """``(JAX path prefix, stacked)`` of each decoder block's leaves."""
+    out = [("layers", True)]
+    if cfg.moe:
+        out += [(f"head_layers/{i}", False) for i in range(cfg.first_dense_layers)]
+    if cfg.mtp:
+        out.append(("mtp/block", False))
+    return out
 
 
 def local_specs(cfg: ModelConfig, ctx: ParallelContext | None) -> dict[str, P]:
@@ -324,31 +366,56 @@ def local_specs(cfg: ModelConfig, ctx: ParallelContext | None) -> dict[str, P]:
     the KV heads they use are whole groups or one); ``wk``,
     ``wv``, ``bk`` and ``bv`` by KV heads where ``num_kv_heads % tp == 0``
     too (else whole, and a rank reads the KV heads its query heads use);
-    ``w_in`` / ``w_gate`` by columns and ``w_out`` by rows where ``d_ff %
-    tp == 0``; ``embed``'s rows and an untied ``lm_head``'s columns where
-    ``vocab_size % tp == 0``.  Norms, ``q_norm`` and ``k_norm`` stay whole."""
-    lay = tp_layout(cfg, ctx)
-    if lay is None:
-        return {}
-    tp = ctx.tp_axis
-    col, row, vec = P(None, None, tp), P(None, tp, None), P(None, tp)
+    MLA's ``w_uq`` (or ``wq``), ``w_uk`` and ``w_uv`` by columns and ``wo``
+    by rows, and ``w_dq`` by columns; ``w_in`` / ``w_gate`` by columns and
+    ``w_out`` by rows of each FFN whose hidden units divide (a dense
+    layer's, the MTP block's, the shared experts'); ``embed``'s rows and an
+    untied ``lm_head``'s columns where ``vocab_size % tp == 0``, or a MoE
+    model's ``embed`` by its ``D`` columns.  The same leaves of the
+    leading dense layers (``head_layers/<i>``) and of DeepSeek-V3's MTP
+    block, unstacked.  Norms, ``q_norm``, ``k_norm``, ``kv_norm``,
+    ``w_dkv`` and the router's ``gate`` stay whole.  The routed experts
+    are :func:`expert_specs`' blocks wherever the EP group has several
+    ranks, TP split or not."""
     out = {}
-    if lay.heads:
-        out.update({"layers/attn/wq": col, "layers/attn/wo": row})
-        if cfg.qkv_bias:
-            out["layers/attn/bq"] = vec
-    if lay.kv:
-        out.update({"layers/attn/wk": col, "layers/attn/wv": col})
-        if cfg.qkv_bias:
-            out.update({"layers/attn/bk": vec, "layers/attn/bv": vec})
-    if lay.ffn:
-        out.update({"layers/ffn/w_in": col, "layers/ffn/w_out": row})
-        if cfg.glu:
-            out["layers/ffn/w_gate"] = col
-    if lay.vocab:
-        out["embed"] = P(tp, None)
-        if not cfg.tie_embeddings:
+    lay = tp_layout(cfg, ctx)
+    if lay is not None:
+        tp = ctx.tp_axis
+        for prefix, stacked in _block_prefixes(cfg):
+            lead = (None,) if stacked else ()
+            col, row, vec = P(*lead, None, tp), P(*lead, tp, None), P(*lead, tp)
+            attn = f"{prefix}/attn/"
+            if lay.heads and cfg.use_mla:
+                q = ["w_uq"] if cfg.q_lora_rank else ["wq"]
+                out.update({attn + n: col for n in (*q, "w_uk", "w_uv")})
+                out[attn + "wo"] = row
+                if lay.q_lora:
+                    out[attn + "w_dq"] = col
+            elif lay.heads:
+                out.update({attn + "wq": col, attn + "wo": row})
+                if cfg.qkv_bias:
+                    out[attn + "bq"] = vec
+            if lay.kv:
+                out.update({attn + "wk": col, attn + "wv": col})
+                if cfg.qkv_bias:
+                    out.update({attn + "bk": vec, attn + "bv": vec})
+            moe_layer = cfg.moe and prefix == "layers"
+            ffn = f"{prefix}/moe/shared/" if moe_layer else f"{prefix}/ffn/"
+            if (lay.shared if moe_layer else lay.ffn):
+                out.update({ffn + "w_in": col, ffn + "w_out": row})
+                if cfg.glu:
+                    out[ffn + "w_gate"] = col
+        if lay.embed == "rows":
+            out["embed"] = P(tp, None)
+        elif lay.embed == "cols":
+            out["embed"] = P(None, tp)
+        if lay.vocab and not cfg.tie_embeddings:
             out["lm_head"] = P(None, tp)
+    if cfg.moe and ctx is not None and ctx.ep_size > 1:
+        e, d, f = cfg.n_routed_experts, cfg.d_model, cfg.moe_d_ff
+        for name, spec, shape in zip(("w_in", "w_gate_h", "w_out"), expert_specs(ctx),
+                                     ((e, d, f), (e, d, f), (e, f, d))):
+            out[f"layers/moe/{name}"] = P(None, *divisible(spec, shape, ctx.shape))
     return out
 
 
@@ -394,7 +461,8 @@ def take_blocks(params, cfg: ModelConfig, ctx: ParallelContext | None):
 @torch.no_grad()
 def whole_leaves(params, ctx: ParallelContext | None) -> dict[str, torch.Tensor]:
     """``{port name: whole tensor}`` of a rank's ``Model``: each block
-    gathered over the TP group, every other parameter as it is."""
+    gathered over the axes that split it, every other parameter as it
+    is."""
     blocks = block_names(params)
     return {n: parallel.gather(t.detach(), blocks[n], ctx) if n in blocks else t.detach()
             for n, t in params.named_parameters()}
@@ -414,28 +482,36 @@ def whole_shapes(params, ctx: ParallelContext | None) -> dict[str, tuple]:
 
 def moment_specs(params, cfg: ModelConfig, ctx: ParallelContext) -> dict[str, P]:
     """ZeRO-1 specs of a rank's ``Model``'s moments, relative to the tensor
-    it holds: :func:`zero1_specs` of the whole leaves, less the TP entry of
-    each leaf the rank holds a block of (its moments are its dp block of
-    that block, gathered over dp only)."""
+    it holds: :func:`zero1_specs` of the whole leaves, less every entry of a
+    leaf the rank holds a block of that splits a dimension the block splits
+    or over an axis the block splits (its moments are its dp block of that
+    block where a dp axis is left, else the whole block: an expert block
+    over ``data`` keeps its moments whole)."""
     shapes = whole_shapes(params, ctx)
     z = zero1_specs(param_specs(shapes, cfg, ctx), shapes, ctx)
     local = getattr(params, "tp_specs", {})
     out = {}
     for path, spec in z.items():
         if path in local:
+            used = spec_axes(local[path])
             lent = tuple(local[path]) + (None,) * (len(spec) - len(local[path]))
-            spec = P(*(None if le is not None else e for e, le in zip(spec, lent)))
+            spec = P(*(None if le is not None or spec_axes((e,)) & used else e
+                       for e, le in zip(spec, lent)))
         out[path] = spec
     return out
 
 
 def kv_cache_split(cfg: ModelConfig, ctx: ParallelContext | None, cache_len: int) -> str | None:
-    """How a rank of the TP group holds the dense decoder's KV cache of
-    ``cache_len`` rows (:func:`cache_specs`' TP entry): ``"heads"`` (its
-    block of the KV heads), ``"seq"`` (its block of the rows, every KV
-    head) or None (whole, or no TP split)."""
+    """How a rank of the TP group holds the KV cache of ``cache_len`` rows
+    (:func:`cache_specs`' TP entry): ``"heads"`` (its block of the KV
+    heads), ``"seq"`` (its block of the rows, every KV head; MLA's ``ckv``
+    and ``k_rope`` rows) or None (whole, or no TP split)."""
     if tp_layout(cfg, ctx) is None:
         return None
+    if cfg.use_mla:
+        ckv = torch.empty((1, 1, cache_len, cfg.kv_lora_rank), device="meta")
+        spec = cache_specs({"scan": {"ckv": ckv}}, ctx)["scan"]["ckv"]
+        return "seq" if spec[2] == ctx.tp_axis else None
     k = torch.empty((1, 1, cache_len, cfg.num_kv_heads, 1), device="meta")
     spec = cache_specs({"scan": {"k": k}}, ctx)["scan"]["k"]
     return "seq" if spec[2] == ctx.tp_axis else "heads" if spec[3] == ctx.tp_axis else None

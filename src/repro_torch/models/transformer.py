@@ -197,8 +197,9 @@ def lm_block_full(
     """Full-sequence block.  Returns ``(x, cache, counts)``.  ``window``
     (a Python int) masks GQA attention; MLA attends globally.  Under a TP
     context of the dense decoder the attention and the FFN compute this
-    rank's heads and hidden units (``partitioning.tp_layout``) and the
-    cache is its block."""
+    rank's heads and hidden units (``partitioning.tp_layout``), MLA's
+    heads and the MoE layer's shared experts too, and the cache is its
+    block."""
     h = _norm(p.ln1, x, cfg)
     if cfg.use_mla:
         a, cache = mla.mla_full(
@@ -231,7 +232,7 @@ def lm_block_decode(
     counts)``."""
     h = _norm(p.ln1, x, cfg)
     if cfg.use_mla:
-        a, cache = mla.mla_decode(p.attn, h, cache, pos, cfg)
+        a, cache = mla.mla_decode(p.attn, h, cache, pos, cfg, ctx, kv_split)
     else:
         a, cache = attention.attention_decode(p.attn, h, cache, pos, cfg, window=window,
                                               ctx=ctx, kv_split=kv_split)

@@ -14,11 +14,12 @@ scanned layer's leaf stacked on its layer axis): each rank keeps only its
 block of each leaf's moments, updates that block of the parameter from
 the whole gradient, and gathers the parameter whole again (where GSPMD
 inserts the same all-gather in the reference).  A leaf the rank holds a
-TP block of (``partitioning.take_blocks``) has moments of its dp block of
-that block, gathered over dp only.  The arithmetic is the same
-elementwise, so the result equals the unsharded update; the clipping norm
-sums the TP blocks' squares over the TP group and counts every whole
-leaf once.  :func:`gather_state` gives whole moments, one per parameter
+TP or expert block of (``partitioning.take_blocks``) has moments of its dp
+block of that block (``partitioning.moment_specs``; an expert block split
+over ``data`` keeps them whole).  The arithmetic is the same elementwise,
+so the result equals the unsharded update; the clipping norm sums each
+block's squares over the axes that split it and counts every whole leaf
+once.  :func:`gather_state` gives whole moments, one per parameter
 of the whole model, on every rank; a checkpoint gathers them one leaf at
 a time onto rank 0 instead (``ckpt.checkpoint``).
 """
@@ -87,8 +88,9 @@ def init(params: torch.nn.Module, ctx=None, specs: dict | None = None) -> OptSta
 
 def gather_state(state: OptState, params: torch.nn.Module, ctx) -> OptState:
     """The whole moments, one per parameter of the whole model, of a ZeRO-1
-    state over a rank's ``params`` (each TP block's moments gathered over
-    TP too); a state without specs is returned as it is."""
+    state over a rank's ``params`` (each block's moments gathered over the
+    axes its block splits too); a state without specs is returned as it
+    is."""
     if state.specs is None:
         return state
     tp = block_names(params)
@@ -124,22 +126,28 @@ def _sum_squares(tensors):
 
 
 def global_norm(tensors, split=(), ctx=None) -> torch.Tensor:
-    """The norm of ``tensors`` and of the TP blocks ``split`` (this rank's
-    blocks, their squares summed over the TP group of ``ctx``)."""
+    """The norm of ``tensors`` and of the blocks ``split`` (``(tensor,
+    spec)`` pairs: this rank's blocks, their squares summed over the axes
+    each spec splits, one sum for each set of axes)."""
     total = _sum_squares(tensors)
-    if split:
-        part = parallel.tp_reduce(_sum_squares(split), ctx)
+    by_axes: dict[tuple, list] = {}
+    for g, spec in split:
+        used = parallel.spec_axes(spec)
+        by_axes.setdefault(tuple(a for a in ctx.shape if a in used), []).append(g)
+    for axes, blocks in by_axes.items():
+        part = parallel.group_reduce(_sum_squares(blocks), ctx, axes)
         total = part if total is None else total + part
     return torch.sqrt(total)
 
 
-def clip_by_global_norm(grads: dict, max_norm: float, split: set | frozenset = frozenset(),
-                        ctx=None):
+def clip_by_global_norm(grads: dict, max_norm: float, split: dict | None = None, ctx=None):
     """``(clipped grads, norm)``: each gradient times ``min(1, max_norm /
-    (norm + 1e-9))`` in its own dtype.  ``split``: the names of the
-    gradients that are this rank's TP blocks (summed over TP in the norm)."""
+    (norm + 1e-9))`` in its own dtype.  ``split``: ``{name: spec}`` of the
+    gradients that are this rank's blocks (``partitioning.block_names``),
+    whose squares are summed over the axes that split them."""
+    split = split or {}
     norm = global_norm([g for n, g in grads.items() if n not in split],
-                       [g for n, g in grads.items() if n in split], ctx)
+                       [(g, split[n]) for n, g in grads.items() if n in split], ctx)
     scale = torch.clamp(max_norm / (norm + 1e-9), max=1.0)
     return {n: g * scale.to(g.dtype) for n, g in grads.items()}, norm
 
@@ -151,7 +159,7 @@ def update(grads: dict, state: OptState, params: torch.nn.Module, cfg: OptimConf
     tensors on the device.  A ZeRO-1 state (``state.specs``) needs the
     ``ctx`` its specs were made for, and the whole gradients on every
     rank."""
-    grads, gnorm = clip_by_global_norm(grads, cfg.clip_norm, set(block_names(params)), ctx)
+    grads, gnorm = clip_by_global_norm(grads, cfg.clip_norm, block_names(params), ctx)
     step = state.step + 1
     lr = schedule(step, cfg)
     b1, b2 = cfg.betas

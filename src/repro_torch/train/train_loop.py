@@ -47,8 +47,8 @@ def init_state(generator: torch.Generator, cfg: ModelConfig, ctx=None, *,
     """A fresh state on ``device`` (None means the CUDA card): parameters
     drawn from ``generator`` (on the same device), zero moments, a zero
     ``(L_scan, E)`` balancer for a MoE model.  Under a parallel context
-    the balancer has one row per dispatcher, ``(L_scan, DP, TP, E)``, a
-    dense decoder's parameters are this rank's TP blocks
+    the balancer has one row per dispatcher, ``(L_scan, DP, TP, E)``, the
+    parameters are this rank's TP and expert blocks
     (``partitioning.take_blocks``), and each rank keeps its ZeRO-1 block of
     the moments (``partitioning.moment_specs``)."""
     params = trainable(model.init_params(generator, cfg, device, ctx))
@@ -97,11 +97,13 @@ def make_train_step(
     dp group once, and AdamW clips by the summed gradients' norm and
     updates this rank's ZeRO-1 block of each parameter, then gathers the
     parameter whole; the MoE layers exchange tokens over the mesh
-    (``models/ffn.py``).  Under tensor parallelism a dense decoder's split
-    leaf's gradient is the rank's block of the whole one and a whole leaf's
-    is already equal on every TP rank, so the sum stays over dp only;
-    AdamW's norm sums the split leaves' squares over TP.  ``loss`` is the
-    same on every rank."""
+    (``models/ffn.py``).  Under tensor parallelism a split leaf's gradient
+    is the rank's block of the whole one and a whole leaf's is already
+    equal on every TP rank, so the sum stays over dp only; an expert
+    block's is complete over the dp axes it splits (the EP exchange and
+    the FSDP gather bring every row's share), so it is summed over the
+    other dp axes only.  AdamW's norm sums each block's squares over the
+    axes that split it.  ``loss`` is the same on every rank."""
 
     def step_fn(state: TrainState, batch: dict):
         params = dict(state.params.named_parameters())
@@ -136,8 +138,10 @@ def make_train_step(
 
         if ctx is not None:
             # Each rank's loss and gradients are its rows' shares of the
-            # whole batch's; no collective is issued when it holds them all.
-            grads = {n: ctx.dp_sum(g.contiguous()) for n, g in grads.items()}
+            # whole batch's, summed over the dp axes a held block does not
+            # split; no collective is issued when it holds them all.
+            blocks = partitioning.block_names(state.params)
+            grads = {n: ctx.dp_sum(g.contiguous(), blocks.get(n)) for n, g in grads.items()}
             loss = ctx.dp_sum(loss.clone())
         _, opt, opt_metrics = adamw.update(grads, state.opt, state.params, opt_cfg, ctx)
 

@@ -90,6 +90,12 @@ def no_kernel(monkeypatch):
     assert not any(ops.launch_counts().values())
 
 
+def _nbytes(tree) -> int:
+    if isinstance(tree, dict):
+        return sum(_nbytes(v) for v in tree.values())
+    return tree.numel() * tree.element_size()
+
+
 @pytest.mark.parametrize("arch,shape", [
     ("smollm-135m", "train_4k"), ("smollm-135m", "prefill_32k"),
     ("smollm-135m", "decode_32k"), ("deepseek-v2-236b", "decode_32k"),
@@ -113,9 +119,21 @@ def test_cell_writes_an_ok_record(arch, shape, tmp_path, no_kernel):
         held = sum(t.numel() // (16 if n in split else 1)
                    for n, t in model.Model(cfg, device="meta").named_parameters())
         assert rec["collectives_by_group"]["dp"]["all-reduce"] >= 2 * held
-    if arch.startswith("deepseek"):  # the decode batch takes the one-device MoE path
-        assert rec["memory"]["argument_size_in_bytes"] > 2 * model_stats.count_params(
-            dryrun.get_config(arch))
+    if arch.startswith("deepseek"):
+        # A rank holds its blocks: MLA's heads, the shared experts, embed's
+        # columns, 10 of the 160 experts' 1/16 of D (EP over model, FSDP
+        # over data), and 1/256 of the compressed cache (rows over dp, the
+        # sequence over TP); each multiplies only its experts' buffers.
+        assert rec["memory"]["argument_size_in_bytes"] <= 6.5e9
+        assert rec["hlo_flops"] <= 1.0e12
+        cfg = dryrun.cell_config(arch, dryrun.SHAPES[shape])
+        ctx = make_context(make_production_mesh(), cfg.n_routed_experts)
+        b, s = dryrun.SHAPES[shape].global_batch, dryrun.SHAPES[shape].seq_len
+        meta = model.Model(cfg, device="meta")
+        rank = model.init_decode_cache(meta, cfg, b, s, ctx)
+        assert rank.pop("kv_split") == "seq"
+        whole = model.init_decode_cache(meta, cfg, b, s)
+        assert _nbytes(rank) * 256 == _nbytes(whole)
     cell = roofline.cell_roofline(rec, model_stats.count_active_params(dryrun.get_config(arch)))
     assert cell.tag == f"{arch}__{shape}__pod16x16" and cell.step_s > 0
     assert not torch.distributed.is_initialized()

@@ -1,7 +1,8 @@
-"""The port's tensor parallelism over ``model`` for the dense decoder
-families: each rank of the TP group holds its blocks of the split leaves,
-computes its heads, hidden units and vocabulary columns, and sums the
-row-parallel products over the group.
+"""The port's tensor parallelism over ``model`` for the dense decoder and
+MoE families: each rank of the TP group holds its blocks of the split
+leaves, computes its heads, hidden units and vocabulary columns, and sums
+the row-parallel products over the group; a MoE model's rank also holds
+its block of the routed experts (``partitioning.expert_specs``).
 
 Three gloo jobs (``tests/torch_ranks.py``, job ``"tp"``) run on meshes
 (1, 2), (2, 2) and (1, 4) while a subprocess of the JAX package for each
@@ -17,7 +18,12 @@ head its query head uses) with the KV cache split by rows.  One more
 case at (1, 4), SmolLM with 6 heads over 3 KV heads (SmolLM-135M's 9 over
 3 on 16 ranks, cut to size), keeps its attention whole on every rank, and
 a cache of 18 rows at (1, 4) keeps the cache whole (``cache_specs``
-downgrades it).
+downgrades it).  The MoE cases are the reduced DeepSeek-V2 (MLA's 4 heads,
+``w_dq`` and the shared expert split, ``embed`` by its ``D`` columns, the
+compressed cache by rows) at (1, 2) and (1, 4) with its 8 experts over
+the whole mesh, at (2, 2) with 6 experts (EP over ``model``, FSDP over
+``data``), at (1, 4) with a cache of 18 rows (whole), and the reduced
+DeepSeek-V3 (sigmoid gate, MTP head) at (2, 2).
 
 * *Against the JAX reference.* Two train steps on two global batches of
   4 x 16 whose labels are masked unevenly, each rank on its dp block of
@@ -35,12 +41,12 @@ downgrades it).
   ``partitioning.local_specs`` splits and the whole of every other leaf;
   the KV cache from a prefill and from ``init_decode_cache`` is the
   rank's ``cache_specs`` block of the whole cache.
-* *Checkpoints* under (2, 2): the trained state saved whole from rank 0
-  and restored into a fresh state's blocks gives every block back bit
-  for bit.
+* *Checkpoints* under (2, 2), Qwen3's and DeepSeek-V2's (EP+FSDP): the
+  trained state saved whole from rank 0 and restored into a fresh state's
+  blocks gives every block back bit for bit.
 * *The families this slice does not split* (Hymba, RWKV6, Whisper) hold
   no block under (1, 2), and one train step equals ``ctx=None``'s within
-  1e-5 (DeepSeek-V2's MoE and MLA under TP: ``tests/test_torch_moe_ep.py``).
+  1e-5.
 * *One TP rank* (a (1, 1) context in this process): the primitives
   return their input and a dense decoder's prefill, decode and train
   step issue no collective.
@@ -62,9 +68,10 @@ from repro.configs import get_config as jget
 from repro.train import train_loop as jloop
 from repro_torch.configs import get_config as tget
 from repro_torch.launch import op_analysis
-from repro_torch.launch.mesh import make_production_mesh
+from repro_torch.launch.mesh import make_context, make_production_mesh
 from repro_torch.models import convert, model, parallel, partitioning
 from repro_torch.models.parallel import MeshShape, ParallelContext
+from repro_torch.models.parallel import Spec as P
 from repro_torch.optim import adamw
 from repro_torch.train import train_loop
 from torch_ranks import one_rank
@@ -84,12 +91,21 @@ CASES = {  # name: arch, mesh, config changes, cache rows
        for mesh in MESHES},
     "smollm-6h-1x4": ("smollm-135m", "1x4", dict(num_heads=6, num_kv_heads=3), CACHE),
     "gemma2-cache18-1x4": ("gemma2-9b", "1x4", {}, S + 2),
+    "v2-1x2": ("deepseek-v2-236b", "1x2", {}, CACHE),
+    "v2-1x4": ("deepseek-v2-236b", "1x4", {}, CACHE),
+    "v2e6-2x2": ("deepseek-v2-236b", "2x2", dict(n_routed_experts=6), CACHE),
+    "v3-2x2": ("deepseek-v3-671b", "2x2", {}, CACHE),
+    "v2-cache18-1x4": ("deepseek-v2-236b", "1x4", {}, S + 2),
 }
-CKPT_CASE = "qwen3-2x2"
+CKPT_CASE = ("qwen3-2x2", "v2e6-2x2")
+# Cases whose MoE layers also take the one-device path on the rank's
+# expert blocks (a sequence that does not divide over TP): EP+FSDP, and EP
+# over both axes.
+HELD_CASES = ("v2e6-2x2", "v3-2x2")
 WHOLE_FAMILIES = ("hymba-1.5b", "rwkv6-1.6b", "whisper-small")  # under (1, 2)
 # The cache's rows do not enter a train step: that case's reference is
 # gemma2-1x4's.
-SAME_STEP = {"gemma2-cache18-1x4": "gemma2-1x4"}
+SAME_STEP = {"gemma2-cache18-1x4": "gemma2-1x4", "v2-cache18-1x4": "v2-1x4"}
 REF_XLA_FLAGS = ("--xla_force_host_platform_device_count=4 --xla_backend_optimization_level=0 "
                  "--xla_llvm_disable_expensive_passes=true")
 
@@ -110,7 +126,7 @@ for name, c in cases.items():
     cfg = dataclasses.replace(get_config(c["arch"]).reduced(), **c["replace"])
     mesh = jax.make_mesh(c["mesh"], ("data", "model"), axis_types=(AxisType.Auto,) * 2,
                          devices=jax.devices()[:math.prod(c["mesh"])])
-    ctx = make_context(mesh, 0)
+    ctx = make_context(mesh, cfg.n_routed_experts if cfg.moe else 0)
     state = train_loop.init_state(jax.random.key(0), cfg, ctx)
     pspecs = partitioning.param_specs(state.params, cfg, ctx)
     zspecs = partitioning.zero1_specs(pspecs, state.params, ctx)
@@ -167,7 +183,7 @@ def _jobs() -> tuple[dict, dict]:
             ref[mesh][name] = dict(arch=arch, replace=replace, mesh=MESHES[mesh], opt=OPT,
                                    batches=batches)
         jobs[mesh][name] = dict(cfg=tcfg, tree=tree, opt=opt, cache_len=cache_len,
-                                ckpt=name == CKPT_CASE,
+                                ckpt=name in CKPT_CASE, held=name in HELD_CASES,
                                 batches=[{k: torch.from_numpy(v) for k, v in b.items()}
                                          for b in batches])
     for arch in WHOLE_FAMILIES:
@@ -245,8 +261,9 @@ def _rank_rows(mesh: str, rank: int) -> slice:
     return slice(i * B // dp, (i + 1) * B // dp)
 
 
-def _ctx(mesh: str) -> ParallelContext:
-    return ParallelContext(mesh=MeshShape(MESHES[mesh], ("data", "model")))
+def _ctx(mesh: str, cfg=None) -> ParallelContext:
+    experts = cfg.n_routed_experts if cfg is not None and cfg.moe else 0
+    return make_context(MeshShape(MESHES[mesh], ("data", "model")), experts)
 
 
 @pytest.mark.parametrize("case", CASES)
@@ -279,31 +296,97 @@ def test_serving_equals_ctx_none(runs, case):
         _close(res["ctx_zero"], res["none_zero"][rows].numpy(), OWN_TOL, f"rank {r} zero cache")
 
 
+def _meta_tree(shapes: dict) -> dict:
+    """A cache of meta tensors from ``{path: shape}``."""
+    tree: dict = {}
+    for path, shape in shapes.items():
+        *keys, leaf = path.split("/")
+        node = tree
+        for k in keys:
+            node = node.setdefault(k, {})
+        node[leaf] = torch.empty(shape, device="meta")
+    return tree
+
+
 @pytest.mark.parametrize("case", CASES)
 def test_each_rank_holds_its_blocks(runs, case):
     arch, mesh, replace, cache_len = CASES[case]
     _, tcfg = _configs(arch, replace)
     dp, tp = MESHES[mesh]
-    specs = partitioning.local_specs(tcfg, _ctx(mesh))
-    lay = partitioning.tp_layout(tcfg, _ctx(mesh))
-    assert ("layers/attn/wq" in specs) == lay.heads == (tcfg.num_heads % tp == 0)
-    assert ("layers/attn/wk" in specs) == lay.kv
-    assert {"layers/ffn/w_in", "layers/ffn/w_out", "embed"} <= specs.keys()
-    split = set(partitioning.port_specs(list(runs[mesh][0]["cases"][case]["blocks"]), specs))
+    ctx = _ctx(mesh, tcfg)
+    specs = partitioning.local_specs(tcfg, ctx)
+    lay = partitioning.tp_layout(tcfg, ctx)
+    if tcfg.use_mla:
+        # MLA's heads, w_dq and the shared expert split; embed by its D
+        # columns; the latents, norms and the router whole; the experts
+        # the EP blocks of the reference's layout.
+        assert lay.heads and lay.q_lora and lay.shared and lay.embed == "cols"
+        for prefix in ("layers", "head_layers/0") + (("mtp/block",) if tcfg.mtp else ()):
+            lead = (None,) if prefix == "layers" else ()
+            attn = {n: specs[f"{prefix}/attn/{n}"] for n in ("w_dq", "w_uq", "w_uk", "w_uv", "wo")}
+            assert attn == {**{n: P(*lead, None, "model") for n in attn},
+                            "wo": P(*lead, "model", None)}
+        assert {"layers/moe/shared/w_in", "layers/moe/shared/w_out",
+                "head_layers/0/ffn/w_in", "head_layers/0/ffn/w_out"} <= specs.keys()
+        assert specs["embed"] == P(None, "model") and specs["lm_head"] == P(None, "model")
+        assert not [k for k in specs if k.rsplit("/", 1)[-1] in (
+            "w_dkv", "kv_norm", "q_norm", "gate")]
+        want = partitioning.expert_specs(ctx)
+        assert [specs[f"layers/moe/{n}"] for n in ("w_in", "w_gate_h", "w_out")] == [
+            P(None, *w) for w in want]
+        assert (ctx.fsdp_axis is not None) == (tcfg.n_routed_experts == 6)
+    else:
+        assert ("layers/attn/wq" in specs) == lay.heads == (tcfg.num_heads % tp == 0)
+        assert ("layers/attn/wk" in specs) == lay.kv
+        assert {"layers/ffn/w_in", "layers/ffn/w_out", "embed"} <= specs.keys()
+    split = partitioning.port_specs(list(runs[mesh][0]["cases"][case]["blocks"]), specs)
     for o in runs[mesh]:
         res = o["cases"][case]
         assert res["tp_specs"] == specs
         for n, (local, whole) in res["blocks"].items():
-            assert math.prod(local) * (tp if n in split else 1) == math.prod(whole), n
+            parts = math.prod(ctx.size(e) for e in split.get(n, ()) if e is not None)
+            assert math.prod(local) * parts == math.prod(whole), n
         # The cache: the dp rows and the cache_specs block of the whole one.
-        kv = (tcfg.num_layers, B, cache_len, tcfg.num_kv_heads, tcfg.resolved_head_dim)
-        cspec = partitioning.cache_specs({"scan": {"k": torch.empty(kv, device="meta")}},
-                                         _ctx(mesh))["scan"]["k"]
-        want = tuple(d if e is None else d // _ctx(mesh).size(e) for d, e in zip(kv, cspec))
-        split_kind = "seq" if cspec[2] == "model" else "heads" if cspec[3] == "model" else None
-        assert o["cases"][case]["ctx_cache"] == (split_kind, want)
-        assert o["cases"][case]["ctx_zero_cache"] == (split_kind, want)
-        assert o["cases"][case]["none_cache"] == (None, kv)
+        _, _, shapes = res["none_cache"]
+        cspecs = partitioning.cache_specs(_meta_tree(shapes), ctx)
+        want = {}
+        for path, shape in shapes.items():
+            spec = cspecs
+            for k in path.split("/"):
+                spec = spec[k]
+            want[path] = tuple(d if e is None else d // ctx.size(e) for d, e in zip(shape, spec))
+        first = next(p for p in shapes if p.startswith("scan/"))
+        cspec = want[first]
+        kind_spec = partitioning.cache_specs(_meta_tree({first: shapes[first]}), ctx)
+        kind_spec = kind_spec["scan"][first.split("/")[1]]
+        split_kind = ("seq" if kind_spec[2] == "model" else
+                      "heads" if len(kind_spec) > 3 and kind_spec[3] == "model" else None)
+        if tcfg.use_mla:  # the compressed cache splits by rows only
+            assert split_kind == ("seq" if cache_len % tp == 0 else None)
+        for got in (res["ctx_cache"], res["ctx_zero_cache"]):
+            assert got == (split_kind, cspec, want), case
+        assert res["none_cache"][0] is None and res["none_cache"][2] == shapes
+        lead = shapes[first]
+        assert lead[1] == B and lead[2] == cache_len
+
+
+@pytest.mark.parametrize("case", HELD_CASES)
+def test_moe_one_device_path_on_expert_blocks(runs, case):
+    """A sequence of S - 1 positions does not divide over TP, so every MoE
+    layer takes the one-device path: each rank routes the whole batch and
+    multiplies its expert blocks' buffers (FSDP-gathered at E = 6), ``y``
+    summed over the EP group.  Nothing drops at the reduced capacity
+    factor, so under the split context and under its whole-batch view the
+    loss and every gradient (summed over dp as the step sums them) equal
+    ``ctx=None``'s within 1e-5."""
+    mesh = CASES[case][1]
+    for r, o in enumerate(runs[mesh]):
+        res = o["cases"][case]["held"]
+        for view in ("split", "whole"):
+            _close(res[view]["loss"], res["none"]["loss"].numpy(), OWN_TOL, f"rank {r} {view}")
+            assert res[view]["grads"].keys() == res["none"]["grads"].keys()
+            for n, g in res["none"]["grads"].items():
+                _close(res[view]["grads"][n], g.numpy(), OWN_TOL, f"rank {r} {view} {n}")
 
 
 def test_the_cases_cover_every_cache_and_head_layout():
@@ -316,22 +399,27 @@ def test_the_cases_cover_every_cache_and_head_layout():
                      (True, False, None)}
 
 
-def test_checkpoint_round_trip_restores_every_block(runs):
-    assert all(o["cases"][CKPT_CASE]["ckpt_written"] for o in runs["2x2"])
-    assert all(o["cases"][CKPT_CASE]["ckpt_same"] for o in runs["2x2"])
+@pytest.mark.parametrize("case", CKPT_CASE)
+def test_checkpoint_round_trip_restores_every_block(runs, case):
+    mesh = CASES[case][1]
+    assert all(o["cases"][case]["ckpt_written"] for o in runs[mesh])
+    assert all(o["cases"][case]["ckpt_same"] for o in runs[mesh])
 
 
 @pytest.mark.parametrize("arch", ["smollm-135m", "gemma2-9b", "qwen1.5-4b", "qwen3-0.6b",
-                                  "chameleon-34b", "deepseek-v2-236b", "hymba-1.5b",
-                                  "rwkv6-1.6b", "whisper-small"])
+                                  "chameleon-34b", "deepseek-v2-236b", "deepseek-v3-671b",
+                                  "hymba-1.5b", "rwkv6-1.6b", "whisper-small"])
 def test_production_layout(arch):
     """On the 16-wide ``model`` axis: SmolLM's 9 heads and Qwen1.5's 20 stay
     whole, Gemma2's and Qwen3's 16 query heads split with their 8 KV heads
     whole and the cache split by rows, Chameleon's 64 over 8 the same; the
-    FFN and the vocabulary split wherever they divide; the other families
-    hold no block."""
+    FFN and the vocabulary split wherever they divide; DeepSeek-V2's and
+    V3's 128 MLA heads, ``w_dq``, shared experts and ``embed``'s columns
+    split, the compressed cache by rows, V2's 160 experts over ``model``
+    with ``D`` over ``data`` and V3's 256 over both axes; the other
+    families hold no block."""
     cfg = tget(arch)
-    ctx = ParallelContext(mesh=make_production_mesh())
+    ctx = make_context(make_production_mesh(), cfg.n_routed_experts if cfg.moe else 0)
     lay = partitioning.tp_layout(cfg, ctx)
     if cfg.family not in partitioning.TP_FAMILIES:
         assert lay is None and partitioning.local_specs(cfg, ctx) == {}
@@ -340,6 +428,13 @@ def test_production_layout(arch):
     assert lay.heads == (cfg.num_heads % 16 == 0) and not lay.kv
     assert lay.ffn and lay.vocab
     assert partitioning.kv_cache_split(cfg, ctx, 32768) == "seq"
+    if cfg.moe:
+        specs = partitioning.local_specs(cfg, ctx)
+        assert lay.q_lora and lay.shared and lay.embed == "cols"
+        experts = {"deepseek-v2-236b": P(None, "model", "data", None),
+                   "deepseek-v3-671b": P(None, ("data", "model"), None, None)}[arch]
+        assert specs["layers/moe/w_in"] == specs["layers/moe/w_gate_h"] == experts
+        assert specs["embed"] == P(None, "model") and "layers/moe/gate" not in specs
 
 
 def test_one_tp_rank_issues_no_collective(tmp_path):

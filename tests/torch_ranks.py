@@ -10,10 +10,11 @@ parallel context, runs the job and writes its results to
 ``DIR/out<RANK>.pt``.  Jobs:
 
 * ``"moe"``: one ``moe_ffn`` layer under the context on this rank's rows
-  of the job's ``x`` (its dp block), bias rows and weights, then the
-  gradient of ``sum(y * cot)`` with respect to ``x`` and every weight;
-  ``y`` and ``x``'s gradient are gathered over dp and the weights'
-  gradients summed over dp, as the train step sums them;
+  of the job's ``x`` (its dp block), bias rows and weights (its expert
+  blocks), then the gradient of ``sum(y * cot)`` with respect to ``x``
+  and every weight; ``y`` and ``x``'s gradient are gathered over dp and
+  the weights' gradients summed over dp as the train step sums them, each
+  expert block's then gathered whole;
 * ``"model"``: a reduced DeepSeek-V2 (parameters from the job's seed) under
   the context (on this rank's rows) and without one: prefill and two
   decode steps (the context's logits gathered over dp), then one train
@@ -23,9 +24,10 @@ parallel context, runs the job and writes its results to
   context's views of the batch: ``"split"`` (``ctx.for_batch``: this
   rank's rows where they divide over dp), ``"whole"`` (every rank holds
   the whole batch) and ``"none"`` (no context); see :func:`_dp_case`;
-* ``"tp"``: for each of the job's cases (a dense config, the JAX
+* ``"tp"``: for each of the job's cases (a dense or MoE config, the JAX
   package's initial parameters, global batches), tensor parallelism over
-  ``model``: the rank's blocks of the parameters, two train steps under
+  ``model`` (and a MoE model's expert blocks, under the context
+  ``make_context`` gives its experts): the rank's blocks of the parameters, two train steps under
   the context, the state gathered whole, a prefill and two decode steps
   and a decode from a zero cache against ``ctx=None``, and a checkpoint
   saved under the context (each leaf gathered onto rank 0, which writes
@@ -70,12 +72,24 @@ def _moe(job, ctx):
     cfg = job["cfg"]
     p = ffn.MoEFFN(cfg, device="cpu")
     p.load_state_dict(job["params"])
+    # The rank's expert blocks (partitioning.expert_specs) where EP splits them.
+    specs = {}
+    if ctx.ep_size > 1:
+        specs = dict(zip(("w_in", "w_gate_h", "w_out"), partitioning.expert_specs(ctx)))
+        with torch.no_grad():
+            for name, spec in specs.items():
+                w = getattr(p, name)
+                setattr(p, name, torch.nn.Parameter(w[parallel.shard_index(spec, w.shape, ctx)]))
     p.requires_grad_(True)
     rows = ctx.take_rows({"x": job["x"], "cot": job["cot"]})
     x = rows["x"].clone().requires_grad_(True)
     y, counts = ffn.moe_ffn(p, x, job["bias"], cfg, ctx)
     (y * rows["cot"]).sum().backward()
-    grads = {n: ctx.dp_sum(t.grad.clone()) for n, t in p.named_parameters()}
+    # Summed over dp as the train step sums them, each block gathered whole.
+    grads = {}
+    for n, t in p.named_parameters():
+        g = ctx.dp_sum(t.grad.clone(), specs.get(n))
+        grads[n] = parallel.gather(g, specs[n], ctx) if n in specs else g
     return {"y": _gather_rows(y.detach(), ctx), "counts": counts,
             "x_grad": _gather_rows(x.grad, ctx), "grads": grads, "hint": _hint(ctx)}
 
@@ -128,7 +142,8 @@ def _model(job, ctx):
         step = train_loop.make_train_step(cfg, opt_cfg, c, sync=job["sync"])
         state, metrics = step(state, rows)
         out[f"{name}_metrics"] = {k: v.detach().clone() for k, v in metrics.items()}
-        out[f"{name}_params"] = {n: t.detach().clone() for n, t in state.params.named_parameters()}
+        out[f"{name}_params"] = {n: t.detach().clone() for n, t in
+                                 convert.whole_model(state.params, cfg, c).named_parameters()}
         opt = adamw.gather_state(state.opt, state.params, c)
         out[f"{name}_m"] = {n: t.clone() for n, t in opt.m.items()}
         out[f"{name}_v"] = {n: t.clone() for n, t in opt.v.items()}
@@ -138,10 +153,11 @@ def _model(job, ctx):
     return out
 
 
-def _state_of(state, c) -> dict:
-    """Parameters, whole moments and the balancer of a train state."""
+def _state_of(state, cfg, c) -> dict:
+    """Whole parameters and moments, and the balancer, of a train state."""
     opt = adamw.gather_state(state.opt, state.params, c)
-    out = {"params": {n: t.detach().clone() for n, t in state.params.named_parameters()},
+    whole = convert.whole_model(state.params, cfg, c)
+    out = {"params": {n: t.detach().clone() for n, t in whole.named_parameters()},
            "m": {n: t.clone() for n, t in opt.m.items()},
            "v": {n: t.clone() for n, t in opt.v.items()}}
     if state.balancer is not None:
@@ -174,9 +190,12 @@ def _dp_case(case, ctx) -> dict:
         take = ctx.for_batch(rows, m) if run == "rows" else c
         state = train_loop.init_state(torch.Generator().manual_seed(case.get("seed", 0)), cfg, c,
                                       device="cpu")
-        if case.get("params") is not None:
+        if case.get("params") is not None:  # whole leaves: keep the rank's blocks
+            blocks = partitioning.block_names(state.params)
             with torch.no_grad():
-                state.params.load_state_dict(case["params"])
+                for n, t in state.params.named_parameters():
+                    w = case["params"][n]
+                    t.copy_(w[parallel.shard_index(blocks[n], w.shape, c)] if n in blocks else w)
         r = {"whole": c is not None and c.whole_batch}
         first = batches[0] if take is None else take.take_rows(batches[0], m)
         r["rows"] = first["tokens"].shape[0]
@@ -197,7 +216,7 @@ def _dp_case(case, ctx) -> dict:
                 r["metrics"].append({k: v.detach().clone() for k, v in metrics.items()})
                 if state.balancer is not None:
                     r["metrics"][-1]["true_counts"] = state.balancer.true_counts.clone()
-            r.update(_state_of(state, c))
+            r.update(_state_of(state, cfg, c))
         out[run] = r
     return out
 
@@ -223,6 +242,21 @@ def _tp_state(params, cfg, c) -> train_loop.TrainState:
                                  step=torch.zeros((), dtype=torch.int32))
 
 
+def _cache_layout(cache: dict) -> tuple:
+    """``(kv_split, shape of the first stacked leaf, {path: shape} of every
+    leaf)`` of a decode cache."""
+    shapes = {}
+    for part, tree in cache.items():
+        if part == "kv_split":
+            continue
+        for key, t in tree.items():
+            if isinstance(t, dict):
+                shapes.update({f"{part}/{key}/{n}": tuple(v.shape) for n, v in t.items()})
+            else:
+                shapes[f"{part}/{key}"] = tuple(t.shape)
+    return cache.get("kv_split"), tuple(next(iter(cache["scan"].values())).shape), shapes
+
+
 def _tp_case(case, ctx, work: Path) -> dict:
     """One case of a ``"tp"`` job.  ``case["tree"]``: the JAX package's
     parameters (numpy); ``case["batches"]``: global batches.  Returns the
@@ -238,7 +272,7 @@ def _tp_case(case, ctx, work: Path) -> dict:
     cfg = case["cfg"]
     batches = case["batches"]
     rows = batches[0]["tokens"].shape[0]
-    c = ctx.for_batch(rows)
+    c = tmesh.make_context(ctx.mesh, cfg.n_routed_experts if cfg.moe else 0).for_batch(rows)
     out = {}
     state = _tp_state(convert.params_from_jax(case["tree"], cfg, "cpu", c), cfg, c)
     whole = convert.params_from_jax(case["tree"], cfg, "cpu")
@@ -257,9 +291,9 @@ def _tp_case(case, ctx, work: Path) -> dict:
                                                   first["tokens"].shape[1] + i, cfg, cc)
                 served.append(logits)
             out[f"{name}_serve"] = torch.stack(served)
-            out[f"{name}_cache"] = (cache.get("kv_split"), tuple(cache["scan"]["k"].shape))
+            out[f"{name}_cache"] = _cache_layout(cache)
             zero = model.init_decode_cache(p, cfg, rows, case["cache_len"], cc)
-            out[f"{name}_zero_cache"] = (zero.get("kv_split"), tuple(zero["scan"]["k"].shape))
+            out[f"{name}_zero_cache"] = _cache_layout(zero)
             out[f"{name}_zero"] = model.decode_step(p, first["tokens"][:, 0], zero, 3, cfg, cc)[0]
     step = train_loop.make_train_step(cfg, case["opt"], c)
     out["metrics"] = []
@@ -270,6 +304,8 @@ def _tp_case(case, ctx, work: Path) -> dict:
                                opt=adamw.gather_state(state.opt, state.params, c))
     out["params"] = {n: t.detach().clone() for n, t in full.params.named_parameters()}
     out["m"], out["v"] = full.opt.m, full.opt.v
+    if case.get("held"):
+        out["held"] = _held_grads(case, cfg, c)
     if case.get("ckpt"):
         directory = work / "ckpt"
         written = checkpoint.save(state, directory, 2, ctx=c)
@@ -292,6 +328,30 @@ def _tp_case(case, ctx, work: Path) -> dict:
             for k, t in getattr(state.opt, part).items():
                 same &= torch.equal(t, getattr(fresh.opt, part)[k])
         out["ckpt_same"] = same
+    return out
+
+
+def _held_grads(case, cfg, c) -> dict:
+    """``train_loss`` and its gradients (each rank's share summed over dp
+    as the train step sums it, blocks gathered whole) on the first batch
+    cut to ``S - 1`` positions, which do not divide over TP, so that every
+    MoE layer takes the one-device path on the rank's expert blocks:
+    under the split context, under its whole-batch view and without one."""
+    batch = {k: v[:, :-1] for k, v in case["batches"][0].items()}
+    out = {}
+    for name, cc in (("split", c), ("whole", c.with_whole_batch()), ("none", None)):
+        params = train_loop.trainable(convert.params_from_jax(case["tree"], cfg, "cpu", cc))
+        named = dict(params.named_parameters())
+        loss, _ = model.train_loss(params, batch if cc is None else cc.take_rows(batch), cfg, cc)
+        grads = dict(zip(named, torch.autograd.grad(loss, list(named.values()))))
+        loss = loss.detach()
+        if cc is not None:
+            blocks = partitioning.block_names(params)
+            loss = cc.dp_sum(loss.clone())
+            grads = {n: cc.dp_sum(g.contiguous(), blocks.get(n)) for n, g in grads.items()}
+            grads = {n: parallel.gather(g, blocks[n], cc) if n in blocks else g
+                     for n, g in grads.items()}
+        out[name] = {"loss": loss, "grads": grads}
     return out
 
 
