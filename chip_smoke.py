@@ -103,7 +103,7 @@ own failure):
    (no kernel but the examples' own; every count printed, none added to
    the main paths'). ``run_serving_sim`` at ``examples/serve_care.py``'s
    cell (8 replicas x 16 decode slots, load 0.9, mean prefill 4 and
-   decode 60, MSR drain 0.25, ET-4), 160 slots, seed 0, under JSAQ,
+   decode 60, MSR drain 0.25, ET-4), 150 slots, seed 0, under JSAQ,
    SQ(2), RR and drain at 2:1 rates, JIQ, hsq, the ack wire (delay 2,
    jitter 1, drop 0.1, timeout 8, backoff 2, 6 retries, suspect_age 8)
    and crash faults (0.005 / 0.1, suspect_age 20) (``DISPATCH_CELLS`` of
@@ -112,10 +112,10 @@ own failure):
    vector, messages, final occupancy and control counters; ms a slot on
    the card and on the CPU, and a profiled ET-4 call's device busy share.
    The dispatcher at ``serve/replicas1024``'s width (1024 x 16, cap 128,
-   128 slots, lowest-index ties) against the fused ``serve_one`` (one
+   80 slots, lowest-index ties) against the fused ``serve_one`` (one
    ``serve_slots`` launch): JCT vector, messages and final occupancy
    equal; ms a slot and us a routed request.  ``dispatch_sim`` at
-   ``bench_moe_balance.py``'s section B (E 64, D 8, T 256, k 8, 200 of its
+   ``bench_moe_balance.py``'s section B (E 64, D 8, T 256, k 8, 120 of its
    800 steps, 5 seeds in one ``dispatch_batch``; no_bias, off, exact, dt8,
    et4, et8):
    each regime equal to the CPU on the card's draws in every field, each
@@ -126,12 +126,12 @@ own failure):
    ``serve_care --slots 1000`` as subprocesses: exit 0, their closing
    lines, and serve_care's 30 ``flash_attention`` launches a prefill and
    none in decode (SmolLM-135M at its published widths); serve_care
-   asserts its own golden replay.  Cuts: 160 slots (the example's
-   default 20,000), 128 slots at full width (the bench's 2048), 200
+   asserts its own golden replay.  Cuts: 150 slots (the example's
+   default 20,000), 80 slots at full width (the bench's 2048), 120
    dispatch_sim steps (the bench's 800): halved because the whole run at
    1000 slots and 800 steps took 1250.8 s on an H100's host, past the
    1200 s limit, halved again when phase 9 came and a run took ~1150 s,
-   and cut from 250 slots when a run took 1063.8 s on a slow host.
+   and cut again when phase 10 (f)-(h) came and runs took 1052-1096 s.
 4. The slotted dense backend against the fused one on the card, decision
    for decision, at K=200, T=1000, on Bernoulli arrivals and on MMPP
    arrivals under a diurnal curve (``MMPP_FUSED`` of
@@ -159,7 +159,7 @@ own failure):
 4c. The degraded control plane on both dense backends (no kernel: every
    launch count stays 0), each call against the CPU on the same draws,
    every result field equal.  Slotted, at the Section 9.1 setting (K=30,
-   load 0.95, geometric sizes of mean 30, cap 2048), 4 seeds x 500
+   load 0.95, geometric sizes of mean 30, cap 2048), 4 seeds x 400
    slots, one ``simulate_grid`` call per static kind: CARE (JSAQ + ET-3 +
    MSR) over the delay ladder {1, 4, 8, 16} and the drop ladder {0, 0.1,
    0.3, 0.5} at delay 2 (``benchmarks/bench_faults.py:104-170``); SQ(2)
@@ -176,8 +176,8 @@ own failure):
    on the card, on both tiers.  Serving: ``bench_pull.py:68-92``'s
    frontier, 8 replicas x 16 decode slots, load 0.9, CARE / SQ(2) / JIQ /
    hsq, degraded (delay 2, drop 0.1, suspect_age 8) and clean, 4 seeds x
-   350 slots; ``bench_faults.py:203-240``'s engineered crash / recovery
-   (1250 slots, half its quick 2500) through ``serve_one`` with suspect masking on
+   300 slots; ``bench_faults.py:203-240``'s engineered crash / recovery
+   (800 slots, a third of its quick 2500) through ``serve_one`` with suspect masking on
    and off and a fault-free control.  Then CARE with delay 4 and drop 0.1 at K=1e5, cap 16, 2 seeds
    x 1000 slots, with the draws' and the call's peak device memory.
 5. The serving bench's ET ladder (``bench_serving._ladder``): 8 replicas,
@@ -346,9 +346,19 @@ own failure):
    block's weights: the whole batch routed, its experts' buffers only),
    the shares of ``y`` on 128 decode tokens added, against the whole
    layer (~7.5 GB of bf16 weights), each within 1e-2 of the largest
-   magnitude.  Expert and tensor parallelism across ranks (``ep`` or
-   ``tp > 1``) need more than one card: the CPU tests run them over gloo
-   ranks.
+   magnitude.  Then the other families' blocks the same way (bf16,
+   published width, 2 x 2048 tokens, ``tests/test_torch_cuda.py``'s
+   helpers): RWKV6-1.6B's time and channel mix as 16 ranks of 2 WKV heads
+   and 448 hidden units (each rank's chunked WKV heads and state against
+   the whole call's, the summed ``wo`` and ``wv`` products against the
+   whole layer), Hymba-1.5B's Mamba layer as 16 blocks of 200 inner
+   channels (summed ``xdbc`` and outputs), each within 1e-2 of the
+   largest magnitude, rank 0's layer timed against the whole layer's;
+   and Whisper-small's encoder self-attention (S = T = 1500) and
+   cross-attention (S 432, T 1500) through ``ops.flash_attention`` on
+   each rank's heads at TP 2 and 4, bit for bit, each call timed.
+   Expert and tensor parallelism across ranks (``ep`` or ``tp > 1``)
+   need more than one card: the CPU tests run them over gloo ranks.
 11. The dry run against the card (``launch/dryrun.py``).  Phase 9's
    SmolLM-135M train step (8 x 2048, full width and depth, bf16, no
    context) traced on fake CUDA tensors (no kernel launched), then run for
@@ -479,15 +489,19 @@ CARE_DROP = (4, 6, 600)
 CARE_DROP_ROWS = [[2, 5, 8, 600], [0, 3, 8, 600], [3, 1, 12, 600], [1, 7, 8, 300]]
 MAIN_KS = (100_000, 1_000_000)
 MAIN_SLOTS = 4000
-DENSE_VS_FUSED = (200, 2000)  # K, T
-SECTION9_SLOTS = 10_000  # the paper's 20,000 halved: see DISPATCH_SLOTS
+# Phases 4 and 6: halved again (T 2000, 10,000 and 1000 slots) when a
+# whole run with phase 10 (f)-(h), the kernels' build included, took
+# 1048.4 s.
+DENSE_VS_FUSED = (200, 1000)  # K, T
+SECTION9_SLOTS = 5000  # the paper's 20,000 quartered: see DISPATCH_SLOTS
 # Phase 4b: the paper's Section 9 setting (K = 30, cap 2048, geometric sizes
 # of mean 30) on the dense backend, cut from the benches' 20,000-100,000
-# slots to 4 seeds x 1250 (the dense loop takes ~1.7-3.8 ms a slot on the
+# slots to 4 seeds x 800 (the dense loop takes ~1.7-3.8 ms a slot on the
 # card; 4000 until phase 4c came and the whole run passed 600 s, 2500
-# until phase 9 came and a whole run took ~1150 s); then SQ(2) at K = 1e5,
-# cap 16, 2 seeds x 1000 slots, for width.
-BREADTH_SLOTS = 1250
+# until phase 9 came and a whole run took ~1150 s, 1250 until a whole run
+# with phase 10 (f)-(h) took 1048.4 s); then SQ(2) at K = 1e5, cap 16, 2
+# seeds x 1000 slots, for width.
+BREADTH_SLOTS = 800
 BREADTH_SEEDS = (0, 1, 2, 3)
 BREADTH_PROFILE_SLOTS = 100  # the profiled SQ(2) call; the profiler slows the loop many fold
 BREADTH_WIDE = dict(servers=100_000, buffer_cap=16, slots=1000, load=0.95,
@@ -500,14 +514,15 @@ BREADTH_WIDE_SEEDS = (0, 1)
 # the engineered crash / recovery to half bench_faults' quick 2500 slots
 # (the phase took 333 s with 4000 slots everywhere, 178 s at 2000 / 1500,
 # and 225 s at 1500 / 1000 / 2500 in a whole run of ~1150 s once phase 9
-# came, so each was halved again); the
+# came, so each was halved again; cut again to 400 / 300 / 800 / 300 when
+# phase 10 (f)-(h) came and whole runs took 1052-1096 s); the
 # identity checks at IDENTITY_SLOTS; the width check at K = 1e5, cap 16,
 # 2 seeds x 1000 slots.
-DEGRADED_SLOTS = 750
+DEGRADED_SLOTS = 400
 DEGRADED_SEEDS = (0, 1, 2, 3)
-SERVE_DEGRADED_SLOTS = 500
-CRASH_SLOTS = 1250
-IDENTITY_SLOTS = 500
+SERVE_DEGRADED_SLOTS = 300
+CRASH_SLOTS = 800
+IDENTITY_SLOTS = 300
 DEGRADED_WIDE = dict(servers=100_000, buffer_cap=16, slots=1000, load=0.95,
                      mean_service=30, policy="jsaq", comm="et", x=3, network="net",
                      net_delay=4, net_drop=0.1)
@@ -524,7 +539,7 @@ SERVE_WORK = dict(load=0.9, mean_prefill=4, mean_decode=60, msr_drain=0.25)
 LADDER_SLOTS = 20_000
 LADDER_X = (2, 4, 8, 16)
 LADDER_SEEDS = (0, 1, 2, 3)
-SERVE_DENSE_VS_FUSED = dict(replicas=64, decode_slots=16, slots=1000, queue_cap=128)
+SERVE_DENSE_VS_FUSED = dict(replicas=64, decode_slots=16, slots=512, queue_cap=128)
 # Phase 3b: serve_stream at serve/replicas1024 (SERVE_MAIN's cell), its
 # rechunkings and resume, the dense stream at SERVE_DENSE_VS_FUSED.
 STREAM_SLOTS = 16_384
@@ -544,10 +559,11 @@ STREAM_PLAIN_SLOTS = 64  # the dense loop takes ~80 ms a slot at 1024 replicas
 # 285.2 s, Section 9 50.7 s), past the 1200 s limit; halved, the earlier
 # runs took 777-872 s; with phase 9 a whole run took ~1150 s (phase 3c
 # 186 s), so the dispatcher's slots and dispatch_sim's steps were halved
-# again.
-DISPATCH_SLOTS = 250
-DISPATCH_WIDE_SLOTS = 128
-MOE_DISPATCH_STEPS = 200
+# again; with phase 10 (f)-(h) they were cut to 150 / 80 slots and 120
+# steps (whole runs had taken 1052-1096 s).
+DISPATCH_SLOTS = 150
+DISPATCH_WIDE_SLOTS = 80
+MOE_DISPATCH_STEPS = 120
 MOE_DISPATCH_SEEDS = 5
 EXAMPLE_TIMEOUT_S = 600
 # Phase 7: DeepSeek-V2 serving at published widths, depth cut to one dense
@@ -1653,7 +1669,9 @@ def _dense_serving(dev, times: dict) -> dict:
     }
 
 
-def _tp_heads_check(q, k, v, kw: dict, whole_ms: float) -> dict:
+def _tp_heads_check(q, k, v, kw: dict, whole_ms: float,
+                    label: str = "phase 8 flash_attention on one rank's heads of the global "
+                                 "layer") -> dict:
     """``ops.flash_attention`` on each TP rank's heads of a layer (its
     query heads and, since the KV heads divide too, its KV heads, as
     ``attention_full`` calls it under a context) against those heads of
@@ -1678,8 +1696,8 @@ def _tp_heads_check(q, k, v, kw: dict, whole_ms: float) -> dict:
         assert equal, f"a rank's heads at tp {tp} differ from the whole call's"
         out[tp] = {"heads": hl, "kv_heads": kl, "equal": equal, "rank_ms": rank_ms,
                    "whole_ms": whole_ms}
-        print(f"phase 8 flash_attention on one rank's heads of the global layer at tp {tp} "
-              f"({hl} query heads over {kl} KV heads, B={q.shape[0]}, S=T={q.shape[1]}): "
+        print(f"{label} at tp {tp} ({hl} query heads over {kl} KV heads, B={q.shape[0]}, "
+              f"S={q.shape[1]}, T={k.shape[1]}): "
               f"every rank's output equals its heads of the whole call bit for bit; a rank's "
               f"call {min(rank_ms):.3f}-{max(rank_ms):.3f} ms against the whole call's "
               f"{whole_ms:.3f} ms ({whole_ms / tp:.3f} over {tp})")
@@ -3479,10 +3497,12 @@ def _parallel_phase(dev, times: dict) -> dict:
         dense = _parallel_dense(dev, dmesh)
     finally:
         dist.destroy_process_group()
-    # (e) the MoE family's split arithmetic at published width, with the
-    # ranks simulated in this process through the functions they call.
+    # (e) the MoE family's and (f)-(h) the other families' split arithmetic
+    # at published width, with the ranks simulated in this process through
+    # the functions they call.
     _mla_row_blocks(dev)
     _expert_blocks(dev)
+    _family_blocks(dev, times)
     times["parallel_phase_s"] = time.perf_counter() - t_phase
     print(f"phase 10: {times['parallel_phase_s']:.1f} s")
     return {"moe": launches, "dense": dense}
@@ -3691,6 +3711,80 @@ def _expert_blocks(dev) -> None:
     torch.cuda.empty_cache()
 
 
+FAMILY_BLOCKS = (2, 2048, 16)  # batch, tokens (RWKV's chunked WKV form), TP ranks
+FAMILY_BLOCKS_REPS = 10
+
+
+def _whole_rank_ms(res) -> tuple[float, float]:
+    """``res``' whole and rank callables timed as whole, rank, rank, whole
+    (FAMILY_BLOCKS_REPS calls each), so that neither reading always comes
+    first; each the mean of its two readings."""
+    w1 = _time_ms(res["whole"], FAMILY_BLOCKS_REPS)
+    r1 = _time_ms(res["rank"], FAMILY_BLOCKS_REPS)
+    r2 = _time_ms(res["rank"], FAMILY_BLOCKS_REPS)
+    w2 = _time_ms(res["whole"], FAMILY_BLOCKS_REPS)
+    print(f"phase 10 readings (ms): whole {w1:.3f}, rank {r1:.3f}, rank {r2:.3f}, whole {w2:.3f}")
+    return (w1 + w2) / 2, (r1 + r2) / 2
+
+
+def _family_blocks(dev, times: dict) -> None:
+    """Phase 10 (f)-(h), the other families' TP blocks at published width,
+    bf16, on the card (``tests/test_torch_cuda.py``'s helpers): (f)
+    RWKV6-1.6B's time and channel mix on FAMILY_BLOCKS' tokens as 16 ranks
+    of 2 WKV heads and 448 hidden units, each rank's WKV heads and state
+    against the whole call's, the ranks' summed ``wo`` and ``wv`` products
+    against the whole layer; (g) Hymba-1.5B's Mamba layer as 16 blocks of
+    200 inner channels, the summed partial ``xdbc`` and outputs against
+    the whole layer; each within TP_BLOCKS_TOL of the largest magnitude,
+    rank 0's layer timed against the whole layer's; (h) Whisper-small's
+    encoder self-attention (S = T = 1500) and cross-attention (S 432, T
+    1500) through ``ops.flash_attention`` on each rank's heads at TP 2
+    and 4, bit for bit, each rank's call timed."""
+    from repro_torch.kernels import flash_attn as flash_k
+
+    card_tests = _card_tests()
+    tol = card_tests.TP_BLOCKS_TOL
+    b, s, tp = FAMILY_BLOCKS
+    t0 = time.perf_counter()
+    res = card_tests.rwkv_rank_blocks(dev, b, s, tp)
+    errs = {k: res[k] for k in ("wkv_err", "state_err", "tm_err", "cm_err")}
+    assert all(e <= tol for e in errs.values()), errs
+    whole_ms, rank_ms = _whole_rank_ms(res)
+    times["rwkv_blocks_ms"] = {"whole": whole_ms, "rank": rank_ms}
+    print(f"phase 10 {res['cfg'].name}'s time and channel mix (bf16) on {b} x {s} tokens as "
+          f"{tp} ranks of {res['heads']} WKV heads and {res['hidden']} hidden units, on the "
+          f"card: each rank's chunked WKV heads "
+          f"{'equal the whole call bit for bit' if res['wkv_equal'] else 'differ'} (largest "
+          f"error / magnitude {errs['wkv_err']:.3g}); the time mix's state "
+          f"{errs['state_err']:.3g}, the summed wo products {errs['tm_err']:.3g}, the channel "
+          f"mix (gate gathered, wv products summed) {errs['cm_err']:.3g} (tolerance {tol}); a "
+          f"rank's layer {rank_ms:.3f} ms against the whole layer's {whole_ms:.3f} ms "
+          f"({whole_ms / rank_ms:.2f}x)")
+    del res
+    res = card_tests.mamba_rank_blocks(dev, b, s, tp)
+    errs = {k: res[k] for k in ("xdbc_err", "out_err", "state_err")}
+    assert all(e <= tol for e in errs.values()), errs
+    whole_ms, rank_ms = _whole_rank_ms(res)
+    times["mamba_blocks_ms"] = {"whole": whole_ms, "rank": rank_ms}
+    print(f"phase 10 {res['cfg'].name}'s Mamba layer (bf16) on {b} x {s} tokens as {tp} blocks "
+          f"of {res['channels']} inner channels, on the card: summed partial xdbc "
+          f"{errs['xdbc_err']:.3g}, summed outputs {errs['out_err']:.3g}, the blocks' states "
+          f"{errs['state_err']:.3g} of the largest magnitude (tolerance {tol}); a rank's call "
+          f"{rank_ms:.3f} ms against the whole call's {whole_ms:.3f} ms "
+          f"({whole_ms / rank_ms:.2f}x)")
+    del res
+    torch.cuda.empty_cache()
+    times["whisper_heads"] = {}
+    for which in card_tests.WHISPER_ATTN:
+        q, k, v, kw = card_tests.whisper_attn_inputs(dev, which, b)
+        whole_ms = _time_ms(lambda: flash_k.flash_attention_cuda(q, k, v, **kw), FLASH_TIME_REPS)
+        times["whisper_heads"][which] = _tp_heads_check(
+            q, k, v, kw, whole_ms, f"phase 10 whisper-small {which} attention on one rank's heads")
+    times["family_blocks_s"] = time.perf_counter() - t0
+    print(f"phase 10 (f)-(h): {times['family_blocks_s']:.1f} s")
+    torch.cuda.empty_cache()
+
+
 DRYRUN_CELLS = (("smollm-135m", "train_4k"), ("deepseek-v2-236b", "decode_32k"),
                 ("gemma2-9b", "decode_32k"))
 # FLOPs a rank of smollm-135m / train_4k / pod16x16: with every rank
@@ -3883,7 +3977,7 @@ def _decode_cache_bytes(arch: str, shape: str) -> tuple[int, int, int]:
         return tree.numel() * tree.element_size()
 
     tree = {k: v for k, v in model.init_decode_cache(params, cfg, b, s, ctx).items()
-            if k != "kv_split"}
+            if isinstance(v, dict)}  # the split marks are strings
     parts = ctx.dp_size * (ctx.tp_size if partitioning.kv_cache_split(cfg, ctx, s) else 1)
     return nbytes(model.init_decode_cache(params, cfg, b, s)), nbytes(tree), parts
 

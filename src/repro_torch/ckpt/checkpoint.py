@@ -81,10 +81,11 @@ def _merge(tp, zero):
     if tp is None:
         return zero
     n = max(len(tp), len(zero))
-    tp, zero = (tuple(s) + (None,) * (n - len(s)) for s in (tp, zero))
-    if any(a is not None and b is not None for a, b in zip(tp, zero)):
+    tpe, zero = (tuple(s) + (None,) * (n - len(s)) for s in (tp, zero))
+    if any(a is not None and b is not None for a, b in zip(tpe, zero)):
         raise ValueError(f"TP layout {tp} and ZeRO-1 layout {zero} split one dimension")
-    return parallel.Spec(*(a if a is not None else b for a, b in zip(tp, zero)))
+    return parallel.Spec(*(a if a is not None else b for a, b in zip(tpe, zero)),
+                         parts=parallel.spec_parts(tp, n))
 
 
 def _local(ts, stacked) -> torch.Tensor:
@@ -124,7 +125,7 @@ def _gather_to_rank0(t: torch.Tensor, spec, ctx) -> torch.Tensor | None:
     out = torch.empty(shape, dtype=t.dtype)
     for j, blk in enumerate(got):
         coord = dict(zip(axes, np.unravel_index(j, [ctx.size(a) for a in axes])))
-        out[parallel.shard_index(spec, shape, ctx, coord)] = blk.cpu()
+        parallel.put_block(out, blk.cpu(), spec, ctx, coord)
     return out
 
 
@@ -272,7 +273,7 @@ def restore(like, directory, step: int | None = None, ctx=None):
             raise ValueError(f"shape mismatch for {path}: ckpt {arr.shape} vs {want}")
         t = _from_numpy(arr, manifest[path]["dtype"])
         if spec is not None and ctx is not None:
-            t = t[parallel.shard_index(spec, t.shape, ctx)]
+            t = parallel.take_block(t, spec, ctx)
         if path.startswith(("params/", "opt/m/", "opt/v/")):
             for i, dst in enumerate(ts):
                 dst.copy_(t[i] if stacked else t)

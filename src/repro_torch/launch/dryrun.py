@@ -27,12 +27,11 @@ cell this module
 
 The numbers are one rank's.  Each rank holds its dp block of the rows, as
 the reference's chip does (``partitioning.batch_specs``, ``cache_specs``'
-dp entry).  A dense decoder (SmolLM, Gemma2, Qwen, Chameleon) computes
-its heads, hidden units and vocabulary columns over ``model``
-(``partitioning.tp_layout``: whole heads only, so SmolLM's 9 heads on 16
-ranks stay whole); the other families still compute whole layers, so
-their FLOPs and temporaries are above the reference's per chip by about
-the work the reference divides over ``model``.
+dp entry).  Every family computes its blocks over ``model``
+(``partitioning.tp_layout``: heads, RWKV's WKV heads, Mamba's channels,
+hidden units and vocabulary columns), whole heads only, so SmolLM's 9
+heads, Hymba's 25 and Whisper's 12 stay whole on 16 ranks and a rank
+does more attention work than the reference's chip.
 
 The fake tensors claim the CUDA device and go through the card's path:
 ``kernels/ops.py`` sends them to the kernels' operators, whose fake

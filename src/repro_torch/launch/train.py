@@ -18,10 +18,10 @@ With ``--mesh DATA,MODEL`` the run takes a parallel context
 rank without it): NCCL on the card, gloo on the CPU.  Each rank steps on
 its dp block of every step's global batch (contiguous rows of each
 microbatch; the whole batch where they do not divide over dp), the step
-sums the gradients over dp, a dense decoder (SmolLM, Gemma2, Qwen,
-Chameleon) or a MoE model (DeepSeek-V2, V3) computes its heads, hidden
-units and vocabulary columns over the ``MODEL`` ranks of the TP group,
-each rank holds its block of the routed experts, MoE layers exchange
+sums the gradients over dp, a model of any family computes its heads,
+channels, hidden units and vocabulary columns over the ``MODEL`` ranks of
+the TP group (``partitioning.tp_layout``), each rank holds its block of
+the routed experts, MoE layers exchange
 tokens over the mesh and AdamW keeps ZeRO-1 blocks of the moments.  A
 checkpoint holds whole leaves, gathered over TP and dp for rank 0 to
 write; a run restores each rank's blocks of it.
@@ -33,6 +33,8 @@ Usage (the card unless ``--device cpu``):
       --arch deepseek-v2-236b --mesh 2,2 --batch 4 --seq 32
   torchrun --nproc-per-node 2 -m repro_torch.launch.train --device cpu \\
       --arch gemma2-9b --mesh 1,2 --batch 4 --seq 32
+  torchrun --nproc-per-node 4 -m repro_torch.launch.train --device cpu \\
+      --arch hymba-1.5b --mesh 1,4 --batch 4 --seq 32
 """
 import argparse
 import time

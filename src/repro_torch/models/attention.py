@@ -170,23 +170,23 @@ def attention_full(
     cache_len, KVH, dh)`` with the first T rows filled, or None without
     ``return_cache``.
 
-    Under a TP context of the dense decoder (``partitioning.tp_layout``)
-    whose query heads divide over TP, each rank projects its query heads
-    and the KV heads they use, runs the kernel on those, multiplies by its
-    rows of ``wo`` and sums the result over the TP group.  Its cache is
-    its ``cache_specs`` block (``partitioning.kv_cache_split``): its KV
+    Under a TP context (``partitioning.tp_layout``) whose query heads
+    divide over TP, each rank projects its query heads and the KV heads
+    they use (cross-attention: from ``kv_src``, which every rank holds
+    whole), runs the kernel on those, multiplies by its rows of ``wo`` and
+    sums the result over the TP group.  Its cache is its ``cache_specs``
+    block (``partitioning.kv_cache_split`` of ``cache_len`` rows): its KV
     heads, or its block of the rows of every KV head."""
     b, s, _ = x.shape
     self_attn = kv_src is None
-    kv_src = x if self_attn else kv_src
-    t = kv_src.shape[1]
-    lay = partitioning.tp_layout(cfg, ctx) if self_attn else None
+    t = x.shape[1] if self_attn else kv_src.shape[1]
+    lay = partitioning.tp_layout(cfg, ctx)
     rank = ctx.tp_index if lay is not None else 0
     _, _, kv_heads = _rank_heads(cfg, lay, rank)
     part = lay is not None and lay.heads  # this rank computes its heads only
     tctx = ctx if part else None
     x = parallel.tp_copy(x, tctx)
-    kv_src = x if self_attn else kv_src
+    kv_src = x if self_attn else parallel.tp_copy(kv_src, tctx)
     q = _project_q(p, x, cfg, tctx)
     k, v = _project_kv(p, kv_src, cfg, tctx, None if not part or lay.kv else kv_heads)
     if use_rope and self_attn:
@@ -223,6 +223,37 @@ def attention_full(
     return out, {"k": kc, "v": vc}
 
 
+def _attend_cache(p: Attention, q, kc, vc, mask, cfg: ModelConfig, ctx, kv_split):
+    """One token's queries ``q`` (the rank's heads under a head split)
+    against a rank's block of a cache (``kv_split`` of
+    ``partitioning.kv_cache_split``), times its rows of ``wo``, summed over
+    TP where the heads split.  By KV heads (``"heads"``): the rank attends
+    its heads.  By rows (``"seq"``): the queries of every head are
+    gathered, every head's partial softmax over the rank's rows is
+    combined over TP by its log-sum-exp, and the rank keeps its heads.
+    Whole (None): the rank attends its heads against the KV heads they
+    use."""
+    lay = partitioning.tp_layout(cfg, ctx)
+    rank = ctx.tp_index if lay is not None else 0
+    h0, hl, kv_heads = _rank_heads(cfg, lay, rank)
+    part = lay is not None and lay.heads
+    if (kv_split == "heads") != (lay is not None and lay.kv):
+        raise ValueError(f"a cache split {kv_split!r} under the layout {lay}")
+    if kv_split == "seq":
+        if part:
+            q = parallel.tp_gather(q, ctx, dim=2)
+        out = _sdpa_seq_split(q, kc, vc, mask, cfg, ctx)
+        if part:
+            dh = cfg.resolved_head_dim
+            out = out[..., h0 * dh : (h0 + hl) * dh]
+    elif part and not lay.kv:
+        used = slice(kv_heads.start, kv_heads.stop)
+        out = _sdpa(q, kc[:, :, used], vc[:, :, used], mask, cfg)
+    else:
+        out = _sdpa(q, kc, vc, mask, cfg)
+    return parallel.tp_reduce(out @ p.wo, ctx if part else None)
+
+
 def attention_decode(p: Attention, x: torch.Tensor, cache: dict, pos: int, cfg: ModelConfig, *,
                      window: int, use_rope: bool = True, ctx=None, kv_split: str | None = None):
     """One-token decode.  x: ``(B, 1, D)``; cache ``k``/``v``: ``(B, T, Kv,
@@ -231,22 +262,13 @@ def attention_decode(p: Attention, x: torch.Tensor, cache: dict, pos: int, cfg: 
     ``k_pos <= pos`` and ``pos - k_pos < window``.  Returns ``(out (B, 1,
     D), cache)``.
 
-    Under a TP context of the dense decoder the cache is this rank's block
-    (``kv_split`` of ``partitioning.kv_cache_split``).  By KV heads
-    (``"heads"``): the rank attends its heads and sums its rows of ``wo``'s
-    product over TP.  By rows (``"seq"``): the one-token queries of every
-    head are gathered, the rank writes the new K and V only where ``pos``
-    falls in its block, every head's partial softmax over its block is
-    combined over TP by its log-sum-exp, and the rank keeps its heads for
-    its rows of ``wo``.  Whole (None): the rank attends its heads against
-    the KV heads they use."""
+    Under a TP context the cache is this rank's block (``kv_split`` of
+    ``partitioning.kv_cache_split``); a cache split by rows takes the new
+    K and V only on the rank whose rows hold ``pos``.  The attention
+    itself is :func:`_attend_cache`'s."""
     b = x.shape[0]
     lay = partitioning.tp_layout(cfg, ctx)
     rank = ctx.tp_index if lay is not None else 0
-    h0, hl, kv_heads = _rank_heads(cfg, lay, rank)
-    part = lay is not None and lay.heads
-    if (kv_split == "heads") != (lay is not None and lay.kv):
-        raise ValueError(f"a cache split {kv_split!r} under the layout {lay}")
     q, k, v = _project_qkv(p, x, x, cfg)
     if use_rope:
         positions = torch.full((b, 1), pos, dtype=torch.int32, device=x.device)
@@ -261,29 +283,19 @@ def attention_decode(p: Attention, x: torch.Tensor, cache: dict, pos: int, cfg: 
         vc[:, row - lo : row - lo + 1] = v.to(vc.dtype)
     kpos = torch.arange(lo, lo + rows, dtype=torch.int32, device=x.device)
     mask = ((kpos <= pos) & (pos - kpos < window))[None, None, None, None, :]
-    if kv_split == "seq":
-        if part:
-            q = parallel.tp_gather(q, ctx, dim=2)
-        out = _sdpa_seq_split(q, kc, vc, mask, cfg, ctx)
-        if part:
-            dh = cfg.resolved_head_dim
-            out = out[..., h0 * dh : (h0 + hl) * dh]
-    elif part and not lay.kv:
-        used = slice(kv_heads.start, kv_heads.stop)
-        out = _sdpa(q, kc[:, :, used], vc[:, :, used], mask, cfg)
-    else:
-        out = _sdpa(q, kc, vc, mask, cfg)
-    out = parallel.tp_reduce(out @ p.wo, ctx if part else None)
-    return out, {"k": kc, "v": vc}
+    return _attend_cache(p, q, kc, vc, mask, cfg, ctx, kv_split), {"k": kc, "v": vc}
 
 
-def cross_attention_decode(p: Attention, x: torch.Tensor, cross_cache: dict, cfg: ModelConfig):
+def cross_attention_decode(p: Attention, x: torch.Tensor, cross_cache: dict, cfg: ModelConfig,
+                           ctx=None, kv_split: str | None = None):
     """Decode-time cross-attention: x ``(B, 1, D)`` against the encoder's
     precomputed ``cross_cache`` ``k``/``v`` ``(B, T, KVH, dh)``, every key
-    attended."""
+    attended.  Under a TP context the cross cache is the rank's block
+    (``kv_split`` of ``partitioning.kv_cache_split`` of the encoder's
+    rows), attended as :func:`_attend_cache` attends it."""
     k, v = cross_cache["k"], cross_cache["v"]
     mask = torch.ones((1, 1, 1, 1, k.shape[1]), dtype=torch.bool, device=x.device)
-    return _sdpa(_project_q(p, x, cfg), k, v, mask, cfg) @ p.wo
+    return _attend_cache(p, _project_q(p, x, cfg), k, v, mask, cfg, ctx, kv_split)
 
 
 def precompute_cross_kv(p: Attention, enc_out: torch.Tensor, cfg: ModelConfig):

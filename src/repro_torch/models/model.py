@@ -21,16 +21,17 @@ n)`` (float32), ``"tm_shift"`` and ``"cm_shift"`` ``(L, B, D)``.
 :func:`decode_step` writes the new state into it in place.
 Entry points run on the CUDA card unless given ``device="cpu"``.
 
-Under a parallel context whose TP group has several ranks, a dense
-decoder or a MoE model (``partitioning.tp_layout``) holds this rank's
-blocks of the leaves ``partitioning.local_specs`` lists
-(``init_params(..., ctx=)``, ``partitioning.take_blocks``;
-``Model.tp_specs`` records them), computes its heads, hidden units and
-vocabulary columns (a MoE model looks up its ``D`` columns of the
-embedding and gathers them), and keeps its ``cache_specs`` block of the
-KV cache (the cache then carries ``"kv_split"``, ``"heads"`` or
-``"seq"``, from ``partitioning.kv_cache_split``; MLA's compressed cache
-splits only by rows).  A MoE model holds its block of the routed experts
+Under a parallel context whose TP group has several ranks, a model of
+any family (``partitioning.tp_layout``) holds this rank's blocks of the
+leaves ``partitioning.local_specs`` lists (``init_params(..., ctx=)``,
+``partitioning.take_blocks``; ``Model.tp_specs`` records them), computes
+its heads, channels, hidden units and vocabulary columns (a MoE model
+looks up its ``D`` columns of the embedding and gathers them), and keeps
+its ``cache_specs`` block of every cache leaf
+(``partitioning.tp_cache_specs``).  A KV cache split over TP is marked
+``"kv_split"``, ``"heads"`` or ``"seq"`` (``partitioning.kv_cache_split``;
+MLA's compressed cache splits only by rows), Whisper's cross cache
+``"cross_split"`` alike.  A MoE model holds its block of the routed experts
 wherever the EP group has several ranks, split over TP or not.  The
 logits of :func:`prefill` and :func:`decode_step` are gathered whole;
 training never gathers them.
@@ -139,13 +140,14 @@ def _split_vocab(cfg: ModelConfig, ctx) -> bool:
     return lay is not None and lay.vocab
 
 
-def embed_tokens(params: Model, tokens: torch.Tensor, cfg: ModelConfig, ctx=None):
-    """Token embeddings.  Under a TP context that splits the vocabulary
-    each rank looks up the ids in its rows (others zero) and the rows are
-    summed over the TP group; under one that splits ``embed``'s ``D``
-    columns (a MoE model's ``embed_d``) each rank looks up its columns and
-    they are gathered over the group (every rank's gradient of the whole
-    is the same, so each keeps its columns' share)."""
+def _embed_rows(params: Model, tokens: torch.Tensor, cfg: ModelConfig, ctx=None):
+    """The embedding's rows of ``tokens`` in the compute dtype.  Under a TP
+    context that splits the vocabulary each rank looks up the ids in its
+    rows (others zero) and the rows are summed over the TP group; under
+    one that splits ``embed``'s ``D`` columns (a MoE model's ``embed_d``)
+    each rank looks up its columns and they are gathered over the group
+    (every rank's gradient of the whole is the same, so each keeps its
+    columns' share)."""
     cdt = common.dtype_of(cfg.compute_dtype)
     lay = partitioning.tp_layout(cfg, ctx)
     split = lay.embed if lay is not None else None
@@ -159,6 +161,14 @@ def embed_tokens(params: Model, tokens: torch.Tensor, cfg: ModelConfig, ctx=None
         x = parallel.tp_gather(params.embed[tokens], ctx, dim=-1).to(cdt)
     else:
         x = params.embed[tokens].to(cdt)
+    return x
+
+
+def embed_tokens(params: Model, tokens: torch.Tensor, cfg: ModelConfig, ctx=None):
+    """Token embeddings (:func:`_embed_rows`), scaled where the config
+    says, through RWKV's pre-norm."""
+    cdt = common.dtype_of(cfg.compute_dtype)
+    x = _embed_rows(params, tokens, cfg, ctx)
     if cfg.embed_scale:
         x = x * torch.tensor(cfg.d_model**0.5, dtype=cdt, device=x.device)
     if cfg.family == "ssm":
@@ -203,21 +213,21 @@ def _logits(params: Model, x: torch.Tensor, cfg: ModelConfig, ctx=None):
 # --------------------------------------------------------------------------
 
 
-def _whisper_encode(params: Model, frames: torch.Tensor, cfg: ModelConfig):
+def _whisper_encode(params: Model, frames: torch.Tensor, cfg: ModelConfig, ctx=None):
     """Frame embeddings ``(B, T_enc, D)`` (the conv front end is a stub in
     the JAX package too) plus sinusoidal positions, through the encoder."""
     cdt = common.dtype_of(cfg.compute_dtype)
     pos = common.sinusoidal_table(frames.shape[1], cfg.d_model, cdt, frames.device)
     x = frames.to(cdt) + pos[None]
     for p in params.enc_layers:
-        x = tfm.run_layer(cfg, functools.partial(tfm.encoder_block, cfg=cfg), p, x)
+        x = tfm.run_layer(cfg, functools.partial(tfm.encoder_block, cfg=cfg, ctx=ctx), p, x)
     return tfm._norm(params.enc_final_norm, x, cfg)
 
 
-def _whisper_embed_dec(params: Model, tokens: torch.Tensor, cfg: ModelConfig):
+def _whisper_embed_dec(params: Model, tokens: torch.Tensor, cfg: ModelConfig, ctx=None):
     """Decoder token embeddings plus sinusoidal positions ``0..S-1``."""
     cdt = common.dtype_of(cfg.compute_dtype)
-    x = params.embed[tokens].to(cdt)
+    x = _embed_rows(params, tokens, cfg, ctx)
     return x + common.sinusoidal_table(tokens.shape[1], cfg.d_model, cdt, x.device)[None]
 
 
@@ -234,8 +244,8 @@ def _rwkv_train(p, x, cfg, ctx):
     return tfm.rwkv_block(p, x, cfg, ctx=ctx)[0]
 
 
-def _hymba_train(p, x, cfg, window):
-    return tfm.hymba_block(p, x, cfg, window=window, mode="train")[0]
+def _hymba_train(p, x, cfg, ctx, window):
+    return tfm.hymba_block(p, x, cfg, window=window, mode="train", ctx=ctx)[0]
 
 
 def _lm_train(p, x, b, cfg, ctx, window, moe_layer):
@@ -243,8 +253,8 @@ def _lm_train(p, x, b, cfg, ctx, window, moe_layer):
     return x, counts
 
 
-def _decoder_train(p, x, enc_out, cfg):
-    return tfm.decoder_block(p, x, enc_out, cfg, mode="train")[0]
+def _decoder_train(p, x, enc_out, cfg, ctx):
+    return tfm.decoder_block(p, x, enc_out, cfg, mode="train", ctx=ctx)[0]
 
 
 def _run_train_stack(params: Model, x: torch.Tensor, cfg: ModelConfig, ctx, bias):
@@ -260,7 +270,7 @@ def _run_train_stack(params: Model, x: torch.Tensor, cfg: ModelConfig, ctx, bias
         return x, None
     if fam == "hybrid":
         for p, w in zip(params.layers, tfm.layer_windows(cfg)):
-            fn = functools.partial(_hymba_train, cfg=cfg, window=int(w))
+            fn = functools.partial(_hymba_train, cfg=cfg, ctx=ctx, window=int(w))
             x = tfm.run_layer(cfg, fn, p, x)
         return x, None
     if fam == "audio":
@@ -296,9 +306,9 @@ def train_loss(params: Model, batch: dict, cfg: ModelConfig, ctx=None,
     rank holds its block of the rows, every term is this rank's share of
     the whole batch's token mean (``common.cross_entropy``): the shares sum
     over dp to the mean."""
+    check_blocks(params, cfg, ctx)
     if cfg.family == "audio":
         return _whisper_train_loss(params, batch, cfg, ctx)
-    check_blocks(params, cfg, ctx)
     tokens, labels = batch["tokens"], batch["labels"]
     x = embed_tokens(params, tokens, cfg, ctx)
     x, counts = _run_train_stack(params, x, cfg, ctx, bias)
@@ -324,12 +334,13 @@ def train_loss(params: Model, batch: dict, cfg: ModelConfig, ctx=None,
 
 
 def _whisper_train_loss(params: Model, batch: dict, cfg: ModelConfig, ctx):
-    enc_out = _whisper_encode(params, batch["frames"], cfg)
-    x = _whisper_embed_dec(params, batch["tokens"], cfg)
+    enc_out = _whisper_encode(params, batch["frames"], cfg, ctx)
+    x = _whisper_embed_dec(params, batch["tokens"], cfg, ctx)
     for p in params.layers:
-        x = tfm.run_layer(cfg, functools.partial(_decoder_train, cfg=cfg), p, x, enc_out)
+        x = tfm.run_layer(cfg, functools.partial(_decoder_train, cfg=cfg, ctx=ctx), p, x, enc_out)
     x = tfm._norm(params.final_norm, x, cfg)
-    loss = common.cross_entropy(lm_head(params, x, cfg), batch["labels"], ctx=ctx)
+    loss = common.cross_entropy(lm_head(params, x, cfg, ctx), batch["labels"], ctx=ctx,
+                                split_vocab=_split_vocab(cfg, ctx))
     return loss, {"counts": None, "loss_main": loss}
 
 
@@ -355,24 +366,28 @@ def prefill(params: Model, batch: dict, cfg: ModelConfig, ctx=None, cache_len: i
     check_blocks(params, cfg, ctx)
     if fam in ("ssm", "hybrid", "audio"):
         scan = []
+        enc_len = 0
         if fam == "audio":
-            enc_out = _whisper_encode(params, batch["frames"], cfg)
-            x = _whisper_embed_dec(params, tokens, cfg)
+            enc_out = _whisper_encode(params, batch["frames"], cfg, ctx)
+            enc_len = enc_out.shape[1]
+            x = _whisper_embed_dec(params, tokens, cfg, ctx)
             for p in params.layers:
-                x, c = tfm.decoder_block(p, x, enc_out, cfg, mode="prefill", cache_len=cache_len)
+                x, c = tfm.decoder_block(p, x, enc_out, cfg, mode="prefill", cache_len=cache_len,
+                                         ctx=ctx)
                 scan.append(c)
         elif fam == "ssm":
-            x = embed_tokens(params, tokens, cfg)
+            x = embed_tokens(params, tokens, cfg, ctx)
             for p in params.layers:
                 x, c = tfm.rwkv_block(p, x, cfg, ctx=ctx)
                 scan.append(c)
         else:
-            x = embed_tokens(params, tokens, cfg)
+            x = embed_tokens(params, tokens, cfg, ctx)
             for p, w in zip(params.layers, tfm.layer_windows(cfg)):
                 x, c = tfm.hymba_block(p, x, cfg, window=int(w), mode="prefill",
-                                       cache_len=cache_len)
+                                       cache_len=cache_len, ctx=ctx)
                 scan.append(c)
-        return _logits(params, x[:, -1:, :], cfg), {"scan": _stack(scan)}
+        cache = {"scan": _stack(scan), **_splits(cfg, ctx, cache_len, enc_len)}
+        return _logits(params, x[:, -1:, :], cfg, ctx), cache
     x = embed_tokens(params, tokens, cfg, ctx)
     cache: dict = {}
     if cfg.moe and cfg.first_dense_layers:
@@ -393,68 +408,70 @@ def prefill(params: Model, batch: dict, cfg: ModelConfig, ctx=None, cache_len: i
         )
         scan.append(c)
     cache["scan"] = _stack(scan)
-    split = partitioning.kv_cache_split(cfg, ctx, cache_len)
-    if split is not None:
-        cache["kv_split"] = split
+    cache.update(_splits(cfg, ctx, cache_len))
     return _logits(params, x[:, -1:, :], cfg, ctx), cache
+
+
+def _splits(cfg: ModelConfig, ctx, cache_len: int, enc_len: int = 0) -> dict:
+    """The cache's marks of how its KV caches split over TP:
+    ``"kv_split"`` for the self cache of ``cache_len`` rows and Whisper's
+    ``"cross_split"`` for its cross cache of ``enc_len`` rows
+    (``partitioning.kv_cache_split``), each only where it splits."""
+    out = {"kv_split": partitioning.kv_cache_split(cfg, ctx, cache_len)}
+    if cfg.family == "audio":
+        out["cross_split"] = partitioning.kv_cache_split(cfg, ctx, enc_len)
+    return {k: v for k, v in out.items() if v is not None}
 
 
 def init_decode_cache(params: Model, cfg: ModelConfig, batch: int, cache_len: int, ctx=None):
     """Zero cache for decode without a prefill.  ``batch`` is the global
     batch; under a context the cache holds this rank's rows of it (the dp
     entry of ``partitioning.cache_specs``: its block where they divide over
-    dp, else all of them) and, for a dense decoder under TP, its block of
-    the KV heads or of the rows (``partitioning.kv_cache_split``)."""
+    dp, else all of them) and, under TP, its ``cache_specs`` block of each
+    leaf (``partitioning.tp_cache_specs``)."""
     tfm.check_supported(cfg)
     if ctx is not None:
         batch = ctx.local_rows(batch)
-    split = partitioning.kv_cache_split(cfg, ctx, cache_len)
     cdt = common.dtype_of(cfg.compute_dtype)
-    dev = params.embed.device
     l = num_scanned_layers(cfg)
     fam = cfg.family
 
-    def zeros(shape, dtype=cdt):
-        return torch.zeros(shape, dtype=dtype, device=dev)
+    def whole(shape, dtype=cdt):
+        return torch.empty(shape, dtype=dtype, device="meta")
 
     if fam == "ssm":
         h, n = cfg.d_model // cfg.rwkv_head_dim, cfg.rwkv_head_dim
-        return {"scan": {"wkv": zeros((l, batch, h, n, n), torch.float32),
-                         "tm_shift": zeros((l, batch, cfg.d_model)),
-                         "cm_shift": zeros((l, batch, cfg.d_model))}}
-    if not cfg.use_mla:
-        rows, heads = cache_len, cfg.num_kv_heads
-        if split == "seq":
-            rows //= ctx.tp_size
-        elif split == "heads":
-            heads //= ctx.tp_size
-        kv = (l, batch, rows, heads, cfg.resolved_head_dim)
-        scan = {"k": zeros(kv), "v": zeros(kv)}
-        if split is not None:
-            return {"scan": scan, "kv_split": split}
+        cache = {"scan": {"wkv": whole((l, batch, h, n, n), torch.float32),
+                          "tm_shift": whole((l, batch, cfg.d_model)),
+                          "cm_shift": whole((l, batch, cfg.d_model))}}
+    elif not cfg.use_mla:
+        kv = (l, batch, cache_len, cfg.num_kv_heads, cfg.resolved_head_dim)
+        scan = {"k": whole(kv), "v": whole(kv)}
         if fam == "hybrid":
             di = cfg.ssm_expand * cfg.d_model
-            scan["ssm"] = zeros((l, batch, di, cfg.ssm_state), torch.float32)
-            scan["conv"] = zeros((l, batch, cfg.conv_kernel - 1, di))
+            scan["ssm"] = whole((l, batch, di, cfg.ssm_state), torch.float32)
+            scan["conv"] = whole((l, batch, cfg.conv_kernel - 1, di))
         elif fam == "audio":
             cross = (l, batch, cfg.encoder_seq, cfg.num_kv_heads, cfg.resolved_head_dim)
-            scan["cross_k"], scan["cross_v"] = zeros(cross), zeros(cross)
-        return {"scan": scan}
+            scan["cross_k"], scan["cross_v"] = whole(cross), whole(cross)
+        cache = {"scan": scan}
+    else:
+        def mla(*lead):
+            return {"ckv": whole((*lead, batch, cache_len, cfg.kv_lora_rank)),
+                    "k_rope": whole((*lead, batch, cache_len, cfg.qk_rope_head_dim))}
 
-    rows = cache_len // ctx.tp_size if split == "seq" else cache_len
+        cache = {"scan": mla(l)}
+        if cfg.moe and cfg.first_dense_layers:
+            cache["head"] = {str(i): mla() for i in range(cfg.first_dense_layers)}
+    dev = params.embed.device
 
-    def mla_zeros(*lead):
-        return {
-            "ckv": zeros((*lead, batch, rows, cfg.kv_lora_rank)),
-            "k_rope": zeros((*lead, batch, rows, cfg.qk_rope_head_dim)),
-        }
+    def block(t, spec):
+        if isinstance(t, dict):
+            return {k: block(v, spec[k]) for k, v in t.items()}
+        return torch.zeros(parallel.block_shape(spec, t.shape, ctx), dtype=t.dtype, device=dev)
 
-    cache = {"scan": mla_zeros(l)}
-    if cfg.moe and cfg.first_dense_layers:
-        cache["head"] = {str(i): mla_zeros() for i in range(cfg.first_dense_layers)}
-    if split is not None:
-        cache["kv_split"] = split
-    return cache
+    cache = block(cache, partitioning.tp_cache_specs(cache, cfg, ctx))
+    return {**cache, **_splits(cfg, ctx, cache_len, cfg.encoder_seq)}
 
 
 def _write_back(scan: dict, l: int, new: dict) -> None:
@@ -481,15 +498,18 @@ def decode_step(params: Model, tokens: torch.Tensor, cache: dict, pos: int, cfg:
     """
     fam = cfg.family
     scan = cache["scan"]
+    check_blocks(params, cfg, ctx)
+    kv_split = cache.get("kv_split")
     if fam in ("ssm", "hybrid", "audio"):
         if fam == "audio":
             cdt = common.dtype_of(cfg.compute_dtype)
-            x = params.embed[tokens[:, None]].to(cdt)
-            cache_len = scan["k"].shape[2]
+            x = _embed_rows(params, tokens[:, None], cfg, ctx)
+            # The whole self cache's rows (a rank's block of them when split).
+            cache_len = scan["k"].shape[2] * (ctx.tp_size if kv_split == "seq" else 1)
             row = min(max(int(pos), 0), cache_len - 1)  # as dynamic_slice_in_dim clamps
             x = x + common.sinusoidal_table(cache_len, cfg.d_model, cdt, x.device)[row]
         else:
-            x = embed_tokens(params, tokens[:, None], cfg)
+            x = embed_tokens(params, tokens[:, None], cfg, ctx)
         windows = tfm.layer_windows(cfg)
         for l, p in enumerate(params.layers):
             layer_cache = {name: t[l] for name, t in scan.items()}
@@ -497,20 +517,20 @@ def decode_step(params: Model, tokens: torch.Tensor, cache: dict, pos: int, cfg:
                 x, new = tfm.rwkv_block(p, x, cfg, state=layer_cache, ctx=ctx)
             elif fam == "hybrid":
                 x, new = tfm.hymba_block(p, x, cfg, window=int(windows[l]), mode="decode",
-                                         cache=layer_cache, pos=pos)
+                                         cache=layer_cache, pos=pos, ctx=ctx, kv_split=kv_split)
             else:
                 x, new = tfm.decoder_block(p, x, None, cfg, mode="decode", cache=layer_cache,
-                                           pos=pos)
+                                           pos=pos, ctx=ctx, kv_split=kv_split,
+                                           cross_split=cache.get("cross_split"))
             _write_back(scan, l, new)
-        return _logits(params, x, cfg), cache
-    check_blocks(params, cfg, ctx)
+        return _logits(params, x, cfg, ctx), cache
     x = embed_tokens(params, tokens[:, None], cfg, ctx)
     if cfg.moe and cfg.first_dense_layers:
         for i in range(cfg.first_dense_layers):
             x, _, _ = tfm.lm_block_decode(
                 params.head_layers[str(i)], x, cache["head"][str(i)], pos, cfg, ctx,
                 window=tfm.BIG_WINDOW, bias=None, moe_layer=False,
-                kv_split=cache.get("kv_split"),
+                kv_split=kv_split,
             )
     if bias is None:
         bias = _bias_zeros(cfg, ctx, x.device)
@@ -518,6 +538,6 @@ def decode_step(params: Model, tokens: torch.Tensor, cache: dict, pos: int, cfg:
         layer_cache = {name: t[l] for name, t in scan.items()}
         x, _, _ = tfm.lm_block_decode(
             p, x, layer_cache, pos, cfg, ctx, window=int(w), bias=b, moe_layer=cfg.moe,
-            kv_split=cache.get("kv_split"),
+            kv_split=kv_split,
         )
     return _logits(params, x, cfg, ctx), cache

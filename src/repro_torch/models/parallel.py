@@ -10,22 +10,25 @@ loss is the whole batch's token mean (``common.cross_entropy`` sums the
 unmasked count over dp), and the train step sums each gradient over dp
 once.
 
-Tensor parallelism over ``model`` is eager and Megatron-style for the
-dense decoder and MoE families (``partitioning.tp_layout``): each rank of
-the TP group holds its blocks of the leaves the layout splits (whole
-query and KV heads, MLA's heads, FFN and shared-expert hidden units,
-vocabulary rows and columns, the MoE family's embedding columns;
-``partitioning.local_specs``), computes only those, and sums the
+Tensor parallelism over ``model`` is eager and Megatron-style for every
+family (``partitioning.tp_layout``): each rank of the TP group holds its
+blocks of the leaves the layout splits (whole query and KV heads, MLA's
+heads, RWKV's WKV heads, Mamba's inner channels, FFN and shared-expert
+hidden units, vocabulary rows and columns, the MoE family's embedding
+columns; ``partitioning.local_specs``), computes only those, and sums the
 row-parallel products over the TP group where GSPMD inserts the same
 all-reduce for the reference.  The autograd functions :func:`tp_copy`
 (identity forward, all-reduce backward), :func:`tp_reduce` (all-reduce
 forward, identity backward) and :func:`tp_gather` (all-gather forward,
 this rank's block backward) carry it, and :func:`group_copy` /
 :func:`group_reduce` do the same over any axes; none issues a collective
-over a group of one rank.  RWKV, Hymba and Whisper keep whole parameters
-on every TP rank and compute every head and hidden unit of their rows;
-the layouts their hints ask GSPMD for have no eager counterpart yet, so
-:func:`hint` only checks a DTensor's layout against the hints' rule.
+over a group of one rank.  The residual stream stays whole on every
+rank, so the reference's sequence-parallel hints have no eager
+counterpart yet and :func:`hint` only checks a DTensor's layout against
+the hints' rule.  A layout may take a dimension as equal pieces, a block
+of each (``Spec(..., parts=)``: Mamba's ``w_in``, whose ``xi`` and ``z``
+halves each give a rank the same channels); :func:`take_block`,
+:func:`put_block` and :func:`gather` read it.
 Each rank holds its block of the routed experts wherever the EP group
 has several ranks (``partitioning.expert_specs``).  The MoE layer is the
 port's manual region too (``models/ffn.py``): each rank takes its
@@ -53,18 +56,49 @@ class Spec(tuple):
     """A layout, one entry per leading dimension, as ``PartitionSpec``: an
     axis name, a tuple of names (sharded over their product, row-major), or
     None (whole); trailing dimensions left out are whole.  A tuple of one
-    name is that name, as ``PartitionSpec`` normalises it."""
+    name is that name, as ``PartitionSpec`` normalises it.
 
-    def __new__(cls, *entries):
-        return super().__new__(cls, (e[0] if isinstance(e, tuple) and len(e) == 1 else e
+    ``parts`` (one count a dimension, or one count for every dimension an
+    entry splits): a dimension of ``p`` parts is ``p`` equal consecutive
+    pieces, and a block is its block of each piece, in order (the entry
+    laid on the view that cuts the dimension ``d`` into ``(p, d / p)``);
+    1 is the plain layout."""
+
+    def __new__(cls, *entries, parts=1):
+        self = super().__new__(cls, (e[0] if isinstance(e, tuple) and len(e) == 1 else e
                                      for e in entries))
+        if isinstance(parts, int):
+            parts = tuple(parts if e is not None else 1 for e in self)
+        if len(parts) != len(self):
+            raise ValueError(f"{len(parts)} part counts for {len(self)} entries")
+        self.parts = tuple(parts)
+        return self
+
+    def __eq__(self, other) -> bool:
+        return tuple.__eq__(self, other) and self.parts == getattr(other, "parts",
+                                                                    (1,) * len(other))
+
+    def __ne__(self, other) -> bool:
+        return not self == other
+
+    def __hash__(self) -> int:
+        return hash((tuple(self), self.parts))
 
     def __repr__(self) -> str:
-        return f"Spec{tuple.__repr__(self)}"
+        if set(self.parts) <= {1}:
+            return f"Spec{tuple.__repr__(self)}"
+        return f"Spec{tuple.__repr__(self)[:-1].rstrip(',')}, parts={self.parts})"
 
-    def __getnewargs__(self):
-        # Unpickled as Spec(*entries), not Spec(entries).
-        return tuple(self)
+    def __getnewargs_ex__(self):
+        # Unpickled as Spec(*entries, parts=), not Spec(entries).
+        return tuple(self), {"parts": self.parts}
+
+
+def spec_parts(spec, n: int) -> tuple[int, ...]:
+    """The part counts of ``spec``'s first ``n`` dimensions (1 past its
+    entries, and for a plain tuple)."""
+    parts = tuple(getattr(spec, "parts", ()))
+    return (parts + (1,) * n)[:n]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -331,9 +365,12 @@ def choose_ep_axes(ctx_or_mesh, num_experts: int, dp_axes, tp_axis) -> tuple:
 
 
 def shard_index(spec, shape, ctx: ParallelContext, coord: dict | None = None) -> tuple:
-    """This rank's block of a tensor of ``shape`` laid out by ``spec``; with
-    ``coord`` (``{axis: index}``, 0 for an axis it omits) the block of the
-    rank at those mesh coordinates."""
+    """This rank's block of a tensor of ``shape`` laid out by ``spec`` (a
+    plain layout: :func:`take_block` reads one of pieces); with ``coord``
+    (``{axis: index}``, 0 for an axis it omits) the block of the rank at
+    those mesh coordinates."""
+    if any(p != 1 for p in spec_parts(spec, len(shape))):
+        raise ValueError(f"{spec} takes its block of each piece: use take_block / put_block")
     idx = []
     for dim, entry in zip(shape, tuple(spec) + (None,) * (len(shape) - len(spec))):
         if entry is None:
@@ -350,13 +387,55 @@ def shard_index(spec, shape, ctx: ParallelContext, coord: dict | None = None) ->
     return tuple(idx)
 
 
+def _view(spec, shape) -> tuple[tuple, tuple]:
+    """``(view shape, plain entries)`` of ``spec`` on a tensor of
+    ``shape``: each dimension of ``p > 1`` parts cut into ``(p, d / p)``,
+    its entry on the second."""
+    entries = tuple(spec) + (None,) * (len(shape) - len(spec))
+    vshape, ventries = [], []
+    for d, e, p in zip(shape, entries, spec_parts(spec, len(shape))):
+        if p == 1:
+            vshape.append(d)
+            ventries.append(e)
+        else:
+            vshape += [p, d // p]
+            ventries += [None, e]
+    return tuple(vshape), tuple(ventries)
+
+
+def block_shape(spec, shape, ctx: ParallelContext) -> tuple:
+    """The shape of a rank's block of a tensor of ``shape``."""
+    entries = tuple(spec) + (None,) * (len(shape) - len(spec))
+    return tuple(d if e is None else d // ctx.size(e) for d, e in zip(shape, entries))
+
+
+def take_block(t: torch.Tensor, spec, ctx: ParallelContext, coord: dict | None = None):
+    """This rank's block of ``t`` (a view where ``spec`` is plain), or with
+    ``coord`` the block of the rank at those mesh coordinates."""
+    vshape, ventries = _view(spec, t.shape)
+    blk = t.reshape(vshape)[shard_index(ventries, vshape, ctx, coord)]
+    return blk.reshape(block_shape(spec, t.shape, ctx))
+
+
+def put_block(out: torch.Tensor, blk: torch.Tensor, spec, ctx: ParallelContext,
+              coord: dict | None = None) -> None:
+    """Write ``blk`` as the block of the rank at ``coord`` (this rank's
+    without it) into the contiguous whole tensor ``out``."""
+    vshape, ventries = _view(spec, out.shape)
+    out.view(vshape)[shard_index(ventries, vshape, ctx, coord)] = blk.reshape(
+        block_shape(ventries, vshape, ctx))
+
+
 def gather(local: torch.Tensor, spec, ctx: ParallelContext) -> torch.Tensor:
     """The whole tensor from every rank's block of it, laid out by ``spec``."""
-    out = local
-    for i, entry in enumerate(spec):
+    vshape, ventries = _view(spec, local.shape)
+    out = local.reshape(vshape)
+    for i, entry in enumerate(ventries):
         if entry is not None and ctx.size(entry) > 1:
             out = all_gather(out, ctx.group(entry), i)
-    return out
+    entries = tuple(spec) + (None,) * (local.dim() - len(spec))
+    return out.reshape([d * (1 if e is None else ctx.size(e))
+                        for d, e in zip(local.shape, entries)])
 
 
 # --------------------------------------------------------------------------

@@ -28,11 +28,15 @@ may split a flat dimension anywhere that divides, e.g. SmolLM-135M's
 ``wq`` columns (9 heads of 64) over 16 ranks into blocks of 36 columns,
 0.56 of a head; eager code computes a head on one rank, so the eager
 layout splits only whole heads (query heads where they divide over TP,
-KV heads where those divide too, MLA's heads) and keeps a leaf whole
-otherwise.  The routed experts are held as :func:`param_specs` lays them
-out (:func:`expert_specs`) wherever the EP group has several ranks.  The
-numbers are the reference's either way; only which rank holds which
-columns differs.  The KV cache takes :func:`cache_specs` as it stands.
+KV heads where those divide too, MLA's heads, RWKV's WKV heads) and
+keeps a leaf whole otherwise.  Mamba's ``w_in`` ``(D, 2 Di)`` holds
+``xi``'s channels and then ``z``'s: where :func:`param_specs` gives the
+first half of the ranks ``xi`` only, a rank here holds the same block of
+both halves (``Spec(None, tp, parts=2)``).  The routed experts are held
+as :func:`param_specs` lays them out (:func:`expert_specs`) wherever the
+EP group has several ranks.  The numbers are the reference's either way;
+only which rank holds which columns differs.  Every cache leaf is its
+:func:`cache_specs` block over TP (:func:`tp_cache_specs`).
 """
 from __future__ import annotations
 
@@ -284,7 +288,7 @@ def to_shardings(spec_tree, mesh):
 # a rank's eager layout under tensor and expert parallelism
 # --------------------------------------------------------------------------
 
-TP_FAMILIES = ("dense", "vlm", "moe")  # GQA or MLA, dense FFN or MoE
+TP_FAMILIES = ("dense", "vlm", "moe", "ssm", "hybrid", "audio")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -294,28 +298,40 @@ class TPLayout:
     size: int
     heads: bool  # query heads: wq's (MLA: w_uq's, w_uk's, w_uv's) columns, wo's rows
     kv: bool  # KV heads: wk's, wv's, bk's and bv's columns
-    ffn: bool  # a dense FFN's hidden units: w_in's and w_gate's columns, w_out's rows
+    ffn: bool  # a dense FFN's (RWKV: the channel mix's) hidden units
     vocab: bool  # vocabulary: lm_head's columns (a tied head's: embed's rows)
     embed: str | None = None  # embed's "rows" (vocabulary) or "cols" (embed_d), else whole
     q_lora: bool = False  # MLA's w_dq columns
     shared: bool = False  # the shared experts' hidden units
+    wkv: bool = False  # RWKV's WKV heads: the time mix's wr/wk/wv/wg columns, u and wo rows
+    shift: bool = False  # RWKV's token-shift caches by their D columns
+    ssm: bool = False  # Mamba's inner channels
 
 
 def tp_layout(cfg: ModelConfig, ctx: ParallelContext | None) -> TPLayout | None:
     """The layout over a TP group of several ranks, else None (no context,
-    one TP rank, or a family this layout does not split: RWKV, Hymba and
-    Whisper keep whole parameters).  KV heads split where both head counts
-    divide over TP; query heads where ``num_heads`` does and, with the KV
-    heads whole, each rank's query heads use whole groups of KV heads or
-    share one (every config's do); MLA's heads where ``num_heads`` divides,
-    and ``w_dq``'s columns with them where ``q_lora_rank`` does too; a
-    dense FFN's and the shared experts' hidden units where each one's own
-    width divides.  A MoE model with an untied head holds ``embed`` by its
-    ``D`` columns (the reference's ``embed_d``), any other by vocabulary
-    rows; a dimension that does not divide stays whole."""
+    or one TP rank).  KV heads split where both head counts divide over
+    TP; query heads where ``num_heads`` does and, with the KV heads whole,
+    each rank's query heads use whole groups of KV heads or share one
+    (every config's do); MLA's heads where ``num_heads`` divides, and
+    ``w_dq``'s columns with them where ``q_lora_rank`` does too; a dense
+    FFN's and the shared experts' hidden units where each one's own width
+    divides.  RWKV's WKV heads where their count divides, its channel mix
+    where both ``d_ff`` and ``d_model`` do (``wr``'s output is ``D``
+    wide), its shift caches where ``d_model`` does; Mamba's inner channels
+    where ``ssm_expand * d_model`` does.  A MoE model with an untied head
+    holds ``embed`` by its ``D`` columns (the reference's ``embed_d``),
+    any other by vocabulary rows; a dimension that does not divide stays
+    whole."""
     if ctx is None or not ctx.tp_split or cfg.family not in TP_FAMILIES:
         return None
     tp, h = ctx.tp_size, cfg.num_heads
+    vocab = cfg.vocab_size % tp == 0
+    if cfg.family == "ssm":
+        d = cfg.d_model
+        return TPLayout(size=tp, heads=False, kv=False, ffn=cfg.d_ff % tp == 0 and d % tp == 0,
+                        vocab=vocab, embed="rows" if vocab else None,
+                        wkv=(d // cfg.rwkv_head_dim) % tp == 0, shift=d % tp == 0)
     if cfg.use_mla:
         heads, kv = h % tp == 0, False
     else:
@@ -323,7 +339,6 @@ def tp_layout(cfg: ModelConfig, ctx: ParallelContext | None) -> TPLayout | None:
         kv = h % tp == 0 and kvh % tp == 0
         hl, g = h // tp, h // kvh
         heads = kv or (h % tp == 0 and (hl % g == 0 or g % hl == 0))
-    vocab = cfg.vocab_size % tp == 0
     if cfg.moe and not cfg.tie_embeddings:
         embed = "cols" if cfg.d_model % tp == 0 else None
     else:
@@ -333,7 +348,8 @@ def tp_layout(cfg: ModelConfig, ctx: ParallelContext | None) -> TPLayout | None:
                     embed=embed,
                     q_lora=cfg.use_mla and heads and bool(cfg.q_lora_rank)
                     and cfg.q_lora_rank % tp == 0,
-                    shared=bool(shared) and shared % tp == 0)
+                    shared=bool(shared) and shared % tp == 0,
+                    ssm=cfg.family == "hybrid" and (cfg.ssm_expand * cfg.d_model) % tp == 0)
 
 
 def expert_specs(ctx: ParallelContext) -> tuple[P, P, P]:
@@ -348,8 +364,10 @@ def expert_specs(ctx: ParallelContext) -> tuple[P, P, P]:
 
 
 def _block_prefixes(cfg: ModelConfig) -> list[tuple[str, bool]]:
-    """``(JAX path prefix, stacked)`` of each decoder block's leaves."""
+    """``(JAX path prefix, stacked)`` of each block's leaves."""
     out = [("layers", True)]
+    if cfg.family == "audio":
+        out.append(("enc_layers", True))
     if cfg.moe:
         out += [(f"head_layers/{i}", False) for i in range(cfg.first_dense_layers)]
     if cfg.mtp:
@@ -366,17 +384,26 @@ def local_specs(cfg: ModelConfig, ctx: ParallelContext | None) -> dict[str, P]:
     the KV heads they use are whole groups or one); ``wk``,
     ``wv``, ``bk`` and ``bv`` by KV heads where ``num_kv_heads % tp == 0``
     too (else whole, and a rank reads the KV heads its query heads use);
-    MLA's ``w_uq`` (or ``wq``), ``w_uk`` and ``w_uv`` by columns and ``wo``
-    by rows, and ``w_dq`` by columns; ``w_in`` / ``w_gate`` by columns and
-    ``w_out`` by rows of each FFN whose hidden units divide (a dense
-    layer's, the MTP block's, the shared experts'); ``embed``'s rows and an
-    untied ``lm_head``'s columns where ``vocab_size % tp == 0``, or a MoE
-    model's ``embed`` by its ``D`` columns.  The same leaves of the
+    the same for Whisper's cross-attention (``cross``) and its encoder's
+    (``enc_layers``); MLA's ``w_uq`` (or ``wq``), ``w_uk`` and ``w_uv`` by
+    columns and ``wo`` by rows, and ``w_dq`` by columns; ``w_in`` /
+    ``w_gate`` by columns and ``w_out`` by rows of each FFN whose hidden
+    units divide (a dense layer's, the MTP block's, the shared experts');
+    RWKV's time mix by WKV heads (``wr``, ``wk``, ``wv``, ``wg`` by
+    columns, ``u`` and ``wo`` by rows) and its channel mix as the
+    reference's ``_CM_RULES`` (``wk`` and ``wr`` by columns, ``wv`` by
+    rows); Mamba by inner channels (``w_in``'s same block of its ``xi`` and
+    ``z`` halves, ``conv``, ``w_dt`` by columns, ``conv_b``, ``dt_bias``,
+    ``d_skip``, ``w_x``, ``a_log`` and ``w_out`` by rows); ``embed``'s rows
+    and an untied ``lm_head``'s columns where ``vocab_size % tp == 0``, or
+    a MoE model's ``embed`` by its ``D`` columns.  The same leaves of the
     leading dense layers (``head_layers/<i>``) and of DeepSeek-V3's MTP
     block, unstacked.  Norms, ``q_norm``, ``k_norm``, ``kv_norm``,
-    ``w_dkv`` and the router's ``gate`` stay whole.  The routed experts
-    are :func:`expert_specs`' blocks wherever the EP group has several
-    ranks, TP split or not."""
+    ``w_dkv``, the router's ``gate``, RWKV's token-shift and decay LoRAs
+    (``mu_x``, ``mu``, ``maa_w1``, ``maa_w2``, ``w0``, ``decay_w1``,
+    ``decay_w2``), its group norm and ``mu_k`` / ``mu_r`` stay whole.  The
+    routed experts are :func:`expert_specs`' blocks wherever the EP group
+    has several ranks, TP split or not."""
     out = {}
     lay = tp_layout(cfg, ctx)
     if lay is not None:
@@ -384,21 +411,23 @@ def local_specs(cfg: ModelConfig, ctx: ParallelContext | None) -> dict[str, P]:
         for prefix, stacked in _block_prefixes(cfg):
             lead = (None,) if stacked else ()
             col, row, vec = P(*lead, None, tp), P(*lead, tp, None), P(*lead, tp)
-            attn = f"{prefix}/attn/"
-            if lay.heads and cfg.use_mla:
-                q = ["w_uq"] if cfg.q_lora_rank else ["wq"]
-                out.update({attn + n: col for n in (*q, "w_uk", "w_uv")})
-                out[attn + "wo"] = row
-                if lay.q_lora:
-                    out[attn + "w_dq"] = col
-            elif lay.heads:
-                out.update({attn + "wq": col, attn + "wo": row})
-                if cfg.qkv_bias:
-                    out[attn + "bq"] = vec
-            if lay.kv:
-                out.update({attn + "wk": col, attn + "wv": col})
-                if cfg.qkv_bias:
-                    out.update({attn + "bk": vec, attn + "bv": vec})
+            if cfg.family == "ssm":
+                tm, cm = f"{prefix}/tm/", f"{prefix}/cm/"
+                if lay.wkv:
+                    out.update({tm + n: col for n in ("wr", "wk", "wv", "wg")})
+                    out.update({tm + "u": row, tm + "wo": row})
+                if lay.ffn:
+                    out.update({cm + "wk": col, cm + "wv": row, cm + "wr": col})
+                continue
+            if lay.ssm:
+                mb = f"{prefix}/mamba/"
+                out.update({mb + "w_in": P(*lead, None, tp, parts=2), mb + "conv": col,
+                            mb + "w_dt": col, mb + "w_x": row, mb + "a_log": row,
+                            mb + "w_out": row})
+                out.update({mb + n: vec for n in ("conv_b", "dt_bias", "d_skip")})
+            cross = cfg.family == "audio" and prefix == "layers"
+            for attn in [f"{prefix}/attn/"] + ([f"{prefix}/cross/"] if cross else []):
+                out.update(_attn_specs(cfg, lay, attn, col, row, vec))
             moe_layer = cfg.moe and prefix == "layers"
             ffn = f"{prefix}/moe/shared/" if moe_layer else f"{prefix}/ffn/"
             if (lay.shared if moe_layer else lay.ffn):
@@ -419,6 +448,26 @@ def local_specs(cfg: ModelConfig, ctx: ParallelContext | None) -> dict[str, P]:
     return out
 
 
+def _attn_specs(cfg: ModelConfig, lay: TPLayout, attn: str, col: P, row: P, vec: P) -> dict:
+    """The split leaves of one attention (``attn`` its path prefix)."""
+    out = {}
+    if lay.heads and cfg.use_mla:
+        q = ["w_uq"] if cfg.q_lora_rank else ["wq"]
+        out.update({attn + n: col for n in (*q, "w_uk", "w_uv")})
+        out[attn + "wo"] = row
+        if lay.q_lora:
+            out[attn + "w_dq"] = col
+    elif lay.heads:
+        out.update({attn + "wq": col, attn + "wo": row})
+        if cfg.qkv_bias:
+            out[attn + "bq"] = vec
+    if lay.kv:
+        out.update({attn + "wk": col, attn + "wv": col})
+        if cfg.qkv_bias:
+            out.update({attn + "bk": vec, attn + "bv": vec})
+    return out
+
+
 def port_specs(names, specs: dict[str, P]) -> dict[str, P]:
     """``{port name: Spec of that tensor}`` of the names whose JAX leaf is in
     ``specs`` (a stacked leaf's spec without its layer axis)."""
@@ -427,7 +476,8 @@ def port_specs(names, specs: dict[str, P]) -> dict[str, P]:
         if path in specs:
             spec = specs[path]
             for n in ns:
-                out[n] = P(*spec[1:]) if path.split("/", 1)[0] in STACKED else spec
+                stacked = path.split("/", 1)[0] in STACKED
+                out[n] = P(*spec[1:], parts=spec.parts[1:]) if stacked else spec
     return out
 
 
@@ -453,7 +503,7 @@ def take_blocks(params, cfg: ModelConfig, ctx: ParallelContext | None):
     specs = local_specs(cfg, ctx)
     for name, spec in port_specs([n for n, _ in params.named_parameters()], specs).items():
         t = params.get_parameter(name)
-        _set_param(params, name, t[parallel.shard_index(spec, t.shape, ctx)].clone())
+        _set_param(params, name, parallel.take_block(t, spec, ctx).clone())
     params.tp_specs = specs
     return params
 
@@ -503,10 +553,11 @@ def moment_specs(params, cfg: ModelConfig, ctx: ParallelContext) -> dict[str, P]
 
 def kv_cache_split(cfg: ModelConfig, ctx: ParallelContext | None, cache_len: int) -> str | None:
     """How a rank of the TP group holds the KV cache of ``cache_len`` rows
-    (:func:`cache_specs`' TP entry): ``"heads"`` (its block of the KV
-    heads), ``"seq"`` (its block of the rows, every KV head; MLA's ``ckv``
-    and ``k_rope`` rows) or None (whole, or no TP split)."""
-    if tp_layout(cfg, ctx) is None:
+    (:func:`cache_specs`' TP entry; Whisper's cross cache of ``cache_len``
+    encoder rows alike): ``"heads"`` (its block of the KV heads), ``"seq"``
+    (its block of the rows, every KV head; MLA's ``ckv`` and ``k_rope``
+    rows) or None (whole, no TP split, or RWKV, which has no KV cache)."""
+    if tp_layout(cfg, ctx) is None or cfg.family == "ssm":
         return None
     if cfg.use_mla:
         ckv = torch.empty((1, 1, cache_len, cfg.kv_lora_rank), device="meta")
@@ -515,3 +566,26 @@ def kv_cache_split(cfg: ModelConfig, ctx: ParallelContext | None, cache_len: int
     k = torch.empty((1, 1, cache_len, cfg.num_kv_heads, 1), device="meta")
     spec = cache_specs({"scan": {"k": k}}, ctx)["scan"]["k"]
     return "seq" if spec[2] == ctx.tp_axis else "heads" if spec[3] == ctx.tp_axis else None
+
+
+def tp_cache_specs(cache: dict, cfg: ModelConfig, ctx: ParallelContext | None) -> dict:
+    """The cache's nested dicts with each tensor's layout over the TP group:
+    :func:`cache_specs`' TP entries, every other entry None (a rank's dp
+    rows are ``ParallelContext.local_rows``'); every entry None where
+    :func:`tp_layout` is None.  Non-tensor leaves (``"kv_split"``) are
+    left out."""
+    tensors = {k: v for k, v in cache.items() if isinstance(v, (dict, torch.Tensor))}
+    if tp_layout(cfg, ctx) is None:
+        return _map_tree(tensors, lambda t: P(*([None] * t.dim())))
+    specs = cache_specs(tensors, ctx)
+
+    def tp_only(spec):
+        return P(*(e if e == ctx.tp_axis else None for e in spec))
+
+    return _map_tree(specs, tp_only, leaf=lambda x: isinstance(x, P))
+
+
+def _map_tree(tree, fn, leaf=lambda x: not isinstance(x, dict)):
+    if leaf(tree):
+        return fn(tree)
+    return {k: _map_tree(v, fn, leaf) for k, v in tree.items()}

@@ -23,8 +23,17 @@ cfg.ssm_state``.
 None of these recurrences reached a Pallas kernel in the JAX package
 (``lax.scan`` and ``jnp`` code), so they stay plain PyTorch here: loops
 over tokens or chunks of small device operations, host-bound on the card.
-RWKV's time and channel mix take a parallel context for the JAX package's
-sharding hints (``parallel.hint``, which moves nothing).
+
+Under a TP context (``partitioning.tp_layout``) each rank computes its
+block: RWKV's time mix its WKV heads (its columns of ``wr``, ``wk``,
+``wv``, ``wg``, its rows of ``u`` and ``wo``; the token-shift and decay
+LoRAs whole on every rank, ``w0``, ``decay_w2`` and the group norm read
+at its columns), the channel mix its hidden units (the receptance
+gathered over TP, ``k @ wv`` summed), Mamba its inner channels (``xdbc``
+and the output summed over TP).  The whole leaves a rank reads enter
+through ``parallel.tp_copy``, so their gradients are summed over TP.  A
+rank's token-shift states are its ``D`` columns, gathered where a step
+reads them.
 """
 from __future__ import annotations
 
@@ -33,7 +42,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import common, parallel
+from repro_torch.models import common, parallel, partitioning
 
 RWKV_LORA = 32
 RWKV_DECAY_LORA = 64
@@ -108,16 +117,19 @@ def _shifted(x: torch.Tensor, shift_prev: torch.Tensor | None) -> torch.Tensor:
     return torch.cat([shift_prev[:, None, :], x[:, :-1, :]], dim=1)
 
 
-def _ddlerp(p: RWKVTimeMix, x: torch.Tensor, x_prev: torch.Tensor) -> torch.Tensor:
+def _ddlerp(p: RWKVTimeMix, x: torch.Tensor, x_prev: torch.Tensor, tctx=None) -> torch.Tensor:
     """Data-dependent token-shift mixing -> ``(5, B, S, D)``: the mixed
-    streams w, k, v, r, g."""
+    streams w, k, v, r, g.  Each leaf enters through ``tp_copy`` over
+    ``tctx``, so its gradient is summed over TP."""
+    leaves = (p.mu_x, p.maa_w1, p.maa_w2, p.mu)
+    mu_x, maa_w1, maa_w2, mu = (parallel.tp_copy(t, tctx) for t in leaves)
     dx = x_prev - x
-    xxx = x + dx * p.mu_x
-    lora = torch.tanh(xxx @ p.maa_w1)
+    xxx = x + dx * mu_x
+    lora = torch.tanh(xxx @ maa_w1)
     b, s, _ = lora.shape
     lora = lora.reshape(b, s, 5, RWKV_LORA)
-    deltas = torch.einsum("bsir,ird->ibsd", lora, p.maa_w2)
-    return x[None] + dx[None] * (p.mu[:, None, None, :] + deltas)
+    deltas = torch.einsum("bsir,ird->ibsd", lora, maa_w2)
+    return x[None] + dx[None] * (mu[:, None, None, :] + deltas)
 
 
 def _wkv6_scan(r, k, v, w, u, state):
@@ -196,54 +208,85 @@ def _group_norm(out: torch.Tensor) -> torch.Tensor:
     return (out - mu) * torch.rsqrt(var + GROUP_NORM_EPS)
 
 
+def _shift_cols(cfg: ModelConfig, ctx) -> slice:
+    """The ``D`` columns of a rank's token-shift state (all without a
+    split)."""
+    lay = partitioning.tp_layout(cfg, ctx)
+    if lay is None or not lay.shift:
+        return slice(None)
+    w = cfg.d_model // lay.size
+    return slice(ctx.tp_index * w, (ctx.tp_index + 1) * w)
+
+
+def _whole_shift(shift_prev, cfg: ModelConfig, ctx):
+    """A rank's block of a token-shift state gathered whole over TP."""
+    if shift_prev is None or _shift_cols(cfg, ctx) == slice(None):
+        return shift_prev
+    return parallel.tp_gather(shift_prev, ctx, dim=-1)
+
+
 def rwkv_time_mix(p: RWKVTimeMix, x: torch.Tensor, cfg: ModelConfig, state=None,
                   shift_prev=None, ctx=None):
     """x: ``(B, S, D)``; state: ``(B, H, n, n)`` float32 or None (zeros);
     shift_prev: ``(B, D)`` or None.  Returns ``(out (B, S, D), state, x[:,
-    -1])``."""
+    -1])``.  Under a TP context that splits the WKV heads the state is the
+    rank's heads ``(B, H/tp, n, n)``; the shift states are the rank's
+    ``D`` columns wherever ``d_model`` divides over TP."""
     b, s, d = x.shape
     n = cfg.rwkv_head_dim
-    h = d // n
-    xw, xk, xv, xr, xg = _ddlerp(p, x, _shifted(x, shift_prev))
-    decay = p.w0 + (torch.tanh(xw @ p.decay_w1) @ p.decay_w2).to(torch.float32)
-    lw = -torch.exp(decay.to(torch.float32))  # log w (<= 0)
-    # The WKV path's head-sharding hints; single-token decode skips them,
-    # as the reference does.
-    if s <= 1:
-        ctx = None
-    dp, tp = (ctx.dp_axes, ctx.tp_axis) if ctx is not None else (None, None)
-    shard = lambda a: parallel.hint(a, ctx, dp, None, tp, None)  # noqa: E731
-    r = shard((xr @ p.wr).reshape(b, s, h, n))
-    k = shard((xk @ p.wk).reshape(b, s, h, n))
-    v = shard((xv @ p.wv).reshape(b, s, h, n))
-    g = parallel.hint(F.silu(xg @ p.wg), ctx, dp, None, tp)
-    lw = shard(lw.reshape(b, s, h, n))
+    lay = partitioning.tp_layout(cfg, ctx)
+    tctx = ctx if lay is not None and lay.wkv else None
+    x = parallel.tp_copy(x, tctx)
+
+    def read(t):  # a whole leaf of which the rank uses a part
+        return parallel.tp_copy(t, tctx)
+
+    xw, xk, xv, xr, xg = _ddlerp(p, x, _shifted(x, _whole_shift(shift_prev, cfg, ctx)), tctx)
+    cols = _shift_cols(cfg, tctx)  # the rank's heads' columns
+    lora = torch.tanh(xw @ read(p.decay_w1)) @ read(p.decay_w2)[:, cols]
+    decay = read(p.w0)[cols] + lora.to(torch.float32)
+    h = p.u.shape[0]  # the heads this rank computes
+    r = (xr @ p.wr).reshape(b, s, h, n)
+    k = (xk @ p.wk).reshape(b, s, h, n)
+    v = (xv @ p.wv).reshape(b, s, h, n)
+    g = F.silu(xg @ p.wg)
+    lw = -torch.exp(decay.to(torch.float32)).reshape(b, s, h, n)  # log w (<= 0)
     if state is None:
         state = torch.zeros((b, h, n, n), dtype=torch.float32, device=x.device)
-    state = parallel.hint(state, ctx, dp, tp)
     if s % WKV_CHUNK == 0 and s > WKV_CHUNK:
         out, state = _wkv6_chunked(r, k, v, lw, p.u, state)
     else:
         out, state = _wkv6_scan(r, k, v, torch.exp(lw), p.u, state)
-    state = parallel.hint(state, ctx, dp, tp)
-    out = parallel.hint(_group_norm(shard(out)).reshape(b, s, d), ctx, dp, None, tp)
-    out = out * p.gn_scale + p.gn_bias
-    out = (out.to(x.dtype) * g) @ p.wo
-    out = parallel.hint(out, ctx, dp, tp)
-    return out, state, x[:, -1, :]
+    out = _group_norm(out).reshape(b, s, h * n)
+    out = out * read(p.gn_scale)[cols] + read(p.gn_bias)[cols]
+    out = parallel.tp_reduce((out.to(x.dtype) * g) @ p.wo, tctx)
+    return out, state, x[:, -1, _shift_cols(cfg, ctx)]
+
+
+def channel_mix_parts(p: RWKVChannelMix, x: torch.Tensor, shift_prev=None, tctx=None):
+    """The channel mix on the columns and hidden units ``p`` holds:
+    ``(sigmoid(xr @ wr), relu(xk @ wk)^2 @ wv)``, the receptance gate's
+    columns and the (partial) product.  ``shift_prev`` is whole; ``mu_k``
+    and ``mu_r`` enter through ``tp_copy`` over ``tctx``."""
+    dx = _shifted(x, shift_prev) - x
+    xk = x + dx * parallel.tp_copy(p.mu_k, tctx)
+    xr = x + dx * parallel.tp_copy(p.mu_r, tctx)
+    return torch.sigmoid(xr @ p.wr), torch.square(F.relu(xk @ p.wk)) @ p.wv
 
 
 def rwkv_channel_mix(p: RWKVChannelMix, x: torch.Tensor, cfg: ModelConfig, shift_prev=None,
                      ctx=None):
     """The squared-ReLU FFN with token shift and a receptance gate.
-    Returns ``(out (B, S, D), x[:, -1])``."""
-    dx = _shifted(x, shift_prev) - x
-    xk = x + dx * p.mu_k
-    xr = x + dx * p.mu_r
-    dp, tp = (ctx.dp_axes, ctx.tp_axis) if ctx is not None else (None, None)
-    k = torch.square(F.relu(xk @ p.wk))
-    k = parallel.hint(k, ctx, dp, None, tp)  # (B, S, F/tp) hidden sharded
-    return torch.sigmoid(xr @ p.wr) * (k @ p.wv), x[:, -1, :]
+    Returns ``(out (B, S, D), x[:, -1])``.  Under a TP context that splits
+    it the rank computes its hidden units and its columns of the gate
+    (:func:`channel_mix_parts`); the gate is gathered and ``k @ wv``
+    summed over TP."""
+    lay = partitioning.tp_layout(cfg, ctx)
+    tctx = ctx if lay is not None and lay.ffn else None
+    x = parallel.tp_copy(x, tctx)
+    gate, kv = channel_mix_parts(p, x, _whole_shift(shift_prev, cfg, ctx), tctx)
+    out = parallel.tp_gather(gate, tctx, dim=-1) * parallel.tp_reduce(kv, tctx)
+    return out, x[:, -1, _shift_cols(cfg, ctx)]
 
 
 # ==========================================================================
@@ -301,11 +344,24 @@ def softplus(x: torch.Tensor) -> torch.Tensor:
     return torch.logaddexp(x, torch.zeros((), dtype=x.dtype, device=x.device))
 
 
-def mamba(p: Mamba, x: torch.Tensor, cfg: ModelConfig, state=None, conv_state=None,
-          chunk: int = MAMBA_CHUNK):
-    """Selective SSM.  x: ``(B, S, D)``; state: ``(B, Di, N)`` float32 or
-    None (zeros); conv_state: ``(B, K-1, Di)`` or None.  Returns ``(out (B,
-    S, D), state, conv_state)``.
+def mamba_in(p: Mamba, x: torch.Tensor, conv_state=None):
+    """Mamba's input half on the inner channels ``p`` holds: ``(xi, z,
+    conv_state, xi @ w_x)``, the last ``(B, S, dt_rank + 2N)`` and, on a
+    block of the channels, that block's partial sum of ``xdbc``."""
+    di = p.w_in.shape[-1] // 2
+    xz = x @ p.w_in
+    xi, z = xz[..., :di], xz[..., di:]
+    xi, conv_state = _causal_conv(xi, p.conv, p.conv_b, conv_state)
+    xi = F.silu(xi)
+    return xi, z, conv_state, xi @ p.w_x
+
+
+def mamba_out(p: Mamba, xi: torch.Tensor, z: torch.Tensor, xdbc: torch.Tensor,
+              cfg: ModelConfig, state=None, chunk: int = MAMBA_CHUNK):
+    """The selective scan and ``w_out``'s product on the inner channels
+    ``p`` holds, from the whole ``xdbc``.  Returns ``(out (B, S, D), the
+    channels' state)``: on a block of the channels, that block's partial
+    sum of the output.
 
     The scan is a loop over tokens with float32 state, taken ``chunk``
     tokens at a time.  For each chunk the per-step factors ``exp(dt a)``
@@ -317,21 +373,15 @@ def mamba(p: Mamba, x: torch.Tensor, cfg: ModelConfig, state=None, conv_state=No
     grad enabled the chunk's states are a list that autograd can take
     (``out=`` and ``+=`` would refuse it), the same values.
     """
-    b, s, d = x.shape
-    di = cfg.ssm_expand * d
+    b, s, di = xi.shape
     n = cfg.ssm_state
-    dt_rank = max(d // 16, 1)
-    xz = x @ p.w_in
-    xi, z = xz[..., :di], xz[..., di:]
-    xi, conv_state = _causal_conv(xi, p.conv, p.conv_b, conv_state)
-    xi = F.silu(xi)
-    xdbc = xi @ p.w_x
+    dt_rank = p.w_dt.shape[0]
     dt = softplus((xdbc[..., :dt_rank] @ p.w_dt).to(torch.float32) + p.dt_bias)  # (B, S, Di)
     bmat = xdbc[..., dt_rank : dt_rank + n].to(torch.float32)  # (B, S, N)
     cmat = xdbc[..., dt_rank + n :].to(torch.float32)  # (B, S, N)
     a = -torch.exp(p.a_log)  # (Di, N)
     if state is None:
-        state = torch.zeros((b, di, n), dtype=torch.float32, device=x.device)
+        state = torch.zeros((b, di, n), dtype=torch.float32, device=xi.device)
     xif = xi.to(torch.float32)
     ys = []
     for c0 in range(0, s, chunk):
@@ -356,5 +406,23 @@ def mamba(p: Mamba, x: torch.Tensor, cfg: ModelConfig, state=None, conv_state=No
         state = state.clone()  # free the chunk's states
         del hs
     y = torch.cat(ys, dim=1) + xif * p.d_skip
-    y = y.to(x.dtype) * F.silu(z)
-    return y @ p.w_out, state, conv_state
+    y = y.to(xi.dtype) * F.silu(z)
+    return y @ p.w_out, state
+
+
+def mamba(p: Mamba, x: torch.Tensor, cfg: ModelConfig, state=None, conv_state=None,
+          chunk: int = MAMBA_CHUNK, ctx=None):
+    """Selective SSM (:func:`mamba_in`, then :func:`mamba_out`).  x: ``(B,
+    S, D)``; state: ``(B, Di, N)`` float32 or None (zeros); conv_state:
+    ``(B, K-1, Di)`` or None.  Returns ``(out (B, S, D), state,
+    conv_state)``.  Under a TP context that splits Mamba's inner channels
+    ``p`` holds the rank's block of them, the states are its ``Di / tp``
+    channels, and ``xdbc`` and the output are summed over TP."""
+    lay = partitioning.tp_layout(cfg, ctx)
+    tctx = ctx if lay is not None and lay.ssm else None
+    xi, z, conv_state, xdbc = mamba_in(p, parallel.tp_copy(x, tctx), conv_state)
+    # Every rank reads all of xdbc for its own channels: summed forward,
+    # and the gradient of each rank's partial product summed too.
+    xdbc = parallel.tp_copy(parallel.tp_reduce(xdbc, tctx), tctx)
+    out, state = mamba_out(p, xi, z, xdbc, cfg, state, chunk)
+    return parallel.tp_reduce(out, tctx), state, conv_state

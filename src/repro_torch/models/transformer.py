@@ -245,8 +245,11 @@ def lm_block_decode(
 def rwkv_block(p: RWKVBlock, x: torch.Tensor, cfg: ModelConfig, state: dict | None = None,
                ctx=None):
     """``state``: None (zeros) or ``{"wkv", "tm_shift", "cm_shift"}``.
-    Returns ``(x, new state)``.  Under a context the residual stream
-    carries the reference's sequence-parallel hints (``(B, S/tp, D)``)."""
+    Returns ``(x, new state)``.  Under a TP context the time and channel
+    mix compute the rank's heads and hidden units, and the state is the
+    rank's block (``ssm.rwkv_time_mix``); the residual stream stays whole
+    and carries the reference's sequence-parallel hints (``(B, S/tp, D)``),
+    which move nothing."""
     st = state or {}
     dp, tp = (ctx.dp_axes, ctx.tp_axis) if ctx is not None else (None, None)
     sp = lambda a: parallel.hint(a, ctx, dp, tp)  # noqa: E731
@@ -262,67 +265,79 @@ def rwkv_block(p: RWKVBlock, x: torch.Tensor, cfg: ModelConfig, state: dict | No
 
 
 def hymba_block(p: HymbaBlock, x: torch.Tensor, cfg: ModelConfig, *, window: int, mode: str,
-                cache: dict | None = None, pos: int | None = None, cache_len: int = 0):
+                cache: dict | None = None, pos: int | None = None, cache_len: int = 0,
+                ctx=None, kv_split: str | None = None):
     """Attention and Mamba on the same normed input, fused as ``0.5 *
     (rms(attn) + rms(ssm))``.  ``mode`` "prefill" returns the layer's cache
     ``{"k", "v", "ssm", "conv"}``; "decode" takes it (K and V written in
-    place) and returns the new one; "train" returns None."""
+    place) and returns the new one; "train" returns None.  Under a TP
+    context the attention, Mamba and the FFN compute the rank's heads,
+    channels and hidden units and return summed outputs, which the two
+    output norms then act on; the cache is the rank's block (``kv_split``
+    the KV cache's, from ``partitioning.kv_cache_split``)."""
     h = _norm(p.ln1, x, cfg)
     st = cache or {}
     if mode == "decode":
         a, kv = attention.attention_decode(p.attn, h, {"k": st["k"], "v": st["v"]}, pos, cfg,
-                                           window=window)
+                                           window=window, ctx=ctx, kv_split=kv_split)
     else:
         a, kv = attention.attention_full(p.attn, h, cfg, window=window,
-                                         return_cache=(mode == "prefill"), cache_len=cache_len)
+                                         return_cache=(mode == "prefill"), cache_len=cache_len,
+                                         ctx=ctx)
     s, ssm_state, conv_state = ssm.mamba(p.mamba, h, cfg, state=st.get("ssm"),
-                                         conv_state=st.get("conv"))
+                                         conv_state=st.get("conv"), ctx=ctx)
     fused = 0.5 * (common.rms_norm(a, p.attn_out_norm, cfg.norm_eps)
                    + common.rms_norm(s, p.ssm_out_norm, cfg.norm_eps))
     x = x + fused
-    x = common.grad_dtype_barrier(x + ffn.dense_ffn(p.ffn, _norm(p.ln2, x, cfg), cfg))
+    x = common.grad_dtype_barrier(x + ffn.dense_ffn(p.ffn, _norm(p.ln2, x, cfg), cfg, ctx))
     if mode == "train":
         return x, None
     return x, {"ssm": ssm_state, "conv": conv_state, **(kv or {})}
 
 
-def encoder_block(p: EncoderBlock, x: torch.Tensor, cfg: ModelConfig):
+def encoder_block(p: EncoderBlock, x: torch.Tensor, cfg: ModelConfig, ctx=None):
     h = _norm(p.ln1, x, cfg)
     a, _ = attention.attention_full(p.attn, h, cfg, window=BIG_WINDOW, causal=False,
-                                    use_rope=False)
+                                    use_rope=False, ctx=ctx)
     x = x + a
-    return common.grad_dtype_barrier(x + ffn.dense_ffn(p.ffn, _norm(p.ln2, x, cfg), cfg))
+    return common.grad_dtype_barrier(x + ffn.dense_ffn(p.ffn, _norm(p.ln2, x, cfg), cfg, ctx))
 
 
 def decoder_block(p: DecoderBlock, x: torch.Tensor, enc_out: torch.Tensor | None,
                   cfg: ModelConfig, *, mode: str, cache: dict | None = None,
-                  pos: int | None = None, cache_len: int = 0):
+                  pos: int | None = None, cache_len: int = 0, ctx=None,
+                  kv_split: str | None = None, cross_split: str | None = None):
     """Causal self-attention (no RoPE), cross-attention on the encoder
     output, dense FFN.  "prefill" attends ``enc_out`` through the kernel
     and returns the layer's cache ``{"k", "v", "cross_k", "cross_v"}``;
     "decode" attends the cached ``cross_k`` / ``cross_v`` (``enc_out`` is
-    not used) and writes K and V in place; "train" returns None."""
+    not used) and writes K and V in place; "train" returns None.  Under a
+    TP context each attention and the FFN compute the rank's heads and
+    hidden units, and the caches are the rank's blocks (``kv_split`` the
+    self cache's, ``cross_split`` the cross cache's)."""
     st = cache or {}
     h = _norm(p.ln1, x, cfg)
     if mode == "decode":
         a, kv = attention.attention_decode(p.attn, h, {"k": st["k"], "v": st["v"]}, pos, cfg,
-                                           window=BIG_WINDOW, use_rope=False)
+                                           window=BIG_WINDOW, use_rope=False, ctx=ctx,
+                                           kv_split=kv_split)
     else:
         a, kv = attention.attention_full(p.attn, h, cfg, window=BIG_WINDOW, use_rope=False,
-                                         return_cache=(mode == "prefill"), cache_len=cache_len)
+                                         return_cache=(mode == "prefill"), cache_len=cache_len,
+                                         ctx=ctx)
     x = x + a
     h = _norm(p.ln_x, x, cfg)
     if mode == "decode":
         cross_kv = {"k": st["cross_k"], "v": st["cross_v"]}
-        c = attention.cross_attention_decode(p.cross, h, cross_kv, cfg)
+        c = attention.cross_attention_decode(p.cross, h, cross_kv, cfg, ctx, cross_split)
     else:
         # The cross K / V come back as the call's cache, projected once.
         c, cross_kv = attention.attention_full(p.cross, h, cfg, window=BIG_WINDOW,
                                                kv_src=enc_out, causal=False, use_rope=False,
                                                return_cache=(mode == "prefill"),
-                                               cache_len=enc_out.shape[1])
+                                               cache_len=enc_out.shape[1], ctx=ctx)
     x = x + c
-    x = common.grad_dtype_barrier(x + ffn.dense_ffn(p.ffn, _norm(p.ln2, x, cfg), cfg))
+    x = common.grad_dtype_barrier(x + ffn.dense_ffn(p.ffn, _norm(p.ln2, x, cfg), cfg, ctx))
     if mode == "train":
         return x, None
     return x, {**(kv or {}), "cross_k": cross_kv["k"], "cross_v": cross_kv["v"]}

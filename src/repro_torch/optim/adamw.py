@@ -76,8 +76,8 @@ def init(params: torch.nn.Module, ctx=None, specs: dict | None = None) -> OptSta
         zeros = {}
         for path, (names, stacked) in _leaves(params).items():
             shape = _whole([named[n] for n in names], stacked).shape
-            block = torch.empty(shape, device="meta")[parallel.shard_index(specs[path], shape, ctx)]
-            zeros[path] = torch.zeros(block.shape, dtype=torch.float32, device=dev)
+            block = parallel.block_shape(specs[path], shape, ctx)
+            zeros[path] = torch.zeros(block, dtype=torch.float32, device=dev)
     return OptState(
         m=zeros,
         v={n: torch.zeros_like(z) for n, z in zeros.items()},

@@ -32,8 +32,13 @@ routed counts equal (``train_step_card_vs_cpu``).  The four kernels as
 ``torch.library`` operators: on fake copies of the inputs each gives
 outputs of its real launch's shapes, dtypes and strides and launches
 nothing, a real CUDA tensor launches once a call, and the refusals still
-raise (``TestKernelOperators``).  Where there is no card, each test
-skips with a reason.
+raise (``TestKernelOperators``).  The TP families' split arithmetic at
+published width, bf16, the ranks simulated in one process
+(``TestTPBlocksOnCard``; ``chip_smoke.py`` phase 10 runs the same helpers
+at 2 x 2048 tokens): RWKV6's and Mamba's blocks summed within
+``TP_BLOCKS_TOL`` (1e-2) of the largest magnitude of the whole layer's,
+Whisper's attention on a rank's heads equal to the whole call's bit for
+bit.  Where there is no card, each test skips with a reason.
 """
 import dataclasses
 import time
@@ -845,6 +850,183 @@ def train_step_card_vs_cpu(dev, arch: str, sync: bool, micro: int, steps: int = 
     return {"max_rel_err": worst, "launches": launches}
 
 
+# The split arithmetic of the TP families at published width on one card:
+# the ranks of a TP group simulated in one process through the functions
+# they call, each on its blocks (partitioning.local_specs' layout, taken
+# with parallel.take_block at the rank's coordinate), the collectives done
+# by hand (a float32 sum of bf16 partials, a concatenation).
+TP_BLOCKS_TOL = 1e-2  # of the largest magnitude: bf16 partial sums added in another order
+
+
+def _rank_leaves(module, prefix: str, cfg, ctx, rank: int) -> dict:
+    """``{leaf: tensor}`` of ``module`` (the layer at ``prefix`` of a
+    one-layer model, e.g. ``layers.0.mamba``) as TP rank ``rank`` of
+    ``ctx`` holds it: its block of each leaf ``local_specs`` splits, every
+    other leaf whole."""
+    from repro_torch.models import parallel, partitioning
+
+    named = dict(module.named_parameters())
+    specs = partitioning.port_specs([f"{prefix}.{n}" for n in named],
+                                    partitioning.local_specs(cfg, ctx))
+    return {n: parallel.take_block(t, specs[f"{prefix}.{n}"], ctx, {"model": rank})
+            if f"{prefix}.{n}" in specs else t for n, t in named.items()}
+
+
+def _tp_ctx(tp: int, rank: int | None = None):
+    """A spec-only context on a ``(1, tp)`` mesh; with ``rank``, one that
+    answers as that TP rank (its ``tp_index``), so that the port's own
+    rules pick the rank's part of a whole leaf."""
+    from repro_torch.models.parallel import MeshShape, ParallelContext
+
+    class RankContext(ParallelContext):
+        def index(self, axes) -> int:
+            if axes != self.tp_axis:
+                raise ValueError(f"a simulated TP rank has no index over {axes}")
+            return rank
+
+    kind = ParallelContext if rank is None else RankContext
+    return kind(mesh=MeshShape((1, tp), ("data", "model")))
+
+
+def scaled_err(got, want) -> float:
+    """Largest ``|got - want|`` over the largest ``|want|``."""
+    w = want.detach().float()
+    return float((got.detach().float() - w).abs().max()) / max(float(w.abs().max()), 1e-30)
+
+
+def _psum(parts, dtype):
+    return sum(p.float() for p in parts).to(dtype)
+
+
+def rwkv_rank_blocks(dev, b: int, s: int, tp: int, seed: int = 0) -> dict:
+    """RWKV6-1.6B's time and channel mix (published width, bf16) on ``b x s``
+    tokens, whole and as ``tp`` ranks: each rank's ``rwkv_time_mix`` on its
+    WKV heads (its columns of ``wr``, ``wk``, ``wv``, ``wg``, its rows of
+    ``u`` and ``wo``, and the columns of ``w0``, ``decay_w2`` and the group
+    norm that ``ssm._shift_cols`` gives it as that rank) and ``channel_mix_parts`` on its hidden units and
+    ``wr``'s columns; and ``_wkv6_chunked`` on each rank's heads of the
+    same inputs.  Returns the errors over the largest magnitude (the WKV's
+    and the time mix's state and output against the whole call's heads,
+    the summed ``wo`` and ``wv`` products against the whole layer), whether
+    the WKV heads are equal bit for bit, and ``whole`` / ``rank`` callables
+    (rank 0's layer) for timing."""
+    import types
+
+    from repro_torch.models import ssm
+
+    cfg = dataclasses.replace(get_config("rwkv6-1.6b"), num_layers=1)
+    ctx = _tp_ctx(tp)
+    n = cfg.rwkv_head_dim
+    h = cfg.d_model // n
+    hl = h // tp
+    g = torch.Generator(device=dev).manual_seed(seed)
+    tm = ssm.RWKVTimeMix(cfg, device=dev, generator=g)
+    cm = ssm.RWKVChannelMix(cfg, device=dev, generator=g)
+    x = torch.randn((b, s, cfg.d_model), generator=g, device=dev).to(tm.wr.dtype)
+    out = {}
+    with torch.no_grad():
+        # The chunked WKV on each rank's heads of the same inputs.
+        r, k, v = (torch.randn((b, s, h, n), generator=g, device=dev) for _ in range(3))
+        lw = -torch.exp(torch.randn((b, s, h, n), generator=g, device=dev))
+        st0 = torch.zeros((b, h, n, n), device=dev)
+        w_out, w_state = ssm._wkv6_chunked(r, k, v, lw, tm.u, st0)
+        heads = [slice(i * hl, (i + 1) * hl) for i in range(tp)]
+        parts = [ssm._wkv6_chunked(r[:, :, c], k[:, :, c], v[:, :, c], lw[:, :, c], tm.u[c],
+                                   st0[:, c]) for c in heads]
+        got_o, got_s = torch.cat([o for o, _ in parts], 2), torch.cat([st for _, st in parts], 1)
+        out["wkv_equal"] = torch.equal(got_o, w_out) and torch.equal(got_s, w_state)
+        out["wkv_err"] = max(scaled_err(got_o, w_out), scaled_err(got_s, w_state))
+        # The layer.
+        want, want_state, _ = ssm.rwkv_time_mix(tm, x, cfg)
+        want_cm, _ = ssm.rwkv_channel_mix(cm, x, cfg)
+        ranks = []
+        for i in range(tp):
+            cols = ssm._shift_cols(cfg, _tp_ctx(tp, i))
+            t = _rank_leaves(tm, "layers.0.tm", cfg, ctx, i)
+            t.update(w0=tm.w0[cols], decay_w2=tm.decay_w2[:, cols], gn_scale=tm.gn_scale[cols],
+                     gn_bias=tm.gn_bias[cols])
+            ranks.append((types.SimpleNamespace(**t),
+                          types.SimpleNamespace(**_rank_leaves(cm, "layers.0.cm", cfg, ctx, i))))
+        tms = [ssm.rwkv_time_mix(t, x, cfg) for t, _ in ranks]
+        cms = [ssm.channel_mix_parts(c, x) for _, c in ranks]
+        out["state_err"] = scaled_err(torch.cat([st for _, st, _ in tms], 1), want_state)
+        out["tm_err"] = scaled_err(_psum([o for o, _, _ in tms], x.dtype), want)
+        got_cm = torch.cat([gt for gt, _ in cms], -1) * _psum([kv for _, kv in cms], x.dtype)
+        out["cm_err"] = scaled_err(got_cm, want_cm)
+    tm0, cm0 = ranks[0]
+    out["whole"] = lambda: (ssm.rwkv_time_mix(tm, x, cfg), ssm.rwkv_channel_mix(cm, x, cfg))
+    out["rank"] = lambda: (ssm.rwkv_time_mix(tm0, x, cfg), ssm.channel_mix_parts(cm0, x))
+    out.update(heads=hl, hidden=cfg.d_ff // tp, cfg=cfg)
+    return out
+
+
+def mamba_rank_blocks(dev, b: int, s: int, tp: int, seed: int = 0) -> dict:
+    """Hymba-1.5B's Mamba layer (published width, bf16) on ``b x s``
+    tokens, whole and as ``tp`` ranks of ``Di / tp`` inner channels (``w_in``
+    the same block of its ``xi`` and ``z`` halves): each rank's
+    ``mamba_in``, the partial ``xdbc`` summed, each rank's ``mamba_out``,
+    the partial outputs summed.  Returns the errors over the largest
+    magnitude (``xdbc``, the output, the ranks' states against the whole
+    call's channels) and ``whole`` / ``rank`` callables (rank 0's
+    call, its partial ``xdbc`` taken as the whole) for timing."""
+    import types
+
+    from repro_torch.models import ssm
+
+    cfg = dataclasses.replace(get_config("hymba-1.5b"), num_layers=1)
+    ctx = _tp_ctx(tp)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    m = ssm.Mamba(cfg, device=dev, generator=g)
+    x = torch.randn((b, s, cfg.d_model), generator=g, device=dev).to(m.w_in.dtype)
+    out = {}
+    with torch.no_grad():
+        want, want_state, _ = ssm.mamba(m, x, cfg)
+        want_xdbc = ssm.mamba_in(m, x)[3]
+        ranks = [types.SimpleNamespace(**_rank_leaves(m, "layers.0.mamba", cfg, ctx, i))
+                 for i in range(tp)]
+        ins = [ssm.mamba_in(p, x) for p in ranks]
+        xdbc = _psum([i[3] for i in ins], x.dtype)
+        outs = [ssm.mamba_out(p, xi, z, xdbc, cfg) for p, (xi, z, _, _) in zip(ranks, ins)]
+        out["xdbc_err"] = scaled_err(xdbc, want_xdbc)
+        out["out_err"] = scaled_err(_psum([o for o, _ in outs], x.dtype), want)
+        out["state_err"] = scaled_err(torch.cat([st for _, st in outs], 1), want_state)
+    p0 = ranks[0]
+
+    def rank():
+        xi, z, _, part = ssm.mamba_in(p0, x)
+        return ssm.mamba_out(p0, xi, z, part, cfg)
+
+    out["whole"] = lambda: ssm.mamba(m, x, cfg)
+    out["rank"] = rank
+    out.update(channels=cfg.ssm_expand * cfg.d_model // tp, cfg=cfg)
+    return out
+
+
+def rank_heads(q, k, v, tp: int) -> list[tuple]:
+    """Each TP rank's query heads and its KV heads (both counts dividing
+    over ``tp``), as ``attention_full`` projects them under a context."""
+    hl, kl = q.shape[2] // tp, k.shape[2] // tp
+    return [tuple(t[:, :, i * n:(i + 1) * n].contiguous() for t, n in ((q, hl), (k, kl), (v, kl)))
+            for i in range(tp)]
+
+
+WHISPER_ATTN = {"encoder": (1500, 1500), "cross": (432, 1500)}  # S, T, non-causal
+
+
+def whisper_attn_inputs(dev, which: str, b: int, seed: int = 0) -> tuple:
+    """Whisper-small's encoder self-attention or cross-attention inputs
+    (12 heads of 64, bf16): q ``(b, S, 12, 64)``, k and v ``(b, T, 12,
+    64)``, and the kernel's keywords."""
+    cfg = get_config("whisper-small")
+    s, t = WHISPER_ATTN[which]
+    dh = cfg.resolved_head_dim
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn((b, s, cfg.num_heads, dh), generator=g, device=dev).to(torch.bfloat16)
+    k, v = (torch.randn((b, t, cfg.num_kv_heads, dh), generator=g, device=dev).to(torch.bfloat16)
+            for _ in range(2))
+    return q, k, v, dict(scale=dh ** -0.5, causal=False, window=None, softcap=0.0)
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -1591,3 +1773,32 @@ class TestKernelOperators:
         counts = tops.launch_counts()
         assert counts["flash_attention"] == counts["flash_attention_bwd"] == 0
         assert counts["moe_route"] == 1
+
+
+@pytest.mark.cuda
+class TestTPBlocksOnCard:
+    """The TP families' split arithmetic at published width (chip_smoke.py
+    phase 10 (f)-(h), at shorter sequences)."""
+
+    def test_rwkv_rank_blocks(self, cuda_device):
+        res = rwkv_rank_blocks(cuda_device, 1, 256, 16)  # 256 tokens: the chunked form
+        assert res["heads"] == 2 and res["hidden"] == 448
+        assert res["wkv_err"] <= TP_BLOCKS_TOL and res["state_err"] <= TP_BLOCKS_TOL, res
+        assert res["tm_err"] <= TP_BLOCKS_TOL and res["cm_err"] <= TP_BLOCKS_TOL, res
+
+    def test_mamba_rank_blocks(self, cuda_device):
+        res = mamba_rank_blocks(cuda_device, 1, 128, 16)
+        assert res["channels"] == 200
+        for k in ("xdbc_err", "out_err", "state_err"):
+            assert res[k] <= TP_BLOCKS_TOL, (k, res[k])
+
+    @pytest.mark.parametrize("which", list(WHISPER_ATTN))
+    @pytest.mark.parametrize("tp", [2, 4])
+    def test_whisper_rank_heads_bit_for_bit(self, cuda_device, which, tp):
+        q, k, v, kw = whisper_attn_inputs(cuda_device, which, 1)
+        whole = tops.flash_attention(q, k, v, **kw)
+        hl = q.shape[2] // tp
+        for i, (qr, kr, vr) in enumerate(rank_heads(q, k, v, tp)):
+            assert torch.equal(tops.flash_attention(qr, kr, vr, **kw),
+                               whole[:, :, i * hl:(i + 1) * hl]), (which, tp, i)
+

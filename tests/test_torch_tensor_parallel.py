@@ -1,8 +1,8 @@
-"""The port's tensor parallelism over ``model`` for the dense decoder and
-MoE families: each rank of the TP group holds its blocks of the split
-leaves, computes its heads, hidden units and vocabulary columns, and sums
-the row-parallel products over the group; a MoE model's rank also holds
-its block of the routed experts (``partitioning.expert_specs``).
+"""The port's tensor parallelism over ``model`` for every family: each
+rank of the TP group holds its blocks of the split leaves, computes its
+heads, channels, hidden units and vocabulary columns, and sums the
+row-parallel products over the group; a MoE model's rank also holds its
+block of the routed experts (``partitioning.expert_specs``).
 
 Three gloo jobs (``tests/torch_ranks.py``, job ``"tp"``) run on meshes
 (1, 2), (2, 2) and (1, 4) while a subprocess of the JAX package for each
@@ -23,7 +23,16 @@ downgrades it).  The MoE cases are the reduced DeepSeek-V2 (MLA's 4 heads,
 compressed cache by rows) at (1, 2) and (1, 4) with its 8 experts over
 the whole mesh, at (2, 2) with 6 experts (EP over ``model``, FSDP over
 ``data``), at (1, 4) with a cache of 18 rows (whole), and the reduced
-DeepSeek-V3 (sigmoid gate, MTP head) at (2, 2).
+DeepSeek-V3 (sigmoid gate, MTP head) at (2, 2).  The other families at
+(1, 2), (2, 2) and (1, 4): the reduced RWKV6-1.6B (4 WKV heads of 32,
+the channel mix's hidden units and ``D`` columns, the shift states by
+columns; one more prefill of 64 tokens, which takes the chunked WKV
+form), Hymba-1.5B (4 heads over 2, Mamba's 256 inner channels with
+``w_in``'s block of both halves, the FFN; and with 5 heads over 1,
+Hymba's 25 over 5 cut to size, at (1, 2): attention whole, the KV cache
+by rows) and Whisper-small (encoder, decoder and cross-attention heads,
+the FFN; and with 6 heads over 6 at (1, 4): attention whole, the self
+and cross caches by rows).
 
 * *Against the JAX reference.* Two train steps on two global batches of
   4 x 16 whose labels are masked unevenly, each rank on its dp block of
@@ -41,17 +50,16 @@ DeepSeek-V3 (sigmoid gate, MTP head) at (2, 2).
   ``partitioning.local_specs`` splits and the whole of every other leaf;
   the KV cache from a prefill and from ``init_decode_cache`` is the
   rank's ``cache_specs`` block of the whole cache.
-* *Checkpoints* under (2, 2), Qwen3's and DeepSeek-V2's (EP+FSDP): the
-  trained state saved whole from rank 0 and restored into a fresh state's
-  blocks gives every block back bit for bit.
-* *The families this slice does not split* (Hymba, RWKV6, Whisper) hold
-  no block under (1, 2), and one train step equals ``ctx=None``'s within
-  1e-5.
+* *Checkpoints* under (2, 2), Qwen3's, DeepSeek-V2's (EP+FSDP) and
+  Hymba's (``w_in``'s two-half block): the trained state saved whole from
+  rank 0 and restored into a fresh state's blocks gives every block back
+  bit for bit.
 * *One TP rank* (a (1, 1) context in this process): the primitives
-  return their input and a dense decoder's prefill, decode and train
-  step issue no collective.
+  return their input, and the prefill, decode and train step of a dense
+  decoder, RWKV6, Hymba and Whisper issue no collective.
 """
 import dataclasses
+import functools
 import math
 import os
 import pickle
@@ -96,13 +104,18 @@ CASES = {  # name: arch, mesh, config changes, cache rows
     "v2e6-2x2": ("deepseek-v2-236b", "2x2", dict(n_routed_experts=6), CACHE),
     "v3-2x2": ("deepseek-v3-671b", "2x2", {}, CACHE),
     "v2-cache18-1x4": ("deepseek-v2-236b", "1x4", {}, S + 2),
+    **{f"{short}-{mesh}": (arch, mesh, {}, CACHE)
+       for short, arch in (("rwkv", "rwkv6-1.6b"), ("hymba", "hymba-1.5b"),
+                           ("whisper", "whisper-small")) for mesh in MESHES},
+    "hymba-5h-1x2": ("hymba-1.5b", "1x2", dict(num_heads=5, num_kv_heads=1), CACHE),
+    "whisper-6h-1x4": ("whisper-small", "1x4", dict(num_heads=6, num_kv_heads=6), CACHE),
 }
-CKPT_CASE = ("qwen3-2x2", "v2e6-2x2")
+CKPT_CASE = ("qwen3-2x2", "v2e6-2x2", "hymba-2x2")
+LONG = 64  # an RWKV prefill of 64 tokens takes the chunked WKV form
 # Cases whose MoE layers also take the one-device path on the rank's
 # expert blocks (a sequence that does not divide over TP): EP+FSDP, and EP
 # over both axes.
 HELD_CASES = ("v2e6-2x2", "v3-2x2")
-WHOLE_FAMILIES = ("hymba-1.5b", "rwkv6-1.6b", "whisper-small")  # under (1, 2)
 # The cache's rows do not enter a train step: that case's reference is
 # gemma2-1x4's.
 SAME_STEP = {"gemma2-cache18-1x4": "gemma2-1x4", "v2-cache18-1x4": "v2-1x4"}
@@ -148,17 +161,21 @@ open(sys.argv[2], "wb").write(pickle.dumps(out))
 '''
 
 
-def _batches(vocab: int) -> list[dict]:
-    """Two global batches; the first rows lose more labels than the last."""
+def _batches(cfg) -> list[dict]:
+    """Two global batches; the first rows lose more labels than the last.
+    Whisper's carry its encoder's frames."""
     rng = np.random.default_rng(7)
     out = []
     for _ in range(2):
-        tok = rng.integers(0, vocab, (B, S)).astype(np.int32)
+        tok = rng.integers(0, cfg.vocab_size, (B, S)).astype(np.int32)
         lab = np.roll(tok, -1, 1)
         lab[0, :9] = -1
         lab[1, ::3] = -1
         lab[B - 1, 5:7] = -1
         out.append({"tokens": tok, "labels": lab})
+        if cfg.family == "audio":
+            out[-1]["frames"] = rng.standard_normal(
+                (B, cfg.encoder_seq, cfg.d_model)).astype(np.float32)
     return out
 
 
@@ -174,7 +191,7 @@ def _jobs() -> tuple[dict, dict]:
     trees = {}
     for name, (arch, mesh, replace, cache_len) in CASES.items():
         jcfg, tcfg = _configs(arch, replace)
-        batches = _batches(tcfg.vocab_size)
+        batches = _batches(tcfg)
         key = (arch, tuple(replace.items()))
         if key not in trees:
             trees[key] = jax.tree.map(np.asarray, jloop.init_state(jax.random.key(0), jcfg).params)
@@ -182,18 +199,14 @@ def _jobs() -> tuple[dict, dict]:
         if name not in SAME_STEP:
             ref[mesh][name] = dict(arch=arch, replace=replace, mesh=MESHES[mesh], opt=OPT,
                                    batches=batches)
+        long = None
+        if tcfg.family == "ssm":
+            long = torch.from_numpy(np.random.default_rng(3).integers(
+                0, tcfg.vocab_size, (B, LONG)).astype(np.int32))
         jobs[mesh][name] = dict(cfg=tcfg, tree=tree, opt=opt, cache_len=cache_len,
-                                ckpt=name in CKPT_CASE, held=name in HELD_CASES,
+                                ckpt=name in CKPT_CASE, held=name in HELD_CASES, long=long,
                                 batches=[{k: torch.from_numpy(v) for k, v in b.items()}
                                          for b in batches])
-    for arch in WHOLE_FAMILIES:
-        cfg = tget(arch).reduced()
-        batch = {k: torch.from_numpy(v) for k, v in _batches(cfg.vocab_size)[0].items()}
-        if cfg.family == "audio":
-            rng = np.random.default_rng(11)
-            batch["frames"] = torch.from_numpy(
-                rng.standard_normal((B, cfg.encoder_seq, cfg.d_model)).astype(np.float32))
-        jobs["1x2"][arch] = dict(cfg=cfg, batch=batch, opt=opt)
     return ref, jobs
 
 
@@ -294,6 +307,8 @@ def test_serving_equals_ctx_none(runs, case):
         assert res["ctx_serve"].shape[1] == B // MESHES[mesh][0]
         _close(res["ctx_serve"], res["none_serve"][:, rows].numpy(), OWN_TOL, f"rank {r} serve")
         _close(res["ctx_zero"], res["none_zero"][rows].numpy(), OWN_TOL, f"rank {r} zero cache")
+        if "none_long" in res:
+            _close(res["ctx_long"], res["none_long"][rows].numpy(), OWN_TOL, f"rank {r} long")
 
 
 def _meta_tree(shapes: dict) -> dict:
@@ -335,10 +350,33 @@ def test_each_rank_holds_its_blocks(runs, case):
         assert [specs[f"layers/moe/{n}"] for n in ("w_in", "w_gate_h", "w_out")] == [
             P(None, *w) for w in want]
         assert (ctx.fsdp_axis is not None) == (tcfg.n_routed_experts == 6)
+    elif tcfg.family == "ssm":
+        # The time mix by WKV heads, the channel mix by hidden units and
+        # wr's D columns; the token-shift and decay LoRAs and the group
+        # norm whole.
+        assert lay.wkv and lay.ffn and lay.shift and lay.embed == "rows"
+        col, row = P(None, None, "model"), P(None, "model", None)
+        assert {k: v for k, v in specs.items() if k.startswith("layers/")} == {
+            **{f"layers/tm/{n}": col for n in ("wr", "wk", "wv", "wg")},
+            "layers/tm/u": row, "layers/tm/wo": row, "layers/cm/wk": col,
+            "layers/cm/wv": row, "layers/cm/wr": col}
     else:
-        assert ("layers/attn/wq" in specs) == lay.heads == (tcfg.num_heads % tp == 0)
-        assert ("layers/attn/wk" in specs) == lay.kv
-        assert {"layers/ffn/w_in", "layers/ffn/w_out", "embed"} <= specs.keys()
+        heads = tcfg.num_heads % tp == 0
+        attns = {"audio": ["layers/attn", "layers/cross", "enc_layers/attn"]}.get(
+            tcfg.family, ["layers/attn"])
+        for attn in attns:
+            assert (f"{attn}/wq" in specs) == lay.heads == heads
+            assert (f"{attn}/wo" in specs) == heads and (f"{attn}/wk" in specs) == lay.kv
+        ffns = ["layers/ffn"] + (["enc_layers/ffn"] if tcfg.family == "audio" else [])
+        assert {f"{f}/{n}" for f in ffns for n in ("w_in", "w_out")} | {"embed"} <= specs.keys()
+        if tcfg.family == "hybrid":
+            # Mamba by inner channels, w_in the same block of xi's and z's.
+            assert lay.ssm
+            mb = {k.split("/")[-1]: v for k, v in specs.items() if "/mamba/" in k}
+            assert mb == {"w_in": P(None, None, "model", parts=2),
+                          **{n: P(None, None, "model") for n in ("conv", "w_dt")},
+                          **{n: P(None, "model", None) for n in ("w_x", "a_log", "w_out")},
+                          **{n: P(None, "model") for n in ("conv_b", "dt_bias", "d_skip")}}
     split = partitioning.port_specs(list(runs[mesh][0]["cases"][case]["blocks"]), specs)
     for o in runs[mesh]:
         res = o["cases"][case]
@@ -347,7 +385,7 @@ def test_each_rank_holds_its_blocks(runs, case):
             parts = math.prod(ctx.size(e) for e in split.get(n, ()) if e is not None)
             assert math.prod(local) * parts == math.prod(whole), n
         # The cache: the dp rows and the cache_specs block of the whole one.
-        _, _, shapes = res["none_cache"]
+        _, shapes = res["none_cache"]
         cspecs = partitioning.cache_specs(_meta_tree(shapes), ctx)
         want = {}
         for path, shape in shapes.items():
@@ -355,19 +393,20 @@ def test_each_rank_holds_its_blocks(runs, case):
             for k in path.split("/"):
                 spec = spec[k]
             want[path] = tuple(d if e is None else d // ctx.size(e) for d, e in zip(shape, spec))
-        first = next(p for p in shapes if p.startswith("scan/"))
-        cspec = want[first]
-        kind_spec = partitioning.cache_specs(_meta_tree({first: shapes[first]}), ctx)
-        kind_spec = kind_spec["scan"][first.split("/")[1]]
-        split_kind = ("seq" if kind_spec[2] == "model" else
-                      "heads" if len(kind_spec) > 3 and kind_spec[3] == "model" else None)
+        def kind(leaf):  # how cache_specs splits a KV cache leaf over TP
+            spec = cspecs["scan"].get(leaf, (None,) * 4)
+            return "seq" if spec[2] == "model" else "heads" if spec[3] == "model" else None
+
+        kv = "ckv" if tcfg.use_mla else "k"
+        marks = {m: kind(leaf) for m, leaf in (("kv_split", kv), ("cross_split", "cross_k"))}
+        marks = {m: k for m, k in marks.items() if k is not None}
         if tcfg.use_mla:  # the compressed cache splits by rows only
-            assert split_kind == ("seq" if cache_len % tp == 0 else None)
+            assert marks == ({"kv_split": "seq"} if cache_len % tp == 0 else {})
         for got in (res["ctx_cache"], res["ctx_zero_cache"]):
-            assert got == (split_kind, cspec, want), case
-        assert res["none_cache"][0] is None and res["none_cache"][2] == shapes
-        lead = shapes[first]
-        assert lead[1] == B and lead[2] == cache_len
+            assert got == (marks, want), case
+        assert res["none_cache"] == ({}, shapes)
+        lead = shapes["scan/wkv"] if tcfg.family == "ssm" else shapes[f"scan/{kv}"]
+        assert lead[1] == B and (tcfg.family == "ssm" or lead[2] == cache_len)
 
 
 @pytest.mark.parametrize("case", HELD_CASES)
@@ -396,7 +435,7 @@ def test_the_cases_cover_every_cache_and_head_layout():
         lay = partitioning.tp_layout(tcfg, _ctx(mesh))
         kinds.add((lay.heads, lay.kv, partitioning.kv_cache_split(tcfg, _ctx(mesh), cache_len)))
     assert kinds == {(True, True, "heads"), (True, False, "seq"), (False, False, "seq"),
-                     (True, False, None)}
+                     (True, False, None), (False, False, None)}
 
 
 @pytest.mark.parametrize("case", CKPT_CASE)
@@ -416,14 +455,36 @@ def test_production_layout(arch):
     FFN and the vocabulary split wherever they divide; DeepSeek-V2's and
     V3's 128 MLA heads, ``w_dq``, shared experts and ``embed``'s columns
     split, the compressed cache by rows, V2's 160 experts over ``model``
-    with ``D`` over ``data`` and V3's 256 over both axes; the other
-    families hold no block."""
+    with ``D`` over ``data`` and V3's 256 over both axes.  RWKV6's 32 WKV
+    heads split 2 a rank, its 7168 hidden units 448 and its vocabulary;
+    Hymba's 25 heads over 5 and Whisper's 12 stay whole, Hymba's KV cache
+    of 32768 rows and Whisper's self cache of 448 split by rows and its
+    cross cache of 1500 stays whole; Hymba's Mamba (3200 channels, 200 a
+    rank) and FFN (5504, 344 a rank) and Whisper's FFN (3072, 192 a rank)
+    split, neither vocabulary (32001, 51865) does."""
     cfg = tget(arch)
     ctx = make_context(make_production_mesh(), cfg.n_routed_experts if cfg.moe else 0)
     lay = partitioning.tp_layout(cfg, ctx)
-    if cfg.family not in partitioning.TP_FAMILIES:
-        assert lay is None and partitioning.local_specs(cfg, ctx) == {}
-        assert partitioning.kv_cache_split(cfg, ctx, 32768) is None
+    specs = partitioning.local_specs(cfg, ctx)
+    split = functools.partial(partitioning.kv_cache_split, cfg, ctx)
+    if cfg.family == "ssm":
+        assert lay.wkv and lay.ffn and lay.shift and lay.vocab and not lay.heads
+        assert (cfg.d_model // cfg.rwkv_head_dim // 16, cfg.d_ff // 16) == (2, 448)
+        assert specs["layers/tm/u"] == P(None, "model", None)
+        assert specs["embed"] == P("model", None) and specs["lm_head"] == P(None, "model")
+        assert split(32768) is None
+        return
+    if cfg.family in ("hybrid", "audio"):
+        assert not (lay.heads or lay.kv or lay.vocab) and lay.ffn
+        assert not [k for k in specs if "/attn/" in k or "/cross/" in k]
+        assert "embed" not in specs and "lm_head" not in specs
+        if cfg.family == "hybrid":
+            assert lay.ssm and specs["layers/mamba/w_in"] == P(None, None, "model", parts=2)
+            assert (cfg.ssm_expand * cfg.d_model // 16, cfg.d_ff // 16) == (200, 344)
+            assert split(32768) == "seq"
+        else:
+            assert cfg.d_ff // 16 == 192 and "enc_layers/ffn/w_in" in specs
+            assert split(448) == "seq" and split(cfg.encoder_seq) is None
         return
     assert lay.heads == (cfg.num_heads % 16 == 0) and not lay.kv
     assert lay.ffn and lay.vocab
@@ -438,33 +499,22 @@ def test_production_layout(arch):
 
 
 def test_one_tp_rank_issues_no_collective(tmp_path):
-    cfg = tget("gemma2-9b").reduced()
-    tok = torch.from_numpy(_batches(cfg.vocab_size)[0]["tokens"]).long()
-    batch = {"tokens": tok, "labels": torch.roll(tok, -1, 1)}
     with one_rank(tmp_path / "store") as ctx:
         x = torch.ones(2, 3, requires_grad=True)
         assert parallel.tp_copy(x, ctx) is x and parallel.tp_reduce(x, ctx) is x
         assert parallel.tp_gather(x, ctx, 1) is x and torch.equal(parallel.tp_max(x, ctx), x)
-        assert partitioning.tp_layout(cfg, ctx) is None
-        state = train_loop.init_state(torch.Generator().manual_seed(0), cfg, ctx, device="cpu")
-        step = train_loop.make_train_step(cfg, adamw.OptimConfig(**OPT), ctx)
-        with op_analysis.OpRecorder() as rec:
-            with torch.no_grad():
-                logits, cache = model.prefill(state.params, batch, cfg, ctx, cache_len=CACHE)
-                model.decode_step(state.params, logits.argmax(-1), cache, S, cfg, ctx)
-            step(state, batch)
-        assert rec.n_coll == 0
-        assert "kv_split" not in cache and state.params.tp_specs == {}
-
-
-@pytest.mark.parametrize("arch", WHOLE_FAMILIES)
-def test_families_not_split_keep_whole_leaves(runs, arch):
-    for r, o in enumerate(runs["1x2"]):
-        res = o["cases"][arch]
-        assert res["ctx"]["tp_specs"] == {} == res["none"]["tp_specs"]
-        for k in ("loss", "grad_norm"):
-            _close(res["ctx"]["metrics"][k], res["none"]["metrics"][k].numpy(), OWN_TOL,
-                   f"rank {r} {k}")
-        for n, t in res["none"]["params"].items():
-            assert res["ctx"]["params"][n].shape == t.shape, n
-            _close(res["ctx"]["params"][n], t.numpy(), OWN_TOL, f"rank {r} {n}")
+        for arch in ("gemma2-9b", "rwkv6-1.6b", "hymba-1.5b", "whisper-small"):
+            cfg = tget(arch).reduced()
+            batch = {k: torch.from_numpy(v) for k, v in _batches(cfg)[0].items()}
+            assert partitioning.tp_layout(cfg, ctx) is None
+            state = train_loop.init_state(torch.Generator().manual_seed(0), cfg, ctx,
+                                          device="cpu")
+            step = train_loop.make_train_step(cfg, adamw.OptimConfig(**OPT), ctx)
+            with op_analysis.OpRecorder() as rec:
+                with torch.no_grad():
+                    logits, cache = model.prefill(state.params, batch, cfg, ctx, cache_len=CACHE)
+                    model.decode_step(state.params, logits.argmax(-1), cache, S, cfg, ctx)
+                step(state, batch)
+            assert rec.n_coll == 0, arch
+            assert not [k for k, v in cache.items() if isinstance(v, str)], arch
+            assert state.params.tp_specs == {}, arch

@@ -24,16 +24,15 @@ parallel context, runs the job and writes its results to
   context's views of the batch: ``"split"`` (``ctx.for_batch``: this
   rank's rows where they divide over dp), ``"whole"`` (every rank holds
   the whole batch) and ``"none"`` (no context); see :func:`_dp_case`;
-* ``"tp"``: for each of the job's cases (a dense or MoE config, the JAX
+* ``"tp"``: for each of the job's cases (a config of any family, the JAX
   package's initial parameters, global batches), tensor parallelism over
   ``model`` (and a MoE model's expert blocks, under the context
-  ``make_context`` gives its experts): the rank's blocks of the parameters, two train steps under
-  the context, the state gathered whole, a prefill and two decode steps
-  and a decode from a zero cache against ``ctx=None``, and a checkpoint
-  saved under the context (each leaf gathered onto rank 0, which writes
-  it) and restored into a fresh state's blocks; see
-  :func:`_tp_case`; and for a family the layout does not split, one train
-  step under the context and without one (:func:`_tp_whole_case`).
+  ``make_context`` gives its experts): the rank's blocks of the
+  parameters, two train steps under the context, the state gathered
+  whole, a prefill and two decode steps, a decode from a zero cache and
+  an optional longer prefill against ``ctx=None``, and a checkpoint saved
+  under the context (each leaf gathered onto rank 0, which writes it) and
+  restored into a fresh state's blocks; see :func:`_tp_case`.
 
 :func:`one_rank` gives a test a context on a (1, 1) mesh in its own
 process (a world-size-1 gloo group).
@@ -195,7 +194,7 @@ def _dp_case(case, ctx) -> dict:
             with torch.no_grad():
                 for n, t in state.params.named_parameters():
                     w = case["params"][n]
-                    t.copy_(w[parallel.shard_index(blocks[n], w.shape, c)] if n in blocks else w)
+                    t.copy_(parallel.take_block(w, blocks[n], c) if n in blocks else w)
         r = {"whole": c is not None and c.whole_batch}
         first = batches[0] if take is None else take.take_rows(batches[0], m)
         r["rows"] = first["tokens"].shape[0]
@@ -243,18 +242,19 @@ def _tp_state(params, cfg, c) -> train_loop.TrainState:
 
 
 def _cache_layout(cache: dict) -> tuple:
-    """``(kv_split, shape of the first stacked leaf, {path: shape} of every
-    leaf)`` of a decode cache."""
+    """``({mark: value} of the cache's split marks (``"kv_split"``,
+    ``"cross_split"``), {path: shape} of every leaf)`` of a decode
+    cache."""
     shapes = {}
     for part, tree in cache.items():
-        if part == "kv_split":
+        if isinstance(tree, str):
             continue
         for key, t in tree.items():
             if isinstance(t, dict):
                 shapes.update({f"{part}/{key}/{n}": tuple(v.shape) for n, v in t.items()})
             else:
                 shapes[f"{part}/{key}"] = tuple(t.shape)
-    return cache.get("kv_split"), tuple(next(iter(cache["scan"].values())).shape), shapes
+    return {k: v for k, v in cache.items() if isinstance(v, str)}, shapes
 
 
 def _tp_case(case, ctx, work: Path) -> dict:
@@ -263,9 +263,11 @@ def _tp_case(case, ctx, work: Path) -> dict:
     shapes of the blocks this rank holds and of their whole leaves; the
     metrics of one train step a batch under the context and the state
     gathered whole; this rank's rows of the logits of a prefill (cache of
-    ``case["cache_len"]``) and two greedy decode steps, under the context
-    and without one, with the cache's ``kv_split`` and shapes; a decode
-    step from a zero cache both ways; with ``case["ckpt"]``, whether the
+    ``case["cache_len"]``; Whisper's frames from the batch) and two greedy
+    decode steps, under the context and without one, with the cache's
+    split marks and shapes; a decode step from a zero cache both ways;
+    with ``case["long"]`` (global tokens), a prefill of them both ways;
+    with ``case["ckpt"]``, whether the
     checkpoint saved under the context is rank 0's alone and equals a
     whole state's, and whether restoring it into a fresh state's blocks
     gives the trained state's blocks back bit for bit."""
@@ -283,8 +285,8 @@ def _tp_case(case, ctx, work: Path) -> dict:
     with torch.no_grad():
         for name, cc, p, first in (("ctx", c, state.params, mine[0]),
                                    ("none", None, whole, batches[0])):
-            logits, cache = model.prefill(p, {"tokens": first["tokens"]}, cfg, cc,
-                                          cache_len=case["cache_len"])
+            inputs = {k: v for k, v in first.items() if k != "labels"}
+            logits, cache = model.prefill(p, inputs, cfg, cc, cache_len=case["cache_len"])
             served = [logits]
             for i in range(2):
                 logits, cache = model.decode_step(p, served[-1].argmax(-1), cache,
@@ -295,6 +297,9 @@ def _tp_case(case, ctx, work: Path) -> dict:
             zero = model.init_decode_cache(p, cfg, rows, case["cache_len"], cc)
             out[f"{name}_zero_cache"] = _cache_layout(zero)
             out[f"{name}_zero"] = model.decode_step(p, first["tokens"][:, 0], zero, 3, cfg, cc)[0]
+            if case.get("long") is not None:
+                long = case["long"] if cc is None else c.take_rows({"t": case["long"]})["t"]
+                out[f"{name}_long"] = model.prefill(p, {"tokens": long}, cfg, cc)[0]
     step = train_loop.make_train_step(cfg, case["opt"], c)
     out["metrics"] = []
     for b in mine:
@@ -355,27 +360,8 @@ def _held_grads(case, cfg, c) -> dict:
     return out
 
 
-def _tp_whole_case(case, ctx) -> dict:
-    """A family ``tp_layout`` does not split: the blocks it holds (none),
-    and the metrics and parameters of one train step from the same seed on
-    the same batch under the context (this rank's rows) and without one."""
-    cfg, batch = case["cfg"], case["batch"]
-    c = tmesh.make_context(ctx.mesh, cfg.n_routed_experts if cfg.moe else 0).for_batch(
-        batch["tokens"].shape[0])
-    out = {}
-    for name, cc in (("ctx", c), ("none", None)):
-        state = train_loop.init_state(torch.Generator().manual_seed(0), cfg, cc, device="cpu")
-        step = train_loop.make_train_step(cfg, case["opt"], cc)
-        state, metrics = step(state, batch if cc is None else cc.take_rows(batch))
-        out[name] = {"metrics": {k: v.detach().clone() for k, v in metrics.items()},
-                     "params": {n: t.detach().clone() for n, t in state.params.named_parameters()},
-                     "tp_specs": dict(state.params.tp_specs)}
-    return out
-
-
 def _tp(job, ctx, work: Path) -> dict:
-    cases = {name: _tp_case(case, ctx, work) if "tree" in case else _tp_whole_case(case, ctx)
-             for name, case in job["cases"].items()}
+    cases = {name: _tp_case(case, ctx, work) for name, case in job["cases"].items()}
     return {"cases": cases, "tp": ctx.index(ctx.tp_axis)}
 
 
